@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / H100 port (``src/repro_torch``).
+
+    python3 chip_smoke.py [--profile]
+
+Needs one CUDA card; without one it exits non-zero and prints no result.
+Phases, in order (any failure exits non-zero; nothing is caught):
+
+1. environment: torch / CUDA versions, the card's name and power limit;
+2. build: the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
+3. each kernel against its plain PyTorch version on the card, at the
+   main path's shapes, with its time (CUDA events, median of 50 launches
+   after warm-up, L2 flushed and the card busy before each, so host launch
+   latency stays outside the events), its plain version's time, the
+   time of one PyTorch library call computing the same function where
+   there is one, and the least time the card could take (``bound_ms``);
+4. the main path: ProFe on mnist-cnn at full width (teacher channels
+   (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
+   2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
+   clip 1.0) and the 16-bit wire, through ``run_federation`` — with the
+   kernels' launch counts set to 0 just before and read just after;
+5. with ``--profile`` only: where a round's time goes — the main path's
+   run is the warm-up, then 2 rounds without and 2 rounds under
+   ``torch.profiler`` (see :func:`profile_rounds`);
+6. a line ``{"kernels": [...]}`` with each kernel's launches, error and
+   times, then the card's ``nvidia-smi`` name and power limit, then the
+   result line ``{"ok": true, "device": {...}}`` last.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+N_NODES = 20
+ROUNDS = 2
+# Wire bytes of exactly this configuration, computed once with the JAX
+# package (repro) on the CPU: ScheduleCommAccountant.avg_sent_gb() and
+# comm.packed_copy_bytes() of run_federation's payload template for
+# mnist-cnn, N=20, topology "full", 2 rounds, WireSpec(16).  They depend
+# only on shapes and the schedule, so the port must match them exactly.
+EXPECTED_AVG_SENT_GB = 0.015825632
+EXPECTED_PACKED_PER_COPY = 426060
+EXPECTED_LOGICAL_PER_COPY = 416464
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+L2_FLUSH_BYTES = 64 << 20        # more than the 50 MB L2
+# a spin of ~0.5 ms (at ~2 GHz) before each timed launch: the host
+# enqueues the start event, the launch(es) and the end event while the
+# card spins, so the events time the device work, not host launch latency
+SLEEP_CYCLES = 1_000_000
+PROFILE_TOP = 15                 # device activities listed by --profile
+
+
+def expect(ok, msg: str) -> None:
+    """A check that stays under ``python -O`` (unlike ``assert``)."""
+    if not ok:
+        raise RuntimeError(msg)
+
+
+def sh(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def phase(name):
+    print(f"\n=== {name} ===", flush=True)
+
+
+class Timer:
+    """Median CUDA-event time of ``fn`` over ``reps`` launches, after
+    warm-up, with the L2 cache flushed and the card kept busy (so the
+    host is ahead of it) before each launch."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device="cuda")
+
+    def __call__(self, fn, reps: int = 50, warmup: int = 5) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ulp_diff(torch, a, b) -> int:
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    # map the sign-magnitude float bit patterns onto a monotone line
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def payload_buffer(torch, gen, student_cfg):
+    """The main path's packed wire buffer: 20 nodes' random student
+    planes (the init's scales) spliced behind random prototypes."""
+    from repro_torch.kernels.quantize.ops import pack_plane_payload
+    from repro_torch.models import init_params
+    from repro_torch.optim.plane import Plane, plane_from_tree
+    from repro_torch.wirespec import WireSpec
+    planes = [plane_from_tree(init_params(student_cfg, gen))
+              for _ in range(N_NODES)]
+    plane = Plane(torch.stack([p.buf for p in planes]).cuda(),
+                  planes[0].meta)
+    protos = torch.rand((N_NODES, student_cfg.num_classes,
+                         student_cfg.proto_dim), generator=gen).cuda()
+    buf, seg_ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec(16))
+    return buf, seg_ids, meta, plane
+
+
+def check_kernels(torch, timer, student_cfg):
+    """Phase 3: every kernel against its plain version at path shapes."""
+    from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
+    from repro_torch.kernels.opt_update.ref import adamw_update_ref
+    from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
+    from repro_torch.kernels.proto_accum.ref import proto_accum_ref
+    from repro_torch.kernels.quantize.ops import _node_row_deltas
+    from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
+                                                       rowabs_cuda)
+    from repro_torch.kernels.quantize.ref import quantize_rows_ref, rowabs_ref
+
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+
+    # -- adamw over the student plane [N, R, 512] ------------------------
+    buf, seg_ids, meta, plane = payload_buffer(torch, gen, student_cfg)
+    shape = tuple(plane.buf.shape)
+    p = plane.buf.contiguous()
+    g = (torch.randn(shape, generator=gen) * 1e-3).cuda()
+    mu = (torch.randn(shape, generator=gen) * 1e-4).cuda()
+    nu = (torch.rand(shape, generator=gen) * 1e-7).cuda()
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    lr = torch.full((), 1e-3, device="cuda")
+    bc1 = 1.0 - 0.9 ** step.float()
+    bc2 = 1.0 - 0.999 ** step.float()
+    scale = torch.rand((N_NODES,), generator=gen).cuda().clamp_min(0.1)
+    want = adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale, bc1=bc1,
+                            bc2=bc2, **hp)
+    got = [p.clone(), mu.clone(), nu.clone()]
+    adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp)
+    torch.cuda.synchronize()
+    ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"adamw_update {shape}: max |kernel - plain| = {err:.3e}, "
+          f"max ulp difference {ulps}")
+    # both compute the same sequence of IEEE-rounded fp32 operations
+    # (kernel: explicit _rn intrinsics, -fmad=false), so bit-exact
+    expect(ulps == 0,
+           "adamw kernel is not bit-exact with its plain version")
+    ms = timer(lambda: adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp))
+    plain_ms = timer(lambda: adamw_update_ref(g, p, mu, nu, lr=lr,
+                                              scale=scale, bc1=bc1, bc2=bc2,
+                                              **hp))
+    # library yardstick: PyTorch's fused AdamW over the same plane in
+    # one call.  It has no per-node clip scale, so its gradient is
+    # scaled per node here, outside the timed region.
+    g_scaled = (g.reshape(N_NODES, -1) * scale[:, None]).reshape(shape)
+    lib = [t.detach().clone() for t in (p, mu, nu)]
+    lib_step = [torch.full((), 3.0, device="cuda")]
+    lib_ms = timer(lambda: torch._fused_adamw_(
+        [lib[0]], [g_scaled], [lib[1]], [lib[2]], [], lib_step, lr=1e-3,
+        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False))
+    n = p.numel()
+    b_ms, b_by = bound(7 * 4 * n, 18 * n)
+    rows.append(dict(name="adamw_update", route="cuda",
+                     source="src/repro_torch/csrc/opt_update.cu",
+                     replaces="src/repro/kernels/opt_update/opt_update.py:80",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+
+    # -- rowabs and quantize_rows on the packed payload [N*R, 512] -------
+    n_nodes, r, c = buf.shape
+    x2d = buf.reshape(n_nodes * r, c).contiguous()
+    got = rowabs_cuda(x2d)
+    want = rowabs_ref(x2d)
+    torch.cuda.synchronize()
+    expect(torch.equal(got, want),
+           "rowabs kernel disagrees with plain")
+    ms = timer(lambda: rowabs_cuda(x2d))
+    plain_ms = timer(lambda: rowabs_ref(x2d))
+    lib_ms = timer(lambda: torch.linalg.vector_norm(x2d, ord=math.inf,
+                                                    dim=1))
+    b_ms, b_by = bound(4 * x2d.numel() + 4 * x2d.shape[0], x2d.numel())
+    rows.append(dict(name="rowabs", route="cuda",
+                     source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/quantize.py:186",
+                     max_abs_err=float((got - want).abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms))
+    print(f"rowabs {tuple(x2d.shape)}: bit-exact")
+
+    _, row_delta = _node_row_deltas(buf, seg_ids, meta[1], 16, meta[3])
+    rd = row_delta.reshape(-1, 1).contiguous()
+    got = quantize_rows_cuda(x2d, rd, bits=16)
+    want = quantize_rows_ref(x2d, rd, bits=16)
+    torch.cuda.synchronize()
+    expect(torch.equal(got, want),
+           "quantize_rows kernel disagrees")
+    ms = timer(lambda: quantize_rows_cuda(x2d, rd, bits=16))
+    plain_ms = timer(lambda: quantize_rows_ref(x2d, rd, bits=16))
+    b_ms, b_by = bound(8 * x2d.numel() + 4 * rd.numel(), 4 * x2d.numel())
+    rows.append(dict(name="quantize_rows", route="cuda",
+                     source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/quantize.py:313",
+                     max_abs_err=float((got - want).abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
+    print(f"quantize_rows {tuple(x2d.shape)}: bit-exact codes")
+
+    # -- proto_accum at [20, 32, 128], C = 10 -----------------------------
+    ncls, bsz, pdim = student_cfg.num_classes, 32, student_cfg.proto_dim
+    f1 = torch.relu(torch.randn((N_NODES, bsz, pdim), generator=gen)).cuda()
+    labels = torch.randint(0, ncls, (N_NODES, bsz), generator=gen,
+                           dtype=torch.int32).cuda()
+    s_got, c_got = proto_accum_cuda(f1, labels, ncls)
+    s_want, c_want = proto_accum_ref(f1, labels, ncls)
+    torch.cuda.synchronize()
+    expect(torch.equal(c_got, c_want),
+           "proto_accum counts disagree")
+    # the plain einsum sums in cuBLAS's order, the kernel in batch order
+    expect(torch.allclose(s_got, s_want, rtol=1e-6, atol=0),
+           "proto_accum sums disagree beyond rtol 1e-6")
+    rel = float(((s_got - s_want).abs() / s_want.abs().clamp_min(1e-30))
+                .max())
+    print(f"proto_accum {tuple(f1.shape)} C={ncls}: counts bit-exact, sums "
+          f"max rel err {rel:.3e}")
+    ms = timer(lambda: proto_accum_cuda(f1, labels, ncls))
+    plain_ms = timer(lambda: proto_accum_ref(f1, labels, ncls))
+    node_cls = (torch.arange(N_NODES, device="cuda")[:, None] * ncls
+                + labels).reshape(-1)
+    f1_flat = f1.reshape(-1, pdim)
+
+    def library():
+        sums = torch.zeros((N_NODES * ncls, pdim), device="cuda")
+        sums.index_add_(0, node_cls, f1_flat)
+        torch.bincount(node_cls, minlength=N_NODES * ncls)
+    lib_ms = timer(library)
+    b_ms, b_by = bound(4 * (f1.numel() + labels.numel() + s_got.numel()
+                            + c_got.numel()), f1.numel() + labels.numel())
+    rows.append(dict(name="proto_accum", route="cuda",
+                     source="src/repro_torch/csrc/proto_accum.cu",
+                     replaces="src/repro/kernels/proto_accum/"
+                              "proto_accum.py:57",
+                     max_abs_err=float((s_got - s_want).abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms))
+    for row in rows:
+        print(f"  {row['name']:14s} kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def main_path_inputs():
+    """The main path's configuration and data: mnist-cnn at full width,
+    20 nodes on a full graph, 2 rounds of 1 local epoch, ``TrainConfig``
+    defaults, 320 images a node (10 steps a round)."""
+    from repro_torch.config import FederationConfig, TrainConfig, get_config
+    from repro_torch.data import (make_image_dataset, partition,
+                                  train_test_split)
+
+    data = make_image_dataset(0, 7040, (28, 28, 1), 10)
+    train_d, test_d = train_test_split(data, 1 / 11, 0)
+    parts = partition(train_d["label"], N_NODES, "iid", 0)
+    node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
+    fed = FederationConfig(num_nodes=N_NODES, topology="full", rounds=ROUNDS,
+                           local_epochs=1)
+    return get_config("mnist-cnn"), fed, TrainConfig(), node_data, test_d
+
+
+def main_path(torch, inputs):
+    """Phase 4: ProFe on mnist-cnn at full width through run_federation."""
+    from repro_torch.core.federation import run_federation
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    cfg, fed, train, node_data, test_d = inputs
+    per_node = len(node_data[0]["label"])
+    print(f"{N_NODES} nodes x {per_node} images, test "
+          f"{len(test_d['label'])}, batch {train.batch_size}")
+
+    reset_launch_counts()
+    res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
+    counts = launch_counts()
+
+    print(f"per-round F1: {res.f1_per_round}")
+    print(f"per-round seconds: {res.extras['round_times_s']}")
+    print(f"avg_sent_gb: {res.extras['avg_sent_gb']!r}  "
+          f"wire_bytes_packed_per_copy: "
+          f"{res.extras['wire_bytes_packed_per_copy']}")
+    print(f"launches on the main path: {counts}")
+    expect(len(res.f1_per_round) == ROUNDS
+           and all(math.isfinite(f) for f in res.f1_per_round),
+           f"expected {ROUNDS} finite F1 values, got {res.f1_per_round}")
+    steps = ROUNDS * (per_node // train.batch_size)
+    expected = {"adamw_update": steps,      # one sweep per training step
+                "proto_accum": steps,       # one per Eq. 3 proto batch
+                "rowabs": ROUNDS, "quantize_rows": ROUNDS}
+    for name, want in expected.items():
+        expect(counts[name] > 0,
+               f"{name} never launched on the main path")
+        expect(counts[name] == want,
+               f"{name}: {counts[name]} != {want}")
+    for key, want in (("avg_sent_gb", EXPECTED_AVG_SENT_GB),
+                      ("wire_bytes_packed_per_copy",
+                       EXPECTED_PACKED_PER_COPY),
+                      ("wire_bytes_per_copy", EXPECTED_LOGICAL_PER_COPY)):
+        expect(res.extras[key] == want,
+               f"{key}: {res.extras[key]!r} != the JAX package's {want!r}")
+    return counts
+
+
+def profile_rounds(torch, inputs) -> None:
+    """Phase 5 (``--profile``): where a round's time goes.  After the
+    main path's run (the warm-up: kernel build, cuDNN autotuning), the
+    main path runs once more without the profiler and once under
+    ``torch.profiler`` (CPU and CUDA activities).  Per round: wall
+    seconds of both runs (host clock, synchronized), device-busy ms (the
+    summed durations of the device activities — kernels, copies, fills
+    — in the profiled run; one stream, so nothing overlaps), the device
+    idle share against the unprofiled wall time (the profiler's host
+    overhead inflates the profiled one), the port's kernels' launches,
+    and the device activities with the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.federation import run_federation
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    cfg, fed, train, node_data, test_d = inputs
+    t0 = time.time()
+    plain = run_federation(cfg, fed, train, node_data, test_d)
+    torch.cuda.synchronize()
+    wall_plain = time.time() - t0
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        res = run_federation(cfg, fed, train, node_data, test_d)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    counts = launch_counts()
+
+    by_name: dict = {}
+    busy_us = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        calls, total = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, total + us)
+    expect(busy_us > 0, "the profiler saw no device activity")
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1],
+                 reverse=True)[:PROFILE_TOP]
+    report = {
+        "rounds": ROUNDS,
+        "round_wall_s_unprofiled": plain.extras["round_times_s"],
+        "round_wall_s_profiled": res.extras["round_times_s"],
+        "wall_s_per_round_unprofiled": wall_plain / ROUNDS,
+        "wall_s_per_round_profiled": wall / ROUNDS,
+        "device_busy_ms_per_round": busy_us / 1e3 / ROUNDS,
+        "device_activities_per_round":
+            sum(c for c, _ in by_name.values()) / ROUNDS,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall_plain,
+        "kernel_launches_per_round":
+            {k: v / ROUNDS for k, v in counts.items()},
+        "top_device_activities": [
+            {"name": name[:160], "calls_per_round": c / ROUNDS,
+             "device_ms_per_round": us / 1e3 / ROUNDS}
+            for name, (c, us) in top],
+    }
+    print(f"round profile: {json.dumps(report)}")
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--profile"]):
+        print(f"usage: {sys.argv[0]} [--profile]", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    phase("environment")
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"CUDA {torch.version.cuda}  device "
+          f"{torch.cuda.get_device_name(0)}")
+    print(f"nvidia-smi: {smi}")
+
+    phase("build")
+    from repro_torch.kernels.build import build, library
+    t0 = time.time()
+    path, log = build()
+    library()
+    print(log)
+    print(f"built {path.name} in {time.time() - t0:.1f} s")
+
+    phase("kernels against their plain versions")
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.config import get_config
+    from repro_torch.models import derive_student
+    resolve_device("cuda")
+    rows = check_kernels(torch, Timer(torch),
+                         derive_student(get_config("mnist-cnn")))
+
+    phase("main path: ProFe mnist-cnn, 20 nodes, 2 rounds")
+    t0 = time.time()
+    inputs = main_path_inputs()
+    counts = main_path(torch, inputs)
+    print(f"main path took {time.time() - t0:.1f} s")
+
+    if args == ["--profile"]:
+        phase("round profile: 2 rounds unprofiled, 2 profiled")
+        profile_rounds(torch, inputs)
+
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

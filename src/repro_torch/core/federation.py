@@ -1,0 +1,433 @@
+"""Decentralized-federated-learning simulator: the stacked round engine,
+for ProFe with the exact Eq. 3 pass on the flat parameter plane.
+
+Runs N nodes over a :class:`~repro_torch.core.topology.TopologySchedule`
+for R rounds of E local epochs.  Node state is *stacked* (every tensor
+carries a leading ``[N]`` node axis) and one round is:
+
+1. local training: a Python loop over the pre-stacked ``[T, N, B, ...]``
+   batches, each step training every node (``core/profe.py``) and
+   updating the whole student plane in ONE fused adamw launch,
+2. the exact Eq. 3 pass: a post-training student forward over a second
+   batch stream, accumulated per class by ``kernels/proto_accum``,
+3. share: the round's payload ``{protos, student}`` round-trips the
+   packed 16-bit wire codec (``kernels/quantize``),
+4. mix: size-weighted gossip of the student plane (a node's own copy
+   unquantized) and Eq. 4 aggregation per neighbourhood.
+
+Communication is metered analytically from the same schedule (Table II)
+and node 0's global-test macro-F1 is recorded per round (Fig. 2).  The
+code follows ``repro.core.federation``; options outside this slice
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import FederationConfig, ModelConfig, TrainConfig
+from repro_torch.core import round_ops as R
+from repro_torch.core import topology as T
+from repro_torch.core.comm import (ScheduleCommAccountant, packed_copy_bytes)
+from repro_torch.core.distillation import teacher_active
+from repro_torch.core.metrics import accuracy, macro_f1
+from repro_torch.core.profe import (NodeState, init_node_state,
+                                    make_profe_step, normalize_protos,
+                                    proto_labels, resolve_device,
+                                    stack_states)
+from repro_torch.core.quantization import tree_wire_bytes
+from repro_torch.data.loader import batch_index_lists
+from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
+from repro_torch.models import derive_student, forward
+from repro_torch.optim import make_optimizer, make_plane_optimizer
+from repro_torch.optim.plane import Plane, as_tree
+from repro_torch.tree import ShapeDtypeStruct, tree_from_paths
+from repro_torch.wirespec import WireSpec
+
+PROTO_PASSES = ("exact", "fused")
+OVERLAPS = (None, "none", "rounds")
+
+
+@dataclass
+class FederationResult:
+    f1_per_round: List[float] = field(default_factory=list)
+    acc_per_round: List[float] = field(default_factory=list)
+    comm: Optional[ScheduleCommAccountant] = None
+    elapsed_s: float = 0.0
+    algorithm: str = ""
+    extras: Dict[str, Any] = field(default_factory=dict)
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
+                               f"{item}")
+
+
+def _n_proto_classes(cfg: ModelConfig) -> int:
+    return cfg.num_classes if cfg.family in ("cnn", "resnet") \
+        else cfg.n_proto_classes
+
+
+def _node_plane(plane: Plane, i: int) -> Plane:
+    return Plane(plane.buf[i], plane.meta)
+
+
+@torch.no_grad()
+def _eval_params(cfg: ModelConfig, params, test_data, batch_size: int = 256):
+    """Global-test macro-F1 with the classifier head; ``test_data``
+    holds tensors on the model's device."""
+    preds = []
+    n = len(next(iter(test_data.values())))
+    for i in range(0, n, batch_size):
+        batch = {k: v[i:i + batch_size] for k, v in test_data.items()}
+        preds.append(forward(cfg, params, batch).logits.argmax(-1))
+    y_pred = torch.cat(preds).cpu().numpy()
+    y_true = test_data["label"].cpu().numpy()
+    return (macro_f1(y_true, y_pred, _n_proto_classes(cfg)),
+            accuracy(y_true, y_pred))
+
+
+def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
+                 student_cfg: ModelConfig, fed: FederationConfig,
+                 train: TrainConfig, opt_s, opt_t):
+    """Returns ``(step, wire_model, share_protos, wire, model_cfgs)``."""
+    if algo != "profe":
+        raise _unported(f"algorithm {algo!r}", "Queue 1 item 9 (paper "
+                        "baselines)")
+    step = make_profe_step(teacher_cfg, student_cfg, fed, opt_s, opt_t,
+                           grad_clip=train.grad_clip)
+    wire = WireSpec(student_bits=fed.quantize_bits,
+                    proto_bits=fed.proto_quantize_bits,
+                    error_feedback=fed.error_feedback,
+                    ef_decay=fed.error_feedback_decay)
+    return step, "student", True, wire, (teacher_cfg, student_cfg)
+
+
+def _check_slice(fed: FederationConfig, train: TrainConfig, *,
+                 eval_all_nodes: bool, overlap, stale_self_floor) -> None:
+    """Raise on every option outside the ported slice."""
+    if overlap not in OVERLAPS:
+        raise ValueError(f"overlap must be one of {OVERLAPS}, "
+                         f"got {overlap!r}")
+    if fed.proto_pass not in PROTO_PASSES:
+        raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
+                         f"got {fed.proto_pass!r}")
+    if fed.param_plane not in ("auto", "on", "off"):
+        raise ValueError(f"param_plane must be auto/on/off, "
+                         f"got {fed.param_plane!r}")
+    checks = [
+        (fed.algorithm != "profe", f"algorithm {fed.algorithm!r}",
+         "Queue 1 item 9 (paper baselines)"),
+        (train.optimizer != "adamw", f"optimizer {train.optimizer!r}",
+         "Queue 1 item 3 and Queue 2 (sgd / adafactor)"),
+        (fed.param_plane == "off", "the per-leaf student (param_plane="
+         "'off')", "Queue 1 item 7"),
+        (fed.proto_pass != "exact", "proto_pass='fused'", "Queue 1 item 10"),
+        (overlap is not None, f"overlap={overlap!r}", "Queue 1 item 10"),
+        (stale_self_floor is not None, "stale_self_floor",
+         "Queue 1 item 10"),
+        (bool(fed.proto_ema), "proto_ema", "Queue 1 item 10"),
+        (eval_all_nodes, "eval_all_nodes", "Queue 1 item 10"),
+        (fed.error_feedback, "error feedback (+ef)", "Queue 1 item 10"),
+        (bool(fed.adapter_rank), "the adapter-rank wire",
+         "Queue 1 item 11"),
+        (not fed.quantize_bits, "the fp32 wire (quantize_bits=0)",
+         "Queue 1 item 4"),
+        (fed.proto_quantize_bits not in (None, fed.quantize_bits),
+         "a mixed-width wire spec", "Queue 2 (quantize_rows_mixed)"),
+    ]
+    for bad, what, item in checks:
+        if bad:
+            raise _unported(what, item)
+
+
+def _init_states(model_cfgs, fed: FederationConfig, opt_s, opt_t,
+                 ncls: int, device) -> List[NodeState]:
+    """Fresh per-node states, node i seeded ``fed.seed * 1000 + i`` (the
+    JAX package's key derivation; torch draws other numbers)."""
+    states = []
+    for i in range(fed.num_nodes):
+        gen = torch.Generator().manual_seed(fed.seed * 1000 + i)
+        states.append(init_node_state(model_cfgs[0], model_cfgs[1], gen,
+                                      opt_s, opt_t, ncls, device=device))
+    return states
+
+
+def _payload_template(wire_model, share_protos, stacked: NodeState,
+                      ncls: int, proto_dim: int) -> Dict[str, Any]:
+    """Shape/dtype skeleton of one node's wire payload: the student by
+    its LEAF shapes (never the padded buffer), prototypes and counts."""
+    payload: Dict[str, Any] = {}
+    if wire_model is not None:
+        payload["model"] = tree_from_paths(
+            (path, ShapeDtypeStruct(shape, np.dtype(np.float32)))
+            for _, path, shape, _row, _r in stacked.student.meta.recipe)
+    if share_protos:
+        payload["protos"] = ShapeDtypeStruct((ncls, proto_dim),
+                                             np.dtype(np.float32))
+        payload["counts"] = ShapeDtypeStruct((ncls,), np.dtype(np.float32))
+    return payload
+
+
+def _packed_sent_gb(sched, rounds: int, packed_per_copy: int,
+                    n_nodes: int) -> float:
+    """Average per-node GB the packed exchange moves over a run."""
+    edges = sched.directed_edge_counts()
+    copies = sum(int(edges[sched.phase_index(rnd)])
+                 for rnd in range(rounds))
+    return float(copies * packed_per_copy / max(n_nodes, 1) / 1e9)
+
+
+def _stack_round_batches(node_data, batch_size: int, seeds, epochs: int
+                         ) -> Optional[Tuple[Dict[str, np.ndarray],
+                                             np.ndarray]]:
+    """Every node's round batches as ``[T, N, B, ...]`` numpy arrays plus
+    a ``[T, N]`` validity mask (nodes with fewer batches are padded with
+    their first batch, masked out).  None when batch shapes are ragged."""
+    per_node = []
+    for data, seed in zip(node_data, seeds):
+        n = len(next(iter(data.values())))
+        per_node.append(batch_index_lists(n, batch_size, seed, epochs=epochs))
+    if any(not idxs for idxs in per_node):
+        return None
+    lens = {idx.shape[0] for idxs in per_node for idx in idxs}
+    if len(lens) != 1:
+        return None
+    n_steps = max(len(idxs) for idxs in per_node)
+    valid = np.zeros((n_steps, len(node_data)), np.float32)
+    for i, idxs in enumerate(per_node):
+        valid[:len(idxs), i] = 1.0
+        while len(idxs) < n_steps:
+            idxs.append(idxs[0])
+    stacked = {
+        k: np.stack([np.stack([node_data[i][k][per_node[i][t]]
+                               for i in range(len(node_data))])
+                     for t in range(n_steps)])
+        for k in node_data[0]
+    }
+    return stacked, valid
+
+
+def _to_device(staged, device):
+    batches, valid = staged
+    return ({k: torch.as_tensor(v, device=device) for k, v in
+             batches.items()}, torch.as_tensor(valid, device=device))
+
+
+def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
+    """The exact (post-training) Eq. 3 pass over a stacked ``[T, N, B,
+    ...]`` proto batch stream: per batch, every node's student forward,
+    then ONE ``proto_accumulate_nodes`` over ``[N, B, P]``."""
+
+    @torch.no_grad()
+    def proto_pass(students: Plane, pxb, pvalid):
+        n_nodes = pvalid.shape[1]
+        dev = students.buf.device
+        sums = torch.zeros((n_nodes, ncls, proto_cfg.proto_dim),
+                           dtype=torch.float32, device=dev)
+        counts = torch.zeros((n_nodes, ncls), dtype=torch.float32,
+                             device=dev)
+        for t in range(pvalid.shape[0]):
+            batch = {k: v[t] for k, v in pxb.items()}
+            f1 = torch.stack([
+                forward(proto_cfg, as_tree(_node_plane(students, i)),
+                        {k: v[i] for k, v in batch.items()}).f1
+                for i in range(n_nodes)])
+            s_add, c_add = proto_accumulate_nodes(
+                f1, proto_labels(proto_cfg, batch), ncls)
+            v = pvalid[t]
+            sums = sums + s_add * v[:, None, None]
+            counts = counts + c_add * v[:, None]
+        return sums, counts
+
+    return proto_pass
+
+
+def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
+                      bits):
+    """The three phases of one stacked ProFe round:
+
+    * ``train_phase`` — local epochs + the exact Eq. 3 pass ->
+      ``(state, protos, counts)``,
+    * ``share_phase`` — the wire codec round-trip of the payload ->
+      ``(state, recv_student, protos_rx)``,
+    * ``mix_phase`` — gossip on the received views + Eq. 4 -> ``state``.
+    """
+    spec = WireSpec.from_bits(bits)
+    exact_pass = _make_proto_pass(proto_cfg, ncls)
+
+    def train_phase(state: NodeState, xb, valid, pxb, pvalid,
+                    teacher_on: bool, all_valid: bool = False):
+        if not all_valid:
+            raise _unported("nodes with unequal local batch counts",
+                            "Queue 1 item 6 (loop engine)")
+        for t in range(valid.shape[0]):
+            state, _ = step(state, {k: v[t] for k, v in xb.items()},
+                            teacher_on)
+        state = state._replace(round_idx=state.round_idx + 1)
+        sums, counts = exact_pass(state.student, pxb, pvalid)
+        return state, normalize_protos(sums, counts), counts
+
+    @torch.no_grad()
+    def share_phase(state: NodeState, protos):
+        recv = R.quantize_dequantize_per_node(
+            {"protos": protos, "student": state.student}, spec=spec)
+        return state, recv["student"], recv["protos"]
+
+    @torch.no_grad()
+    def mix_phase(state: NodeState, recv_student, protos_rx, counts,
+                  w_self, w_neigh, include) -> NodeState:
+        mixed = R.mix_node_trees(w_self, w_neigh, state.student,
+                                 recv_student)
+        state.student.buf.copy_(mixed.buf)
+        gp, mask = R.neighborhood_prototype_aggregate(include, protos_rx,
+                                                      counts)
+        return state._replace(global_protos=gp, proto_mask=mask)
+
+    return train_phase, share_phase, mix_phase
+
+
+def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
+                   bits):
+    """One full round over stacked node state: train -> Eq. 3 -> share
+    -> mix.  The gossip/include matrices are this round's slices of the
+    lowered schedule."""
+    train_phase, share_phase, mix_phase = _make_round_parts(
+        step, proto_cfg, ncls, bits=bits)
+
+    def round_fn(state: NodeState, xb, valid, pxb, pvalid, w_self, w_neigh,
+                 include, teacher_on: bool, all_valid: bool = False
+                 ) -> NodeState:
+        state, protos, counts = train_phase(state, xb, valid, pxb, pvalid,
+                                            teacher_on, all_valid)
+        state, recv_student, protos_rx = share_phase(state, protos)
+        return mix_phase(state, recv_student, protos_rx, counts, w_self,
+                         w_neigh, include)
+
+    return round_fn
+
+
+def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
+                   train: TrainConfig, node_data: List[Dict[str, np.ndarray]],
+                   test_data: Dict[str, np.ndarray],
+                   *, verbose: bool = False,
+                   eval_all_nodes: bool = False,
+                   overlap: Optional[str] = None,
+                   stale_self_floor: Optional[float] = None,
+                   initial_states: Optional[List[NodeState]] = None,
+                   device=None) -> FederationResult:
+    """Run ProFe end to end on the stacked engine.
+
+    Runs on ``cuda`` unless ``device`` names another device (the tests
+    pass ``"cpu"``); with no card and no explicit device it raises.
+    ``initial_states`` (per-node states, e.g. carried from the JAX
+    package by ``core.profe.node_state_from_numpy``) replaces the seeded
+    initialization, so both packages can start from the same weights.
+    """
+    device = resolve_device(device)
+    _check_slice(fed, train, eval_all_nodes=eval_all_nodes, overlap=overlap,
+                 stale_self_floor=stale_self_floor)
+    algo = fed.algorithm
+    student_cfg = derive_student(teacher_cfg)
+    n_nodes = fed.num_nodes
+    if len(node_data) != n_nodes:
+        raise ValueError(f"{len(node_data)} node datasets for "
+                         f"{n_nodes} nodes")
+    sched = T.make_schedule(n_nodes, fed.topology, rounds=fed.rounds,
+                            seed=fed.seed)
+    ncls = _n_proto_classes(teacher_cfg)
+    sizes = [len(next(iter(d.values()))) for d in node_data]
+
+    opt_t = make_optimizer(train.optimizer, train.learning_rate,
+                           weight_decay=train.weight_decay,
+                           momentum=train.momentum)
+    opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
+                                 weight_decay=train.weight_decay,
+                                 momentum=train.momentum,
+                                 grad_clip=train.grad_clip)
+    step, wire_model, share_protos, bits, model_cfgs = _algo_wiring(
+        algo, teacher_cfg, student_cfg, fed, train, opt_s, opt_t)
+
+    probe = _stack_round_batches(
+        node_data, train.batch_size,
+        [fed.seed + 0 * 997 + i for i in range(n_nodes)], fed.local_epochs)
+    if probe is None:
+        raise _unported("ragged node datasets", "Queue 1 item 6 (loop "
+                        "engine)")
+
+    meter = ScheduleCommAccountant(sched)
+    if initial_states is None:
+        initial_states = _init_states(model_cfgs, fed, opt_s, opt_t, ncls,
+                                      device)
+    elif len(initial_states) != n_nodes:
+        raise ValueError(f"{len(initial_states)} initial states for "
+                         f"{n_nodes} nodes")
+    stacked = stack_states(initial_states)
+    if stacked.student.buf.device.type != device.type:
+        raise ValueError(f"initial states live on "
+                         f"{stacked.student.buf.device}, not {device}")
+    eval_cfg = proto_cfg = model_cfgs[1]
+
+    def dev(x):
+        return torch.as_tensor(x, device=device)
+    w_self_st, w_neigh_st, include_st = map(dev, sched.lower(sizes))
+    round_fn = _make_round_fn(step, proto_cfg, ncls, bits=bits)
+    payload = _payload_template(wire_model, share_protos, stacked, ncls,
+                                proto_cfg.proto_dim)
+    test_dev = {k: dev(v) for k, v in test_data.items()}
+
+    result = FederationResult(comm=meter, algorithm=algo)
+    result.extras["proto_pass"] = fed.proto_pass
+    result.extras["param_plane"] = True
+    result.extras["wire_bytes_per_copy"] = tree_wire_bytes(payload, bits)
+    result.extras["wire_bytes_packed_per_copy"] = \
+        packed_copy_bytes(payload, bits)
+    result.extras["avg_sent_packed_gb"] = _packed_sent_gb(
+        sched, fed.rounds, result.extras["wire_bytes_packed_per_copy"],
+        n_nodes)
+    round_times: List[float] = []
+    result.extras["round_times_s"] = round_times
+    t0 = time.time()
+
+    for rnd in range(fed.rounds):
+        t_r = time.time()
+        t_on = teacher_active(fed.alpha_s, fed.alpha_limit, rnd)
+        staged = probe if rnd == 0 else _stack_round_batches(
+            node_data, train.batch_size,
+            [fed.seed + rnd * 997 + i for i in range(n_nodes)],
+            fed.local_epochs)
+        proto_staged = _stack_round_batches(
+            node_data, train.batch_size, [fed.seed + rnd] * n_nodes, 1)
+        all_valid = bool(np.all(staged[1] == 1.0))
+        xb, valid = _to_device(staged, device)
+        pxb, pvalid = _to_device(proto_staged, device)
+
+        p = sched.phase_index(rnd)
+        stacked = round_fn(stacked, xb, valid, pxb, pvalid,
+                           w_self_st[p], w_neigh_st[p], include_st[p],
+                           teacher_on=t_on, all_valid=all_valid)
+        meter.record_round(payload, kind=algo, round_idx=rnd, bits=bits)
+
+        # node 0 (repro's _eval_nodes; exact on full graphs, where every
+        # node ends identical)
+        f1, acc = _eval_params(eval_cfg,
+                               as_tree(_node_plane(stacked.student, 0)),
+                               test_dev)
+        result.f1_per_round.append(f1)
+        result.acc_per_round.append(acc)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        round_times.append(time.time() - t_r)
+        if verbose:
+            print(f"[{algo}] round {rnd + 1}/{fed.rounds} "
+                  f"f1={f1:.4f} acc={acc:.4f} "
+                  f"sent={meter.avg_sent_gb():.4f}GB")
+
+    result.elapsed_s = time.time() - t0
+    result.extras["avg_sent_gb"] = meter.avg_sent_gb()
+    result.extras["avg_received_gb"] = meter.avg_received_gb()
+    return result

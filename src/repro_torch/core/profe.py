@@ -1,0 +1,245 @@
+"""ProFe node-local training step (paper Sec. III-C, Eq. 8/9).
+
+Each node holds a *teacher* (the full architecture, never communicated)
+and a *student* (the aggregation model).  Per batch:
+
+    L_s = L_CE(y_s, y) + β_s L_MSE(f_s1, C̄(j))
+          + α_s [ L_KD(y_s, y_t) + L_MSE(f_s1, f_t1) ]          (Eq. 8)
+    L_t = L_CE(y_t, y) + β_t L_MSE(f_t1, C̄(j))                 (Eq. 9)
+
+The round engine runs the step over **stacked** node state: every tensor
+carries a leading ``[N]`` node axis, the student lives in one
+``[N, R, 512]`` plane buffer and the teacher in ``[N, ...]`` leaves.
+The per-node forwards run in a Python loop; their losses sum into one
+backward (node i's parameters only see node i's loss), so the student
+optimizer is ONE fused adamw launch per step over the whole plane.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import FederationConfig, ModelConfig
+from repro_torch.core import distillation as D
+from repro_torch.core import prototypes as P
+from repro_torch.models import ModelOutput, forward, params_from_numpy
+from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
+from repro_torch.tree import tree_from_paths, tree_map, tree_paths
+
+
+class NodeState(NamedTuple):
+    student: Plane               # buf [R, 512] ([N, R, 512] stacked)
+    teacher: Any                 # dict tree of [...] ([N, ...] stacked)
+    opt_s: Dict[str, Any]        # {"mu", "nu", "step", "gnorm"}
+    opt_t: Dict[str, Any]        # {"mu", "nu", "step"}
+    global_protos: torch.Tensor  # [C, P]
+    proto_mask: torch.Tensor     # [C]
+    round_idx: torch.Tensor      # int32 scalar ([N] stacked)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller
+    names another.  With no card and no explicit request it raises —
+    the port never carries on quietly on the CPU.  On the card it turns
+    TF32 off for matmuls and cuDNN convolutions, so float32 stays
+    float32 as in the JAX reference."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: repro_torch runs on the GPU unless the "
+                "caller passes device='cpu'")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def proto_labels(cfg: ModelConfig, batch) -> torch.Tensor:
+    """The prototype class of each example: the true label."""
+    if cfg.family in ("cnn", "resnet"):
+        return batch["label"]
+    return batch["domains"]
+
+
+def task_ce(cfg: ModelConfig, logits, batch) -> torch.Tensor:
+    if cfg.family in ("cnn", "resnet"):
+        return D.ce_loss(logits, batch["label"])
+    return D.ce_loss(logits, batch["labels"])
+
+
+def student_loss(student_cfg: ModelConfig, sp, batch, global_protos,
+                 proto_mask, alpha, beta_s: float, temperature: float,
+                 teacher_out: Optional[ModelOutput] = None):
+    """Eq. 8 for one node. ``teacher_out=None``: the professor has
+    decayed away."""
+    out = forward(student_cfg, sp, batch)
+    loss = task_ce(student_cfg, out.logits, batch)
+    loss = loss + beta_s * P.proto_mse_loss(
+        out.f1, global_protos, proto_labels(student_cfg, batch), proto_mask)
+    if teacher_out is not None:
+        kd = D.kd_loss(out.logits, teacher_out.logits, temperature)
+        rep = D.repr_mse_loss(out.f1, teacher_out.f1)
+        loss = loss + alpha * (kd + rep)
+    return loss, out
+
+
+def teacher_loss(teacher_cfg: ModelConfig, tp, batch, global_protos,
+                 proto_mask, beta_t: float):
+    """Eq. 9 for one node: L_t = L_CE + beta_t * L_MSE(f_t1, C̄(j))."""
+    out = forward(teacher_cfg, tp, batch)
+    loss = task_ce(teacher_cfg, out.logits, batch)
+    loss = loss + beta_t * P.proto_mse_loss(
+        out.f1, global_protos, proto_labels(teacher_cfg, batch), proto_mask)
+    return loss, out
+
+
+def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
+                    fed: FederationConfig, opt_s: Optimizer,
+                    opt_t: Optimizer, *, grad_clip: float = 1.0):
+    """Returns ``step(state, batch, teacher_on) -> (state, metrics)``
+    over stacked node state; ``batch`` leaves are ``[N, B, ...]``.
+    Parameters and optimizer moments update in place.  ``opt_s`` is a
+    plane optimizer: its fused sweep clips at ``grad_clip`` itself."""
+
+    def step(state: NodeState, batch, teacher_on: bool):
+        n = state.round_idx.shape[0]
+        alpha = D.alpha_at_round(fed.alpha_s, fed.alpha_limit,
+                                 state.round_idx)                  # [N]
+        metrics: Dict[str, torch.Tensor] = {}
+        per_node = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+
+        teacher_out: Optional[List[ModelOutput]] = None
+        if teacher_on:
+            outs, losses = [], []
+            for i, b in enumerate(per_node):
+                tp = tree_map(lambda x: x[i], state.teacher)
+                l, out = teacher_loss(teacher_cfg, tp, b,
+                                      state.global_protos[i],
+                                      state.proto_mask[i], fed.beta_t)
+                outs.append(out)
+                losses.append(l)
+            lt = torch.stack(losses)
+            paths, leaves = zip(*tree_paths(state.teacher))
+            grads = torch.autograd.grad(lt.sum(), leaves)
+            gt, _ = clip_by_global_norm(tree_from_paths(zip(paths, grads)),
+                                        grad_clip, lead=1)
+            opt_t.update(gt, state.opt_t, state.teacher)
+            metrics["loss_t"] = lt.detach()
+            teacher_out = [ModelOutput(o.logits.detach(), o.f1.detach(),
+                                       o.aux) for o in outs]
+
+        meta = state.student.meta
+        buf = state.student.buf
+        losses = []
+        for i, b in enumerate(per_node):
+            l, _ = student_loss(
+                student_cfg, as_tree(Plane(buf[i], meta)), b,
+                state.global_protos[i], state.proto_mask[i], alpha[i],
+                fed.beta_s, fed.kd_temperature,
+                teacher_out[i] if teacher_out is not None else None)
+            losses.append(l)
+        ls = torch.stack(losses)
+        (gbuf,) = torch.autograd.grad(ls.sum(), [buf])
+        opt_s.update(Plane(gbuf, meta), state.opt_s, state.student)
+        metrics.update(loss_s=ls.detach(), grad_norm_s=state.opt_s["gnorm"],
+                       alpha=alpha)
+        return state, metrics
+
+    return step
+
+
+def init_node_state(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
+                    gen: torch.Generator, opt_s: Optimizer, opt_t: Optimizer,
+                    n_classes: int, *, device=None) -> NodeState:
+    """One node's fresh state: teacher and student initialized from
+    ``gen`` (on the CPU, then moved), the student packed into a plane
+    (``opt_s`` must be a plane optimizer).  Runs on ``cuda`` unless
+    ``device`` names another device."""
+    from repro_torch.models import init_params
+    device = resolve_device(device)
+    teacher = tree_map(lambda x: x.to(device), init_params(teacher_cfg, gen))
+    student = plane_from_tree(tree_map(lambda x: x.to(device),
+                                       init_params(student_cfg, gen)))
+    return NodeState(
+        student=student, teacher=teacher,
+        opt_s=opt_s.init(student), opt_t=opt_t.init(teacher),
+        global_protos=torch.zeros((n_classes, student_cfg.proto_dim),
+                                  dtype=torch.float32, device=device),
+        proto_mask=torch.zeros((n_classes,), dtype=torch.float32,
+                               device=device),
+        round_idx=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
+                          proto_mask, round_idx=0, *,
+                          device=None) -> NodeState:
+    """One node's state carried over from the JAX package.
+
+    ``student`` and ``teacher`` are parameter trees (nested dicts of
+    numpy arrays — for a plane-backed JAX student, its leaf views);
+    ``opt_s`` is the JAX plane optimizer state ``{"mu": [R, 512],
+    "nu": [R, 512], "step"[, "gnorm"]}`` (the same layout as the
+    port's plane) and ``opt_t`` the per-leaf adamw state ``{"mu": tree,
+    "nu": tree, "step"}``; ``global_protos`` ``[C, P]``, ``proto_mask``
+    ``[C]`` and ``round_idx`` as the JAX ``NodeState`` holds them.  Runs
+    on ``cuda`` unless ``device`` names another device."""
+    device = resolve_device(device)
+    plane = plane_from_tree(params_from_numpy(student, device))
+    if tuple(np.shape(opt_s["mu"])) != tuple(plane.buf.shape):
+        raise ValueError(f"opt_s moments {np.shape(opt_s['mu'])} do not "
+                         f"match the plane {tuple(plane.buf.shape)}")
+
+    def t(x, dtype=torch.float32):
+        return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    return NodeState(
+        student=plane,
+        teacher=params_from_numpy(teacher, device),
+        opt_s={"mu": t(opt_s["mu"]), "nu": t(opt_s["nu"]),
+               "step": t(opt_s["step"], torch.int32),
+               "gnorm": t(opt_s.get("gnorm", 0.0))},
+        opt_t={"mu": params_from_numpy(opt_t["mu"], device),
+               "nu": params_from_numpy(opt_t["nu"], device),
+               "step": t(opt_t["step"], torch.int32)},
+        global_protos=t(global_protos), proto_mask=t(proto_mask),
+        round_idx=t(round_idx, torch.int32))
+
+
+def stack_states(states: List[NodeState]) -> NodeState:
+    """Per-node states -> one stacked state.  Parameters become autograd
+    leaves; all nodes step together, so their step counters must agree."""
+    def stack(*xs):
+        return torch.stack(xs)
+
+    def leaf(*xs):
+        return torch.stack(xs).detach().requires_grad_(True)
+
+    for key in ("opt_s", "opt_t"):
+        steps = {int(getattr(s, key)["step"]) for s in states}
+        if len(steps) != 1:
+            raise ValueError(f"{key} step counters differ across nodes: "
+                             f"{sorted(steps)}")
+    s0 = states[0]
+    return NodeState(
+        student=Plane(leaf(*(s.student.buf for s in states)),
+                      s0.student.meta),
+        teacher=tree_map(leaf, *(s.teacher for s in states)),
+        opt_s={"mu": stack(*(s.opt_s["mu"] for s in states)),
+               "nu": stack(*(s.opt_s["nu"] for s in states)),
+               "step": s0.opt_s["step"].clone(),
+               "gnorm": stack(*(s.opt_s["gnorm"] for s in states))},
+        opt_t={"mu": tree_map(stack, *(s.opt_t["mu"] for s in states)),
+               "nu": tree_map(stack, *(s.opt_t["nu"] for s in states)),
+               "step": s0.opt_t["step"].clone()},
+        global_protos=stack(*(s.global_protos for s in states)),
+        proto_mask=stack(*(s.proto_mask for s in states)),
+        round_idx=stack(*(s.round_idx for s in states)))
+
+
+def normalize_protos(sums, counts):
+    """Eq. 3 class means from raw accumulators: ``sums / max(counts, 1)``."""
+    return sums / torch.clamp_min(counts, 1.0)[..., None]

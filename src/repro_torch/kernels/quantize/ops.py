@@ -1,0 +1,219 @@
+"""The packed node wire codec on the flat parameter plane — the
+uniform-width, deterministic, stateless path of ``repro``'s
+``kernels/quantize/ops.py``.
+
+One round's wire payload ``{"protos": [N, C, P], "student": Plane}``
+packs into ONE ``[N, R, 512]`` fp32 buffer: the prototype rows first,
+then the student's rows spliced straight off its plane (no repack),
+then zero rows padding R to a multiple of 8 (tagged with the last
+segment).  Every (node, leaf) segment gets its own scale
+``Δ = max(max|x| / qmax, tiny)`` from one row-absmax sweep and a tiny
+per-node scatter-max over rows; one row-scaled sweep writes the integer
+codes, which narrow to the wire's int dtype; the receiver reconstructs
+``codes * Δ_row``.  ``rowabs`` and ``quantize_rows`` run the CUDA
+kernels for tensors on the card and their plain versions on the CPU;
+everything else here is host logic and plain tensor ops, as in
+``repro``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
+                                                   rowabs_cuda)
+from repro_torch.kernels.quantize.ref import quantize_rows_ref, rowabs_ref
+from repro_torch.tree import is_float, tree_leaves
+from repro_torch.wirespec import WireSpec
+
+_COLS = 512
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md Queue 1 item 10 (stateful "
+        f"codec: error feedback, stochastic rounding) / Queue 2 (the "
+        f"mixed-width and error-feedback quantize kernels)")
+
+
+def rowabs(x2d):
+    """Per-row ``max|x|`` ``[R, 1]`` of an ``[R, C]`` buffer."""
+    if x2d.is_cuda:
+        return rowabs_cuda(x2d.contiguous())
+    return rowabs_ref(x2d)
+
+
+def quantize_rows(x2d, row_delta, *, bits: int = 16):
+    """int32 codes of ``[R, C]`` at per-row deltas ``[R, 1]``."""
+    if x2d.is_cuda:
+        return quantize_rows_cuda(x2d.contiguous(), row_delta.contiguous(),
+                                  bits=bits)
+    return quantize_rows_ref(x2d, row_delta, bits=bits)
+
+
+def _wire_int_dtype(bits: int) -> torch.dtype:
+    """Narrowest in-memory container for intN codes (int4 rides int8)."""
+    return {4: torch.int8, 8: torch.int8, 16: torch.int16,
+            32: torch.int32}[bits]
+
+
+def _seg_qmax(n_seg: int, bits: int, seg_bits: Optional[np.ndarray]
+              ) -> np.ndarray:
+    """Static per-segment qmax [T]: mixed widths from ``seg_bits``,
+    else the uniform ``bits``."""
+    if seg_bits is None:
+        return np.full((n_seg,), (1 << (bits - 1)) - 1, np.float32)
+    return ((1 << (np.asarray(seg_bits, np.int64) - 1)) - 1
+            ).astype(np.float32)
+
+
+def _node_row_deltas(buf, seg_ids, n_seg: int, bits: int,
+                     seg_bits: Optional[np.ndarray] = None):
+    """Per-(node, leaf) Δ from one row-absmax sweep and a per-node
+    scatter-max of the row maxima into their segments.  Returns
+    ``(scales [N, T], row_delta [N, R])`` fp32.  The scatter starts
+    from 0, which equals ``repro``'s ``max(segment_max, 0)`` (row maxima
+    are >= 0); the Δ guard is ``finfo(float32).tiny``."""
+    n, r, c = buf.shape
+    qmax = torch.as_tensor(_seg_qmax(n_seg, bits, seg_bits),
+                           device=buf.device)
+    row_amax = rowabs(buf.reshape(n * r, c)).reshape(n, r)
+    ids = torch.as_tensor(np.asarray(seg_ids), dtype=torch.int64,
+                          device=buf.device)
+    seg_amax = torch.zeros((n, n_seg), dtype=torch.float32,
+                           device=buf.device).scatter_reduce(
+        1, ids.expand(n, r), row_amax, reduce="amax", include_self=True)
+    deltas = torch.clamp_min(seg_amax / qmax, _TINY)
+    return deltas, deltas[:, ids]
+
+
+def quantize_packed_buffer(buf, seg_ids, n_seg: int, bits: int = 16, *,
+                           seg_bits: Optional[np.ndarray] = None):
+    """Quantize an already-packed ``[N, R, C]`` buffer at one width.
+    Returns ``(codes [N, R, C] wire-intN, scales [N, T] fp32)``."""
+    if seg_bits is not None and len(set(np.asarray(seg_bits).tolist())) > 1:
+        raise _unported("a mixed-width wire spec")
+    width = int(seg_bits[0]) if seg_bits is not None else bits
+    n, r, c = buf.shape
+    deltas, row_delta = _node_row_deltas(buf, seg_ids, n_seg, bits, seg_bits)
+    codes = quantize_rows(buf.reshape(n * r, c), row_delta.reshape(n * r, 1),
+                          bits=width).reshape(n, r, c)
+    return codes.to(_wire_int_dtype(width)), deltas
+
+
+def pack_plane_payload(protos, plane, spec: Optional[WireSpec] = None):
+    """Pack ``{"protos": [N, C, P], "student": Plane}`` into the packed
+    node wire format without repacking the student.
+
+    Returns ``(buf [N, R, C], seg_ids [R] int32, meta, r_protos, span)``
+    with ``meta = (recipe, n_seg, n_nodes, seg_bits)`` — the layout
+    ``repro``'s ``pack_plane_payload`` produces: the prototype segment
+    first, then one segment per student leaf in plane order."""
+    n, c_cls, p_dim = protos.shape
+    if plane.buf.dim() != 3 or plane.buf.shape[0] != n:
+        raise ValueError(f"plane buffer {tuple(plane.buf.shape)} is not "
+                         f"stacked over the payload's {n} nodes")
+    per = c_cls * p_dim
+    flat_p = F.pad(protos.reshape(n, per).to(torch.float32),
+                   (0, (-per) % _COLS))
+    rows_p = flat_p.reshape(n, -1, _COLS)                  # [N, r_p, C]
+    r_p = rows_p.shape[1]
+
+    recipe: List[Tuple] = [("packed", ("protos",), tuple(protos.shape),
+                            0, r_p, 0)]
+    seg_parts: List[np.ndarray] = [np.zeros((r_p,), np.int32)]
+    seg_bits: List[int] = [spec.bits_for("protos")] if spec is not None \
+        else []
+    seg = 1
+    span = 0
+    for _, path, shape, prow, r_leaf in plane.meta.recipe:
+        recipe.append(("packed", ("student",) + path, (n,) + tuple(shape),
+                       r_p + prow, r_leaf, seg))
+        seg_parts.append(np.full((r_leaf,), seg, np.int32))
+        if spec is not None:
+            seg_bits.append(spec.bits_for("student"))
+        seg += 1
+        span = max(span, prow + r_leaf)
+    # the splice: the plane's leaf rows ARE the student's packed rows
+    buf = torch.cat([rows_p, plane.buf[:, :span]], dim=1)
+    seg_ids = np.concatenate(seg_parts)
+    rpad = (-buf.shape[1]) % 8
+    if rpad:
+        buf = F.pad(buf, (0, 0, 0, rpad))
+        seg_ids = np.concatenate([seg_ids,
+                                  np.full((rpad,), seg - 1, np.int32)])
+    bits_arr = np.asarray(seg_bits, np.int32) if spec is not None else None
+    return buf, seg_ids, (tuple(recipe), seg, n, bits_arr), r_p, span
+
+
+def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
+                                      spec: Optional[WireSpec] = None):
+    """Receiver-side reconstruction of ``{"protos": [N, C, P],
+    "student": Plane}``: pack (student rows spliced off the plane),
+    quantize in one buffer sweep, dequantize ``codes * Δ_row`` in plain
+    torch, and splice the student rows back into a fresh plane (its
+    zero padding quantizes to zero, so the layout invariant holds)."""
+    from repro_torch.optim.plane import Plane
+    if spec is not None and (spec.stochastic_rounding or spec.error_feedback):
+        raise _unported("a stateful or stochastic wire spec")
+    protos, plane = payload["protos"], payload["student"]
+    buf, seg_ids, meta, r_p, span = pack_plane_payload(protos, plane, spec)
+    codes, deltas = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
+                                           seg_bits=meta[3])
+    ids = torch.as_tensor(seg_ids, dtype=torch.int64, device=buf.device)
+    deq = codes.to(torch.float32) * deltas[:, ids][:, :, None]
+    n = protos.shape[0]
+    pr = deq[:, :r_p].reshape(n, -1)[:, :protos[0].numel()]
+    sbuf = F.pad(deq[:, r_p:r_p + span],
+                 (0, 0, 0, plane.meta.rows - span))
+    return {"protos": pr.reshape(protos.shape),
+            "student": Plane(sbuf, plane.meta)}
+
+
+# -- byte accounting (shapes only) ------------------------------------------
+
+def packed_wire_rows(tree) -> Tuple[int, int]:
+    """Static layout of one copy's packed buffer: ``(R_padded, T)`` —
+    rows (8-aligned) and scale-segment count of a per-copy skeleton."""
+    rows = 0
+    nseg = 0
+    for leaf in tree_leaves(tree):
+        if not (hasattr(leaf, "dtype") and is_float(leaf)):
+            continue
+        rows += -(-math.prod(int(d) for d in leaf.shape) // _COLS)
+        nseg += 1
+    return rows + ((-rows) % 8), nseg
+
+
+def packed_wire_bytes_per_node(tree, bits: int = 16, *,
+                               leaf_bits: Optional[Sequence[int]] = None
+                               ) -> int:
+    """Physical bytes one node's packed copy occupies on the wire: the
+    encoded code buffer incl. 512-lane padding, plus one fp32 scale per
+    leaf segment.  ``leaf_bits`` gives each float leaf its own width;
+    alignment rows carry the LAST leaf's width."""
+    if leaf_bits is None:
+        rows, nseg = packed_wire_rows(tree)
+        return rows * _COLS * bits // 8 + nseg * 4
+    rows = 0
+    nseg = 0
+    last_b = None
+    width_rows: Dict[int, int] = {}
+    floats = [leaf for leaf in tree_leaves(tree)
+              if hasattr(leaf, "dtype") and is_float(leaf)]
+    if len(floats) != len(leaf_bits):
+        raise ValueError(f"leaf_bits has {len(leaf_bits)} entries for "
+                         f"{len(floats)} float leaves")
+    for leaf, b in zip(floats, leaf_bits):
+        r = -(-math.prod(int(d) for d in leaf.shape) // _COLS)
+        rows += r
+        width_rows[int(b)] = width_rows.get(int(b), 0) + r
+        nseg += 1
+        last_b = b
+    width_rows[int(last_b)] += (-rows) % 8
+    return sum(r * _COLS * b for b, r in width_rows.items()) // 8 + nseg * 4

@@ -1,0 +1,80 @@
+"""Nested-dict parameter trees: the port's stand-in for ``jax.tree_util``.
+
+Parameters, gradients and optimizer moments are nested ``dict``s of
+tensors.  Leaves are visited in JAX's flatten order — dict keys sorted —
+so the flat parameter plane and the wire payload lay leaves out exactly
+as the JAX package does.  Leaves may also be :class:`ShapeDtypeStruct`
+skeletons (shape and numpy dtype only): the byte accountants read sizes
+and types and never touch data.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+
+class ShapeDtypeStruct(NamedTuple):
+    """Shape/dtype skeleton of one array (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: np.dtype
+
+
+def tree_paths(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """``[(path, leaf)]`` in flatten order: dict keys sorted, plain
+    lists and tuples in order."""
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif type(tree) in (list, tuple):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, sub in items:
+        out.extend(tree_paths(sub, prefix + (k,)))
+    return out
+
+
+def tree_leaves(tree) -> List[Any]:
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leafwise over dict trees of one structure, visiting
+    leaves in flatten order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_from_paths(items) -> dict:
+    """Inverse of :func:`tree_paths` for dict trees."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def is_float(x) -> bool:
+    """Floating dtype, for tensors and for ShapeDtypeStruct skeletons."""
+    d = x.dtype
+    if isinstance(d, torch.dtype):
+        return d.is_floating_point
+    return bool(np.issubdtype(np.dtype(d), np.floating))
+
+
+def itemsize(x) -> int:
+    d = x.dtype
+    return d.itemsize if isinstance(d, torch.dtype) else np.dtype(d).itemsize
+
+
+def numel(x) -> int:
+    n = 1
+    for s in x.shape:
+        n *= int(s)
+    return n
