@@ -17,14 +17,20 @@ Phases, in order (any failure exits non-zero; nothing is caught):
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
-   clip 1.0) and the 16-bit wire, through ``run_federation`` — with the
-   kernels' launch counts set to 0 just before and read just after;
-5. with ``--profile`` only: where a round's time goes — the main path's
-   run is the warm-up, then 2 rounds without and 2 rounds under
-   ``torch.profiler`` (see :func:`profile_rounds`);
-6. a line ``{"kernels": [...]}`` with each kernel's launches, error and
-   times, then the card's ``nvidia-smi`` name and power limit, then the
-   result line ``{"ok": true, "device": {...}}`` last.
+   clip 1.0) and the 16-bit wire, through ``run_federation``;
+5. the same run on the ``4/16+ef`` wire (int4 student, int16
+   prototypes, error feedback): 2 rounds, the same data;
+6. a 1-round run on the ``4/16`` wire without error feedback;
+7. with ``--profile`` only: where a round's time goes on the main path
+   — its phase-4 run is the warm-up, then 2 rounds without and 2 rounds
+   under ``torch.profiler`` (see :func:`profile_rounds`);
+8. a line ``{"kernels": [...]}`` with each kernel's launches on its
+   path, error and times, then the card's ``nvidia-smi`` name and power
+   limit, then the result line ``{"ok": true, "device": {...}}`` last.
+
+Phases 4-6 each set the kernels' launch counts to 0 just before
+``run_federation`` and read them just after, and hold the run's wire
+bytes to the JAX package's.
 """
 from __future__ import annotations
 
@@ -49,6 +55,23 @@ ROUNDS = 2
 EXPECTED_AVG_SENT_GB = 0.015825632
 EXPECTED_PACKED_PER_COPY = 426060
 EXPECTED_LOGICAL_PER_COPY = 416464
+# The paths, in the order they run: wire name -> (FederationConfig
+# fields, rounds, expected (avg_sent_gb, packed B/copy, logical B/copy)).
+# The 16-bit wire is the main path; the 4/16 bytes are computed the same
+# way for WireSpec(4, 16) — with or without +ef, since the residual never
+# travels.
+MIXED = dict(quantize_bits=4, proto_quantize_bits=16)
+WIRE_PATHS = {
+    "16": ({}, ROUNDS, (EXPECTED_AVG_SENT_GB, EXPECTED_PACKED_PER_COPY,
+                        EXPECTED_LOGICAL_PER_COPY)),
+    "4/16+ef": (dict(MIXED, error_feedback=True), 2,
+                (0.004030508, 108876, 106066)),
+    "4/16": (MIXED, 1, (0.002015254, 108876, 106066)),
+}
+# the path whose run a kernel's "launches" are read from
+KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
+               "quantize_rows": "16", "quantize_rows_mixed": "4/16",
+               "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef"}
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -120,7 +143,8 @@ def ulp_diff(torch, a, b) -> int:
 
 def payload_buffer(torch, gen, student_cfg):
     """The main path's packed wire buffer: 20 nodes' random student
-    planes (the init's scales) spliced behind random prototypes."""
+    planes (the init's scales) spliced behind random prototypes.
+    Returns ``(buf, seg_ids, meta, plane, protos)``."""
     from repro_torch.kernels.quantize.ops import pack_plane_payload
     from repro_torch.models import init_params
     from repro_torch.optim.plane import Plane, plane_from_tree
@@ -133,25 +157,34 @@ def payload_buffer(torch, gen, student_cfg):
                          student_cfg.proto_dim), generator=gen).cuda()
     buf, seg_ids, meta, _, _ = pack_plane_payload(protos, plane,
                                                   WireSpec(16))
-    return buf, seg_ids, meta, plane
+    return buf, seg_ids, meta, plane, protos
 
 
 def check_kernels(torch, timer, student_cfg):
     """Phase 3: every kernel against its plain version at path shapes."""
+    import numpy as np
     from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
     from repro_torch.kernels.opt_update.ref import adamw_update_ref
     from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
     from repro_torch.kernels.proto_accum.ref import proto_accum_ref
-    from repro_torch.kernels.quantize.ops import _node_row_deltas
-    from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
-                                                       rowabs_cuda)
-    from repro_torch.kernels.quantize.ref import quantize_rows_ref, rowabs_ref
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                  _seg_qmax,
+                                                  pack_plane_payload)
+    from repro_torch.kernels.quantize.quantize import (
+        quantize_rows_cuda, quantize_rows_ef_cuda, quantize_rows_mixed_cuda,
+        rowabs_cuda, rowabs_sum_cuda)
+    from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
+                                                  quantize_rows_mixed_ref,
+                                                  quantize_rows_ref,
+                                                  rowabs_ref, rowabs_sum_ref)
+    from repro_torch.wirespec import WireSpec
 
     gen = torch.Generator().manual_seed(0)
     rows = []
 
     # -- adamw over the student plane [N, R, 512] ------------------------
-    buf, seg_ids, meta, plane = payload_buffer(torch, gen, student_cfg)
+    buf, seg_ids, meta, plane, protos = payload_buffer(torch, gen,
+                                                       student_cfg)
     shape = tuple(plane.buf.shape)
     p = plane.buf.contiguous()
     g = (torch.randn(shape, generator=gen) * 1e-3).cuda()
@@ -228,14 +261,90 @@ def check_kernels(torch, timer, student_cfg):
            "quantize_rows kernel disagrees")
     ms = timer(lambda: quantize_rows_cuda(x2d, rd, bits=16))
     plain_ms = timer(lambda: quantize_rows_ref(x2d, rd, bits=16))
+    # library yardstick: per-row affine quantization in one call.  It
+    # rounds half to even (the kernel rounds half up) and clips to the
+    # int32 range, which these codes (|code| <= 32767) never reach.
+    zero = torch.zeros(rd.shape[0], dtype=torch.int64, device="cuda")
+    scales = rd[:, 0].contiguous()
+    lib_ms = timer(lambda: torch.quantize_per_channel(x2d, scales, zero, 0,
+                                                      torch.qint32))
     b_ms, b_by = bound(8 * x2d.numel() + 4 * rd.numel(), 4 * x2d.numel())
     rows.append(dict(name="quantize_rows", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/quantize.py:313",
                      max_abs_err=float((got - want).abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
+                     library_ms=lib_ms))
     print(f"quantize_rows {tuple(x2d.shape)}: bit-exact codes")
+
+    # -- the 4/16 wire: int16 prototype rows, int4 student rows ----------
+    # No single PyTorch call computes these three functions (a per-row
+    # clip width; a residual added inside the reduction or the sweep), so
+    # their library_ms is null.
+    _, _, mmeta, _, _ = pack_plane_payload(protos, plane, WireSpec(4, 16))
+    seg_bits = mmeta[3]
+    _, row_delta = _node_row_deltas(buf, seg_ids, mmeta[1], 16, seg_bits)
+    rd = row_delta.reshape(-1, 1).contiguous()
+    qm = torch.as_tensor(np.tile(_seg_qmax(mmeta[1], 16, seg_bits)[seg_ids],
+                                 n_nodes)[:, None], device="cuda")
+    got = quantize_rows_mixed_cuda(x2d, rd, qm)
+    want = quantize_rows_mixed_ref(x2d, rd, qm)
+    torch.cuda.synchronize()
+    expect(torch.equal(got, want), "quantize_rows_mixed kernel disagrees")
+    r_p = int((seg_ids == 0).sum())           # the int16 prototype rows
+    by_node = got.reshape(n_nodes, r, c)
+    expect(int(by_node[:, :r_p].abs().max()) > 8
+           and int(by_node[:, r_p:].abs().max()) <= 8,
+           "quantize_rows_mixed: row widths are not the 4/16 spec's")
+    ms = timer(lambda: quantize_rows_mixed_cuda(x2d, rd, qm))
+    plain_ms = timer(lambda: quantize_rows_mixed_ref(x2d, rd, qm))
+    b_ms, b_by = bound(8 * x2d.numel() + 8 * rd.numel(), 5 * x2d.numel())
+    rows.append(dict(name="quantize_rows_mixed", route="cuda",
+                     source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/quantize.py:339",
+                     max_abs_err=float((got - want).abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
+    print(f"quantize_rows_mixed {tuple(x2d.shape)}: bit-exact codes")
+
+    # a residual of the size error feedback carries: within half a Δ
+    res2d = ((torch.rand(x2d.shape, generator=gen) - 0.5).cuda() * rd)
+    for decay in (1.0, 0.9):        # the path's default, and a decay
+        dec = torch.tensor(decay, dtype=torch.float32, device="cuda")
+        got = rowabs_sum_cuda(x2d, res2d, decay)
+        want = rowabs_sum_ref(x2d, res2d, dec)
+        c_got, r_got = quantize_rows_ef_cuda(x2d, res2d, rd, qm, decay)
+        c_want, r_want = quantize_rows_ef_ref(x2d, res2d, rd, qm, dec)
+        torch.cuda.synchronize()
+        expect(torch.equal(got, want),
+               f"rowabs_sum kernel disagrees (decay {decay})")
+        expect(torch.equal(c_got, c_want),
+               f"quantize_rows_ef codes disagree (decay {decay})")
+        expect(ulp_diff(torch, r_got, r_want) == 0,
+               f"quantize_rows_ef residual is not bit-exact (decay {decay})")
+    dec = torch.ones((), device="cuda")
+    ms = timer(lambda: rowabs_sum_cuda(x2d, res2d, 1.0))
+    plain_ms = timer(lambda: rowabs_sum_ref(x2d, res2d, dec))
+    b_ms, b_by = bound(8 * x2d.numel() + 4 * x2d.shape[0], 4 * x2d.numel())
+    rows.append(dict(name="rowabs_sum", route="cuda",
+                     source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/quantize.py:224",
+                     max_abs_err=float((got - want).abs().max()), ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
+    print(f"rowabs_sum {tuple(x2d.shape)}: bit-exact at decay 1.0 and 0.9")
+    ms = timer(lambda: quantize_rows_ef_cuda(x2d, res2d, rd, qm, 1.0))
+    plain_ms = timer(lambda: quantize_rows_ef_ref(x2d, res2d, rd, qm, dec))
+    b_ms, b_by = bound(16 * x2d.numel() + 8 * rd.numel(), 9 * x2d.numel())
+    rows.append(dict(name="quantize_rows_ef", route="cuda",
+                     source="src/repro_torch/csrc/quantize.cu",
+                     replaces="src/repro/kernels/quantize/quantize.py:258",
+                     max_abs_err=max(float((c_got - c_want).abs().max()),
+                                     float((r_got - r_want).abs().max())),
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
+    print(f"quantize_rows_ef {tuple(x2d.shape)}: codes and residual "
+          f"bit-exact at decay 1.0 and 0.9")
 
     # -- proto_accum at [20, 32, 128], C = 10 -----------------------------
     ncls, bsz, pdim = student_cfg.num_classes, 32, student_cfg.proto_dim
@@ -275,7 +384,7 @@ def check_kernels(torch, timer, student_cfg):
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=lib_ms))
     for row in rows:
-        print(f"  {row['name']:14s} kernel {row['ms']:.4f} ms  plain "
+        print(f"  {row['name']:19s} kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
@@ -298,15 +407,39 @@ def main_path_inputs():
     return get_config("mnist-cnn"), fed, TrainConfig(), node_data, test_d
 
 
-def main_path(torch, inputs):
-    """Phase 4: ProFe on mnist-cnn at full width through run_federation."""
+def wire_path(torch, inputs, name: str):
+    """Phases 4-6: ProFe on mnist-cnn at full width through
+    ``run_federation`` on the wire ``name`` of ``WIRE_PATHS``, with the
+    launch counts set to 0 just before and read just after.  Checks
+    finite F1, the launches (every count exactly as the wire spec
+    implies, each kernel of the path at least once) and the wire bytes
+    against the JAX package's.  With ``+ef`` the final ``CodecState``
+    must have advanced ``seq`` once a round and carry a residual that is
+    finite, non-zero, and zero on the plane's padding lanes.  Returns
+    the launch counts."""
+    import dataclasses
+
     from repro_torch.core.federation import run_federation
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.wirespec import WireSpec
 
+    fields, rounds, expected_bytes = WIRE_PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
+    fed = dataclasses.replace(fed, rounds=rounds, **fields)
+    spec = WireSpec.parse(name)
     per_node = len(node_data[0]["label"])
-    print(f"{N_NODES} nodes x {per_node} images, test "
-          f"{len(test_d['label'])}, batch {train.batch_size}")
+    print(f"{N_NODES} nodes x {per_node} images, batch {train.batch_size}, "
+          f"wire {spec.describe()}")
+    steps = rounds * (per_node // train.batch_size)
+    ef, uniform = spec.error_feedback, spec.uniform_bits is not None
+    launches = {"adamw_update": steps,      # one sweep per training step
+                "proto_accum": steps,       # one per Eq. 3 proto batch
+                # one share codec a round: amax rows, then the codes
+                "rowabs": 0 if ef else rounds,
+                "quantize_rows": rounds if uniform and not ef else 0,
+                "quantize_rows_mixed": 0 if uniform or ef else rounds,
+                "rowabs_sum": rounds if ef else 0,
+                "quantize_rows_ef": rounds if ef else 0}
 
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
@@ -316,31 +449,50 @@ def main_path(torch, inputs):
     print(f"per-round seconds: {res.extras['round_times_s']}")
     print(f"avg_sent_gb: {res.extras['avg_sent_gb']!r}  "
           f"wire_bytes_packed_per_copy: "
-          f"{res.extras['wire_bytes_packed_per_copy']}")
-    print(f"launches on the main path: {counts}")
-    expect(len(res.f1_per_round) == ROUNDS
+          f"{res.extras['wire_bytes_packed_per_copy']}  "
+          f"wire_bytes_per_copy: {res.extras['wire_bytes_per_copy']}")
+    print(f"launches on the {name} path: {counts}")
+    expect(len(res.f1_per_round) == rounds
            and all(math.isfinite(f) for f in res.f1_per_round),
-           f"expected {ROUNDS} finite F1 values, got {res.f1_per_round}")
-    steps = ROUNDS * (per_node // train.batch_size)
-    expected = {"adamw_update": steps,      # one sweep per training step
-                "proto_accum": steps,       # one per Eq. 3 proto batch
-                "rowabs": ROUNDS, "quantize_rows": ROUNDS}
-    for name, want in expected.items():
-        expect(counts[name] > 0,
-               f"{name} never launched on the main path")
-        expect(counts[name] == want,
-               f"{name}: {counts[name]} != {want}")
-    for key, want in (("avg_sent_gb", EXPECTED_AVG_SENT_GB),
-                      ("wire_bytes_packed_per_copy",
-                       EXPECTED_PACKED_PER_COPY),
-                      ("wire_bytes_per_copy", EXPECTED_LOGICAL_PER_COPY)):
+           f"expected {rounds} finite F1 values, got {res.f1_per_round}")
+    expect(set(counts) == set(launches),
+           f"kernels {sorted(counts)} != {sorted(launches)}")
+    for kernel, want in launches.items():
+        expect(want == 0 or counts[kernel] > 0,
+               f"{kernel} never launched on the {name} path")
+        expect(counts[kernel] == want,
+               f"{name} path: {kernel} launched {counts[kernel]} != {want}")
+    for key, want in zip(("avg_sent_gb", "wire_bytes_packed_per_copy",
+                          "wire_bytes_per_copy"), expected_bytes):
         expect(res.extras[key] == want,
-               f"{key}: {res.extras[key]!r} != the JAX package's {want!r}")
+               f"{name} path: {key} {res.extras[key]!r} != the JAX "
+               f"package's {want!r}")
+
+    ws = res.extras.get("wire_state")
+    expect((ws is not None) == ef, f"{name}: wire_state is {ws!r}")
+    if ef:
+        seq = ws.seq.tolist()
+        expect(seq == [rounds] * N_NODES, f"{name}: seq {seq} != {rounds}")
+        protos, plane = ws.residual["protos"], ws.residual["student"]
+        real = torch.zeros(plane.buf.shape[1:], dtype=torch.bool)
+        for _, _, shape, row, r_leaf in plane.meta.recipe:
+            real[row:row + r_leaf].view(-1)[:math.prod(shape)] = True
+        res_s = plane.buf.cpu()
+        for part in (protos, plane.buf):
+            expect(bool(torch.isfinite(part).all())
+                   and float(part.abs().max()) > 0,
+                   f"{name}: residual not finite and non-zero")
+        expect(not bool(res_s[:, ~real].any()),
+               f"{name}: residual non-zero on padding lanes")
+        print(f"residual after {rounds} rounds: seq {seq[0]} on all "
+              f"{N_NODES} nodes, max |student| "
+              f"{float(res_s.abs().max()):.4g}, max |protos| "
+              f"{float(protos.abs().max()):.4g}, padding lanes zero")
     return counts
 
 
 def profile_rounds(torch, inputs) -> None:
-    """Phase 5 (``--profile``): where a round's time goes.  After the
+    """Phase 7 (``--profile``): where a round's time goes.  After the
     main path's run (the warm-up: kernel build, cuDNN autotuning), the
     main path runs once more without the profiler and once under
     ``torch.profiler`` (CPU and CUDA activities).  Per round: wall
@@ -441,18 +593,22 @@ def main() -> int:
     rows = check_kernels(torch, Timer(torch),
                          derive_student(get_config("mnist-cnn")))
 
-    phase("main path: ProFe mnist-cnn, 20 nodes, 2 rounds")
-    t0 = time.time()
     inputs = main_path_inputs()
-    counts = main_path(torch, inputs)
-    print(f"main path took {time.time() - t0:.1f} s")
+    counts = {}
+    for name, (_, rounds, _) in WIRE_PATHS.items():
+        phase(f"{'main' if name == '16' else 'wire'} path: ProFe mnist-cnn, "
+              f"{N_NODES} nodes, {rounds} round(s), {name} wire")
+        t0 = time.time()
+        counts[name] = wire_path(torch, inputs, name)
+        print(f"{name} path took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         phase("round profile: 2 rounds unprofiled, 2 profiled")
         profile_rounds(torch, inputs)
 
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["path"] = KERNEL_PATH[row["name"]]
+        row["launches"] = counts[row["path"]][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ carries a leading ``[N]`` node axis) and one round is:
 2. the exact Eq. 3 pass: a post-training student forward over a second
    batch stream, accumulated per class by ``kernels/proto_accum``,
 3. share: the round's payload ``{protos, student}`` round-trips the
-   packed 16-bit wire codec (``kernels/quantize``),
+   packed wire codec (``kernels/quantize``) at the ``WireSpec``'s widths
+   (uniform, or mixed such as ``4/16``), with the error-feedback
+   residual carried in ``NodeState.wire_state`` when the spec has
+   ``+ef``,
 4. mix: size-weighted gossip of the student plane (a node's own copy
    unquantized) and Eq. 4 aggregation per neighbourhood.
 
@@ -40,6 +43,7 @@ from repro_torch.core.profe import (NodeState, init_node_state,
                                     proto_labels, resolve_device,
                                     stack_states)
 from repro_torch.core.quantization import tree_wire_bytes
+from repro_torch.core.wire_state import init_codec_state
 from repro_torch.data.loader import batch_index_lists
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.models import derive_student, forward
@@ -132,13 +136,10 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
          "Queue 1 item 10"),
         (bool(fed.proto_ema), "proto_ema", "Queue 1 item 10"),
         (eval_all_nodes, "eval_all_nodes", "Queue 1 item 10"),
-        (fed.error_feedback, "error feedback (+ef)", "Queue 1 item 10"),
         (bool(fed.adapter_rank), "the adapter-rank wire",
          "Queue 1 item 11"),
         (not fed.quantize_bits, "the fp32 wire (quantize_bits=0)",
          "Queue 1 item 4"),
-        (fed.proto_quantize_bits not in (None, fed.quantize_bits),
-         "a mixed-width wire spec", "Queue 2 (quantize_rows_mixed)"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -254,8 +255,12 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     * ``train_phase`` — local epochs + the exact Eq. 3 pass ->
       ``(state, protos, counts)``,
     * ``share_phase`` — the wire codec round-trip of the payload ->
-      ``(state, recv_student, protos_rx)``,
+      ``(state, recv_student, protos_rx)``; with ``+ef`` it carries
+      ``state.wire_state`` (the residual and ``seq``) forward,
     * ``mix_phase`` — gossip on the received views + Eq. 4 -> ``state``.
+
+    ``bits`` is the :class:`WireSpec` that ``_algo_wiring`` returns (an
+    int is the uniform spec), so per-group widths and ``+ef`` survive.
     """
     spec = WireSpec.from_bits(bits)
     exact_pass = _make_proto_pass(proto_cfg, ncls)
@@ -274,8 +279,13 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
     @torch.no_grad()
     def share_phase(state: NodeState, protos):
-        recv = R.quantize_dequantize_per_node(
-            {"protos": protos, "student": state.student}, spec=spec)
+        payload = {"protos": protos, "student": state.student}
+        if spec.error_feedback:
+            recv, new_ws = R.quantize_dequantize_per_node(
+                payload, spec=spec, state=state.wire_state)
+            state = state._replace(wire_state=new_ws)
+        else:
+            recv = R.quantize_dequantize_per_node(payload, spec=spec)
         return state, recv["student"], recv["protos"]
 
     @torch.no_grad()
@@ -327,6 +337,10 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     ``initial_states`` (per-node states, e.g. carried from the JAX
     package by ``core.profe.node_state_from_numpy``) replaces the seeded
     initialization, so both packages can start from the same weights.
+    With error feedback (``fed.error_feedback``) every node starts from
+    a zero residual unless its initial state carries one, and
+    ``extras["wire_state"]`` holds the stacked ``CodecState`` after the
+    last round.
     """
     device = resolve_device(device)
     _check_slice(fed, train, eval_all_nodes=eval_all_nodes, overlap=overlap,
@@ -371,6 +385,16 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
         raise ValueError(f"initial states live on "
                          f"{stacked.student.buf.device}, not {device}")
     eval_cfg = proto_cfg = model_cfgs[1]
+    if stacked.wire_state is not None and not bits.error_feedback:
+        raise ValueError("initial states carry a wire_state but the wire "
+                         f"{bits.arg()!r} has no error feedback")
+    if bits.error_feedback and stacked.wire_state is None:
+        # error-feedback codec: a zero residual per node, shaped like the
+        # wire payload, carried in the stacked state from here on
+        stacked = stacked._replace(wire_state=init_codec_state(
+            {"protos": torch.zeros((n_nodes, ncls, proto_cfg.proto_dim),
+                                   dtype=torch.float32, device=device),
+             "student": stacked.student}, n_nodes=n_nodes))
 
     def dev(x):
         return torch.as_tensor(x, device=device)
@@ -428,6 +452,9 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                   f"sent={meter.avg_sent_gb():.4f}GB")
 
     result.elapsed_s = time.time() - t0
+    if bits.error_feedback:
+        # the error-feedback state after the last round (residual, seq)
+        result.extras["wire_state"] = stacked.wire_state
     result.extras["avg_sent_gb"] = meter.avg_sent_gb()
     result.extras["avg_received_gb"] = meter.avg_received_gb()
     return result

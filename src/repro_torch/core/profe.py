@@ -24,6 +24,7 @@ import torch
 from repro_torch.config.base import FederationConfig, ModelConfig
 from repro_torch.core import distillation as D
 from repro_torch.core import prototypes as P
+from repro_torch.core.wire_state import CodecState
 from repro_torch.models import ModelOutput, forward, params_from_numpy
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
@@ -38,6 +39,10 @@ class NodeState(NamedTuple):
     global_protos: torch.Tensor  # [C, P]
     proto_mask: torch.Tensor     # [C]
     round_idx: torch.Tensor      # int32 scalar ([N] stacked)
+    # error-feedback codec state (None unless the WireSpec has +ef): a
+    # core.wire_state.CodecState whose residual mirrors the wire
+    # payload {"protos", "student": Plane}
+    wire_state: Any = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -176,7 +181,7 @@ def init_node_state(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
 
 
 def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
-                          proto_mask, round_idx=0, *,
+                          proto_mask, round_idx=0, *, residual=None, seq=0,
                           device=None) -> NodeState:
     """One node's state carried over from the JAX package.
 
@@ -186,8 +191,11 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
     "nu": [R, 512], "step"[, "gnorm"]}`` (the same layout as the
     port's plane) and ``opt_t`` the per-leaf adamw state ``{"mu": tree,
     "nu": tree, "step"}``; ``global_protos`` ``[C, P]``, ``proto_mask``
-    ``[C]`` and ``round_idx`` as the JAX ``NodeState`` holds them.  Runs
-    on ``cuda`` unless ``device`` names another device."""
+    ``[C]`` and ``round_idx`` as the JAX ``NodeState`` holds them.
+    ``residual`` (``{"protos": [C, P], "student": [R, 512]}``, the
+    student residual in the plane's layout) and ``seq`` carry an
+    error-feedback ``CodecState``.  Runs on ``cuda`` unless ``device``
+    names another device."""
     device = resolve_device(device)
     plane = plane_from_tree(params_from_numpy(student, device))
     if tuple(np.shape(opt_s["mu"])) != tuple(plane.buf.shape):
@@ -196,6 +204,16 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
 
     def t(x, dtype=torch.float32):
         return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    wire_state = None
+    if residual is not None:
+        if tuple(np.shape(residual["student"])) != tuple(plane.buf.shape):
+            raise ValueError(f"student residual "
+                             f"{np.shape(residual['student'])} does not "
+                             f"match the plane {tuple(plane.buf.shape)}")
+        wire_state = CodecState(
+            {"protos": t(residual["protos"]),
+             "student": Plane(t(residual["student"]), plane.meta)},
+            t(seq, torch.int32))
     return NodeState(
         student=plane,
         teacher=params_from_numpy(teacher, device),
@@ -206,24 +224,38 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
                "nu": params_from_numpy(opt_t["nu"], device),
                "step": t(opt_t["step"], torch.int32)},
         global_protos=t(global_protos), proto_mask=t(proto_mask),
-        round_idx=t(round_idx, torch.int32))
+        round_idx=t(round_idx, torch.int32), wire_state=wire_state)
 
 
 def stack_states(states: List[NodeState]) -> NodeState:
     """Per-node states -> one stacked state.  Parameters become autograd
-    leaves; all nodes step together, so their step counters must agree."""
+    leaves; all nodes step together, so their step counters must agree.
+    An error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
+    ``[N]`` vector); either every state carries one or none does."""
     def stack(*xs):
         return torch.stack(xs)
 
     def leaf(*xs):
         return torch.stack(xs).detach().requires_grad_(True)
 
+    if len({s.wire_state is None for s in states}) != 1:
+        raise ValueError("some node states carry a wire_state and some "
+                         "do not")
     for key in ("opt_s", "opt_t"):
         steps = {int(getattr(s, key)["step"]) for s in states}
         if len(steps) != 1:
             raise ValueError(f"{key} step counters differ across nodes: "
                              f"{sorted(steps)}")
     s0 = states[0]
+    wire_state = None
+    if s0.wire_state is not None:
+        ws = [s.wire_state for s in states]
+        wire_state = CodecState(
+            {"protos": stack(*(w.residual["protos"] for w in ws)),
+             "student": Plane(stack(*(w.residual["student"].buf
+                                      for w in ws)),
+                              ws[0].residual["student"].meta)},
+            stack(*(w.seq for w in ws)))
     return NodeState(
         student=Plane(leaf(*(s.student.buf for s in states)),
                       s0.student.meta),
@@ -237,7 +269,8 @@ def stack_states(states: List[NodeState]) -> NodeState:
                "step": s0.opt_t["step"].clone()},
         global_protos=stack(*(s.global_protos for s in states)),
         proto_mask=stack(*(s.proto_mask for s in states)),
-        round_idx=stack(*(s.round_idx for s in states)))
+        round_idx=stack(*(s.round_idx for s in states)),
+        wire_state=wire_state)
 
 
 def normalize_protos(sums, counts):

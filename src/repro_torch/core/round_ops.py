@@ -4,7 +4,8 @@
   to mixing and Eq. 4 include weights, in numpy float64 and cast to fp32
   (host-side, once per run).
 * ``quantize_dequantize_per_node`` — the receiver-side reconstruction of
-  a round's wire payload through the packed node codec.
+  a round's wire payload through the packed node codec (stateless, or
+  with the error-feedback ``CodecState``).
 * ``mix_node_trees`` — size-weighted gossip: a node's own copy mixes
   unquantized, its neighbours' from the dequantized view.
 * ``neighborhood_prototype_aggregate`` — Eq. 4 per node neighbourhood.
@@ -47,13 +48,24 @@ def include_matrix(adj: np.ndarray) -> np.ndarray:
 
 
 def quantize_dequantize_per_node(tree, bits: int = 16, *,
-                                 spec: Optional[WireSpec] = None):
+                                 spec: Optional[WireSpec] = None,
+                                 state=None):
     """Receiver-side reconstruction of a stacked wire payload
     ``{"protos": [N, C, P], "student": Plane}`` through the packed node
-    codec (the plane branch of ``repro``'s function)."""
+    codec (the plane branch of ``repro``'s function).
+
+    ``state`` (a :class:`~repro_torch.core.wire_state.CodecState`,
+    required when ``spec.error_feedback`` is set) switches to the
+    error-feedback codec and returns ``(reconstruction, new_state)``,
+    with ``seq`` advanced by one."""
+    from repro_torch.core.wire_state import CodecState, next_seq
     from repro_torch.kernels.quantize.ops import (
         quantize_dequantize_plane_payload)
     from repro_torch.optim.plane import Plane
+    if spec is not None and spec.error_feedback and state is None:
+        raise ValueError("WireSpec.error_feedback is set but no CodecState "
+                         "was passed: the error-feedback codec needs the "
+                         "carried per-node residual")
     if not (isinstance(tree, dict) and isinstance(tree.get("student"),
                                                   Plane)):
         raise NotImplementedError(
@@ -61,7 +73,11 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
             "ported: ROADMAP.md Queue 1 item 4 (per-leaf wire codec)")
     if spec is not None and spec.uniform_bits is not None:
         bits = spec.uniform_bits
-    return quantize_dequantize_plane_payload(tree, bits, spec=spec)
+    if state is None:
+        return quantize_dequantize_plane_payload(tree, bits, spec=spec)
+    recv, new_res = quantize_dequantize_plane_payload(
+        tree, bits, spec=spec, residual=state.residual)
+    return recv, CodecState(new_res, seq=next_seq(state.seq))
 
 
 def mix_node_trees(w_self, w_neigh, own_tree, recv_tree):

@@ -46,6 +46,12 @@ SIGNATURES = {
     "rowabs": (_P, _P, _I64, _I32, _P),
     # x, row_delta, codes, rows, cols, qmax, stream
     "quantize_rows": (_P, _P, _P, _I64, _I32, _F32, _P),
+    # x, row_delta, row_qmax, codes, rows, cols, stream
+    "quantize_rows_mixed": (_P, _P, _P, _P, _I64, _I32, _P),
+    # x, res, out, rows, cols, decay, stream
+    "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32, _P),
+    # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, stream
+    "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32, _P),
 }
 
 

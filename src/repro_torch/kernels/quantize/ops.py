@@ -1,19 +1,24 @@
 """The packed node wire codec on the flat parameter plane — the
-uniform-width, deterministic, stateless path of ``repro``'s
-``kernels/quantize/ops.py``.
+deterministic path of ``repro``'s ``kernels/quantize/ops.py``, at one
+width or mixed widths, stateless or with error feedback.
 
 One round's wire payload ``{"protos": [N, C, P], "student": Plane}``
 packs into ONE ``[N, R, 512]`` fp32 buffer: the prototype rows first,
 then the student's rows spliced straight off its plane (no repack),
 then zero rows padding R to a multiple of 8 (tagged with the last
-segment).  Every (node, leaf) segment gets its own scale
-``Δ = max(max|x| / qmax, tiny)`` from one row-absmax sweep and a tiny
-per-node scatter-max over rows; one row-scaled sweep writes the integer
-codes, which narrow to the wire's int dtype; the receiver reconstructs
-``codes * Δ_row``.  ``rowabs`` and ``quantize_rows`` run the CUDA
-kernels for tensors on the card and their plain versions on the CPU;
-everything else here is host logic and plain tensor ops, as in
-``repro``.
+segment, so they carry its width).  Every (node, leaf) segment gets its
+own scale ``Δ = max(max|x| / qmax, tiny)`` from one row-absmax sweep and
+a tiny per-node scatter-max over rows; one row-scaled sweep writes the
+integer codes, which narrow to the wire's int dtype; the receiver
+reconstructs ``codes * Δ_row``.  A mixed-width spec (``4/16``: int4
+student, int16 prototypes) clips each row to its segment's qmax in the
+same sweep.  The error-feedback codec (``+ef``) quantizes the effective
+payload ``x + decay·res`` instead: its absmax sweep adds the residual in
+registers, and one sweep writes the codes and the new residual
+``eff - codes·Δ``.  ``rowabs``, ``rowabs_sum``, ``quantize_rows``,
+``quantize_rows_mixed`` and ``quantize_rows_ef`` run the CUDA kernels
+for tensors on the card and their plain versions on the CPU; everything
+else here is host logic and plain tensor ops, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -24,9 +29,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
-                                                   rowabs_cuda)
-from repro_torch.kernels.quantize.ref import quantize_rows_ref, rowabs_ref
+from repro_torch.kernels.quantize.quantize import (
+    quantize_rows_cuda, quantize_rows_ef_cuda, quantize_rows_mixed_cuda,
+    rowabs_cuda, rowabs_sum_cuda)
+from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
+                                              quantize_rows_mixed_ref,
+                                              quantize_rows_ref, rowabs_ref,
+                                              rowabs_sum_ref)
 from repro_torch.tree import is_float, tree_leaves
 from repro_torch.wirespec import WireSpec
 
@@ -34,11 +43,10 @@ _COLS = 512
 _TINY = float(np.finfo(np.float32).tiny)
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue 1 item 10 (stateful "
-        f"codec: error feedback, stochastic rounding) / Queue 2 (the "
-        f"mixed-width and error-feedback quantize kernels)")
+def _f32(x, device) -> torch.Tensor:
+    """A host scalar as an fp32 tensor on ``device`` (``repro``'s
+    ``jnp.float32(x)``)."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
 
 
 def rowabs(x2d):
@@ -54,6 +62,34 @@ def quantize_rows(x2d, row_delta, *, bits: int = 16):
         return quantize_rows_cuda(x2d.contiguous(), row_delta.contiguous(),
                                   bits=bits)
     return quantize_rows_ref(x2d, row_delta, bits=bits)
+
+
+def quantize_rows_mixed(x2d, row_delta, row_qmax):
+    """int32 codes of ``[R, C]`` at per-row deltas and qmax ``[R, 1]``."""
+    if x2d.is_cuda:
+        return quantize_rows_mixed_cuda(x2d.contiguous(),
+                                        row_delta.contiguous(),
+                                        row_qmax.contiguous())
+    return quantize_rows_mixed_ref(x2d, row_delta, row_qmax)
+
+
+def rowabs_sum(x2d, res2d, decay: float):
+    """Per-row ``max|x + decay·res|`` ``[R, 1]`` of an ``[R, C]`` payload
+    and its residual (``decay`` in fp32)."""
+    if x2d.is_cuda:
+        return rowabs_sum_cuda(x2d.contiguous(), res2d.contiguous(), decay)
+    return rowabs_sum_ref(x2d, res2d, _f32(decay, x2d.device))
+
+
+def quantize_rows_ef(x2d, res2d, row_delta, row_qmax, decay: float):
+    """``(int32 codes, new residual)`` of the effective payload
+    ``x + decay·res`` at per-row deltas and qmax ``[R, 1]``."""
+    if x2d.is_cuda:
+        return quantize_rows_ef_cuda(x2d.contiguous(), res2d.contiguous(),
+                                     row_delta.contiguous(),
+                                     row_qmax.contiguous(), decay)
+    return quantize_rows_ef_ref(x2d, res2d, row_delta, row_qmax,
+                                _f32(decay, x2d.device))
 
 
 def _wire_int_dtype(bits: int) -> torch.dtype:
@@ -73,37 +109,70 @@ def _seg_qmax(n_seg: int, bits: int, seg_bits: Optional[np.ndarray]
 
 
 def _node_row_deltas(buf, seg_ids, n_seg: int, bits: int,
-                     seg_bits: Optional[np.ndarray] = None):
+                     seg_bits: Optional[np.ndarray] = None, *,
+                     residual=None, ef_decay: float = 1.0):
     """Per-(node, leaf) Δ from one row-absmax sweep and a per-node
     scatter-max of the row maxima into their segments.  Returns
-    ``(scales [N, T], row_delta [N, R])`` fp32.  The scatter starts
-    from 0, which equals ``repro``'s ``max(segment_max, 0)`` (row maxima
-    are >= 0); the Δ guard is ``finfo(float32).tiny``."""
+    ``(scales [N, T], row_delta [N, R])`` fp32.  ``residual`` takes the
+    absmax of the effective payload ``buf + ef_decay·residual`` (the
+    error-feedback codec).  The scatter starts from 0, which equals
+    ``repro``'s ``max(segment_max, 0)`` (row maxima are >= 0); the Δ
+    guard is ``finfo(float32).tiny``."""
     n, r, c = buf.shape
     qmax = torch.as_tensor(_seg_qmax(n_seg, bits, seg_bits),
                            device=buf.device)
-    row_amax = rowabs(buf.reshape(n * r, c)).reshape(n, r)
+    if residual is None:
+        row_amax = rowabs(buf.reshape(n * r, c))
+    else:
+        row_amax = rowabs_sum(buf.reshape(n * r, c),
+                              residual.reshape(n * r, c), ef_decay)
     ids = torch.as_tensor(np.asarray(seg_ids), dtype=torch.int64,
                           device=buf.device)
     seg_amax = torch.zeros((n, n_seg), dtype=torch.float32,
                            device=buf.device).scatter_reduce(
-        1, ids.expand(n, r), row_amax, reduce="amax", include_self=True)
+        1, ids.expand(n, r), row_amax.reshape(n, r), reduce="amax",
+        include_self=True)
     deltas = torch.clamp_min(seg_amax / qmax, _TINY)
     return deltas, deltas[:, ids]
 
 
 def quantize_packed_buffer(buf, seg_ids, n_seg: int, bits: int = 16, *,
-                           seg_bits: Optional[np.ndarray] = None):
-    """Quantize an already-packed ``[N, R, C]`` buffer at one width.
-    Returns ``(codes [N, R, C] wire-intN, scales [N, T] fp32)``."""
-    if seg_bits is not None and len(set(np.asarray(seg_bits).tolist())) > 1:
-        raise _unported("a mixed-width wire spec")
-    width = int(seg_bits[0]) if seg_bits is not None else bits
+                           seg_bits: Optional[np.ndarray] = None,
+                           residual=None, ef_decay: float = 1.0):
+    """Quantize an already-packed ``[N, R, C]`` buffer.  Returns
+    ``(codes [N, R, C] wire-intN, scales [N, T] fp32)``.
+
+    ``seg_bits`` (``[n_seg]`` ints) quantizes each segment at its own
+    width in the same sweep; the codes land in the container of the
+    widest segment.  ``residual`` (``[N, R, C]`` fp32) switches to the
+    error-feedback codec: the effective payload
+    ``buf + ef_decay·residual`` is quantized in one sweep that also
+    writes the fresh quantization error, returned third —
+    ``(codes, scales, new_residual)``; the wire format is unchanged."""
     n, r, c = buf.shape
-    deltas, row_delta = _node_row_deltas(buf, seg_ids, n_seg, bits, seg_bits)
-    codes = quantize_rows(buf.reshape(n * r, c), row_delta.reshape(n * r, 1),
-                          bits=width).reshape(n, r, c)
-    return codes.to(_wire_int_dtype(width)), deltas
+    deltas, row_delta = _node_row_deltas(buf, seg_ids, n_seg, bits,
+                                         seg_bits, residual=residual,
+                                         ef_decay=ef_decay)
+    row_qmax = _seg_qmax(n_seg, bits, seg_bits)[np.asarray(seg_ids)]  # [R]
+    max_bits = int(np.max(seg_bits)) if seg_bits is not None else bits
+    wire_dtype = _wire_int_dtype(max_bits)
+    x2d = buf.reshape(n * r, c)
+    rd = row_delta.reshape(n * r, 1)
+
+    def qmax_col():
+        return torch.as_tensor(np.tile(row_qmax, n)[:, None],
+                               device=buf.device)
+    if residual is not None:
+        codes, new_res = quantize_rows_ef(x2d, residual.reshape(n * r, c),
+                                          rd, qmax_col(), ef_decay)
+        return (codes.reshape(n, r, c).to(wire_dtype), deltas,
+                new_res.reshape(n, r, c))
+    if seg_bits is None or len(set(np.asarray(seg_bits).tolist())) == 1:
+        width = int(seg_bits[0]) if seg_bits is not None else bits
+        codes = quantize_rows(x2d, rd, bits=width)
+    else:
+        codes = quantize_rows_mixed(x2d, rd, qmax_col())
+    return codes.reshape(n, r, c).to(wire_dtype), deltas
 
 
 def pack_plane_payload(protos, plane, spec: Optional[WireSpec] = None):
@@ -152,27 +221,58 @@ def pack_plane_payload(protos, plane, spec: Optional[WireSpec] = None):
 
 
 def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
-                                      spec: Optional[WireSpec] = None):
+                                      spec: Optional[WireSpec] = None,
+                                      residual=None):
     """Receiver-side reconstruction of ``{"protos": [N, C, P],
     "student": Plane}``: pack (student rows spliced off the plane),
     quantize in one buffer sweep, dequantize ``codes * Δ_row`` in plain
     torch, and splice the student rows back into a fresh plane (its
-    zero padding quantizes to zero, so the layout invariant holds)."""
+    zero padding quantizes to zero, so the layout invariant holds).
+
+    With ``residual`` (``{"protos", "student": Plane}`` mirroring the
+    payload — the error-feedback codec) returns ``(reconstruction,
+    new_residual)``, the new residual split back the same way; a zero
+    padding lane stays a zero residual."""
     from repro_torch.optim.plane import Plane
-    if spec is not None and (spec.stochastic_rounding or spec.error_feedback):
-        raise _unported("a stateful or stochastic wire spec")
+    if spec is not None and spec.stochastic_rounding:
+        raise NotImplementedError(
+            "stochastic rounding is not ported yet: ROADMAP.md Queue 1 "
+            "item 10 (stateful codec)")
+    if spec is not None and spec.error_feedback and residual is None:
+        raise ValueError("WireSpec.error_feedback is set but no residual "
+                         "was passed: the error-feedback codec needs the "
+                         "carried per-node residual (CodecState)")
     protos, plane = payload["protos"], payload["student"]
     buf, seg_ids, meta, r_p, span = pack_plane_payload(protos, plane, spec)
-    codes, deltas = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
-                                           seg_bits=meta[3])
+    n = protos.shape[0]
+
+    def split(b):
+        pr = b[:, :r_p].reshape(n, -1)[:, :protos[0].numel()]
+        sbuf = F.pad(b[:, r_p:r_p + span], (0, 0, 0, plane.meta.rows - span))
+        return pr.reshape(protos.shape), sbuf
+
+    if residual is not None:
+        res_plane = residual["student"]
+        res_buf = pack_plane_payload(residual["protos"], res_plane)[0]
+        if res_buf.shape != buf.shape:
+            raise ValueError(f"residual buffer {tuple(res_buf.shape)} does "
+                             f"not match the payload buffer "
+                             f"{tuple(buf.shape)}: the residual must "
+                             f"mirror the payload layout")
+        codes, deltas, new_res_buf = quantize_packed_buffer(
+            buf, seg_ids, meta[1], bits, seg_bits=meta[3], residual=res_buf,
+            ef_decay=spec.ef_decay if spec is not None else 1.0)
+    else:
+        codes, deltas = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
+                                               seg_bits=meta[3])
     ids = torch.as_tensor(seg_ids, dtype=torch.int64, device=buf.device)
     deq = codes.to(torch.float32) * deltas[:, ids][:, :, None]
-    n = protos.shape[0]
-    pr = deq[:, :r_p].reshape(n, -1)[:, :protos[0].numel()]
-    sbuf = F.pad(deq[:, r_p:r_p + span],
-                 (0, 0, 0, plane.meta.rows - span))
-    return {"protos": pr.reshape(protos.shape),
-            "student": Plane(sbuf, plane.meta)}
+    pr, sbuf = split(deq)
+    recv = {"protos": pr, "student": Plane(sbuf, plane.meta)}
+    if residual is None:
+        return recv
+    rp, rbuf = split(new_res_buf)
+    return recv, {"protos": rp, "student": Plane(rbuf, res_plane.meta)}
 
 
 # -- byte accounting (shapes only) ------------------------------------------

@@ -1,14 +1,18 @@
-"""Hopper kernels of the packed wire codec's uniform-width path.
+"""Hopper kernels of the packed wire codec.
 
-``rowabs_cuda`` replaces ``repro/kernels/quantize/quantize.py:rowabs_pallas``
-and ``quantize_rows_cuda`` replaces ``quantize_rows_pallas`` (its
-``_rows_call``); the CUDA source is ``csrc/quantize.cu``.  Bound on the
-H100: bytes — rowabs reads 4 B per element, quantize_rows reads 4 B and
-writes a 4 B int32 code per element.  Design: one warp per 512-wide row
-with a shuffle max for rowabs; a grid-stride elementwise sweep with an
-IEEE division for the codes, bit-identical to the plain versions in
-``ref.py`` (:func:`~repro_torch.kernels.quantize.ref.rowabs_ref`,
-:func:`~repro_torch.kernels.quantize.ref.quantize_rows_ref`).
+``rowabs_cuda`` replaces ``repro/kernels/quantize/quantize.py:rowabs_pallas``,
+``quantize_rows_cuda`` replaces ``quantize_rows_pallas`` (its
+``_rows_call``), ``quantize_rows_mixed_cuda`` replaces
+``quantize_rows_mixed_pallas``, and the error-feedback pair
+``rowabs_sum_cuda`` / ``quantize_rows_ef_cuda`` replaces
+``rowabs_sum_pallas`` / ``quantize_rows_ef_pallas``; the CUDA source is
+``csrc/quantize.cu``.  Bound on the H100: bytes — rowabs reads 4 B per
+element, quantize_rows reads 4 B and writes a 4 B int32 code per element
+(the mixed variant adds a 4 B qmax per row), rowabs_sum reads 8 B per
+element, quantize_rows_ef reads 8 B and writes 8 B per element.  Design:
+one warp per 512-wide row with a shuffle max for the row reductions; a
+grid-stride elementwise sweep with an IEEE division for the codes (and
+the new residual), bit-identical to the plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -17,18 +21,28 @@ import torch
 from repro_torch.kernels.build import (LaunchCounter, check, library,
                                        require, stream_of)
 from repro_torch.kernels.quantize.ref import (_qmaxf,  # noqa: F401  plain versions
-                                              quantize_rows_ref, rowabs_ref)
+                                              quantize_rows_ef_ref,
+                                              quantize_rows_mixed_ref,
+                                              quantize_rows_ref,
+                                              rowabs_ref, rowabs_sum_ref)
 
 ROWABS_LAUNCHES = LaunchCounter("rowabs")
 QUANTIZE_ROWS_LAUNCHES = LaunchCounter("quantize_rows")
+QUANTIZE_ROWS_MIXED_LAUNCHES = LaunchCounter("quantize_rows_mixed")
+ROWABS_SUM_LAUNCHES = LaunchCounter("rowabs_sum")
+QUANTIZE_ROWS_EF_LAUNCHES = LaunchCounter("quantize_rows_ef")
+
+
+def _rows(x2d, name: str):
+    if x2d.dim() != 2:
+        raise ValueError(f"{name}: expected [R, C], got {tuple(x2d.shape)}")
+    require(x2d, f"{name} x", torch.float32)
+    return x2d.shape
 
 
 def rowabs_cuda(x2d):
     """``[R, C]`` fp32 on the card -> per-row ``max|x|`` ``[R, 1]``."""
-    if x2d.dim() != 2:
-        raise ValueError(f"rowabs: expected [R, C], got {tuple(x2d.shape)}")
-    require(x2d, "rowabs x", torch.float32)
-    r, c = x2d.shape
+    r, c = _rows(x2d, "rowabs")
     out = torch.empty((r, 1), dtype=torch.float32, device=x2d.device)
     rc = library().rowabs(x2d.data_ptr(), out.data_ptr(), r, c,
                           stream_of(x2d))
@@ -39,11 +53,7 @@ def rowabs_cuda(x2d):
 
 def quantize_rows_cuda(x2d, row_delta, *, bits: int = 16):
     """``[R, C]`` fp32 and ``[R, 1]`` deltas on the card -> int32 codes."""
-    if x2d.dim() != 2:
-        raise ValueError(f"quantize_rows: expected [R, C], got "
-                         f"{tuple(x2d.shape)}")
-    require(x2d, "quantize_rows x", torch.float32)
-    r, c = x2d.shape
+    r, c = _rows(x2d, "quantize_rows")
     require(row_delta, "quantize_rows row_delta", torch.float32, (r, 1))
     codes = torch.empty((r, c), dtype=torch.int32, device=x2d.device)
     rc = library().quantize_rows(x2d.data_ptr(), row_delta.data_ptr(),
@@ -52,3 +62,52 @@ def quantize_rows_cuda(x2d, row_delta, *, bits: int = 16):
     check(rc, "quantize_rows")
     QUANTIZE_ROWS_LAUNCHES.count += 1
     return codes
+
+
+def quantize_rows_mixed_cuda(x2d, row_delta, row_qmax):
+    """``[R, C]`` fp32 and ``[R, 1]`` deltas and qmax on the card ->
+    int32 codes, each row clipped to its own width."""
+    r, c = _rows(x2d, "quantize_rows_mixed")
+    require(row_delta, "quantize_rows_mixed row_delta", torch.float32,
+            (r, 1))
+    require(row_qmax, "quantize_rows_mixed row_qmax", torch.float32, (r, 1))
+    codes = torch.empty((r, c), dtype=torch.int32, device=x2d.device)
+    rc = library().quantize_rows_mixed(x2d.data_ptr(), row_delta.data_ptr(),
+                                       row_qmax.data_ptr(), codes.data_ptr(),
+                                       r, c, stream_of(x2d))
+    check(rc, "quantize_rows_mixed")
+    QUANTIZE_ROWS_MIXED_LAUNCHES.count += 1
+    return codes
+
+
+def rowabs_sum_cuda(x2d, res2d, decay: float):
+    """``[R, C]`` fp32 payload and residual on the card -> per-row
+    ``max|x + decay·res|`` ``[R, 1]`` (``decay`` rounds to fp32)."""
+    r, c = _rows(x2d, "rowabs_sum")
+    require(res2d, "rowabs_sum res", torch.float32, (r, c))
+    out = torch.empty((r, 1), dtype=torch.float32, device=x2d.device)
+    rc = library().rowabs_sum(x2d.data_ptr(), res2d.data_ptr(),
+                              out.data_ptr(), r, c, float(decay),
+                              stream_of(x2d))
+    check(rc, "rowabs_sum")
+    ROWABS_SUM_LAUNCHES.count += 1
+    return out
+
+
+def quantize_rows_ef_cuda(x2d, res2d, row_delta, row_qmax, decay: float):
+    """``[R, C]`` fp32 payload and residual, ``[R, 1]`` deltas and qmax
+    on the card -> ``(int32 codes, new residual fp32)`` in one launch
+    (``decay`` rounds to fp32)."""
+    r, c = _rows(x2d, "quantize_rows_ef")
+    require(res2d, "quantize_rows_ef res", torch.float32, (r, c))
+    require(row_delta, "quantize_rows_ef row_delta", torch.float32, (r, 1))
+    require(row_qmax, "quantize_rows_ef row_qmax", torch.float32, (r, 1))
+    codes = torch.empty((r, c), dtype=torch.int32, device=x2d.device)
+    new_res = torch.empty((r, c), dtype=torch.float32, device=x2d.device)
+    rc = library().quantize_rows_ef(x2d.data_ptr(), res2d.data_ptr(),
+                                    row_delta.data_ptr(), row_qmax.data_ptr(),
+                                    codes.data_ptr(), new_res.data_ptr(), r,
+                                    c, float(decay), stream_of(x2d))
+    check(rc, "quantize_rows_ef")
+    QUANTIZE_ROWS_EF_LAUNCHES.count += 1
+    return codes, new_res

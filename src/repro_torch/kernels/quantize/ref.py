@@ -2,8 +2,13 @@
 
 ``codes = clip(floor(x / delta_row + 0.5), -qmax - 1, qmax)``: a true
 division and ``floor(. + 0.5)`` — never ``torch.round``, which rounds
-half to even.  ``row_delta`` must be a tensor on ``x``'s device, so the
-division stays IEEE on the card too.
+half to even.  ``row_delta`` (and ``row_qmax``, ``decay``) must be
+tensors on ``x``'s device, so the division stays IEEE on the card too.
+
+The error-feedback (``+ef``) versions quantize the effective payload
+``eff = x + decay·res`` and return the fresh error
+``new_res = eff - codes·delta`` — each a separately rounded fp32
+operation in that order, as ``repro``'s eager jnp path computes them.
 """
 from __future__ import annotations
 
@@ -24,3 +29,29 @@ def quantize_rows_ref(x2d, row_delta, *, bits: int = 16):
     qmax = _qmaxf(bits)
     codes = torch.floor(x2d.to(torch.float32) / row_delta + 0.5)
     return torch.clamp(codes, -qmax - 1, qmax).to(torch.int32)
+
+
+def quantize_rows_mixed_ref(x2d, row_delta, row_qmax):
+    """``[R, C]`` fp32, ``[R, 1]`` per-row delta and qmax -> int32
+    codes, each row clipped to its own width."""
+    codes = torch.floor(x2d.to(torch.float32) / row_delta + 0.5)
+    return torch.clamp(codes, -row_qmax - 1, row_qmax).to(torch.int32)
+
+
+def _effective(x2d, res2d, decay):
+    return x2d.to(torch.float32) + decay * res2d.to(torch.float32)
+
+
+def rowabs_sum_ref(x2d, res2d, decay):
+    """``[R, C]`` payload and residual, fp32 scalar tensor ``decay`` ->
+    per-row ``max|x + decay·res|`` ``[R, 1]``."""
+    return rowabs_ref(_effective(x2d, res2d, decay))
+
+
+def quantize_rows_ef_ref(x2d, res2d, row_delta, row_qmax, decay):
+    """The error-feedback sweep: ``(int32 codes, new residual fp32)``
+    of the effective payload at per-row delta and qmax ``[R, 1]``."""
+    eff = _effective(x2d, res2d, decay)
+    codes = torch.clamp(torch.floor(eff / row_delta + 0.5),
+                        -row_qmax - 1, row_qmax)
+    return codes.to(torch.int32), eff - codes * row_delta

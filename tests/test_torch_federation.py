@@ -1,23 +1,54 @@
 """The port's slice as a whole, held against the JAX package on the CPU:
 the stacked ProFe round program driven for 2 rounds, and a 2-round
 ``run_federation``, both started from weights carried over from
-``repro``.
+``repro``, on the uniform 16-bit wire and on the ``4/16+ef`` wire (int4
+student, int16 prototypes, error feedback).
 
 The round programs run under an fp32 ``dtype`` override with
 ``run_federation``'s per-round staging (training seeds
 ``seed + rnd*997 + i``, the proto stream ``[seed + rnd]*N``, the
 schedule slice of each round), so the two frameworks differ only in
-summation order.  After each round: the mixed student plane and the
-teacher to ``atol=2e-5`` (Adam steps of ``lr=1e-3`` that agree to a few
-ulp, plus a 16-bit wire code that may flip by one where the two trained
-students straddle a rounding boundary: one Δ ≈ 3e-6, weighted by the
-gossip weight); Eq. 4 prototypes to ``atol=1e-4``; the Adam moments to
-``atol=1e-6`` (mu) and ``1e-8`` (nu); masks, round counters and step
-counters exactly; node 0's test logits to ``atol=1e-5`` and its
-predictions exactly.  Whole runs: the wire bytes exactly; per-round
-node-0 macro-F1 and accuracy exactly in fp32, and accuracy within one of
-the 64 test predictions in the default bf16 (the two frameworks round
-bf16 convolutions differently).
+summation order.  ``repro`` runs its jitted train / share / mix phases
+(``_make_phase_fns``), so the share codec's input is observable.  After
+each round: the mixed student plane and the teacher to ``atol=2e-5``
+(Adam steps of ``lr=1e-3`` that agree to a few ulp, plus a 16-bit wire
+code that may flip by one where the two trained students straddle a
+rounding boundary: one Δ ≈ 3e-6, weighted by the gossip weight); Eq. 4
+prototypes to ``atol=1e-4``; the Adam moments to ``atol=1e-6`` (mu) and
+``1e-8`` (nu); masks, round counters and step counters exactly; node
+0's test logits to ``atol=1e-5`` and its predictions exactly.
+
+The ``4/16+ef`` wire, per round, adds:
+
+* the share codecs from the same pre-share state (``repro``'s, after its
+  train phase): codes, scales and the new residual identical to the
+  eager ``repro`` codec's (bit for bit — the jitted ``repro`` round is
+  not that oracle: XLA contracts ``eff - codes·Δ`` into an FMA);
+* int4 code flips, counted: where the port's codes on its own pre-share
+  state differ from ``repro``'s on ``repro``'s.  At most
+  ``MAX_INT4_FLIPS`` per round; at a flip the student and the residual
+  may differ by that flip's step ``|Δcode|·Δ`` more than their atol
+  (one int4 step is ≈ max|x| / 7, far outside any atol);
+* int16 prototype code flips, counted the same way: at most
+  ``MAX_INT16_PROTO_FLIPS`` per round (1 of the 480 seen in round 1,
+  16 in round 2: the pre-share prototypes differ by up to 8.3e-7
+  between the frameworks, against a prototype Δ of about 2.5e-5 in
+  round 1 and 2e-6 in round 2);
+* the EF residual: student part to ``RES_ATOL`` (the trained students'
+  difference plus the FMA's last bit), prototype part to
+  ``PROTO_RES_ATOL`` (the largest gap seen away from a flip, 8.3e-7,
+  with headroom) plus the step of each prototype flip; ``seq`` exactly.
+  In round 1 a prototype residual is typically Δ/4 ≈ 6e-6, far outside
+  that atol; round 2's is within it, so there a wrongly carried
+  prototype residual shows in the same-state codec check (bit for bit)
+  and in the flip count, not in the atol.
+
+Whole runs: the wire bytes exactly; per-round node-0 macro-F1 and
+accuracy exactly in fp32 (on ``4/16+ef`` also the residual: at most
+``MAX_INT16_PROTO_FLIPS`` prototype residuals beyond ``PROTO_RES_ATOL``,
+each within ``PROTO_RES_ATOL`` plus one of the port's own prototype
+Δ), and accuracy within one of the 64 test predictions in the default
+bf16 (the two frameworks round bf16 convolutions differently).
 """
 import ast
 import dataclasses
@@ -38,6 +69,8 @@ from repro.core import distillation as jdist
 from repro.core import federation as JF
 from repro.core import quantization as jquant
 from repro.core import topology as jtopo
+from repro.core import wire_state as jwire_state
+from repro.kernels.quantize import ops as jqops
 from repro.models import model as jmodel
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.optim import plane as jplane
@@ -47,6 +80,7 @@ from repro_torch.core import federation as TF
 from repro_torch.core import profe as tprofe
 from repro_torch.core import topology as ttopo
 from repro_torch.data import make_image_dataset, partition, train_test_split
+from repro_torch.kernels.quantize import ops as tqops
 from repro_torch.models import forward, init_params
 from repro_torch.optim import make_optimizer, make_plane_optimizer
 from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
@@ -63,15 +97,27 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _carry(st):
+def _carry(st, ws=None):
+    """One JAX node state (and its error-feedback ``CodecState`` ``ws``)
+    as the port's."""
+    kw = {}
+    if ws is not None:
+        kw = dict(residual={"protos": np.asarray(ws.residual["protos"]),
+                            "student": np.asarray(ws.residual["student"].buf)},
+                  seq=int(ws.seq))
     return tprofe.node_state_from_numpy(
         _np_tree(jplane.as_tree(st.student)), _np_tree(st.teacher),
         _np_tree(st.opt_s), _np_tree(st.opt_t),
         np.asarray(st.global_protos), np.asarray(st.proto_mask),
-        int(st.round_idx), device="cpu")
+        int(st.round_idx), device="cpu", **kw)
 
 
-def _setup(rounds=2, per_node=56, batch=16, dtype="float32"):
+WIRES = {"16": {},
+         "4/16+ef": dict(quantize_bits=4, proto_quantize_bits=16,
+                         error_feedback=True)}
+
+
+def _setup(rounds=2, per_node=56, batch=16, dtype="float32", **fed_extra):
     jcfg = jbase.get_config("mnist-cnn").replace(
         cnn_channels=(4, 8), proto_dim=16, dtype=dtype)
     tcfg = tbase.ModelConfig(**dataclasses.asdict(jcfg))
@@ -79,7 +125,8 @@ def _setup(rounds=2, per_node=56, batch=16, dtype="float32"):
     train_d, test_d = train_test_split(data, 64 / len(data["label"]), 0)
     parts = partition(train_d["label"], N_NODES, "iid", 0)
     node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
-    fed_kw = dict(num_nodes=N_NODES, rounds=rounds, topology="full")
+    fed_kw = dict(num_nodes=N_NODES, rounds=rounds, topology="full",
+                  **fed_extra)
     train_kw = dict(batch_size=batch, remat=False)
     return (jcfg, tcfg, node_data, test_d,
             jbase.FederationConfig(**fed_kw), tbase.FederationConfig(**fed_kw),
@@ -113,27 +160,81 @@ def _snapshot(state, logits, leaves):
             "global_protos": a(state.global_protos),
             "proto_mask": a(state.proto_mask),
             "round_idx": a(state.round_idx).tolist(),
-            "logits": np.asarray(logits, np.float32)}
+            "logits": np.asarray(logits, np.float32),
+            "residual": None if state.wire_state is None else (
+                a(state.wire_state.residual["protos"]),
+                a(state.wire_state.residual["student"].buf)),
+            "seq": None if state.wire_state is None
+            else a(state.wire_state.seq).tolist()}
 
 
-@pytest.fixture(scope="module")
-def two_rounds():
-    """Both packages' round programs, driven for 2 rounds from the same
-    carried states as ``run_federation`` stages them; per-round
-    snapshots ``(port, jax)`` plus the batches each staged."""
-    jcfg, tcfg, node_data, test_d, jfed, tfed, jtrain, ttrain = _setup()
+def _share_codes(pkg, protos, student, residual, spec, meta):
+    """The share phase's codec output for one pre-share state (numpy
+    ``protos [N, C, P]``, student plane buffer ``[N, R, 512]`` and
+    ``residual`` pair or None), through the port's codec
+    (``pkg="torch"``) or ``repro``'s, eagerly: numpy ``codes [N, R',
+    512]``, ``scales [N, T]``, the new residual ``res`` (or None), the
+    per-row Δ ``row_delta [N, R']`` and the student's packed rows
+    ``[r_p, r_p + span)``."""
+    if pkg == "torch":
+        ops, arr = tqops, torch.from_numpy
+
+        def plane(b):
+            return Plane(arr(b.copy()), meta)
+    else:
+        ops, arr = jqops, jnp.asarray
+
+        def plane(b):
+            return jplane.Plane(arr(b), (), meta)
+    buf, ids, m, r_p, span = ops.pack_plane_payload(arr(protos.copy()),
+                                                    plane(student), spec)
+    n_seg, seg_bits = (m[1], m[3]) if pkg == "torch" else (m[2], m[4])
+    kw = {} if pkg == "torch" else dict(use_kernels=False)
+    if residual is not None:
+        kw.update(residual=ops.pack_plane_payload(
+            arr(residual[0].copy()), plane(residual[1]))[0],
+            ef_decay=spec.ef_decay)
+    out = [np.asarray(x) for x in ops.quantize_packed_buffer(
+        buf, ids, n_seg, 16, seg_bits=seg_bits, **kw)]
+    return {"codes": out[0], "scales": out[1],
+            "res": out[2] if residual is not None else None,
+            "row_delta": out[1][:, np.asarray(ids)],
+            "student_rows": (r_p, r_p + span)}
+
+
+def _residual_of(state):
+    ws = state.wire_state
+    if ws is None:
+        return None
+    return tuple(np.array(x.detach() if isinstance(x, torch.Tensor) else x)
+                 for x in (ws.residual["protos"], ws.residual["student"].buf))
+
+
+@pytest.fixture(scope="module", params=list(WIRES))
+def two_rounds(request):
+    """Both packages' round phases (train, share, mix), driven for 2
+    rounds from the same carried states as ``run_federation`` stages
+    them, on the wire ``request.param``; per round the snapshots
+    ``(port, jax)``, the batches each staged, and the share codecs'
+    outputs: both codecs on JAX's pre-share state, and the port's on its
+    own."""
+    wire = request.param
+    jcfg, tcfg, node_data, test_d, jfed, tfed, jtrain, ttrain = _setup(
+        **WIRES[wire])
     scfg, j_opt_s, j_opt_t, jstates = _jax_states(jcfg, jfed, jtrain)
     step, wire_model, share, bits, _ = JF._algo_wiring(
         "profe", jcfg, scfg, jfed, jtrain, j_opt_s, j_opt_t, jit=False)
-    j_round = JF._make_round_fn(step, scfg, 10, share_protos=share,
-                                wire_model=wire_model, bits=bits)
+    j_train, j_share, j_mix = JF._make_phase_fns(
+        step, scfg, 10, share_protos=share, wire_model=wire_model, bits=bits)
     t_opt_s = make_plane_optimizer("adamw", ttrain.learning_rate,
                                    grad_clip=ttrain.grad_clip)
     t_opt_t = make_optimizer("adamw", ttrain.learning_rate)
     tscfg = tbase.ModelConfig(**dataclasses.asdict(scfg))
     tstep, _, _, tbits, _ = TF._algo_wiring("profe", tcfg, tscfg, tfed,
                                             ttrain, t_opt_s, t_opt_t)
-    t_round = TF._make_round_fn(tstep, tscfg, 10, bits=tbits)
+    assert tbits.describe() == bits.describe()
+    t_train, t_share, t_mix = TF._make_round_parts(tstep, tscfg, 10,
+                                                   bits=tbits)
 
     sizes = [len(d["label"]) for d in node_data]
     jsched = jtopo.make_schedule(N_NODES, jfed.topology, rounds=jfed.rounds,
@@ -143,11 +244,20 @@ def two_rounds():
         N_NODES, tfed.topology, rounds=tfed.rounds, seed=tfed.seed
     ).lower(sizes)]
     jst = JF._stack_states(jstates)
-    tst = tprofe.stack_states([_carry(s) for s in jstates])
+    if bits.error_feedback:      # run_federation's zero residual, carried
+        jst = jst._replace(wire_state=jwire_state.init_codec_state(
+            {"protos": jnp.zeros((N_NODES, 10, scfg.proto_dim), jnp.float32),
+             "student": jst.student}, n_nodes=N_NODES))
+        tst = tprofe.stack_states([
+            _carry(s, jax.tree_util.tree_map(lambda x: x[i], jst.wire_state))
+            for i, s in enumerate(jstates)])
+    else:
+        tst = tprofe.stack_states([_carry(s) for s in jstates])
     jtest = {k: jnp.asarray(v) for k, v in test_d.items()}
     ttest = {k: torch.from_numpy(v) for k, v in test_d.items()}
+    jmeta, tmeta = jst.student.meta, tst.student.meta
 
-    rounds, staged_pairs = [], []
+    rounds, staged_pairs, codecs = [], [], []
     for rnd in range(jfed.rounds):
         t_on = jdist.teacher_active(jfed.alpha_s, jfed.alpha_limit, rnd)
         seeds = [jfed.seed + rnd * 997 + i for i in range(N_NODES)]
@@ -162,11 +272,25 @@ def two_rounds():
                                      proto_seeds, 1)
         staged_pairs.append(((ts, tp), (js, jp)))
         p = jsched.phase_index(rnd)
-        jst = j_round(jst, *js, *jp, jw[0][p], jw[1][p], jw[2][p],
-                      teacher_on=t_on, all_valid=True)
-        tst = t_round(tst, *TF._to_device(ts, "cpu"),
-                      *TF._to_device(tp, "cpu"), tw[0][p], tw[1][p],
-                      tw[2][p], teacher_on=t_on, all_valid=True)
+        jst, jprotos, jcounts = j_train(jst, *js, *jp, teacher_on=t_on,
+                                        all_valid=True)
+        tst, tprotos, tcounts = t_train(tst, *TF._to_device(ts, "cpu"),
+                                        *TF._to_device(tp, "cpu"), t_on,
+                                        True)
+        pre = (np.asarray(jprotos), np.asarray(jst.student.buf),
+               _residual_of(jst))
+        codecs.append({
+            "same_state": (_share_codes("torch", *pre, tbits, tmeta),
+                           _share_codes("jax", *pre, bits, jmeta)),
+            "port_own": _share_codes(
+                "torch", tprotos.numpy(), tst.student.buf.detach().numpy(),
+                _residual_of(tst), tbits, tmeta)})
+        jst, j_recv, j_prx = j_share(jst, jprotos)
+        tst, t_recv, t_prx = t_share(tst, tprotos)
+        jst = j_mix(jst, j_recv, j_prx, jcounts, jw[0][p], jw[1][p],
+                    jw[2][p])
+        tst = t_mix(tst, t_recv, t_prx, tcounts, tw[0][p], tw[1][p],
+                    tw[2][p])
         j_logits = jmodel.forward(
             scfg, jax.tree_util.tree_map(lambda x: x[0],
                                          jplane.as_tree(jst.student)),
@@ -177,11 +301,59 @@ def two_rounds():
                                ttest).logits
         rounds.append((_snapshot(tst, t_logits, tree_leaves),
                        _snapshot(jst, j_logits, jax.tree_util.tree_leaves)))
-    return rounds, staged_pairs, tst.student.meta
+    return wire, rounds, staged_pairs, codecs, tst.student.meta
 
 
-def _assert_round_matches(t, j):
-    np.testing.assert_allclose(t["student"], j["student"], rtol=0, atol=2e-5)
+# At int4 one flipped code moves a value by a whole Δ (≈ max|x| / 7), so
+# the +ef wire's flips are counted and bounded, not folded into an atol.
+MAX_INT4_FLIPS = 2          # per round, of N·R·512 student codes
+RES_ATOL = 2e-6             # EF student residual, away from flips
+PROTO_RES_ATOL = 1.5e-6     # EF prototype residual, away from flips
+MAX_INT16_PROTO_FLIPS = 24  # per round, of N·C·P prototype codes
+
+
+def _flip_steps(codec):
+    """The round's code flips as value steps ``|Δcode|·Δ_row`` ``[N, R',
+    512]`` (0 where the codes agree): the port's codes on its own
+    pre-share state against ``repro``'s on ``repro``'s."""
+    ref = codec["same_state"][1]
+    diff = codec["port_own"]["codes"].astype(np.int64) - \
+        ref["codes"].astype(np.int64)
+    return np.abs(diff) * ref["row_delta"][:, :, None], ref["student_rows"]
+
+
+def _assert_round_matches(t, j, codec=None):
+    """One round's state against ``repro``'s.  With ``codec`` (the +ef
+    wire), the student and the residual are held per element: away from
+    the round's int4 code flips to the usual atol, at a flip to that
+    flip's step more (it moves the sender's residual and, through the
+    gossip, every receiver's value at that position)."""
+    if codec is None:
+        np.testing.assert_allclose(t["student"], j["student"], rtol=0,
+                                   atol=2e-5)
+    else:
+        steps, (r0, r1) = _flip_steps(codec)
+        s_steps = steps[:, r0:r1]
+        n_flips = int(np.count_nonzero(s_steps))
+        assert n_flips <= MAX_INT4_FLIPS, f"{n_flips} int4 code flips"
+        rows = s_steps.shape[1]
+        allow = 2e-5 + s_steps.max(axis=0)
+        assert np.all(np.abs(t["student"][:, :rows] - j["student"][:, :rows])
+                      <= allow)
+        assert np.array_equal(t["student"][:, rows:], j["student"][:, rows:])
+        tp_res, ts_res = t["residual"]
+        jp_res, js_res = j["residual"]
+        assert np.all(np.abs(ts_res[:, :rows] - js_res[:, :rows])
+                      <= RES_ATOL + s_steps)
+        assert not ts_res[:, rows:].any() and not js_res[:, rows:].any()
+        n = tp_res.shape[0]
+        p_steps = steps[:, :r0].reshape(n, -1)[:, :tp_res[0].size]
+        n_p_flips = int(np.count_nonzero(p_steps))
+        gap = np.abs(tp_res - jp_res).reshape(n, -1)
+        assert n_p_flips <= MAX_INT16_PROTO_FLIPS, \
+            f"{n_p_flips} int16 prototype code flips"
+        assert np.all(gap <= PROTO_RES_ATOL + p_steps)
+        assert t["seq"] == j["seq"]
     assert len(t["teacher"]) == len(j["teacher"])
     for a, b in zip(t["teacher"], j["teacher"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)
@@ -198,28 +370,51 @@ def _assert_round_matches(t, j):
     assert (t["logits"].argmax(-1) == j["logits"].argmax(-1)).all()
 
 
+def _assert_codecs_agree(wire, codec):
+    """From the same (``repro``'s) pre-share state both codecs give
+    identical codes and scales, and with +ef the identical new residual
+    (the eager ``repro`` codec is the bit-exact oracle)."""
+    t, j = codec["same_state"]
+    assert t["codes"].dtype == j["codes"].dtype
+    for key in ("codes", "scales"):
+        assert t[key].tobytes() == j[key].tobytes(), key
+    if wire.endswith("+ef"):
+        assert t["res"].tobytes() == j["res"].tobytes()
+    else:
+        assert t["res"] is None and j["res"] is None
+
+
+def _ef_codec(wire, codec):
+    return codec if wire.endswith("+ef") else None
+
+
 def test_one_round_matches_the_jax_round_program(two_rounds):
-    rounds, staged_pairs, meta = two_rounds
+    wire, rounds, staged_pairs, codecs, meta = two_rounds
     (ts, tp), (js, jp) = staged_pairs[0]
     for a, b in zip(jax.tree_util.tree_leaves((ts, tp)),
                     jax.tree_util.tree_leaves((js, jp))):
         assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
     t, j = rounds[0]
-    _assert_round_matches(t, j)
+    _assert_codecs_agree(wire, codecs[0])
+    _assert_round_matches(t, j, _ef_codec(wire, codecs[0]))
     assert t["round_idx"] == [1] * N_NODES
     assert t["steps"] == (3, 3)
-    # padding lanes of the mixed plane stay exactly zero
+    # padding lanes of the mixed plane (and of the EF residual) stay zero
     real = np.zeros(t["student"].shape[1:], dtype=bool)
     for _, _, shape, row, r_leaf in meta.recipe:
         real[row:row + r_leaf].reshape(-1)[:int(np.prod(shape))] = True
     assert not t["student"][:, ~real].any()
+    if wire.endswith("+ef"):
+        assert t["seq"] == j["seq"] == [1] * N_NODES
+        res = t["residual"][1]
+        assert not res[:, ~real].any() and np.abs(res).max() > 0
 
 
 def test_two_rounds_match_the_jax_round_program(two_rounds):
     """Round 2 runs on round 1's state: the per-round training and proto
     stream seeds, step counters and bias corrections past the first
     round, the teacher gate and round 1's Eq. 4 prototypes and mask."""
-    rounds, staged_pairs, _ = two_rounds
+    wire, rounds, staged_pairs, codecs, _ = two_rounds
     (ts, tp), (js, jp) = staged_pairs[1]
     for a, b in zip(jax.tree_util.tree_leaves((ts, tp)),
                     jax.tree_util.tree_leaves((js, jp))):
@@ -230,9 +425,14 @@ def test_two_rounds_match_the_jax_round_program(two_rounds):
     t1, j1 = rounds[0]
     assert j1["proto_mask"].any()       # round 2 trains against Eq. 4
     t, j = rounds[1]
-    _assert_round_matches(t, j)
+    _assert_codecs_agree(wire, codecs[1])
+    _assert_round_matches(t, j, _ef_codec(wire, codecs[1]))
     assert t["round_idx"] == [2] * N_NODES
     assert t["steps"] == (6, 6)
+    if wire.endswith("+ef"):
+        # round 2 quantized x + residual: the carried error re-entered
+        assert t["seq"] == j["seq"] == [2] * N_NODES
+        assert not np.array_equal(t["residual"][1], t1["residual"][1])
 
 
 def _recording(make_round_fn, calls, leaves):
@@ -255,15 +455,29 @@ def _recording(make_round_fn, calls, leaves):
     return make
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_run_federation_matches_jax_from_carried_states(dtype, monkeypatch):
+@pytest.mark.parametrize("dtype,wire", [
+    ("float32", "16"), ("bfloat16", "16"), ("float32", "4/16+ef")],
+    ids=["float32", "bfloat16", "float32-4/16+ef"])
+def test_run_federation_matches_jax_from_carried_states(dtype, wire,
+                                                        monkeypatch):
+    """Whole runs from the same carried weights; on the +ef wire both
+    start from run_federation's own zero residual."""
     jcfg, tcfg, node_data, test_d, jfed, tfed, jtrain, ttrain = _setup(
-        dtype=dtype)
+        dtype=dtype, **WIRES[wire])
     jcalls, tcalls = [], []
     monkeypatch.setattr(JF, "_make_round_fn", _recording(
         JF._make_round_fn, jcalls, jax.tree_util.tree_leaves))
     monkeypatch.setattr(TF, "_make_round_fn", _recording(
         TF._make_round_fn, tcalls, tree_leaves))
+    proto_deltas = []       # the port's prototype Δ per node, each round
+
+    def quantize_packed_buffer(*args, **kwargs):
+        out = quantize(*args, **kwargs)
+        proto_deltas.append(np.array(out[1][:, 0]))     # segment 0: protos
+        return out
+    quantize = tqops.quantize_packed_buffer
+    monkeypatch.setattr(tqops, "quantize_packed_buffer",
+                        quantize_packed_buffer)
     jres = JF.run_federation(jcfg, jfed, jtrain, node_data, test_d)
     _, _, _, jstates = _jax_states(jcfg, jfed, jtrain)
     tres = TF.run_federation(tcfg, tfed, ttrain, node_data, test_d,
@@ -284,9 +498,25 @@ def test_run_federation_matches_jax_from_carried_states(dtype, monkeypatch):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
     assert len(tres.f1_per_round) == len(jres.f1_per_round) == 2
     if dtype == "float32":
-        for t, j in zip(tcalls, jcalls):
+        assert len(proto_deltas) == len(tcalls)
+        for t, j, p_delta in zip(tcalls, jcalls, proto_deltas):
             t["state"]["logits"] = j["state"]["logits"]
             _assert_round_matches(t["state"], j["state"])
+            if wire.endswith("+ef"):
+                assert t["state"]["seq"] == j["state"]["seq"]
+                (tp_res, ts_res), (jp_res, js_res) = (
+                    t["state"]["residual"], j["state"]["residual"])
+                np.testing.assert_allclose(ts_res, js_res, rtol=0,
+                                           atol=RES_ATOL)
+                # an int16 prototype flip moves one residual by one Δ:
+                # counted, and held to PROTO_RES_ATOL plus that Δ
+                gap = np.abs(tp_res - jp_res).reshape(N_NODES, -1)
+                off = gap > PROTO_RES_ATOL
+                assert np.count_nonzero(off) <= MAX_INT16_PROTO_FLIPS
+                assert np.all(gap <= PROTO_RES_ATOL + off * p_delta[:, None])
+        assert ("wire_state" in tres.extras) == wire.endswith("+ef")
+        if wire.endswith("+ef"):
+            assert tres.extras["wire_state"].seq.tolist() == [2] * N_NODES
         assert tres.f1_per_round == jres.f1_per_round
         assert tres.acc_per_round == jres.acc_per_round
     else:
@@ -303,13 +533,27 @@ def _chip_smoke_module():
     return mod
 
 
-def test_run_federation_full_width_bytes_match_jax_accounting():
+@pytest.mark.parametrize("wire,rounds", [("16", 2), ("4/16+ef", 2),
+                                         ("4/16", 1)])
+def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
     """The 20-node mnist-cnn wire numbers chip_smoke.py holds the card
-    run to: the port's accountants and the JAX package's, from the same
+    runs to: the port's accountants and the JAX package's, from the same
     payload template shapes, equal each other and the script's
-    constants."""
+    constants — for the 16-bit main path and for the 4/16 wire (whose
+    bytes +ef leaves unchanged) over that path's rounds."""
     smoke = _chip_smoke_module()
-    n, rounds = smoke.N_NODES, smoke.ROUNDS
+    n = smoke.N_NODES
+    fields, smoke_rounds, want = smoke.WIRE_PATHS[wire]
+    assert smoke_rounds == rounds
+    jspec, tspec = JWireSpec.parse(wire), WireSpec.parse(wire)
+    # the script's FederationConfig fields make the spec it is named for
+    fed = tbase.FederationConfig(**fields)
+    assert WireSpec(student_bits=fed.quantize_bits,
+                    proto_bits=fed.proto_quantize_bits,
+                    error_feedback=fed.error_feedback) == tspec
+    assert tspec.describe() == jspec.describe() == {
+        "16": "int16", "4/16": "student=int4,protos=int16",
+        "4/16+ef": "student=int4,protos=int16+ef"}[wire]
     cfg = tbase.get_config("mnist-cnn")
     student = plane_from_tree(init_params(TF.derive_student(cfg),
                                           torch.Generator().manual_seed(0)))
@@ -318,7 +562,7 @@ def test_run_federation_full_width_bytes_match_jax_accounting():
     tmeter = TF.ScheduleCommAccountant(ttopo.make_schedule(n, "full",
                                                            rounds=rounds))
     for r in range(rounds):
-        tmeter.record_round(tpay, "profe", r, WireSpec(16))
+        tmeter.record_round(tpay, "profe", r, tspec)
 
     jscfg = jmodel.derive_student(jbase.get_config("mnist-cnn"))
     jpay = {"model": jax.eval_shape(lambda: jmodel.init_params(
@@ -330,28 +574,31 @@ def test_run_federation_full_width_bytes_match_jax_accounting():
     jmeter = jcomm.ScheduleCommAccountant(jtopo.make_schedule(
         n, "full", rounds=rounds))
     for r in range(rounds):
-        jmeter.record_round(jpay, "profe", r, JWireSpec(16))
+        jmeter.record_round(jpay, "profe", r, jspec)
 
-    assert tmeter.avg_sent_gb() == jmeter.avg_sent_gb() == \
-        smoke.EXPECTED_AVG_SENT_GB
-    assert TF.packed_copy_bytes(tpay, WireSpec(16)) == \
-        jcomm.packed_copy_bytes(jpay, JWireSpec(16)) == \
-        smoke.EXPECTED_PACKED_PER_COPY
-    assert TF.tree_wire_bytes(tpay, WireSpec(16)) == \
-        jquant.tree_wire_bytes(jpay, JWireSpec(16)) == \
-        smoke.EXPECTED_LOGICAL_PER_COPY
+    assert tmeter.avg_sent_gb() == jmeter.avg_sent_gb() == want[0]
+    assert TF.packed_copy_bytes(tpay, tspec) == \
+        jcomm.packed_copy_bytes(jpay, jspec) == want[1]
+    assert TF.tree_wire_bytes(tpay, tspec) == \
+        jquant.tree_wire_bytes(jpay, jspec) == want[2]
+    if wire != "16":      # the residual never travels: +ef costs no byte
+        assert TF.packed_copy_bytes(tpay, tspec.stateless()) == want[1]
+        assert want == ({1: 0.002015254, 2: 0.004030508}[rounds], 108876,
+                        106066)
 
 
 @pytest.mark.parametrize("fed_kw,train_kw,run_kw", [
     (dict(algorithm="fedavg"), {}, {}),
     (dict(proto_pass="fused"), {}, {}),
-    (dict(error_feedback=True, quantize_bits=4), {}, {}),
-    (dict(quantize_bits=4, proto_quantize_bits=16), {}, {}),
+    (dict(quantize_bits=0), {}, {}),
+    ({}, dict(optimizer="adafactor"), {}),
     (dict(adapter_rank=4), {}, {}),
     (dict(proto_ema=0.5), {}, {}),
     ({}, dict(optimizer="sgd"), {}),
     ({}, {}, dict(overlap="rounds")),
     ({}, {}, dict(eval_all_nodes=True)),
+    (dict(param_plane="off"), {}, {}),
+    (dict(WIRES["4/16+ef"]), {}, dict(overlap="rounds")),
 ])
 def test_options_outside_the_slice_raise(fed_kw, train_kw, run_kw):
     _, tcfg, node_data, test_d, _, _, _, _ = _setup(per_node=16)
@@ -359,6 +606,20 @@ def test_options_outside_the_slice_raise(fed_kw, train_kw, run_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TF.run_federation(tcfg, fed, tbase.TrainConfig(**train_kw),
                           node_data, test_d, device="cpu", **run_kw)
+
+
+def test_run_federation_refuses_a_residual_without_error_feedback():
+    """Initial states that carry an error-feedback residual on a wire
+    without ``+ef`` are a mismatch, not a state to ignore."""
+    jcfg, tcfg, node_data, test_d, jfed, tfed, jtrain, ttrain = _setup(
+        rounds=1, per_node=16, quantize_bits=4, proto_quantize_bits=16)
+    scfg, _, _, jstates = _jax_states(jcfg, jfed, jtrain)
+    states = [_carry(s, jwire_state.init_codec_state(
+        {"protos": jnp.zeros((10, scfg.proto_dim), jnp.float32),
+         "student": s.student})) for s in jstates]
+    with pytest.raises(ValueError, match="no error feedback"):
+        TF.run_federation(tcfg, tfed, ttrain, node_data, test_d,
+                          initial_states=states, device="cpu")
 
 
 def test_entry_points_need_a_card_unless_told_cpu():

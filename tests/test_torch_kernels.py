@@ -11,11 +11,21 @@ EMAs ``b*m + (1-b)*g`` into fused multiply-adds, while the JAX ref, the
 plain version and the CUDA kernel round the products first.  Against it
 the moments are held to one ulp of the larger term and the parameters
 to ``4e-8`` (that last-bit change carried through the step of size lr).
+
+The mixed-width and error-feedback codec: row maxima, codes and scales
+are bit-exact against the interpret-mode Pallas kernels and against an
+eager (un-jitted) ``repro`` ``quantize_packed_buffer(use_kernels=False)``;
+the new residual is bit-exact against the eager call.  The
+interpret-mode ``quantize_rows_ef_pallas`` contracts both multiply-adds
+(``x + decay·res`` and ``eff - codes·Δ``) into FMAs, so its residual is
+held bit-exactly to that arithmetic instead: the same terms in float64,
+each FMA rounded once to fp32.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.opt_update.opt_update import adamw_update_pallas
@@ -23,17 +33,35 @@ from repro.kernels.opt_update.ref import adamw_update_ref as jax_adamw_ref
 from repro.kernels.proto_accum.ops import \
     proto_accumulate_nodes as jax_proto_nodes
 from repro.kernels.proto_accum.ref import proto_accum_ref as jax_proto_ref
-from repro.kernels.quantize.quantize import (quantize_rows_pallas,
-                                             rowabs_pallas)
+from repro import wirespec as jwire
+from repro.config import base as jbase
+from repro.kernels.quantize import ops as jqops
+from repro.kernels.quantize.quantize import (quantize_rows_ef_pallas,
+                                             quantize_rows_mixed_pallas,
+                                             quantize_rows_pallas,
+                                             rowabs_pallas,
+                                             rowabs_sum_pallas)
+from repro.models import model as jmodel
+from repro.optim import plane as jplane
+from repro_torch import wirespec as twire
 from repro_torch.kernels import build
 from repro_torch.kernels.opt_update.ops import fused_adamw_update
 from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
 from repro_torch.kernels.opt_update.ref import adamw_update_ref
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
-from repro_torch.kernels.quantize.ops import quantize_rows, rowabs
+from repro_torch.kernels.quantize import ops as tqops
+from repro_torch.kernels.quantize.ops import (quantize_rows,
+                                              quantize_rows_ef,
+                                              quantize_rows_mixed, rowabs,
+                                              rowabs_sum)
 from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
-                                                   rowabs_cuda)
+                                                   quantize_rows_ef_cuda,
+                                                   quantize_rows_mixed_cuda,
+                                                   rowabs_cuda,
+                                                   rowabs_sum_cuda)
+from repro_torch.models import model as tmodel
+from repro_torch.optim import plane as tplane
 
 torch.set_num_threads(2)
 
@@ -164,6 +192,13 @@ def test_cuda_wrappers_reject_cpu_tensors():
         rowabs_cuda(x)
     with pytest.raises(ValueError, match="CUDA"):
         quantize_rows_cuda(x, torch.ones((8, 1)))
+    q = torch.ones((8, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_rows_mixed_cuda(x, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        rowabs_sum_cuda(x, x, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_rows_ef_cuda(x, x, q, q, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         proto_accum_cuda(torch.zeros((1, 4, 8)),
                          torch.zeros((1, 4), dtype=torch.int32), 3)
@@ -192,7 +227,239 @@ def test_nvcc_commands_target_hopper_without_fast_math(tmp_path):
 def test_launch_counters_are_registered_and_reset():
     counts = build.launch_counts()
     assert set(counts) >= {"adamw_update", "proto_accum", "rowabs",
-                           "quantize_rows"}
+                           "quantize_rows", "quantize_rows_mixed",
+                           "rowabs_sum", "quantize_rows_ef"}
     build.COUNTERS["rowabs"].count += 3
     build.reset_launch_counts()
     assert all(v == 0 for v in build.launch_counts().values())
+
+
+# -- the mixed-width and error-feedback codec --------------------------------
+
+I4, I16 = np.float32(7), np.float32(32767)
+
+
+def _ef_rows(seed, r=24, c=512):
+    """Payload rows, residuals, and per-row Δ and qmax: int16 and int4
+    rows, rows whose Δ is too small for their absmax (codes clip at both
+    edges of int4 and int16), an all-zero row, and a row of exact
+    half-way points (Δ a power of two, zero residual)."""
+    x = _payload_rows(seed, r, c)
+    rng = np.random.default_rng(seed + 100)
+    res = (rng.standard_normal((r, c)) * 0.3 * np.abs(x).max(1, keepdims=True)
+           ).astype(np.float32)
+    res[3] = 0.0
+    qmax = np.where(np.arange(r) % 2 == 0, I16, I4).astype(np.float32)[:, None]
+    return x, res, qmax
+
+
+def _ef_deltas(amax, qmax, x, res):
+    delta = np.maximum(amax / qmax, np.finfo(np.float32).tiny
+                       ).astype(np.float32)
+    delta[8:12] /= np.float32(4.0)            # int16 / int4 rows that clip
+    delta[13] = np.float32(2.0 ** -10)        # int4: 7.5, -8.5, -9 steps
+    x[13, :6] = np.array([0.5, 1.5, -0.5, -2.5, 7.5, -8.5]) * 2.0 ** -10
+    x[13, 6] = -9.0 * 2.0 ** -10
+    res[13] = 0.0
+    return delta
+
+
+def _fma_model(x, res, delta, qmax, decay):
+    """The interpret-mode error-feedback kernels' arithmetic: XLA:CPU
+    fuses ``x + decay·res`` and ``eff - codes·Δ`` into FMAs, emulated
+    here in float64 with each FMA rounded once to fp32 (the products are
+    exact in float64).  Returns ``(row absmax, codes, new residual)``."""
+    f64 = np.float64
+    eff = (x.astype(f64) + f64(np.float32(decay)) * res).astype(np.float32)
+    codes = np.clip(np.floor(eff / delta + np.float32(0.5)), -qmax - 1, qmax)
+    new_res = (eff.astype(f64) - codes.astype(f64) * delta).astype(
+        np.float32)
+    return np.abs(eff).max(1, keepdims=True), codes.astype(np.int32), new_res
+
+
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+def test_ef_and_mixed_rows_match_jax_kernels(decay):
+    """The three plain versions against the interpret-mode Pallas
+    kernels and eager ``repro`` arithmetic.  At ``decay=1`` the product
+    ``1·res`` is exact, so row maxima and codes equal the interpret
+    kernels'; at 0.9 the kernels' fused ``x + decay·res`` rounds once
+    where the plain versions and eager ``repro`` round twice, so there
+    the interpret kernels are held to :func:`_fma_model`."""
+    x, res, qmax = _ef_rows(int(decay * 10))
+    tx, tres, tq = map(torch.from_numpy, (x, res, qmax))
+    amax = rowabs_sum(tx, tres, decay).numpy()
+    eff = jnp.asarray(x) + jnp.float32(decay) * jnp.asarray(res)   # eager
+    np.testing.assert_array_equal(amax, np.asarray(
+        jnp.max(jnp.abs(eff), axis=1, keepdims=True)))
+    j_amax = np.asarray(rowabs_sum_pallas(x, res, decay=decay,
+                                          interpret=True))
+    delta = _ef_deltas(amax, qmax, x, res)
+    tx, tres, td = map(torch.from_numpy, (x, res, delta))
+    eff = jnp.asarray(x) + jnp.float32(decay) * jnp.asarray(res)
+    model = _fma_model(x, res, delta, qmax, decay)
+
+    codes, new_res = quantize_rows_ef(tx, tres, td, tq, decay)
+    assert codes.dtype == torch.int32 and new_res.dtype == torch.float32
+    jcodes = jnp.clip(jnp.floor(eff / delta + 0.5), -qmax - 1, qmax)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    assert new_res.numpy().tobytes() == \
+        np.asarray(eff - jcodes * delta).tobytes()
+    jc, jr = quantize_rows_ef_pallas(x, res, delta, qmax, decay=decay,
+                                     interpret=True)
+    np.testing.assert_array_equal(np.asarray(jc), model[1])
+    np.testing.assert_array_equal(np.asarray(jr), model[2])
+    if decay == 1.0:
+        np.testing.assert_array_equal(amax, j_amax)
+        np.testing.assert_array_equal(codes.numpy(), np.asarray(jc))
+    # the edges: floor(v + 0.5) rounds half up, and int4 clips to [-8, 7]
+    assert codes[13, :7].tolist() == [1, 2, 0, -2, 7, -8, -8]
+    for row, q in ((8, I16), (9, I4)):
+        assert int(codes[row].max()) == int(q)
+        assert int(codes[row].min()) == -int(q) - 1
+    assert not codes[3].any() and not new_res[3].any()
+
+    mixed = quantize_rows_mixed(tx, td, tq)
+    np.testing.assert_array_equal(
+        mixed.numpy(), np.asarray(quantize_rows_mixed_pallas(
+            x, delta, qmax, interpret=True)))
+    assert mixed[13, :7].tolist() == [1, 2, 0, -2, 7, -8, -8]
+    assert int(mixed[9].max()) == 7 and int(mixed[8].max()) == 32767
+
+
+def _small_planes(n=3, scale_node=1):
+    """``n`` nodes' small mnist-cnn student planes, as JAX and torch
+    planes over one numpy buffer (node ``scale_node`` scaled x40)."""
+    scfg = jmodel.derive_student(jbase.get_config("mnist-cnn").replace(
+        cnn_channels=(4, 8), proto_dim=16, dtype="float32"))
+    trees = [jax.tree_util.tree_map(
+        np.asarray, jmodel.init_params(scfg, jax.random.PRNGKey(i)))
+        for i in range(n)]
+    trees[scale_node] = jax.tree_util.tree_map(lambda v: v * 40.0,
+                                               trees[scale_node])
+    buf = np.stack([np.asarray(jplane.plane_from_tree(t).buf)
+                    for t in trees])
+    jmeta = jplane.plane_from_tree(trees[0]).meta
+    tmeta = tplane.plane_from_tree(tmodel.params_from_numpy(trees[0])).meta
+    return scfg, buf, jmeta, tmeta
+
+
+def _real_lanes(meta, rows):
+    """``[rows, 512]`` mask of a plane's real (non-padding) lanes."""
+    real = np.zeros((rows, 512), dtype=bool)
+    for _, _, shape, row, r_leaf in meta.recipe:
+        real[row:row + r_leaf].reshape(-1)[:int(np.prod(shape))] = True
+    return real
+
+
+@pytest.mark.parametrize("ef,decay", [(False, 1.0), (True, 1.0),
+                                      (True, 0.9)])
+def test_packed_buffer_mixed_width_matches_jax(ef, decay):
+    """A ``4/16`` packed buffer (int16 prototype rows, int4 student
+    rows, alignment rows tagged with the last, int4, segment) quantized
+    by the port and by ``repro`` eagerly — codes, scales and residual
+    bit-exact — and in interpret mode, whose codes and scales equal the
+    port's where its fused ``x + decay·res`` cannot differ (no residual,
+    or ``decay=1``)."""
+    scfg, buf, jmeta, tmeta = _small_planes()
+    n = buf.shape[0]
+    rng = np.random.default_rng(7)
+    protos = rng.standard_normal((n, 10, scfg.proto_dim)).astype(np.float32)
+    protos[2] = 0.0                           # an all-zero segment -> tiny Δ
+    jspec, tspec = jwire.WireSpec(4, 16), twire.WireSpec(4, 16)
+    jb, jids, jm, _, _ = jqops.pack_plane_payload(
+        jnp.asarray(protos), jplane.Plane(jnp.asarray(buf), (), jmeta), jspec)
+    tb, tids, tm, _, _ = tqops.pack_plane_payload(
+        torch.from_numpy(protos),
+        tplane.Plane(torch.from_numpy(buf.copy()), tmeta), tspec)
+    assert tb.numpy().tobytes() == np.asarray(jb).tobytes()
+    seg_bits = tm[3]
+    assert seg_bits.tolist() == jm[4].tolist()
+    assert seg_bits[0] == 16 and set(seg_bits[1:].tolist()) == {4}
+    n_align = int(np.sum(tids == tm[1] - 1)) - tmeta.recipe[-1][-1]
+    assert n_align > 0                        # alignment rows exist
+    kw = {}
+    if ef:
+        res = (rng.standard_normal(tb.shape) * 0.05).astype(np.float32)
+        res[:, -n_align:] = 50.0 * rng.standard_normal(
+            (n, n_align, 512)).astype(np.float32)  # drive the last Δ
+        kw = dict(residual=res, ef_decay=decay)
+    out = tqops.quantize_packed_buffer(
+        tb, tids, tm[1], 16, seg_bits=seg_bits,
+        **{k: (torch.from_numpy(v) if k == "residual" else v)
+           for k, v in kw.items()})
+    eager = jqops.quantize_packed_buffer(jb, jids, jm[2], 16, seg_bits=jm[4],
+                                         use_kernels=False, **kw)
+    interp = jqops.quantize_packed_buffer(jb, jids, jm[2], 16,
+                                          seg_bits=jm[4], use_kernels=True,
+                                          **kw)              # interpret
+    assert out[0].dtype == torch.int16        # the 4/16 container
+    for ref in (eager, interp) if decay == 1.0 else (eager,):
+        assert out[0].numpy().dtype == np.asarray(ref[0]).dtype
+        assert out[0].numpy().tobytes() == np.asarray(ref[0]).tobytes()
+        assert out[1].numpy().tobytes() == np.asarray(ref[1]).tobytes()
+    if ef:
+        assert out[2].numpy().tobytes() == np.asarray(eager[2]).tobytes()
+    codes = out[0].numpy()
+    # the prototype rows carry int16; the alignment rows the last
+    # segment's int4 (their large residual sets that segment's Δ)
+    assert np.abs(codes[:, :tm[0][0][4]]).max() > 7
+    if ef:
+        assert np.abs(codes[:, -n_align:]).max() in (7, 8)
+
+
+@pytest.mark.parametrize("decay", [1.0, 0.9])
+def test_plane_payload_ef_matches_jax(decay):
+    """``quantize_dequantize_plane_payload(residual=)`` on a ``4/16+ef``
+    spec against ``repro``'s, eagerly, for two carried calls: the
+    receiver view and the new residual, both with zero padding lanes."""
+    scfg, buf, jmeta, tmeta = _small_planes()
+    n, rows = buf.shape[0], buf.shape[1]
+    real = _real_lanes(tmeta, rows)
+    rng = np.random.default_rng(11)
+    protos = rng.standard_normal((n, 10, scfg.proto_dim)).astype(np.float32)
+    jspec = jwire.WireSpec(4, 16, error_feedback=True, ef_decay=decay)
+    tspec = twire.WireSpec(4, 16, error_feedback=True, ef_decay=decay)
+    res_p = np.zeros_like(protos)
+    res_s = np.zeros_like(buf)
+    for call in range(2):
+        trecv, tres = tqops.quantize_dequantize_plane_payload(
+            {"protos": torch.from_numpy(protos),
+             "student": tplane.Plane(torch.from_numpy(buf.copy()), tmeta)},
+            16, spec=tspec,
+            residual={"protos": torch.from_numpy(res_p),
+                      "student": tplane.Plane(torch.from_numpy(res_s),
+                                              tmeta)})
+        jrecv, jres = jqops.quantize_dequantize_plane_payload(
+            {"protos": jnp.asarray(protos),
+             "student": jplane.Plane(jnp.asarray(buf), (), jmeta)},
+            16, spec=jspec, use_kernels=False,
+            residual={"protos": jnp.asarray(res_p),
+                      "student": jplane.Plane(jnp.asarray(res_s), (),
+                                              jmeta)})
+        pairs = ((trecv["protos"], jrecv["protos"]),
+                 (trecv["student"].buf, jrecv["student"].buf),
+                 (tres["protos"], jres["protos"]),
+                 (tres["student"].buf, jres["student"].buf))
+        for t, j in pairs:
+            assert t.numpy().tobytes() == np.asarray(j).tobytes()
+        assert tres["student"].meta == tmeta
+        assert tuple(tres["student"].buf.shape) == buf.shape
+        for plane in (trecv["student"].buf, tres["student"].buf):
+            assert not plane.numpy()[:, ~real].any()
+        res_p = tres["protos"].numpy().copy()
+        res_s = tres["student"].buf.numpy().copy()
+        assert np.abs(res_s).max() > 0          # the int4 error is carried
+        # the next call sees another payload: the trained students moved
+        buf = (buf * np.float32(1.01)) * real
+
+
+def test_ef_codec_needs_a_residual():
+    scfg, buf, _, tmeta = _small_planes()
+    payload = {"protos": torch.zeros((buf.shape[0], 10, scfg.proto_dim)),
+               "student": tplane.Plane(torch.from_numpy(buf), tmeta)}
+    with pytest.raises(ValueError, match="residual"):
+        tqops.quantize_dequantize_plane_payload(
+            payload, spec=twire.WireSpec(4, 16, error_feedback=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tqops.quantize_dequantize_plane_payload(
+            payload, spec=twire.WireSpec(4, stochastic_rounding=True))

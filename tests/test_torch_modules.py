@@ -26,7 +26,10 @@ from repro.config import base as jbase
 from repro.core import comm as jcomm
 from repro.core import metrics as jmetrics
 from repro.core import profe as jprofe
+from repro.core import federation as jfed_mod
 from repro.core import quantization as jquant
+from repro.core import round_ops as jround_ops
+from repro.core import wire_state as jwire_state
 from repro.core import topology as jtopo
 from repro.data import loader as jloader
 from repro.data.partition import partition as jpartition
@@ -41,6 +44,8 @@ from repro_torch.core import comm as tcomm
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core import profe as tprofe
 from repro_torch.core import quantization as tquant
+from repro_torch.core import round_ops as tround_ops
+from repro_torch.core import wire_state as twire_state
 from repro_torch.core import topology as ttopo
 from repro_torch.data import loader as tloader
 from repro_torch.data.partition import partition as tpartition
@@ -397,3 +402,105 @@ def test_wire_byte_accounting_matches():
         assert ta.record_round(tpay, "profe", r, twire.WireSpec(16)) == \
             ja.record_round(jpay, "profe", r, jwire.WireSpec(16))
     assert ta.summary() == ja.summary()
+
+
+# -- the error-feedback codec state ------------------------------------------
+
+def _ef_states(n=3, seq=4):
+    """``n`` JAX node states stacked, and a JAX ``CodecState`` as after
+    ``seq`` rounds: a random residual, zero on the plane's padding
+    lanes (the codec keeps them zero)."""
+    jcfg = _small_cfg()
+    scfg = jmodel.derive_student(jcfg)
+    j_opt_s = jplane.make_plane_optimizer("adamw", 1e-3, grad_clip=1.0)
+    j_opt_t = jmake_optimizer("adamw", 1e-3)
+    rng = np.random.default_rng(seq)
+    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, i, rng)
+               for i in range(n)]
+    jst = jfed_mod._stack_states(jstates)
+    zero = jwire_state.init_codec_state(
+        {"protos": jnp.zeros((n, 10, scfg.proto_dim), jnp.float32),
+         "student": jst.student}, n_nodes=n)
+    meta = jst.student.meta
+    real = np.zeros(jst.student.buf.shape[1:], dtype=bool)
+    for _, shape, _dtype, row, r_leaf in meta.recipe:    # repro's recipe
+        real[row:row + r_leaf].reshape(-1)[:int(np.prod(shape))] = True
+    res_s = (rng.standard_normal(jst.student.buf.shape) * 1e-3 * real
+             ).astype(np.float32)
+    res_p = (rng.standard_normal((n, 10, scfg.proto_dim)) * 1e-5
+             ).astype(np.float32)
+    jws = jwire_state.CodecState(
+        {"protos": jnp.asarray(res_p),
+         "student": jplane.Plane(jnp.asarray(res_s), (), meta)},
+        seq=jnp.full((n,), seq, jnp.int32))
+    return scfg, jstates, jst, zero, jws, real
+
+
+def test_codec_state_carries_and_stacks_like_jax():
+    """``init_codec_state``, ``node_state_from_numpy(residual=)`` and
+    ``stack_states`` against ``repro``'s state of the same shapes."""
+    scfg, jstates, jst, zero, jws, _ = _ef_states()
+    n = len(jstates)
+    tstates = [tprofe.node_state_from_numpy(
+        _np_tree(jplane.as_tree(st.student)), _np_tree(st.teacher),
+        _np_tree(st.opt_s), _np_tree(st.opt_t), np.asarray(st.global_protos),
+        np.asarray(st.proto_mask), int(st.round_idx),
+        residual={"protos": np.asarray(jws.residual["protos"][i]),
+                  "student": np.asarray(jws.residual["student"].buf[i])},
+        seq=int(jws.seq[i]), device="cpu") for i, st in enumerate(jstates)]
+    tst = tprofe.stack_states(tstates)
+    tws = tst.wire_state
+    assert tws.residual["protos"].numpy().tobytes() == \
+        np.asarray(jws.residual["protos"]).tobytes()
+    assert tws.residual["student"].buf.numpy().tobytes() == \
+        np.asarray(jws.residual["student"].buf).tobytes()
+    assert tws.residual["student"].meta == tst.student.meta
+    assert tws.seq.dtype == torch.int32 and tws.seq.tolist() == [4] * n
+    assert twire_state.next_seq(tws.seq).tolist() == [5] * n
+
+    tzero = twire_state.init_codec_state(
+        {"protos": torch.zeros((n, 10, scfg.proto_dim)),
+         "student": tst.student}, n_nodes=n)
+    for t, j in ((tzero.residual["protos"], zero.residual["protos"]),
+                 (tzero.residual["student"].buf, zero.residual["student"].buf),
+                 (tzero.seq, zero.seq)):
+        assert t.numpy().tobytes() == np.asarray(j).tobytes()
+        assert t.numpy().dtype == np.asarray(j).dtype
+    with pytest.raises(ValueError, match="wire_state"):
+        tprofe.stack_states([tstates[0], carry_state(jstates[1])])
+
+
+@pytest.mark.parametrize("decay", [1.0, 0.5])
+def test_round_ops_ef_codec_matches_jax(decay):
+    """``quantize_dequantize_per_node(state=)`` on a ``4/16+ef`` spec:
+    the receiver view and the new ``CodecState`` (residual bit for bit,
+    ``seq`` advanced by one) against ``repro``'s, eagerly."""
+    scfg, jstates, jst, _, jws, real = _ef_states(seq=2)
+    n = len(jstates)
+    rng = np.random.default_rng(9)
+    protos = rng.standard_normal((n, 10, scfg.proto_dim)).astype(np.float32)
+    tmeta = carry_state(jstates[0]).student.meta
+    buf = np.asarray(jst.student.buf)
+    tpay = {"protos": torch.from_numpy(protos),
+            "student": tplane.Plane(torch.from_numpy(buf.copy()), tmeta)}
+    tws = twire_state.CodecState(
+        {"protos": torch.from_numpy(np.array(jws.residual["protos"])),
+         "student": tplane.Plane(torch.from_numpy(np.array(
+             jws.residual["student"].buf)), tmeta)},
+        torch.from_numpy(np.array(jws.seq)))
+    tspec = twire.WireSpec(4, 16, error_feedback=True, ef_decay=decay)
+    jspec = jwire.WireSpec(4, 16, error_feedback=True, ef_decay=decay)
+    trecv, tnew = tround_ops.quantize_dequantize_per_node(tpay, spec=tspec,
+                                                          state=tws)
+    jrecv, jnew = jround_ops.quantize_dequantize_per_node(
+        {"protos": jnp.asarray(protos), "student": jst.student}, spec=jspec,
+        use_kernels=False, state=jws)
+    for t, j in ((trecv["protos"], jrecv["protos"]),
+                 (trecv["student"].buf, jrecv["student"].buf),
+                 (tnew.residual["protos"], jnew.residual["protos"]),
+                 (tnew.residual["student"].buf, jnew.residual["student"].buf)):
+        assert t.numpy().tobytes() == np.asarray(j).tobytes()
+    assert tnew.seq.tolist() == np.asarray(jnew.seq).tolist() == [3] * n
+    assert not tnew.residual["student"].buf.numpy()[:, ~real].any()
+    with pytest.raises(ValueError, match="CodecState"):
+        tround_ops.quantize_dequantize_per_node(tpay, spec=tspec)
