@@ -21,16 +21,23 @@ Phases, in order (any failure exits non-zero; nothing is caught):
 5. the same run on the ``4/16+ef`` wire (int4 student, int16
    prototypes, error feedback): 2 rounds, the same data;
 6. a 1-round run on the ``4/16`` wire without error feedback;
-7. with ``--profile`` only: where a round's time goes on the main path
-   — its phase-4 run is the warm-up, then 2 rounds without and 2 rounds
-   under ``torch.profiler`` (see :func:`profile_rounds`);
-8. a line ``{"kernels": [...]}`` with each kernel's launches on its
-   path, error and times, then the card's ``nvidia-smi`` name and power
-   limit, then the result line ``{"ok": true, "device": {...}}`` last.
+7. ProFe on cifar10-resnet18 at full width (ResNet18 teacher, its
+   ResNet8 student: blocks (1, 1, 1), width 16, proto_dim 256), 20 nodes
+   on a full graph, 1 local epoch, ``TrainConfig`` defaults but the
+   optimizer (batch 32, lr 1e-3, clip 1.0, weight decay 0.01, momentum
+   0.9), the 16-bit wire: 2 rounds under ``sgd``;
+8. the same run for 1 round under ``adafactor``;
+9. with ``--profile`` only: where a round's time goes on the main path
+   and on the ``cifar10/sgd`` path — each path's own run above is the
+   warm-up, then 2 rounds without and 2 rounds under ``torch.profiler``
+   (see :func:`profile_rounds`);
+10. a line ``{"kernels": [...]}`` with each kernel's launches on its
+    path, error and times, then the card's ``nvidia-smi`` name and power
+    limit, then the result line ``{"ok": true, "device": {...}}`` last.
 
-Phases 4-6 each set the kernels' launch counts to 0 just before
-``run_federation`` and read them just after, and hold the run's wire
-bytes to the JAX package's.
+Phases 4-8 each set the kernels' launch counts to 0 just before
+``run_federation`` and read them just after, check finite F1 every
+round, and hold the run's wire bytes to the JAX package's.
 """
 from __future__ import annotations
 
@@ -47,31 +54,47 @@ SRC = ROOT / "src"
 
 N_NODES = 20
 ROUNDS = 2
-# Wire bytes of exactly this configuration, computed once with the JAX
-# package (repro) on the CPU: ScheduleCommAccountant.avg_sent_gb() and
-# comm.packed_copy_bytes() of run_federation's payload template for
-# mnist-cnn, N=20, topology "full", 2 rounds, WireSpec(16).  They depend
-# only on shapes and the schedule, so the port must match them exactly.
-EXPECTED_AVG_SENT_GB = 0.015825632
-EXPECTED_PACKED_PER_COPY = 426060
-EXPECTED_LOGICAL_PER_COPY = 416464
-# The paths, in the order they run: wire name -> (FederationConfig
-# fields, rounds, expected (avg_sent_gb, packed B/copy, logical B/copy)).
-# The 16-bit wire is the main path; the 4/16 bytes are computed the same
-# way for WireSpec(4, 16) — with or without +ef, since the residual never
-# travels.
-MIXED = dict(quantize_bits=4, proto_quantize_bits=16)
-WIRE_PATHS = {
-    "16": ({}, ROUNDS, (EXPECTED_AVG_SENT_GB, EXPECTED_PACKED_PER_COPY,
-                        EXPECTED_LOGICAL_PER_COPY)),
-    "4/16+ef": (dict(MIXED, error_feedback=True), 2,
+# Wire bytes of exactly these configurations, computed once with the JAX
+# package (repro) on the CPU: ScheduleCommAccountant.avg_sent_gb(),
+# comm.packed_copy_bytes() and quantization.tree_wire_bytes() of
+# run_federation's payload template ({model, protos, counts}) for the
+# config's student, N=20, topology "full", the path's rounds and wire
+# spec.  They depend only on shapes and the schedule, so the port must
+# match them exactly.  The 4/16 bytes hold with or without +ef, since the
+# residual never travels.
+# The paths, in the order they run: name -> (model config, optimizer,
+# wire spec, rounds, expected (avg_sent_gb, packed B/copy, logical
+# B/copy)).  "16" is the main path.
+PATHS = {
+    "16": ("mnist-cnn", "adamw", "16", ROUNDS,
+           (0.015825632, 426060, 416464)),
+    "4/16+ef": ("mnist-cnn", "adamw", "4/16+ef", 2,
                 (0.004030508, 108876, 106066)),
-    "4/16": (MIXED, 1, (0.002015254, 108876, 106066)),
+    "4/16": ("mnist-cnn", "adamw", "4/16", 1, (0.002015254, 108876, 106066)),
+    "cifar10/sgd": ("cifar10-resnet18", "sgd", "16", 2,
+                    (0.007526888, 221336, 198076)),
+    "cifar10/adafactor": ("cifar10-resnet18", "adafactor", "16", 1,
+                          (0.003763444, 221336, 198076)),
 }
+# the student-plane sweep each optimizer launches once per training step
+OPT_KERNEL = {"adamw": "adamw_update", "sgd": "sgd_update",
+              "adafactor": "adafactor_apply"}
 # the path whose run a kernel's "launches" are read from
 KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
                "quantize_rows": "16", "quantize_rows_mixed": "4/16",
-               "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef"}
+               "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef",
+               "sgd_update": "cifar10/sgd",
+               "adafactor_apply": "cifar10/adafactor"}
+# the data of each model's paths: make_image_dataset(0, 7040, shape, 10)
+# with a 1/11 test split, iid over the nodes (320 images, 10 steps each)
+IMAGE_SHAPE = {"mnist-cnn": (28, 28, 1), "cifar10-resnet18": (32, 32, 3)}
+
+
+def wire_fields(spec) -> dict:
+    """The FederationConfig fields that select the wire ``spec``."""
+    return dict(quantize_bits=spec.student_bits,
+                proto_quantize_bits=spec.proto_bits,
+                error_feedback=spec.error_feedback)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -81,6 +104,7 @@ L2_FLUSH_BYTES = 64 << 20        # more than the 50 MB L2
 # card spins, so the events time the device work, not host launch latency
 SLEEP_CYCLES = 1_000_000
 PROFILE_TOP = 15                 # device activities listed by --profile
+PROFILED = ("16", "cifar10/sgd")  # the paths --profile profiles
 
 
 def expect(ok, msg: str) -> None:
@@ -390,56 +414,151 @@ def check_kernels(torch, timer, student_cfg):
     return rows
 
 
-def main_path_inputs():
-    """The main path's configuration and data: mnist-cnn at full width,
+def check_plane_sweeps(torch, timer, student_cfg):
+    """Phase 3, the sgd and adafactor sweeps: each kernel against its
+    plain version on 20 nodes' ResNet8 student planes ``[20, 208, 512]``
+    (the CIFAR paths' shape), bit for bit, and timed."""
+    from repro_torch.kernels.opt_update.opt_update import (
+        adafactor_apply_cuda, sgd_update_cuda)
+    from repro_torch.kernels.opt_update.ref import (adafactor_apply_ref,
+                                                    sgd_update_ref)
+    from repro_torch.models import init_params
+    from repro_torch.optim.plane import plane_from_tree
+
+    gen = torch.Generator().manual_seed(1)
+    planes = [plane_from_tree(init_params(student_cfg, gen))
+              for _ in range(N_NODES)]
+    p = torch.stack([pl.buf for pl in planes]).cuda()
+    shape = tuple(p.shape)
+    real = torch.zeros(shape[1:])        # 1 on leaf lanes, 0 on padding
+    for _, _, leaf_shape, row, r_leaf in planes[0].meta.recipe:
+        real[row:row + r_leaf].view(-1)[:math.prod(leaf_shape)] = 1.0
+    real = real.cuda()
+    g = (torch.randn(shape, generator=gen) * 1e-2).cuda() * real
+    mu = (torch.randn(shape, generator=gen) * 1e-3).cuda() * real
+    lr = torch.full((), 1e-3, device="cuda")
+    scale = torch.rand((N_NODES,), generator=gen).cuda().clamp_min(0.1)
+    hp = dict(momentum=0.9, weight_decay=0.01)
+    n = p.numel()
+    rows = []
+
+    want = sgd_update_ref(g, p, mu, lr=lr, scale=scale, **hp)
+    got = [p.clone(), mu.clone()]
+    sgd_update_cuda(g, *got, lr, scale, **hp)
+    torch.cuda.synchronize()
+    ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    print(f"sgd_update {shape}: max |kernel - plain| = {err:.3e}, max ulp "
+          f"difference {ulps}")
+    expect(ulps == 0, "sgd kernel is not bit-exact with its plain version")
+    ms = timer(lambda: sgd_update_cuda(g, *got, lr, scale, **hp))
+    plain_ms = timer(lambda: sgd_update_ref(g, p, mu, lr=lr, scale=scale,
+                                            **hp))
+    # library yardstick: PyTorch's fused SGD over the same plane in one
+    # call, its gradient scaled per node outside the timed region.  It
+    # adds the weight decay to the gradient before the momentum
+    # (mu' = m·mu + g + wd·p), so it is a time yardstick only.
+    g_scaled = (g.reshape(N_NODES, -1) * scale[:, None]).reshape(shape)
+    lib = [p.clone(), mu.clone()]
+    lib_ms = timer(lambda: torch._fused_sgd_(
+        [lib[0]], [g_scaled], [lib[1]], weight_decay=0.01, momentum=0.9,
+        lr=1e-3, dampening=0.0, nesterov=False, maximize=False,
+        is_first_step=False))
+    b_ms, b_by = bound(5 * 4 * n, 7 * n)
+    rows.append(dict(name="sgd_update", route="cuda",
+                     source="src/repro_torch/csrc/opt_update.cu",
+                     replaces="src/repro/kernels/opt_update/opt_update.py:40",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+
+    # the packed clipped update of adafactor: about ±1 on the real lanes
+    upd = torch.randn(shape, generator=gen).cuda() * real
+    want = adafactor_apply_ref(upd, p, lr=lr, weight_decay=0.01)
+    got = p.clone()
+    adafactor_apply_cuda(upd, got, lr, weight_decay=0.01)
+    torch.cuda.synchronize()
+    ulps = ulp_diff(torch, got, want)
+    err = float((got - want).abs().max())
+    print(f"adafactor_apply {shape}: max |kernel - plain| = {err:.3e}, max "
+          f"ulp difference {ulps}")
+    expect(ulps == 0,
+           "adafactor_apply kernel is not bit-exact with its plain version")
+    ms = timer(lambda: adafactor_apply_cuda(upd, got, lr, weight_decay=0.01))
+    plain_ms = timer(lambda: adafactor_apply_ref(upd, p, lr=lr,
+                                                 weight_decay=0.01))
+    # library yardstick: PyTorch's fused SGD without momentum computes the
+    # same function, p - lr·(upd + wd·p), in one call
+    lib = [p.clone()]
+    lib_ms = timer(lambda: torch._fused_sgd_(
+        lib, [upd], [], weight_decay=0.01, momentum=0.0, lr=1e-3,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False))
+    b_ms, b_by = bound(3 * 4 * n, 4 * n)
+    rows.append(dict(name="adafactor_apply", route="cuda",
+                     source="src/repro_torch/csrc/opt_update.cu",
+                     replaces="src/repro/kernels/opt_update/opt_update.py:120",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    for row in rows:
+        print(f"  {row['name']:19s} kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def path_inputs(model: str):
+    """A model's paths' configuration and data: the config at full width,
     20 nodes on a full graph, 2 rounds of 1 local epoch, ``TrainConfig``
     defaults, 320 images a node (10 steps a round)."""
     from repro_torch.config import FederationConfig, TrainConfig, get_config
     from repro_torch.data import (make_image_dataset, partition,
                                   train_test_split)
 
-    data = make_image_dataset(0, 7040, (28, 28, 1), 10)
+    data = make_image_dataset(0, 7040, IMAGE_SHAPE[model], 10)
     train_d, test_d = train_test_split(data, 1 / 11, 0)
     parts = partition(train_d["label"], N_NODES, "iid", 0)
     node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
     fed = FederationConfig(num_nodes=N_NODES, topology="full", rounds=ROUNDS,
                            local_epochs=1)
-    return get_config("mnist-cnn"), fed, TrainConfig(), node_data, test_d
+    return get_config(model), fed, TrainConfig(), node_data, test_d
 
 
-def wire_path(torch, inputs, name: str):
-    """Phases 4-6: ProFe on mnist-cnn at full width through
-    ``run_federation`` on the wire ``name`` of ``WIRE_PATHS``, with the
-    launch counts set to 0 just before and read just after.  Checks
-    finite F1, the launches (every count exactly as the wire spec
-    implies, each kernel of the path at least once) and the wire bytes
-    against the JAX package's.  With ``+ef`` the final ``CodecState``
-    must have advanced ``seq`` once a round and carry a residual that is
-    finite, non-zero, and zero on the plane's padding lanes.  Returns
-    the launch counts."""
+def run_path(torch, inputs, name: str):
+    """Phases 4-8: ProFe at full width through ``run_federation`` on the
+    path ``name`` of ``PATHS`` (its model's ``inputs``, its optimizer,
+    wire and rounds), with the launch counts set to 0 just before and
+    read just after.  Checks finite F1 every round, the launches (every
+    count exactly as the optimizer and the wire spec imply, each kernel
+    of the path at least once) and the wire bytes against the JAX
+    package's.  With ``+ef`` the final ``CodecState`` must have advanced
+    ``seq`` once a round and carry a residual that is finite, non-zero,
+    and zero on the plane's padding lanes.  Returns the launch counts."""
     import dataclasses
 
     from repro_torch.core.federation import run_federation
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.wirespec import WireSpec
 
-    fields, rounds, expected_bytes = WIRE_PATHS[name]
+    _, optimizer, wire, rounds, expected_bytes = PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
-    fed = dataclasses.replace(fed, rounds=rounds, **fields)
-    spec = WireSpec.parse(name)
+    spec = WireSpec.parse(wire)
+    fed = dataclasses.replace(fed, rounds=rounds, **wire_fields(spec))
+    train = dataclasses.replace(train, optimizer=optimizer)
     per_node = len(node_data[0]["label"])
-    print(f"{N_NODES} nodes x {per_node} images, batch {train.batch_size}, "
-          f"wire {spec.describe()}")
+    print(f"{cfg.name}: {N_NODES} nodes x {per_node} images, batch "
+          f"{train.batch_size}, {optimizer}, wire {spec.describe()}")
     steps = rounds * (per_node // train.batch_size)
     ef, uniform = spec.error_feedback, spec.uniform_bits is not None
-    launches = {"adamw_update": steps,      # one sweep per training step
-                "proto_accum": steps,       # one per Eq. 3 proto batch
-                # one share codec a round: amax rows, then the codes
-                "rowabs": 0 if ef else rounds,
-                "quantize_rows": rounds if uniform and not ef else 0,
-                "quantize_rows_mixed": 0 if uniform or ef else rounds,
-                "rowabs_sum": rounds if ef else 0,
-                "quantize_rows_ef": rounds if ef else 0}
+    # one plane sweep per training step, of the path's optimizer only
+    launches = {k: steps if opt == optimizer else 0
+                for opt, k in OPT_KERNEL.items()}
+    launches.update({
+        "proto_accum": steps,       # one per Eq. 3 proto batch
+        # one share codec a round: amax rows, then the codes
+        "rowabs": 0 if ef else rounds,
+        "quantize_rows": rounds if uniform and not ef else 0,
+        "quantize_rows_mixed": 0 if uniform or ef else rounds,
+        "rowabs_sum": rounds if ef else 0,
+        "quantize_rows_ef": rounds if ef else 0})
 
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
@@ -491,11 +610,12 @@ def wire_path(torch, inputs, name: str):
     return counts
 
 
-def profile_rounds(torch, inputs) -> None:
-    """Phase 7 (``--profile``): where a round's time goes.  After the
-    main path's run (the warm-up: kernel build, cuDNN autotuning), the
-    main path runs once more without the profiler and once under
-    ``torch.profiler`` (CPU and CUDA activities).  Per round: wall
+def profile_rounds(torch, inputs, name: str) -> None:
+    """Phase 9 (``--profile``): where a round's time goes on the path
+    ``name`` of ``PROFILED``.  After the path's own run (the warm-up:
+    kernel build, cuDNN autotuning), it runs once more without the
+    profiler and once under ``torch.profiler`` (CPU and CUDA
+    activities).  Per round: wall
     seconds of both runs (host clock, synchronized), device-busy ms (the
     summed durations of the device activities — kernels, copies, fills
     — in the profiled run; one stream, so nothing overlaps), the device
@@ -508,7 +628,15 @@ def profile_rounds(torch, inputs) -> None:
     from repro_torch.core.federation import run_federation
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
 
+    import dataclasses
+
+    from repro_torch.wirespec import WireSpec
+
+    _, optimizer, wire, rounds, _ = PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
+    fed = dataclasses.replace(fed, rounds=rounds,
+                              **wire_fields(WireSpec.parse(wire)))
+    train = dataclasses.replace(train, optimizer=optimizer)
     t0 = time.time()
     plain = run_federation(cfg, fed, train, node_data, test_d)
     torch.cuda.synchronize()
@@ -535,21 +663,22 @@ def profile_rounds(torch, inputs) -> None:
     top = sorted(by_name.items(), key=lambda kv: kv[1][1],
                  reverse=True)[:PROFILE_TOP]
     report = {
-        "rounds": ROUNDS,
+        "path": name,
+        "rounds": rounds,
         "round_wall_s_unprofiled": plain.extras["round_times_s"],
         "round_wall_s_profiled": res.extras["round_times_s"],
-        "wall_s_per_round_unprofiled": wall_plain / ROUNDS,
-        "wall_s_per_round_profiled": wall / ROUNDS,
-        "device_busy_ms_per_round": busy_us / 1e3 / ROUNDS,
+        "wall_s_per_round_unprofiled": wall_plain / rounds,
+        "wall_s_per_round_profiled": wall / rounds,
+        "device_busy_ms_per_round": busy_us / 1e3 / rounds,
         "device_activities_per_round":
-            sum(c for c, _ in by_name.values()) / ROUNDS,
+            sum(c for c, _ in by_name.values()) / rounds,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall_plain,
         "kernel_launches_per_round":
-            {k: v / ROUNDS for k, v in counts.items()},
+            {k: v / rounds for k, v in counts.items()},
         "top_device_activities": [
-            {"name": name[:160], "calls_per_round": c / ROUNDS,
-             "device_ms_per_round": us / 1e3 / ROUNDS}
-            for name, (c, us) in top],
+            {"name": act[:160], "calls_per_round": c / rounds,
+             "device_ms_per_round": us / 1e3 / rounds}
+            for act, (c, us) in top],
     }
     print(f"round profile: {json.dumps(report)}")
 
@@ -590,21 +719,25 @@ def main() -> int:
     from repro_torch.config import get_config
     from repro_torch.models import derive_student
     resolve_device("cuda")
-    rows = check_kernels(torch, Timer(torch),
-                         derive_student(get_config("mnist-cnn")))
+    timer = Timer(torch)
+    rows = check_kernels(torch, timer, derive_student(get_config("mnist-cnn")))
+    rows += check_plane_sweeps(torch, timer,
+                               derive_student(get_config("cifar10-resnet18")))
 
-    inputs = main_path_inputs()
+    inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}
-    for name, (_, rounds, _) in WIRE_PATHS.items():
-        phase(f"{'main' if name == '16' else 'wire'} path: ProFe mnist-cnn, "
-              f"{N_NODES} nodes, {rounds} round(s), {name} wire")
+    for name, (model, optimizer, wire, rounds, _) in PATHS.items():
+        phase(f"{'main' if name == '16' else 'path'} {name}: ProFe {model}, "
+              f"{N_NODES} nodes, {rounds} round(s), {optimizer}, "
+              f"{wire} wire")
         t0 = time.time()
-        counts[name] = wire_path(torch, inputs, name)
+        counts[name] = run_path(torch, inputs[model], name)
         print(f"{name} path took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
-        phase("round profile: 2 rounds unprofiled, 2 profiled")
-        profile_rounds(torch, inputs)
+        for name in PROFILED:
+            phase(f"round profile {name}: 2 rounds unprofiled, 2 profiled")
+            profile_rounds(torch, inputs[PATHS[name][0]], name)
 
     for row in rows:
         row["path"] = KERNEL_PATH[row["name"]]

@@ -7,7 +7,8 @@ carries a leading ``[N]`` node axis) and one round is:
 
 1. local training: a Python loop over the pre-stacked ``[T, N, B, ...]``
    batches, each step training every node (``core/profe.py``) and
-   updating the whole student plane in ONE fused adamw launch,
+   updating the whole student plane in ONE fused sgd, adamw or
+   adafactor sweep,
 2. the exact Eq. 3 pass: a post-training student forward over a second
    batch stream, accumulated per class by ``kernels/proto_accum``,
 3. share: the round's payload ``{protos, student}`` round-trips the
@@ -48,12 +49,13 @@ from repro_torch.data.loader import batch_index_lists
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.models import derive_student, forward
 from repro_torch.optim import make_optimizer, make_plane_optimizer
-from repro_torch.optim.plane import Plane, as_tree
+from repro_torch.optim.plane import PLANE_OPTIMIZERS, Plane, as_tree
 from repro_torch.tree import ShapeDtypeStruct, tree_from_paths
 from repro_torch.wirespec import WireSpec
 
 PROTO_PASSES = ("exact", "fused")
 OVERLAPS = (None, "none", "rounds")
+PLANE_MODES = ("auto", "on", "off")
 
 
 @dataclass
@@ -120,16 +122,9 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
     if fed.proto_pass not in PROTO_PASSES:
         raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
                          f"got {fed.proto_pass!r}")
-    if fed.param_plane not in ("auto", "on", "off"):
-        raise ValueError(f"param_plane must be auto/on/off, "
-                         f"got {fed.param_plane!r}")
     checks = [
         (fed.algorithm != "profe", f"algorithm {fed.algorithm!r}",
          "Queue 1 item 9 (paper baselines)"),
-        (train.optimizer != "adamw", f"optimizer {train.optimizer!r}",
-         "Queue 1 item 3 and Queue 2 (sgd / adafactor)"),
-        (fed.param_plane == "off", "the per-leaf student (param_plane="
-         "'off')", "Queue 1 item 7"),
         (fed.proto_pass != "exact", "proto_pass='fused'", "Queue 1 item 10"),
         (overlap is not None, f"overlap={overlap!r}", "Queue 1 item 10"),
         (stale_self_floor is not None, "stale_self_floor",
@@ -144,6 +139,35 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
     for bad, what, item in checks:
         if bad:
             raise _unported(what, item)
+
+
+def _plane_mode(fed: FederationConfig, train: TrainConfig, algo: str,
+                student_cfg: ModelConfig) -> bool:
+    """Resolve ``fed.param_plane`` as ``repro``'s ``_plane_mode`` does:
+    ``"auto"`` puts the student on the flat fp32 plane for the profe
+    student under sgd/adamw/adafactor with fp32 parameters, ``"on"``
+    raises where those conditions fail, ``"off"`` (and ``"auto"`` where
+    they fail) means the per-leaf student."""
+    mode = fed.param_plane
+    if mode not in PLANE_MODES:
+        raise ValueError(f"param_plane must be one of {PLANE_MODES}, "
+                         f"got {mode!r}")
+    if mode == "off":
+        return False
+    why = None
+    if algo != "profe":
+        why = f"algorithm {algo!r} (the plane is wired through the " \
+              "profe student)"
+    elif train.optimizer not in PLANE_OPTIMIZERS:
+        why = f"optimizer {train.optimizer!r} (no fused plane update " \
+              "in kernels/opt_update)"
+    elif student_cfg.param_dtype != "float32":
+        why = "student has non-float32 leaves (the plane buffer is fp32)"
+    if why is None:
+        return True
+    if mode == "on":
+        raise ValueError(f"param_plane='on' is unsupported here: {why}")
+    return False
 
 
 def _init_states(model_cfgs, fed: FederationConfig, opt_s, opt_t,
@@ -359,6 +383,9 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     opt_t = make_optimizer(train.optimizer, train.learning_rate,
                            weight_decay=train.weight_decay,
                            momentum=train.momentum)
+    if not _plane_mode(fed, train, algo, student_cfg):
+        raise _unported(f"the per-leaf student (param_plane="
+                        f"{fed.param_plane!r})", "Queue 1 item 7")
     opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
                                  weight_decay=train.weight_decay,
                                  momentum=train.momentum,

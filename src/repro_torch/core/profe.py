@@ -12,7 +12,8 @@ carries a leading ``[N]`` node axis, the student lives in one
 ``[N, R, 512]`` plane buffer and the teacher in ``[N, ...]`` leaves.
 The per-node forwards run in a Python loop; their losses sum into one
 backward (node i's parameters only see node i's loss), so the student
-optimizer is ONE fused adamw launch per step over the whole plane.
+optimizer (sgd, adamw or adafactor) is ONE fused sweep per step over the
+whole plane.
 """
 from __future__ import annotations
 
@@ -34,8 +35,14 @@ from repro_torch.tree import tree_from_paths, tree_map, tree_paths
 class NodeState(NamedTuple):
     student: Plane               # buf [R, 512] ([N, R, 512] stacked)
     teacher: Any                 # dict tree of [...] ([N, ...] stacked)
-    opt_s: Dict[str, Any]        # {"mu", "nu", "step", "gnorm"}
-    opt_t: Dict[str, Any]        # {"mu", "nu", "step"}
+    # the optimizers' own states (``make_plane_optimizer`` and the
+    # per-leaf ``make_optimizer``):
+    #   opt_s  sgd {"mu", "step", "gnorm"}, adamw {"mu", "nu", "step",
+    #          "gnorm"}, adafactor {"fac", "step", "gnorm"}
+    #   opt_t  sgd {"mu", "step"}, adamw {"mu", "nu", "step"},
+    #          adafactor {"v": tree of {vr, vc} | {v}, "step"}
+    opt_s: Dict[str, Any]
+    opt_t: Dict[str, Any]
     global_protos: torch.Tensor  # [C, P]
     proto_mask: torch.Tensor     # [C]
     round_idx: torch.Tensor      # int32 scalar ([N] stacked)
@@ -133,7 +140,7 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
             grads = torch.autograd.grad(lt.sum(), leaves)
             gt, _ = clip_by_global_norm(tree_from_paths(zip(paths, grads)),
                                         grad_clip, lead=1)
-            opt_t.update(gt, state.opt_t, state.teacher)
+            opt_t.update(gt, state.opt_t, state.teacher, lead=1)
             metrics["loss_t"] = lt.detach()
             teacher_out = [ModelOutput(o.logits.detach(), o.f1.detach(),
                                        o.aux) for o in outs]
@@ -185,22 +192,29 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
                           device=None) -> NodeState:
     """One node's state carried over from the JAX package.
 
-    ``student`` and ``teacher`` are parameter trees (nested dicts of
-    numpy arrays — for a plane-backed JAX student, its leaf views);
-    ``opt_s`` is the JAX plane optimizer state ``{"mu": [R, 512],
-    "nu": [R, 512], "step"[, "gnorm"]}`` (the same layout as the
-    port's plane) and ``opt_t`` the per-leaf adamw state ``{"mu": tree,
-    "nu": tree, "step"}``; ``global_protos`` ``[C, P]``, ``proto_mask``
-    ``[C]`` and ``round_idx`` as the JAX ``NodeState`` holds them.
-    ``residual`` (``{"protos": [C, P], "student": [R, 512]}``, the
-    student residual in the plane's layout) and ``seq`` carry an
-    error-feedback ``CodecState``.  Runs on ``cuda`` unless ``device``
-    names another device."""
+    ``student`` and ``teacher`` are parameter trees (nested dicts and
+    lists of numpy arrays — for a plane-backed JAX student, its leaf
+    views); ``opt_s`` is the JAX plane optimizer state and ``opt_t`` the
+    per-leaf optimizer state, of sgd, adamw or adafactor, as numpy trees
+    (see :class:`NodeState`; a plane's ``mu``/``nu`` are ``[R, 512]`` in
+    the port's layout, adafactor's ``fac`` is aligned with its recipe).
+    Each array keeps its dtype (the step counters int32).
+    ``global_protos`` ``[C, P]``,
+    ``proto_mask`` ``[C]`` and ``round_idx`` as the JAX ``NodeState``
+    holds them.  ``residual`` (``{"protos": [C, P], "student": [R,
+    512]}``, the student residual in the plane's layout) and ``seq``
+    carry an error-feedback ``CodecState``.  Runs on ``cuda`` unless
+    ``device`` names another device."""
     device = resolve_device(device)
     plane = plane_from_tree(params_from_numpy(student, device))
-    if tuple(np.shape(opt_s["mu"])) != tuple(plane.buf.shape):
-        raise ValueError(f"opt_s moments {np.shape(opt_s['mu'])} do not "
-                         f"match the plane {tuple(plane.buf.shape)}")
+    for key in ("mu", "nu"):
+        if key in opt_s and \
+                tuple(np.shape(opt_s[key])) != tuple(plane.buf.shape):
+            raise ValueError(f"opt_s {key} {np.shape(opt_s[key])} does not "
+                             f"match the plane {tuple(plane.buf.shape)}")
+    if "fac" in opt_s and len(opt_s["fac"]) != len(plane.meta.recipe):
+        raise ValueError(f"opt_s fac has {len(opt_s['fac'])} segments, the "
+                         f"plane {len(plane.meta.recipe)} leaves")
 
     def t(x, dtype=torch.float32):
         return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
@@ -217,20 +231,18 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
     return NodeState(
         student=plane,
         teacher=params_from_numpy(teacher, device),
-        opt_s={"mu": t(opt_s["mu"]), "nu": t(opt_s["nu"]),
-               "step": t(opt_s["step"], torch.int32),
-               "gnorm": t(opt_s.get("gnorm", 0.0))},
-        opt_t={"mu": params_from_numpy(opt_t["mu"], device),
-               "nu": params_from_numpy(opt_t["nu"], device),
-               "step": t(opt_t["step"], torch.int32)},
+        opt_s=params_from_numpy(opt_s, device),
+        opt_t=params_from_numpy(opt_t, device),
         global_protos=t(global_protos), proto_mask=t(proto_mask),
         round_idx=t(round_idx, torch.int32), wire_state=wire_state)
 
 
 def stack_states(states: List[NodeState]) -> NodeState:
     """Per-node states -> one stacked state.  Parameters become autograd
-    leaves; all nodes step together, so their step counters must agree.
-    An error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
+    leaves; every other tensor of the optimizer states stacks on a new
+    node axis, whatever the optimizer keeps.  All nodes step together,
+    so their step counters must agree (one scalar ``step`` stays).  An
+    error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
     ``[N]`` vector); either every state carries one or none does."""
     def stack(*xs):
         return torch.stack(xs)
@@ -246,6 +258,13 @@ def stack_states(states: List[NodeState]) -> NodeState:
         if len(steps) != 1:
             raise ValueError(f"{key} step counters differ across nodes: "
                              f"{sorted(steps)}")
+
+    def opt(key):
+        s0 = getattr(states[0], key)
+        return {k: s0[k].clone() if k == "step" else
+                tree_map(stack, *(getattr(s, key)[k] for s in states))
+                for k in s0}
+
     s0 = states[0]
     wire_state = None
     if s0.wire_state is not None:
@@ -260,13 +279,7 @@ def stack_states(states: List[NodeState]) -> NodeState:
         student=Plane(leaf(*(s.student.buf for s in states)),
                       s0.student.meta),
         teacher=tree_map(leaf, *(s.teacher for s in states)),
-        opt_s={"mu": stack(*(s.opt_s["mu"] for s in states)),
-               "nu": stack(*(s.opt_s["nu"] for s in states)),
-               "step": s0.opt_s["step"].clone(),
-               "gnorm": stack(*(s.opt_s["gnorm"] for s in states))},
-        opt_t={"mu": tree_map(stack, *(s.opt_t["mu"] for s in states)),
-               "nu": tree_map(stack, *(s.opt_t["nu"] for s in states)),
-               "step": s0.opt_t["step"].clone()},
+        opt_s=opt("opt_s"), opt_t=opt("opt_t"),
         global_protos=stack(*(s.global_protos for s in states)),
         proto_mask=stack(*(s.proto_mask for s in states)),
         round_idx=stack(*(s.round_idx for s in states)),

@@ -40,6 +40,10 @@ SIGNATURES = {
     # g, p, mu, nu, lr, scale, bc1, bc2, n, node_elems,
     # b1, 1-b1, b2, 1-b2, eps, wd, stream
     "adamw_update": (_P,) * 8 + (_I64, _I64) + (_F32,) * 6 + (_P,),
+    # g, p, mu, lr, scale, n, node_elems, momentum, wd, stream
+    "sgd_update": (_P,) * 5 + (_I64, _I64, _F32, _F32, _P),
+    # upd, p, lr, n, wd, stream
+    "adafactor_apply": (_P,) * 3 + (_I64, _F32, _P),
     # f1, labels, sums, counts, n_nodes, batch, p_dim, n_classes, stream
     "proto_accum": (_P,) * 4 + (_I32,) * 4 + (_P,),
     # x, out, rows, cols, stream

@@ -1,12 +1,19 @@
-"""Hopper kernel: fused clip + adamw sweep over the flat parameter plane.
+"""Hopper kernels: the fused optimizer sweeps over the flat parameter
+plane (the CUDA source is ``csrc/opt_update.cu``).
 
-Replaces ``repro/kernels/opt_update/opt_update.py:adamw_update_pallas``
-(the CUDA source is ``csrc/opt_update.cu``).  Bound on the H100: bytes —
-7 x 4 B per element (read g, p, mu, nu; write p, mu, nu).  Design: one
-grid-stride elementwise sweep over every node's plane at once, runtime
-scalars and the per-node clip scale in device memory; explicit
-round-to-nearest operations and ``-fmad=false`` make it bit-identical to
-its plain version, :func:`~repro_torch.kernels.opt_update.ref.adamw_update_ref`.
+* ``adamw_update_cuda`` replaces
+  ``repro/kernels/opt_update/opt_update.py:adamw_update_pallas``; bytes
+  bound it — 7 x 4 B per element (read g, p, mu, nu; write p, mu, nu).
+* ``sgd_update_cuda`` replaces ``sgd_update_pallas``; 5 x 4 B per
+  element (read g, p, mu; write p, mu).
+* ``adafactor_apply_cuda`` replaces ``adafactor_apply_pallas``; 3 x 4 B
+  per element (read upd, p; write p).
+
+Design: one grid-stride elementwise sweep over every node's plane at
+once, runtime scalars and the per-node clip scale in device memory;
+explicit round-to-nearest operations and ``-fmad=false`` make each
+bit-identical to its plain version in
+:mod:`~repro_torch.kernels.opt_update.ref`.
 """
 from __future__ import annotations
 
@@ -14,9 +21,26 @@ import torch
 
 from repro_torch.kernels.build import (LaunchCounter, check, library,
                                        require, stream_of)
-from repro_torch.kernels.opt_update.ref import adamw_update_ref  # noqa: F401  the plain version
+from repro_torch.kernels.opt_update.ref import (  # noqa: F401  the plain versions
+    adafactor_apply_ref, adamw_update_ref, sgd_update_ref)
 
 ADAMW_LAUNCHES = LaunchCounter("adamw_update")
+SGD_LAUNCHES = LaunchCounter("sgd_update")
+ADAFACTOR_LAUNCHES = LaunchCounter("adafactor_apply")
+
+
+def _require_scalar(t, name: str) -> None:
+    require(t, name, torch.float32)
+    if t.numel() != 1:
+        raise ValueError(f"{name}: expected one element")
+
+
+def _node_scale(p, scale, name: str):
+    """Elements per ``R x C`` plane, checking one clip scale per plane."""
+    node_elems = p.shape[-2] * p.shape[-1]
+    require(scale, f"{name} scale", torch.float32,
+            (p.numel() // node_elems,))
+    return node_elems
 
 
 def adamw_update_cuda(g, p, mu, nu, lr, scale, bc1, bc2, *, b1: float,
@@ -28,13 +52,9 @@ def adamw_update_cuda(g, p, mu, nu, lr, scale, bc1, bc2, *, b1: float,
     shape = tuple(p.shape)
     for name, t in (("g", g), ("p", p), ("mu", mu), ("nu", nu)):
         require(t, f"adamw_update {name}", torch.float32, shape)
-    node_elems = shape[-2] * shape[-1]
-    n_nodes = p.numel() // node_elems
-    require(scale, "adamw_update scale", torch.float32, (n_nodes,))
+    node_elems = _node_scale(p, scale, "adamw_update")
     for name, t in (("lr", lr), ("bc1", bc1), ("bc2", bc2)):
-        require(t, f"adamw_update {name}", torch.float32)
-        if t.numel() != 1:
-            raise ValueError(f"adamw_update {name}: expected one element")
+        _require_scalar(t, f"adamw_update {name}")
     rc = library().adamw_update(
         g.data_ptr(), p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
         lr.data_ptr(), scale.data_ptr(), bc1.data_ptr(), bc2.data_ptr(),
@@ -42,3 +62,35 @@ def adamw_update_cuda(g, p, mu, nu, lr, scale, bc1, bc2, *, b1: float,
         stream_of(p))
     check(rc, "adamw_update")
     ADAMW_LAUNCHES.count += 1
+
+
+def sgd_update_cuda(g, p, mu, lr, scale, *, momentum: float,
+                    weight_decay: float) -> None:
+    """Launch the kernel: updates ``p`` and ``mu`` (``[..., R, C]`` fp32,
+    contiguous, on the card) in place.  ``lr`` is a one-element fp32
+    device tensor, ``scale`` has one entry per ``R x C`` plane."""
+    shape = tuple(p.shape)
+    for name, t in (("g", g), ("p", p), ("mu", mu)):
+        require(t, f"sgd_update {name}", torch.float32, shape)
+    node_elems = _node_scale(p, scale, "sgd_update")
+    _require_scalar(lr, "sgd_update lr")
+    rc = library().sgd_update(
+        g.data_ptr(), p.data_ptr(), mu.data_ptr(), lr.data_ptr(),
+        scale.data_ptr(), p.numel(), node_elems, momentum, weight_decay,
+        stream_of(p))
+    check(rc, "sgd_update")
+    SGD_LAUNCHES.count += 1
+
+
+def adafactor_apply_cuda(upd, p, lr, *, weight_decay: float) -> None:
+    """Launch the kernel: ``p <- p - lr·(upd + wd·p)`` in place over
+    ``[..., R, C]`` fp32 planes on the card; ``lr`` is a one-element
+    fp32 device tensor."""
+    for name, t in (("upd", upd), ("p", p)):
+        require(t, f"adafactor_apply {name}", torch.float32, tuple(p.shape))
+    _require_scalar(lr, "adafactor_apply lr")
+    rc = library().adafactor_apply(upd.data_ptr(), p.data_ptr(),
+                                   lr.data_ptr(), p.numel(), weight_decay,
+                                   stream_of(p))
+    check(rc, "adafactor_apply")
+    ADAFACTOR_LAUNCHES.count += 1

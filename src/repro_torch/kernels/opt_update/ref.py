@@ -1,12 +1,13 @@
-"""Plain PyTorch version of the fused clip+adamw plane sweep.
+"""Plain PyTorch versions of the fused plane sweeps: clip+sgd,
+clip+adamw and the adafactor apply.
 
-``repro``'s ``adamw_update_ref`` expression for expression, over any
-``[N, R, C]`` (or ``[R, C]``) plane buffer with a per-node clip scale
-``[N]``: the moment EMAs on the clipped grad, bias correction by the
-``bc1``/``bc2`` tensors, the decayed parameter step.  Each operation is
-a separate PyTorch op (one rounding each), which is exactly what the
-CUDA kernel (``csrc/opt_update.cu``) computes.  Scalars that divide are
-tensors on the operands' device: PyTorch would turn a division by a
+``repro``'s ``sgd_update_ref``, ``adamw_update_ref`` and
+``adafactor_apply_ref`` expression for expression, over any ``[N, R,
+C]`` (or ``[R, C]``) plane buffer; sgd and adamw take a per-node clip
+scale ``[N]``.  Each operation is a separate PyTorch op (one rounding
+each), which is exactly what the CUDA kernels (``csrc/opt_update.cu``)
+compute.  Runtime scalars (``lr``, the bias corrections ``bc1``/``bc2``)
+are tensors on the operands' device: PyTorch would turn a division by a
 host scalar on the card into a reciprocal multiply.
 
 The square root is :func:`sqrt_rn`: PyTorch's vectorized CPU
@@ -23,6 +24,23 @@ def sqrt_rn(x):
     in float64 rounded once to float32 is exact rounding, since
     53 >= 2 * 24 + 2 bits."""
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
+def sgd_update_ref(g, p, mu, *, lr, scale, momentum: float,
+                   weight_decay: float):
+    """One clipped sgd+momentum step over ``[N, R, C]`` planes with a
+    per-node clip scale ``[N]``: ``mu' = momentum·mu + g·scale``,
+    ``p' = p - lr·(mu' + wd·p)``.  Returns ``(new_p, new_mu)``."""
+    g = g * scale.reshape(tuple(g.shape[:-2]) + (1, 1))
+    mu = momentum * mu + g
+    newp = p - lr * (mu + weight_decay * p)
+    return newp, mu
+
+
+def adafactor_apply_ref(upd, p, *, lr, weight_decay: float):
+    """The adafactor apply over a plane buffer: ``p' = p - lr·(upd +
+    wd·p)``, where ``upd`` is the packed per-segment clipped update."""
+    return p - lr * (upd + weight_decay * p)
 
 
 def adamw_update_ref(g, p, mu, nu, *, lr, scale, bc1, bc2, b1: float,

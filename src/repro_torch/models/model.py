@@ -1,4 +1,5 @@
-"""Unified model API (the ``cnn`` family of ``repro.models.model``).
+"""Unified model API (the ``cnn`` and ``resnet`` families of
+``repro.models.model``).
 
 * ``init_params(cfg, gen)`` — fp32 parameters from an explicit
   ``torch.Generator``,
@@ -18,33 +19,38 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.cnn import cnn_forward, init_cnn
+from repro_torch.models.resnet import init_resnet, resnet_forward
 from repro_torch.tree import tree_map
 
 
 class ModelOutput(NamedTuple):
     logits: torch.Tensor   # [B, K]
     f1: torch.Tensor       # [B, proto_dim] prototype representation
-    aux: torch.Tensor      # scalar auxiliary loss (zero for the CNN)
+    aux: torch.Tensor      # scalar auxiliary loss (zero for CNN, ResNet)
 
 
 def _unported(cfg: ModelConfig):
     return NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP.md "
-        f"Queue 1 item 2 (ResNets) / item 14 (model zoo)")
+        f"Queue 1 item 14 (model zoo)")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     if cfg.family == "cnn":
         return init_cnn(cfg, gen)
+    if cfg.family == "resnet":
+        return init_resnet(cfg, gen)
     raise _unported(cfg)
+
+
+_FORWARDS = {"cnn": cnn_forward, "resnet": resnet_forward}
 
 
 def forward(cfg: ModelConfig, params, batch) -> ModelOutput:
-    if cfg.family == "cnn":
-        logits, f1 = cnn_forward(cfg, params, batch["image"])
-        return ModelOutput(logits, f1,
-                           torch.zeros((), device=logits.device))
-    raise _unported(cfg)
+    if cfg.family not in _FORWARDS:
+        raise _unported(cfg)
+    logits, f1 = _FORWARDS[cfg.family](cfg, params, batch["image"])
+    return ModelOutput(logits, f1, torch.zeros((), device=logits.device))
 
 
 _STUDENT_OVERRIDES = {
@@ -68,8 +74,8 @@ def derive_student(cfg: ModelConfig) -> ModelConfig:
 
 
 def params_from_numpy(tree, device: torch.device | str = "cpu"):
-    """JAX package parameters (nested dicts of numpy arrays) -> the port's
-    (nested dicts of tensors, same shapes and layouts)."""
+    """JAX package parameters (nested dicts and lists of numpy arrays) ->
+    the port's (the same tree of tensors, same shapes and layouts)."""
     return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device),
                     tree)
 

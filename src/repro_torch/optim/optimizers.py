@@ -1,12 +1,15 @@
-"""Per-leaf optimizers as ``(init, update)`` pairs over nested dicts of
-tensors — the teacher's optimizer, in plain tensor ops.
+"""Per-leaf optimizers as ``(init, update)`` pairs over trees of
+tensors — the teacher's optimizer, in plain tensor ops: ``sgd`` (with
+momentum and decoupled weight decay), ``adamw`` and ``adafactor``.
 
-The expressions are ``repro.optim.optimizers``' term for term.  Leaves
-may carry ``lead`` leading node axes (the stacked engine's ``[N, ...]``
-teacher): every reduction is then per node, as ``jax.vmap`` makes it in
-``repro``.  ``update`` writes the new parameters and moments into the
-given tensors in place (they are autograd leaves that the next step
-differentiates again) and returns them.
+The expressions are ``repro.optim.optimizers``' term for term.
+``update(grads, state, params, lead=0)``: leaves may carry ``lead``
+leading node axes (the stacked engine's ``[N, ...]`` teacher), and every
+reduction is then per node, as ``jax.vmap`` makes it in ``repro`` (only
+adafactor reduces: its factored moments and its RMS clip).  ``init``
+takes unstacked parameters.  ``update`` writes the new parameters and
+moments into the given tensors in place (they are autograd leaves that
+the next step differentiates again) and returns them.
 """
 from __future__ import annotations
 
@@ -15,18 +18,13 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.opt_update.ref import sqrt_rn
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
+                              tree_paths)
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md Queue 1 item 3 "
-        f"(sgd / adafactor) and Queue 2 (their plane kernels)")
 
 
 def clip_by_global_norm(grads, max_norm: float, *, lead: int = 0):
@@ -49,6 +47,34 @@ def clip_by_global_norm(grads, max_norm: float, *, lead: int = 0):
     return tree_map(apply, grads), gn
 
 
+def sgd(lr: float, momentum: float = 0.9,
+        weight_decay: float = 0.0) -> Optimizer:
+    """SGD with momentum: ``mu' = momentum·mu + g``,
+    ``p' = p - lr·(mu' + wd·p)``; the lr is read before the step counter
+    advances (``repro`` reads ``sched(state["step"])``)."""
+    def init(params):
+        return {
+            "mu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=tree_leaves(params)[0].device),
+        }
+
+    @torch.no_grad()
+    def update(grads, state, params, lead: int = 0):
+        lr_t = torch.full((), lr, dtype=torch.float32,
+                          device=state["step"].device)
+        for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
+                           tree_leaves(state["mu"])):
+            m_new = momentum * m + g.float()
+            p.copy_((p - lr_t * (m_new + weight_decay * p)).to(p.dtype))
+            m.copy_(m_new)
+        state["step"] = state["step"] + 1
+        return params, state
+
+    return Optimizer(init, update)
+
+
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Optimizer:
     def init(params):
@@ -62,7 +88,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         }
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, lead: int = 0):
         step = state["step"] + 1
         lr_t = torch.full((), lr, dtype=torch.float32, device=step.device)
         bc1 = 1.0 - b1 ** step.float()
@@ -87,10 +113,103 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
+def factored(shape) -> bool:
+    """Adafactor factors a leaf's second moment when its own shape (no
+    node axes) has two trailing dims > 1: ``vr`` over the last axis,
+    ``vc`` over the one before."""
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def adafactor_moments(shape, lead: int, device):
+    """Zero second moments of one leaf of ``shape`` whose first ``lead``
+    dims are node axes: ``{"vr", "vc"}`` if it factors, else ``{"v"}``."""
+    shape = tuple(shape)
+    if factored(shape[lead:]):
+        return {"vr": torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device),
+                "vc": torch.zeros(shape[:-2] + shape[-1:],
+                                  dtype=torch.float32, device=device)}
+    return {"v": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def adafactor_leaf_update(g32, v, beta, *, lead: int, eps: float,
+                          clip_threshold: float):
+    """One leaf's adafactor moments and RMS-clipped update ``(upd,
+    new_v)`` from its fp32 gradient ``g32`` (``lead`` node axes first):
+    ``repro.optim.optimizers.adafactor``'s ``upd`` for every node at
+    once.  The RMS and the row factor's mean reduce over the leaf's own
+    dims only, so nodes never mix.  Shared by the per-leaf optimizer and
+    the plane's per-segment sweep, which is then bit-identical to it."""
+    shape = tuple(g32.shape[lead:])
+    g2 = torch.square(g32) + eps
+    one_m_beta = 1 - beta
+    if factored(shape):
+        vr = beta * v["vr"] + one_m_beta * g2.mean(dim=-1)
+        vc = beta * v["vc"] + one_m_beta * g2.mean(dim=-2)
+        rfac = (vr / vr.mean(dim=-1, keepdim=True))[..., None]
+        upd = g32 * torch.rsqrt(rfac * vc[..., None, :] + eps)
+        new_v = {"vr": vr, "vc": vc}
+    else:
+        nv = beta * v["v"] + one_m_beta * g2
+        upd = g32 * torch.rsqrt(nv + eps)
+        new_v = {"v": nv}
+    own = tuple(range(lead, upd.dim()))
+    rms = torch.sqrt(torch.square(upd).mean(dim=own, keepdim=True) + 1e-12)
+    clip = torch.full((), clip_threshold, dtype=torch.float32,
+                      device=upd.device)
+    return upd / torch.clamp_min(rms / clip, 1.0), new_v
+
+
+def adafactor_beta(step: torch.Tensor, decay: float = 0.8) -> torch.Tensor:
+    """The second-moment decay of step ``step`` (already advanced):
+    ``1 - (step + 1)^(-decay)``, in fp32."""
+    return 1.0 - (step.float() + 1.0) ** (-decay)
+
+
+def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0,
+              weight_decay: float = 0.0) -> Optimizer:
+    """Factored Adam (Shazeer & Stern 2018), no momentum; the state is
+    ``{"v": tree of {vr, vc} | {v}, "step"}``."""
+    def init(params):
+        return {
+            "v": tree_map(lambda p: adafactor_moments(p.shape, 0, p.device),
+                          params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=tree_leaves(params)[0].device),
+        }
+
+    @torch.no_grad()
+    def update(grads, state, params, lead: int = 0):
+        step = state["step"] + 1
+        lr_t = torch.full((), lr, dtype=torch.float32, device=step.device)
+        beta = adafactor_beta(step, decay)
+        paths = [path for path, _ in tree_paths(params)]
+        new_v = []
+        for path, p, g in zip(paths, tree_leaves(params),
+                              tree_leaves(grads)):
+            v = state["v"]
+            for k in path:
+                v = v[k]
+            upd, nv = adafactor_leaf_update(
+                g.float(), v, beta, lead=lead, eps=eps,
+                clip_threshold=clip_threshold)
+            p32 = p.float()
+            p.copy_((p32 - lr_t * (upd + weight_decay * p32)).to(p.dtype))
+            new_v.append((path, nv))
+        state["v"] = tree_from_paths(new_v)
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(name: str, lr: float, *, weight_decay: float = 0.01,
                    momentum: float = 0.9) -> Optimizer:
+    if name == "sgd":
+        return sgd(lr, momentum=momentum, weight_decay=weight_decay)
     if name == "adamw":
         return adamw(lr, weight_decay=weight_decay)
-    if name in ("sgd", "adafactor"):
-        raise _unported(f"optimizer {name!r}")
+    if name == "adafactor":
+        return adafactor(lr, weight_decay=weight_decay)
     raise ValueError(f"unknown optimizer {name!r}")

@@ -13,13 +13,13 @@ Gradients need no custom backward here: the buffer is one autograd leaf,
 so differentiating a loss of its views lands every gradient in one
 ``[..., R, 512]`` tensor whose padding lanes are exactly zero — the same
 padding-lane-zero invariant ``repro``'s custom vjp builds by hand.
-``g = 0, p = 0`` is a fixed point of the adamw sweep, so padding never
-leaks into parameters or moments.
+``g = 0, p = 0`` is a fixed point of the sgd, adamw and adafactor
+sweeps, so padding never leaks into parameters or moments.
 
-:func:`make_plane_optimizer` fuses the global-norm clip and the adamw
-update into one sweep over the whole buffer: ONE kernel launch per
-training step for every node (``kernels/opt_update``), with the per-node
-clip scale and the step scalars kept in device memory.
+:func:`make_plane_optimizer` fuses the global-norm clip and the
+optimizer update into one sweep over the whole buffer: ONE kernel launch
+per training step for every node (``kernels/opt_update``), with the
+per-node clip scale and the step scalars kept in device memory.
 """
 from __future__ import annotations
 
@@ -29,7 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.quantize.ops import _COLS
-from repro_torch.optim.optimizers import Optimizer, _unported
+from repro_torch.optim.optimizers import (Optimizer, adafactor_beta,
+                                          adafactor_moments)
+
+# the optimizers with a fused plane sweep (kernels/opt_update)
+PLANE_OPTIMIZERS = ("sgd", "adamw", "adafactor")
 from repro_torch.tree import tree_from_paths, tree_paths
 
 
@@ -108,29 +112,48 @@ def make_plane_optimizer(name: str, lr: float, *,
                          b1: float = 0.9, b2: float = 0.999,
                          eps: float = 1e-8,
                          grad_clip: float = 0.0) -> Optimizer:
-    """Fused clip+adamw over :class:`Plane` params.
+    """Fused clip+update optimizer over :class:`Plane` params: ``"sgd"``,
+    ``"adamw"`` or ``"adafactor"``.
 
     ``update(grads, state, params)`` takes the gradient as a Plane,
     computes the per-node pre-clip norm and clip scale
     ``min(1, clip / max(norm, 1e-9))``, and sweeps the buffer once
     through ``kernels/opt_update`` — the CUDA kernel for tensors on the
-    card, its plain version on the CPU — updating params, ``mu`` and
-    ``nu`` IN PLACE.  ``lr``, the clip scale and the bias corrections
-    ``1 - b**step`` (fp32, from the device step counter) stay device
-    tensors: the step path never synchronizes with the host.  The
-    returned state reports the pre-clip norm under ``"gnorm"``."""
-    from repro_torch.kernels.opt_update.ops import fused_adamw_update
-    if name != "adamw":
-        raise _unported(f"plane optimizer {name!r}")
+    card, its plain version on the CPU — updating the parameters and the
+    moments IN PLACE.  sgd keeps ``mu`` and adamw ``mu``/``nu`` as
+    sibling planes; adafactor keeps its factored second moment per leaf
+    *segment* (``fac``, a tuple aligned with the recipe, each entry with
+    the node axis: ``vr``/``vc`` for factored shapes, dense ``v``
+    otherwise; ``decay=0.8, eps=1e-30, clip_threshold=1.0`` as the
+    per-leaf optimizer) and rides one fused apply sweep.  ``lr``, the
+    clip scale and the step scalars stay device tensors: the step path
+    never synchronizes with the host.  sgd reads the lr before its step
+    counter advances, adamw and adafactor after (``repro``'s order; the
+    lr is constant here).  The returned state reports the pre-clip norm
+    under ``"gnorm"``."""
+    from repro_torch.kernels.opt_update.ops import (fused_adafactor_update,
+                                                    fused_adamw_update,
+                                                    fused_sgd_update)
+    if name not in PLANE_OPTIMIZERS:
+        raise ValueError(f"plane optimizer supports {PLANE_OPTIMIZERS}, "
+                         f"got {name!r}")
 
     def init(params: Plane):
         buf = params.buf
         lead = tuple(buf.shape[:-2])
-        return {"mu": torch.zeros_like(buf, dtype=torch.float32),
-                "nu": torch.zeros_like(buf, dtype=torch.float32),
-                "step": torch.zeros((), dtype=torch.int32, device=buf.device),
-                "gnorm": torch.zeros(lead, dtype=torch.float32,
-                                     device=buf.device)}
+        state = {"step": torch.zeros((), dtype=torch.int32,
+                                     device=buf.device),
+                 "gnorm": torch.zeros(lead, dtype=torch.float32,
+                                      device=buf.device)}
+        if name == "adafactor":
+            state["fac"] = tuple(
+                adafactor_moments(lead + shape, len(lead), buf.device)
+                for _, _, shape, _, _ in params.meta.recipe)
+            return state
+        state["mu"] = torch.zeros_like(buf, dtype=torch.float32)
+        if name == "adamw":
+            state["nu"] = torch.zeros_like(buf, dtype=torch.float32)
+        return state
 
     @torch.no_grad()
     def update(grads: Plane, state, params: Plane):
@@ -141,13 +164,23 @@ def make_plane_optimizer(name: str, lr: float, *,
                 / torch.clamp_min(gnorm, 1e-9), 1.0)
         else:
             scale = torch.ones_like(gnorm)
+        scale = scale.reshape(-1)
         step = state["step"] + 1
         lr_t = torch.full((), lr, dtype=torch.float32, device=step.device)
-        bc1 = 1.0 - b1 ** step.float()
-        bc2 = 1.0 - b2 ** step.float()
-        fused_adamw_update(grads.buf, params.buf, state["mu"], state["nu"],
-                           lr_t, scale.reshape(-1), bc1, bc2, b1=b1, b2=b2,
-                           eps=eps, weight_decay=weight_decay)
+        if name == "sgd":
+            fused_sgd_update(grads.buf, params.buf, state["mu"], lr_t, scale,
+                             momentum=momentum, weight_decay=weight_decay)
+        elif name == "adamw":
+            bc1 = 1.0 - b1 ** step.float()
+            bc2 = 1.0 - b2 ** step.float()
+            fused_adamw_update(grads.buf, params.buf, state["mu"],
+                               state["nu"], lr_t, scale, bc1, bc2, b1=b1,
+                               b2=b2, eps=eps, weight_decay=weight_decay)
+        else:
+            state["fac"] = fused_adafactor_update(
+                grads.buf, params.buf, state["fac"], lr_t, scale,
+                adafactor_beta(step), recipe=params.meta.recipe,
+                weight_decay=weight_decay)
         state["step"] = step
         state["gnorm"] = gnorm
         return params, state

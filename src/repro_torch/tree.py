@@ -1,9 +1,11 @@
-"""Nested-dict parameter trees: the port's stand-in for ``jax.tree_util``.
+"""Parameter trees: the port's stand-in for ``jax.tree_util``.
 
-Parameters, gradients and optimizer moments are nested ``dict``s of
-tensors.  Leaves are visited in JAX's flatten order — dict keys sorted —
-so the flat parameter plane and the wire payload lay leaves out exactly
-as the JAX package does.  Leaves may also be :class:`ShapeDtypeStruct`
+Parameters, gradients and optimizer moments are nested ``dict``s,
+``list``s and ``tuple``s of tensors (a ResNet's ``"stages"`` is a list
+of lists of block dicts).  Leaves are visited in JAX's flatten order —
+dict keys sorted, lists and tuples in order — so the flat parameter
+plane and the wire payload lay leaves out exactly as the JAX package
+does.  Leaves may also be :class:`ShapeDtypeStruct`
 skeletons (shape and numpy dtype only): the byte accountants read sizes
 and types and never touch data.
 """
@@ -41,23 +43,35 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leafwise over dict trees of one structure, visiting
-    leaves in flatten order."""
+    """Apply ``fn`` leafwise over trees of one structure, visiting
+    leaves in flatten order; dicts, lists and tuples keep their type."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if type(tree) in (list, tuple):
+        return type(tree)(tree_map(fn, sub, *(r[i] for r in rest))
+                          for i, sub in enumerate(tree))
     return fn(tree, *rest)
 
 
-def tree_from_paths(items) -> dict:
-    """Inverse of :func:`tree_paths` for dict trees."""
-    out: dict = {}
+def tree_from_paths(items):
+    """Inverse of :func:`tree_paths`: an int path key is a list index
+    (JAX's flatten visits list elements in order), any other key a dict
+    key."""
+    root = [None]
     for path, leaf in items:
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return out
+        parent, key = root, 0
+        for k in path:
+            node = parent[key]
+            if node is None:
+                node = parent[key] = [] if isinstance(k, int) else {}
+            if isinstance(node, list):
+                node.extend([None] * (k + 1 - len(node)))
+            else:
+                node.setdefault(k, None)
+            parent, key = node, k
+        parent[key] = leaf
+    return root[0]
 
 
 def is_float(x) -> bool:

@@ -150,11 +150,14 @@ def _snapshot(state, logits, leaves):
     """numpy copies of a stacked state (the port updates in place)."""
     def a(x):
         return np.array(x.detach() if isinstance(x, torch.Tensor) else x)
+    def moments(opt):
+        """The optimizer's tensors but the step counter and the norm, in
+        flatten order (adamw: mu then nu; adafactor: per leaf vc, vr)."""
+        return [a(x) for x in leaves({k: v for k, v in opt.items()
+                                      if k not in ("step", "gnorm")})]
     return {"student": a(state.student.buf),
             "teacher": [a(x) for x in leaves(state.teacher)],
-            "mu_s": a(state.opt_s["mu"]), "nu_s": a(state.opt_s["nu"]),
-            "mu_t": [a(x) for x in leaves(state.opt_t["mu"])],
-            "nu_t": [a(x) for x in leaves(state.opt_t["nu"])],
+            "opt_s": moments(state.opt_s), "opt_t": moments(state.opt_t),
             "steps": (int(np.ravel(a(state.opt_s["step"]))[0]),
                       int(np.ravel(a(state.opt_t["step"]))[0])),
             "global_protos": a(state.global_protos),
@@ -359,9 +362,11 @@ def _assert_round_matches(t, j, codec=None):
         np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)
     np.testing.assert_allclose(t["global_protos"], j["global_protos"],
                                rtol=0, atol=1e-4)
-    np.testing.assert_allclose(t["mu_s"], j["mu_s"], rtol=0, atol=1e-6)
-    np.testing.assert_allclose(t["nu_s"], j["nu_s"], rtol=0, atol=1e-8)
-    for a, b in zip(t["mu_t"] + t["nu_t"], j["mu_t"] + j["nu_t"]):
+    (mu_s, nu_s), (jmu_s, jnu_s) = t["opt_s"], j["opt_s"]   # adamw
+    np.testing.assert_allclose(mu_s, jmu_s, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(nu_s, jnu_s, rtol=0, atol=1e-8)
+    assert len(t["opt_t"]) == len(j["opt_t"]) == 2 * len(t["teacher"])
+    for a, b in zip(t["opt_t"], j["opt_t"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
     assert t["proto_mask"].tobytes() == j["proto_mask"].tobytes()
     assert t["round_idx"] == j["round_idx"]
@@ -525,6 +530,121 @@ def test_run_federation_matches_jax_from_carried_states(dtype, wire,
                                    rtol=0, atol=1 / n_test + 1e-12)
 
 
+def _resnet_setup(optimizer, rounds=2, per_node=48, batch=16):
+    """A tiny CIFAR-shaped federation: a two-stage ResNet teacher
+    (blocks (2, 2), width 4) and its student (1, 1) on 8x8x3 images,
+    fp32, 3 nodes on a full graph, the 16-bit wire."""
+    jcfg = jbase.get_config("cifar10-resnet18").replace(
+        name="small-resnet", resnet_blocks=(2, 2), resnet_width=4,
+        proto_dim=16, input_hw=(8, 8, 3), dtype="float32")
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(jcfg))
+    data = make_image_dataset(1, N_NODES * per_node + 64, (8, 8, 3), 10)
+    train_d, test_d = train_test_split(data, 64 / len(data["label"]), 0)
+    parts = partition(train_d["label"], N_NODES, "iid", 0)
+    node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
+    fed_kw = dict(num_nodes=N_NODES, rounds=rounds, topology="full")
+    train_kw = dict(batch_size=batch, remat=False, optimizer=optimizer)
+    return (jcfg, tcfg, node_data, test_d,
+            jbase.FederationConfig(**fed_kw), tbase.FederationConfig(**fed_kw),
+            jbase.TrainConfig(**train_kw), tbase.TrainConfig(**train_kw))
+
+
+# Whole ResNet runs, fp32, per optimizer: atol of (student plane,
+# teacher, optimizer moments) after each of 2 rounds (3 steps a round).
+# The student as the mnist runs: a 16-bit wire code may flip where the
+# two trained students straddle a rounding boundary (one Δ ≈ max|x| /
+# 32767 ≈ 3e-5, weighted by the gossip weight; largest gap seen 3.9e-6).
+# The teacher never travels: the steps' own last-bit gaps (sgd 3.0e-8,
+# adafactor 1.2e-7 seen, an adafactor step being about lr·1e-4 of the
+# gradients' relative gap).  The moments: sgd's momentum is a sum of
+# gradients (2.8e-7 seen), adafactor's are squares of them (7.5e-9).
+RESNET_RUN_ATOL = {"sgd": (2e-5, 1e-6, 1e-6),
+                   "adafactor": (2e-5, 1e-6, 1e-8)}
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adafactor"])
+def test_run_federation_resnet_matches_jax_from_carried_states(optimizer,
+                                                               monkeypatch):
+    """A tiny ResNet federation under the sgd / adafactor plane and
+    per-leaf optimizers: ``run_federation`` of both packages from the
+    same carried states (JAX's own ``_init_states``, carried through
+    numpy).  Bytes exactly; every round's staged inputs byte-identical;
+    after each round the state to ``RESNET_RUN_ATOL``, prototypes to
+    ``atol=1e-4``, masks and counters exactly; F1 and accuracy exactly."""
+    jcfg, tcfg, node_data, test_d, jfed, tfed, jtrain, ttrain = \
+        _resnet_setup(optimizer)
+    jcalls, tcalls = [], []
+    monkeypatch.setattr(JF, "_make_round_fn", _recording(
+        JF._make_round_fn, jcalls, jax.tree_util.tree_leaves))
+    monkeypatch.setattr(TF, "_make_round_fn", _recording(
+        TF._make_round_fn, tcalls, tree_leaves))
+    jres = JF.run_federation(jcfg, jfed, jtrain, node_data, test_d)
+    assert jres.extras["param_plane"] is True
+    scfg = jmodel.derive_student(jcfg)
+    opt_s = jplane.make_plane_optimizer(optimizer, jtrain.learning_rate,
+                                        weight_decay=jtrain.weight_decay,
+                                        momentum=jtrain.momentum,
+                                        grad_clip=jtrain.grad_clip)
+    opt_t = jmake_optimizer(optimizer, jtrain.learning_rate,
+                            weight_decay=jtrain.weight_decay,
+                            momentum=jtrain.momentum)
+    jstates = JF._init_states("profe", (jcfg, scfg), jfed, opt_s, opt_t, 10,
+                              plane=True)
+    tres = TF.run_federation(tcfg, tfed, ttrain, node_data, test_d,
+                             initial_states=[_carry(s) for s in jstates],
+                             device="cpu")
+    for key in ("avg_sent_gb", "avg_received_gb", "wire_bytes_per_copy",
+                "wire_bytes_packed_per_copy", "avg_sent_packed_gb"):
+        assert tres.extras[key] == jres.extras[key], key
+    assert tres.comm.summary() == jres.comm.summary()
+    assert len(tcalls) == len(jcalls) == 2
+    s_atol, t_atol, m_atol = RESNET_RUN_ATOL[optimizer]
+    for t, j in zip(tcalls, jcalls):
+        assert t["flags"] == j["flags"]
+        for a, b in zip(t["inputs"], j["inputs"]):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        t, j = t["state"], j["state"]
+        np.testing.assert_allclose(t["student"], j["student"], rtol=0,
+                                   atol=s_atol)
+        assert len(t["teacher"]) == len(j["teacher"]) == 32
+        for a, b in zip(t["teacher"], j["teacher"]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=t_atol)
+        for key in ("opt_s", "opt_t"):
+            assert len(t[key]) == len(j[key]) > 0
+            for a, b in zip(t[key], j[key]):
+                np.testing.assert_allclose(a, b, rtol=0, atol=m_atol)
+        np.testing.assert_allclose(t["global_protos"], j["global_protos"],
+                                   rtol=0, atol=1e-4)
+        assert t["proto_mask"].tobytes() == j["proto_mask"].tobytes()
+        assert t["round_idx"] == j["round_idx"]
+        assert t["steps"] == j["steps"]
+    assert tres.f1_per_round == jres.f1_per_round
+    assert tres.acc_per_round == jres.acc_per_round
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw", "adafactor", "lion"])
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_param_plane_resolves_like_jax(mode, optimizer, param_dtype):
+    """``param_plane`` resolves as ``repro``'s ``_plane_mode``: the plane
+    for the profe student under sgd / adamw / adafactor with fp32
+    parameters; ``"on"`` raises ValueError otherwise."""
+    jcfg = jmodel.derive_student(jbase.get_config("mnist-cnn").replace(
+        param_dtype=param_dtype))
+    tcfg = tbase.ModelConfig(**dataclasses.asdict(jcfg))
+    out = []
+    for pkg, cfg, fed, train in (
+            (JF, jcfg, jbase.FederationConfig(param_plane=mode),
+             jbase.TrainConfig(optimizer=optimizer)),
+            (TF, tcfg, tbase.FederationConfig(param_plane=mode),
+             tbase.TrainConfig(optimizer=optimizer))):
+        try:
+            out.append(pkg._plane_mode(fed, train, "profe", cfg))
+        except ValueError as e:
+            out.append(type(e))
+    assert out[0] == out[1]
+
+
 def _chip_smoke_module():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -533,42 +653,46 @@ def _chip_smoke_module():
     return mod
 
 
-@pytest.mark.parametrize("wire,rounds", [("16", 2), ("4/16+ef", 2),
-                                         ("4/16", 1)])
+@pytest.mark.parametrize("wire,rounds", [
+    ("16", 2), ("4/16+ef", 2), ("4/16", 1), ("cifar10/sgd", 2),
+    ("cifar10/adafactor", 1)])
 def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
-    """The 20-node mnist-cnn wire numbers chip_smoke.py holds the card
-    runs to: the port's accountants and the JAX package's, from the same
-    payload template shapes, equal each other and the script's
-    constants — for the 16-bit main path and for the 4/16 wire (whose
-    bytes +ef leaves unchanged) over that path's rounds."""
+    """The 20-node wire numbers chip_smoke.py holds the card runs to, for
+    each of its paths (``wire`` names the path): the port's accountants
+    and the JAX package's, from the same payload template shapes of the
+    path's full-width student, equal each other and the script's
+    constants — for the mnist-cnn 16-bit main path, the 4/16 wire (whose
+    bytes +ef leaves unchanged), and the cifar10-resnet18 paths (the
+    ResNet8 student on the 16-bit wire), over each path's rounds."""
     smoke = _chip_smoke_module()
     n = smoke.N_NODES
-    fields, smoke_rounds, want = smoke.WIRE_PATHS[wire]
+    model, _, wire_arg, smoke_rounds, want = smoke.PATHS[wire]
     assert smoke_rounds == rounds
-    jspec, tspec = JWireSpec.parse(wire), WireSpec.parse(wire)
-    # the script's FederationConfig fields make the spec it is named for
-    fed = tbase.FederationConfig(**fields)
+    jspec, tspec = JWireSpec.parse(wire_arg), WireSpec.parse(wire_arg)
+    # the script's FederationConfig fields make the spec it names
+    fed = tbase.FederationConfig(**smoke.wire_fields(tspec))
     assert WireSpec(student_bits=fed.quantize_bits,
                     proto_bits=fed.proto_quantize_bits,
                     error_feedback=fed.error_feedback) == tspec
     assert tspec.describe() == jspec.describe() == {
         "16": "int16", "4/16": "student=int4,protos=int16",
-        "4/16+ef": "student=int4,protos=int16+ef"}[wire]
-    cfg = tbase.get_config("mnist-cnn")
+        "4/16+ef": "student=int4,protos=int16+ef"}[wire_arg]
+    cfg = tbase.get_config(model)
     student = plane_from_tree(init_params(TF.derive_student(cfg),
                                           torch.Generator().manual_seed(0)))
     state = tprofe.NodeState(student, None, None, None, None, None, None)
-    tpay = TF._payload_template("student", True, state, 10, 128)
+    ncls, pdim = cfg.num_classes, cfg.proto_dim
+    tpay = TF._payload_template("student", True, state, ncls, pdim)
     tmeter = TF.ScheduleCommAccountant(ttopo.make_schedule(n, "full",
                                                            rounds=rounds))
     for r in range(rounds):
         tmeter.record_round(tpay, "profe", r, tspec)
 
-    jscfg = jmodel.derive_student(jbase.get_config("mnist-cnn"))
+    jscfg = jmodel.derive_student(jbase.get_config(model))
     jpay = {"model": jax.eval_shape(lambda: jmodel.init_params(
         jscfg, jax.random.PRNGKey(0))),
-        "protos": jax.ShapeDtypeStruct((10, 128), np.dtype(np.float32)),
-        "counts": jax.ShapeDtypeStruct((10,), np.dtype(np.float32))}
+        "protos": jax.ShapeDtypeStruct((ncls, pdim), np.dtype(np.float32)),
+        "counts": jax.ShapeDtypeStruct((ncls,), np.dtype(np.float32))}
     assert [tuple(x.shape) for x in tree_leaves(tpay)] == \
         [tuple(x.shape) for x in jax.tree_util.tree_leaves(jpay)]
     jmeter = jcomm.ScheduleCommAccountant(jtopo.make_schedule(
@@ -581,20 +705,26 @@ def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
         jcomm.packed_copy_bytes(jpay, jspec) == want[1]
     assert TF.tree_wire_bytes(tpay, tspec) == \
         jquant.tree_wire_bytes(jpay, jspec) == want[2]
-    if wire != "16":      # the residual never travels: +ef costs no byte
+    if wire_arg != "16":  # the residual never travels: +ef costs no byte
         assert TF.packed_copy_bytes(tpay, tspec.stateless()) == want[1]
         assert want == ({1: 0.002015254, 2: 0.004030508}[rounds], 108876,
                         106066)
+    if model == "cifar10-resnet18":
+        # the ResNet8 student: 27 leaves, a [208, 512] plane, its lists
+        # of stages kept in the template
+        assert tuple(student.buf.shape) == (208, 512)
+        assert len(tpay["model"]["stages"]) == 3
+        assert want[1:] == (221336, 198076)
 
 
 @pytest.mark.parametrize("fed_kw,train_kw,run_kw", [
     (dict(algorithm="fedavg"), {}, {}),
     (dict(proto_pass="fused"), {}, {}),
     (dict(quantize_bits=0), {}, {}),
-    ({}, dict(optimizer="adafactor"), {}),
+    (dict(algorithm="fml"), {}, {}),
     (dict(adapter_rank=4), {}, {}),
     (dict(proto_ema=0.5), {}, {}),
-    ({}, dict(optimizer="sgd"), {}),
+    (dict(algorithm="fedgpd"), {}, {}),
     ({}, {}, dict(overlap="rounds")),
     ({}, {}, dict(eval_all_nodes=True)),
     (dict(param_plane="off"), {}, {}),

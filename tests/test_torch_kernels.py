@@ -28,8 +28,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from repro.kernels.opt_update.opt_update import adamw_update_pallas
+from repro.kernels.opt_update.opt_update import (adafactor_apply_pallas,
+                                                 adamw_update_pallas,
+                                                 sgd_update_pallas)
+from repro.kernels.opt_update.ref import adafactor_apply_ref as jax_ada_ref
 from repro.kernels.opt_update.ref import adamw_update_ref as jax_adamw_ref
+from repro.kernels.opt_update.ref import sgd_update_ref as jax_sgd_ref
 from repro.kernels.proto_accum.ops import \
     proto_accumulate_nodes as jax_proto_nodes
 from repro.kernels.proto_accum.ref import proto_accum_ref as jax_proto_ref
@@ -45,9 +49,15 @@ from repro.models import model as jmodel
 from repro.optim import plane as jplane
 from repro_torch import wirespec as twire
 from repro_torch.kernels import build
-from repro_torch.kernels.opt_update.ops import fused_adamw_update
-from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
-from repro_torch.kernels.opt_update.ref import adamw_update_ref
+from repro_torch.kernels.opt_update.ops import (fused_adafactor_update,
+                                                fused_adamw_update,
+                                                fused_sgd_update)
+from repro_torch.kernels.opt_update.opt_update import (adafactor_apply_cuda,
+                                                       adamw_update_cuda,
+                                                       sgd_update_cuda)
+from repro_torch.kernels.opt_update.ref import (adafactor_apply_ref,
+                                                adamw_update_ref,
+                                                sgd_update_ref)
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
 from repro_torch.kernels.quantize import ops as tqops
@@ -130,6 +140,90 @@ def test_fused_adamw_update_cpu_dispatch_is_in_place_plain():
         assert torch.equal(a, b)
 
 
+SGD_HP = dict(momentum=0.9, weight_decay=0.01)
+
+
+def _fma(a, b, c):
+    """``a·b + c`` rounded once to fp32 (an FMA; the product of two fp32
+    values is exact in float64)."""
+    return (np.float64(a) * b + c).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sgd_plain_matches_jax_kernel_and_ref(seed):
+    g, p, mu, _, scale = _adamw_inputs(seed)
+    lr = np.float32(1e-3)
+    t = torch.from_numpy
+    got = sgd_update_ref(t(g), t(p), t(mu), lr=t(np.array(lr)),
+                         scale=t(scale), **SGD_HP)
+    s11 = lambda x: jnp.full((1, 1), x, jnp.float32)  # noqa: E731
+    ulp = np.float32(2.0 ** -23)
+    m32, wd32 = np.float32(0.9), np.float32(0.01)
+    for i in range(g.shape[0]):
+        ref = jax_sgd_ref(g[i], p[i], mu[i], lr=lr, scale=scale[i], **SGD_HP)
+        for ours, b in zip(got, ref):
+            assert ours[i].numpy().tobytes() == np.asarray(b).tobytes()
+        pallas = [np.asarray(x) for x in sgd_update_pallas(
+            g[i], p[i], mu[i], s11(lr), s11(scale[i]), interpret=True,
+            **SGD_HP)]
+        g32 = (g[i] * scale[i]).astype(np.float32)
+        m = _fma(m32, mu[i], g32)
+        newp = _fma(-lr, _fma(wd32, p[i], m), p[i])
+        np.testing.assert_array_equal(pallas[1], m)
+        np.testing.assert_array_equal(pallas[0], newp)
+        diff = np.abs(got[1][i].numpy() - pallas[1])
+        assert np.all(diff <= ulp * (np.abs(m32 * mu[i]) + np.abs(g32)))
+    # padding lanes (g = 0, p = 0, mu = 0) stay a fixed point
+    z = torch.zeros((3, 2, 512))
+    out = sgd_update_ref(z, z, z, lr=t(np.array(lr)), scale=t(scale),
+                         **SGD_HP)
+    assert all(float(o.abs().max()) == 0.0 for o in out)
+
+
+def test_adafactor_apply_plain_matches_jax_kernel_and_ref():
+    rng = np.random.default_rng(5)
+    upd = rng.standard_normal((3, 16, 512)).astype(np.float32)
+    p = (rng.standard_normal((3, 16, 512)) * 0.1).astype(np.float32)
+    upd[:, :, -7:] = p[:, :, -7:] = 0.0       # plane padding lanes
+    lr = np.float32(1e-3)
+    got = adafactor_apply_ref(torch.from_numpy(upd), torch.from_numpy(p),
+                              lr=torch.tensor(lr), weight_decay=0.01)
+    assert not got[:, :, -7:].any()
+    for i in range(3):
+        ref = jax_ada_ref(upd[i], p[i], lr=lr, weight_decay=0.01)
+        assert got[i].numpy().tobytes() == np.asarray(ref).tobytes()
+        pallas = adafactor_apply_pallas(upd[i], p[i],
+                                        jnp.full((1, 1), lr, jnp.float32),
+                                        weight_decay=0.01, interpret=True)
+        np.testing.assert_array_equal(
+            np.asarray(pallas),
+            _fma(-lr, _fma(np.float32(0.01), p[i], upd[i]), p[i]))
+
+
+def test_fused_sgd_and_adafactor_cpu_dispatch_is_in_place_plain():
+    g, p, mu, _, scale = _adamw_inputs(4)
+    t = torch.from_numpy
+    lr = torch.tensor(1e-3)
+    want = sgd_update_ref(t(g), t(p), t(mu), lr=lr, scale=t(scale),
+                          **SGD_HP)
+    pp, mm = t(p.copy()), t(mu.copy())
+    fused_sgd_update(t(g), pp, mm, lr, t(scale), **SGD_HP)
+    assert torch.equal(pp, want[0]) and torch.equal(mm, want[1])
+    # adafactor: one dense segment of 5 values at row 0, zero elsewhere
+    recipe = (("leaf", ("b",), (5,), 0, 1),)
+    pp = t(p.copy())
+    pp[:, 1:] = 0.0
+    pp[:, 0, 5:] = 0.0
+    before = pp.clone()
+    fac = ({"v": torch.zeros((3, 5))},)
+    new = fused_adafactor_update(t(g), pp, fac, lr, t(scale),
+                                 torch.tensor(0.5), recipe=recipe,
+                                 weight_decay=0.01)
+    assert new[0]["v"].shape == (3, 5) and float(new[0]["v"].min()) > 0
+    assert torch.equal(pp[:, :, 5:], before[:, :, 5:])   # padding stays 0
+    assert not torch.equal(pp[:, 0, :5], before[:, 0, :5])
+
+
 def _proto_inputs(seed, n=3, b=20, p=24, c=5):
     rng = np.random.default_rng(seed)
     f1 = np.maximum(rng.standard_normal((n, b, p)), 0).astype(np.float32)
@@ -207,6 +301,16 @@ def test_cuda_wrappers_reject_cpu_tensors():
                           torch.ones(()), torch.ones(()), **HP)
 
 
+@pytest.mark.parametrize("kernel", ["sgd_update", "adafactor_apply"])
+def test_optimizer_sweep_wrappers_reject_cpu_tensors(kernel):
+    x = torch.zeros((2, 8, 512))
+    with pytest.raises(ValueError, match="CUDA"):
+        if kernel == "sgd_update":
+            sgd_update_cuda(x, x, x, torch.ones(()), torch.ones(2), **SGD_HP)
+        else:
+            adafactor_apply_cuda(x, x, torch.ones(()), weight_decay=0.01)
+
+
 def test_nvcc_commands_target_hopper_without_fast_math(tmp_path):
     cc = build.compile_command("nvcc", build.CSRC / "quantize.cu",
                                tmp_path / "q.o")
@@ -228,7 +332,8 @@ def test_launch_counters_are_registered_and_reset():
     counts = build.launch_counts()
     assert set(counts) >= {"adamw_update", "proto_accum", "rowabs",
                            "quantize_rows", "quantize_rows_mixed",
-                           "rowabs_sum", "quantize_rows_ef"}
+                           "rowabs_sum", "quantize_rows_ef", "sgd_update",
+                           "adafactor_apply"}
     build.COUNTERS["rowabs"].count += 3
     build.reset_launch_counts()
     assert all(v == 0 for v in build.launch_counts().values())

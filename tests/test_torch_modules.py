@@ -54,7 +54,9 @@ from repro_torch.kernels.quantize import ops as tqops
 from repro_torch.models import model as tmodel
 from repro_torch.optim import make_optimizer, make_plane_optimizer
 from repro_torch.optim import plane as tplane
-from repro_torch.tree import ShapeDtypeStruct, tree_leaves
+from repro_torch.optim.optimizers import \
+    clip_by_global_norm as tclip_by_global_norm
+from repro_torch.tree import ShapeDtypeStruct, tree_leaves, tree_map
 
 torch.set_num_threads(2)
 
@@ -70,6 +72,14 @@ def _small_cfg(dtype="float32"):
 
 def _tcfg(jcfg):
     return tbase.ModelConfig(**dataclasses.asdict(jcfg))
+
+
+def _small_resnet(dtype="float32", hw=(8, 8, 3)):
+    """A two-stage ResNet (blocks (2, 2), width 4; its student (1, 1)):
+    every block kind — stride-2 projection, identity — at test size."""
+    return jbase.get_config("cifar10-resnet18").replace(
+        name="small-resnet", resnet_blocks=(2, 2), resnet_width=4,
+        proto_dim=16, input_hw=hw, dtype=dtype)
 
 
 # -- pure modules: byte-identical -------------------------------------------
@@ -171,6 +181,107 @@ def test_forward_matches_with_carried_weights(dtype, rtol, atol):
                                atol=atol)
 
 
+_JAX_PARAMS = {}
+
+
+def _carried_resnet(name, student):
+    """JAX parameters of a CIFAR config (or its student) at full width,
+    initialized once per module, and the port's carried copy."""
+    key = (name, student)
+    if key not in _JAX_PARAMS:
+        jcfg = jbase.get_config(name)
+        if student:
+            jcfg = jmodel.derive_student(jcfg)
+        _JAX_PARAMS[key] = _carried_params(jcfg, 0)
+    return _JAX_PARAMS[key]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-5, 1e-5),
+                                             ("bfloat16", 0.0, 0.1)])
+@pytest.mark.parametrize("name,student", [
+    ("cifar10-resnet18", False), ("cifar10-resnet18", True),
+    ("cifar100-resnet32", False), ("cifar100-resnet32", True)],
+    ids=["resnet18", "resnet8", "resnet32", "resnet18-student"])
+def test_resnet_forward_matches_with_carried_weights(name, student, dtype,
+                                                     rtol, atol):
+    """The paper's CIFAR teachers and students at full width, batch 2."""
+    jp, tp = _carried_resnet(name, student)
+    jcfg = jbase.get_config(name).replace(dtype=dtype)
+    if student:
+        jcfg = jmodel.derive_student(jcfg)
+    img = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    jo = jmodel.forward(jcfg, jp, {"image": img}, remat=False)
+    to = tmodel.forward(_tcfg(jcfg), tp, {"image": torch.from_numpy(img)})
+    assert to.logits.dtype == to.f1.dtype == torch.float32
+    assert tuple(to.f1.shape) == (2, 256)
+    np.testing.assert_allclose(to.logits.numpy(), np.asarray(jo.logits),
+                               rtol=rtol, atol=atol)
+    np.testing.assert_allclose(to.f1.numpy(), np.asarray(jo.f1), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("side", [7, 9])
+def test_resnet_forward_matches_on_odd_sides(side):
+    """Odd input sides: SAME pads of the stride-2 convs become (1, 1),
+    stride-1 convs (1, 1), and a 1x1 stride-2 projection (0, 0)."""
+    from repro_torch.models.resnet import same_pads
+    assert same_pads(8, 3, 2) == (0, 1) and same_pads(7, 3, 2) == (1, 1)
+    assert same_pads(8, 1, 2) == (0, 0) == same_pads(7, 1, 2)
+    jcfg = _small_resnet(hw=(side, side, 3))
+    jp, tp = _carried_params(jcfg, 2)
+    img = np.random.default_rng(side).standard_normal(
+        (3, side, side, 3)).astype(np.float32)
+    jo = jmodel.forward(jcfg, jp, {"image": img}, remat=False)
+    to = tmodel.forward(_tcfg(jcfg), tp, {"image": torch.from_numpy(img)})
+    np.testing.assert_allclose(to.logits.numpy(), np.asarray(jo.logits),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(to.f1.numpy(), np.asarray(jo.f1), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_resnet_identity_stride_shortcut_matches():
+    """The stride-2 identity shortcut ``x[:, ::2, ::2]`` (a block without
+    ``proj``), which the paper's configs never reach."""
+    from repro.models import resnet as jres
+    from repro_torch.models import resnet as tres
+    rng = np.random.default_rng(1)
+    p = {k: {"kernel": (rng.standard_normal((3, 3, 4, 4)) * 0.3).astype(
+        np.float32)} for k in ("conv1", "conv2")}
+    p.update({k: {"scale": np.ones(4, np.float32),
+                  "bias": np.full(4, 0.1, np.float32)} for k in ("gn1",
+                                                               "gn2")})
+    x = rng.standard_normal((2, 6, 6, 4)).astype(np.float32)
+    want = jres._basic_block(p, jnp.asarray(x), 2)
+    got = tres._basic_block(tmodel.params_from_numpy(p),
+                            torch.from_numpy(x).permute(0, 3, 1, 2), 2)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_full_width_resnet_student_plane_layout_matches():
+    """The ResNet8 student of cifar10-resnet18: 27 leaves (``stages`` a
+    list of lists) in a [208, 512] plane, at the JAX package's row
+    offsets, identical buffer bytes; the views come back as lists."""
+    jp, tp = _carried_resnet("cifar10-resnet18", True)
+    jpl = jplane.plane_from_tree(jp)
+    tpl = tplane.plane_from_tree(tp)
+    assert tuple(tpl.buf.shape) == (208, 512) == tuple(jpl.buf.shape)
+    assert len(tpl.meta.recipe) == 27
+    assert sum(int(np.prod(r[2])) for r in tpl.meta.recipe) == 96410
+    assert [(r[2], r[3], r[4]) for r in tpl.meta.recipe] == \
+        [(r[1], r[3], r[4]) for r in jpl.meta.recipe]
+    assert tpl.buf.numpy().tobytes() == np.asarray(jpl.buf).tobytes()
+    views = tplane.as_tree(tpl)
+    assert isinstance(views["stages"], list) and \
+        [len(st) for st in views["stages"]] == [1, 1, 1]
+    for a, b in zip(tree_leaves(views), jax.tree_util.tree_leaves(jp)):
+        assert a.numpy().tobytes() == np.asarray(b).tobytes()
+    teacher = _carried_resnet("cifar10-resnet18", False)[1]
+    assert len(tree_leaves(teacher)) == 58
+    assert sum(x.numel() for x in tree_leaves(teacher)) == 11300938
+
+
 def test_full_width_student_plane_layout_matches():
     """The mnist-cnn student's plane: [416, 512], leaves sorted by key at
     the JAX package's row offsets, identical buffer bytes."""
@@ -230,6 +341,153 @@ def test_plane_global_norm_matches():
     tn = tplane.plane_global_norm(tplane.plane_from_tree(
         tmodel.params_from_numpy(grads)))
     np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+
+
+# -- sgd and adafactor, per leaf and on the plane ----------------------------
+
+def _random_like(tree, rng, sc, n=None):
+    """numpy arrays shaped like ``tree``'s leaves (with a leading ``n``)."""
+    lead = () if n is None else (n,)
+    return jax.tree_util.tree_map(
+        lambda x: (rng.standard_normal(lead + tuple(np.shape(x))) * sc
+                   ).astype(np.float32), tree)
+
+
+def _stack_opt(states):
+    """Per-node optimizer states stacked as the engine stacks them."""
+    return {k: states[0][k] if k == "step" else
+            tree_map(lambda *xs: torch.stack(xs), *(s[k] for s in states))
+            for k in states[0]}
+
+
+@pytest.mark.parametrize("name", ["sgd", "adafactor"])
+def test_per_leaf_optimizer_matches_jax_vmapped(name):
+    """The port's per-leaf sgd / adafactor over a node-stacked ResNet tree
+    (``lead=1``) against ``repro``'s vmapped per-leaf optimizer, 3 steps
+    from random gradients.  sgd is bit-exact.  adafactor's moments agree
+    to ``rtol=1e-5`` and its parameters to ``rtol=1e-5, atol=1e-8``: the
+    frameworks' ``rsqrt``, means and ``pow`` (the decay ``beta``) round
+    differently, which moves a parameter by a few of its ulps (at most 4
+    seen) and a near-zero parameter by a few ulps of ``lr·|upd|``."""
+    n = 3
+    rng = np.random.default_rng(11)
+    tree = _np_tree(jmodel.init_params(_small_resnet(),
+                                       jax.random.PRNGKey(0)))
+    params = _random_like(tree, rng, 0.1, n)
+    jopt = jmake_optimizer(name, 1e-2, weight_decay=0.01, momentum=0.9)
+    topt = make_optimizer(name, 1e-2, weight_decay=0.01, momentum=0.9)
+    jst, jp = jax.vmap(jopt.init)(params), params
+    tp = tmodel.params_from_numpy(params)
+    tst = _stack_opt([topt.init(tree_map(lambda x: x[i], tp))
+                      for i in range(n)])
+    tol = {} if name == "sgd" else dict(rtol=1e-5, atol=1e-8)
+    for _ in range(3):
+        grads = _random_like(tree, rng, 1e-2, n)
+        jp, jst = jax.vmap(jopt.update)(grads, jst, jp)
+        topt.update(tmodel.params_from_numpy(grads), tst, tp, lead=1)
+        for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+            if name == "sgd":
+                assert a.numpy().tobytes() == np.asarray(b).tobytes()
+            else:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
+        tm = tree_leaves({k: v for k, v in tst.items() if k != "step"})
+        jm = jax.tree_util.tree_leaves(
+            {k: v for k, v in jst.items() if k != "step"})
+        assert len(tm) == len(jm) >= len(tree_leaves(tree))
+        for a, b in zip(tm, jm):
+            assert tuple(a.shape) == np.shape(b)
+            if name == "sgd":
+                assert a.numpy().tobytes() == np.asarray(b).tobytes()
+            else:
+                np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                           rtol=1e-5, atol=0)
+        assert int(tst["step"]) == int(jst["step"][0])
+
+
+@pytest.mark.parametrize("name", ["sgd", "adamw", "adafactor"])
+def test_plane_optimizer_bit_identical_to_per_leaf(name):
+    """The fused plane optimizer (per-node clip + one sweep) against the
+    port's per-leaf optimizer after ``clip_by_global_norm``, over 5
+    carried steps on node-stacked ResNet parameters (lists in the tree),
+    bit for bit — ``repro``'s ``tests/test_plane.py`` claim, for all N
+    nodes at once.  The clip binds on some steps, not on others."""
+    n, clip = 3, 0.5
+    rng = np.random.default_rng(3)
+    tree = _np_tree(jmodel.init_params(_small_resnet(),
+                                       jax.random.PRNGKey(1)))
+    tp = tmodel.params_from_numpy(_random_like(tree, rng, 0.1, n))
+    leaf_opt = make_optimizer(name, 1e-2, weight_decay=0.01, momentum=0.9)
+    plane_opt = make_plane_optimizer(name, 1e-2, weight_decay=0.01,
+                                     momentum=0.9, grad_clip=clip)
+    planes = [tplane.plane_from_tree(tree_map(lambda x: x[i], tp))
+              for i in range(n)]
+    meta = planes[0].meta
+    pl = tplane.Plane(torch.stack([p.buf for p in planes]), meta)
+    pst = _stack_opt([plane_opt.init(p) for p in planes])
+    lst = _stack_opt([leaf_opt.init(tree_map(lambda x: x[i], tp))
+                      for i in range(n)])
+    clipped = []
+    size = sum(np.size(x) for x in jax.tree_util.tree_leaves(tree))
+    for i in range(5):           # norms about 0.3, 0.6, ... 1.5
+        g = tmodel.params_from_numpy(_random_like(
+            tree, rng, 0.3 * (i + 1) / np.sqrt(size), n))
+        gc, gn = tclip_by_global_norm(g, clip, lead=1)
+        clipped.append(bool((gn > clip).any()))
+        leaf_opt.update(gc, lst, tp, lead=1)
+        gp = torch.stack([tplane.plane_from_tree(tree_map(
+            lambda x: x[k], g)).buf for k in range(n)])
+        plane_opt.update(tplane.Plane(gp, meta), pst, pl)
+        assert torch.equal(pst["gnorm"], gn)
+        for a, b in zip(tree_leaves(tplane.as_tree(pl)), tree_leaves(tp)):
+            assert torch.equal(a, b), f"step {i}"
+        if name == "adafactor":
+            for a, b in zip(tree_leaves(pst["fac"]), tree_leaves(lst["v"])):
+                assert torch.equal(a, b)
+        else:
+            for path, shape, row, r_leaf in (r[1:] for r in meta.recipe):
+                assert torch.equal(tplane._leaf_view(pst["mu"], shape, row,
+                                                     r_leaf),
+                                   _at(lst["mu"], path))
+    assert any(clipped) and not all(clipped)
+    assert int(pst["step"]) == int(lst["step"]) == 5
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("name", ["sgd", "adafactor"])
+def test_node_states_carry_and_stack_like_jax(name):
+    """JAX node states under sgd / adafactor (plane student, per-leaf
+    ResNet teacher with lists) carried over and stacked: every optimizer
+    tensor equals ``repro``'s ``_stack_states`` bit for bit, the step
+    counters stay one scalar."""
+    jcfg = _small_resnet()
+    scfg = jmodel.derive_student(jcfg)
+    j_opt_s = jplane.make_plane_optimizer(name, 1e-3, grad_clip=1.0)
+    j_opt_t = jmake_optimizer(name, 1e-3)
+    rng = np.random.default_rng(2)
+    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, i, rng)
+               for i in range(3)]
+    jstates[1] = jstates[1]._replace(opt_s=jax.tree_util.tree_map(
+        lambda x: x + 1 if x.dtype == jnp.float32 else x, jstates[1].opt_s))
+    jst = jfed_mod._stack_states(jstates)
+    tst = tprofe.stack_states([carry_state(s) for s in jstates])
+    assert set(tst.opt_s) == set(jst.opt_s) and \
+        set(tst.opt_t) == set(jst.opt_t)
+    for key in ("opt_s", "opt_t"):
+        t_tree = {k: v for k, v in getattr(tst, key).items() if k != "step"}
+        j_tree = {k: v for k, v in getattr(jst, key).items() if k != "step"}
+        tl, jl = tree_leaves(t_tree), jax.tree_util.tree_leaves(j_tree)
+        assert len(tl) == len(jl) > 0
+        for a, b in zip(tl, jl):
+            assert a.dtype == torch.float32
+            assert a.numpy().tobytes() == np.asarray(b).tobytes()
+        assert getattr(tst, key)["step"].shape == ()
+        assert getattr(tst, key)["step"].dtype == torch.int32
+    assert isinstance(tst.teacher["stages"], list)
 
 
 # -- one ProFe step ----------------------------------------------------------
@@ -317,6 +575,74 @@ def test_profe_step_matches(teacher_on):
                         jax.tree_util.tree_leaves(jnew.teacher)):
             np.testing.assert_allclose(a[i].detach().numpy(), np.asarray(b),
                                        rtol=0, atol=2e-6)
+    assert int(tstate.opt_s["step"]) == 1
+    assert int(tstate.opt_t["step"]) == (1 if teacher_on else 0)
+
+
+# ProFe step on a small ResNet pair, fp32: atol of (parameters, moments)
+# beside rtol=1e-4 on the moments, per optimizer.  The gradients agree to
+# rtol 1e-4 / atol 1e-7 (summation order).  sgd: the momentum is the
+# gradient, and the step of lr=1e-3 moves a parameter by at most one ulp
+# of |p| < 0.5 (largest gaps seen 3.0e-8 and 6.2e-8).  adafactor
+# normalizes each update to about ±1, so a gradient's relative gap of
+# 1e-4 moves the parameter by about lr·1e-4 (largest seen 1.2e-7); its
+# moments are squares of the gradient (largest gap beyond rtol 4.7e-11).
+RESNET_STEP_ATOL = {"sgd": (6e-8, 1e-7), "adafactor": (2e-7, 1e-9)}
+
+
+@pytest.mark.parametrize("teacher_on", [True, False])
+@pytest.mark.parametrize("name", ["sgd", "adafactor"])
+def test_profe_step_matches_resnet(name, teacher_on):
+    """One ProFe step on a small ResNet pair (teacher blocks (2, 2),
+    student (1, 1)) under the sgd / adafactor plane and per-leaf
+    optimizers, against ``repro``'s jitted step from carried states:
+    losses and grad norms to ``rtol=1e-5``, parameters and moments to
+    ``RESNET_STEP_ATOL``, counters exactly."""
+    jcfg = _small_resnet()
+    scfg = jmodel.derive_student(jcfg)
+    fed = jbase.FederationConfig(num_nodes=2)
+    lr, n = 1e-3, 2
+    j_opt_s = jplane.make_plane_optimizer(name, lr, grad_clip=1.0)
+    j_opt_t = jmake_optimizer(name, lr)
+    jstep = jprofe.make_profe_step(jcfg, scfg, fed, j_opt_s, j_opt_t,
+                                   grad_clip=1.0, remat=False, jit=True)
+    rng = np.random.default_rng(17)
+    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, 30 + i, rng)
+               for i in range(n)]
+    tstate = tprofe.stack_states([carry_state(s) for s in jstates])
+    batches = [dict(zip(("image", "label"), _images(40 + i, 8, (8, 8, 3))))
+               for i in range(n)]
+    tstep = tprofe.make_profe_step(
+        _tcfg(jcfg), _tcfg(scfg), tbase.FederationConfig(num_nodes=2),
+        make_plane_optimizer(name, lr, grad_clip=1.0),
+        make_optimizer(name, lr), grad_clip=1.0)
+    stacked_batch = {k: torch.from_numpy(np.stack([b[k] for b in batches]))
+                     for k in batches[0]}
+    tstate, tm = tstep(tstate, stacked_batch, teacher_on)
+    p_atol, m_atol = RESNET_STEP_ATOL[name]
+    for i in range(n):
+        jnew, jm = jstep(jstates[i], batches[i], teacher_on)
+        for key in ("loss_s", "grad_norm_s") + (("loss_t",) if teacher_on
+                                                 else ()):
+            np.testing.assert_allclose(float(tm[key][i]), float(jm[key]),
+                                       rtol=1e-5)
+        np.testing.assert_allclose(tstate.student.buf[i].detach().numpy(),
+                                   np.asarray(jnew.student.buf), rtol=0,
+                                   atol=p_atol)
+        for a, b in zip(tree_leaves(tstate.teacher),
+                        jax.tree_util.tree_leaves(jnew.teacher)):
+            np.testing.assert_allclose(a[i].detach().numpy(), np.asarray(b),
+                                       rtol=0, atol=p_atol)
+        for key in ("opt_s", "opt_t"):
+            tl = tree_leaves({k: v for k, v in getattr(tstate, key).items()
+                              if k not in ("step", "gnorm")})
+            jl = jax.tree_util.tree_leaves(
+                {k: v for k, v in getattr(jnew, key).items()
+                 if k not in ("step", "gnorm")})
+            assert len(tl) == len(jl) > 0
+            for a, b in zip(tl, jl):
+                np.testing.assert_allclose(a[i].numpy(), np.asarray(b),
+                                           rtol=1e-4, atol=m_atol)
     assert int(tstate.opt_s["step"]) == 1
     assert int(tstate.opt_t["step"]) == (1 if teacher_on else 0)
 
