@@ -27,15 +27,21 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    optimizer (batch 32, lr 1e-3, clip 1.0, weight decay 0.01, momentum
    0.9), the 16-bit wire: 2 rounds under ``sgd``;
 8. the same run for 1 round under ``adafactor``;
-9. with ``--profile`` only: where a round's time goes on the main path
-   and on the ``cifar10/sgd`` path — each path's own run above is the
-   warm-up, then 2 rounds without and 2 rounds under ``torch.profiler``
-   (see :func:`profile_rounds`);
-10. a line ``{"kernels": [...]}`` with each kernel's launches on its
+9. the adapter-rank wire on mnist-cnn as in 4: rank-8 factors of the
+   round delta of conv2, fc1 and fc2 on the int4 wire, naive merge, 2
+   rounds (``adapters8``), then with RegMean grams for 1 round
+   (``adapters8+grams``); after each, the last round's factors must be
+   finite and non-zero (a reference snapshot that aliased the in-place
+   student would make them zero);
+10. with ``--profile`` only: where a round's time goes on the main path,
+    the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
+    own run above is the warm-up, then 2 rounds without and 2 rounds
+    under ``torch.profiler`` (see :func:`profile_rounds`);
+11. a line ``{"kernels": [...]}`` with each kernel's launches on its
     path, error and times, then the card's ``nvidia-smi`` name and power
     limit, then the result line ``{"ok": true, "device": {...}}`` last.
 
-Phases 4-8 each set the kernels' launch counts to 0 just before
+Phases 4-9 each set the kernels' launch counts to 0 just before
 ``run_federation`` and read them just after, check finite F1 every
 round, and hold the run's wire bytes to the JAX package's.
 """
@@ -75,7 +81,18 @@ PATHS = {
                     (0.007526888, 221336, 198076)),
     "cifar10/adafactor": ("cifar10-resnet18", "adafactor", "16", 1,
                           (0.003763444, 221336, 198076)),
+    # the adapter wire's payload {adapters, protos, model: rest[, grams]};
+    # these numbers are also what the JAX package's run_federation reports
+    # for these runs on the CPU
+    "adapters8": ("mnist-cnn", "adamw", "4", 2, (0.000377188, 12376, 9926)),
+    "adapters8+grams": ("mnist-cnn", "adamw", "4", 1,
+                        (0.000432972, 26724, 22788)),
 }
+# the FederationConfig fields of a path beyond its wire spec
+PATH_FED = {"adapters8": dict(adapter_rank=8),
+            "adapters8+grams": dict(adapter_rank=8, adapter_grams=True)}
+# matrix leaves of the mnist-cnn student at rank 8: conv2, fc1, fc2
+ADAPTER_LEAVES = 3
 # the student-plane sweep each optimizer launches once per training step
 OPT_KERNEL = {"adamw": "adamw_update", "sgd": "sgd_update",
               "adafactor": "adafactor_apply"}
@@ -84,7 +101,10 @@ KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
                "quantize_rows": "16", "quantize_rows_mixed": "4/16",
                "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef",
                "sgd_update": "cifar10/sgd",
-               "adafactor_apply": "cifar10/adafactor"}
+               "adafactor_apply": "cifar10/adafactor",
+               "lowrank_apply": "adapters8"}
+# the per-receiver (RegMean) variant of lowrank_apply runs on this path
+PER_RECV_PATH = "adapters8+grams"
 # the data of each model's paths: make_image_dataset(0, 7040, shape, 10)
 # with a 1/11 test split, iid over the nodes (320 images, 10 steps each)
 IMAGE_SHAPE = {"mnist-cnn": (28, 28, 1), "cifar10-resnet18": (32, 32, 3)}
@@ -104,7 +124,8 @@ L2_FLUSH_BYTES = 64 << 20        # more than the 50 MB L2
 # card spins, so the events time the device work, not host launch latency
 SLEEP_CYCLES = 1_000_000
 PROFILE_TOP = 15                 # device activities listed by --profile
-PROFILED = ("16", "cifar10/sgd")  # the paths --profile profiles
+# the paths --profile profiles
+PROFILED = ("16", "cifar10/sgd", "adapters8")
 
 
 def expect(ok, msg: str) -> None:
@@ -505,6 +526,84 @@ def check_plane_sweeps(torch, timer, student_cfg):
     return rows
 
 
+def check_lowrank(torch, timer):
+    """Phase 3, the adapter merge: ``lowrank_apply`` against its plain
+    version at fc1's full-width shapes (20 receivers and senders,
+    ``w [20, 1568, 128]``, rank 8, the full graph's gossip weights), with
+    ``A`` shared (naive merge) and per receiver (RegMean), bit for bit and
+    timed; and once in place on a padded plane span (fc2's ``[128, 10]``
+    in 3 rows of 512 lanes), as the merge writes the student plane."""
+    from repro_torch.kernels.lowrank_apply.lowrank_apply import (
+        lowrank_apply_cuda)
+    from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
+
+    gen = torch.Generator().manual_seed(2)
+    n, d, k, r = N_NODES, 1568, 128, 8
+    coeffs = ((1.0 - torch.eye(n)) / n).cuda()
+    w = (torch.randn((n, d, k), generator=gen) * 0.05).cuda()
+    b = (torch.randn((n, d, r), generator=gen) / math.sqrt(d)).cuda()
+    variants = {
+        "shared": (torch.randn((n, r, k), generator=gen) * 1e-3).cuda(),
+        "per_recv": (torch.randn((n, n, r, k), generator=gen) * 1e-3).cuda()}
+    out = torch.empty_like(w)
+    rows = {}
+    for variant, a in variants.items():
+        got = lowrank_apply_cuda(w, coeffs, b, a, out=out).clone()
+        want = lowrank_apply_ref(w, coeffs, b, a)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got, want) == 0,
+               f"lowrank_apply ({variant}) is not bit-exact with its plain "
+               f"version")
+        ms = timer(lambda: lowrank_apply_cuda(w, coeffs, b, a, out=out))
+        plain_ms = timer(lambda: lowrank_apply_ref(w, coeffs, b, a))
+        # library yardstick: one batched product over the stacked senders,
+        # out = w + [c_i0·B_0 | ... ] @ [A_0; ...], TF32 off
+        bc = (coeffs[:, :, None, None] * b[None]).permute(0, 2, 1, 3) \
+            .reshape(n, d, n * r).contiguous()
+        acat = a.reshape(-1, n * r, k)
+        acat = acat.expand(n, n * r, k) if variant == "shared" else acat
+        lib = torch.baddbmm(w, bc, acat)
+        lib_ms = timer(lambda: torch.baddbmm(w, bc, acat))
+        b_ms, b_by = bound(4 * (2 * w.numel() + b.numel() + a.numel()
+                                + coeffs.numel()), w.numel() * n * (2 * r + 2))
+        rows[variant] = dict(max_abs_err=float((got - want).abs().max()),
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+        print(f"lowrank_apply {variant} w {tuple(w.shape)} a "
+              f"{tuple(a.shape)}: bit-exact; baddbmm differs by "
+              f"{float((lib - want).abs().max()):.3e}")
+
+    # in place on a strided plane view: fc2 [128, 10] in rows of 512
+    buf = torch.zeros((n, 5, 512), device="cuda")
+    span = buf[:, 1:4].reshape(n, -1)[:, :128 * 10]
+    span.copy_(torch.randn((n, 1280), generator=gen).cuda())
+    view = span.reshape(n, 128, 10)
+    b2 = (torch.randn((n, 128, r), generator=gen) * 0.1).cuda()
+    a2 = (torch.randn((n, r, 10), generator=gen) * 0.1).cuda()
+    want = lowrank_apply_ref(view, coeffs, b2, a2)
+    lowrank_apply_cuda(view, coeffs, b2, a2, out=view)
+    torch.cuda.synchronize()
+    expect(torch.equal(view, want), "lowrank_apply in place on a plane span "
+                                    "disagrees with its plain version")
+    pad = buf.clone()
+    pad[:, 1:4].reshape(n, -1)[:, :1280] = 0
+    expect(not bool(pad.any()), "lowrank_apply wrote outside its span")
+    print("lowrank_apply in place on a padded plane span: bit-exact, padding "
+          "untouched")
+    row = dict(name="lowrank_apply", route="cuda",
+               source="src/repro_torch/csrc/lowrank_apply.cu",
+               replaces="src/repro/kernels/lowrank_apply/lowrank_apply.py:53",
+               **rows["shared"])
+    row["per_recv"] = rows["per_recv"]
+    print(f"  {'lowrank_apply':19s} kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); per receiver "
+          f"{rows['per_recv']['ms']:.4f} / {rows['per_recv']['plain_ms']:.4f}"
+          f" / {rows['per_recv']['library_ms']:.4f} ms, bound "
+          f"{rows['per_recv']['bound_ms']:.4f}")
+    return [row]
+
+
 def path_inputs(model: str):
     """A model's paths' configuration and data: the config at full width,
     20 nodes on a full graph, 2 rounds of 1 local epoch, ``TrainConfig``
@@ -523,7 +622,7 @@ def path_inputs(model: str):
 
 
 def run_path(torch, inputs, name: str):
-    """Phases 4-8: ProFe at full width through ``run_federation`` on the
+    """Phases 4-9: ProFe at full width through ``run_federation`` on the
     path ``name`` of ``PATHS`` (its model's ``inputs``, its optimizer,
     wire and rounds), with the launch counts set to 0 just before and
     read just after.  Checks finite F1 every round, the launches (every
@@ -531,9 +630,12 @@ def run_path(torch, inputs, name: str):
     of the path at least once) and the wire bytes against the JAX
     package's.  With ``+ef`` the final ``CodecState`` must have advanced
     ``seq`` once a round and carry a residual that is finite, non-zero,
-    and zero on the plane's padding lanes.  Returns the launch counts."""
+    and zero on the plane's padding lanes.  On the adapter wire the last
+    round's shared factors must be finite and non-zero.  Returns the
+    launch counts."""
     import dataclasses
 
+    from repro_torch.core import round_ops
     from repro_torch.core.federation import run_federation
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.wirespec import WireSpec
@@ -541,11 +643,14 @@ def run_path(torch, inputs, name: str):
     _, optimizer, wire, rounds, expected_bytes = PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
     spec = WireSpec.parse(wire)
-    fed = dataclasses.replace(fed, rounds=rounds, **wire_fields(spec))
+    extra = PATH_FED.get(name, {})
+    fed = dataclasses.replace(fed, rounds=rounds, **wire_fields(spec),
+                              **extra)
     train = dataclasses.replace(train, optimizer=optimizer)
     per_node = len(node_data[0]["label"])
     print(f"{cfg.name}: {N_NODES} nodes x {per_node} images, batch "
-          f"{train.batch_size}, {optimizer}, wire {spec.describe()}")
+          f"{train.batch_size}, {optimizer}, wire {spec.describe()} "
+          f"{extra or ''}")
     steps = rounds * (per_node // train.batch_size)
     ef, uniform = spec.error_feedback, spec.uniform_bits is not None
     # one plane sweep per training step, of the path's optimizer only
@@ -558,11 +663,23 @@ def run_path(torch, inputs, name: str):
         "quantize_rows": rounds if uniform and not ef else 0,
         "quantize_rows_mixed": 0 if uniform or ef else rounds,
         "rowabs_sum": rounds if ef else 0,
-        "quantize_rows_ef": rounds if ef else 0})
+        "quantize_rows_ef": rounds if ef else 0,
+        # one merge launch per matrix leaf a round
+        "lowrank_apply": ADAPTER_LEAVES * rounds if extra else 0})
 
+    # observe the factors each round shares (the run itself is unchanged)
+    shared = []
+    share = round_ops.adapter_share_nodes
+
+    def share_and_keep(*args, **kwargs):
+        out = share(*args, **kwargs)
+        shared.append(out[0]["adapters"])
+        return out
+    round_ops.adapter_share_nodes = share_and_keep
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
     counts = launch_counts()
+    round_ops.adapter_share_nodes = share
 
     print(f"per-round F1: {res.f1_per_round}")
     print(f"per-round seconds: {res.extras['round_times_s']}")
@@ -607,11 +724,25 @@ def run_path(torch, inputs, name: str):
               f"{N_NODES} nodes, max |student| "
               f"{float(res_s.abs().max()):.4g}, max |protos| "
               f"{float(protos.abs().max()):.4g}, padding lanes zero")
+    expect(len(shared) == (rounds if extra else 0),
+           f"{name}: {len(shared)} adapter shares in {rounds} rounds")
+    if extra:
+        expect(len(shared[-1]) == ADAPTER_LEAVES,
+               f"{name}: factored leaves {sorted(shared[-1])}")
+        for leaf, f in sorted(shared[-1].items()):
+            ba = f["B"] @ f["A"]
+            expect(all(bool(torch.isfinite(x).all()) for x in (f["A"], f["B"]))
+                   and float(ba.abs().max()) > 0,
+                   f"{name}: the last round's factors of {leaf} are not "
+                   f"finite and non-zero")
+            print(f"last round's factors of {leaf}: A {tuple(f['A'].shape)}, "
+                  f"B {tuple(f['B'].shape)}, max |B@A| "
+                  f"{float(ba.abs().max()):.4g}")
     return counts
 
 
 def profile_rounds(torch, inputs, name: str) -> None:
-    """Phase 9 (``--profile``): where a round's time goes on the path
+    """Phase 10 (``--profile``): where a round's time goes on the path
     ``name`` of ``PROFILED``.  After the path's own run (the warm-up:
     kernel build, cuDNN autotuning), it runs once more without the
     profiler and once under ``torch.profiler`` (CPU and CUDA
@@ -635,7 +766,8 @@ def profile_rounds(torch, inputs, name: str) -> None:
     _, optimizer, wire, rounds, _ = PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
     fed = dataclasses.replace(fed, rounds=rounds,
-                              **wire_fields(WireSpec.parse(wire)))
+                              **wire_fields(WireSpec.parse(wire)),
+                              **PATH_FED.get(name, {}))
     train = dataclasses.replace(train, optimizer=optimizer)
     t0 = time.time()
     plain = run_federation(cfg, fed, train, node_data, test_d)
@@ -723,6 +855,7 @@ def main() -> int:
     rows = check_kernels(torch, timer, derive_student(get_config("mnist-cnn")))
     rows += check_plane_sweeps(torch, timer,
                                derive_student(get_config("cifar10-resnet18")))
+    rows += check_lowrank(torch, timer)
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}
@@ -742,6 +875,9 @@ def main() -> int:
     for row in rows:
         row["path"] = KERNEL_PATH[row["name"]]
         row["launches"] = counts[row["path"]][row["name"]]
+        if "per_recv" in row:
+            row["per_recv"].update(path=PER_RECV_PATH, launches=counts[
+                PER_RECV_PATH][row["name"]])
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,15 @@ carries a leading ``[N]`` node axis) and one round is:
    packed wire codec (``kernels/quantize``) at the ``WireSpec``'s widths
    (uniform, or mixed such as ``4/16``), with the error-feedback
    residual carried in ``NodeState.wire_state`` when the spec has
-   ``+ef``,
+   ``+ef``; on the adapter-rank wire (``FederationConfig.adapter_rank``,
+   ``core/adapters.py``) the matrix leaves travel as rank-r factors of
+   their round delta instead, ``{adapters, protos, student: rest[,
+   grams]}`` through the per-leaf tree codec,
 4. mix: size-weighted gossip of the student plane (a node's own copy
-   unquantized) and Eq. 4 aggregation per neighbourhood.
+   unquantized) and Eq. 4 aggregation per neighbourhood; on the adapter
+   wire the received low-rank deltas merge onto every receiver's plane
+   in place (``kernels/lowrank_apply``, RegMean with grams) and only the
+   dense rest is gossiped.
 
 Communication is metered analytically from the same schedule (Table II)
 and node 0's global-test macro-F1 is recorded per round (Fig. 2).  The
@@ -36,6 +42,9 @@ import torch
 from repro_torch.config.base import FederationConfig, ModelConfig, TrainConfig
 from repro_torch.core import round_ops as R
 from repro_torch.core import topology as T
+from repro_torch.core.adapters import (adapter_layout,
+                                       adapter_payload_template,
+                                       init_adapter_state, split_student)
 from repro_torch.core.comm import (ScheduleCommAccountant, packed_copy_bytes)
 from repro_torch.core.distillation import teacher_active
 from repro_torch.core.metrics import accuracy, macro_f1
@@ -106,10 +115,18 @@ def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
                         "baselines)")
     step = make_profe_step(teacher_cfg, student_cfg, fed, opt_s, opt_t,
                            grad_clip=train.grad_clip)
+    # adapter-rank wire: the factor (and gram) payload groups get their
+    # own widths when configured; bits_for falls back to the student's
+    overrides = []
+    if fed.adapter_rank and fed.adapter_quantize_bits:
+        overrides.append(("adapters", fed.adapter_quantize_bits))
+    if fed.adapter_rank and fed.adapter_grams and fed.gram_quantize_bits:
+        overrides.append(("grams", fed.gram_quantize_bits))
     wire = WireSpec(student_bits=fed.quantize_bits,
                     proto_bits=fed.proto_quantize_bits,
                     error_feedback=fed.error_feedback,
-                    ef_decay=fed.error_feedback_decay)
+                    ef_decay=fed.error_feedback_decay,
+                    overrides=tuple(overrides))
     return step, "student", True, wire, (teacher_cfg, student_cfg)
 
 
@@ -122,6 +139,9 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
     if fed.proto_pass not in PROTO_PASSES:
         raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
                          f"got {fed.proto_pass!r}")
+    if fed.adapter_rank and not fed.quantize_bits:
+        raise ValueError("adapter_rank needs the quantized wire codec "
+                         "(set fed.quantize_bits)")
     checks = [
         (fed.algorithm != "profe", f"algorithm {fed.algorithm!r}",
          "Queue 1 item 9 (paper baselines)"),
@@ -131,8 +151,8 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
          "Queue 1 item 10"),
         (bool(fed.proto_ema), "proto_ema", "Queue 1 item 10"),
         (eval_all_nodes, "eval_all_nodes", "Queue 1 item 10"),
-        (bool(fed.adapter_rank), "the adapter-rank wire",
-         "Queue 1 item 11"),
+        (bool(fed.adapter_rank) and fed.error_feedback,
+         "error feedback on the adapter-rank wire", "Queue 1 item 11"),
         (not fed.quantize_bits, "the fp32 wire (quantize_bits=0)",
          "Queue 1 item 4"),
     ]
@@ -183,14 +203,23 @@ def _init_states(model_cfgs, fed: FederationConfig, opt_s, opt_t,
 
 
 def _payload_template(wire_model, share_protos, stacked: NodeState,
-                      ncls: int, proto_dim: int) -> Dict[str, Any]:
+                      ncls: int, proto_dim: int, *, adapter_rank: int = 0,
+                      adapter_grams: bool = False) -> Dict[str, Any]:
     """Shape/dtype skeleton of one node's wire payload: the student by
-    its LEAF shapes (never the padded buffer), prototypes and counts."""
+    its LEAF shapes (never the padded buffer), prototypes and counts.
+    With ``adapter_rank`` > 0 the matrix leaves leave ``"model"`` and
+    meter as their ``"adapters"`` factors (and ``"grams"``)."""
     payload: Dict[str, Any] = {}
     if wire_model is not None:
-        payload["model"] = tree_from_paths(
+        model = tree_from_paths(
             (path, ShapeDtypeStruct(shape, np.dtype(np.float32)))
             for _, path, shape, _row, _r in stacked.student.meta.recipe)
+        if adapter_rank:
+            layout = adapter_layout(model, adapter_rank)
+            payload.update(adapter_payload_template(layout,
+                                                    grams=adapter_grams))
+            _, model = split_student(layout, model)
+        payload["model"] = model
     if share_protos:
         payload["protos"] = ShapeDtypeStruct((ncls, proto_dim),
                                              np.dtype(np.float32))
@@ -273,7 +302,8 @@ def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
 
 
 def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
-                      bits):
+                      bits, adapter_rank: int = 0,
+                      adapter_grams: bool = False):
     """The three phases of one stacked ProFe round:
 
     * ``train_phase`` — local epochs + the exact Eq. 3 pass ->
@@ -285,6 +315,10 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
     ``bits`` is the :class:`WireSpec` that ``_algo_wiring`` returns (an
     int is the uniform spec), so per-group widths and ``+ef`` survive.
+    With ``adapter_rank`` the share sends the adapter payload (carrying
+    ``state.adapter_state`` forward) and ``recv_student`` is its
+    receiver-side view ``{"adapters", "student"[, "grams"]}``; the mix
+    merges it into the plane in place.
     """
     spec = WireSpec.from_bits(bits)
     exact_pass = _make_proto_pass(proto_cfg, ncls)
@@ -303,6 +337,16 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
     @torch.no_grad()
     def share_phase(state: NodeState, protos):
+        if adapter_rank:
+            # the matrix leaves' round delta leaves as rank-r factors and
+            # the reference advances to the just-shared student
+            groups, new_ad, _ = R.adapter_share_nodes(
+                state.student, state.adapter_state, rank=adapter_rank,
+                grams=adapter_grams)
+            recv = dict(R.quantize_dequantize_per_node(
+                dict(groups, protos=protos), spec=spec))
+            protos_rx = recv.pop("protos")
+            return state._replace(adapter_state=new_ad), recv, protos_rx
         payload = {"protos": protos, "student": state.student}
         if spec.error_feedback:
             recv, new_ws = R.quantize_dequantize_per_node(
@@ -315,9 +359,14 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     @torch.no_grad()
     def mix_phase(state: NodeState, recv_student, protos_rx, counts,
                   w_self, w_neigh, include) -> NodeState:
-        mixed = R.mix_node_trees(w_self, w_neigh, state.student,
-                                 recv_student)
-        state.student.buf.copy_(mixed.buf)
+        if adapter_rank:
+            R.adapter_merge_nodes(state.student, recv_student, w_self,
+                                  w_neigh, rank=adapter_rank,
+                                  grams=adapter_grams)
+        else:
+            mixed = R.mix_node_trees(w_self, w_neigh, state.student,
+                                     recv_student)
+            state.student.buf.copy_(mixed.buf)
         gp, mask = R.neighborhood_prototype_aggregate(include, protos_rx,
                                                       counts)
         return state._replace(global_protos=gp, proto_mask=mask)
@@ -326,12 +375,13 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
 
 def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
-                   bits):
+                   bits, adapter_rank: int = 0, adapter_grams: bool = False):
     """One full round over stacked node state: train -> Eq. 3 -> share
     -> mix.  The gossip/include matrices are this round's slices of the
     lowered schedule."""
     train_phase, share_phase, mix_phase = _make_round_parts(
-        step, proto_cfg, ncls, bits=bits)
+        step, proto_cfg, ncls, bits=bits, adapter_rank=adapter_rank,
+        adapter_grams=adapter_grams)
 
     def round_fn(state: NodeState, xb, valid, pxb, pvalid, w_self, w_neigh,
                  include, teacher_on: bool, all_valid: bool = False
@@ -364,7 +414,9 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     With error feedback (``fed.error_feedback``) every node starts from
     a zero residual unless its initial state carries one, and
     ``extras["wire_state"]`` holds the stacked ``CodecState`` after the
-    last round.
+    last round.  On the adapter-rank wire every node takes its initial
+    student as the first reference unless its initial state carries an
+    ``adapter_state``.
     """
     device = resolve_device(device)
     _check_slice(fed, train, eval_all_nodes=eval_all_nodes, overlap=overlap,
@@ -415,6 +467,17 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     if stacked.wire_state is not None and not bits.error_feedback:
         raise ValueError("initial states carry a wire_state but the wire "
                          f"{bits.arg()!r} has no error feedback")
+    adapters_on = bool(fed.adapter_rank)
+    if stacked.adapter_state is not None and not adapters_on:
+        raise ValueError("initial states carry an adapter_state but the "
+                         "run has no adapter_rank")
+    if adapters_on and stacked.adapter_state is None:
+        # the per-node reference snapshot (and gram carry) of the
+        # adapter wire, carried in the stacked state from here on
+        tree = as_tree(stacked.student)
+        stacked = stacked._replace(adapter_state=init_adapter_state(
+            adapter_layout(tree, fed.adapter_rank, node_axis=True), tree,
+            grams=fed.adapter_grams))
     if bits.error_feedback and stacked.wire_state is None:
         # error-feedback codec: a zero residual per node, shaped like the
         # wire payload, carried in the stacked state from here on
@@ -426,14 +489,21 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     def dev(x):
         return torch.as_tensor(x, device=device)
     w_self_st, w_neigh_st, include_st = map(dev, sched.lower(sizes))
-    round_fn = _make_round_fn(step, proto_cfg, ncls, bits=bits)
+    round_fn = _make_round_fn(step, proto_cfg, ncls, bits=bits,
+                              adapter_rank=fed.adapter_rank,
+                              adapter_grams=fed.adapter_grams)
     payload = _payload_template(wire_model, share_protos, stacked, ncls,
-                                proto_cfg.proto_dim)
+                                proto_cfg.proto_dim,
+                                adapter_rank=fed.adapter_rank,
+                                adapter_grams=fed.adapter_grams)
     test_dev = {k: dev(v) for k, v in test_data.items()}
 
     result = FederationResult(comm=meter, algorithm=algo)
     result.extras["proto_pass"] = fed.proto_pass
     result.extras["param_plane"] = True
+    if adapters_on:
+        result.extras["adapter_rank"] = fed.adapter_rank
+        result.extras["adapter_grams"] = fed.adapter_grams
     result.extras["wire_bytes_per_copy"] = tree_wire_bytes(payload, bits)
     result.extras["wire_bytes_packed_per_copy"] = \
         packed_copy_bytes(payload, bits)

@@ -50,6 +50,11 @@ class NodeState(NamedTuple):
     # core.wire_state.CodecState whose residual mirrors the wire
     # payload {"protos", "student": Plane}
     wire_state: Any = None
+    # adapter-rank wire state (None unless FederationConfig.adapter_rank):
+    # {"ref": {leaf: W}, ["grams": {leaf: G}]} — the round-start matrix
+    # leaves the next delta is taken against (copies, never views of the
+    # plane) and the carried gram statistics (core/adapters.py)
+    adapter_state: Any = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -243,16 +248,18 @@ def stack_states(states: List[NodeState]) -> NodeState:
     node axis, whatever the optimizer keeps.  All nodes step together,
     so their step counters must agree (one scalar ``step`` stays).  An
     error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
-    ``[N]`` vector); either every state carries one or none does."""
+    ``[N]`` vector), and so does an ``adapter_state``; either every
+    state carries one or none does."""
     def stack(*xs):
         return torch.stack(xs)
 
     def leaf(*xs):
         return torch.stack(xs).detach().requires_grad_(True)
 
-    if len({s.wire_state is None for s in states}) != 1:
-        raise ValueError("some node states carry a wire_state and some "
-                         "do not")
+    for key in ("wire_state", "adapter_state"):
+        if len({getattr(s, key) is None for s in states}) != 1:
+            raise ValueError(f"some node states carry a {key} and some "
+                             f"do not")
     for key in ("opt_s", "opt_t"):
         steps = {int(getattr(s, key)["step"]) for s in states}
         if len(steps) != 1:
@@ -283,7 +290,9 @@ def stack_states(states: List[NodeState]) -> NodeState:
         global_protos=stack(*(s.global_protos for s in states)),
         proto_mask=stack(*(s.proto_mask for s in states)),
         round_idx=stack(*(s.round_idx for s in states)),
-        wire_state=wire_state)
+        wire_state=wire_state,
+        adapter_state=None if s0.adapter_state is None else tree_map(
+            stack, *(s.adapter_state for s in states)))
 
 
 def normalize_protos(sums, counts):

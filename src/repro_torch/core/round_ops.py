@@ -9,6 +9,9 @@
 * ``mix_node_trees`` — size-weighted gossip: a node's own copy mixes
   unquantized, its neighbours' from the dequantized view.
 * ``neighborhood_prototype_aggregate`` — Eq. 4 per node neighbourhood.
+* ``adapter_share_nodes`` / ``adapter_merge_nodes`` — the adapter-rank
+  wire: factorize each node's round delta, then merge the received
+  low-rank deltas onto every receiver (``core/adapters.py``).
 """
 from __future__ import annotations
 
@@ -50,29 +53,34 @@ def include_matrix(adj: np.ndarray) -> np.ndarray:
 def quantize_dequantize_per_node(tree, bits: int = 16, *,
                                  spec: Optional[WireSpec] = None,
                                  state=None):
-    """Receiver-side reconstruction of a stacked wire payload
-    ``{"protos": [N, C, P], "student": Plane}`` through the packed node
-    codec (the plane branch of ``repro``'s function).
+    """Receiver-side reconstruction of a stacked wire payload through the
+    packed node codec: ``{"protos": [N, C, P], "student": Plane}`` splices
+    the student's rows off its plane; any other tree (the adapter wire's
+    ``{"adapters", "protos", "student": rest[, "grams"]}``) packs leaf by
+    leaf.
 
     ``state`` (a :class:`~repro_torch.core.wire_state.CodecState`,
-    required when ``spec.error_feedback`` is set) switches to the
-    error-feedback codec and returns ``(reconstruction, new_state)``,
-    with ``seq`` advanced by one."""
+    required when ``spec.error_feedback`` is set) switches the plane
+    payload to the error-feedback codec and returns ``(reconstruction,
+    new_state)``, with ``seq`` advanced by one."""
     from repro_torch.core.wire_state import CodecState, next_seq
     from repro_torch.kernels.quantize.ops import (
-        quantize_dequantize_plane_payload)
+        quantize_dequantize_plane_payload,
+        quantize_dequantize_tree_packed_nodes)
     from repro_torch.optim.plane import Plane
     if spec is not None and spec.error_feedback and state is None:
         raise ValueError("WireSpec.error_feedback is set but no CodecState "
                          "was passed: the error-feedback codec needs the "
                          "carried per-node residual")
-    if not (isinstance(tree, dict) and isinstance(tree.get("student"),
-                                                  Plane)):
-        raise NotImplementedError(
-            "only the plane-backed {'protos', 'student'} payload is "
-            "ported: ROADMAP.md Queue 1 item 4 (per-leaf wire codec)")
     if spec is not None and spec.uniform_bits is not None:
         bits = spec.uniform_bits
+    if not (isinstance(tree, dict) and isinstance(tree.get("student"),
+                                                  Plane)):
+        if state is not None:
+            raise NotImplementedError(
+                "error feedback on a tree payload is not ported yet: "
+                "ROADMAP.md Queue 1 item 11 (the adapter wire's +ef)")
+        return quantize_dequantize_tree_packed_nodes(tree, bits, spec=spec)
     if state is None:
         return quantize_dequantize_plane_payload(tree, bits, spec=spec)
     recv, new_res = quantize_dequantize_plane_payload(
@@ -109,3 +117,64 @@ def neighborhood_prototype_aggregate(include, protos, counts):
     glob = torch.einsum("ijc,jcp->icp", w, protos.float())
     mask = (n_j > 0).float()
     return glob, mask
+
+
+# -- adapter-rank wire --------------------------------------------------------
+
+def adapter_share_nodes(student, adapter_state, *, rank: int,
+                        grams: bool = False):
+    """Share side of the adapter wire over stacked ``[N, ...]`` state:
+    factorize this round's per-matrix deltas against the carried
+    reference, snapshot the reference forward to the current weights
+    (copies: the plane is updated in place later), and with ``grams``
+    advance the gram statistics.
+
+    Returns ``(payload_groups, new_adapter_state, layout)`` with
+    ``payload_groups = {"adapters": {leaf: {"A", "B"}}, "student":
+    rest-dict [, "grams": {leaf: G}]}``."""
+    from repro_torch.core.adapters import (adapter_layout, factorize_deltas,
+                                           gram_update, split_student)
+    from repro_torch.optim.plane import as_tree
+    tree = as_tree(student)
+    layout = adapter_layout(tree, rank, node_axis=True)
+    mats, rest = split_student(layout, tree)
+    factors = factorize_deltas(layout, mats, adapter_state["ref"])
+    groups = {"adapters": factors, "student": rest}
+    new_state = {"ref": {n: m.detach().clone() for n, m in mats.items()}}
+    if grams:
+        g = gram_update(factors, adapter_state.get("grams"))
+        groups["grams"] = g
+        new_state["grams"] = g
+    return groups, new_state, layout
+
+
+def adapter_merge_nodes(student, recv, w_self, w_neigh, *, rank: int,
+                        grams: bool = False):
+    """Merge side of the adapter wire: every receiver adds its
+    neighbours' reconstructed low-rank deltas onto its own current
+    weights, ``W_i ← W_i + Σ_j w_neigh[i, j]·B_j @ Ã_j`` (no self term:
+    the receiver's own training delta is already in ``W_i``), while the
+    dense rest keeps the gossip mean (own copy unquantized).  ``recv`` is
+    the receiver-side view ``{"adapters", "student" [, "grams"]}``; with
+    grams the factors are RegMean-adjusted per receiver.  A plane-backed
+    student is merged IN PLACE through ``kernels/lowrank_apply`` and
+    returned; a tree gets the materialized merge."""
+    from repro_torch.core.adapters import adapter_layout, split_student
+    from repro_torch.kernels.lowrank_apply.ops import (adapter_apply_plane,
+                                                       adapter_apply_tree)
+    from repro_torch.optim.plane import Plane, as_tree
+    tree = as_tree(student) if isinstance(student, Plane) else student
+    layout = adapter_layout(tree, rank, node_axis=True)
+    _, rest_now = split_student(layout, tree)
+    rest_mixed = mix_node_trees(w_self, w_neigh, rest_now, recv["student"])
+    factors = recv["adapters"]
+    if grams:
+        from repro_torch.core.aggregation import regmean_adjust
+        factors = {n: {"A": regmean_adjust(f["A"], recv["grams"][n],
+                                           w_neigh, per_recv=False),
+                       "B": f["B"]}
+                   for n, f in factors.items()}
+    if isinstance(student, Plane):
+        return adapter_apply_plane(student, layout, w_neigh, factors,
+                                   rest_mixed)
+    return adapter_apply_tree(tree, layout, w_neigh, factors, rest_mixed)

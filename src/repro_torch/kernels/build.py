@@ -29,7 +29,8 @@ from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("opt_update.cu", "proto_accum.cu", "quantize.cu")
+SOURCES = ("lowrank_apply.cu", "opt_update.cu", "proto_accum.cu",
+           "quantize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -56,6 +57,9 @@ SIGNATURES = {
     "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32, _P),
     # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, stream
     "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32, _P),
+    # w, out, coeffs, b, a, n_nodes, n_send, lead, d, k, r, per_recv,
+    # w_stride, out_stride, stream
+    "lowrank_apply": (_P,) * 5 + (_I32,) * 7 + (_I64, _I64, _P),
 }
 
 

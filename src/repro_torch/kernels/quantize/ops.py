@@ -15,7 +15,10 @@ student, int16 prototypes) clips each row to its segment's qmax in the
 same sweep.  The error-feedback codec (``+ef``) quantizes the effective
 payload ``x + decay·res`` instead: its absmax sweep adds the residual in
 registers, and one sweep writes the codes and the new residual
-``eff - codes·Δ``.  ``rowabs``, ``rowabs_sum``, ``quantize_rows``,
+``eff - codes·Δ``.  Any other node-stacked payload (the adapter wire's ``{"adapters",
+"protos", "student": rest[, "grams"]}``) packs leaf by leaf into the
+same buffer layout and runs the same sweeps (the per-leaf tree codec).
+``rowabs``, ``rowabs_sum``, ``quantize_rows``,
 ``quantize_rows_mixed`` and ``quantize_rows_ef`` run the CUDA kernels
 for tensors on the card and their plain versions on the CPU; everything
 else here is host logic and plain tensor ops, as in ``repro``.
@@ -36,8 +39,9 @@ from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
                                               quantize_rows_mixed_ref,
                                               quantize_rows_ref, rowabs_ref,
                                               rowabs_sum_ref)
-from repro_torch.tree import is_float, tree_leaves
-from repro_torch.wirespec import WireSpec
+from repro_torch.tree import is_float, tree_from_paths, tree_leaves, \
+    tree_paths
+from repro_torch.wirespec import WireSpec, canonical_group
 
 _COLS = 512
 _TINY = float(np.finfo(np.float32).tiny)
@@ -273,6 +277,123 @@ def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
         return recv
     rp, rbuf = split(new_res_buf)
     return recv, {"protos": rp, "student": Plane(rbuf, res_plane.meta)}
+
+
+# -- the per-leaf tree codec over node-stacked trees ---------------------------
+# A payload that is not plane-backed — the adapter wire's {"adapters",
+# "grams", "protos", "student": rest} — packs leaf by leaf into the same
+# [N, R, 512] buffer: every float leaf [N, ...] flattened per node and
+# padded to whole rows, in flatten order (dict keys sorted), one scale
+# segment per leaf, 8-alignment rows tagged with the last segment.  The
+# buffer then runs the same sweeps as the plane payload.
+
+def _leaf_group(path) -> str:
+    """Top-level payload key of a leaf path — the WireSpec group."""
+    key = path[0] if path and isinstance(path[0], str) else ""
+    return canonical_group(key)
+
+
+def pack_tree_nodes(tree, spec: Optional[WireSpec] = None):
+    """Flatten every float leaf ``[N, ...]`` of ``tree`` into one
+    ``[N, R, 512]`` fp32 buffer.  Returns ``(buf, seg_ids [R] int32,
+    meta)`` with ``meta = (recipe, n_seg, n_nodes, seg_bits)``:
+    ``recipe`` entries ``("packed", path, shape, row, r_leaf, seg)`` or
+    ``("raw", path, leaf)`` for a non-float leaf (it rides beside the
+    buffer), ``seg_bits`` each segment's width from ``spec`` by its
+    leaf's top-level key (None without a spec)."""
+    parts: List[torch.Tensor] = []
+    seg_parts: List[np.ndarray] = []
+    seg_bits: List[int] = []
+    recipe: List[Tuple] = []
+    n_nodes = None
+    seg = row = 0
+    for path, leaf in tree_paths(tree):
+        if not (hasattr(leaf, "dtype") and is_float(leaf)):
+            recipe.append(("raw", path, leaf))
+            continue
+        if leaf.dim() < 1:
+            raise ValueError("packed node format needs [N, ...] leaves")
+        n = leaf.shape[0]
+        if n_nodes is None:
+            n_nodes = n
+        elif n != n_nodes:
+            raise ValueError(f"inconsistent node axis: {n} vs {n_nodes}")
+        per = math.prod(leaf.shape[1:])
+        flat = F.pad(leaf.reshape(n, per).to(torch.float32),
+                     (0, (-per) % _COLS))
+        rows = flat.reshape(n, -1, _COLS)                 # [N, r_leaf, C]
+        r_leaf = rows.shape[1]
+        seg_parts.append(np.full((r_leaf,), seg, np.int32))
+        if spec is not None:
+            seg_bits.append(spec.bits_for(_leaf_group(path)))
+        recipe.append(("packed", path, tuple(leaf.shape), row, r_leaf, seg))
+        parts.append(rows)
+        seg += 1
+        row += r_leaf
+    if not parts:
+        raise ValueError("packed node format needs at least one float leaf")
+    buf = torch.cat(parts, dim=1)
+    seg_ids = np.concatenate(seg_parts)
+    rpad = (-buf.shape[1]) % 8
+    if rpad:
+        buf = F.pad(buf, (0, 0, 0, rpad))
+        seg_ids = np.concatenate([seg_ids,
+                                  np.full((rpad,), seg - 1, np.int32)])
+    bits_arr = np.asarray(seg_bits, np.int32) if spec is not None else None
+    return buf, seg_ids, (tuple(recipe), seg, n_nodes, bits_arr)
+
+
+def unpack_tree_nodes(buf, meta):
+    """Inverse of :func:`pack_tree_nodes` (float leaves come back fp32)."""
+    items = []
+    for item in meta[0]:
+        if item[0] == "raw":
+            items.append((item[1], item[2]))
+            continue
+        _, path, shape, row, r_leaf, _seg = item
+        per = math.prod(shape[1:])
+        rows = buf[:, row:row + r_leaf].reshape(shape[0], -1)
+        items.append((path, rows[:, :per].reshape(shape)))
+    return tree_from_paths(items)
+
+
+def quantize_tree_packed_nodes(tree, bits: int = 16, *,
+                               spec: Optional[WireSpec] = None) -> Dict:
+    """Quantize a node-stacked tree into ``{"codes": [N, R, C] intN,
+    "scales": [N, T] fp32, "seg_ids", "seg_bits", "meta", "bits"}``,
+    each leaf group at its spec width."""
+    if spec is not None and spec.stochastic_rounding:
+        raise NotImplementedError(
+            "stochastic rounding is not ported yet: ROADMAP.md Queue 1 "
+            "item 10 (stateful codec)")
+    if spec is not None and spec.error_feedback:
+        raise NotImplementedError(
+            "error feedback on a tree payload is not ported yet: "
+            "ROADMAP.md Queue 1 item 11 (the adapter wire's +ef)")
+    buf, seg_ids, meta = pack_tree_nodes(tree, spec)
+    codes, scales = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
+                                           seg_bits=meta[3])
+    return {"codes": codes, "scales": scales, "seg_ids": seg_ids,
+            "seg_bits": meta[3], "meta": meta, "bits": bits}
+
+
+def dequantize_tree_packed_nodes(payload):
+    """Receiver-side reconstruction ``codes * Δ_row`` of a packed node
+    payload, unpacked into its tree."""
+    ids = torch.as_tensor(payload["seg_ids"], dtype=torch.int64,
+                          device=payload["codes"].device)
+    deq = payload["codes"].to(torch.float32) * \
+        payload["scales"][:, ids][:, :, None]
+    return unpack_tree_nodes(deq, payload["meta"])
+
+
+def quantize_dequantize_tree_packed_nodes(tree, bits: int = 16, *,
+                                          spec: Optional[WireSpec] = None):
+    """Round trip of a node-stacked tree through the packed node codec —
+    what every receiver reconstructs.  Always through the buffer (the
+    route ``repro`` takes with its kernels)."""
+    return dequantize_tree_packed_nodes(
+        quantize_tree_packed_nodes(tree, bits, spec=spec))
 
 
 # -- byte accounting (shapes only) ------------------------------------------

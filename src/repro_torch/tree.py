@@ -54,6 +54,14 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def keystr(path) -> str:
+    """A path as ``jax.tree_util.keystr`` renders it: ``['fc1']['kernel']``,
+    ``['stages'][0][0]['conv1']['kernel']`` (a dict key by its ``repr``,
+    a list index bare)."""
+    return "".join(f"[{k}]" if isinstance(k, int) else f"[{k!r}]"
+                   for k in path)
+
+
 def tree_from_paths(items):
     """Inverse of :func:`tree_paths`: an int path key is a list index
     (JAX's flatten visits list elements in order), any other key a dict

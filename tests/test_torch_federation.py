@@ -655,34 +655,39 @@ def _chip_smoke_module():
 
 @pytest.mark.parametrize("wire,rounds", [
     ("16", 2), ("4/16+ef", 2), ("4/16", 1), ("cifar10/sgd", 2),
-    ("cifar10/adafactor", 1)])
+    ("cifar10/adafactor", 1), ("adapters8", 2), ("adapters8+grams", 1)])
 def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
     """The 20-node wire numbers chip_smoke.py holds the card runs to, for
     each of its paths (``wire`` names the path): the port's accountants
     and the JAX package's, from the same payload template shapes of the
     path's full-width student, equal each other and the script's
     constants — for the mnist-cnn 16-bit main path, the 4/16 wire (whose
-    bytes +ef leaves unchanged), and the cifar10-resnet18 paths (the
-    ResNet8 student on the 16-bit wire), over each path's rounds."""
+    bytes +ef leaves unchanged), the cifar10-resnet18 paths (the ResNet8
+    student on the 16-bit wire), and the adapter-rank wire at rank 8 on
+    the int4 wire, naive and with grams (conv2, fc1 and fc2 travel as
+    factors), over each path's rounds."""
     smoke = _chip_smoke_module()
     n = smoke.N_NODES
     model, _, wire_arg, smoke_rounds, want = smoke.PATHS[wire]
     assert smoke_rounds == rounds
     jspec, tspec = JWireSpec.parse(wire_arg), WireSpec.parse(wire_arg)
     # the script's FederationConfig fields make the spec it names
-    fed = tbase.FederationConfig(**smoke.wire_fields(tspec))
+    extra = smoke.PATH_FED.get(wire, {})
+    fed = tbase.FederationConfig(**smoke.wire_fields(tspec), **extra)
     assert WireSpec(student_bits=fed.quantize_bits,
                     proto_bits=fed.proto_quantize_bits,
                     error_feedback=fed.error_feedback) == tspec
     assert tspec.describe() == jspec.describe() == {
-        "16": "int16", "4/16": "student=int4,protos=int16",
+        "16": "int16", "4": "int4", "4/16": "student=int4,protos=int16",
         "4/16+ef": "student=int4,protos=int16+ef"}[wire_arg]
     cfg = tbase.get_config(model)
     student = plane_from_tree(init_params(TF.derive_student(cfg),
                                           torch.Generator().manual_seed(0)))
     state = tprofe.NodeState(student, None, None, None, None, None, None)
     ncls, pdim = cfg.num_classes, cfg.proto_dim
-    tpay = TF._payload_template("student", True, state, ncls, pdim)
+    tpay = TF._payload_template("student", True, state, ncls, pdim,
+                                adapter_rank=fed.adapter_rank,
+                                adapter_grams=fed.adapter_grams)
     tmeter = TF.ScheduleCommAccountant(ttopo.make_schedule(n, "full",
                                                            rounds=rounds))
     for r in range(rounds):
@@ -693,6 +698,15 @@ def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
         jscfg, jax.random.PRNGKey(0))),
         "protos": jax.ShapeDtypeStruct((ncls, pdim), np.dtype(np.float32)),
         "counts": jax.ShapeDtypeStruct((ncls,), np.dtype(np.float32))}
+    if fed.adapter_rank:
+        # the matrix leaves leave "model" and meter as their factors
+        from repro.core import adapters as jadapters
+        layout = jadapters.adapter_layout(jpay["model"], fed.adapter_rank)
+        jpay.update(jadapters.adapter_payload_template(
+            layout, grams=fed.adapter_grams))
+        jpay["model"] = jadapters.split_student(layout, jpay["model"])[1]
+        assert layout.mat_names == ("['conv2']['kernel']",
+                                    "['fc1']['kernel']", "['fc2']['kernel']")
     assert [tuple(x.shape) for x in tree_leaves(tpay)] == \
         [tuple(x.shape) for x in jax.tree_util.tree_leaves(jpay)]
     jmeter = jcomm.ScheduleCommAccountant(jtopo.make_schedule(
@@ -705,10 +719,20 @@ def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
         jcomm.packed_copy_bytes(jpay, jspec) == want[1]
     assert TF.tree_wire_bytes(tpay, tspec) == \
         jquant.tree_wire_bytes(jpay, jspec) == want[2]
-    if wire_arg != "16":  # the residual never travels: +ef costs no byte
+    if wire_arg.startswith("4/16"):
+        # the residual never travels: +ef costs no byte
         assert TF.packed_copy_bytes(tpay, tspec.stateless()) == want[1]
         assert want == ({1: 0.002015254, 2: 0.004030508}[rounds], 108876,
                         106066)
+    if fed.adapter_rank:
+        # the same student's dense int4 copy: the naive adapter wire
+        # sends 0.095x its logical and 0.116x its packed bytes
+        dense = TF._payload_template("student", True, state, ncls, pdim)
+        assert TF.tree_wire_bytes(dense, tspec) == 104146
+        assert TF.packed_copy_bytes(dense, tspec) == 106572
+        if not fed.adapter_grams:
+            assert (round(want[2] / 104146, 3),
+                    round(want[1] / 106572, 3)) == (0.095, 0.116)
     if model == "cifar10-resnet18":
         # the ResNet8 student: 27 leaves, a [208, 512] plane, its lists
         # of stages kept in the template
@@ -722,7 +746,7 @@ def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
     (dict(proto_pass="fused"), {}, {}),
     (dict(quantize_bits=0), {}, {}),
     (dict(algorithm="fml"), {}, {}),
-    (dict(adapter_rank=4), {}, {}),
+    (dict(adapter_rank=4, quantize_bits=4, error_feedback=True), {}, {}),
     (dict(proto_ema=0.5), {}, {}),
     (dict(algorithm="fedgpd"), {}, {}),
     ({}, {}, dict(overlap="rounds")),
