@@ -526,25 +526,45 @@ def check_plane_sweeps(torch, timer, student_cfg):
     return rows
 
 
-def check_lowrank(torch, timer):
+def check_lowrank(torch, timer, student_cfg):
     """Phase 3, the adapter merge: ``lowrank_apply`` against its plain
-    version at fc1's full-width shapes (20 receivers and senders,
-    ``w [20, 1568, 128]``, rank 8, the full graph's gossip weights), with
-    ``A`` shared (naive merge) and per receiver (RegMean), bit for bit and
-    timed; and once in place on a padded plane span (fc2's ``[128, 10]``
-    in 3 rows of 512 lanes), as the merge writes the student plane."""
+    version, bit for bit, at the path's shapes (20 receivers and senders,
+    rank 8, the full graph's gossip weights), with ``A`` shared (naive
+    merge) and per receiver (RegMean):
+
+    * at fc1's ``w [20, 1568, 128]``, timed, beside ``baddbmm``;
+    * at conv2's ``w [20, 3, 3, 16, 32]``, whose 3×3 lead axes fold into
+      the launch and whose 16 rows fill a quarter of a row tile;
+    * in place on 20 nodes' real student plane, through the merge's own
+      sweep ``adapter_apply_plane`` (conv2, fc1 and fc2 at their row
+      spans, the rest copied): every lane of the plane against the plain
+      version applied to the same views, padding included."""
+    from repro_torch.core.adapters import adapter_layout, split_student
     from repro_torch.kernels.lowrank_apply.lowrank_apply import (
         lowrank_apply_cuda)
+    from repro_torch.kernels.lowrank_apply.ops import adapter_apply_plane
     from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
+    from repro_torch.models import init_params
+    from repro_torch.optim.plane import Plane, _leaf_view, as_tree, \
+        plane_from_tree
 
     gen = torch.Generator().manual_seed(2)
-    n, d, k, r = N_NODES, 1568, 128, 8
+    n, r = N_NODES, 8
     coeffs = ((1.0 - torch.eye(n)) / n).cuda()
+
+    def factors(lead, d, k, scale_a):
+        b = (torch.randn((n,) + lead + (d, r), generator=gen)
+             / math.sqrt(d)).cuda()
+        a = {"shared": (torch.randn((n,) + lead + (r, k), generator=gen)
+                        * scale_a).cuda(),
+             "per_recv": (torch.randn((n, n) + lead + (r, k), generator=gen)
+                          * scale_a).cuda()}
+        return b, a
+
+    # fc1, timed
+    d, k = 1568, 128
     w = (torch.randn((n, d, k), generator=gen) * 0.05).cuda()
-    b = (torch.randn((n, d, r), generator=gen) / math.sqrt(d)).cuda()
-    variants = {
-        "shared": (torch.randn((n, r, k), generator=gen) * 1e-3).cuda(),
-        "per_recv": (torch.randn((n, n, r, k), generator=gen) * 1e-3).cuda()}
+    b, variants = factors((), d, k, 1e-3)
     out = torch.empty_like(w)
     rows = {}
     for variant, a in variants.items():
@@ -564,8 +584,14 @@ def check_lowrank(torch, timer):
         acat = acat.expand(n, n * r, k) if variant == "shared" else acat
         lib = torch.baddbmm(w, bc, acat)
         lib_ms = timer(lambda: torch.baddbmm(w, bc, acat))
+        # the least work: with A shared, each sender's B_j @ A_j
+        # (2r flops an element) is the same for every receiver, and
+        # each receiver then scales and adds it (2 flops) before the
+        # add onto w; per receiver, every B_j @ Ã_ij is its own
+        ops = (n * d * k * (2 * r + 2 * n + 1) if variant == "shared"
+               else n * n * d * k * (2 * r + 2))
         b_ms, b_by = bound(4 * (2 * w.numel() + b.numel() + a.numel()
-                                + coeffs.numel()), w.numel() * n * (2 * r + 2))
+                                + coeffs.numel()), ops)
         rows[variant] = dict(max_abs_err=float((got - want).abs().max()),
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib_ms)
@@ -573,23 +599,55 @@ def check_lowrank(torch, timer):
               f"{tuple(a.shape)}: bit-exact; baddbmm differs by "
               f"{float((lib - want).abs().max()):.3e}")
 
-    # in place on a strided plane view: fc2 [128, 10] in rows of 512
-    buf = torch.zeros((n, 5, 512), device="cuda")
-    span = buf[:, 1:4].reshape(n, -1)[:, :128 * 10]
-    span.copy_(torch.randn((n, 1280), generator=gen).cuda())
-    view = span.reshape(n, 128, 10)
-    b2 = (torch.randn((n, 128, r), generator=gen) * 0.1).cuda()
-    a2 = (torch.randn((n, r, 10), generator=gen) * 0.1).cuda()
-    want = lowrank_apply_ref(view, coeffs, b2, a2)
-    lowrank_apply_cuda(view, coeffs, b2, a2, out=view)
-    torch.cuda.synchronize()
-    expect(torch.equal(view, want), "lowrank_apply in place on a plane span "
-                                    "disagrees with its plain version")
-    pad = buf.clone()
-    pad[:, 1:4].reshape(n, -1)[:, :1280] = 0
-    expect(not bool(pad.any()), "lowrank_apply wrote outside its span")
-    print("lowrank_apply in place on a padded plane span: bit-exact, padding "
-          "untouched")
+    # conv2: lead axes (3, 3), d = 16 < one 64-row tile
+    lead, d, k = (3, 3), 16, 32
+    w = (torch.randn((n,) + lead + (d, k), generator=gen) * 0.05).cuda()
+    b, variants = factors(lead, d, k, 0.1)
+    for variant, a in variants.items():
+        got = lowrank_apply_cuda(w, coeffs, b, a)
+        want = lowrank_apply_ref(w, coeffs, b, a)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got, want) == 0,
+               f"lowrank_apply ({variant}) at conv2's shapes is not "
+               f"bit-exact with its plain version")
+        print(f"lowrank_apply {variant} w {tuple(w.shape)} a "
+              f"{tuple(a.shape)}: bit-exact")
+
+    # in place on the real plane, through the merge's sweep
+    planes = [plane_from_tree(init_params(student_cfg, gen))
+              for _ in range(n)]
+    plane = Plane(torch.stack([p.buf for p in planes]).cuda(),
+                  planes[0].meta)
+    layout = adapter_layout(as_tree(plane), r, node_axis=True)
+    _, rest = split_student(layout, as_tree(plane))
+    rest_mixed = {name: x + 0.1 for name, x in rest.items()}
+    banks = {}
+    for name, shape in zip(layout.names, layout.shapes):
+        if name in layout.mat_names:
+            banks[name] = factors(shape[:-2], shape[-2], shape[-1], 0.1)
+    expect(len(banks) == ADAPTER_LEAVES,
+           f"matrix leaves {sorted(banks)} of the student")
+    for variant in ("shared", "per_recv"):
+        fs = {name: {"B": b, "A": a[variant]}
+              for name, (b, a) in banks.items()}
+        want = plane.buf.clone()
+        for name, (_, _, shape, row, r_leaf) in zip(layout.names,
+                                                    plane.meta.recipe):
+            view = _leaf_view(want, shape, row, r_leaf)
+            if name in fs:
+                view.copy_(lowrank_apply_ref(view, coeffs, fs[name]["B"],
+                                             fs[name]["A"]))
+            else:
+                view.copy_(rest_mixed[name])
+        got = Plane(plane.buf.clone(), plane.meta)
+        adapter_apply_plane(got, layout, coeffs, fs, rest_mixed)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got.buf, want) == 0,
+               f"adapter_apply_plane ({variant}) on the student plane "
+               f"disagrees with the plain version on its views")
+        print(f"lowrank_apply {variant} in place on the student plane "
+              f"{tuple(plane.buf.shape)} ({', '.join(sorted(fs))}): "
+              f"bit-exact on every lane, padding included")
     row = dict(name="lowrank_apply", route="cuda",
                source="src/repro_torch/csrc/lowrank_apply.cu",
                replaces="src/repro/kernels/lowrank_apply/lowrank_apply.py:53",
@@ -600,7 +658,7 @@ def check_lowrank(torch, timer):
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); per receiver "
           f"{rows['per_recv']['ms']:.4f} / {rows['per_recv']['plain_ms']:.4f}"
           f" / {rows['per_recv']['library_ms']:.4f} ms, bound "
-          f"{rows['per_recv']['bound_ms']:.4f}")
+          f"{rows['per_recv']['bound_ms']:.4f} ({rows['per_recv']['bound_by']})")
     return [row]
 
 
@@ -635,7 +693,6 @@ def run_path(torch, inputs, name: str):
     launch counts."""
     import dataclasses
 
-    from repro_torch.core import round_ops
     from repro_torch.core.federation import run_federation
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.wirespec import WireSpec
@@ -667,19 +724,9 @@ def run_path(torch, inputs, name: str):
         # one merge launch per matrix leaf a round
         "lowrank_apply": ADAPTER_LEAVES * rounds if extra else 0})
 
-    # observe the factors each round shares (the run itself is unchanged)
-    shared = []
-    share = round_ops.adapter_share_nodes
-
-    def share_and_keep(*args, **kwargs):
-        out = share(*args, **kwargs)
-        shared.append(out[0]["adapters"])
-        return out
-    round_ops.adapter_share_nodes = share_and_keep
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
     counts = launch_counts()
-    round_ops.adapter_share_nodes = share
 
     print(f"per-round F1: {res.f1_per_round}")
     print(f"per-round seconds: {res.extras['round_times_s']}")
@@ -724,12 +771,13 @@ def run_path(torch, inputs, name: str):
               f"{N_NODES} nodes, max |student| "
               f"{float(res_s.abs().max()):.4g}, max |protos| "
               f"{float(protos.abs().max()):.4g}, padding lanes zero")
-    expect(len(shared) == (rounds if extra else 0),
-           f"{name}: {len(shared)} adapter shares in {rounds} rounds")
+    shared = res.extras.get("adapter_factors")
+    expect((shared is not None) == bool(extra),
+           f"{name}: adapter_factors is {shared!r}")
     if extra:
-        expect(len(shared[-1]) == ADAPTER_LEAVES,
-               f"{name}: factored leaves {sorted(shared[-1])}")
-        for leaf, f in sorted(shared[-1].items()):
+        expect(len(shared) == ADAPTER_LEAVES,
+               f"{name}: factored leaves {sorted(shared)}")
+        for leaf, f in sorted(shared.items()):
             ba = f["B"] @ f["A"]
             expect(all(bool(torch.isfinite(x).all()) for x in (f["A"], f["B"]))
                    and float(ba.abs().max()) > 0,
@@ -855,7 +903,8 @@ def main() -> int:
     rows = check_kernels(torch, timer, derive_student(get_config("mnist-cnn")))
     rows += check_plane_sweeps(torch, timer,
                                derive_student(get_config("cifar10-resnet18")))
-    rows += check_lowrank(torch, timer)
+    rows += check_lowrank(torch, timer,
+                          derive_student(get_config("mnist-cnn")))
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}

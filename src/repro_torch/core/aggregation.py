@@ -9,8 +9,6 @@ Without grams the merge uses the raw factors (``Ã = A``).
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 # Ridge strength of the RegMean solve, relative to tr(Gsum)/k.  The wire
@@ -21,7 +19,7 @@ REGMEAN_EPS = 1e-3
 
 
 def regmean_adjust(a: torch.Tensor, grams: torch.Tensor,
-                   coeffs: torch.Tensor, *, per_recv: Optional[bool] = None,
+                   coeffs: torch.Tensor, *, per_recv: bool,
                    eps: float = REGMEAN_EPS) -> torch.Tensor:
     """RegMean-adjusted per-receiver factors of one matrix leaf.
 
@@ -32,14 +30,13 @@ def regmean_adjust(a: torch.Tensor, grams: torch.Tensor,
         Gsum_i  = Σ_j coeffs[i, j]·G_j + (eps·tr(Gsum_i)/k + 1e-6)·I
         Ã[i, j] = A_j G_j Gsum_i⁻¹
 
-    returned as ``[N, S, *lead, r, k]``.  ``per_recv=True`` takes each
-    receiver's own view: ``a`` ``[N, S, *lead, r, k]`` and ``grams``
-    ``[N, S, *lead, k, k]``.  The default infers the no-lead convention
-    (``grams.dim() == 4``); callers with lead axes pass the flag."""
+    returned as ``[N, S, *lead, r, k]``.  The stacked engine's merge
+    passes ``per_recv=False``; ``per_recv=True`` takes each receiver's own
+    view, ``a`` ``[N, S, *lead, r, k]`` and ``grams`` ``[N, S, *lead, k,
+    k]``, as the mesh exchange (where every receiver dequantizes its own
+    copy of the wire) will."""
     k = grams.shape[-1]
     a32, g32, c32 = a.float(), grams.float(), coeffs.float()
-    if per_recv is None:
-        per_recv = grams.dim() == 4
     gsum = torch.einsum("ns,ns...kl->n...kl" if per_recv
                         else "ns,s...kl->n...kl", c32, g32)
     tr = torch.diagonal(gsum, dim1=-2, dim2=-1).sum(-1) / k

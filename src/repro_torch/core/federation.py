@@ -303,7 +303,8 @@ def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
 
 def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
                       bits, adapter_rank: int = 0,
-                      adapter_grams: bool = False):
+                      adapter_grams: bool = False,
+                      shared: Optional[Dict[str, Any]] = None):
     """The three phases of one stacked ProFe round:
 
     * ``train_phase`` — local epochs + the exact Eq. 3 pass ->
@@ -318,7 +319,9 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     With ``adapter_rank`` the share sends the adapter payload (carrying
     ``state.adapter_state`` forward) and ``recv_student`` is its
     receiver-side view ``{"adapters", "student"[, "grams"]}``; the mix
-    merges it into the plane in place.
+    merges it into the plane in place.  A ``shared`` dict receives each
+    share's factors under ``"adapters"`` (the sender side, before the
+    codec), so the last round's stay there.
     """
     spec = WireSpec.from_bits(bits)
     exact_pass = _make_proto_pass(proto_cfg, ncls)
@@ -343,6 +346,8 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
             groups, new_ad, _ = R.adapter_share_nodes(
                 state.student, state.adapter_state, rank=adapter_rank,
                 grams=adapter_grams)
+            if shared is not None:
+                shared["adapters"] = groups["adapters"]
             recv = dict(R.quantize_dequantize_per_node(
                 dict(groups, protos=protos), spec=spec))
             protos_rx = recv.pop("protos")
@@ -375,13 +380,14 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
 
 def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
-                   bits, adapter_rank: int = 0, adapter_grams: bool = False):
+                   bits, adapter_rank: int = 0, adapter_grams: bool = False,
+                   shared: Optional[Dict[str, Any]] = None):
     """One full round over stacked node state: train -> Eq. 3 -> share
     -> mix.  The gossip/include matrices are this round's slices of the
-    lowered schedule."""
+    lowered schedule.  ``shared`` is as in :func:`_make_round_parts`."""
     train_phase, share_phase, mix_phase = _make_round_parts(
         step, proto_cfg, ncls, bits=bits, adapter_rank=adapter_rank,
-        adapter_grams=adapter_grams)
+        adapter_grams=adapter_grams, shared=shared)
 
     def round_fn(state: NodeState, xb, valid, pxb, pvalid, w_self, w_neigh,
                  include, teacher_on: bool, all_valid: bool = False
@@ -416,7 +422,8 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     ``extras["wire_state"]`` holds the stacked ``CodecState`` after the
     last round.  On the adapter-rank wire every node takes its initial
     student as the first reference unless its initial state carries an
-    ``adapter_state``.
+    ``adapter_state``, and ``extras["adapter_factors"]`` holds the last
+    round's shared factors ``{leaf: {"A", "B"}}`` (stacked over nodes).
     """
     device = resolve_device(device)
     _check_slice(fed, train, eval_all_nodes=eval_all_nodes, overlap=overlap,
@@ -489,9 +496,10 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     def dev(x):
         return torch.as_tensor(x, device=device)
     w_self_st, w_neigh_st, include_st = map(dev, sched.lower(sizes))
+    shared: Dict[str, Any] = {}
     round_fn = _make_round_fn(step, proto_cfg, ncls, bits=bits,
                               adapter_rank=fed.adapter_rank,
-                              adapter_grams=fed.adapter_grams)
+                              adapter_grams=fed.adapter_grams, shared=shared)
     payload = _payload_template(wire_model, share_protos, stacked, ncls,
                                 proto_cfg.proto_dim,
                                 adapter_rank=fed.adapter_rank,
@@ -552,6 +560,8 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     if bits.error_feedback:
         # the error-feedback state after the last round (residual, seq)
         result.extras["wire_state"] = stacked.wire_state
+    if adapters_on and "adapters" in shared:
+        result.extras["adapter_factors"] = shared["adapters"]
     result.extras["avg_sent_gb"] = meter.avg_sent_gb()
     result.extras["avg_received_gb"] = meter.avg_received_gb()
     return result

@@ -156,14 +156,16 @@ def adapter_merge_nodes(student, recv, w_self, w_neigh, *, rank: int,
     the receiver's own training delta is already in ``W_i``), while the
     dense rest keeps the gossip mean (own copy unquantized).  ``recv`` is
     the receiver-side view ``{"adapters", "student" [, "grams"]}``; with
-    grams the factors are RegMean-adjusted per receiver.  A plane-backed
-    student is merged IN PLACE through ``kernels/lowrank_apply`` and
-    returned; a tree gets the materialized merge."""
+    grams the factors are RegMean-adjusted per receiver.  The stacked
+    student ``Plane`` is merged IN PLACE through ``kernels/lowrank_apply``
+    and returned."""
     from repro_torch.core.adapters import adapter_layout, split_student
-    from repro_torch.kernels.lowrank_apply.ops import (adapter_apply_plane,
-                                                       adapter_apply_tree)
+    from repro_torch.kernels.lowrank_apply.ops import adapter_apply_plane
     from repro_torch.optim.plane import Plane, as_tree
-    tree = as_tree(student) if isinstance(student, Plane) else student
+    if not isinstance(student, Plane):
+        raise TypeError("adapter_merge_nodes merges a stacked student "
+                        f"Plane in place, got {type(student).__name__}")
+    tree = as_tree(student)
     layout = adapter_layout(tree, rank, node_axis=True)
     _, rest_now = split_student(layout, tree)
     rest_mixed = mix_node_trees(w_self, w_neigh, rest_now, recv["student"])
@@ -174,7 +176,4 @@ def adapter_merge_nodes(student, recv, w_self, w_neigh, *, rank: int,
                                            w_neigh, per_recv=False),
                        "B": f["B"]}
                    for n, f in factors.items()}
-    if isinstance(student, Plane):
-        return adapter_apply_plane(student, layout, w_neigh, factors,
-                                   rest_mixed)
-    return adapter_apply_tree(tree, layout, w_neigh, factors, rest_mixed)
+    return adapter_apply_plane(student, layout, w_neigh, factors, rest_mixed)

@@ -10,11 +10,14 @@
 // plain version (kernels/lowrank_apply/ref.py), which spells the same
 // operations in the same order.
 //
-// What bounds it on the H100: operations.  At fc1's shapes (N = S = 20,
-// d = 1568, k = 128, r = 8) it does N*d*k*S*(2r+2) = 1.45 GFLOP of fp32 on
-// 33 MB of reads and writes: 0.022 ms of flops against 0.010 ms of bytes
-// (the multiplies and adds stay unfused for bit-exactness, so the card's
-// FMA rate halves: 0.043 ms at best).
+// What bounds it on the H100, at fc1's shapes (N = S = 20, d = 1568,
+// k = 128, r = 8), with 33 MB of reads and writes (0.010 ms): per receiver
+// (RegMean) the function needs N*d*k*S*(2r+2) = 1.45 GFLOP of fp32, 0.022 ms,
+// so operations; with A shared each B_j @ A_j serves every receiver, so it
+// needs 0.23 GFLOP and is bound by its bytes.  This kernel does the 1.45
+// GFLOP in both variants (each sender's product once per receiver), and
+// its multiplies and adds stay unfused for bit-exactness, so the card's
+// FMA rate halves: 0.043 ms at best.
 // Design: one block per (receiver, lead slice, 64x32 output tile), 256
 // threads; a thread owns 8 consecutive rows of one column, a warp 32
 // neighbouring columns, and keeps its 8 outputs in registers across all

@@ -5,9 +5,13 @@ Replaces ``repro/kernels/lowrank_apply/lowrank_apply.py:lowrank_apply_pallas``
 matrix leaf of every receiver: ``out[i] = w[i] + Σ_j c[i, j]·(B_j @ A_j)``,
 ``A`` shared ``[S, L, r, k]`` or per receiver ``[N, S, L, r, k]`` (the
 RegMean factors), with a leaf's lead axes (a conv kernel's 3×3) folded
-into ``L``.  Bound on the H100: operations — ``N·L·d·k·S·(2r+2)`` fp32
-flops against about ``4·(2·N·L·d·k)`` bytes; at fc1's shapes (N = S =
-20, d = 1568, k = 128, r = 8) the flops take twice the bytes' time.
+into ``L``.  Bound on the H100, at fc1's shapes (N = S = 20, d = 1568,
+k = 128, r = 8), against about ``4·(2·N·L·d·k)`` bytes: with ``A`` shared
+each ``B_j @ A_j`` is the same for every receiver, so the function needs
+only ``S·L·d·k·2r + N·L·d·k·(2S + 1)`` fp32 flops and is bound by its
+bytes; per receiver every ``B_j @ Ã_ij`` is its own, ``N·L·d·k·S·(2r+2)``
+flops, and the flops take twice the bytes' time.  This kernel computes
+each sender's product once per receiver in both variants.
 Design: one block per (receiver, lead slice, 64×32 output tile); each
 sender's ``B`` tile ``[64, r]`` (transposed) and ``A`` tile ``[r, 32]``
 are staged in shared memory (the rank axis is never split) and each

@@ -5,9 +5,6 @@ raises.
 
 * :func:`lowrank_apply` — one matrix leaf of every receiver, lead axes
   folded into the launch.
-* :func:`adapter_apply_tree` — the materialized merge on a parameter
-  tree: matrix leaves through the plain version, the rest replaced by
-  the mixed rest.
 * :func:`adapter_apply_plane` — the merge on a node-stacked plane, IN
   PLACE: every matrix leaf's row span is read and written through
   :func:`lowrank_apply` on its ``[N, *lead, d, k]`` view, every rest span
@@ -37,19 +34,6 @@ def lowrank_apply(w, coeffs, b, a, *, out=None):
         return res
     out.copy_(res)
     return out
-
-
-def adapter_apply_tree(tree, layout, coeffs, factors: Dict[str, Dict],
-                       rest_mixed: Dict[str, torch.Tensor]):
-    """Materialized merge: matrix leaves become ``W + Σ_j coeffs[:, j]·
-    (B_j @ A_j)``, the others their ``rest_mixed`` value.  ``layout`` is
-    the shared :class:`~repro_torch.core.adapters.AdapterLayout`."""
-    from repro_torch.core.adapters import split_student, merge_student
-    mats, _ = split_student(layout, tree)
-    merged = {n: lowrank_apply_ref(mats[n], coeffs, factors[n]["B"],
-                                   factors[n]["A"])
-              for n in layout.mat_names}
-    return merge_student(layout, merged, rest_mixed)
 
 
 @torch.no_grad()
