@@ -8,8 +8,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
-3. each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with its time (CUDA events, median of 50 launches
+3. each kernel against its plain PyTorch version on the card, at its
+   path's shapes, with its time (CUDA events, median of 50 launches
    after warm-up, L2 flushed and the card busy before each, so host launch
    latency stays outside the events), its plain version's time, the
    time of one PyTorch library call computing the same function where
@@ -33,22 +33,39 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    (``adapters8+grams``); after each, the last round's factors must be
    finite and non-zero (a reference snapshot that aliased the in-place
    student would make them zero);
-10. with ``--profile`` only: where a round's time goes on the main path,
+10. the multi-node exchange (``core/mesh_federation.py``): 8 ranks
+    spawned in one gloo group, all on ``cuda:0``, one mnist-cnn node each
+    at full width (``TrainConfig`` defaults, the 7040-image data iid over
+    8 nodes).  Each round a rank trains its node with the stacked
+    engine's ``train_phase`` (local epoch + exact Eq. 3 pass), then runs
+    the mesh round: ``mesh/ring16`` (ring, ``ppermute``, 16-bit, 2
+    rounds), ``mesh/ring4/16+ef`` (ring, ``ppermute`` with ``overlap``,
+    ``4/16+ef``, 1 round) and ``mesh/full-packed`` (``adjacency=None``,
+    ``packed``, 16-bit, 1 round).  Every rank holds its bytes handed to
+    collectives to the path's copies, its launches to the path's, and its
+    prototypes and student to finite values;
+11. one rank holding all 8 nodes (``exchange="packed"``, ring adjacency)
+    against the stacked engine's ``share_phase`` + ``mix_phase`` on the
+    same post-train state: students within 4 ulp of their largest
+    magnitude, prototypes and mask bit for bit;
+12. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
     under ``torch.profiler`` (see :func:`profile_rounds`);
-11. a line ``{"kernels": [...]}`` with each kernel's launches on its
+13. a line ``{"kernels": [...]}`` with each kernel's launches on its
     path, error and times, then the card's ``nvidia-smi`` name and power
     limit, then the result line ``{"ok": true, "device": {...}}`` last.
 
 Phases 4-9 each set the kernels' launch counts to 0 just before
 ``run_federation`` and read them just after, check finite F1 every
-round, and hold the run's wire bytes to the JAX package's.
+round, and hold the run's wire bytes to the JAX package's; phase 10
+does the same on every rank around each mesh run.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -102,7 +119,21 @@ KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
                "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef",
                "sgd_update": "cifar10/sgd",
                "adafactor_apply": "cifar10/adafactor",
-               "lowrank_apply": "adapters8"}
+               "lowrank_apply": "adapters8", "mix_packed": "mesh/ring16"}
+# the multi-node exchange (phase 10): name -> (topology, exchange, wire
+# spec, overlap, rounds, collective bytes per rank and round, mix_packed
+# launches per rank and round).  The bytes are the copies a rank hands to
+# its collectives times packed_copy_bytes({model, protos, counts}) —
+# PATHS' constants: a ring rank sends in 2 permutation steps (its
+# out-degree), a packed rank hands its one copy to the all-gather.
+MESH_NODES = 8
+MESH_PATHS = {
+    "mesh/ring16": ("ring", "ppermute", "16", False, 2, 2 * 426060, 1),
+    "mesh/ring4/16+ef": ("ring", "ppermute", "4/16+ef", True, 1,
+                         2 * 108876, 2),
+    "mesh/full-packed": ("full", "packed", "16", False, 1, 426060, 1),
+}
+MESH_DEADLINE_S = 600
 # the per-receiver (RegMean) variant of lowrank_apply runs on this path
 PER_RECV_PATH = "adapters8+grams"
 # the data of each model's paths: make_image_dataset(0, 7040, shape, 10)
@@ -722,7 +753,10 @@ def run_path(torch, inputs, name: str):
         "rowabs_sum": rounds if ef else 0,
         "quantize_rows_ef": rounds if ef else 0,
         # one merge launch per matrix leaf a round
-        "lowrank_apply": ADAPTER_LEAVES * rounds if extra else 0})
+        "lowrank_apply": ADAPTER_LEAVES * rounds if extra else 0,
+        # the stacked engine mixes with tensordot; only the mesh exchange
+        # launches the fused mix
+        "mix_packed": 0})
 
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
@@ -787,6 +821,375 @@ def run_path(torch, inputs, name: str):
                   f"B {tuple(f['B'].shape)}, max |B@A| "
                   f"{float(ba.abs().max()):.4g}")
     return counts
+
+
+def check_mix_packed(torch, timer, student_cfg):
+    """Phase 3, the mesh exchange's fused mix: ``mix_packed`` against its
+    plain version, bit for bit, on real mnist-cnn wire codes (R = 416
+    rows of 512): at the ring path's shape ``own [1, R, 512]`` with 2
+    senders (timed), at ``own [8, R, 512]`` with 8 senders (one rank
+    holding eight nodes; timed), with fp32 "codes" (raw buffers at unit
+    delta) at that shape, and in the accumulate form (the accumulator in
+    ``own`` at weight one, one sender: a pipelined ring step)."""
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                  mix_packed_init,
+                                                  quantize_packed_buffer)
+    from repro_torch.kernels.quantize.quantize import mix_packed_cuda
+    from repro_torch.kernels.quantize.ref import mix_packed_ref
+
+    gen = torch.Generator().manual_seed(3)
+    buf, seg_ids, meta, _, _ = payload_buffer(torch, gen, student_cfg)
+    codes, scales = quantize_packed_buffer(buf, seg_ids, meta[1],
+                                           seg_bits=meta[3])
+    ids = torch.as_tensor(seg_ids, dtype=torch.int64, device="cuda")
+    codes = codes.to(torch.int32)
+    row_delta = scales[:, ids].contiguous()
+    rows = {}
+
+    def weights(m, s):
+        w = torch.rand((m, s + 1), generator=gen).cuda()
+        w = w / w.sum(dim=1, keepdim=True)
+        return w[:, 0].contiguous(), w[:, 1:].contiguous()
+
+    def case(name, own, cds, rd, w_self, w_rows, timed):
+        got = mix_packed_cuda(own, cds, rd, w_self, w_rows)
+        want = mix_packed_ref(own, cds, rd, w_self, w_rows)
+        torch.cuda.synchronize()
+        ulps = ulp_diff(torch, got, want)
+        expect(ulps == 0, f"mix_packed ({name}) is not bit-exact with its "
+                          f"plain version: {ulps} ulp")
+        print(f"mix_packed {name}: own {tuple(own.shape)} codes "
+              f"{tuple(cds.shape)} {cds.dtype}: bit-exact")
+        if not timed:
+            return
+        m, r, c = own.shape
+        s = cds.shape[0]
+        ms = timer(lambda: mix_packed_cuda(own, cds, rd, w_self, w_rows))
+        plain_ms = timer(lambda: mix_packed_ref(own, cds, rd, w_self,
+                                                w_rows))
+        # each input read once, the output written once; a multiply for
+        # the self term, then per sender the dequantize, the weight and
+        # the add
+        b_ms, b_by = bound(4 * (2 * own.numel() + cds.numel() + rd.numel()
+                                + w_self.numel() + w_rows.numel()),
+                           m * r * c * (1 + 3 * s))
+        # no one PyTorch call computes the function: an einsum over the
+        # senders needs the codes dequantized first, and the self term
+        # added after
+        rows[name] = dict(max_abs_err=float((got - want).abs().max()),
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+
+    w_self, w_rows = weights(1, 2)
+    case("ring", buf[:1].contiguous(), codes[1:3].contiguous(),
+         row_delta[1:3].contiguous(), w_self, w_rows, True)
+    w_self, w_rows = weights(8, 8)
+    own8 = buf[:8].contiguous()
+    case("8x8", own8, codes[8:16].contiguous(),
+         row_delta[8:16].contiguous(), w_self, w_rows, True)
+    case("8x8-fp32", own8, buf[8:16].contiguous(),
+         torch.ones((8, buf.shape[1]), device="cuda"), w_self, w_rows, False)
+    acc = mix_packed_init(buf[:1], w_self[:1]).contiguous()
+    case("accumulate", acc, codes[1:2].contiguous(),
+         row_delta[1:2].contiguous(), torch.ones(1, device="cuda"),
+         w_rows[:1, :1].contiguous(), False)
+    row = dict(name="mix_packed", route="cuda",
+               source="src/repro_torch/csrc/quantize.cu",
+               replaces="src/repro/kernels/quantize/quantize.py:374",
+               **rows["ring"])
+    row["m8s8"] = rows["8x8"]
+    print(f"  {'mix_packed':19s} kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  library None  bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); 8x8 "
+          f"{rows['8x8']['ms']:.4f} / {rows['8x8']['plain_ms']:.4f} ms, "
+          f"bound {rows['8x8']['bound_ms']:.4f} ({rows['8x8']['bound_by']})")
+    return [row]
+
+
+def mesh_inputs(n_images: int):
+    """The mesh paths' configuration and data: mnist-cnn at full width,
+    ``TrainConfig`` defaults, ``make_image_dataset(0, n_images, (28, 28,
+    1), 10)`` with a 1/11 test split, iid over ``MESH_NODES`` nodes."""
+    from repro_torch.config import TrainConfig, get_config
+    from repro_torch.data import (make_image_dataset, partition,
+                                  train_test_split)
+
+    data = make_image_dataset(0, n_images, IMAGE_SHAPE["mnist-cnn"], 10)
+    train_d, _ = train_test_split(data, 1 / 11, 0)
+    parts = partition(train_d["label"], MESH_NODES, "iid", 0)
+    node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
+    return get_config("mnist-cnn"), TrainConfig(), node_data
+
+
+def mesh_federation_parts(torch, cfg, train, name: str, device):
+    """``(fed, wire, train_phase, node states maker)`` of the mesh path
+    ``name``: the stacked engine's own wiring for ``MESH_NODES`` nodes."""
+    import dataclasses
+
+    from repro_torch.config import FederationConfig
+    from repro_torch.core import federation as F
+    from repro_torch.core.profe import init_node_state, stack_states
+    from repro_torch.core.wire_state import init_codec_state
+    from repro_torch.models import derive_student
+    from repro_torch.optim import make_optimizer, make_plane_optimizer
+    from repro_torch.wirespec import WireSpec
+
+    topo, _, wire, _, rounds, _, _ = MESH_PATHS[name]
+    spec = WireSpec.parse(wire)
+    fed = dataclasses.replace(
+        FederationConfig(num_nodes=MESH_NODES, topology=topo, rounds=rounds,
+                         local_epochs=1), **wire_fields(spec))
+    student_cfg = derive_student(cfg)
+    opt_t = make_optimizer(train.optimizer, train.learning_rate,
+                           weight_decay=train.weight_decay,
+                           momentum=train.momentum)
+    opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
+                                 weight_decay=train.weight_decay,
+                                 momentum=train.momentum,
+                                 grad_clip=train.grad_clip)
+    step, _, _, wire_spec, _ = F._algo_wiring("profe", cfg, student_cfg, fed,
+                                              train, opt_s, opt_t)
+    ncls = cfg.num_classes
+    parts = F._make_round_parts(step, student_cfg, ncls, bits=wire_spec)
+
+    def states(nodes):
+        """The stacked initial state of ``nodes`` (node i seeded
+        ``seed * 1000 + i``, as ``run_federation`` seeds it)."""
+        st = stack_states([init_node_state(
+            cfg, student_cfg,
+            torch.Generator().manual_seed(fed.seed * 1000 + i), opt_s,
+            opt_t, ncls, device=device) for i in nodes])
+        if spec.error_feedback:
+            st = st._replace(wire_state=init_codec_state(
+                {"protos": torch.zeros((len(nodes), ncls,
+                                        student_cfg.proto_dim),
+                                       device=device),
+                 "student": st.student}, n_nodes=len(nodes)))
+        return st
+
+    return fed, wire_spec, parts, states
+
+
+def train_nodes(fed, train, train_phase, state, node_data, nodes, rnd: int,
+                device):
+    """One round's local training of ``nodes`` (their data, batch seeds
+    and proto stream as ``run_federation`` stages them for those nodes)
+    -> ``(state, protos, counts)``."""
+    from repro_torch.core import federation as F
+    from repro_torch.core.distillation import teacher_active
+
+    data = [node_data[i] for i in nodes]
+    staged = F._stack_round_batches(
+        data, train.batch_size, [fed.seed + rnd * 997 + i for i in nodes],
+        fed.local_epochs)
+    proto_staged = F._stack_round_batches(
+        data, train.batch_size, [fed.seed + rnd] * len(nodes), 1)
+    xb, valid = F._to_device(staged, device)
+    pxb, pvalid = F._to_device(proto_staged, device)
+    return train_phase(state, xb, valid, pxb, pvalid,
+                       teacher_active(fed.alpha_s, fed.alpha_limit, rnd),
+                       all_valid=True)
+
+
+def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
+              n_images: int) -> None:
+    """Phase 10 on one spawned rank: its node through every mesh path
+    (train, then the mesh round, each round), with its own checks; the
+    report goes to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh_federation as M
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.core.topology import make_schedule
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    dev = resolve_device(device)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        cfg, train, node_data = mesh_inputs(n_images)
+        sizes = torch.tensor([len(d["label"]) for d in node_data],
+                             dtype=torch.float32, device=dev)
+        report = {}
+        for name, (topo, exchange, _, overlap, rounds, want_bytes,
+                   mix_launches) in MESH_PATHS.items():
+            fed, spec, parts, states = mesh_federation_parts(
+                torch, cfg, train, name, dev)
+            train_phase = parts[0]
+            adj = (None if topo == "full"
+                   else make_schedule(MESH_NODES, topo).adjacency_at(0))
+            round_fn = M.make_profe_round(adjacency=adj, exchange=exchange,
+                                          spec=spec, overlap=overlap)
+            state = states([rank])
+            ef = spec.error_feedback
+            steps = rounds * (len(node_data[rank]["label"])
+                              // train.batch_size)
+            t0 = time.time()
+            sent, round_s = [], []
+            reset_launch_counts()
+            for rnd in range(rounds):
+                state, protos, counts = train_nodes(
+                    fed, train, train_phase, state, node_data, [rank], rnd,
+                    dev)
+                before = M.COLLECTIVE_BYTES.count
+                t_round = time.time()
+                out = round_fn(state.student, protos, counts, sizes,
+                               *([state.wire_state] if ef else []))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                round_s.append(time.time() - t_round)
+                sent.append(M.COLLECTIVE_BYTES.count - before)
+                with torch.no_grad():
+                    state.student.buf.copy_(out[0].buf)
+                gp, mask = ((out[1], out[2]) if adj is not None
+                            else (out[1][None], out[2][None]))
+                state = state._replace(global_protos=gp, proto_mask=mask,
+                                       wire_state=out[3] if ef else None)
+                for what, t in (("prototypes", gp), ("student",
+                                                     state.student.buf)):
+                    expect(bool(torch.isfinite(t).all()),
+                           f"{name} rank {rank} round {rnd}: {what} not "
+                           f"finite")
+                expect(float(mask.sum()) > 0,
+                       f"{name} rank {rank} round {rnd}: empty mask")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            counts = launch_counts()
+            want = {k: 0 for k in counts}
+            want.update(adamw_update=steps, proto_accum=steps,
+                        mix_packed=mix_launches * rounds)
+            want.update({"rowabs_sum": rounds, "quantize_rows_ef": rounds}
+                        if ef else {"rowabs": rounds,
+                                    "quantize_rows": rounds})
+            for kernel, n in want.items():
+                expect(counts[kernel] == n,
+                       f"{name} rank {rank}: {kernel} launched "
+                       f"{counts[kernel]} != {n}")
+            expect(sent == [want_bytes] * rounds,
+                   f"{name} rank {rank}: bytes handed to collectives "
+                   f"{sent} != {want_bytes} a round")
+            if ef:
+                expect(state.wire_state.seq.tolist() == [rounds],
+                       f"{name} rank {rank}: seq "
+                       f"{state.wire_state.seq.tolist()}")
+            report[name] = dict(
+                launches=counts, bytes_per_round=sent,
+                seconds=time.time() - t0, mesh_round_s=round_s,
+                student_abs_max=float(state.student.buf.detach().abs().max()),
+                mask=state.proto_mask.tolist())
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh(torch, device: str = "cuda", n_images: int = 7040,
+             rank_fn=mesh_rank) -> dict:
+    """Phase 10: spawn ``MESH_NODES`` ranks (``spawn`` start method, a
+    ``file://`` store in a temporary directory), every mesh path in the
+    one spawn; a failure on any rank fails the phase, and ranks still
+    running at ``MESH_DEADLINE_S`` are killed.  Returns each path's
+    launches summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            rank_fn, args=(MESH_NODES, f"file://{tmp}/store", tmp, device,
+                           n_images),
+            nprocs=MESH_NODES, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_DEADLINE_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+                expect(time.monotonic() < deadline,
+                       f"mesh ranks still running after {MESH_DEADLINE_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                   for r in range(MESH_NODES)]
+    totals = {}
+    for name in MESH_PATHS:
+        per = [rep[name] for rep in reports]
+        totals[name] = {k: sum(p["launches"][k] for p in per)
+                        for k in per[0]["launches"]}
+        print(f"{name}: bytes handed to collectives per rank and round "
+              f"{sorted({b for p in per for b in p['bytes_per_round']})}, "
+              f"rank seconds {[round(p['seconds'], 2) for p in per]}, "
+              f"mesh round seconds (pack to Eq. 4, synchronized) "
+              f"{[[round(t, 4) for t in p['mesh_round_s']] for p in per]}, "
+              f"max |student| {max(p['student_abs_max'] for p in per):.4g}")
+        print(f"{name}: launches on rank 0 {per[0]['launches']}; summed "
+              f"over {MESH_NODES} ranks {totals[name]}")
+    return totals
+
+
+def check_mesh_parity(torch, device: str = "cuda",
+                      n_images: int = 7040) -> None:
+    """Phase 11: one rank of a one-rank gloo group holds all
+    ``MESH_NODES`` nodes.  After one round of local training of the
+    stacked state, the packed mesh round (ring adjacency, 16-bit) and
+    the stacked engine's ``share_phase`` + ``mix_phase`` run on copies
+    of the same state: students within 4 ulp of their largest magnitude
+    (the mix sums sender by sender, the engine's ``tensordot`` in
+    cuBLAS's order, its fp32 weights rounded once from float64),
+    prototypes and mask bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh_federation as M
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.core.topology import make_schedule
+    from repro_torch.optim.plane import Plane
+
+    dev = resolve_device(device)
+    cfg, train, node_data = mesh_inputs(n_images)
+    nodes = list(range(MESH_NODES))
+    fed, spec, parts, states = mesh_federation_parts(
+        torch, cfg, train, "mesh/ring16", dev)
+    train_phase, share_phase, mix_phase = parts
+    state, protos, counts = train_nodes(fed, train, train_phase,
+                                        states(nodes), node_data, nodes, 0,
+                                        dev)
+    sizes = [len(d["label"]) for d in node_data]
+    sched = make_schedule(MESH_NODES, "ring")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            round_fn = M.make_profe_round(adjacency=sched.adjacency_at(0),
+                                          exchange="packed", spec=spec)
+            got = round_fn(Plane(state.student.buf.detach().clone(),
+                                 state.student.meta), protos, counts,
+                           torch.tensor(sizes, dtype=torch.float32,
+                                        device=dev))
+        finally:
+            dist.destroy_process_group()
+    st = state._replace(student=Plane(state.student.buf.detach().clone(),
+                                      state.student.meta))
+    st, recv_student, protos_rx = share_phase(st, protos)
+    w_self, w_neigh, include = (torch.as_tensor(x[0], device=dev)
+                                for x in sched.lower(sizes))
+    st = mix_phase(st, recv_student, protos_rx, counts, w_self, w_neigh,
+                   include)
+    want = st.student.buf.detach()
+    tol = 4 * float(torch.finfo(torch.float32).eps) * 2.0 ** math.floor(
+        math.log2(float(want.abs().max())))
+    err = float((got[0].buf - want).abs().max())
+    same = (torch.equal(got[1], st.global_protos)
+            and torch.equal(got[2], st.proto_mask))
+    print(f"one rank, {MESH_NODES} nodes, packed ring round against "
+          f"share_phase + mix_phase: max |student difference| {err:.3e} "
+          f"(bound {tol:.3e}); prototypes and mask bit-exact: {same}")
+    expect(err <= tol, "the one-rank mesh round's students differ from the "
+                       "stacked engine's beyond 4 ulp")
+    expect(same, "the one-rank mesh round's prototypes or mask differ from "
+                 "the stacked engine's")
 
 
 def profile_rounds(torch, inputs, name: str) -> None:
@@ -905,6 +1308,8 @@ def main() -> int:
                                derive_student(get_config("cifar10-resnet18")))
     rows += check_lowrank(torch, timer,
                           derive_student(get_config("mnist-cnn")))
+    rows += check_mix_packed(torch, timer,
+                             derive_student(get_config("mnist-cnn")))
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}
@@ -916,6 +1321,19 @@ def main() -> int:
         counts[name] = run_path(torch, inputs[model], name)
         print(f"{name} path took {time.time() - t0:.1f} s")
 
+    # gloo binds to the loopback: the ranks share this machine, which has
+    # no network
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    phase(f"mesh: {MESH_NODES} ranks on one card over gloo, "
+          f"{', '.join(MESH_PATHS)}")
+    t0 = time.time()
+    counts.update(run_mesh(torch))
+    print(f"mesh paths took {time.time() - t0:.1f} s")
+
+    phase(f"mesh parity: one rank holding {MESH_NODES} nodes against the "
+          f"stacked engine")
+    check_mesh_parity(torch)
+
     if args == ["--profile"]:
         for name in PROFILED:
             phase(f"round profile {name}: 2 rounds unprofiled, 2 profiled")
@@ -924,6 +1342,8 @@ def main() -> int:
     for row in rows:
         row["path"] = KERNEL_PATH[row["name"]]
         row["launches"] = counts[row["path"]][row["name"]]
+        if row["path"] in MESH_PATHS:
+            row["ranks"] = MESH_NODES     # launches summed over the ranks
         if "per_recv" in row:
             row["per_recv"].update(path=PER_RECV_PATH, launches=counts[
                 PER_RECV_PATH][row["name"]])

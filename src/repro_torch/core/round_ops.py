@@ -2,7 +2,8 @@
 
 * ``gossip_matrix`` / ``include_matrix`` — the topology schedule lowered
   to mixing and Eq. 4 include weights, in numpy float64 and cast to fp32
-  (host-side, once per run).
+  (host-side, once per run); ``gossip_matrix_dyn`` — the same weights in
+  fp32 tensor ops from runtime ``sizes`` (the mesh round's).
 * ``quantize_dequantize_per_node`` — the receiver-side reconstruction of
   a round's wire payload through the packed node codec (stateless, or
   with the error-feedback ``CodecState``).
@@ -41,6 +42,19 @@ def gossip_matrix(adj: np.ndarray, sizes) -> Tuple[np.ndarray, np.ndarray]:
     if squeeze:
         w_self, w_neigh = w_self[0], w_neigh[0]
     return w_self.astype(np.float32), w_neigh.astype(np.float32)
+
+
+def gossip_matrix_dyn(adj: np.ndarray, sizes: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gossip_matrix` in fp32 tensor ops, for the mesh round: a
+    static 0/1 ``[N, N]`` adjacency and the ``[N]`` dataset sizes it
+    receives at run time.  Returns ``(w_self [N], w_neigh [N, N])`` on
+    ``sizes``' device."""
+    s = sizes.to(torch.float32)
+    a = torch.as_tensor(np.asarray(adj, np.float32), device=s.device)
+    w = a * s[None, :]
+    denom = torch.clamp_min(w.sum(dim=1) + s, 1e-30)
+    return s / denom, w / denom[:, None]
 
 
 def include_matrix(adj: np.ndarray) -> np.ndarray:

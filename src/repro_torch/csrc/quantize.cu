@@ -17,11 +17,19 @@
 //   eff = x + decay * res;  codes = clip(floor(eff / delta[r] + 0.5),
 //   -qmax[r] - 1, qmax[r]);  new_res = eff - codes * delta[r]
 //
+// mix_packed replaces quantize.py:mix_packed_pallas (body _mix_packed_kernel),
+// the receiver side of the mesh exchange: the senders' wire codes are
+// dequantized and folded into the gossip mix in one pass,
+//   out[m] = w_self[m] * own[m] + sum_j w_rows[m, j] * (codes[j] * delta[j])
+// with int32 codes, or fp32 "codes" (raw buffers at unit delta) that never
+// round-trip through an int.
+//
 // What bounds them on the H100: bytes.  rowabs reads 4 B per element and
 // writes 4 B per row; quantize_rows reads 4 B and writes a 4 B int32 code
 // per element (narrowing straight to the int16 wire type is later work);
 // quantize_rows_mixed the same plus 4 B per row; rowabs_sum reads 8 B per
-// element; quantize_rows_ef reads 8 B and writes 8 B per element.
+// element; quantize_rows_ef reads 8 B and writes 8 B per element; mix_packed
+// reads 4 B of own and 4 B of code per sender for each output and writes 4 B.
 // Design: the row reductions give each row to one warp — lanes stride the
 // row, so loads coalesce, and a shuffle reduction takes the max; no block
 // ever needs a partial from another (the TPU kernels masked out-of-bounds
@@ -35,6 +43,13 @@
 // and with -fmad=false no multiply fuses into an add — so codes and
 // residuals are bit-identical to the plain versions.  fmaxf ignores a NaN
 // where torch.amax would propagate it; wire payloads are finite.
+// mix_packed is a grid-stride sweep over the M * R * C outputs: each thread
+// keeps its accumulator in a register and walks the senders in order, in
+// the Pallas body's order (acc = w_self * own, then acc + w * (code * delta)
+// per sender, each product and sum rounded on its own), so it is
+// bit-identical to mix_packed_ref.  It reads a sender's codes once per
+// receiver (from L2 at the mesh round's sizes); reading each code once for
+// all M receivers is later work.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -123,6 +138,32 @@ __global__ void quantize_rows_ef_kernel(const float* __restrict__ x,
   }
 }
 
+template <typename CodeT>
+__global__ void mix_packed_kernel(const float* __restrict__ own,
+                                  const CodeT* __restrict__ codes,
+                                  const float* __restrict__ row_delta,
+                                  const float* __restrict__ w_self,
+                                  const float* __restrict__ w_rows,
+                                  float* __restrict__ out, int m, int s,
+                                  int64_t rows, int cols) {
+  const int64_t per = rows * cols;  // one receiver's (or sender's) buffer
+  const int64_t n = (int64_t)m * per;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int64_t recv = i / per;
+    const int64_t e = i - recv * per;
+    const int64_t row = e / cols;
+    float acc = __fmul_rn(w_self[recv], own[i]);
+    for (int j = 0; j < s; ++j) {
+      const float deq = __fmul_rn((float)codes[j * per + e],
+                                  row_delta[j * rows + row]);
+      acc = __fadd_rn(acc, __fmul_rn(w_rows[recv * s + j], deq));
+    }
+    out[i] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" int rowabs(const float* x, float* out, int64_t rows, int cols,
@@ -185,5 +226,25 @@ extern "C" int quantize_rows_ef(const float* x, const float* res,
     quantize_rows_ef_kernel<<<(unsigned)sweep_blocks(n, 256), 256, 0,
                               stream>>>(x, res, row_delta, row_qmax, codes,
                                         new_res, n, cols, decay);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mix_packed(const float* own, const void* codes,
+                          const float* row_delta, const float* w_self,
+                          const float* w_rows, float* out, int m, int s,
+                          int64_t rows, int cols, int float_codes,
+                          cudaStream_t stream) {
+  const int64_t n = (int64_t)m * rows * cols;
+  if (n > 0) {
+    const unsigned blocks = (unsigned)sweep_blocks(n, 256);
+    if (float_codes)
+      mix_packed_kernel<float><<<blocks, 256, 0, stream>>>(
+          own, (const float*)codes, row_delta, w_self, w_rows, out, m, s,
+          rows, cols);
+    else
+      mix_packed_kernel<int><<<blocks, 256, 0, stream>>>(
+          own, (const int*)codes, row_delta, w_self, w_rows, out, m, s, rows,
+          cols);
+  }
   return (int)cudaGetLastError();
 }

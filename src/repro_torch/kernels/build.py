@@ -57,6 +57,9 @@ SIGNATURES = {
     "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32, _P),
     # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, stream
     "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32, _P),
+    # own, codes, row_delta, w_self, w_rows, out, m, s, rows, cols,
+    # float_codes, stream
+    "mix_packed": (_P,) * 6 + (_I32, _I32, _I64, _I32, _I32, _P),
     # w, out, coeffs, b, a, n_nodes, n_send, lead, d, k, r, per_recv,
     # w_stride, out_stride, stream
     "lowrank_apply": (_P,) * 5 + (_I32,) * 7 + (_I64, _I64, _P),

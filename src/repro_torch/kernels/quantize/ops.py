@@ -18,10 +18,15 @@ registers, and one sweep writes the codes and the new residual
 ``eff - codes·Δ``.  Any other node-stacked payload (the adapter wire's ``{"adapters",
 "protos", "student": rest[, "grams"]}``) packs leaf by leaf into the
 same buffer layout and runs the same sweeps (the per-leaf tree codec).
+The mesh exchange serializes the codes into the physical wire byte
+buffer (``encode_wire``: int16 rows bitcast, int4 rows nibble-packed)
+and its receivers dequantize them straight into the gossip mix
+(``mix_packed``).
 ``rowabs``, ``rowabs_sum``, ``quantize_rows``,
-``quantize_rows_mixed`` and ``quantize_rows_ef`` run the CUDA kernels
-for tensors on the card and their plain versions on the CPU; everything
-else here is host logic and plain tensor ops, as in ``repro``.
+``quantize_rows_mixed``, ``quantize_rows_ef`` and ``mix_packed`` run
+the CUDA kernels for tensors on the card and their plain versions on
+the CPU; everything else here is host logic and plain tensor ops, as in
+``repro``.
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.quantize.quantize import (
-    quantize_rows_cuda, quantize_rows_ef_cuda, quantize_rows_mixed_cuda,
-    rowabs_cuda, rowabs_sum_cuda)
-from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
+    mix_packed_cuda, quantize_rows_cuda, quantize_rows_ef_cuda,
+    quantize_rows_mixed_cuda, rowabs_cuda, rowabs_sum_cuda)
+from repro_torch.kernels.quantize.ref import (mix_packed_ref,
+                                              quantize_rows_ef_ref,
                                               quantize_rows_mixed_ref,
                                               quantize_rows_ref, rowabs_ref,
                                               rowabs_sum_ref)
@@ -224,6 +230,19 @@ def pack_plane_payload(protos, plane, spec: Optional[WireSpec] = None):
     return buf, seg_ids, (tuple(recipe), seg, n, bits_arr), r_p, span
 
 
+def split_plane_payload(buf, protos_shape, plane_meta, r_p: int, span: int):
+    """Inverse of :func:`pack_plane_payload` on an ``[N, R, C]`` buffer:
+    ``(protos [N, C, P], student buffer [N, rows, C])`` — the prototype
+    rows reshaped, the student rows spliced into a buffer of the plane's
+    row count (its trailing alignment rows zero)."""
+    n = buf.shape[0]
+    per = math.prod(protos_shape[1:])
+    pr = buf[:, :r_p].reshape(n, -1)[:, :per]
+    pr = pr.reshape((n,) + tuple(protos_shape[1:]))
+    sbuf = F.pad(buf[:, r_p:r_p + span], (0, 0, 0, plane_meta.rows - span))
+    return pr, sbuf
+
+
 def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
                                       spec: Optional[WireSpec] = None,
                                       residual=None):
@@ -248,12 +267,9 @@ def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
                          "carried per-node residual (CodecState)")
     protos, plane = payload["protos"], payload["student"]
     buf, seg_ids, meta, r_p, span = pack_plane_payload(protos, plane, spec)
-    n = protos.shape[0]
 
     def split(b):
-        pr = b[:, :r_p].reshape(n, -1)[:, :protos[0].numel()]
-        sbuf = F.pad(b[:, r_p:r_p + span], (0, 0, 0, plane.meta.rows - span))
-        return pr.reshape(protos.shape), sbuf
+        return split_plane_payload(b, protos.shape, plane.meta, r_p, span)
 
     if residual is not None:
         res_plane = residual["student"]
@@ -277,6 +293,149 @@ def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
         return recv
     rp, rbuf = split(new_res_buf)
     return recv, {"protos": rp, "student": Plane(rbuf, res_plane.meta)}
+
+
+# -- the serialized wire byte buffer -----------------------------------------
+# What the mesh exchange hands to its collectives: one node's codes as ONE
+# contiguous int8 buffer of exactly the spec's bytes.  int16 rows are
+# bitcast to int8 (little-endian, as XLA's bitcast on the JAX package's
+# hosts), int8 rows pass through, int4 rows nibble-pack two codes a byte;
+# a mixed spec concatenates its width groups in ascending width.
+
+def _row_bits(seg_ids, bits: int, seg_bits: Optional[np.ndarray]
+              ) -> np.ndarray:
+    sb = np.asarray(seg_bits, np.int64) if seg_bits is not None else None
+    return (sb[np.asarray(seg_ids)] if sb is not None
+            else np.full((len(seg_ids),), bits, np.int64))
+
+
+def nibble_pack(codes):
+    """int4 codes ``[..., C]`` (C even, values in [-8, 7]) -> int8
+    ``[..., C // 2]``: even columns in the low nibble, odd in the high."""
+    if codes.shape[-1] % 2:
+        raise ValueError(f"nibble packing needs an even trailing dim, "
+                         f"got {tuple(codes.shape)}")
+    c = codes.to(torch.int32)
+    byte = torch.bitwise_or(torch.bitwise_and(c[..., 0::2], 0xF),
+                            torch.bitwise_and(c[..., 1::2], 0xF) << 4)
+    return byte.to(torch.uint8).view(torch.int8)
+
+
+def nibble_unpack(packed):
+    """Inverse of :func:`nibble_pack`: int8 ``[..., B]`` ->
+    sign-extended int8 codes ``[..., 2 * B]``."""
+    p = packed.to(torch.int32)                  # sign-extends the byte
+    lo = torch.bitwise_xor(torch.bitwise_and(p, 0xF), 8) - 8
+    hi = p >> 4                                 # arithmetic: sign
+    return torch.stack([lo, hi], dim=-1).reshape(
+        tuple(packed.shape[:-1]) + (2 * packed.shape[-1],)).to(torch.int8)
+
+
+def _bits_row_groups(seg_ids, bits: int, seg_bits: Optional[np.ndarray]):
+    """Row grouping by wire width: ``[(width, row indices)]`` in
+    ascending width, covering every row once."""
+    rb = _row_bits(seg_ids, bits, seg_bits)
+    return [(int(b), np.nonzero(rb == b)[0])
+            for b in sorted(set(rb.tolist()))]
+
+
+def _encode_rows(codes_b, b: int):
+    """``[N, Rb, C]`` codes at width ``b`` -> ``[N, Rb·C·b/8]`` int8."""
+    n = codes_b.shape[0]
+    if b == 4:
+        return nibble_pack(codes_b).reshape(n, -1)
+    if b == 8:
+        return codes_b.to(torch.int8).reshape(n, -1)
+    wide = codes_b.to(_wire_int_dtype(b)).contiguous()
+    return wide.view(torch.int8).reshape(n, -1)
+
+
+def _decode_rows(wire_b, b: int, n_rows: int):
+    """Inverse of :func:`_encode_rows` -> ``[N, n_rows, C]`` int32."""
+    n = wire_b.shape[0]
+    if b == 4:
+        return nibble_unpack(wire_b.reshape(n, n_rows, _COLS // 2)
+                             ).to(torch.int32)
+    if b == 8:
+        return wire_b.reshape(n, n_rows, _COLS).to(torch.int32)
+    chunks = wire_b.contiguous().reshape(n, n_rows, _COLS * (b // 8))
+    return chunks.view(_wire_int_dtype(b)).to(torch.int32)
+
+
+def encode_wire(codes, seg_ids, bits: int = 16, *,
+                seg_bits: Optional[np.ndarray] = None):
+    """Serialize packed codes ``[N, R, C]`` into the physical wire byte
+    buffer ``[N, B]`` int8, ``B = Σ_rows C·bits_row/8``; its layout
+    follows from ``seg_ids``/``seg_bits`` alone, so :func:`decode_wire`
+    inverts it without a side channel."""
+    groups = _bits_row_groups(seg_ids, bits, seg_bits)
+    if len(groups) == 1:
+        return _encode_rows(codes, groups[0][0])
+    return torch.cat(
+        [_encode_rows(codes.index_select(
+            1, torch.as_tensor(rows, device=codes.device)), b)
+         for b, rows in groups], dim=1)
+
+
+def decode_wire(wire, seg_ids, bits: int = 16, *,
+                seg_bits: Optional[np.ndarray] = None):
+    """Inverse of :func:`encode_wire`: ``[N, B]`` int8 -> codes
+    ``[N, R, C]`` int32 in the original row order."""
+    groups = _bits_row_groups(seg_ids, bits, seg_bits)
+    if len(groups) == 1:
+        return _decode_rows(wire, groups[0][0], len(seg_ids))
+    parts, col = [], 0
+    for b, rows in groups:
+        nbytes = len(rows) * _COLS * b // 8
+        parts.append(_decode_rows(wire[:, col:col + nbytes], b, len(rows)))
+        col += nbytes
+    perm = np.concatenate([rows for _, rows in groups])
+    return torch.cat(parts, dim=1).index_select(
+        1, torch.as_tensor(np.argsort(perm), device=wire.device))
+
+
+def wire_buffer_bytes(seg_ids, bits: int = 16, *,
+                      seg_bits: Optional[np.ndarray] = None) -> int:
+    """Byte size B of one node's encoded wire buffer."""
+    return int(np.sum(_row_bits(seg_ids, bits, seg_bits)) * _COLS // 8)
+
+
+# -- the receiver side of the mesh exchange ---------------------------------
+
+def mix_packed(own, codes, row_delta, w_self, w_rows):
+    """Receiver-side gossip mix applied directly on packed codes:
+    ``out[m] = w_self[m]·own[m] + Σ_j w_rows[m, j]·codes[j]·Δ[j]`` for
+    ``own [M, R, C]``, ``codes [S, R, C]``, ``row_delta [S, R]``,
+    ``w_self [M]``, ``w_rows [M, S]`` — one kernel launch on the card.
+    fp32 "codes" (raw buffers at unit Δ) stay fp32; narrow wire ints
+    widen to int32, the kernel's code type."""
+    if codes.dtype != torch.float32:
+        codes = codes.to(torch.int32)
+    codes = codes.contiguous()
+    own, row_delta, w_self, w_rows = (t.to(torch.float32).contiguous()
+                                      for t in (own, row_delta, w_self,
+                                                w_rows))
+    if own.is_cuda:
+        return mix_packed_cuda(own, codes, row_delta, w_self, w_rows)
+    return mix_packed_ref(own, codes, row_delta, w_self, w_rows)
+
+
+def mix_packed_init(own, w_self):
+    """Open a step-wise :func:`mix_packed`: the self term
+    ``w_self[m]·own[m]`` that :func:`mix_packed_accumulate` folds the
+    exchange steps into, one step at a time (the ``[S, R, C]`` step stack
+    is never built)."""
+    return w_self.to(torch.float32)[:, None, None] * own.to(torch.float32)
+
+
+def mix_packed_accumulate(acc, codes, row_delta, w_rows):
+    """Fold one exchange step into a running mix:
+    ``acc[m] + Σ_j w_rows[m, j]·codes[j]·Δ[j]`` — the mix kernel with
+    the accumulator in the ``own`` slot at weight one (``1·acc`` is
+    exact), so the step-wise mix rounds like :func:`mix_packed`."""
+    return mix_packed(acc, codes, row_delta,
+                      torch.ones((acc.shape[0],), dtype=torch.float32,
+                                 device=acc.device), w_rows)
 
 
 # -- the per-leaf tree codec over node-stacked trees ---------------------------

@@ -5,14 +5,20 @@
 ``_rows_call``), ``quantize_rows_mixed_cuda`` replaces
 ``quantize_rows_mixed_pallas``, and the error-feedback pair
 ``rowabs_sum_cuda`` / ``quantize_rows_ef_cuda`` replaces
-``rowabs_sum_pallas`` / ``quantize_rows_ef_pallas``; the CUDA source is
-``csrc/quantize.cu``.  Bound on the H100: bytes — rowabs reads 4 B per
+``rowabs_sum_pallas`` / ``quantize_rows_ef_pallas``, and
+``mix_packed_cuda`` replaces ``mix_packed_pallas`` (the receiver side of
+the mesh exchange); the CUDA source is ``csrc/quantize.cu``.  Bound on
+the H100: bytes — rowabs reads 4 B per
 element, quantize_rows reads 4 B and writes a 4 B int32 code per element
 (the mixed variant adds a 4 B qmax per row), rowabs_sum reads 8 B per
-element, quantize_rows_ef reads 8 B and writes 8 B per element.  Design:
-one warp per 512-wide row with a shuffle max for the row reductions; a
-grid-stride elementwise sweep with an IEEE division for the codes (and
-the new residual), bit-identical to the plain versions in ``ref.py``.
+element, quantize_rows_ef reads 8 B and writes 8 B per element,
+mix_packed reads 4 B of its own buffer and 4 B of code per sender for
+each output and writes 4 B.  Design: one warp per 512-wide row with a
+shuffle max for the row reductions; a grid-stride elementwise sweep with
+an IEEE division for the codes (and the new residual); for the mix, a
+grid-stride sweep whose thread walks the senders in order with its
+accumulator in a register.  All are bit-identical to the plain versions
+in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 from repro_torch.kernels.build import (LaunchCounter, check, library,
                                        require, stream_of)
 from repro_torch.kernels.quantize.ref import (_qmaxf,  # noqa: F401  plain versions
+                                              mix_packed_ref,
                                               quantize_rows_ef_ref,
                                               quantize_rows_mixed_ref,
                                               quantize_rows_ref,
@@ -31,6 +38,7 @@ QUANTIZE_ROWS_LAUNCHES = LaunchCounter("quantize_rows")
 QUANTIZE_ROWS_MIXED_LAUNCHES = LaunchCounter("quantize_rows_mixed")
 ROWABS_SUM_LAUNCHES = LaunchCounter("rowabs_sum")
 QUANTIZE_ROWS_EF_LAUNCHES = LaunchCounter("quantize_rows_ef")
+MIX_PACKED_LAUNCHES = LaunchCounter("mix_packed")
 
 
 def _rows(x2d, name: str):
@@ -111,3 +119,32 @@ def quantize_rows_ef_cuda(x2d, res2d, row_delta, row_qmax, decay: float):
     check(rc, "quantize_rows_ef")
     QUANTIZE_ROWS_EF_LAUNCHES.count += 1
     return codes, new_res
+
+
+def mix_packed_cuda(own, codes, row_delta, w_self, w_rows):
+    """``own [M, R, C]`` fp32, ``codes [S, R, C]`` int32 or fp32,
+    ``row_delta [S, R]``, ``w_self [M]`` and ``w_rows [M, S]`` fp32 on
+    the card -> the mixed ``[M, R, C]`` fp32 buffer."""
+    if own.dim() != 3 or codes.dim() != 3:
+        raise ValueError(f"mix_packed: expected own [M, R, C] and codes "
+                         f"[S, R, C], got {tuple(own.shape)} and "
+                         f"{tuple(codes.shape)}")
+    m, r, c = own.shape
+    s = codes.shape[0]
+    if codes.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"mix_packed codes: expected int32 or float32, got "
+                         f"{codes.dtype}")
+    require(own, "mix_packed own", torch.float32)
+    require(codes, "mix_packed codes", codes.dtype, (s, r, c))
+    require(row_delta, "mix_packed row_delta", torch.float32, (s, r))
+    require(w_self, "mix_packed w_self", torch.float32, (m,))
+    require(w_rows, "mix_packed w_rows", torch.float32, (m, s))
+    out = torch.empty((m, r, c), dtype=torch.float32, device=own.device)
+    rc = library().mix_packed(own.data_ptr(), codes.data_ptr(),
+                              row_delta.data_ptr(), w_self.data_ptr(),
+                              w_rows.data_ptr(), out.data_ptr(), m, s, r, c,
+                              int(codes.dtype == torch.float32),
+                              stream_of(own))
+    check(rc, "mix_packed")
+    MIX_PACKED_LAUNCHES.count += 1
+    return out

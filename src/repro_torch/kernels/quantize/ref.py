@@ -9,6 +9,11 @@ The error-feedback (``+ef``) versions quantize the effective payload
 ``eff = x + decay·res`` and return the fresh error
 ``new_res = eff - codes·delta`` — each a separately rounded fp32
 operation in that order, as ``repro``'s eager jnp path computes them.
+
+``mix_packed_ref`` is the receiver side of the mesh exchange,
+``out[m] = w_self[m]·own[m] + Σ_j w_rows[m, j]·(codes[j]·Δ[j])``, with
+the sum taken sender by sender in the Pallas kernel's order, each
+product and sum rounded on its own.
 """
 from __future__ import annotations
 
@@ -55,3 +60,17 @@ def quantize_rows_ef_ref(x2d, res2d, row_delta, row_qmax, decay):
     codes = torch.clamp(torch.floor(eff / row_delta + 0.5),
                         -row_qmax - 1, row_qmax)
     return codes.to(torch.int32), eff - codes * row_delta
+
+
+def mix_packed_ref(own, codes, row_delta, w_self, w_rows):
+    """``own [M, R, C]`` fp32, ``codes [S, R, C]`` (int32, or fp32 raw
+    buffers), ``row_delta [S, R]``, ``w_self [M]``, ``w_rows [M, S]`` ->
+    the mixed ``[M, R, C]`` fp32 buffer: ``acc = w_self·own``, then per
+    sender ``acc = acc + w_rows[:, j]·(codes[j]·Δ[j])``."""
+    acc = w_self.to(torch.float32)[:, None, None] * own.to(torch.float32)
+    for j in range(codes.shape[0]):
+        deq = codes[j].to(torch.float32) * \
+            row_delta[j].to(torch.float32)[:, None]
+        acc = acc + w_rows[:, j].to(torch.float32)[:, None, None] * \
+            deq[None]
+    return acc

@@ -12,6 +12,17 @@ plain version and the CUDA kernel round the products first.  Against it
 the moments are held to one ulp of the larger term and the parameters
 to ``4e-8`` (that last-bit change carried through the step of size lr).
 
+The mesh exchange's wire byte codec (``encode_wire``/``decode_wire``,
+``nibble_pack``) and ``wire_buffer_bytes`` are bit-exact against the
+JAX package's.  ``mix_packed``'s plain version rounds every product and
+sum on its own, in the Pallas body's order; the interpret-mode
+``mix_packed_pallas`` is held bit-exactly to the arithmetic XLA:CPU
+gives it: the self term and the first sender's term contracted into
+one FMA, ``fma(w_self, own, w_0·deq_0)``, then ``fma(w_j, deq_j, acc)``
+per further sender (each FMA emulated in float64 and rounded once).
+With one sender at weight one in the accumulate form that arithmetic
+is the plain one, and the two are bit-identical.
+
 The mixed-width and error-feedback codec: row maxima, codes and scales
 are bit-exact against the interpret-mode Pallas kernels and against an
 eager (un-jitted) ``repro`` ``quantize_packed_buffer(use_kernels=False)``;
@@ -40,7 +51,8 @@ from repro.kernels.proto_accum.ref import proto_accum_ref as jax_proto_ref
 from repro import wirespec as jwire
 from repro.config import base as jbase
 from repro.kernels.quantize import ops as jqops
-from repro.kernels.quantize.quantize import (quantize_rows_ef_pallas,
+from repro.kernels.quantize.quantize import (mix_packed_pallas,
+                                             quantize_rows_ef_pallas,
                                              quantize_rows_mixed_pallas,
                                              quantize_rows_pallas,
                                              rowabs_pallas,
@@ -65,7 +77,8 @@ from repro_torch.kernels.quantize.ops import (quantize_rows,
                                               quantize_rows_ef,
                                               quantize_rows_mixed, rowabs,
                                               rowabs_sum)
-from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
+from repro_torch.kernels.quantize.quantize import (mix_packed_cuda,
+                                                   quantize_rows_cuda,
                                                    quantize_rows_ef_cuda,
                                                    quantize_rows_mixed_cuda,
                                                    rowabs_cuda,
@@ -333,7 +346,7 @@ def test_launch_counters_are_registered_and_reset():
     assert set(counts) >= {"adamw_update", "proto_accum", "rowabs",
                            "quantize_rows", "quantize_rows_mixed",
                            "rowabs_sum", "quantize_rows_ef", "sgd_update",
-                           "adafactor_apply"}
+                           "adafactor_apply", "mix_packed"}
     build.COUNTERS["rowabs"].count += 3
     build.reset_launch_counts()
     assert all(v == 0 for v in build.launch_counts().values())
@@ -568,3 +581,134 @@ def test_ef_codec_needs_a_residual():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tqops.quantize_dequantize_plane_payload(
             payload, spec=twire.WireSpec(4, stochastic_rounding=True))
+
+
+# -- the mesh exchange: the wire byte codec and the fused mix ----------------
+
+@pytest.mark.parametrize("wire", ["16", "8", "4", "4/16"])
+def test_wire_codec_matches_jax(wire):
+    """Codes of a packed plane payload serialized to the wire bytes by
+    both packages: the same bytes, the same decoded codes, the same
+    ``wire_buffer_bytes``; int4 rows take half a byte a code."""
+    scfg, buf, jmeta, tmeta = _small_planes()
+    n = buf.shape[0]
+    protos = np.random.default_rng(5).standard_normal(
+        (n, 10, scfg.proto_dim)).astype(np.float32)
+    jspec, tspec = jwire.WireSpec.parse(wire), twire.WireSpec.parse(wire)
+    jb, jids, jm, _, _ = jqops.pack_plane_payload(
+        jnp.asarray(protos), jplane.Plane(jnp.asarray(buf), (), jmeta), jspec)
+    tb, tids, tm, _, _ = tqops.pack_plane_payload(
+        torch.from_numpy(protos),
+        tplane.Plane(torch.from_numpy(buf.copy()), tmeta), tspec)
+    jcodes, _ = jqops.quantize_packed_buffer(jb, jids, jm[2], seg_bits=jm[4],
+                                             use_kernels=False)
+    tcodes, _ = tqops.quantize_packed_buffer(tb, tids, tm[1],
+                                             seg_bits=tm[3])
+    jenc = np.asarray(jqops.encode_wire(jcodes, jids, seg_bits=jm[4]))
+    tenc = tqops.encode_wire(tcodes, tids, seg_bits=tm[3])
+    assert tenc.dtype == torch.int8
+    assert tenc.numpy().tobytes() == jenc.tobytes()
+    nbytes = tqops.wire_buffer_bytes(tids, seg_bits=tm[3])
+    assert nbytes == jqops.wire_buffer_bytes(jids, seg_bits=jm[4])
+    assert tuple(tenc.shape) == (n, nbytes)
+    rows_bits = tm[3][tids]
+    assert nbytes == int(np.sum(rows_bits)) * 512 // 8
+    dec = tqops.decode_wire(tenc, tids, seg_bits=tm[3])
+    assert dec.dtype == torch.int32
+    np.testing.assert_array_equal(dec.numpy(), tcodes.numpy())
+    np.testing.assert_array_equal(
+        dec.numpy(), np.asarray(jqops.decode_wire(jnp.asarray(jenc), jids,
+                                                  seg_bits=jm[4])))
+
+
+def test_nibble_pack_matches_jax_on_every_code():
+    codes = np.stack([np.repeat(np.arange(-8, 8), 16),
+                      np.tile(np.arange(-8, 8), 16)]).astype(np.int8)
+    codes = codes.T.reshape(2, 256)                # every (lo, hi) pair
+    packed = tqops.nibble_pack(torch.from_numpy(codes))
+    assert packed.dtype == torch.int8 and tuple(packed.shape) == (2, 128)
+    assert packed.numpy().tobytes() == np.asarray(
+        jqops.nibble_pack(jnp.asarray(codes))).tobytes()
+    np.testing.assert_array_equal(tqops.nibble_unpack(packed).numpy(), codes)
+    with pytest.raises(ValueError, match="even"):
+        tqops.nibble_pack(torch.zeros((2, 3), dtype=torch.int8))
+
+
+def _mix_inputs(m, s, float_codes, rows=24, seed=0):
+    rng = np.random.default_rng(seed)
+    own = rng.standard_normal((m, rows, 512)).astype(np.float32)
+    if float_codes:              # raw buffers at unit delta
+        codes = rng.standard_normal((s, rows, 512)).astype(np.float32)
+        delta = np.ones((s, rows), np.float32)
+    else:
+        codes = rng.integers(-32768, 32768, (s, rows, 512)).astype(np.int32)
+        delta = (rng.random((s, rows)) * 1e-4).astype(np.float32)
+    w_self = rng.random(m).astype(np.float32)
+    w_rows = rng.random((m, s)).astype(np.float32)
+    w_rows[:, 0] = 0.0 if s > 1 else w_rows[:, 0]   # a zero weight
+    return own, codes, delta, w_self, w_rows
+
+
+def _rn(x):
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("m,s,float_codes", [(1, 2, False), (8, 8, False),
+                                             (8, 8, True)],
+                         ids=["ring-int32", "8x8-int32", "8x8-fp32"])
+def test_mix_packed_plain_matches_jax_kernel(m, s, float_codes):
+    own, codes, delta, w_self, w_rows = _mix_inputs(m, s, float_codes)
+    got = tqops.mix_packed(*map(torch.from_numpy,
+                                (own, codes, delta, w_self, w_rows)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == own.shape
+    deq = [_rn(codes[j].astype(np.float32) * delta[j][:, None])
+           for j in range(s)]
+    w = [w_rows[:, j][:, None, None] for j in range(s)]
+    # the plain arithmetic: every product and sum rounded on its own
+    plain = _rn(w_self[:, None, None] * own)
+    for j in range(s):
+        plain = _rn(plain + _rn(w[j] * deq[j][None]))
+    np.testing.assert_array_equal(got.numpy(), plain)
+    # the interpret kernel's: XLA:CPU contracts into FMAs
+    fused = _rn(w_self[:, None, None].astype(np.float64) * own
+                + _rn(w[0] * deq[0][None]))
+    for j in range(1, s):
+        fused = _rn(fused.astype(np.float64)
+                    + w[j].astype(np.float64) * deq[j][None])
+    want = np.asarray(mix_packed_pallas(own, codes, delta, w_self, w_rows,
+                                        interpret=True))
+    np.testing.assert_array_equal(want, fused)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=4 * np.spacing(np.abs(want).max()))
+
+
+def test_mix_packed_accumulate_matches_jax_kernel():
+    """The step-wise form: init then one step at a time, as the
+    pipelined ppermute exchange folds its two ring steps."""
+    own, codes, delta, w_self, w_rows = _mix_inputs(1, 2, False, seed=1)
+    t = [torch.from_numpy(x) for x in (own, codes, delta, w_self, w_rows)]
+    acc = tqops.mix_packed_init(t[0], t[3])
+    jacc = jqops.mix_packed_init(jnp.asarray(own), jnp.asarray(w_self))
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
+    for j in range(2):
+        acc = tqops.mix_packed_accumulate(acc, t[1][j:j + 1], t[2][j:j + 1],
+                                          t[4][:, j:j + 1])
+        jacc = mix_packed_pallas(jacc, codes[j:j + 1], delta[j:j + 1],
+                                 np.ones(1, np.float32), w_rows[:, j:j + 1],
+                                 interpret=True)
+        np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
+    # one launch a step on the card: it rounds like the stacked mix
+    np.testing.assert_array_equal(
+        acc.numpy(), tqops.mix_packed(*t).numpy())
+
+
+def test_mix_packed_cuda_rejects_cpu_tensors_and_bad_codes():
+    own = torch.zeros((1, 8, 512))
+    codes = torch.zeros((2, 8, 512), dtype=torch.int32)
+    args = (torch.ones((2, 8)), torch.ones(1), torch.ones((1, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        mix_packed_cuda(own, codes, *args)
+    with pytest.raises(ValueError, match="int32 or float32"):
+        mix_packed_cuda(own, codes.to(torch.int16), *args)
+    with pytest.raises(ValueError, match="expected own"):
+        mix_packed_cuda(own[0], codes, *args)
