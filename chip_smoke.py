@@ -48,18 +48,29 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     against the stacked engine's ``share_phase`` + ``mix_phase`` on the
     same post-train state: students within 4 ulp of their largest
     magnitude, prototypes and mask bit for bit;
-12. with ``--profile`` only: where a round's time goes on the main path,
+12. ``codec``, the per-leaf and per-tensor wire codec at full width (see
+    :func:`run_codec`): ``quantize_dequantize_per_node(packed=False)`` on
+    the 20-node mnist-cnn and cifar10-resnet18 student payloads against
+    the packed codec and the plain per-leaf math (16-bit; on mnist-cnn
+    also ``4/16`` and ``4/16+ef``), the packed-tree API (one node's
+    student whole-leaf, and the stacked payload per node) and the
+    per-tensor API (every float leaf of one node's student and the
+    ResNet18 teacher's ``[3, 3, 512, 512]`` leaf) against
+    ``core/quantization``, all bit for bit, each call's launches held
+    exactly;
+13. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
     under ``torch.profiler`` (see :func:`profile_rounds`);
-13. a line ``{"kernels": [...]}`` with each kernel's launches on its
+14. a line ``{"kernels": [...]}`` with each kernel's launches on its
     path, error and times, then the card's ``nvidia-smi`` name and power
     limit, then the result line ``{"ok": true, "device": {...}}`` last.
 
 Phases 4-9 each set the kernels' launch counts to 0 just before
 ``run_federation`` and read them just after, check finite F1 every
 round, and hold the run's wire bytes to the JAX package's; phase 10
-does the same on every rank around each mesh run.
+does the same on every rank around each mesh run, and phase 12 around
+the whole codec phase (its per-call launches are read as differences).
 """
 from __future__ import annotations
 
@@ -119,7 +130,14 @@ KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
                "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef",
                "sgd_update": "cifar10/sgd",
                "adafactor_apply": "cifar10/adafactor",
-               "lowrank_apply": "adapters8", "mix_packed": "mesh/ring16"}
+               "lowrank_apply": "adapters8", "mix_packed": "mesh/ring16",
+               "quantize_dequantize_rows": "codec",
+               "dequantize_rows": "codec", "fused_quantize": "codec",
+               "fused_quantize_dequantize": "codec", "dequantize": "codec"}
+# the per-leaf and per-tensor codec's kernels: only the codec phase runs
+# them
+CODEC_KERNELS = ("quantize_dequantize_rows", "dequantize_rows",
+                 "fused_quantize", "fused_quantize_dequantize", "dequantize")
 # the multi-node exchange (phase 10): name -> (topology, exchange, wire
 # spec, overlap, rounds, collective bytes per rank and round, mix_packed
 # launches per rank and round).  The bytes are the copies a rank hands to
@@ -693,6 +711,335 @@ def check_lowrank(torch, timer, student_cfg):
     return [row]
 
 
+def codec_payload(torch, model: str, seed: int):
+    """The per-leaf codec's payload on the card at full width:
+    ``{"protos": [20, 10, P], "student": 20 nodes' seeded init_params
+    stacked}``, the prototypes normal from a seeded generator."""
+    from repro_torch.config import get_config
+    from repro_torch.models import derive_student, init_params
+    from repro_torch.tree import tree_map
+    cfg = derive_student(get_config(model))
+    gen = torch.Generator().manual_seed(seed)
+    trees = [init_params(cfg, gen) for _ in range(N_NODES)]
+    student = tree_map(lambda *xs: torch.stack(xs).float().cuda(), *trees)
+    protos = torch.randn((N_NODES, cfg.num_classes, cfg.proto_dim),
+                         generator=gen).cuda()
+    return {"protos": protos, "student": student}
+
+
+def teacher_leaf(torch):
+    """The ResNet18 teacher's largest leaf, ``[3, 3, 512, 512]``, from a
+    seeded init_params, on the card."""
+    from repro_torch.config import get_config
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(init_params(get_config("cifar10-resnet18"),
+                                     torch.Generator().manual_seed(4)))
+    x = max(leaves, key=lambda t: t.numel())
+    expect(tuple(x.shape) == (3, 3, 512, 512),
+           f"the teacher's largest leaf is {tuple(x.shape)}")
+    return x.float().cuda()
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bits (fp32 compared as int32 bit patterns)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = (t.contiguous().view(torch.int32) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def check_codec_kernels(torch, timer):
+    """Phase 3, the per-leaf and per-tensor codec's five kernels against
+    their plain versions, bit for bit, and timed: ``quantize_dequantize_
+    rows`` and ``dequantize_rows`` at the mnist-cnn per-leaf payload
+    (``pack_tree(node_axis=True)``: ``[8240, 512]``, 180 segments),
+    ``fused_quantize``, ``fused_quantize_dequantize`` and ``dequantize``
+    at the ResNet18 teacher's ``[3, 3, 512, 512]`` leaf."""
+    from repro_torch.kernels.quantize.ops import (_qmax_t, _segment_deltas,
+                                                  pack_tree)
+    from repro_torch.kernels.quantize.quantize import (
+        dequantize_cuda, dequantize_rows_cuda, fused_quantize_cuda,
+        fused_quantize_dequantize_cuda, quantize_dequantize_rows_cuda)
+    from repro_torch.kernels.quantize.ref import (
+        dequantize_ref, dequantize_rows_ref, fused_quantize_dequantize_ref,
+        fused_quantize_ref, quantize_dequantize_rows_ref, quantize_rows_ref)
+
+    rows = []
+
+    def row(name, line, err, ms, plain_ms, nbytes, nops, lib_ms):
+        b_ms, b_by = bound(nbytes, nops)
+        rows.append(dict(name=name, route="cuda",
+                         source="src/repro_torch/csrc/quantize.cu",
+                         replaces=f"src/repro/kernels/quantize/quantize.py:"
+                                  f"{line}",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+
+    # -- rows 7 and 12 on the per-leaf payload ----------------------------
+    buf, seg_ids, meta = pack_tree(codec_payload(torch, "mnist-cnn", 3),
+                                   node_axis=True)
+    expect(tuple(buf.shape) == (8240, 512) and meta[1] == 180,
+           f"per-leaf payload {tuple(buf.shape)}, {meta[1]} segments")
+    _, rd = _segment_deltas(buf, seg_ids, meta[1], 16)
+    rd = rd.contiguous()
+    n, r = buf.numel(), buf.shape[0]
+    got = quantize_dequantize_rows_cuda(buf, rd, bits=16)
+    want = quantize_dequantize_rows_ref(buf, rd, bits=16)
+    torch.cuda.synchronize()
+    expect(bits_equal(torch, got, want),
+           "quantize_dequantize_rows is not bit-exact with its plain version")
+    # library yardstick: per-row fake quantization in one call.  It
+    # rounds half to even (the kernel rounds half up).
+    zero = torch.zeros(r, dtype=torch.int32, device="cuda")
+    scales = rd[:, 0].contiguous()
+    lib = torch.fake_quantize_per_channel_affine(buf, scales, zero, 0,
+                                                 -32768, 32767)
+    print(f"quantize_dequantize_rows {tuple(buf.shape)}: bit-exact; "
+          f"fake_quantize_per_channel_affine differs by "
+          f"{float((lib - want).abs().max()):.3e}")
+    row("quantize_dequantize_rows", 321, float((got - want).abs().max()),
+        timer(lambda: quantize_dequantize_rows_cuda(buf, rd, bits=16)),
+        timer(lambda: quantize_dequantize_rows_ref(buf, rd, bits=16)),
+        8 * n + 4 * r, 5 * n,
+        timer(lambda: torch.fake_quantize_per_channel_affine(
+            buf, scales, zero, 0, -32768, 32767)))
+
+    codes = quantize_rows_ref(buf, rd, bits=16)
+    got = dequantize_rows_cuda(codes, rd)
+    want = dequantize_rows_ref(codes, rd)
+    torch.cuda.synchronize()
+    expect(bits_equal(torch, got, want),
+           "dequantize_rows is not bit-exact with its plain version")
+    print(f"dequantize_rows {tuple(codes.shape)}: bit-exact")
+    row("dequantize_rows", 417, float((got - want).abs().max()),
+        timer(lambda: dequantize_rows_cuda(codes, rd)),
+        timer(lambda: dequantize_rows_ref(codes, rd)), 8 * n + 4 * r, n,
+        timer(lambda: torch.mul(codes, rd)))
+
+    # -- rows 13-15 on the teacher's largest leaf --------------------------
+    x = teacher_leaf(torch)
+    n = x.numel()
+    qm = _qmax_t(16, x.device)
+    c_got, d_got = fused_quantize_cuda(x, bits=16)
+    c_want, d_want = fused_quantize_ref(x, qm)
+    o_got, e_got = fused_quantize_dequantize_cuda(x, bits=16)
+    o_want, e_want = fused_quantize_dequantize_ref(x, qm)
+    torch.cuda.synchronize()
+    expect(bits_equal(torch, c_got, c_want)
+           and bits_equal(torch, d_got, d_want),
+           "fused_quantize codes or delta disagree with the plain version")
+    expect(bits_equal(torch, o_got, o_want)
+           and bits_equal(torch, e_got, e_want),
+           "fused_quantize_dequantize is not bit-exact with its plain "
+           "version")
+    print(f"fused_quantize / fused_quantize_dequantize {tuple(x.shape)}: "
+          f"codes, round trip and delta {float(d_got):.6e} bit-exact")
+    # no single PyTorch call takes the absmax and writes the codes, so
+    # rows 13 and 14 have no library yardstick
+    row("fused_quantize", 120, float((c_got - c_want).abs().max()),
+        timer(lambda: fused_quantize_cuda(x, bits=16)),
+        timer(lambda: fused_quantize_ref(x, qm)), 8 * n + 4, 6 * n, None)
+    row("fused_quantize_dequantize", 133, float((o_got - o_want).abs().max()),
+        timer(lambda: fused_quantize_dequantize_cuda(x, bits=16)),
+        timer(lambda: fused_quantize_dequantize_ref(x, qm)), 8 * n + 4,
+        7 * n, None)
+    got = dequantize_cuda(c_got, d_got)
+    want = dequantize_ref(c_got, d_got)
+    torch.cuda.synchronize()
+    expect(bits_equal(torch, got, want),
+           "dequantize is not bit-exact with its plain version")
+    print(f"dequantize {tuple(x.shape)}: bit-exact")
+    row("dequantize", 149, float((got - want).abs().max()),
+        timer(lambda: dequantize_cuda(c_got, d_got)),
+        timer(lambda: dequantize_ref(c_got, d_got)), 8 * n + 4, n,
+        timer(lambda: torch.mul(c_got, d_got)))
+    for rw in rows:
+        print(f"  {rw['name']:25s} kernel {rw['ms']:.4f} ms  plain "
+              f"{rw['plain_ms']:.4f} ms  library {rw['library_ms']}  "
+              f"bound {rw['bound_ms']:.4f} ms ({rw['bound_by']})")
+    return rows
+
+
+def run_codec(torch) -> dict:
+    """Phase 12, the per-leaf and per-tensor codec at full width, every
+    comparison bit for bit and every call's launches held exactly:
+
+    1. ``quantize_dequantize_per_node(payload, 16, packed=False)`` on the
+       20-node mnist-cnn and cifar10-resnet18 student payloads
+       (:func:`codec_payload`; ``rowabs`` + ``quantize_dequantize_rows``)
+       against the packed node codec (``packed=True``) and the plain
+       per-leaf math;
+    2. on the mnist-cnn payload, ``4/16`` against the packed codec, and
+       ``4/16+ef`` with a seeded non-zero residual against the packed EF
+       codec on the same values as a student plane (reconstruction, new
+       residual, ``seq``);
+    3. the packed-tree API on one node's student (whole leaves: rows 3, 4
+       and 12; rows 3 and 7) against ``core/quantization``, then per node
+       on the stacked payload against the per-leaf math;
+    4. the per-tensor API on every float leaf of that student and on the
+       ResNet18 teacher's largest leaf against ``quantize_array``.
+
+    The launch counts are set to 0 at the start and read at the end;
+    returns them."""
+    from repro_torch.core.quantization import (quantize_array,
+                                               quantize_dequantize_tree)
+    from repro_torch.core.round_ops import (dequantize_leaf,
+                                            quantize_dequantize_per_node,
+                                            quantize_leaf_per_node)
+    from repro_torch.core.wire_state import CodecState
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quantize import ops as Q
+    from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.wirespec import WireSpec
+
+    def launched(fn, want, what):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()
+               if v != before[k]}
+        expect(got == want, f"codec: {what} launched {got} != {want}")
+        return out
+
+    def same(a, b, what):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        expect(len(la) == len(lb)
+               and all(bits_equal(torch, x, y) for x, y in zip(la, lb)),
+               f"codec: {what} is not bit-identical")
+
+    def per_leaf(tree, bits):
+        return tree_map(lambda x: dequantize_leaf(
+            *quantize_leaf_per_node(x, bits)), tree)
+
+    reset_launch_counts()
+    per_leaf_kernels = {"rowabs": 1, "quantize_dequantize_rows": 1}
+    for model, seed in (("mnist-cnn", 3), ("cifar10-resnet18", 5)):
+        payload = codec_payload(torch, model, seed)
+        t0 = time.time()
+        got = launched(lambda: quantize_dequantize_per_node(
+            payload, 16, packed=False), per_leaf_kernels,
+            f"{model} packed=False")
+        seconds = time.time() - t0
+        same(got, launched(lambda: quantize_dequantize_per_node(payload, 16),
+                           {"rowabs": 1, "quantize_rows": 1},
+                           f"{model} packed"),
+             f"{model}: packed=False against the packed codec")
+        same(got, launched(lambda: per_leaf(payload, 16), {},
+                           f"{model} per-leaf math"),
+             f"{model}: packed=False against the per-leaf math")
+        print(f"{model} payload ({len(tree_leaves(payload))} leaves x "
+              f"{N_NODES} nodes): packed=False 16-bit bit-identical to the "
+              f"packed codec and the per-leaf math ({seconds:.4f} s, host "
+              f"clock)")
+        if model != "mnist-cnn":
+            continue
+        spec = WireSpec.parse("4/16")
+        same(launched(lambda: quantize_dequantize_per_node(
+                 payload, spec=spec, packed=False), {},
+                 "4/16 packed=False"),
+             launched(lambda: quantize_dequantize_per_node(payload,
+                                                           spec=spec),
+                      {"rowabs": 1, "quantize_rows_mixed": 1},
+                      "4/16 packed"),
+             "4/16: packed=False against the packed codec")
+        print("mnist-cnn 4/16: packed=False bit-identical to the packed "
+              "codec")
+
+        # 4/16+ef: the same values as a tree and as a student plane
+        spec = WireSpec.parse("4/16+ef")
+        gen = torch.Generator().manual_seed(6)
+        student = payload["student"]
+        res_s = tree_map(lambda x: (torch.randn(x.shape, generator=gen)
+                                    * 1e-3).cuda(), student)
+        res_p = (torch.randn(payload["protos"].shape, generator=gen)
+                 * 1e-2).cuda()
+
+        def stacked_plane(tree):
+            planes = [plane_from_tree(tree_map(lambda x: x[i], tree))
+                      for i in range(N_NODES)]
+            return Plane(torch.stack([p.buf for p in planes]),
+                         planes[0].meta)
+        seq = torch.zeros(N_NODES, dtype=torch.int32, device="cuda")
+        recv_t, new_t = launched(lambda: quantize_dequantize_per_node(
+            payload, spec=spec, packed=False,
+            state=CodecState({"protos": res_p, "student": res_s}, seq)),
+            {}, "4/16+ef packed=False")
+        recv_p, new_p = launched(lambda: quantize_dequantize_per_node(
+            {"protos": payload["protos"], "student": stacked_plane(student)},
+            spec=spec, state=CodecState(
+                {"protos": res_p, "student": stacked_plane(res_s)}, seq)),
+            {"rowabs_sum": 1, "quantize_rows_ef": 1}, "4/16+ef packed")
+        same(recv_t, {"protos": recv_p["protos"],
+                      "student": as_tree(recv_p["student"])},
+             "4/16+ef: the reconstruction against the packed EF codec")
+        same(new_t.residual,
+             {"protos": new_p.residual["protos"],
+              "student": as_tree(new_p.residual["student"])},
+             "4/16+ef: the new residual against the packed EF codec")
+        expect(new_t.seq.tolist() == new_p.seq.tolist() == [1] * N_NODES,
+               f"4/16+ef: seq {new_t.seq.tolist()} / {new_p.seq.tolist()}")
+        expect(float(new_t.residual["protos"].abs().max()) > 0,
+               "4/16+ef: zero residual")
+        print("mnist-cnn 4/16+ef (non-zero residual): packed=False "
+              "bit-identical to the packed EF codec, reconstruction and "
+              "new residual; seq advanced once")
+        mnist = payload
+
+    # the packed-tree API: one node's student whole-leaf, then per node
+    one = tree_map(lambda x: x[0], mnist["student"])
+    a = launched(lambda: Q.dequantize_tree_packed(
+        Q.quantize_tree_packed(one, 16)),
+        {"rowabs": 1, "quantize_rows": 1, "dequantize_rows": 1},
+        "quantize_tree_packed + dequantize_tree_packed")
+    b = launched(lambda: Q.quantize_dequantize_tree_packed(one, 16),
+                 per_leaf_kernels, "quantize_dequantize_tree_packed")
+    c = launched(lambda: quantize_dequantize_tree(one, 16), {},
+                 "core quantize_dequantize_tree")
+    same(a, b, "dequantize_tree_packed(quantize_tree_packed) against "
+               "quantize_dequantize_tree_packed")
+    same(a, c, "the packed tree against core quantize_dequantize_tree")
+    a = launched(lambda: Q.dequantize_tree_packed(
+        Q.quantize_tree_packed(mnist, 16, node_axis=True)),
+        {"rowabs": 1, "quantize_rows": 1, "dequantize_rows": 1},
+        "node_axis quantize + dequantize")
+    b = launched(lambda: Q.quantize_dequantize_tree_packed(
+        mnist, 16, node_axis=True), per_leaf_kernels,
+        "node_axis quantize_dequantize_tree_packed")
+    same(a, b, "node_axis: the two packed-tree routes")
+    same(a, per_leaf(mnist, 16), "node_axis: the packed tree against the "
+                                 "per-leaf math")
+    print("packed-tree API: one node's student and the stacked payload "
+          "bit-identical to core/quantization and the per-leaf math")
+
+    # the per-tensor API
+    leaves = [(str(i), x) for i, x in enumerate(tree_leaves(one))]
+    for name, x in leaves + [("teacher", teacher_leaf(torch))]:
+        codes, delta = launched(lambda: Q.quantize(x, 16),
+                                {"fused_quantize": 1}, f"quantize {name}")
+        w_codes, w_delta = quantize_array(x, 16)
+        expect(bits_equal(torch, codes, w_codes.to(torch.int32))
+               and bits_equal(torch, delta, w_delta),
+               f"quantize of leaf {name} {tuple(x.shape)} disagrees with "
+               f"quantize_array")
+        rt = launched(lambda: Q.quantize_dequantize(x, 16),
+                      {"fused_quantize_dequantize": 1},
+                      f"quantize_dequantize {name}")
+        expect(bits_equal(torch, rt, codes.to(torch.float32) * delta),
+               f"quantize_dequantize of leaf {name} is not codes·Δ")
+        expect(bits_equal(torch, launched(lambda: Q.dequantize(codes, delta),
+                                          {"dequantize": 1},
+                                          f"dequantize {name}"), rt),
+               f"dequantize of leaf {name} is not quantize_dequantize")
+    print(f"per-tensor API: {len(leaves)} student leaves and the teacher's "
+          f"[3, 3, 512, 512] leaf bit-identical to quantize_array")
+    counts = launch_counts()
+    print(f"launches in the codec phase: {counts}")
+    return counts
+
+
 def path_inputs(model: str):
     """A model's paths' configuration and data: the config at full width,
     20 nodes on a full graph, 2 rounds of 1 local epoch, ``TrainConfig``
@@ -757,6 +1104,7 @@ def run_path(torch, inputs, name: str):
         # the stacked engine mixes with tensordot; only the mesh exchange
         # launches the fused mix
         "mix_packed": 0})
+    launches.update({k: 0 for k in CODEC_KERNELS})
 
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
@@ -1310,6 +1658,7 @@ def main() -> int:
                           derive_student(get_config("mnist-cnn")))
     rows += check_mix_packed(torch, timer,
                              derive_student(get_config("mnist-cnn")))
+    rows += check_codec_kernels(torch, timer)
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}
@@ -1333,6 +1682,11 @@ def main() -> int:
     phase(f"mesh parity: one rank holding {MESH_NODES} nodes against the "
           f"stacked engine")
     check_mesh_parity(torch)
+
+    phase("codec: the per-leaf and per-tensor wire codec at full width")
+    t0 = time.time()
+    counts["codec"] = run_codec(torch)
+    print(f"codec phase took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         for name in PROFILED:

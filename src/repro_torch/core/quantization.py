@@ -1,20 +1,84 @@
-"""Wire-size accounting (paper Sec. III-D).
+"""Wire quantization (paper Sec. III-D).
 
     Q(x) = floor(x / Δ + 0.5) * Δ ,   Δ = max|x| / (2^(bits-1) - 1)
 
-The integer codes travel (int16 for 16-bit) plus one fp32 scale per
-tensor.  The codec itself lives in ``kernels/quantize/ops.py``; this
-module counts the logical (Table II) bytes of a payload.
+The integer codes ``floor(x/Δ + 0.5)`` travel (int16 for 16-bit) plus
+one fp32 scale per tensor; the receiver multiplies back (``x' = q·Δ``).
+This module holds the per-tensor codec in plain tensor ops
+(``quantize_array`` … ``quantize_dequantize_tree``, the reference the
+kernel codecs of ``kernels/quantize/ops.py`` are held to) and counts the
+logical (Table II) bytes of a payload.
 """
 from __future__ import annotations
 
-from repro_torch.tree import is_float, itemsize, numel, tree_leaves
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.tree import is_float, itemsize, numel, tree_leaves, tree_map
 from repro_torch.wirespec import WireSpec
 
 
 def _qmax(bits: int) -> int:
     return (1 << (bits - 1)) - 1        # 32767 for 16-bit, 7 for 4-bit
 
+
+# narrowest container holding the codes; int4 codes ride int8 in memory
+# (the packed wire codec nibble-packs them to true half-bytes on the wire)
+_INT_DTYPES = {4: torch.int8, 8: torch.int8, 16: torch.int16,
+               32: torch.int32}
+
+
+def quantize_array(x, bits: int = 16, *, rng=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> ``(codes intN, 0-d Δ fp32)``.  Non-float tensors pass through
+    with Δ = 1.  qmax divides as an fp32 tensor on ``x``'s device, so Δ
+    is an IEEE division on the card too."""
+    if rng is not None:
+        raise NotImplementedError(
+            "stochastic rounding is not ported yet: ROADMAP.md Queue 1 "
+            "item 10 (stateful codec)")
+    if not x.dtype.is_floating_point:
+        return x, torch.ones((), dtype=torch.float32, device=x.device)
+    qm = torch.tensor(float(_qmax(bits)), dtype=torch.float32,
+                      device=x.device)
+    x32 = x.to(torch.float32)
+    delta = torch.clamp_min(torch.amax(torch.abs(x32)) / qm,
+                            torch.finfo(torch.float32).tiny)
+    codes = torch.clamp(torch.floor(x32 / delta + 0.5), -qm - 1, qm)
+    return codes.to(_INT_DTYPES[bits]), delta
+
+
+def dequantize_array(codes, delta, dtype=torch.float32) -> torch.Tensor:
+    if codes.dtype.is_floating_point:
+        return codes.to(dtype)
+    if codes.dtype == torch.bool:
+        return codes
+    return (codes.to(torch.float32) * delta).to(dtype)
+
+
+def quantize_tree(tree, bits: int = 16) -> Dict[str, Any]:
+    """Quantize every float leaf.  Returns ``{"codes": tree, "scales":
+    tree, "bits": int}`` — the wire payload."""
+    pairs = []
+    codes = tree_map(
+        lambda x: pairs.append(quantize_array(x, bits)) or pairs[-1][0], tree)
+    scales = iter([d for _, d in pairs])
+    return {"codes": codes, "scales": tree_map(lambda _: next(scales), tree),
+            "bits": bits}
+
+
+def dequantize_tree(payload, dtype=torch.float32):
+    return tree_map(lambda c, d: dequantize_array(c, d, dtype),
+                    payload["codes"], payload["scales"])
+
+
+def quantize_dequantize_tree(tree, bits: int = 16):
+    """Round trip — what the receiver reconstructs."""
+    return dequantize_tree(quantize_tree(tree, bits))
+
+
+# -- wire-size accounting -----------------------------------------------------
 
 def array_wire_bytes(x, bits: int | None = None) -> int:
     """Serialized size of one array (tensor or ShapeDtypeStruct);

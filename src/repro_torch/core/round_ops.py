@@ -4,9 +4,13 @@
   to mixing and Eq. 4 include weights, in numpy float64 and cast to fp32
   (host-side, once per run); ``gossip_matrix_dyn`` — the same weights in
   fp32 tensor ops from runtime ``sizes`` (the mesh round's).
+* ``quantize_leaf_per_node`` / ``dequantize_leaf`` — Sec. III-D wire
+  quantization of each node slice of a stacked leaf on its own (one
+  scale per node per tensor), shape-preserving.
 * ``quantize_dequantize_per_node`` — the receiver-side reconstruction of
   a round's wire payload through the packed node codec (stateless, or
-  with the error-feedback ``CodecState``).
+  with the error-feedback ``CodecState``), or with ``packed=False``
+  through the per-leaf reference codec it is held to.
 * ``mix_node_trees`` — size-weighted gossip: a node's own copy mixes
   unquantized, its neighbours' from the dequantized view.
 * ``neighborhood_prototype_aggregate`` — Eq. 4 per node neighbourhood.
@@ -21,7 +25,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.quantization import _INT_DTYPES, _qmax
+from repro_torch.tree import (is_float, tree_leaves, tree_map,
+                              tree_map_with_path)
 from repro_torch.wirespec import WireSpec
+
+
+def _is_float(x) -> bool:
+    return hasattr(x, "dtype") and is_float(x)
 
 
 def gossip_matrix(adj: np.ndarray, sizes) -> Tuple[np.ndarray, np.ndarray]:
@@ -64,9 +75,76 @@ def include_matrix(adj: np.ndarray) -> np.ndarray:
     return np.minimum(m, 1.0).astype(np.float32)
 
 
+def quantize_leaf_per_node(x, bits: int):
+    """``x [N, ...]`` float -> ``(codes intN [N, ...], scales fp32 [N])``:
+    each node's slice quantized on its own, in the narrowest int
+    container that holds ``bits``.  qmax divides as an fp32 tensor on
+    ``x``'s device (an IEEE division on the card too)."""
+    qm = torch.tensor(float(_qmax(bits)), dtype=torch.float32,
+                      device=x.device)
+    a = torch.abs(x.to(torch.float32))
+    amax = a if x.dim() == 1 else torch.amax(a, dim=tuple(range(1, x.dim())))
+    delta = torch.clamp_min(amax / qm, torch.finfo(torch.float32).tiny)
+    bshape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    codes = torch.floor(x.to(torch.float32) / delta.reshape(bshape) + 0.5)
+    return torch.clamp(codes, -qm - 1, qm).to(_INT_DTYPES[bits]), delta
+
+
+def dequantize_leaf(codes, delta):
+    """``codes [N, ...]`` int, ``delta [N]`` fp32 -> fp32 ``[N, ...]``."""
+    bshape = (codes.shape[0],) + (1,) * (codes.dim() - 1)
+    return codes.to(torch.float32) * delta.reshape(bshape)
+
+
+def _roundtrip_leaf(x, bits: int):
+    return dequantize_leaf(*quantize_leaf_per_node(x, bits))
+
+
+def _quantize_dequantize_per_leaf(tree, bits: int, spec, state):
+    """``packed=False``: the per-leaf reference codec.  A ``Plane`` is
+    one float leaf, its ``[N, R, 512]`` buffer (one segment per node, as
+    ``repro`` flattens a Plane to its buffer), and comes back a Plane.
+    Error feedback runs ``ef_quantize_dequantize_tree`` per node slice; a
+    mixed-width spec the per-leaf math at each leaf's group width; a
+    uniform width the packed tree codec (``rowabs`` +
+    ``quantize_dequantize_rows``) on the card and the per-leaf math on
+    the CPU."""
+    from repro_torch.kernels.quantize.ops import (
+        _leaf_group, quantize_dequantize_tree_packed)
+    from repro_torch.optim.plane import Plane
+
+    def bufs(t):
+        return tree_map(lambda x: x.buf if isinstance(x, Plane) else x, t)
+
+    def replane(out, like):
+        return tree_map(lambda x, o: Plane(o, x.meta)
+                        if isinstance(x, Plane) else o, like, out)
+
+    flat = bufs(tree)
+    if state is not None:
+        from repro_torch.core.wire_state import (CodecState,
+                                                 ef_quantize_dequantize_tree)
+        recv, new = ef_quantize_dequantize_tree(
+            flat, spec if spec is not None else WireSpec.from_bits(bits),
+            CodecState(bufs(state.residual), state.seq), node_axis=True)
+        return replane(recv, tree), CodecState(
+            replane(new.residual, state.residual), new.seq)
+    if spec is not None and spec.uniform_bits is None:
+        out = tree_map_with_path(
+            lambda path, x: _roundtrip_leaf(
+                x, spec.bits_for(_leaf_group(path))) if _is_float(x) else x,
+            flat)
+    elif any(_is_float(x) and x.is_cuda for x in tree_leaves(flat)):
+        out = quantize_dequantize_tree_packed(flat, bits, node_axis=True)
+    else:
+        out = tree_map(lambda x: _roundtrip_leaf(x, bits)
+                       if _is_float(x) else x, flat)
+    return replane(out, tree)
+
+
 def quantize_dequantize_per_node(tree, bits: int = 16, *,
                                  spec: Optional[WireSpec] = None,
-                                 state=None):
+                                 packed: bool = True, state=None):
     """Receiver-side reconstruction of a stacked wire payload through the
     packed node codec: ``{"protos": [N, C, P], "student": Plane}`` splices
     the student's rows off its plane; any other tree (the adapter wire's
@@ -76,7 +154,11 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
     ``state`` (a :class:`~repro_torch.core.wire_state.CodecState`,
     required when ``spec.error_feedback`` is set) switches the plane
     payload to the error-feedback codec and returns ``(reconstruction,
-    new_state)``, with ``seq`` advanced by one."""
+    new_state)``, with ``seq`` advanced by one.
+
+    ``packed=False`` runs the per-leaf reference codec instead
+    (:func:`_quantize_dequantize_per_leaf`), which the packed codec is
+    bit-identical to for the same segments."""
     from repro_torch.core.wire_state import CodecState, next_seq
     from repro_torch.kernels.quantize.ops import (
         quantize_dequantize_plane_payload,
@@ -86,8 +168,15 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
         raise ValueError("WireSpec.error_feedback is set but no CodecState "
                          "was passed: the error-feedback codec needs the "
                          "carried per-node residual")
+    if spec is not None and spec.stochastic_rounding and not packed:
+        raise ValueError("the per-leaf reference path does not implement "
+                         "stochastic rounding: use the packed codec "
+                         "(silently rounding deterministically would fake "
+                         "the unbiasedness)")
     if spec is not None and spec.uniform_bits is not None:
         bits = spec.uniform_bits
+    if not packed:
+        return _quantize_dequantize_per_leaf(tree, bits, spec, state)
     if not (isinstance(tree, dict) and isinstance(tree.get("student"),
                                                   Plane)):
         if state is not None:

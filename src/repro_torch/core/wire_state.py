@@ -14,15 +14,21 @@ payload, at no extra wire bytes:
 plane in the payload's row layout) and the sender's sequence counter
 ``seq``.  It rides in :class:`repro_torch.core.profe.NodeState`'s
 ``wire_state`` field.  The packed sweep that updates it lives in
-``kernels/quantize/ops.py`` (``quantize_packed_buffer(residual=)``).
+``kernels/quantize/ops.py`` (``quantize_packed_buffer(residual=)``);
+this module holds the state and the per-leaf reference of the codec,
+``ef_quantize_dequantize_tree``, which the packed sweep is held to.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.round_ops import (_is_float, dequantize_leaf,
+                                        quantize_leaf_per_node)
 from repro_torch.optim.plane import Plane
+from repro_torch.tree import tree_leaves, tree_map, tree_paths
+from repro_torch.wirespec import WireSpec
 
 
 class CodecState(NamedTuple):
@@ -55,3 +61,59 @@ def init_codec_state(payload, n_nodes: int) -> CodecState:
                                      device=dev), plane.meta)}
     return CodecState(residual, torch.zeros((n_nodes,), dtype=torch.int32,
                                             device=dev))
+
+
+def residual_leaves(tree, state: CodecState):
+    """The payload's float leaves paired with their residuals, in flatten
+    order: ``(floats [(path, leaf)], residuals)``.  Raises unless the
+    residuals are exactly as many as the float leaves, each of its
+    leaf's shape."""
+    floats = [(p, x) for p, x in tree_paths(tree) if _is_float(x)]
+    # None marks a non-float payload leaf: it holds no residual
+    res = [r for r in tree_leaves(state.residual) if r is not None]
+    if len(res) != len(floats):
+        raise ValueError(
+            f"CodecState holds {len(res)} residual leaves for a payload "
+            f"with {len(floats)} float leaves: the state was initialized "
+            f"for a different payload structure")
+    for (p, x), r in zip(floats, res):
+        if tuple(r.shape) != tuple(x.shape):
+            raise ValueError(f"residual shape {tuple(r.shape)} != payload "
+                             f"leaf shape {tuple(x.shape)} at {p}")
+    return floats, res
+
+
+def ef_quantize_dequantize_tree(tree, spec: WireSpec, state: CodecState, *,
+                                node_axis: bool = False
+                                ) -> Tuple[Any, CodecState]:
+    """Per-leaf reference of the error-feedback codec: the receiver-side
+    view of ``tree`` and the updated state.  Per float leaf at its
+    group's width: ``eff = x + decay·res`` (the product and the sum each
+    rounded in fp32), its round trip ``deq``, and the new residual
+    ``eff - deq``.  ``node_axis=True`` scales each node slice of a
+    stacked ``[N, ...]`` leaf on its own (the stacked engine's
+    convention, ``round_ops.quantize_leaf_per_node``); ``False`` scales
+    whole leaves (``quantization.quantize_array``).  Non-float leaves
+    pass through."""
+    from repro_torch.core.quantization import quantize_array
+    from repro_torch.kernels.quantize.ops import _leaf_group
+
+    floats, res = residual_leaves(tree, state)
+    deqs, new_res = [], []
+    for (path, leaf), r in zip(floats, res):
+        bits = spec.bits_for(_leaf_group(path))
+        decay = torch.tensor(spec.ef_decay, dtype=torch.float32,
+                             device=leaf.device)
+        eff = leaf.to(torch.float32) + decay * r
+        if node_axis:
+            deq = dequantize_leaf(*quantize_leaf_per_node(eff, bits))
+        else:
+            codes, delta = quantize_array(eff, bits)
+            deq = codes.to(torch.float32) * delta
+        deqs.append(deq)
+        new_res.append(eff - deq)
+    it_deq, it_res = iter(deqs), iter(new_res)
+    recv = tree_map(lambda x: next(it_deq) if _is_float(x) else x, tree)
+    residual = tree_map(lambda r: None if r is None else next(it_res),
+                        state.residual)
+    return recv, CodecState(residual, next_seq(state.seq))

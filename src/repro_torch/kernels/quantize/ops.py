@@ -22,11 +22,21 @@ The mesh exchange serializes the codes into the physical wire byte
 buffer (``encode_wire``: int16 rows bitcast, int4 rows nibble-packed)
 and its receivers dequantize them straight into the gossip mix
 (``mix_packed``).
-``rowabs``, ``rowabs_sum``, ``quantize_rows``,
-``quantize_rows_mixed``, ``quantize_rows_ef`` and ``mix_packed`` run
-the CUDA kernels for tensors on the card and their plain versions on
-the CPU; everything else here is host logic and plain tensor ops, as in
-``repro``.
+
+Two more tiers, as in ``repro``: the per-tensor codec (``quantize`` /
+``dequantize`` / ``quantize_dequantize``: one scalar Δ per tensor, the
+absmax and the codes in one call) and the packed tree
+(``pack_tree`` / ``quantize_tree_packed`` / ``dequantize_tree_packed`` /
+``quantize_dequantize_tree_packed``: every float leaf of a tree in one
+``[R, 512]`` buffer, one scale segment per leaf, or per node slice of a
+leaf with ``node_axis=True`` — the per-leaf reference codec of
+``core/round_ops.py``).
+
+``rowabs``, ``rowabs_sum``, ``quantize_rows``, ``quantize_rows_mixed``,
+``quantize_rows_ef``, ``quantize_dequantize_rows``, ``dequantize_rows``,
+``mix_packed`` and the per-tensor tier run the CUDA kernels for tensors
+on the card and their plain versions on the CPU; everything else here is
+host logic and plain tensor ops, as in ``repro``.
 """
 from __future__ import annotations
 
@@ -38,9 +48,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.quantize.quantize import (
-    mix_packed_cuda, quantize_rows_cuda, quantize_rows_ef_cuda,
+    dequantize_cuda, dequantize_rows_cuda, fused_quantize_cuda,
+    fused_quantize_dequantize_cuda, mix_packed_cuda,
+    quantize_dequantize_rows_cuda, quantize_rows_cuda, quantize_rows_ef_cuda,
     quantize_rows_mixed_cuda, rowabs_cuda, rowabs_sum_cuda)
-from repro_torch.kernels.quantize.ref import (mix_packed_ref,
+from repro_torch.kernels.quantize.ref import (dequantize_ref,
+                                              dequantize_rows_ref,
+                                              fused_quantize_dequantize_ref,
+                                              fused_quantize_ref,
+                                              mix_packed_ref,
+                                              quantize_dequantize_rows_ref,
                                               quantize_rows_ef_ref,
                                               quantize_rows_mixed_ref,
                                               quantize_rows_ref, rowabs_ref,
@@ -83,6 +100,26 @@ def quantize_rows_mixed(x2d, row_delta, row_qmax):
     return quantize_rows_mixed_ref(x2d, row_delta, row_qmax)
 
 
+def quantize_dequantize_rows(x2d, row_delta, *, bits: int = 16):
+    """The fp32 round trip ``codes·Δ_row`` of ``[R, C]`` at per-row
+    deltas ``[R, 1]``."""
+    if x2d.is_cuda:
+        return quantize_dequantize_rows_cuda(x2d.contiguous(),
+                                             row_delta.contiguous(),
+                                             bits=bits)
+    return quantize_dequantize_rows_ref(x2d, row_delta, bits=bits)
+
+
+def dequantize_rows(codes2d, row_delta):
+    """fp32 ``codes·Δ_row`` of ``[R, C]`` integer codes (widened to
+    int32) at per-row deltas ``[R, 1]``."""
+    codes2d = codes2d.to(torch.int32)
+    if codes2d.is_cuda:
+        return dequantize_rows_cuda(codes2d.contiguous(),
+                                    row_delta.contiguous())
+    return dequantize_rows_ref(codes2d, row_delta)
+
+
 def rowabs_sum(x2d, res2d, decay: float):
     """Per-row ``max|x + decay·res|`` ``[R, 1]`` of an ``[R, C]`` payload
     and its residual (``decay`` in fp32)."""
@@ -100,6 +137,167 @@ def quantize_rows_ef(x2d, res2d, row_delta, row_qmax, decay: float):
                                      row_qmax.contiguous(), decay)
     return quantize_rows_ef_ref(x2d, res2d, row_delta, row_qmax,
                                 _f32(decay, x2d.device))
+
+
+# -- the per-tensor codec: one scalar Δ per tensor ----------------------------
+# ``repro`` pads each tensor to an (8, 128)-aligned 2-D block for its
+# kernels; here the kernels sweep the flat tensor, and the zero padding
+# changes no result (it cannot raise the absmax; its codes are cut off).
+
+def _qmax_t(bits: int, device) -> torch.Tensor:
+    """The 0-d fp32 qmax on ``device``: a tensor divisor keeps the plain
+    version's Δ division IEEE on the card."""
+    return _f32(float((1 << (bits - 1)) - 1), device)
+
+
+def quantize(x, bits: int = 16):
+    """-> ``(int32 codes of x's shape, 0-d Δ fp32)``: the absmax and the
+    codes in one call, no host round trip for Δ."""
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    if flat.is_cuda:
+        codes, delta = fused_quantize_cuda(flat, bits=bits)
+    else:
+        codes, delta = fused_quantize_ref(flat, _qmax_t(bits, flat.device))
+    return codes.reshape(x.shape), delta
+
+
+def dequantize(codes, delta):
+    """Integer codes (widened to int32) and a 0-d Δ -> fp32 ``codes·Δ``
+    of the codes' shape."""
+    flat = codes.reshape(-1).to(torch.int32).contiguous()
+    delta = delta.to(torch.float32).reshape(())
+    if flat.is_cuda:
+        out = dequantize_cuda(flat, delta.contiguous())
+    else:
+        out = dequantize_ref(flat, delta)
+    return out.reshape(codes.shape)
+
+
+def quantize_dequantize(x, bits: int = 16):
+    """Receiver-side reconstruction in one call, back in ``x.dtype`` —
+    the codes never land in memory."""
+    flat = x.reshape(-1).to(torch.float32).contiguous()
+    if flat.is_cuda:
+        out, _ = fused_quantize_dequantize_cuda(flat, bits=bits)
+    else:
+        out, _ = fused_quantize_dequantize_ref(flat,
+                                               _qmax_t(bits, flat.device))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# -- the packed tree: one [R, 512] buffer, one scale segment per leaf ---------
+
+def _leaf_segments(leaf, node_axis: bool) -> int:
+    return leaf.shape[0] if (node_axis and leaf.dim() >= 1) else 1
+
+
+def _pack_leaf(leaf, node_axis: bool):
+    """-> ``[rows, 512]`` fp32; ``node_axis`` packs each leading-axis
+    slice into its own whole rows (rows never mix segments)."""
+    if node_axis and leaf.dim() >= 1:
+        n = leaf.shape[0]
+        flat = leaf.reshape(n, -1).to(torch.float32)
+        flat = F.pad(flat, (0, (-flat.shape[1]) % _COLS))
+        return flat.reshape(-1, _COLS)
+    flat = leaf.reshape(-1).to(torch.float32)
+    return F.pad(flat, (0, (-flat.shape[0]) % _COLS)).reshape(-1, _COLS)
+
+
+def _unpack_leaf(rows, shape, node_axis: bool):
+    if node_axis and len(shape) >= 1:
+        return rows.reshape(shape[0], -1)[:, :math.prod(shape[1:])] \
+            .reshape(shape)
+    return rows.reshape(-1)[:math.prod(shape)].reshape(shape)
+
+
+def pack_tree(tree, *, node_axis: bool = False):
+    """Flatten every float leaf of ``tree`` into one ``[R, 512]`` fp32
+    buffer.  Returns ``(buf, seg_ids [R] int32, meta)`` with ``meta =
+    (recipe, n_seg)``: ``recipe`` entries ``("packed", path, shape,
+    dtype, row, n_rows, seg, n_seg_leaf)`` or ``("raw", path, leaf)`` for
+    a non-float leaf, which rides in the meta untouched.  Alignment rows
+    pad R to a multiple of 8 and carry the last segment id; a tree
+    without float leaves gives an ``[8, 512]`` zero buffer."""
+    parts: List[torch.Tensor] = []
+    seg_parts: List[np.ndarray] = []
+    recipe: List[Tuple] = []
+    seg = row = 0
+    for path, leaf in tree_paths(tree):
+        if not (hasattr(leaf, "dtype") and is_float(leaf)):
+            recipe.append(("raw", path, leaf))
+            continue
+        rows = _pack_leaf(leaf, node_axis)
+        nseg = _leaf_segments(leaf, node_axis)
+        seg_parts.append(np.repeat(np.arange(seg, seg + nseg, dtype=np.int32),
+                                   rows.shape[0] // nseg))
+        recipe.append(("packed", path, tuple(leaf.shape), leaf.dtype, row,
+                       rows.shape[0], seg, nseg))
+        parts.append(rows)
+        seg += nseg
+        row += rows.shape[0]
+    if not parts:
+        return (torch.zeros((8, _COLS), dtype=torch.float32),
+                np.zeros((8,), np.int32), (tuple(recipe), 1))
+    buf = torch.cat(parts, dim=0)
+    seg_ids = np.concatenate(seg_parts)
+    rpad = (-buf.shape[0]) % 8
+    if rpad:
+        buf = F.pad(buf, (0, 0, 0, rpad))
+        seg_ids = np.concatenate([seg_ids,
+                                  np.full((rpad,), seg - 1, np.int32)])
+    return buf, seg_ids, (tuple(recipe), seg)
+
+
+def unpack_tree(buf, meta):
+    """Inverse of :func:`pack_tree` (float leaves come back fp32)."""
+    items = []
+    for item in meta[0]:
+        if item[0] == "raw":
+            items.append((item[1], item[2]))
+            continue
+        _, path, shape, _dtype, row, n_rows, _seg, nseg = item
+        items.append((path, _unpack_leaf(buf[row:row + n_rows], shape,
+                                         len(shape) >= 1 and nseg > 1)))
+    return tree_from_paths(items)
+
+
+def _segment_deltas(buf, seg_ids, n_seg: int, bits: int):
+    """Per-segment Δ ``[T]`` and per-row Δ ``[R, 1]`` of an ``[R, C]``
+    buffer: one ``rowabs`` launch, then the segment max of the row maxima
+    (0 for an empty segment) over the device qmax."""
+    deltas, row_delta = _node_row_deltas(buf[None], seg_ids, n_seg, bits)
+    return deltas[0], row_delta[0][:, None]
+
+
+def quantize_tree_packed(tree, bits: int = 16, *, node_axis: bool = False
+                         ) -> Dict:
+    """Quantize a whole tree in two launches (row absmax, codes) plus a
+    tiny segment max.  Returns ``{"codes": [R, C] int32, "scales": [T]
+    fp32, "seg_ids", "meta", "bits"}``."""
+    buf, seg_ids, meta = pack_tree(tree, node_axis=node_axis)
+    deltas, row_delta = _segment_deltas(buf, seg_ids, meta[1], bits)
+    codes = quantize_rows(buf, row_delta, bits=bits)
+    return {"codes": codes, "scales": deltas, "seg_ids": seg_ids,
+            "meta": meta, "bits": bits}
+
+
+def dequantize_tree_packed(payload):
+    """The receiver side of :func:`quantize_tree_packed`: ``codes·Δ_row``
+    in one launch, unpacked into the tree."""
+    ids = torch.as_tensor(payload["seg_ids"], dtype=torch.int64,
+                          device=payload["codes"].device)
+    buf = dequantize_rows(payload["codes"], payload["scales"][ids][:, None])
+    return unpack_tree(buf, payload["meta"])
+
+
+def quantize_dequantize_tree_packed(tree, bits: int = 16, *,
+                                    node_axis: bool = False):
+    """Receiver-side reconstruction of a whole tree: the row absmax and
+    the fused row-scaled round trip, no integer codes in memory."""
+    buf, seg_ids, meta = pack_tree(tree, node_axis=node_axis)
+    _, row_delta = _segment_deltas(buf, seg_ids, meta[1], bits)
+    return unpack_tree(quantize_dequantize_rows(buf, row_delta, bits=bits),
+                       meta)
 
 
 def _wire_int_dtype(bits: int) -> torch.dtype:

@@ -7,18 +7,27 @@
 ``rowabs_sum_cuda`` / ``quantize_rows_ef_cuda`` replaces
 ``rowabs_sum_pallas`` / ``quantize_rows_ef_pallas``, and
 ``mix_packed_cuda`` replaces ``mix_packed_pallas`` (the receiver side of
-the mesh exchange); the CUDA source is ``csrc/quantize.cu``.  Bound on
+the mesh exchange); the per-leaf and per-tensor codec:
+``quantize_dequantize_rows_cuda`` replaces
+``quantize_dequantize_rows_pallas``, ``dequantize_rows_cuda``
+``dequantize_rows_pallas``, ``fused_quantize_cuda`` /
+``fused_quantize_dequantize_cuda`` ``fused_quantize_pallas`` /
+``fused_quantize_dequantize_pallas`` and ``dequantize_cuda``
+``dequantize_pallas``.  The CUDA source is ``csrc/quantize.cu``.  Bound on
 the H100: bytes — rowabs reads 4 B per
 element, quantize_rows reads 4 B and writes a 4 B int32 code per element
 (the mixed variant adds a 4 B qmax per row), rowabs_sum reads 8 B per
 element, quantize_rows_ef reads 8 B and writes 8 B per element,
 mix_packed reads 4 B of its own buffer and 4 B of code per sender for
-each output and writes 4 B.  Design: one warp per 512-wide row with a
+each output and writes 4 B; the per-leaf and per-tensor sweeps read 4 B
+and write 4 B per element.  Design: one warp per 512-wide row with a
 shuffle max for the row reductions; a grid-stride elementwise sweep with
-an IEEE division for the codes (and the new residual); for the mix, a
-grid-stride sweep whose thread walks the senders in order with its
-accumulator in a register.  All are bit-identical to the plain versions
-in ``ref.py``.
+an IEEE division for the codes (and the new residual, or the round trip);
+for the mix, a grid-stride sweep whose thread walks the senders in order
+with its accumulator in a register; for the whole-tensor codec, a block
+max folded into one device word by ``atomicMax`` on its bits, then the
+sweep (two launches, one call).  All are bit-identical to the plain
+versions in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -39,6 +48,12 @@ QUANTIZE_ROWS_MIXED_LAUNCHES = LaunchCounter("quantize_rows_mixed")
 ROWABS_SUM_LAUNCHES = LaunchCounter("rowabs_sum")
 QUANTIZE_ROWS_EF_LAUNCHES = LaunchCounter("quantize_rows_ef")
 MIX_PACKED_LAUNCHES = LaunchCounter("mix_packed")
+QUANTIZE_DEQUANTIZE_ROWS_LAUNCHES = LaunchCounter("quantize_dequantize_rows")
+DEQUANTIZE_ROWS_LAUNCHES = LaunchCounter("dequantize_rows")
+FUSED_QUANTIZE_LAUNCHES = LaunchCounter("fused_quantize")
+FUSED_QUANTIZE_DEQUANTIZE_LAUNCHES = LaunchCounter(
+    "fused_quantize_dequantize")
+DEQUANTIZE_LAUNCHES = LaunchCounter("dequantize")
 
 
 def _rows(x2d, name: str):
@@ -86,6 +101,84 @@ def quantize_rows_mixed_cuda(x2d, row_delta, row_qmax):
     check(rc, "quantize_rows_mixed")
     QUANTIZE_ROWS_MIXED_LAUNCHES.count += 1
     return codes
+
+
+def quantize_dequantize_rows_cuda(x2d, row_delta, *, bits: int = 16):
+    """``[R, C]`` fp32 and ``[R, 1]`` deltas on the card -> the fp32
+    round trip ``codes·Δ_row``, the codes never stored."""
+    r, c = _rows(x2d, "quantize_dequantize_rows")
+    require(row_delta, "quantize_dequantize_rows row_delta", torch.float32,
+            (r, 1))
+    out = torch.empty((r, c), dtype=torch.float32, device=x2d.device)
+    rc = library().quantize_dequantize_rows(
+        x2d.data_ptr(), row_delta.data_ptr(), out.data_ptr(), r, c,
+        _qmaxf(bits), stream_of(x2d))
+    check(rc, "quantize_dequantize_rows")
+    QUANTIZE_DEQUANTIZE_ROWS_LAUNCHES.count += 1
+    return out
+
+
+def dequantize_rows_cuda(codes2d, row_delta):
+    """``[R, C]`` int32 codes and ``[R, 1]`` deltas on the card -> fp32
+    ``codes·Δ_row``."""
+    if codes2d.dim() != 2:
+        raise ValueError(f"dequantize_rows: expected [R, C], got "
+                         f"{tuple(codes2d.shape)}")
+    r, c = codes2d.shape
+    require(codes2d, "dequantize_rows codes", torch.int32)
+    require(row_delta, "dequantize_rows row_delta", torch.float32, (r, 1))
+    out = torch.empty((r, c), dtype=torch.float32, device=codes2d.device)
+    rc = library().dequantize_rows(codes2d.data_ptr(), row_delta.data_ptr(),
+                                   out.data_ptr(), r, c, stream_of(codes2d))
+    check(rc, "dequantize_rows")
+    DEQUANTIZE_ROWS_LAUNCHES.count += 1
+    return out
+
+
+def _fused_call(x, bits: int, dequant: bool):
+    name = "fused_quantize_dequantize" if dequant else "fused_quantize"
+    require(x, f"{name} x", torch.float32)
+    if x.numel() == 0:
+        raise ValueError(f"{name}: an empty tensor has no absmax")
+    out = torch.empty(x.shape, device=x.device,
+                      dtype=torch.float32 if dequant else torch.int32)
+    delta = torch.empty((), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((1,), dtype=torch.int32, device=x.device)
+    rc = getattr(library(), name)(x.data_ptr(), out.data_ptr(),
+                                  delta.data_ptr(), scratch.data_ptr(),
+                                  x.numel(), _qmaxf(bits), stream_of(x))
+    check(rc, name)
+    return out, delta
+
+
+def fused_quantize_cuda(x, *, bits: int = 16):
+    """fp32 ``x`` (any shape) on the card -> ``(int32 codes of x's shape,
+    0-d Δ)``: the absmax and the codes in one call (two launches)."""
+    out = _fused_call(x, bits, dequant=False)
+    FUSED_QUANTIZE_LAUNCHES.count += 1
+    return out
+
+
+def fused_quantize_dequantize_cuda(x, *, bits: int = 16):
+    """fp32 ``x`` (any shape) on the card -> ``(codes·Δ fp32, 0-d Δ)``,
+    the codes never stored."""
+    out = _fused_call(x, bits, dequant=True)
+    FUSED_QUANTIZE_DEQUANTIZE_LAUNCHES.count += 1
+    return out
+
+
+def dequantize_cuda(codes, delta):
+    """int32 codes (any shape) and a 0-d fp32 Δ on the card -> fp32
+    ``codes·Δ``; Δ is read on the card (no host sync)."""
+    require(codes, "dequantize codes", torch.int32)
+    require(delta, "dequantize delta", torch.float32, ())
+    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    rc = library().dequantize(codes.data_ptr(), delta.data_ptr(),
+                              out.data_ptr(), codes.numel(),
+                              stream_of(codes))
+    check(rc, "dequantize")
+    DEQUANTIZE_LAUNCHES.count += 1
+    return out
 
 
 def rowabs_sum_cuda(x2d, res2d, decay: float):

@@ -14,10 +14,20 @@ operation in that order, as ``repro``'s eager jnp path computes them.
 ``out[m] = w_self[m]·own[m] + Σ_j w_rows[m, j]·(codes[j]·Δ[j])``, with
 the sum taken sender by sender in the Pallas kernel's order, each
 product and sum rounded on its own.
+
+The per-leaf and per-tensor tiers: ``quantize_dequantize_rows_ref``
+(the row-scaled round trip, ``codes·Δ_row`` without the codes) and
+``dequantize_rows_ref``; the whole-tensor scalar-Δ codec
+``fused_quantize_ref`` / ``fused_quantize_dequantize_ref`` with
+``Δ = max(max|x| / qmax, tiny)`` (``qmax`` an fp32 tensor on ``x``'s
+device, so the division is IEEE on the card) and ``dequantize_ref``.
 """
 from __future__ import annotations
 
 import torch
+
+
+_TINY = float(torch.finfo(torch.float32).tiny)
 
 
 def _qmaxf(bits: int) -> float:
@@ -74,3 +84,41 @@ def mix_packed_ref(own, codes, row_delta, w_self, w_rows):
         acc = acc + w_rows[:, j].to(torch.float32)[:, None, None] * \
             deq[None]
     return acc
+
+
+def quantize_dequantize_rows_ref(x2d, row_delta, *, bits: int = 16):
+    """``[R, C]`` fp32, ``[R, 1]`` per-row delta -> the fp32 round trip
+    ``codes·Δ_row`` (the codes are never returned)."""
+    qmax = _qmaxf(bits)
+    codes = torch.floor(x2d.to(torch.float32) / row_delta + 0.5)
+    return torch.clamp(codes, -qmax - 1, qmax) * row_delta
+
+
+def dequantize_rows_ref(codes2d, row_delta):
+    """``[R, C]`` integer codes, ``[R, 1]`` per-row delta -> fp32."""
+    return codes2d.to(torch.float32) * row_delta
+
+
+def _fused_codes(x, qmax):
+    x = x.to(torch.float32)
+    delta = torch.clamp_min(torch.amax(torch.abs(x)) / qmax, _TINY)
+    codes = torch.clamp(torch.floor(x / delta + 0.5), -qmax - 1, qmax)
+    return codes, delta
+
+
+def fused_quantize_ref(x, qmax):
+    """Whole-tensor codec: ``x`` (any shape) and a 0-d fp32 ``qmax`` ->
+    ``(int32 codes of x's shape, 0-d Δ)``."""
+    codes, delta = _fused_codes(x, qmax)
+    return codes.to(torch.int32), delta
+
+
+def fused_quantize_dequantize_ref(x, qmax):
+    """Whole-tensor round trip -> ``(codes·Δ fp32, 0-d Δ)``."""
+    codes, delta = _fused_codes(x, qmax)
+    return codes * delta, delta
+
+
+def dequantize_ref(codes, delta):
+    """Integer codes (any shape) and a 0-d fp32 Δ -> fp32 ``codes·Δ``."""
+    return codes.to(torch.float32) * delta

@@ -54,6 +54,18 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, prefix: Tuple = ()):
+    """:func:`tree_map` over one tree, ``fn(path, leaf)`` with each
+    leaf's path as :func:`tree_paths` gives it."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], prefix + (k,))
+                for k in sorted(tree)}
+    if type(tree) in (list, tuple):
+        return type(tree)(tree_map_with_path(fn, sub, prefix + (i,))
+                          for i, sub in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def keystr(path) -> str:
     """A path as ``jax.tree_util.keystr`` renders it: ``['fc1']['kernel']``,
     ``['stages'][0][0]['conv1']['kernel']`` (a dict key by its ``repr``,
