@@ -58,19 +58,30 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     ResNet18 teacher's ``[3, 3, 512, 512]`` leaf) against
     ``core/quantization``, all bit for bit, each call's launches held
     exactly;
-13. with ``--profile`` only: where a round's time goes on the main path,
+13. ``proto-infer``, the paper's Claim 4 at full width (see
+    :func:`run_proto_infer`): on mnist-cnn (2 local epochs) and
+    cifar10-resnet18 (1), node 0's 320 images through
+    ``make_fedavg_step`` (per-leaf adamw), ``compute_local_prototypes``
+    (Eq. 3, ``proto_accum``) and ``nearest_prototype_predict`` on the
+    640-image test split (Eq. 5, ``proto_dist``), the kernel's distances
+    and predictions held to the plain versions and the accuracy printed;
+    then the ProFe pair's KD term through ``kd_loss`` against
+    ``core/distillation.kd_loss`` at T = 3 and 1;
+14. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
     under ``torch.profiler`` (see :func:`profile_rounds`);
-14. a line ``{"kernels": [...]}`` with each kernel's launches on its
+15. a line ``{"kernels": [...]}`` with each kernel's launches on its
     path, error and times, then the card's ``nvidia-smi`` name and power
     limit, then the result line ``{"ok": true, "device": {...}}`` last.
 
 Phases 4-9 each set the kernels' launch counts to 0 just before
 ``run_federation`` and read them just after, check finite F1 every
 round, and hold the run's wire bytes to the JAX package's; phase 10
-does the same on every rank around each mesh run, and phase 12 around
-the whole codec phase (its per-call launches are read as differences).
+does the same on every rank around each mesh run, phase 12 around
+the whole codec phase (its per-call launches are read as differences),
+and phase 13 around each of its driven parts.  Phase 3's ``proto_dist``
+and ``kd_loss`` rows carry every shape they were held at in ``cases``.
 """
 from __future__ import annotations
 
@@ -133,11 +144,14 @@ KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
                "lowrank_apply": "adapters8", "mix_packed": "mesh/ring16",
                "quantize_dequantize_rows": "codec",
                "dequantize_rows": "codec", "fused_quantize": "codec",
-               "fused_quantize_dequantize": "codec", "dequantize": "codec"}
+               "fused_quantize_dequantize": "codec", "dequantize": "codec",
+               "proto_dist": "proto-infer", "kd_loss": "proto-infer"}
 # the per-leaf and per-tensor codec's kernels: only the codec phase runs
 # them
 CODEC_KERNELS = ("quantize_dequantize_rows", "dequantize_rows",
                  "fused_quantize", "fused_quantize_dequantize", "dequantize")
+# Eq. 5's and the KD loss's kernels: only the proto-infer phase runs them
+PROTO_INFER_KERNELS = ("proto_dist", "kd_loss")
 # the multi-node exchange (phase 10): name -> (topology, exchange, wire
 # spec, overlap, rounds, collective bytes per rank and round, mix_packed
 # launches per rank and round).  The bytes are the copies a rank hands to
@@ -1040,6 +1054,345 @@ def run_codec(torch) -> dict:
     return counts
 
 
+# proto_dist's relative tolerance: JAX's own for fp32 (test_kernels.py).
+# It holds for bf16 inputs too (JAX allows 5e-2 there): the kernel and
+# its plain versions cast the same bf16 values to fp32 first.
+PD_RTOL = 1e-4
+# proto_dist in phase 3: (what, N, P, C); each in fp32 and bf16, the
+# first at fp32 is the kernel's row
+PD_CASES = (("mnist-cnn Eq. 5", 640, 128, 10),
+            ("ResNet8 student", 640, 256, 10),
+            ("cifar100 classes", 640, 256, 100),
+            ("ragged", 1001, 200, 37))
+# 256 rows of logits at llama4-scout's vocabulary
+LM_ROWS, LM_VOCAB = 256, 202048
+# kd_loss in phase 3: (what, rows, V, dtype, T); the first is the row
+KD_CASES = (("mnist-cnn epoch", 320, 10, "float32", 3.0),
+            ("mnist-cnn epoch", 320, 10, "float32", 1.0),
+            ("llama4-scout vocab", LM_ROWS, LM_VOCAB, "bfloat16", 1.0),
+            ("llama4-scout vocab", LM_ROWS, LM_VOCAB, "bfloat16", 3.0),
+            ("llama4-scout vocab", LM_ROWS, LM_VOCAB, "float32", 1.0),
+            ("llama4-scout vocab", LM_ROWS, LM_VOCAB, "float32", 3.0),
+            ("ragged", 250, 50280, "bfloat16", 1.0),
+            ("ragged", 250, 50280, "bfloat16", 3.0))
+# Claim 4 in phase 13: model -> local epochs of make_fedavg_step
+CLAIM4_EPOCHS = {"mnist-cnn": 2, "cifar10-resnet18": 1}
+KD_TEMPERATURES = (3.0, 1.0)       # FederationConfig.kd_temperature, and 1
+
+
+def kd_tol(ymax: float, temperature: float) -> float:
+    """|kernel - plain| bound of a per-row KD loss: the finish subtracts
+    terms of the size of max|y|/T, then multiplies by T^2."""
+    return 1e-5 * temperature * (temperature + ymax)
+
+
+def pd_atol(x, protos) -> float:
+    """Absolute d2 tolerance of ``proto_dist``: the expansion cancels
+    terms of the size of max ||x||^2 + max ||p||^2 (real features lie
+    close together: d2 can be 1e-4 of them), so 1e-5 of that."""
+    return 1e-5 * (float(x.float().square().sum(-1).max())
+                   + float(protos.float().square().sum(-1).max()))
+
+
+def pd_close(torch, got, plain, x, protos):
+    """Kernel against a plain version: ``PD_RTOL`` and ``pd_atol``.
+    Returns ``(ok, the elementwise tolerance's largest value)``."""
+    atol = pd_atol(x, protos)
+    ok = torch.allclose(got, plain, rtol=PD_RTOL, atol=atol)
+    return ok, atol + PD_RTOL * float(plain.abs().max())
+
+
+def clear_of_ties(torch, d2, tol: float, mask=None):
+    """Rows whose two smallest (unmasked) distances differ by more than
+    twice the d2 tolerance: there the argmin cannot flip on rounding."""
+    if mask is not None:
+        d2 = torch.where(mask[None, :] > 0, d2, torch.inf)
+    top2 = torch.topk(d2, 2, dim=-1, largest=False).values
+    return (top2[:, 1] - top2[:, 0]) > 2 * tol
+
+
+def check_proto_kd_kernels(torch, timer):
+    """Phase 3, rows 18 and 17: ``proto_dist`` against its plain versions
+    (the expansion and the direct oracle) within :func:`pd_close`, and
+    its argmin away from near-ties, at Eq. 5's shapes in fp32 and bf16;
+    ``kd_loss`` per row against ``kd_loss_rows_ref`` within
+    :func:`kd_tol`, at one node's epoch of mnist-cnn logits, at
+    llama4-scout's vocabulary and at a ragged shape, T = 1 and 3."""
+    from repro_torch.kernels.kd_loss.kd_loss import kd_loss_rows_cuda
+    from repro_torch.kernels.kd_loss.ref import kd_loss_rows_ref
+    from repro_torch.kernels.proto_dist.proto_dist import proto_dist_cuda
+    from repro_torch.kernels.proto_dist.ref import (proto_dist_expand,
+                                                    proto_dist_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = []
+    for what, n, p_dim, c in PD_CASES:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x = torch.randn((n, p_dim), generator=gen, device="cuda").to(dt)
+            protos = torch.randn((c, p_dim), generator=gen,
+                                 device="cuda").to(dt)
+            got = proto_dist_cuda(x, protos)
+            want = proto_dist_expand(x, protos)
+            direct = proto_dist_ref(x, protos)
+            torch.cuda.synchronize()
+            for plain, name in ((want, "expansion"), (direct, "oracle")):
+                ok, tol = pd_close(torch, got, plain, x, protos)
+                expect(ok, f"proto_dist {what} {dtype}: beyond tolerance "
+                           f"{tol:.3e} of the {name}")
+            clear = clear_of_ties(torch, direct, tol)
+            expect(torch.equal(got.argmin(-1)[clear],
+                               direct.argmin(-1)[clear]),
+                   f"proto_dist {what} {dtype}: argmin differs away from "
+                   f"ties")
+            err = float((got - want).abs().max())
+            isz = x.element_size()
+            b_ms, b_by = bound(isz * (n + c) * p_dim + 4 * n * c,
+                               2 * n * c * p_dim + 2 * (n + c) * p_dim
+                               + 4 * n * c)
+            # library yardstick: torch.cdist returns the root ||x - p||,
+            # not its square; it takes no bf16, so bf16 inputs are timed
+            # on fp32 copies made outside the timed region
+            x32, p32 = x.float(), protos.float()
+            cases.append(dict(
+                shape=f"[{n}, {p_dim}] x [{c}, {p_dim}]", dtype=dtype,
+                max_abs_err=err, max_abs_err_oracle=float(
+                    (got - direct).abs().max()),
+                rows_near_ties=int((~clear).sum()),
+                ms=timer(lambda: proto_dist_cuda(x, protos)),
+                plain_ms=timer(lambda: proto_dist_expand(x, protos)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=timer(lambda: torch.cdist(x32, p32))))
+            print(f"proto_dist {what} {cases[-1]['shape']} {dtype}: max "
+                  f"|kernel - expansion| {err:.3e}, - oracle "
+                  f"{cases[-1]['max_abs_err_oracle']:.3e} (tol {tol:.3e}); "
+                  f"argmin equal on {int(clear.sum())} rows, "
+                  f"{cases[-1]['rows_near_ties']} near ties")
+    rows = [dict(name="proto_dist", route="cuda",
+                 source="src/repro_torch/csrc/proto_dist.cu",
+                 replaces="src/repro/kernels/proto_dist/proto_dist.py:31",
+                 **cases[0], cases=cases)]
+
+    cases = []
+    for what, r, v, dtype, temp in KD_CASES:
+        dt = getattr(torch, dtype)
+        ys = (torch.randn((r, v), generator=gen, device="cuda") * 3)
+        yt = (ys + torch.randn((r, v), generator=gen, device="cuda")).to(dt)
+        ys = ys.to(dt)
+        got = kd_loss_rows_cuda(ys, yt, temp)
+        want = kd_loss_rows_ref(ys, yt, temp)
+        torch.cuda.synchronize()
+        ymax = max(float(ys.float().abs().max()), float(yt.float().abs().max()))
+        tol = kd_tol(ymax, temp)
+        err = float((got - want).abs().max())
+        expect(err <= tol and bool(torch.isfinite(got).all()),
+               f"kd_loss {what} [{r}, {v}] {dtype} T={temp}: max error "
+               f"{err:.3e} > {tol:.3e}")
+        isz = ys.element_size()
+        b_ms, b_by = bound(2 * isz * r * v + 4 * r, 11 * r * v)
+        # no library yardstick: no single PyTorch call takes raw logits to
+        # the KL (F.kl_div needs both log-softmaxes made first)
+        cases.append(dict(
+            shape=f"[{r}, {v}]", dtype=dtype, temperature=temp,
+            max_abs_err=err, tol=tol,
+            ms=timer(lambda: kd_loss_rows_cuda(ys, yt, temp)),
+            plain_ms=timer(lambda: kd_loss_rows_ref(ys, yt, temp)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"kd_loss {what} [{r}, {v}] {dtype} T={temp}: max |kernel - "
+              f"plain| {err:.3e} (tol {tol:.3e}, max|y| {ymax:.3g}), mean "
+              f"{float(want.mean()):.4f}")
+        del ys, yt, got, want
+    # identical logits: KL 0 within the tolerance
+    y = torch.randn((LM_ROWS, LM_VOCAB), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for temp in KD_TEMPERATURES:
+        got = kd_loss_rows_cuda(y, y, temp)
+        tol = kd_tol(float(y.float().abs().max()), temp)
+        expect(float(got.abs().max()) <= tol,
+               f"kd_loss of identical logits (T={temp}) "
+               f"{float(got.abs().max()):.3e} > {tol:.3e}")
+    print(f"kd_loss identical logits [{LM_ROWS}, {LM_VOCAB}] bf16: |KL| <= "
+          f"tolerance at T = {KD_TEMPERATURES}")
+    del y
+    rows.append(dict(name="kd_loss", route="cuda",
+                     source="src/repro_torch/csrc/kd_loss.cu",
+                     replaces="src/repro/kernels/kd_loss/kd_loss.py:72",
+                     **{k: v for k, v in cases[0].items()
+                        if k not in ("temperature", "tol")}, cases=cases))
+    for row in rows:
+        for cs in row["cases"]:
+            print(f"  {row['name']:10s} {cs['shape']:24s} {cs['dtype']:8s} "
+                  f"{'T=%g ' % cs['temperature'] if 'temperature' in cs else ''}"
+                  f"kernel {cs['ms']:.4f} ms  plain {cs['plain_ms']:.4f} ms"
+                  f"  library {cs['library_ms']}  bound "
+                  f"{cs['bound_ms']:.4f} ms ({cs['bound_by']})")
+    return rows
+
+
+def run_proto_infer(torch, inputs) -> dict:
+    """Phase 13, ``proto-infer``: the paper's Claim 4 (nearest-prototype
+    inference, ``tests/test_system.py``) at full width on the card, and
+    the ProFe pair's KD term through the ``kd_loss`` kernel.
+
+    1. For each model of ``CLAIM4_EPOCHS`` (mnist-cnn: teacher widths
+       (32, 64), proto_dim 128; cifar10-resnet18: the ResNet18, proto_dim
+       256): node 0's 320 images of the paths' data, ``make_fedavg_step``
+       under per-leaf adamw with ``TrainConfig`` defaults for its local
+       epochs, ``compute_local_prototypes`` (Eq. 3 through
+       ``proto_accum``), the forward of the 640-image test split and
+       ``nearest_prototype_predict`` (Eq. 5 through ``proto_dist``).  The
+       kernel's distances on those features are then held to the plain
+       versions, and its predictions away from near-ties; the Eq. 5
+       accuracy is printed, with no bar.
+    2. The main path's node-0 initial teacher and student
+       (``init_node_state``, seed ``fed.seed * 1000``) forward one local
+       epoch; ``kernels/kd_loss/ops.kd_loss`` on those ``[320, 10]``
+       logits is held to ``core/distillation.kd_loss`` at T = 3 and 1.
+
+    Each driven part sets the launch counts to 0 just before and reads
+    them just after, holding them exactly to its calls (the comparisons'
+    launches come after and are not counted).  Returns the summed
+    counts."""
+    from repro_torch.core import distillation as D
+    from repro_torch.core.baselines import make_fedavg_step
+    from repro_torch.core.profe import (NodeState, compute_local_prototypes,
+                                        init_node_state)
+    from repro_torch.core.prototypes import nearest_prototype_predict
+    from repro_torch.data import batch_index_lists
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.kernels.kd_loss import ops as kd_ops
+    from repro_torch.kernels.proto_dist.proto_dist import proto_dist_cuda
+    from repro_torch.kernels.proto_dist.ref import (proto_dist_expand,
+                                                    proto_dist_ref)
+    from repro_torch.models import derive_student, forward, init_params
+    from repro_torch.optim import make_optimizer, make_plane_optimizer
+    from repro_torch.optim.plane import as_tree
+    from repro_torch.tree import tree_map
+
+    total: dict = {}
+
+    def driven(fn, want, what):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        expect(got == want, f"proto-infer {what}: launched {got} != {want}")
+        for k, v in launch_counts().items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def on_card(data, idx=None):
+        sel = slice(None) if idx is None else torch.as_tensor(idx)
+        return {k: torch.as_tensor(v)[sel].cuda() for k, v in data.items()}
+
+    for model, epochs in CLAIM4_EPOCHS.items():
+        cfg, fed, train, node_data, test_d = inputs[model]
+        node, n, bsz = node_data[0], len(node_data[0]["label"]), \
+            train.batch_size
+        params = tree_map(lambda x: x.cuda(), init_params(
+            cfg, torch.Generator().manual_seed(fed.seed)))
+        opt = make_optimizer(train.optimizer, train.learning_rate,
+                             weight_decay=train.weight_decay,
+                             momentum=train.momentum)
+        ncls = cfg.num_classes
+        state = NodeState(
+            student=params, teacher={}, opt_s=opt.init(params), opt_t={},
+            global_protos=torch.zeros((ncls, cfg.proto_dim), device="cuda"),
+            proto_mask=torch.zeros((ncls,), device="cuda"),
+            round_idx=torch.zeros((), dtype=torch.int32, device="cuda"))
+        step = make_fedavg_step(cfg, opt, grad_clip=train.grad_clip)
+        train_batches = [on_card(node, i) for i in batch_index_lists(
+            n, bsz, fed.seed, epochs=epochs)]
+        proto_batches = [on_card(node, i)
+                         for i in batch_index_lists(n, bsz, fed.seed + 1)]
+        test = on_card(test_d)
+
+        def claim4():
+            nonlocal state
+            losses = []
+            for b in train_batches:
+                state, m = step(state, b)
+                losses.append(m["loss_s"])
+            protos, counts = compute_local_prototypes(
+                cfg, state.student, proto_batches, ncls)
+            with torch.no_grad():
+                f1 = forward(cfg, state.student, {"image": test["image"]}).f1
+            mask = (counts > 0).float()
+            return (torch.stack(losses), protos, counts, mask, f1,
+                    nearest_prototype_predict(f1, protos, mask))
+
+        t0 = time.time()
+        losses, protos, counts, mask, f1, preds = driven(
+            claim4, {"proto_accum": len(proto_batches), "proto_dist": 1},
+            f"{model} Claim 4")
+        seconds = time.time() - t0
+        expect(bool(torch.isfinite(losses).all())
+               and bool(torch.isfinite(protos).all())
+               and int(counts.sum()) == len(proto_batches) * bsz,
+               f"{model} Claim 4: losses, prototypes or counts wrong")
+        # the comparisons: kernel distances on the same features against
+        # the plain versions, and the predictions away from near-ties
+        got = proto_dist_cuda(f1.contiguous(), protos.contiguous())
+        want = proto_dist_expand(f1, protos)
+        direct = proto_dist_ref(f1, protos)
+        torch.cuda.synchronize()
+        for plain, name in ((want, "expansion"), (direct, "oracle")):
+            ok, tol = pd_close(torch, got, plain, f1, protos)
+            expect(ok, f"{model} Claim 4: proto_dist beyond tolerance "
+                       f"{tol:.3e} of the {name}")
+        d2 = torch.where(mask[None, :] > 0, direct, torch.inf)
+        clear = clear_of_ties(torch, direct, tol, mask)
+        expect(torch.equal(preds[clear], d2.argmin(-1)[clear]),
+               f"{model} Claim 4: predictions differ from the plain argmin "
+               f"away from ties")
+        acc = float((preds == test["label"]).float().mean())
+        print(f"{model} Claim 4: {epochs} epoch(s) x {len(train_batches) // epochs} "
+              f"steps, loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f};"
+              f" Eq. 3 over {int(counts.sum())} images; Eq. 5 on "
+              f"{len(preds)} test images: accuracy {acc:.4f}; d2 "
+              f"[{f1.shape[0]}, {protos.shape[0]}] P={protos.shape[1]} max "
+              f"|kernel - expansion| {float((got - want).abs().max()):.3e} "
+              f"(tol {tol:.3e}, d2 in [{float(direct.min()):.4g}, "
+              f"{float(direct.max()):.4g}]), predictions equal on "
+              f"{int(clear.sum())} rows, "
+              f"{int((~clear).sum())} near ties ({seconds:.2f} s, host "
+              f"clock)")
+
+    # the ProFe pair's KD term on node 0's initial teacher and student
+    cfg, fed, train, node_data, _ = inputs["mnist-cnn"]
+    scfg = derive_student(cfg)
+    opt_t = make_optimizer(train.optimizer, train.learning_rate,
+                           weight_decay=train.weight_decay,
+                           momentum=train.momentum)
+    opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
+                                 weight_decay=train.weight_decay,
+                                 momentum=train.momentum,
+                                 grad_clip=train.grad_clip)
+    st = init_node_state(cfg, scfg, torch.Generator().manual_seed(
+        fed.seed * 1000), opt_s, opt_t, cfg.num_classes, device="cuda")
+    n = len(node_data[0]["label"])
+    with torch.no_grad():
+        epoch = [on_card(node_data[0], i)
+                 for i in batch_index_lists(n, train.batch_size, fed.seed)]
+        yt = torch.cat([forward(cfg, st.teacher, b).logits for b in epoch])
+        ys = torch.cat([forward(scfg, as_tree(st.student), b).logits
+                        for b in epoch])
+    got = driven(lambda: [kd_ops.kd_loss(ys, yt, t) for t in KD_TEMPERATURES],
+                 {"kd_loss": len(KD_TEMPERATURES)}, "ProFe KD term")
+    ymax = max(float(ys.abs().max()), float(yt.abs().max()))
+    for t, g in zip(KD_TEMPERATURES, got):
+        want = D.kd_loss(ys, yt, t)
+        err = abs(float(g) - float(want))
+        expect(err <= kd_tol(ymax, t),
+               f"ProFe KD term T={t}: kernel {float(g)!r} vs "
+               f"core/distillation {float(want)!r}")
+        print(f"ProFe KD term {tuple(ys.shape)} T={t}: kernel {float(g):.6f}"
+              f", core/distillation.kd_loss {float(want):.6f}, |diff| "
+              f"{err:.3e} (tol {kd_tol(ymax, t):.3e})")
+    print(f"launches in the proto-infer phase: {total}")
+    return total
+
+
 def path_inputs(model: str):
     """A model's paths' configuration and data: the config at full width,
     20 nodes on a full graph, 2 rounds of 1 local epoch, ``TrainConfig``
@@ -1104,7 +1457,7 @@ def run_path(torch, inputs, name: str):
         # the stacked engine mixes with tensordot; only the mesh exchange
         # launches the fused mix
         "mix_packed": 0})
-    launches.update({k: 0 for k in CODEC_KERNELS})
+    launches.update({k: 0 for k in CODEC_KERNELS + PROTO_INFER_KERNELS})
 
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
@@ -1541,7 +1894,7 @@ def check_mesh_parity(torch, device: str = "cuda",
 
 
 def profile_rounds(torch, inputs, name: str) -> None:
-    """Phase 10 (``--profile``): where a round's time goes on the path
+    """Phase 14 (``--profile``): where a round's time goes on the path
     ``name`` of ``PROFILED``.  After the path's own run (the warm-up:
     kernel build, cuDNN autotuning), it runs once more without the
     profiler and once under ``torch.profiler`` (CPU and CUDA
@@ -1659,6 +2012,7 @@ def main() -> int:
     rows += check_mix_packed(torch, timer,
                              derive_student(get_config("mnist-cnn")))
     rows += check_codec_kernels(torch, timer)
+    rows += check_proto_kd_kernels(torch, timer)
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}
@@ -1687,6 +2041,12 @@ def main() -> int:
     t0 = time.time()
     counts["codec"] = run_codec(torch)
     print(f"codec phase took {time.time() - t0:.1f} s")
+
+    phase("proto-infer: Claim 4 (Eq. 3 + Eq. 5) at full width, the ProFe "
+          "KD term")
+    t0 = time.time()
+    counts["proto-infer"] = run_proto_infer(torch, inputs)
+    print(f"proto-infer phase took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         for name in PROFILED:

@@ -26,14 +26,19 @@ from repro_torch.config.base import FederationConfig, ModelConfig
 from repro_torch.core import distillation as D
 from repro_torch.core import prototypes as P
 from repro_torch.core.wire_state import CodecState
+from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.models import ModelOutput, forward, params_from_numpy
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
-from repro_torch.tree import tree_from_paths, tree_map, tree_paths
+from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
+                              tree_paths)
 
 
 class NodeState(NamedTuple):
-    student: Plane               # buf [R, 512] ([N, R, 512] stacked)
+    # buf [R, 512] ([N, R, 512] stacked); under make_fedavg_step
+    # (core/baselines.py) a per-leaf dict tree of autograd leaves, and
+    # teacher / opt_t are empty dicts there
+    student: Plane
     teacher: Any                 # dict tree of [...] ([N, ...] stacked)
     # the optimizers' own states (``make_plane_optimizer`` and the
     # per-leaf ``make_optimizer``):
@@ -298,3 +303,32 @@ def stack_states(states: List[NodeState]) -> NodeState:
 def normalize_protos(sums, counts):
     """Eq. 3 class means from raw accumulators: ``sums / max(counts, 1)``."""
     return sums / torch.clamp_min(counts, 1.0)[..., None]
+
+
+@torch.no_grad()
+def compute_local_prototypes(cfg: ModelConfig, params, batches,
+                             n_classes: int, *, raw: bool = False):
+    """Stream a node's local data once and accumulate Eq. 3: per batch,
+    the forward and one ``proto_accumulate_nodes`` on a ``[1, B, P]``
+    view (the ``proto_accum`` kernel on the card), the partial sums
+    added in batch order.  ``params`` is a parameter tree or a Plane;
+    ``batches`` an iterable of dicts of arrays or tensors (moved to the
+    parameters' device).  Returns ``(protos [C, P], counts [C])``, or
+    with ``raw=True`` the un-normalized ``(sums, counts)``; an empty
+    stream gives zeros."""
+    if isinstance(params, Plane):
+        params = as_tree(params)
+    dev = tree_leaves(params)[0].device
+    sums = torch.zeros((n_classes, cfg.proto_dim), dtype=torch.float32,
+                       device=dev)
+    counts = torch.zeros((n_classes,), dtype=torch.float32, device=dev)
+    for b in batches:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        f1 = forward(cfg, params, batch).f1
+        s_add, c_add = proto_accumulate_nodes(
+            f1[None], proto_labels(cfg, batch)[None], n_classes)
+        sums = sums + s_add[0]
+        counts = counts + c_add[0]
+    if raw:
+        return sums, counts
+    return normalize_protos(sums, counts), counts

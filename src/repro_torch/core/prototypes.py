@@ -1,11 +1,40 @@
-"""Prototype learning (paper Sec. III-B): Eq. 4 over all nodes and the
-Eq. 6 prototype loss.  Eq. 3 runs in ``kernels/proto_accum``; Eq. 4 per
-neighbourhood in ``core/round_ops.py``."""
+"""Prototype learning (paper Sec. III-B, following FedProto with CE loss).
+
+* Eq. 3 — local prototype: class mean of the representations f_1(x)
+  (one batch here; streamed through ``kernels/proto_accum`` by
+  ``core/profe.compute_local_prototypes``).
+* Eq. 4 — global prototype: instance-count-weighted mean over the nodes
+  that know the class (per neighbourhood in ``core/round_ops.py``).
+* Eq. 5 — nearest-prototype inference through ``kernels/proto_dist``.
+* Eq. 6 — prototype MSE loss against the true class's global prototype.
+"""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.proto_dist.ops import nearest_prototype
+from repro_torch.kernels.proto_dist.ref import proto_dist_expand
+
+# Eq. 5: the label of the nearest global prototype (L2) among the classes
+# with a prototype, through the proto_dist kernel on the card
+nearest_prototype_predict = nearest_prototype
+# ||x - c||^2 through the expansion x² - 2xc + c², in plain differentiable
+# ops (FedGPD's loss differentiates it; the kernel has no backward)
+pairwise_sq_dists = proto_dist_expand
+
+
+def local_prototypes(f1, labels, n_classes: int) -> Tuple[torch.Tensor,
+                                                           torch.Tensor]:
+    """Eq. 3. f1 ``[N, P]``, labels ``[N]`` int -> (protos ``[C, P]``,
+    counts ``[C]``), through the one-hot.  Classes absent locally get a
+    zero prototype and count 0."""
+    classes = torch.arange(n_classes, device=labels.device)
+    onehot = (labels[:, None] == classes).float()                   # [N, C]
+    counts = torch.sum(onehot, dim=0)                               # [C]
+    sums = torch.einsum("nc,np->cp", onehot, f1.float())
+    return sums / torch.clamp_min(counts, 1.0)[:, None], counts
 
 
 def aggregate_prototypes(protos, counts) -> Tuple[torch.Tensor,
@@ -21,6 +50,18 @@ def aggregate_prototypes(protos, counts) -> Tuple[torch.Tensor,
     glob = torch.einsum("mc,mcp->cp", w, protos.float())
     mask = (n_j > 0).float()
     return glob, mask
+
+
+def aggregate_prototypes_strict(protos, counts) -> Tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """The literal Eq. 4, with the ``1/|N_j|`` prefactor: the weighted
+    mean divided again by the number of nodes that know each class."""
+    n_j = torch.sum(counts, dim=0)
+    nodes_knowing = torch.sum((counts > 0).float(), dim=0)
+    w = counts / torch.clamp_min(n_j, 1.0)[None, :]
+    glob = torch.einsum("mc,mcp->cp", w, protos.float())
+    glob = glob / torch.clamp_min(nodes_knowing, 1.0)[:, None]
+    return glob, (n_j > 0).float()
 
 
 def proto_mse_loss(f1, global_protos, labels, proto_mask) -> torch.Tensor:

@@ -29,8 +29,8 @@ from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("lowrank_apply.cu", "opt_update.cu", "proto_accum.cu",
-           "quantize.cu")
+SOURCES = ("kd_loss.cu", "lowrank_apply.cu", "opt_update.cu",
+           "proto_accum.cu", "proto_dist.cu", "quantize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -72,6 +72,10 @@ SIGNATURES = {
     # w, out, coeffs, b, a, n_nodes, n_send, lead, d, k, r, per_recv,
     # w_stride, out_stride, stream
     "lowrank_apply": (_P,) * 5 + (_I32,) * 7 + (_I64, _I64, _P),
+    # x, protos, out, n, c, p_dim, bf16, stream
+    "proto_dist": (_P,) * 3 + (_I32,) * 4 + (_P,),
+    # ys, yt, out, rows, v, inv_t, inv_t_sq, bf16, stream
+    "kd_loss_rows": (_P,) * 3 + (_I64, _I64, _F32, _F32, _I32, _P),
 }
 
 
