@@ -13,7 +13,18 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    after warm-up, L2 flushed and the card busy before each, so host launch
    latency stays outside the events), its plain version's time, the
    time of one PyTorch library call computing the same function where
-   there is one, and the least time the card could take (``bound_ms``);
+   there is one, and the least time the card could take (``bound_ms``).
+   ``proto_accum`` is held bit for bit to its batch-order plain version
+   (``proto_accum_batch_order``: the kernel's adds in its order) at the
+   main path's ``[20, 32, 128]`` and at a three-chunk ``[3, 300, 100]``
+   batch with labels outside ``[0, C)``, and to the one-hot einsum within
+   rtol 1e-6; ``lowrank_apply`` bit for bit at fc1, conv2, in place on
+   the student plane, with ``A`` shared over 300 senders, beyond the
+   bank's reach, where its launch plan must take the groups design, and
+   at fc1 at ranks 96 to 256, where the plan shortens the ``cp.async``
+   ring to fit (the bank at rings of four and three senders, the groups
+   design at three and two).  Both rows carry their
+   launch plan (``plan``) and the shapes they were held at (``cases``);
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -135,7 +146,10 @@ ADAPTER_LEAVES = 3
 # the student-plane sweep each optimizer launches once per training step
 OPT_KERNEL = {"adamw": "adamw_update", "sgd": "sgd_update",
               "adafactor": "adafactor_apply"}
-# the path whose run a kernel's "launches" are read from
+# the path whose run a kernel's "launches" are read from (phase 3's
+# extra shapes -- proto_accum's three-chunk batch against its batch-order
+# plain version, lowrank_apply's 300 senders beyond the bank and its ranks
+# beyond the wire's -- are checks only and launch on no path)
 KERNEL_PATH = {"adamw_update": "16", "proto_accum": "16", "rowabs": "16",
                "quantize_rows": "16", "quantize_rows_mixed": "4/16",
                "rowabs_sum": "4/16+ef", "quantize_rows_ef": "4/16+ef",
@@ -273,8 +287,10 @@ def check_kernels(torch, timer, student_cfg):
     import numpy as np
     from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
     from repro_torch.kernels.opt_update.ref import adamw_update_ref
-    from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
-    from repro_torch.kernels.proto_accum.ref import proto_accum_ref
+    from repro_torch.kernels.proto_accum.proto_accum import (
+        COLS, ROWS, THREADS, proto_accum_cuda, proto_accum_smem)
+    from repro_torch.kernels.proto_accum.ref import (proto_accum_batch_order,
+                                                     proto_accum_ref)
     from repro_torch.kernels.quantize.ops import (_node_row_deltas,
                                                   _seg_qmax,
                                                   pack_plane_payload)
@@ -460,17 +476,37 @@ def check_kernels(torch, timer, student_cfg):
     labels = torch.randint(0, ncls, (N_NODES, bsz), generator=gen,
                            dtype=torch.int32).cuda()
     s_got, c_got = proto_accum_cuda(f1, labels, ncls)
+    s_bat, c_bat = proto_accum_batch_order(f1, labels, ncls)
     s_want, c_want = proto_accum_ref(f1, labels, ncls)
     torch.cuda.synchronize()
-    expect(torch.equal(c_got, c_want),
+    expect(torch.equal(c_got, c_want) and torch.equal(c_got, c_bat),
            "proto_accum counts disagree")
+    # the kernel adds in batch order, as its batch-order plain version does
+    expect(ulp_diff(torch, s_got, s_bat) == 0,
+           "proto_accum sums are not bit-identical to the batch-order plain "
+           "version")
     # the plain einsum sums in cuBLAS's order, the kernel in batch order
     expect(torch.allclose(s_got, s_want, rtol=1e-6, atol=0),
            "proto_accum sums disagree beyond rtol 1e-6")
     rel = float(((s_got - s_want).abs() / s_want.abs().clamp_min(1e-30))
                 .max())
-    print(f"proto_accum {tuple(f1.shape)} C={ncls}: counts bit-exact, sums "
-          f"max rel err {rel:.3e}")
+    print(f"proto_accum {tuple(f1.shape)} C={ncls}: sums bit-identical to "
+          f"the batch-order plain version, counts equal; einsum max rel err "
+          f"{rel:.3e}")
+    # a batch of three staged chunks, P not a multiple of 4 (4-byte
+    # copies), labels outside [0, C)
+    rf1 = torch.relu(torch.randn((3, 2 * ROWS + 44, 100), generator=gen))
+    rlab = torch.randint(-1, 9, rf1.shape[:2], generator=gen,
+                         dtype=torch.int32)
+    r_got = proto_accum_cuda(rf1.cuda(), rlab.cuda(), 7)
+    r_bat = proto_accum_batch_order(rf1.cuda(), rlab.cuda(), 7)
+    torch.cuda.synchronize()
+    expect(ulp_diff(torch, r_got[0], r_bat[0]) == 0
+           and torch.equal(r_got[1], r_bat[1]),
+           f"proto_accum at {tuple(rf1.shape)} C=7 is not bit-identical to "
+           f"the batch-order plain version")
+    print(f"proto_accum {tuple(rf1.shape)} C=7, labels in [-1, 8]: "
+          f"bit-identical to the batch-order plain version")
     ms = timer(lambda: proto_accum_cuda(f1, labels, ncls))
     plain_ms = timer(lambda: proto_accum_ref(f1, labels, ncls))
     node_cls = (torch.arange(N_NODES, device="cuda")[:, None] * ncls
@@ -488,9 +524,13 @@ def check_kernels(torch, timer, student_cfg):
                      source="src/repro_torch/csrc/proto_accum.cu",
                      replaces="src/repro/kernels/proto_accum/"
                               "proto_accum.py:57",
-                     max_abs_err=float((s_got - s_want).abs().max()), ms=ms,
+                     max_abs_err=float((s_got - s_bat).abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms))
+                     library_ms=lib_ms,
+                     plan=dict(cols=COLS, chunk_rows=ROWS, threads=THREADS,
+                               grid=[-(-pdim // COLS), N_NODES],
+                               smem=proto_accum_smem(bsz, ncls)),
+                     cases=[[list(f1.shape), ncls], [list(rf1.shape), 7]]))
     for row in rows:
         print(f"  {row['name']:19s} kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  "
@@ -597,14 +637,30 @@ def check_lowrank(torch, timer, student_cfg):
 
     * at fc1's ``w [20, 1568, 128]``, timed, beside ``baddbmm``;
     * at conv2's ``w [20, 3, 3, 16, 32]``, whose 3×3 lead axes fold into
-      the launch and whose 16 rows fill a quarter of a row tile;
+      the launch and whose 16 rows fill a quarter of a row tile (too few
+      tiles for the bank: the groups design in both variants);
     * in place on 20 nodes' real student plane, through the merge's own
       sweep ``adapter_apply_plane`` (conv2, fc1 and fc2 at their row
       spans, the rest copied): every lane of the plane against the plain
-      version applied to the same views, padding included."""
+      version applied to the same views, padding included;
+    * with ``A`` shared beyond the bank's reach (S = 300 senders of a
+      ``[64, 32]`` leaf: the bank ``D[S][tile]`` exceeds a block's shared
+      memory at every tile), where the launch plan must take the groups
+      design with ``A``'s receiver stride 0;
+    * at fc1 beyond the adapter wire's rank: rank 128 with ``A`` shared
+      (the bank, a ring of four senders) and per receiver (the groups
+      design, a ring of two), rank 96 per receiver (a ring of three) and
+      rank 256 with ``A`` shared (the bank, a ring of three), each plan
+      held to the design and ring depth named.
+
+    Each case prints its launch plan (``lowrank_plan``: design, tile,
+    ring depth, shared memory); the row carries the timed shapes' plans
+    and every case's.  fc1 with ``A`` shared must take the bank design."""
+    from dataclasses import asdict
+
     from repro_torch.core.adapters import adapter_layout, split_student
     from repro_torch.kernels.lowrank_apply.lowrank_apply import (
-        lowrank_apply_cuda)
+        lowrank_apply_cuda, lowrank_plan)
     from repro_torch.kernels.lowrank_apply.ops import adapter_apply_plane
     from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
     from repro_torch.models import init_params
@@ -615,7 +671,7 @@ def check_lowrank(torch, timer, student_cfg):
     n, r = N_NODES, 8
     coeffs = ((1.0 - torch.eye(n)) / n).cuda()
 
-    def factors(lead, d, k, scale_a):
+    def factors(lead, d, k, scale_a, r=r):
         b = (torch.randn((n,) + lead + (d, r), generator=gen)
              / math.sqrt(d)).cuda()
         a = {"shared": (torch.randn((n,) + lead + (r, k), generator=gen)
@@ -629,8 +685,24 @@ def check_lowrank(torch, timer, student_cfg):
     w = (torch.randn((n, d, k), generator=gen) * 0.05).cuda()
     b, variants = factors((), d, k, 1e-3)
     out = torch.empty_like(w)
-    rows = {}
+    rows, cases = {}, []
+
+    def plan_of(w, s, variant, r=r):
+        plan = lowrank_plan(w.shape[0], s, math.prod(w.shape[1:-2]),
+                            w.shape[-2], w.shape[-1], r, variant == "per_recv")
+        cases.append(dict(w=list(w.shape), senders=s, rank=r,
+                          variant=variant, **asdict(plan)))
+        return plan
+
+    def says(plan):
+        return (f"{plan.design} {plan.tile_d}x{plan.tile_k}, grid "
+                f"{plan.grid}, {plan.threads} threads, ring of "
+                f"{plan.stages}, {plan.smem} B shared")
+
     for variant, a in variants.items():
+        plan = plan_of(w, n, variant)
+        expect(plan.design == ("bank" if variant == "shared" else "groups"),
+               f"lowrank_plan took {plan.design} at fc1 ({variant})")
         got = lowrank_apply_cuda(w, coeffs, b, a, out=out).clone()
         want = lowrank_apply_ref(w, coeffs, b, a)
         torch.cuda.synchronize()
@@ -657,16 +729,18 @@ def check_lowrank(torch, timer, student_cfg):
                                 + coeffs.numel()), ops)
         rows[variant] = dict(max_abs_err=float((got - want).abs().max()),
                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms)
+                             bound_by=b_by, library_ms=lib_ms,
+                             plan=asdict(plan))
         print(f"lowrank_apply {variant} w {tuple(w.shape)} a "
-              f"{tuple(a.shape)}: bit-exact; baddbmm differs by "
-              f"{float((lib - want).abs().max()):.3e}")
+              f"{tuple(a.shape)} ({says(plan)}): bit-exact; baddbmm differs "
+              f"by {float((lib - want).abs().max()):.3e}")
 
     # conv2: lead axes (3, 3), d = 16 < one 64-row tile
     lead, d, k = (3, 3), 16, 32
     w = (torch.randn((n,) + lead + (d, k), generator=gen) * 0.05).cuda()
     b, variants = factors(lead, d, k, 0.1)
     for variant, a in variants.items():
+        plan = plan_of(w, n, variant)
         got = lowrank_apply_cuda(w, coeffs, b, a)
         want = lowrank_apply_ref(w, coeffs, b, a)
         torch.cuda.synchronize()
@@ -674,7 +748,7 @@ def check_lowrank(torch, timer, student_cfg):
                f"lowrank_apply ({variant}) at conv2's shapes is not "
                f"bit-exact with its plain version")
         print(f"lowrank_apply {variant} w {tuple(w.shape)} a "
-              f"{tuple(a.shape)}: bit-exact")
+              f"{tuple(a.shape)} ({says(plan)}): bit-exact")
 
     # in place on the real plane, through the merge's sweep
     planes = [plane_from_tree(init_params(student_cfg, gen))
@@ -711,10 +785,52 @@ def check_lowrank(torch, timer, student_cfg):
         print(f"lowrank_apply {variant} in place on the student plane "
               f"{tuple(plane.buf.shape)} ({', '.join(sorted(fs))}): "
               f"bit-exact on every lane, padding included")
+
+    # A shared beyond the bank's reach: the groups design, receiver stride 0
+    s_far, d, k = 300, 64, 32
+    w = (torch.randn((n, d, k), generator=gen) * 0.05).cuda()
+    c_far = (torch.rand((n, s_far), generator=gen) / s_far).cuda()
+    b = (torch.randn((s_far, d, r), generator=gen) / math.sqrt(d)).cuda()
+    a = (torch.randn((s_far, r, k), generator=gen) * 1e-2).cuda()
+    plan = plan_of(w, s_far, "shared")
+    expect(plan.design == "groups",
+           f"lowrank_plan took {plan.design} for {s_far} senders with A "
+           f"shared; the bank cannot hold them")
+    got = lowrank_apply_cuda(w, c_far, b, a)
+    want = lowrank_apply_ref(w, c_far, b, a)
+    torch.cuda.synchronize()
+    expect(ulp_diff(torch, got, want) == 0,
+           f"lowrank_apply with A shared over {s_far} senders is not "
+           f"bit-exact with its plain version")
+    print(f"lowrank_apply shared w {tuple(w.shape)} a {tuple(a.shape)} "
+          f"({says(plan)}): bit-exact")
+
+    # fc1 beyond the wire's rank 8: each design at each ring depth it takes
+    d, k = 1568, 128
+    w = (torch.randn((n, d, k), generator=gen) * 0.05).cuda()
+    for r_hi, variant, design, stages in ((128, "shared", "bank", 4),
+                                          (128, "per_recv", "groups", 2),
+                                          (96, "per_recv", "groups", 3),
+                                          (256, "shared", "bank", 3)):
+        b, variants = factors((), d, k, 1e-3, r=r_hi)
+        a = variants[variant]
+        plan = plan_of(w, n, variant, r=r_hi)
+        expect((plan.design, plan.stages) == (design, stages),
+               f"lowrank_plan took {plan.design} with a ring of "
+               f"{plan.stages} at fc1, rank {r_hi} ({variant})")
+        got = lowrank_apply_cuda(w, coeffs, b, a)
+        want = lowrank_apply_ref(w, coeffs, b, a)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got, want) == 0,
+               f"lowrank_apply ({variant}) at rank {r_hi} is not bit-exact "
+               f"with its plain version")
+        print(f"lowrank_apply {variant} rank {r_hi} w {tuple(w.shape)} a "
+              f"{tuple(a.shape)} ({says(plan)}): bit-exact")
+
     row = dict(name="lowrank_apply", route="cuda",
                source="src/repro_torch/csrc/lowrank_apply.cu",
                replaces="src/repro/kernels/lowrank_apply/lowrank_apply.py:53",
-               **rows["shared"])
+               **rows["shared"], cases=cases)
     row["per_recv"] = rows["per_recv"]
     print(f"  {'lowrank_apply':19s} kernel {row['ms']:.4f} ms  plain "
           f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms  "

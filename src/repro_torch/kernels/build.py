@@ -69,9 +69,11 @@ SIGNATURES = {
     # own, codes, row_delta, w_self, w_rows, out, m, s, rows, cols,
     # float_codes, stream
     "mix_packed": (_P,) * 6 + (_I32, _I32, _I64, _I32, _I32, _P),
-    # w, out, coeffs, b, a, n_nodes, n_send, lead, d, k, r, per_recv,
-    # w_stride, out_stride, stream
-    "lowrank_apply": (_P,) * 5 + (_I32,) * 7 + (_I64, _I64, _P),
+    # w, out, coeffs, b, a, n_nodes, n_send, lead, d, k, r, a_recv_stride,
+    # w_stride, out_stride, design, tile_d, tile_k, group, stages, smem,
+    # stream
+    "lowrank_apply": ((_P,) * 5 + (_I32,) * 6 + (_I64,) * 3 + (_I32,) * 5
+                      + (_I64, _P)),
     # x, protos, out, n, c, p_dim, bf16, stream
     "proto_dist": (_P,) * 3 + (_I32,) * 4 + (_P,),
     # ys, yt, out, rows, v, inv_t, inv_t_sq, bf16, stream

@@ -10,23 +10,29 @@ k = 128, r = 8), against about ``4·(2·N·L·d·k)`` bytes: with ``A`` shared
 each ``B_j @ A_j`` is the same for every receiver, so the function needs
 only ``S·L·d·k·2r + N·L·d·k·(2S + 1)`` fp32 flops and is bound by its
 bytes; per receiver every ``B_j @ Ã_ij`` is its own, ``N·L·d·k·S·(2r+2)``
-flops, and the flops take twice the bytes' time.  This kernel computes
-each sender's product once per receiver in both variants.
-Design: one block per (receiver, lead slice, 64×32 output tile); each
-sender's ``B`` tile ``[64, r]`` (transposed) and ``A`` tile ``[r, 32]``
-are staged in shared memory (the rank axis is never split) and each
-thread keeps eight outputs of one column in registers across the
-senders, reading its eight ``B`` values per rank step as two 16-byte
-loads, so the dense per-sender ``[d, k]`` product never reaches device
-memory.  ``w`` may
-be a strided view of the plane (its nodes any distance apart) and
-``out`` may be ``w`` itself: the merge writes the plane in place.  Its
-plain version is :func:`~repro_torch.kernels.lowrank_apply.ref.lowrank_apply_ref`
+flops, and the flops take twice the bytes' time.
+
+Design (:func:`lowrank_plan` picks it): with ``A`` shared, the *bank*
+design computes each sender's product once per 32×16 output tile into a
+shared-memory bank ``D[S][tile]`` and then sweeps every receiver out of
+it; per receiver (or when the bank cannot hold S senders, the rows are
+not 16-byte aligned, or its blocks would not fill the card) the *groups*
+design gives a block a 64×32 tile of four receivers and reads each
+sender's ``B`` tile once for all four.  Both stream the senders' tiles
+through a ring of ``cp.async`` buffers, 2 to ``MAX_STAGES`` deep: the
+deepest that fits beside the rest of the block's shared memory at this
+rank.
+``w`` may be a strided view of the plane (its nodes any distance apart)
+and ``out`` may be ``w`` itself: the merge writes the plane in place.
+Its plain version is
+:func:`~repro_torch.kernels.lowrank_apply.ref.lowrank_apply_ref`
 (bit-exact: the same fp32 operations in the same order).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -36,8 +42,85 @@ from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref  # noqa: F40
 
 LOWRANK_APPLY_LAUNCHES = LaunchCounter("lowrank_apply")
 
-# the B tile [r][64] and the A tile [r][32] must fit 48 KB of shared memory
-MAX_RANK = 48 * 1024 // ((64 + 32) * 4)
+SMEM_MAX = 232_448          # shared memory a block may opt in to (sm_90)
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+MAX_STAGES = 4              # cp.async ring depth, in senders, at most
+PAD = 4                     # a staged B^T row holds tile rows + PAD floats
+BANK_TILE = (32, 16)        # bank: rows, cols (four columns a thread)
+GROUP_TILE = (64, 32)       # groups: rows, cols (eight rows a thread)
+GROUP = 4                   # groups: receivers a block
+DESIGNS = {"bank": 0, "groups": 1}
+
+
+def max_rank(per_recv: bool) -> int:
+    """The largest rank the kernels take: the groups design's ring of two
+    stages (a ``B`` tile and one ``A`` tile, or ``GROUP`` per receiver)
+    within a block's shared memory.  The bank design gives way to it
+    where its own does not fit."""
+    n_a = GROUP if per_recv else 1
+    return SMEM_MAX // (4 * 2 * (GROUP_TILE[0] + PAD + n_a * GROUP_TILE[1]))
+
+
+MAX_RANK = max_rank(True)   # the rank both variants take
+
+
+@dataclass(frozen=True)
+class LowrankPlan:
+    """One launch: the design, its output tile, receivers a block
+    (``group``, all N for the bank), threads a block, senders in the
+    ``cp.async`` ring (``stages``), the grid ``(tiles, lead, receiver
+    groups)`` and its dynamic shared memory in bytes."""
+    design: str
+    tile_d: int
+    tile_k: int
+    group: int
+    threads: int
+    stages: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+
+def _tiles(d: int, k: int, tile_d: int, tile_k: int) -> int:
+    return -(-d // tile_d) * -(-k // tile_k)
+
+
+def _stages(fixed: int, per_stage: int) -> int:
+    """The deepest ring, 2 to ``MAX_STAGES`` senders of ``per_stage``
+    bytes, that fits beside ``fixed`` bytes; 0 if none does."""
+    for stages in range(MAX_STAGES, 1, -1):
+        if fixed + stages * per_stage <= SMEM_MAX:
+            return stages
+    return 0
+
+
+def lowrank_plan(n: int, s: int, lead: int, d: int, k: int, r: int,
+                 per_recv: bool, *, aligned: bool = True) -> LowrankPlan:
+    """The launch of ``lowrank_apply`` for N receivers, S senders,
+    ``lead`` folded lead slices, a ``[d, k]`` leaf and rank r: the bank
+    design when ``A`` is shared, the rows are 16-byte aligned (``k`` a
+    multiple of 4 and ``aligned``: ``w`` and ``out`` start and step
+    between nodes on 16 bytes), its bank and a ring of two stages fit and
+    its blocks fill the card (``SMS`` or more), else the groups design
+    (``A``'s receiver stride 0 when shared).  Raises for a rank the
+    kernels do not take."""
+    top = max_rank(per_recv)
+    if not 0 < r <= top:
+        raise ValueError(f"lowrank_apply: rank must be in [1, {top}], "
+                         f"got {r}")
+    if not per_recv and aligned and k % 4 == 0:
+        td, tk = BANK_TILE
+        tiles, bank, ring = _tiles(d, k, td, tk), 4 * s * td * tk, \
+            4 * r * (td + PAD + tk)
+        stages = _stages(bank, ring)
+        if stages and lead * tiles >= SMS:
+            return LowrankPlan("bank", td, tk, n, td * tk // 4, stages,
+                               (tiles, lead, 1), bank + stages * ring)
+    td, tk = GROUP_TILE
+    ring = 4 * r * (td + PAD + (GROUP if per_recv else 1) * tk)
+    stages = _stages(0, ring)
+    return LowrankPlan("groups", td, tk, GROUP, td * tk // 8, stages,
+                       (_tiles(d, k, td, tk), lead, -(-n // GROUP)),
+                       stages * ring)
 
 
 def _node_stride(t, name: str) -> int:
@@ -68,6 +151,12 @@ def lowrank_apply_cuda(w, coeffs, b, a, *, out=None):
     s, r = b.shape[0], b.shape[-1]
     lead = math.prod(lead_shape)
     per_recv = a.dim() == b.dim() + 1
+    aligned = all(t.stride(0) % 4 == 0 and t.data_ptr() % 16 == 0
+                  for t in (w, out) if t is not None)
+    plan = lowrank_plan(n, s, lead, d, k, r, per_recv, aligned=aligned)
+    if n > 65535 or lead > 65535:
+        raise ValueError(f"lowrank_apply: {n} nodes x {lead} lead slices "
+                         f"exceed the grid")
     w_stride = _node_stride(w, "lowrank_apply w")
     if out is None:
         out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
@@ -79,17 +168,12 @@ def lowrank_apply_cuda(w, coeffs, b, a, *, out=None):
     require(b, "lowrank_apply b", torch.float32, (s,) + lead_shape + (d, r))
     require(a, "lowrank_apply a", torch.float32,
             ((n,) if per_recv else ()) + (s,) + lead_shape + (r, k))
-    if not 0 < r <= MAX_RANK:
-        raise ValueError(f"lowrank_apply: rank must be in [1, {MAX_RANK}], "
-                         f"got {r}")
-    if n > 65535 or lead > 65535:
-        raise ValueError(f"lowrank_apply: {n} nodes x {lead} lead slices "
-                         f"exceed the grid")
-    rc = library().lowrank_apply(w.data_ptr(), out.data_ptr(),
-                                 coeffs.data_ptr(), b.data_ptr(),
-                                 a.data_ptr(), n, s, lead, d, k, r,
-                                 int(per_recv), w_stride, out_stride,
-                                 stream_of(w))
+    a_recv_stride = s * lead * r * k if per_recv else 0
+    rc = library().lowrank_apply(
+        w.data_ptr(), out.data_ptr(), coeffs.data_ptr(), b.data_ptr(),
+        a.data_ptr(), n, s, lead, d, k, r, a_recv_stride, w_stride,
+        out_stride, DESIGNS[plan.design], plan.tile_d, plan.tile_k,
+        plan.group, plan.stages, plan.smem, stream_of(w))
     check(rc, "lowrank_apply")
     LOWRANK_APPLY_LAUNCHES.count += 1
     return out
