@@ -24,7 +24,13 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    at fc1 at ranks 96 to 256, where the plan shortens the ``cp.async``
    ring to fit (the bank at rings of four and three senders, the groups
    design at three and two).  Both rows carry their
-   launch plan (``plan``) and the shapes they were held at (``cases``);
+   launch plan (``plan``) and the shapes they were held at (``cases``).
+   ``fused_quantize`` and ``fused_quantize_dequantize`` (one cooperative
+   launch each) are held bit for bit, codes and Δ, at the cases of
+   :func:`fused_cases` (the teacher's leaf, mnist-cnn leaves, a view at
+   element offset 1, 48 MB beyond what the grid stages, all zeros, a
+   negative absmax); their rows carry the cases and the teacher leaf's
+   launch plan (``design``);
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -880,17 +886,52 @@ def bits_equal(torch, a, b) -> bool:
     return torch.equal(a, b)
 
 
+def fused_cases(torch, teacher):
+    """The whole-tensor codec's cases in phase 3: ``(what, x, bits)``.
+    The teacher's leaf first (its row's times); mnist-cnn's fc1, conv2
+    and fc2-bias leaves; a view at element offset 1 (2,359,297 elements,
+    not on 16 bytes); 12,582,912 elements (48 MB, more than the grid
+    stages) at widths 16 and 4; all zeros; an absmax that is a negative
+    element's magnitude."""
+    from repro_torch.config import get_config
+    from repro_torch.models import derive_student, init_params
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator().manual_seed(5)
+    leaves = {tuple(t.shape): t for t in tree_leaves(init_params(
+        derive_student(get_config("mnist-cnn")), gen))}
+    view = torch.randn(2359298, generator=gen).cuda()[1:]
+    big = torch.randn(12582912, generator=gen).cuda()
+    neg = torch.rand((1568, 128), generator=gen).cuda()
+    neg[700, 3] = -2.0
+    expect(view.storage_offset() == 1 and view.data_ptr() % 16 == 4,
+           "the offset-1 view is on 16 bytes")
+    expect(float(neg.min()) == -float(neg.abs().max()),
+           "the negative case's absmax is not a negative's")
+    return ([("teacher", teacher, 16)]
+            + [(f"mnist-cnn {list(s)}", leaves[s].cuda(), 16)
+               for s in ((1568, 128), (3, 3, 16, 32), (10,))]
+            + [("offset-1 view", view, 16), ("48 MB", big, 16),
+               ("48 MB", big, 4),
+               ("all zero", torch.zeros((1568, 128), device="cuda"), 16),
+               ("negative absmax", neg, 16)])
+
+
 def check_codec_kernels(torch, timer):
     """Phase 3, the per-leaf and per-tensor codec's five kernels against
     their plain versions, bit for bit, and timed: ``quantize_dequantize_
     rows`` and ``dequantize_rows`` at the mnist-cnn per-leaf payload
     (``pack_tree(node_axis=True)``: ``[8240, 512]``, 180 segments),
     ``fused_quantize``, ``fused_quantize_dequantize`` and ``dequantize``
-    at the ResNet18 teacher's ``[3, 3, 512, 512]`` leaf."""
+    timed at the ResNet18 teacher's ``[3, 3, 512, 512]`` leaf; the first
+    two held, codes and Δ, at every case of :func:`fused_cases` too, and
+    their rows carry the cases and the teacher leaf's launch plan
+    (``design``)."""
+    from dataclasses import asdict
+
     from repro_torch.kernels.quantize.ops import (_qmax_t, _segment_deltas,
                                                   pack_tree)
     from repro_torch.kernels.quantize.quantize import (
-        dequantize_cuda, dequantize_rows_cuda, fused_quantize_cuda,
+        dequantize_cuda, dequantize_rows_cuda, fused_plan, fused_quantize_cuda,
         fused_quantize_dequantize_cuda, quantize_dequantize_rows_cuda)
     from repro_torch.kernels.quantize.ref import (
         dequantize_ref, dequantize_rows_ref, fused_quantize_dequantize_ref,
@@ -948,24 +989,39 @@ def check_codec_kernels(torch, timer):
         timer(lambda: dequantize_rows_ref(codes, rd)), 8 * n + 4 * r, n,
         timer(lambda: torch.mul(codes, rd)))
 
-    # -- rows 13-15 on the teacher's largest leaf --------------------------
+    # -- rows 13 and 14 at every case, row 15 at the teacher's leaf ------
     x = teacher_leaf(torch)
     n = x.numel()
     qm = _qmax_t(16, x.device)
-    c_got, d_got = fused_quantize_cuda(x, bits=16)
-    c_want, d_want = fused_quantize_ref(x, qm)
-    o_got, e_got = fused_quantize_dequantize_cuda(x, bits=16)
-    o_want, e_want = fused_quantize_dequantize_ref(x, qm)
-    torch.cuda.synchronize()
-    expect(bits_equal(torch, c_got, c_want)
-           and bits_equal(torch, d_got, d_want),
-           "fused_quantize codes or delta disagree with the plain version")
-    expect(bits_equal(torch, o_got, o_want)
-           and bits_equal(torch, e_got, e_want),
-           "fused_quantize_dequantize is not bit-exact with its plain "
-           "version")
-    print(f"fused_quantize / fused_quantize_dequantize {tuple(x.shape)}: "
-          f"codes, round trip and delta {float(d_got):.6e} bit-exact")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for what, t, bits in fused_cases(torch, x):
+        qmb = _qmax_t(bits, t.device)
+        got = fused_quantize_cuda(t, bits=bits)
+        want = fused_quantize_ref(t, qmb)
+        rt_got = fused_quantize_dequantize_cuda(t, bits=bits)
+        rt_want = fused_quantize_dequantize_ref(t, qmb)
+        torch.cuda.synchronize()
+        expect(all(map(bits_equal, [torch] * 2, got, want)),
+               f"fused_quantize codes or delta disagree with the plain "
+               f"version at {what}")
+        expect(all(map(bits_equal, [torch] * 2, rt_got, rt_want)),
+               f"fused_quantize_dequantize is not bit-exact with its plain "
+               f"version at {what}")
+        plan = fused_plan(t.numel(), t.data_ptr() // 4 % 4, sms)
+        cases.append(dict(case=what, shape=list(t.shape),
+                          offset=t.storage_offset(), bits=bits,
+                          grid=plan.grid, staged=plan.staged,
+                          streamed=plan.n - plan.staged))
+        print(f"fused_quantize / fused_quantize_dequantize {what} "
+              f"{tuple(t.shape)} offset {t.storage_offset()} int{bits}: "
+              f"codes, round trip and delta {float(got[1]):.6e} bit-exact "
+              f"(grid {plan.grid}, {plan.staged} of {plan.n} staged)")
+        if what == "teacher":
+            (c_got, d_got), (c_want, _) = got, want
+            (o_got, _), (o_want, _) = rt_got, rt_want
+    plan = fused_plan(n, x.data_ptr() // 4 % 4, sms)
+    design = dict(asdict(plan), smem=plan.smem, staged=plan.staged)
     # no single PyTorch call takes the absmax and writes the codes, so
     # rows 13 and 14 have no library yardstick
     row("fused_quantize", 120, float((c_got - c_want).abs().max()),
@@ -975,6 +1031,8 @@ def check_codec_kernels(torch, timer):
         timer(lambda: fused_quantize_dequantize_cuda(x, bits=16)),
         timer(lambda: fused_quantize_dequantize_ref(x, qm)), 8 * n + 4,
         7 * n, None)
+    for rw in rows[-2:]:
+        rw.update(design=design, cases=cases)
     got = dequantize_cuda(c_got, d_got)
     want = dequantize_ref(c_got, d_got)
     torch.cuda.synchronize()

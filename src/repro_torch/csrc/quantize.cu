@@ -47,7 +47,8 @@
 // reads 4 B of own and 4 B of code per sender for each output and writes 4 B;
 // quantize_dequantize_rows, dequantize_rows and dequantize read 4 B and
 // write 4 B per element; fused_quantize(_dequantize) must read 4 B and
-// write 4 B per element too, but reads x twice (see below).
+// write 4 B per element too, and reads x from device memory once where the
+// grid can stage it (see below).
 // Design: the row reductions give each row to one warp — lanes stride the
 // row, so loads coalesce, and a shuffle reduction takes the max; no block
 // ever needs a partial from another (the TPU kernels masked out-of-bounds
@@ -73,23 +74,40 @@
 // mix_packed's code type is one).  dequantize_rows and dequantize share
 // one grid-stride body, templated on whether delta is per row.
 // fused_quantize(_dequantize) needs a grid-wide max before any code can be
-// written, and blocks cannot wait on each other outside a cooperative
-// launch, so it takes two launches on one stream: cudaMemsetAsync zeroes a
-// device word; launch 1 reduces |x| per block (grid-stride, warp shuffles,
-// then one warp over the block's warp maxima) and atomicMax-es the bits of
-// the block's non-negative maximum into that word (unsigned order is float
-// order for non-negative floats, and max is order-free, so the result is
-// bit-exact whatever order the blocks land in); launch 2 has every thread
-// derive delta from the word (one IEEE division) and sweep the codes, and
-// thread 0 of block 0 writes delta out.  The sweep reads x a second time
-// (from L2 while x fits its 50 MB).  A cooperative launch with grid.sync()
-// would save the second launch; two plain launches need no occupancy
-// guarantee and no cooperative-launch API, and are what this first version
-// takes.
+// written.  H100 blocks cannot wait on each other outside a cooperative
+// launch, so it is one cooperative launch (cudaLaunchCooperativeKernel:
+// every block resident at once) with one cooperative_groups grid sync:
+// each block owns one contiguous span of x (the plan's `span` elements,
+// its interior ends on 16-byte addresses) and copies the 16-byte-aligned
+// part of it, up to the plan's `stage` elements, into dynamic shared
+// memory in 16 KB chunks, cp.async.bulk into an mbarrier per chunk (one
+// thread issues them all; 16-byte cp.async per thread timed the same).
+// While the chunks land the block reads its streamed elements (the
+// unaligned head and tail, and whatever of its span is beyond `stage`)
+// with plain loads; then it takes |x| of each chunk as it lands,
+// folds the block's max by warp shuffles and writes it to its own slot of
+// a [grid] partials buffer (no zeroing, no atomics).  After the grid sync
+// every block folds the grid's partials (max is order-free, so every
+// block gets the same bits; a grid of one block, as tiny tensors take,
+// skips the buffer and the sync), derives delta with one IEEE division, and
+// writes its codes (or code * delta) from shared memory, 16-byte stores
+// where out is aligned; the streamed elements are read from device memory
+// a second time.  Block 0 writes delta.  So x is read from device memory
+// once when the grid stages it whole (the ResNet18 teacher's 9.44 MB leaf
+// fills 132 SMs to a third of their shared memory), and the call is one
+// launch.  The launch plan (grid, span, stage) is picked in Python
+// (kernels/quantize/quantize.py:fused_plan); the launcher checks it
+// covers x and that the grid is co-resident at its shared memory, and
+// returns the CUDA error otherwise.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -139,50 +157,173 @@ __global__ void dequantize_kernel(const int* __restrict__ codes,
     out[i] = __fmul_rn((float)codes[i], delta[PerRow ? i / cols : 0]);
 }
 
-// launch 1 of the fused codec: the grid-wide max|x| into *amax_bits
-// (zeroed before the launch); blockDim.x a multiple of 32, at most 1024
-__global__ void absmax_kernel(const float* __restrict__ x,
-                              unsigned* __restrict__ amax_bits, int64_t n) {
-  __shared__ float warp_max[32];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  float m = 0.f;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    m = fmaxf(m, fabsf(x[i]));
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) atomicMax(amax_bits, __float_as_uint(m));
-  }
+// -- the whole-tensor codec: one cooperative launch --------------------------
+constexpr int kFusedThreads = 512;
+constexpr int kChunk = 4096;     // floats a staging chunk (16 KB)
+constexpr int kMaxChunks = 16;   // 256 KB: more than a block's shared memory
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// launch 2 of the fused codec: delta from the max, then the codes (OutT
-// int) or the round trip (OutT float)
+// one arrival (the thread that issues the copy) and the copy's bytes
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {  // phase 0
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+  } while (!done);
+}
+
+// one thread: `bytes` (a multiple of 16, both ends 16-byte aligned) from
+// device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ float absmax4(float m, float4 v) {
+  return fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                        fmaxf(fabsf(v.z), fabsf(v.w))));
+}
+
 template <typename OutT>
-__global__ void fused_quantize_kernel(const float* __restrict__ x,
-                                      const unsigned* __restrict__ amax_bits,
-                                      OutT* __restrict__ out,
-                                      float* __restrict__ delta_out,
-                                      int64_t n, float qmax) {
-  const float delta =
-      fmaxf(__fdiv_rn(__uint_as_float(*amax_bits), qmax), FLT_MIN);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *delta_out = delta;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    float q = floorf(__fadd_rn(__fdiv_rn(x[i], delta), 0.5f));
+struct Codec {
+  float delta, qmax;
+  __device__ __forceinline__ OutT operator()(float v) const {
+    float q = floorf(__fadd_rn(__fdiv_rn(v, delta), 0.5f));
     q = fminf(fmaxf(q, -qmax - 1.f), qmax);
     if constexpr (std::is_same<OutT, float>::value)
-      out[i] = __fmul_rn(q, delta);
+      return __fmul_rn(q, delta);
     else
-      out[i] = (int)q;
+      return (int)q;
   }
+  // four codes to out[0..3]; one 16-byte store when `vec`
+  __device__ __forceinline__ void store4(OutT* out, float4 v,
+                                         bool vec) const {
+    const OutT a = (*this)(v.x), b = (*this)(v.y), c = (*this)(v.z),
+               d = (*this)(v.w);
+    if (vec) {
+      if constexpr (std::is_same<OutT, float>::value)
+        *reinterpret_cast<float4*>(out) = make_float4(a, b, c, d);
+      else
+        *reinterpret_cast<int4*>(out) = make_int4(a, b, c, d);
+    } else {
+      out[0] = a;
+      out[1] = b;
+      out[2] = c;
+      out[3] = d;
+    }
+  }
+};
+
+// Block b owns x[lo, hi): the elements at 16-byte address slots
+// [b * span, (b + 1) * span) counted from x's 16-byte boundary below it.
+// It stages [s_lo, s_hi) (16-byte aligned, at most `stage` elements) and
+// streams [lo, s_lo) and [s_hi, hi).  OutT int: the codes; float: the round
+// trip.
+template <typename OutT>
+__global__ void __launch_bounds__(kFusedThreads, 2)
+    fused_codec_kernel(const float* __restrict__ x, OutT* __restrict__ out,
+                       float* __restrict__ delta_out,
+                       float* __restrict__ partials, int64_t n, float qmax,
+                       int64_t span, int stage) {
+  extern __shared__ __align__(16) float staged[];
+  __shared__ __align__(8) uint64_t bars[kMaxChunks];
+  __shared__ float warp_max[kFusedThreads / 32];
+  __shared__ float amax;
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t p = (int64_t)((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
+  const int64_t lo = max((int64_t)0, (int64_t)blockIdx.x * span - p);
+  const int64_t hi = min(n, ((int64_t)blockIdx.x + 1) * span - p);
+  const int64_t s_lo = min(hi, ((lo + p + 3) & ~(int64_t)3) - p);
+  const int64_t s_hi =
+      max(s_lo, min(((hi + p) & ~(int64_t)3) - p, s_lo + stage));
+  const int n_staged = (int)(s_hi - s_lo);  // a multiple of 4
+  const int n_chunks = (n_staged + kChunk - 1) / kChunk;
+  const int64_t r_vec = s_hi + ((hi - s_hi) & ~(int64_t)3);
+
+  if (tid == 0) {
+    for (int c = 0; c < n_chunks; ++c) mbar_init(&bars[c]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    for (int c = 0; c < n_chunks; ++c) {
+      const int base = c * kChunk;
+      bulk_copy(staged + base, x + s_lo + base,
+                4u * min(kChunk, n_staged - base), &bars[c]);
+    }
+  }
+  __syncthreads();
+
+  // pass 1: the streamed elements while the chunks land, then each chunk
+  float m = 0.f;
+  for (int64_t i = lo + tid; i < s_lo; i += nt) m = fmaxf(m, fabsf(x[i]));
+  for (int64_t i = s_hi + 4 * tid; i < r_vec; i += 4 * nt)
+    m = absmax4(m, *reinterpret_cast<const float4*>(x + i));
+  for (int64_t i = r_vec + tid; i < hi; i += nt) m = fmaxf(m, fabsf(x[i]));
+  for (int c = 0; c < n_chunks; ++c) {
+    mbar_wait(&bars[c]);
+    const int base = c * kChunk, len = min(kChunk, n_staged - base);
+    for (int v = 4 * tid; v < len; v += 4 * nt)
+      m = absmax4(m, *reinterpret_cast<const float4*>(staged + base + v));
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane == 0) warp_max[warp] = m;
+  __syncthreads();
+  const bool one = gridDim.x == 1;  // a lone block's max is the grid's
+  if (warp == 0) {
+    m = lane < nt / 32 ? warp_max[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) *(one ? &amax : partials + blockIdx.x) = m;
+  }
+  if (!one) {
+    cooperative_groups::this_grid().sync();
+    if (warp == 0) {
+      m = 0.f;
+      for (int b = lane; b < (int)gridDim.x; b += 32)
+        m = fmaxf(m, __ldcg(partials + b));
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) amax = m;
+    }
+  }
+  __syncthreads();
+
+  // pass 2: delta from the grid's max, then the codes
+  const Codec<OutT> codec{fmaxf(__fdiv_rn(amax, qmax), FLT_MIN), qmax};
+  if (blockIdx.x == 0 && tid == 0) *delta_out = codec.delta;
+  // s_lo and s_hi lie a multiple of 4 elements apart in every block
+  const bool vec = (reinterpret_cast<uintptr_t>(out + s_lo) & 15) == 0;
+  for (int v = 4 * tid; v < n_staged; v += 4 * nt)
+    codec.store4(out + s_lo + v, *reinterpret_cast<const float4*>(staged + v),
+                 vec);
+  for (int64_t i = lo + tid; i < s_lo; i += nt) out[i] = codec(x[i]);
+  for (int64_t i = s_hi + 4 * tid; i < r_vec; i += 4 * nt)
+    codec.store4(out + i, *reinterpret_cast<const float4*>(x + i), vec);
+  for (int64_t i = r_vec + tid; i < hi; i += nt) out[i] = codec(x[i]);
 }
 
 __global__ void quantize_rows_mixed_kernel(const float* __restrict__ x,
@@ -323,36 +464,86 @@ extern "C" int dequantize(const int* codes, const float* delta, float* out,
   return (int)cudaGetLastError();
 }
 
-// the fused codec's two launches; scratch is one device word
+// The co-resident limit of one instantiation at `smem` bytes of dynamic
+// shared memory (the SM count times the occupancy query's blocks an SM),
+// queried once per (device, kernel, smem) and cached: the queries would
+// otherwise cost host time on every call.  The kernel's shared-memory
+// opt-in is only ever raised, so every cached size stays launchable.
+static cudaError_t fused_resident(const void* fn, int smem, int* limit) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> opted;
+  static std::map<std::tuple<int, const void*, int>, int> resident;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, fn, smem);
+  const auto hit = resident.find(key);
+  if (hit != resident.end()) {
+    *limit = hit->second;
+    return cudaSuccess;
+  }
+  int& opt = opted[std::make_pair(dev, fn)];
+  if (smem > opt) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    opt = smem;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kFusedThreads, smem);
+  if (err != cudaSuccess) return err;
+  *limit = resident[key] = sms * per_sm;
+  return cudaSuccess;
+}
+
+// the fused codec's one cooperative launch, after checking its plan: the
+// spans cover x with no block empty, the staged part fits the shared
+// memory, and the grid is co-resident at that shared memory
 template <typename OutT>
-static int fused_quantize_launch(const float* x, OutT* out, float* delta,
-                                 unsigned* scratch, int64_t n, float qmax,
-                                 cudaStream_t stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;  // no max of nothing
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned), stream);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)sweep_blocks(n, 256);
-  absmax_kernel<<<blocks, 256, 0, stream>>>(x, scratch, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fused_quantize_kernel<OutT><<<blocks, 256, 0, stream>>>(x, scratch, out,
-                                                          delta, n, qmax);
-  return (int)cudaGetLastError();
+static int fused_launch(const float* x, OutT* out, float* delta,
+                        float* partials, int64_t n, float qmax, int grid,
+                        int64_t span, int stage, cudaStream_t stream) {
+  const int64_t p = (int64_t)((reinterpret_cast<uintptr_t>(x) >> 2) & 3);
+  if (n <= 0 || grid <= 0 || span <= 0 || span % 4 || stage < 0 ||
+      stage % 4 || stage > kMaxChunks * kChunk ||
+      (int64_t)grid * span < n + p || (int64_t)(grid - 1) * span >= n + p)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)fused_codec_kernel<OutT>;
+  const int smem = 4 * stage;
+  int limit = 0;
+  cudaError_t err = fused_resident(fn, smem, &limit);
+  if (err == cudaSuccess && grid > limit)
+    err = cudaErrorCooperativeLaunchTooLarge;
+  if (err == cudaSuccess) {
+    void* args[] = {(void*)&x,    (void*)&out, (void*)&delta,
+                    (void*)&partials, (void*)&n, (void*)&qmax,
+                    (void*)&span, (void*)&stage};
+    err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kFusedThreads),
+                                      args, (size_t)smem, stream);
+  }
+  const cudaError_t last = cudaGetLastError();  // clears a launch error
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 extern "C" int fused_quantize(const float* x, int* codes, float* delta,
-                              void* scratch, int64_t n, float qmax,
+                              float* partials, int64_t n, float qmax,
+                              int grid, int64_t span, int stage,
                               cudaStream_t stream) {
-  return fused_quantize_launch<int>(x, codes, delta, (unsigned*)scratch, n,
-                                    qmax, stream);
+  return fused_launch<int>(x, codes, delta, partials, n, qmax, grid, span,
+                           stage, stream);
 }
 
 extern "C" int fused_quantize_dequantize(const float* x, float* out,
-                                         float* delta, void* scratch,
-                                         int64_t n, float qmax,
+                                         float* delta, float* partials,
+                                         int64_t n, float qmax, int grid,
+                                         int64_t span, int stage,
                                          cudaStream_t stream) {
-  return fused_quantize_launch<float>(x, out, delta, (unsigned*)scratch, n,
-                                      qmax, stream);
+  return fused_launch<float>(x, out, delta, partials, n, qmax, grid, span,
+                             stage, stream);
 }
 
 extern "C" int quantize_rows_mixed(const float* x, const float* row_delta,

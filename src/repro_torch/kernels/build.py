@@ -57,9 +57,10 @@ SIGNATURES = {
     "dequantize_rows": (_P, _P, _P, _I64, _I32, _P),
     # codes, delta, out, n, stream
     "dequantize": (_P, _P, _P, _I64, _P),
-    # x, out, delta, scratch, n, qmax, stream
-    "fused_quantize": (_P,) * 4 + (_I64, _F32, _P),
-    "fused_quantize_dequantize": (_P,) * 4 + (_I64, _F32, _P),
+    # x, out, delta, partials, n, qmax, grid, span, stage, stream
+    "fused_quantize": (_P,) * 4 + (_I64, _F32, _I32, _I64, _I32, _P),
+    "fused_quantize_dequantize": (_P,) * 4 + (_I64, _F32, _I32, _I64, _I32,
+                                              _P),
     # x, row_delta, row_qmax, codes, rows, cols, stream
     "quantize_rows_mixed": (_P, _P, _P, _P, _I64, _I32, _P),
     # x, res, out, rows, cols, decay, stream

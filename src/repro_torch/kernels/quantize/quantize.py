@@ -24,12 +24,18 @@ and write 4 B per element.  Design: one warp per 512-wide row with a
 shuffle max for the row reductions; a grid-stride elementwise sweep with
 an IEEE division for the codes (and the new residual, or the round trip);
 for the mix, a grid-stride sweep whose thread walks the senders in order
-with its accumulator in a register; for the whole-tensor codec, a block
-max folded into one device word by ``atomicMax`` on its bits, then the
-sweep (two launches, one call).  All are bit-identical to the plain
-versions in ``ref.py``.
+with its accumulator in a register; for the whole-tensor codec, one
+cooperative launch whose blocks stage their spans of x in shared memory,
+write their maxima to a partials buffer, meet at a grid sync and write
+the codes from shared memory (:func:`fused_plan` picks the grid, the spans
+and what each block stages).  All are bit-identical to the plain versions
+in ``ref.py``.
 """
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Tuple
 
 import torch
 
@@ -135,34 +141,121 @@ def dequantize_rows_cuda(codes2d, row_delta):
     return out
 
 
+# -- the whole-tensor codec's launch plan -----------------------------------
+FUSED_CHUNK = 4096          # floats a staging chunk, one mbarrier each
+FUSED_MAX_CHUNKS = 16       # staging barriers a block (kMaxChunks)
+MIN_SPAN = 8192             # elements a block at least: tiny tensors, 1 block
+BLOCKS_PER_SM = 2           # blocks an SM (the kernel's __launch_bounds__)
+SMEM_MAX = 232_448          # shared memory a block may opt in to (sm_90)
+SMEM_SM = 233_472           # shared memory of an SM
+SMEM_RESERVED = 1024        # the runtime's share of it for each block
+SMEM_STATIC = 512           # the kernel's static shared memory, at most
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """One launch of the whole-tensor codec over ``n`` elements whose
+    first lies ``align`` floats past a 16-byte boundary: ``grid`` blocks
+    of 512 threads; block b owns the 16-byte address slots
+    ``[b·span, (b+1)·span)`` (counted from that boundary), stages up to
+    ``stage`` of its elements in dynamic shared memory (filled by
+    ``cp.async.bulk``) and streams the rest."""
+    n: int
+    align: int
+    grid: int
+    span: int
+    stage: int
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory a block, in bytes."""
+        return 4 * self.stage
+
+    @property
+    def staged(self) -> int:
+        """Elements staged in shared memory, all blocks together (the
+        rest, ``n - staged``, stream)."""
+        return sum(s_hi - s_lo for _, s_lo, s_hi, _ in fused_spans(self))
+
+
+def _round4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def fused_spans(plan: FusedPlan) -> List[Tuple[int, int, int, int]]:
+    """Each block's ``(lo, s_lo, s_hi, hi)``, as the kernel computes them:
+    it owns elements ``[lo, hi)``, stages ``[s_lo, s_hi)`` (both ends on
+    16-byte addresses) and streams ``[lo, s_lo)`` and ``[s_hi, hi)``."""
+    n, align, span = plan.n, plan.align, plan.span
+    out = []
+    for b in range(plan.grid):
+        lo = max(0, b * span - align)
+        hi = min(n, (b + 1) * span - align)
+        s_lo = min(hi, _round4(lo + align) - align)
+        s_hi = max(s_lo, min((hi + align) // 4 * 4 - align,
+                             s_lo + plan.stage))
+        out.append((lo, s_lo, s_hi, hi))
+    return out
+
+
+def fused_plan(n: int, align: int, sms: int) -> FusedPlan:
+    """The launch of ``fused_quantize(_dequantize)``: one block for every
+    ``MIN_SPAN`` elements, at most ``BLOCKS_PER_SM`` on each of ``sms``
+    SMs; the span a multiple of 4 (so every block's interior ends lie on
+    16-byte addresses); each block stages its span or as much of it as
+    its share of an SM's shared memory holds, and streams the rest (read
+    again after the grid sync)."""
+    if n < 1:
+        raise ValueError("fused_quantize: an empty tensor has no absmax")
+    if align not in range(4) or sms < 1:
+        raise ValueError(f"fused_plan: align {align}, {sms} SMs")
+    slots = n + align
+    grid = min(sms * BLOCKS_PER_SM, -(-slots // MIN_SPAN))
+    span = _round4(-(-slots // grid))
+    grid = -(-slots // span)
+    cap = min(SMEM_MAX, SMEM_SM // BLOCKS_PER_SM - SMEM_RESERVED
+              - SMEM_STATIC, 4 * FUSED_CHUNK * FUSED_MAX_CHUNKS) // 16 * 4
+    return FusedPlan(n, align, grid, span, min(span, cap))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _fused_call(x, bits: int, dequant: bool):
     name = "fused_quantize_dequantize" if dequant else "fused_quantize"
-    require(x, f"{name} x", torch.float32)
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name}: expected {torch.float32}, got {x.dtype}")
     if x.numel() == 0:
         raise ValueError(f"{name}: an empty tensor has no absmax")
+    require(x, f"{name} x", torch.float32)
+    plan = fused_plan(x.numel(), x.data_ptr() // 4 % 4, _sms(x.device.index))
     out = torch.empty(x.shape, device=x.device,
                       dtype=torch.float32 if dequant else torch.int32)
     delta = torch.empty((), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((1,), dtype=torch.int32, device=x.device)
-    rc = getattr(library(), name)(x.data_ptr(), out.data_ptr(),
-                                  delta.data_ptr(), scratch.data_ptr(),
-                                  x.numel(), _qmaxf(bits), stream_of(x))
+    partials = torch.empty((plan.grid,), dtype=torch.float32,
+                           device=x.device)
+    rc = getattr(library(), name)(
+        x.data_ptr(), out.data_ptr(), delta.data_ptr(), partials.data_ptr(),
+        x.numel(), _qmaxf(bits), plan.grid, plan.span, plan.stage,
+        stream_of(x))
     check(rc, name)
     return out, delta
 
-
 def fused_quantize_cuda(x, *, bits: int = 16):
     """fp32 ``x`` (any shape) on the card -> ``(int32 codes of x's shape,
-    0-d Δ)``: the absmax and the codes in one call (two launches)."""
-    out = _fused_call(x, bits, dequant=False)
+    0-d Δ)``: the absmax and the codes in one cooperative launch, as
+    :func:`fused_plan` lays it out."""
+    out = _fused_call(x, bits, False)
     FUSED_QUANTIZE_LAUNCHES.count += 1
     return out
 
 
 def fused_quantize_dequantize_cuda(x, *, bits: int = 16):
     """fp32 ``x`` (any shape) on the card -> ``(codes·Δ fp32, 0-d Δ)``,
-    the codes never stored."""
-    out = _fused_call(x, bits, dequant=True)
+    the codes never stored; one cooperative launch."""
+    out = _fused_call(x, bits, True)
     FUSED_QUANTIZE_DEQUANTIZE_LAUNCHES.count += 1
     return out
 
