@@ -30,7 +30,14 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    :func:`fused_cases` (the teacher's leaf, mnist-cnn leaves, a view at
    element offset 1, 48 MB beyond what the grid stages, all zeros, a
    negative absmax); their rows carry the cases and the teacher leaf's
-   launch plan (``design``);
+   launch plan (``design``).  ``mix_packed`` is held bit for bit at the
+   ring, full-packed, 8×8, 8×8 fp32-code and accumulate shapes (all but
+   the fp32 one timed), 12 receivers × 12 senders, a column tail
+   (C = 510) and codes one element past a 16-byte address (see
+   :func:`check_mix_packed`); ``adafactor_apply`` at ``[20, 208, 512]``
+   and on a buffer one element in, timed beside ``torch.add(p, upd,
+   out=p)`` (``stream_ms``).  One launch (a one-element add) is timed
+   once and carried as ``launch_ms`` on those two rows;
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -547,9 +554,13 @@ def check_kernels(torch, timer, student_cfg):
 def check_plane_sweeps(torch, timer, student_cfg):
     """Phase 3, the sgd and adafactor sweeps: each kernel against its
     plain version on 20 nodes' ResNet8 student planes ``[20, 208, 512]``
-    (the CIFAR paths' shape), bit for bit, and timed."""
+    (the CIFAR paths' shape), bit for bit, and timed; adafactor also bit
+    for bit on a flat buffer that starts one element in (2,129,919
+    elements: a scalar head), and timed beside a streaming yardstick
+    (``torch.add(p, upd, out=p)``: the same bytes in one launch)."""
+    from dataclasses import asdict
     from repro_torch.kernels.opt_update.opt_update import (
-        adafactor_apply_cuda, sgd_update_cuda)
+        adafactor_apply_cuda, adafactor_plan, sgd_update_cuda)
     from repro_torch.kernels.opt_update.ref import (adafactor_apply_ref,
                                                     sgd_update_ref)
     from repro_torch.models import init_params
@@ -603,6 +614,7 @@ def check_plane_sweeps(torch, timer, student_cfg):
 
     # the packed clipped update of adafactor: about ±1 on the real lanes
     upd = torch.randn(shape, generator=gen).cuda() * real
+    plan = adafactor_plan(n, upd.data_ptr() // 4 % 4, p.data_ptr() // 4 % 4)
     want = adafactor_apply_ref(upd, p, lr=lr, weight_decay=0.01)
     got = p.clone()
     adafactor_apply_cuda(upd, got, lr, weight_decay=0.01)
@@ -610,9 +622,25 @@ def check_plane_sweeps(torch, timer, student_cfg):
     ulps = ulp_diff(torch, got, want)
     err = float((got - want).abs().max())
     print(f"adafactor_apply {shape}: max |kernel - plain| = {err:.3e}, max "
-          f"ulp difference {ulps}")
+          f"ulp difference {ulps} (plan {plan})")
     expect(ulps == 0,
            "adafactor_apply kernel is not bit-exact with its plain version")
+    # a flat buffer that starts one element in, n - 1 long: a scalar head
+    # of 3 and a body of whole vectors behind it
+    flat_p = torch.cat([torch.zeros(1, device="cuda"), p.flatten()])[1:-1]
+    flat_u = torch.cat([torch.zeros(1, device="cuda"), upd.flatten()])[1:-1]
+    off_plan = adafactor_plan(flat_p.numel(), flat_u.data_ptr() // 4 % 4,
+                              flat_p.data_ptr() // 4 % 4)
+    off_want = adafactor_apply_ref(flat_u, flat_p, lr=lr, weight_decay=0.01)
+    off_got = torch.cat([torch.zeros(1, device="cuda"), flat_p])[1:]
+    adafactor_apply_cuda(flat_u, off_got, lr, weight_decay=0.01)
+    torch.cuda.synchronize()
+    off_ulps = ulp_diff(torch, off_got, off_want)
+    print(f"adafactor_apply offset 1, n = {flat_p.numel()}: max ulp "
+          f"difference {off_ulps} (plan {off_plan})")
+    expect(off_ulps == 0, "adafactor_apply is not bit-exact at an offset")
+    expect((off_plan.vec, off_plan.head) == (4, 3),
+           f"the offset case took no scalar head: {off_plan}")
     ms = timer(lambda: adafactor_apply_cuda(upd, got, lr, weight_decay=0.01))
     plain_ms = timer(lambda: adafactor_apply_ref(upd, p, lr=lr,
                                                  weight_decay=0.01))
@@ -622,12 +650,19 @@ def check_plane_sweeps(torch, timer, student_cfg):
     lib_ms = timer(lambda: torch._fused_sgd_(
         lib, [upd], [], weight_decay=0.01, momentum=0.0, lr=1e-3,
         dampening=0.0, nesterov=False, maximize=False, is_first_step=False))
+    # streaming yardstick: one launch that moves the same 3 x 4 B an
+    # element (reads p and upd, writes p)
+    stream_ms = timer(lambda: torch.add(got, upd, out=got))
     b_ms, b_by = bound(3 * 4 * n, 4 * n)
     rows.append(dict(name="adafactor_apply", route="cuda",
                      source="src/repro_torch/csrc/opt_update.cu",
                      replaces="src/repro/kernels/opt_update/opt_update.py:120",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     stream_ms=stream_ms, plan=asdict(plan),
+                     cases=[list(shape), [off_got.numel()]]))
+    print(f"  adafactor_apply streaming yardstick (torch.add, out=p) "
+          f"{stream_ms:.4f} ms")
     for row in rows:
         print(f"  {row['name']:19s} kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  library {row['library_ms']}  "
@@ -1701,15 +1736,20 @@ def run_path(torch, inputs, name: str):
 def check_mix_packed(torch, timer, student_cfg):
     """Phase 3, the mesh exchange's fused mix: ``mix_packed`` against its
     plain version, bit for bit, on real mnist-cnn wire codes (R = 416
-    rows of 512): at the ring path's shape ``own [1, R, 512]`` with 2
-    senders (timed), at ``own [8, R, 512]`` with 8 senders (one rank
-    holding eight nodes; timed), with fp32 "codes" (raw buffers at unit
-    delta) at that shape, and in the accumulate form (the accumulator in
-    ``own`` at weight one, one sender: a pipelined ring step)."""
-    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
-                                                  mix_packed_init,
+    rows of 512).  Timed: the ring path's shape ``own [1, R, 512]`` with 2
+    senders, ``mesh/full-packed``'s (1 receiver, 8 senders, ``w_self``
+    0), one rank holding eight nodes (``own [8, R, 512]``, 8 senders) and
+    the accumulate form (the accumulator in ``own`` at weight one, one
+    sender: a pipelined ring step).  Held bit for bit only: fp32 "codes"
+    (raw buffers at unit delta) at 8×8, 12 receivers × 12 senders (two
+    receiver groups, the second partial), a column tail (C = 510: one
+    column a thread) and codes that start one element past a 16-byte
+    address.  Each case prints the launch plan it took."""
+    from dataclasses import asdict
+    from repro_torch.kernels.quantize.ops import (mix_packed_init,
                                                   quantize_packed_buffer)
-    from repro_torch.kernels.quantize.quantize import mix_packed_cuda
+    from repro_torch.kernels.quantize.quantize import (mix_packed_cuda,
+                                                       mix_plan)
     from repro_torch.kernels.quantize.ref import mix_packed_ref
 
     gen = torch.Generator().manual_seed(3)
@@ -1720,6 +1760,7 @@ def check_mix_packed(torch, timer, student_cfg):
     codes = codes.to(torch.int32)
     row_delta = scales[:, ids].contiguous()
     rows = {}
+    cases = []
 
     def weights(m, s):
         w = torch.rand((m, s + 1), generator=gen).cuda()
@@ -1727,18 +1768,21 @@ def check_mix_packed(torch, timer, student_cfg):
         return w[:, 0].contiguous(), w[:, 1:].contiguous()
 
     def case(name, own, cds, rd, w_self, w_rows, timed):
+        m, r, c = own.shape
+        s = cds.shape[0]
         got = mix_packed_cuda(own, cds, rd, w_self, w_rows)
         want = mix_packed_ref(own, cds, rd, w_self, w_rows)
         torch.cuda.synchronize()
         ulps = ulp_diff(torch, got, want)
         expect(ulps == 0, f"mix_packed ({name}) is not bit-exact with its "
                           f"plain version: {ulps} ulp")
+        plan = mix_plan(m, s, r, c, all(t.data_ptr() % 16 == 0
+                                        for t in (own, cds, got)))
         print(f"mix_packed {name}: own {tuple(own.shape)} codes "
-              f"{tuple(cds.shape)} {cds.dtype}: bit-exact")
+              f"{tuple(cds.shape)} {cds.dtype}: bit-exact (plan {plan})")
+        cases.append(name)
         if not timed:
-            return
-        m, r, c = own.shape
-        s = cds.shape[0]
+            return plan
         ms = timer(lambda: mix_packed_cuda(own, cds, rd, w_self, w_rows))
         plain_ms = timer(lambda: mix_packed_ref(own, cds, rd, w_self,
                                                 w_rows))
@@ -1753,31 +1797,55 @@ def check_mix_packed(torch, timer, student_cfg):
         # added after
         rows[name] = dict(max_abs_err=float((got - want).abs().max()),
                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None)
+                          bound_by=b_by, library_ms=None, plan=asdict(plan))
+        return plan
 
     w_self, w_rows = weights(1, 2)
     case("ring", buf[:1].contiguous(), codes[1:3].contiguous(),
          row_delta[1:3].contiguous(), w_self, w_rows, True)
+    # the all-gather round: a rank's own copy rides among the 8 senders
+    _, w_rows = weights(1, 8)
+    case("full-packed", buf[:1].contiguous(), codes[:8].contiguous(),
+         row_delta[:8].contiguous(), torch.zeros(1, device="cuda"), w_rows,
+         True)
     w_self, w_rows = weights(8, 8)
-    own8 = buf[:8].contiguous()
-    case("8x8", own8, codes[8:16].contiguous(),
-         row_delta[8:16].contiguous(), w_self, w_rows, True)
+    own8, codes8 = buf[:8].contiguous(), codes[8:16].contiguous()
+    rd8 = row_delta[8:16].contiguous()
+    case("8x8", own8, codes8, rd8, w_self, w_rows, True)
     case("8x8-fp32", own8, buf[8:16].contiguous(),
          torch.ones((8, buf.shape[1]), device="cuda"), w_self, w_rows, False)
     acc = mix_packed_init(buf[:1], w_self[:1]).contiguous()
     case("accumulate", acc, codes[1:2].contiguous(),
          row_delta[1:2].contiguous(), torch.ones(1, device="cuda"),
-         w_rows[:1, :1].contiguous(), False)
+         w_rows[:1, :1].contiguous(), True)
+    w12_self, w12_rows = weights(12, 12)
+    plan = case("12x12", buf[:12].contiguous(), codes[8:20].contiguous(),
+                row_delta[8:20].contiguous(), w12_self, w12_rows, False)
+    expect(plan.grid[2] == 2, f"12 receivers took {plan.grid[2]} groups")
+    plan = case("C=510", own8[..., :510].contiguous(),
+                codes8[..., :510].contiguous(), rd8, w_self, w_rows, False)
+    expect(plan.vec == 1, "a column tail took 16-byte vectors")
+    flat = torch.empty(codes8.numel() + 1, dtype=torch.int32, device="cuda")
+    flat[1:].copy_(codes8.flatten())
+    plan = case("offset codes", own8, flat[1:].view(codes8.shape), rd8,
+                w_self, w_rows, False)
+    expect(plan.vec == 1, "codes off a 16-byte address took 16-byte loads")
     row = dict(name="mix_packed", route="cuda",
                source="src/repro_torch/csrc/quantize.cu",
                replaces="src/repro/kernels/quantize/quantize.py:374",
                **rows["ring"])
     row["m8s8"] = rows["8x8"]
+    row["full_packed"] = rows["full-packed"]
+    row["accumulate"] = rows["accumulate"]
+    row["cases"] = cases
     print(f"  {'mix_packed':19s} kernel {row['ms']:.4f} ms  plain "
           f"{row['plain_ms']:.4f} ms  library None  bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); 8x8 "
-          f"{rows['8x8']['ms']:.4f} / {rows['8x8']['plain_ms']:.4f} ms, "
-          f"bound {rows['8x8']['bound_ms']:.4f} ({rows['8x8']['bound_by']})")
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for name in ("full-packed", "8x8", "accumulate"):
+        r = rows[name]
+        print(f"  mix_packed {name:11s} kernel {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     return [row]
 
 
@@ -2178,6 +2246,9 @@ def main() -> int:
     from repro_torch.models import derive_student
     resolve_device("cuda")
     timer = Timer(torch)
+    one = torch.zeros(1, device="cuda")
+    launch_ms = timer(lambda: torch.add(one, 1.0, out=one))
+    print(f"one launch (a 1-element add): {launch_ms:.4f} ms")
     rows = check_kernels(torch, timer, derive_student(get_config("mnist-cnn")))
     rows += check_plane_sweeps(torch, timer,
                                derive_student(get_config("cifar10-resnet18")))
@@ -2187,6 +2258,9 @@ def main() -> int:
                              derive_student(get_config("mnist-cnn")))
     rows += check_codec_kernels(torch, timer)
     rows += check_proto_kd_kernels(torch, timer)
+    for row in rows:
+        if row["name"] in ("mix_packed", "adafactor_apply"):
+            row["launch_ms"] = launch_ms
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}

@@ -18,6 +18,7 @@
 // to the plain version on the same inputs.
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -80,16 +81,64 @@ __global__ void sgd_update_kernel(const float* __restrict__ g,
 // shape-dependent and stay per plane segment upstream (kernels/opt_update/
 // ops.py); this is the one elementwise pass over all N nodes' planes:
 //   p' = p - lr * (upd + wd * p), IN PLACE.
-__global__ void adafactor_apply_kernel(const float* __restrict__ upd,
-                                       float* __restrict__ p,
-                                       const float* __restrict__ lr,
-                                       int64_t n, float wd) {
+// Design: a vectorized sweep.  The body is 16-byte float4 loads and stores
+// from the first 16-byte aligned element on; a scalar head (at most 3
+// elements, before that address) and tail (at most 3, after the body) are
+// done by the first threads of the grid.  Each thread issues the loads of all
+// its kAdaUnroll vectors, a block's tile apart, before any arithmetic, so
+// 2 * kAdaUnroll 16-byte loads are in flight; the grid is sized to the work
+// (no grid-stride loop), with 32-bit indices below 2^30 elements.  lr is
+// read once a thread.  Where upd and p do not share their offset from a
+// 16-byte boundary there is no common aligned body, and the same kernel
+// runs with one element a vector.  The split (vector width, head, body in
+// vectors, grid) is picked in Python (kernels/opt_update/opt_update.py:
+// adafactor_plan); the launcher checks it.
+constexpr int kAdaThreads = 256;
+constexpr int kAdaUnroll = 4;  // vectors a thread
+
+__device__ __forceinline__ float adafactor_step(float u, float pi, float lr,
+                                                float wd) {
+  return __fsub_rn(pi, __fmul_rn(lr, __fadd_rn(u, __fmul_rn(wd, pi))));
+}
+
+__device__ __forceinline__ float4 adafactor_step(float4 u, float4 pi,
+                                                 float lr, float wd) {
+  return make_float4(adafactor_step(u.x, pi.x, lr, wd),
+                     adafactor_step(u.y, pi.y, lr, wd),
+                     adafactor_step(u.z, pi.z, lr, wd),
+                     adafactor_step(u.w, pi.w, lr, wd));
+}
+
+template <int VEC, typename IndexT>
+__global__ void __launch_bounds__(kAdaThreads) adafactor_apply_kernel(
+    const float* __restrict__ upd, float* __restrict__ p,
+    const float* __restrict__ lr, IndexT head, IndexT body, int tail,
+    float wd) {
+  using V = std::conditional_t<VEC == 4, float4, float>;
   const float lr_v = *lr;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float pi = p[i];
-    p[i] = __fsub_rn(pi, __fmul_rn(lr_v, __fadd_rn(upd[i], __fmul_rn(wd, pi))));
+  const IndexT gid = (IndexT)blockIdx.x * kAdaThreads + threadIdx.x;
+  if (gid < head) p[gid] = adafactor_step(upd[gid], p[gid], lr_v, wd);
+  if (gid < tail) {
+    const IndexT i = head + (IndexT)VEC * body + gid;
+    p[i] = adafactor_step(upd[i], p[i], lr_v, wd);
+  }
+  const V* __restrict__ u = reinterpret_cast<const V*>(upd + head);
+  V* __restrict__ q = reinterpret_cast<V*>(p + head);
+  const IndexT v0 =
+      (IndexT)blockIdx.x * (kAdaThreads * kAdaUnroll) + threadIdx.x;
+  V uv[kAdaUnroll], pv[kAdaUnroll];
+#pragma unroll
+  for (int k = 0; k < kAdaUnroll; ++k) {
+    const IndexT v = v0 + k * kAdaThreads;
+    if (v < body) {
+      uv[k] = u[v];
+      pv[k] = q[v];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kAdaUnroll; ++k) {
+    const IndexT v = v0 + k * kAdaThreads;
+    if (v < body) q[v] = adafactor_step(uv[k], pv[k], lr_v, wd);
   }
 }
 
@@ -113,12 +162,48 @@ extern "C" int sgd_update(const float* g, float* p, float* mu,
   return (int)cudaGetLastError();
 }
 
+// adafactor_apply's launch, after checking its plan: head, body and tail
+// cover [0, n) once, the body starts on a 16-byte address of both upd and p
+// where it is float4, and the grid holds the body's vectors with no block
+// empty
+template <int VEC, typename IndexT>
+static void adafactor_launch(const float* upd, float* p, const float* lr,
+                             int64_t head, int64_t body, int tail, float wd,
+                             int grid, cudaStream_t stream) {
+  adafactor_apply_kernel<VEC, IndexT><<<grid, kAdaThreads, 0, stream>>>(
+      upd, p, lr, (IndexT)head, (IndexT)body, tail, wd);
+}
+
 extern "C" int adafactor_apply(const float* upd, float* p, const float* lr,
-                               int64_t n, float wd, cudaStream_t stream) {
-  if (n > 0) {
-    const int threads = 256;
-    adafactor_apply_kernel<<<(unsigned)sweep_blocks(n, threads), threads, 0,
-                             stream>>>(upd, p, lr, n, wd);
+                               int64_t n, float wd, int vec, int head,
+                               int64_t body, int grid, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const auto aligned16 = [](const void* q) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  };
+  const int64_t tail = n - head - (int64_t)vec * body;
+  const int64_t tile = (int64_t)kAdaThreads * kAdaUnroll;
+  const int64_t blocks = body > 0 ? (body + tile - 1) / tile : 1;
+  const bool ok =
+      head >= 0 && body >= 0 && grid == blocks &&
+      ((vec == 4 && head <= 3 && tail >= 0 && tail <= 3 &&
+        aligned16(upd + head) && aligned16(p + head)) ||
+       (vec == 1 && head == 0 && tail == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const bool narrow = n < (int64_t(1) << 30);  // 32-bit indices
+  if (vec == 4) {
+    if (narrow)
+      adafactor_launch<4, int>(upd, p, lr, head, body, (int)tail, wd, grid,
+                               stream);
+    else
+      adafactor_launch<4, int64_t>(upd, p, lr, head, body, (int)tail, wd,
+                                   grid, stream);
+  } else {
+    if (narrow)
+      adafactor_launch<1, int>(upd, p, lr, head, body, 0, wd, grid, stream);
+    else
+      adafactor_launch<1, int64_t>(upd, p, lr, head, body, 0, wd, grid,
+                                   stream);
   }
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,8 @@
 // per element (narrowing straight to the int16 wire type is later work);
 // quantize_rows_mixed the same plus 4 B per row; rowabs_sum reads 8 B per
 // element; quantize_rows_ef reads 8 B and writes 8 B per element; mix_packed
-// reads 4 B of own and 4 B of code per sender for each output and writes 4 B;
+// must read 4 B of own per output, 4 B of code per sender and column, and
+// write 4 B per output;
 // quantize_dequantize_rows, dequantize_rows and dequantize read 4 B and
 // write 4 B per element; fused_quantize(_dequantize) must read 4 B and
 // write 4 B per element too, and reads x from device memory once where the
@@ -62,13 +63,27 @@
 // and with -fmad=false no multiply fuses into an add — so codes and
 // residuals are bit-identical to the plain versions.  fmaxf ignores a NaN
 // where torch.amax would propagate it; wire payloads are finite.
-// mix_packed is a grid-stride sweep over the M * R * C outputs: each thread
-// keeps its accumulator in a register and walks the senders in order, in
-// the Pallas body's order (acc = w_self * own, then acc + w * (code * delta)
-// per sender, each product and sum rounded on its own), so it is
-// bit-identical to mix_packed_ref.  It reads a sender's codes once per
-// receiver (from L2 at the mesh round's sizes); reading each code once for
-// all M receivers is later work.
+// mix_packed gives each thread one 16-byte vector (4 columns) of one row and
+// a group of up to 8 receivers (G, a template parameter: 1, 2, 4 or 8): row
+// tiles on blockIdx.y, column vectors on the threads, receiver groups on
+// blockIdx.z, so no index is divided.  A block first copies its group's
+// w_self and w_rows into shared memory.  The thread reads each receiver's
+// own vector once; then for each sender in order one 16-byte load of its
+// codes (int4, or float4 for fp32 codes) and one of its row's delta, four
+// senders' loads issued before any is folded; each code times delta is
+// folded into all G receivers' register accumulators, and each receiver's
+// vector is written once.  So a sender's codes are read once per receiver
+// group, own is read once and out written once.  The plan halves the group
+// while a launch would have too few threads to keep the card's memory busy:
+// at the mesh round's 8 x 8 (R = 416) it takes groups of 4, whose second
+// read of a sender's codes is served by L2.  A column count that is not a
+// multiple of 4, or a buffer whose base is not 16-byte aligned, takes the
+// same kernel with one column a thread (VEC = 1).  Each receiver's
+// accumulator keeps the Pallas body's order (acc = w_self * own, then acc +
+// w * (code * delta) per sender, each product and sum rounded on its own),
+// so it is bit-identical to mix_packed_ref.  The launch plan (group, vector
+// width, block, grid) is picked in Python (kernels/quantize/quantize.py:
+// mix_plan); the launcher checks it and returns the CUDA error otherwise.
 // quantize_dequantize_rows is quantize_rows' body with the output type a
 // template parameter (float: write code * delta, rounded on its own, as
 // mix_packed's code type is one).  dequantize_rows and dequantize share
@@ -381,29 +396,108 @@ __global__ void quantize_rows_ef_kernel(const float* __restrict__ x,
   }
 }
 
-template <typename CodeT>
-__global__ void mix_packed_kernel(const float* __restrict__ own,
-                                  const CodeT* __restrict__ codes,
-                                  const float* __restrict__ row_delta,
-                                  const float* __restrict__ w_self,
-                                  const float* __restrict__ w_rows,
-                                  float* __restrict__ out, int m, int s,
-                                  int64_t rows, int cols) {
-  const int64_t per = rows * cols;  // one receiver's (or sender's) buffer
-  const int64_t n = (int64_t)m * per;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t recv = i / per;
-    const int64_t e = i - recv * per;
-    const int64_t row = e / cols;
-    float acc = __fmul_rn(w_self[recv], own[i]);
-    for (int j = 0; j < s; ++j) {
-      const float deq = __fmul_rn((float)codes[j * per + e],
-                                  row_delta[j * rows + row]);
-      acc = __fadd_rn(acc, __fmul_rn(w_rows[recv * s + j], deq));
+// mix_packed's vectors: VEC consecutive elements, one 16-byte load or
+// store when VEC is 4 (the launcher checks the alignment), a scalar one
+// when VEC is 1
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec(const T* __restrict__ src,
+                                         T (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    using V = std::conditional_t<std::is_same<T, float>::value, float4, int4>;
+    const V t = *reinterpret_cast<const V*>(src);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = *src;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* __restrict__ dst,
+                                          const float (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *dst = v[0];
+}
+
+constexpr int kMixThreads = 128;   // threads a block at most
+constexpr int kMixBatch = 4;       // senders whose loads a thread issues
+                                   // before it folds them
+
+// One thread owns VEC consecutive columns of one row for the G receivers
+// [blockIdx.z * G, + G) (fewer in a last, partial group): it reads each
+// receiver's own vector once, then each sender's code vector and delta
+// once for all of them, and writes each receiver's vector once.
+template <typename CodeT, int G, int VEC>
+__global__ void __launch_bounds__(kMixThreads) mix_packed_kernel(
+    const float* __restrict__ own, const CodeT* __restrict__ codes,
+    const float* __restrict__ row_delta, const float* __restrict__ w_self,
+    const float* __restrict__ w_rows, float* __restrict__ out, int m, int s,
+    int rows, int cols) {
+  extern __shared__ float w_sh[];  // [G] self weights, then [G, s] rows
+  const int m0 = blockIdx.z * G;
+  const int mg = min(G, m - m0);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  if (tid < mg) w_sh[tid] = w_self[m0 + tid];
+  for (int i = tid; i < mg * s; i += nthreads)
+    w_sh[G + i] = w_rows[(int64_t)m0 * s + i];
+  __syncthreads();
+  const float* ws = w_sh;
+  const float* wr = w_sh + G;
+
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  if (c >= cols) return;
+  const int64_t per = (int64_t)rows * cols;  // one node's buffer
+  for (int row = blockIdx.y * blockDim.y + threadIdx.y; row < rows;
+       row += gridDim.y * blockDim.y) {
+    const int64_t e = (int64_t)row * cols + c;
+    float acc[G][VEC];
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (k < mg) {
+        float o[VEC];
+        load_vec<VEC>(own + (m0 + k) * per + e, o);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[k][v] = __fmul_rn(ws[k], o[v]);
+      }
     }
-    out[i] = acc;
+    for (int j0 = 0; j0 < s; j0 += kMixBatch) {
+      // issue a batch of senders' loads, then fold them in sender order
+      CodeT cd[kMixBatch][VEC];
+      float d[kMixBatch];
+#pragma unroll
+      for (int b = 0; b < kMixBatch; ++b) {
+        if (j0 + b < s) {
+          load_vec<VEC>(codes + (j0 + b) * per + e, cd[b]);
+          d[b] = row_delta[(int64_t)(j0 + b) * rows + row];
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kMixBatch; ++b) {
+        if (j0 + b < s) {
+          float deq[VEC];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            deq[v] = __fmul_rn((float)cd[b][v], d[b]);
+#pragma unroll
+          for (int k = 0; k < G; ++k) {
+            if (k < mg) {
+              const float w = wr[k * s + j0 + b];
+#pragma unroll
+              for (int v = 0; v < VEC; ++v)
+                acc[k][v] = __fadd_rn(acc[k][v], __fmul_rn(w, deq[v]));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      if (k < mg) store_vec<VEC>(out + (m0 + k) * per + e, acc[k]);
   }
 }
 
@@ -579,22 +673,81 @@ extern "C" int quantize_rows_ef(const float* x, const float* res,
   return (int)cudaGetLastError();
 }
 
+// mix_packed's launch, after checking its plan (kernels/quantize/
+// quantize.py:mix_plan): the receiver groups, the column vectors and the
+// rows covered, each output by exactly one thread; 16-byte vectors only on
+// 16-byte aligned buffers whose rows are whole vectors; the weights fit
+// the static shared-memory limit
+template <typename CodeT, int G, int VEC>
+static void mix_launch(dim3 grid, dim3 block, int smem, const float* own,
+                       const void* codes, const float* row_delta,
+                       const float* w_self, const float* w_rows, float* out,
+                       int m, int s, int rows, int cols,
+                       cudaStream_t stream) {
+  mix_packed_kernel<CodeT, G, VEC><<<grid, block, smem, stream>>>(
+      own, (const CodeT*)codes, row_delta, w_self, w_rows, out, m, s, rows,
+      cols);
+}
+
+template <typename CodeT, int VEC>
+static int mix_group(int group, dim3 grid, dim3 block, int smem,
+                     const float* own, const void* codes,
+                     const float* row_delta, const float* w_self,
+                     const float* w_rows, float* out, int m, int s, int rows,
+                     int cols, cudaStream_t stream) {
+  switch (group) {
+    case 1: mix_launch<CodeT, 1, VEC>(grid, block, smem, own, codes,
+                                      row_delta, w_self, w_rows, out, m, s,
+                                      rows, cols, stream); break;
+    case 2: mix_launch<CodeT, 2, VEC>(grid, block, smem, own, codes,
+                                      row_delta, w_self, w_rows, out, m, s,
+                                      rows, cols, stream); break;
+    case 4: mix_launch<CodeT, 4, VEC>(grid, block, smem, own, codes,
+                                      row_delta, w_self, w_rows, out, m, s,
+                                      rows, cols, stream); break;
+    case 8: mix_launch<CodeT, 8, VEC>(grid, block, smem, own, codes,
+                                      row_delta, w_self, w_rows, out, m, s,
+                                      rows, cols, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mix_packed(const float* own, const void* codes,
                           const float* row_delta, const float* w_self,
                           const float* w_rows, float* out, int m, int s,
-                          int64_t rows, int cols, int float_codes,
-                          cudaStream_t stream) {
-  const int64_t n = (int64_t)m * rows * cols;
-  if (n > 0) {
-    const unsigned blocks = (unsigned)sweep_blocks(n, 256);
-    if (float_codes)
-      mix_packed_kernel<float><<<blocks, 256, 0, stream>>>(
-          own, (const float*)codes, row_delta, w_self, w_rows, out, m, s,
-          rows, cols);
-    else
-      mix_packed_kernel<int><<<blocks, 256, 0, stream>>>(
-          own, (const int*)codes, row_delta, w_self, w_rows, out, m, s, rows,
-          cols);
-  }
-  return (int)cudaGetLastError();
+                          int64_t rows, int cols, int float_codes, int group,
+                          int vec, int block_x, int block_y, int grid_x,
+                          int grid_y, int grid_z, cudaStream_t stream) {
+  if (m <= 0 || rows <= 0 || cols <= 0) return (int)cudaGetLastError();
+  const auto aligned16 = [](const void* q) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  };
+  const int smem = 4 * group * (s + 1);
+  const int64_t span = (int64_t)block_x * vec;  // columns a block row
+  if (s < 0 || rows > INT32_MAX || (vec != 1 && vec != 4) ||
+      (vec == 4 && (cols % 4 || !aligned16(own) || !aligned16(codes) ||
+                    !aligned16(out))) ||
+      block_x <= 0 || block_y <= 0 || block_x * block_y > kMixThreads ||
+      grid_x <= 0 || (int64_t)grid_x * span < cols ||
+      (int64_t)(grid_x - 1) * span >= cols || grid_y <= 0 ||
+      grid_y > 65535 || grid_y > (rows + block_y - 1) / block_y ||
+      grid_z <= 0 || grid_z > 65535 || (int64_t)grid_z * group < m ||
+      (int64_t)(grid_z - 1) * group >= m || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y, grid_z), block(block_x, block_y);
+  const int r = (int)rows;
+  if (float_codes)
+    return vec == 4 ? mix_group<float, 4>(group, grid, block, smem, own,
+                                          codes, row_delta, w_self, w_rows,
+                                          out, m, s, r, cols, stream)
+                    : mix_group<float, 1>(group, grid, block, smem, own,
+                                          codes, row_delta, w_self, w_rows,
+                                          out, m, s, r, cols, stream);
+  return vec == 4 ? mix_group<int, 4>(group, grid, block, smem, own, codes,
+                                      row_delta, w_self, w_rows, out, m, s,
+                                      r, cols, stream)
+                  : mix_group<int, 1>(group, grid, block, smem, own, codes,
+                                      row_delta, w_self, w_rows, out, m, s,
+                                      r, cols, stream);
 }

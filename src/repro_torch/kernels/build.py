@@ -43,8 +43,8 @@ SIGNATURES = {
     "adamw_update": (_P,) * 8 + (_I64, _I64) + (_F32,) * 6 + (_P,),
     # g, p, mu, lr, scale, n, node_elems, momentum, wd, stream
     "sgd_update": (_P,) * 5 + (_I64, _I64, _F32, _F32, _P),
-    # upd, p, lr, n, wd, stream
-    "adafactor_apply": (_P,) * 3 + (_I64, _F32, _P),
+    # upd, p, lr, n, wd, vec, head, body, grid, stream
+    "adafactor_apply": (_P,) * 3 + (_I64, _F32, _I32, _I32, _I64, _I32, _P),
     # f1, labels, sums, counts, n_nodes, batch, p_dim, n_classes, stream
     "proto_accum": (_P,) * 4 + (_I32,) * 4 + (_P,),
     # x, out, rows, cols, stream
@@ -68,8 +68,9 @@ SIGNATURES = {
     # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, stream
     "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32, _P),
     # own, codes, row_delta, w_self, w_rows, out, m, s, rows, cols,
-    # float_codes, stream
-    "mix_packed": (_P,) * 6 + (_I32, _I32, _I64, _I32, _I32, _P),
+    # float_codes, group, vec, block_x, block_y, grid_x, grid_y, grid_z,
+    # stream
+    "mix_packed": (_P,) * 6 + (_I32, _I32, _I64) + (_I32,) * 9 + (_P,),
     # w, out, coeffs, b, a, n_nodes, n_send, lead, d, k, r, a_recv_stride,
     # w_stride, out_stride, design, tile_d, tile_k, group, stages, smem,
     # stream

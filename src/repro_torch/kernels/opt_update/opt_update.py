@@ -9,13 +9,18 @@ plane (the CUDA source is ``csrc/opt_update.cu``).
 * ``adafactor_apply_cuda`` replaces ``adafactor_apply_pallas``; 3 x 4 B
   per element (read upd, p; write p).
 
-Design: one grid-stride elementwise sweep over every node's plane at
-once, runtime scalars and the per-node clip scale in device memory;
-explicit round-to-nearest operations and ``-fmad=false`` make each
-bit-identical to its plain version in
+Design: one elementwise sweep over every node's plane at once, runtime
+scalars and the per-node clip scale in device memory: a grid-stride loop
+for adamw and sgd; for the adafactor apply, 16-byte vectors from the
+first 16-byte address on, several a thread with all their loads issued
+first, a scalar head and tail, and a grid sized to the work
+(:func:`adafactor_plan`).  Explicit round-to-nearest operations and
+``-fmad=false`` make each bit-identical to its plain version in
 :mod:`~repro_torch.kernels.opt_update.ref`.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -82,15 +87,61 @@ def sgd_update_cuda(g, p, mu, lr, scale, *, momentum: float,
     SGD_LAUNCHES.count += 1
 
 
+# -- the adafactor apply's launch plan ----------------------------------------
+ADA_THREADS = 256      # threads a block (kAdaThreads)
+ADA_UNROLL = 4         # vectors a thread (kAdaUnroll)
+
+
+@dataclass(frozen=True)
+class AdafactorPlan:
+    """One launch of the adafactor apply over ``n`` elements: ``head``
+    scalar elements, then ``body`` vectors of ``vec`` elements (16-byte
+    ``float4`` when ``vec`` is 4), then ``tail`` scalar elements, in
+    ``grid`` blocks of ``ADA_THREADS`` threads, ``ADA_UNROLL`` vectors a
+    thread."""
+    vec: int
+    head: int
+    body: int
+    tail: int
+    grid: int
+
+
+def adafactor_plan(n: int, align_upd: int, align_p: int) -> AdafactorPlan:
+    """The split of ``[0, n)`` for ``upd`` and ``p`` whose first
+    elements lie ``align_upd`` and ``align_p`` floats past a 16-byte
+    boundary: where the two agree, a scalar head up to the first 16-byte
+    address, ``float4`` vectors, and a scalar tail of at most 3 elements;
+    where they differ there is no common aligned body, and every element
+    is a vector of one."""
+    if n < 1:
+        raise ValueError(f"adafactor_apply: n must be positive, got {n}")
+    if align_upd not in range(4) or align_p not in range(4):
+        raise ValueError(f"adafactor_plan: offsets {align_upd}, {align_p}")
+    if align_upd == align_p:
+        head = min(n, -align_p % 4)
+        body = (n - head) // 4
+        vec, tail = 4, n - head - 4 * body
+    else:
+        vec, head, body, tail = 1, 0, n, 0
+    grid = max(1, -(-body // (ADA_THREADS * ADA_UNROLL)))
+    return AdafactorPlan(vec, head, body, tail, grid)
+
+
 def adafactor_apply_cuda(upd, p, lr, *, weight_decay: float) -> None:
     """Launch the kernel: ``p <- p - lr·(upd + wd·p)`` in place over
-    ``[..., R, C]`` fp32 planes on the card; ``lr`` is a one-element
+    ``[..., R, C]`` fp32 planes (or any contiguous fp32 buffer) on the
+    card, as :func:`adafactor_plan` splits it; ``lr`` is a one-element
     fp32 device tensor."""
     for name, t in (("upd", upd), ("p", p)):
         require(t, f"adafactor_apply {name}", torch.float32, tuple(p.shape))
     _require_scalar(lr, "adafactor_apply lr")
+    if p.numel() == 0:
+        return
+    plan = adafactor_plan(p.numel(), upd.data_ptr() // 4 % 4,
+                          p.data_ptr() // 4 % 4)
     rc = library().adafactor_apply(upd.data_ptr(), p.data_ptr(),
                                    lr.data_ptr(), p.numel(), weight_decay,
+                                   plan.vec, plan.head, plan.body, plan.grid,
                                    stream_of(p))
     check(rc, "adafactor_apply")
     ADAFACTOR_LAUNCHES.count += 1

@@ -18,18 +18,22 @@ the H100: bytes — rowabs reads 4 B per
 element, quantize_rows reads 4 B and writes a 4 B int32 code per element
 (the mixed variant adds a 4 B qmax per row), rowabs_sum reads 8 B per
 element, quantize_rows_ef reads 8 B and writes 8 B per element,
-mix_packed reads 4 B of its own buffer and 4 B of code per sender for
-each output and writes 4 B; the per-leaf and per-tensor sweeps read 4 B
-and write 4 B per element.  Design: one warp per 512-wide row with a
-shuffle max for the row reductions; a grid-stride elementwise sweep with
-an IEEE division for the codes (and the new residual, or the round trip);
-for the mix, a grid-stride sweep whose thread walks the senders in order
-with its accumulator in a register; for the whole-tensor codec, one
-cooperative launch whose blocks stage their spans of x in shared memory,
-write their maxima to a partials buffer, meet at a grid sync and write
-the codes from shared memory (:func:`fused_plan` picks the grid, the spans
-and what each block stages).  All are bit-identical to the plain versions
-in ``ref.py``.
+mix_packed must read 4 B of its own buffer per output, 4 B of code per
+sender and column, and write 4 B per output; the per-leaf and per-tensor
+sweeps read 4 B and write 4 B per element. Design: one warp per 512-wide
+row with a shuffle max for the row reductions; a grid-stride elementwise
+sweep with an IEEE division for the codes (and the new residual, or the
+round trip); for the mix, a thread owns one 16-byte vector of one row
+for a group of up to 8 receivers (their accumulators in registers, the
+group's weights in shared memory) and walks the senders in order, so
+each sender's codes are read once per receiver group, as 16-byte loads
+(:func:`mix_plan` picks the group, the vector width and the grid; a
+column tail or an unaligned buffer takes one column a thread); for the
+whole-tensor codec, one cooperative launch whose blocks stage their
+spans of x in shared memory, write their maxima to a partials buffer,
+meet at a grid sync and write the codes from shared memory
+(:func:`fused_plan` picks the grid, the spans and what each block
+stages). All are bit-identical to the plain versions in ``ref.py``.
 """
 from __future__ import annotations
 
@@ -307,10 +311,76 @@ def quantize_rows_ef_cuda(x2d, res2d, row_delta, row_qmax, decay: float):
     return codes, new_res
 
 
+# -- the mix's launch plan ----------------------------------------------------
+MIX_THREADS = 128           # threads a block (kMixThreads)
+MIX_GROUPS = (1, 2, 4, 8)   # receivers a thread (the kernel's template G)
+MIX_SMEM = 48 * 1024        # the group's weights: static shared-memory limit
+# threads a launch should have: 24 warps on each of 132 SMs.  At the mesh
+# round's 8 x 8 (R = 416) groups of 8 leave 53,248 threads and time
+# 0.0173 ms, groups of 4 106,496 threads and 0.0150 ms (the second read
+# of a sender's codes comes from L2), groups of 2 0.0170 ms
+# (benchmarks/torch_mix_adafactor_phases.py --plans, H100 SXM)
+MIX_MIN_THREADS = 132 * 768
+MAX_GRID_YZ = 65535
+
+
+@dataclass(frozen=True)
+class MixPlan:
+    """One launch of ``mix_packed``: ``group`` receivers a thread,
+    ``vec`` columns a thread (one 16-byte vector when 4), ``block``
+    ``(x: column vectors, y: rows)``, ``grid`` ``(column tiles, row
+    tiles, receiver groups)``; row tiles beyond the grid's are walked
+    by a stride of ``grid[1]·block[1]`` rows."""
+    group: int
+    vec: int
+    block: Tuple[int, int]
+    grid: Tuple[int, int, int]
+
+    def smem(self, s: int) -> int:
+        """Shared memory a block for ``s`` senders: the group's
+        ``w_self`` and ``w_rows``, in bytes."""
+        return 4 * self.group * (s + 1)
+
+
+def mix_plan(m: int, s: int, rows: int, cols: int,
+             aligned: bool) -> MixPlan:
+    """The launch of ``mix_packed`` for M receivers, S senders and
+    ``[rows, cols]`` buffers: 16-byte vectors where ``cols`` is a
+    multiple of 4 and ``aligned`` (own, codes and out start on 16-byte
+    addresses), else one column a thread; receiver groups of the least
+    of 1, 2, 4, 8 that holds min(M, 8), halved while the launch has
+    fewer than ``MIX_MIN_THREADS`` threads or the group's weights
+    overflow ``MIX_SMEM``; up to ``MIX_THREADS`` threads along a row
+    and the rest of a block's on rows."""
+    if m < 1 or s < 0 or rows < 1 or cols < 1:
+        raise ValueError(f"mix_packed: {m} receivers, {s} senders, "
+                         f"[{rows}, {cols}] buffers")
+    if rows > 2 ** 31 - 1:
+        raise ValueError(f"mix_packed: {rows} rows exceed 32 bits")
+    vec = 4 if aligned and cols % 4 == 0 else 1
+    units = -(-cols // vec)
+    group = next(g for g in MIX_GROUPS if g >= min(m, MIX_GROUPS[-1]))
+    while group > 1 and (4 * group * (s + 1) > MIX_SMEM or rows * units
+                         * -(-m // group) < MIX_MIN_THREADS):
+        group //= 2
+    if 4 * group * (s + 1) > MIX_SMEM:
+        raise ValueError(f"mix_packed: {s} senders' weights overflow "
+                         f"{MIX_SMEM} B of shared memory")
+    bx = min(MIX_THREADS, -(-units // 32) * 32)
+    by = MIX_THREADS // bx
+    grid = (-(-units // bx), min(-(-rows // by), MAX_GRID_YZ),
+            -(-m // group))
+    if grid[2] > MAX_GRID_YZ:
+        raise ValueError(f"mix_packed: {m} receivers need {grid[2]} "
+                         f"groups")
+    return MixPlan(group, vec, (bx, by), grid)
+
+
 def mix_packed_cuda(own, codes, row_delta, w_self, w_rows):
     """``own [M, R, C]`` fp32, ``codes [S, R, C]`` int32 or fp32,
     ``row_delta [S, R]``, ``w_self [M]`` and ``w_rows [M, S]`` fp32 on
-    the card -> the mixed ``[M, R, C]`` fp32 buffer."""
+    the card -> the mixed ``[M, R, C]`` fp32 buffer, in one launch laid
+    out by :func:`mix_plan`."""
     if own.dim() != 3 or codes.dim() != 3:
         raise ValueError(f"mix_packed: expected own [M, R, C] and codes "
                          f"[S, R, C], got {tuple(own.shape)} and "
@@ -326,10 +396,15 @@ def mix_packed_cuda(own, codes, row_delta, w_self, w_rows):
     require(w_self, "mix_packed w_self", torch.float32, (m,))
     require(w_rows, "mix_packed w_rows", torch.float32, (m, s))
     out = torch.empty((m, r, c), dtype=torch.float32, device=own.device)
+    if out.numel() == 0:
+        return out
+    plan = mix_plan(m, s, r, c, all(t.data_ptr() % 16 == 0
+                                    for t in (own, codes, out)))
     rc = library().mix_packed(own.data_ptr(), codes.data_ptr(),
                               row_delta.data_ptr(), w_self.data_ptr(),
                               w_rows.data_ptr(), out.data_ptr(), m, s, r, c,
-                              int(codes.dtype == torch.float32),
+                              int(codes.dtype == torch.float32), plan.group,
+                              plan.vec, *plan.block, *plan.grid,
                               stream_of(own))
     check(rc, "mix_packed")
     MIX_PACKED_LAUNCHES.count += 1
