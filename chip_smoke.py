@@ -37,7 +37,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    :func:`check_mix_packed`); ``adafactor_apply`` at ``[20, 208, 512]``
    and on a buffer one element in, timed beside ``torch.add(p, upd,
    out=p)`` (``stream_ms``).  One launch (a one-element add) is timed
-   once and carried as ``launch_ms`` on those two rows;
+   once and carried as ``launch_ms`` on those two rows.  The row codec
+   (``quantize_rows``, ``quantize_dequantize_rows``, ``dequantize_rows``)
+   is held bit for bit at the edge cases of :func:`row_codec_cases` too,
+   ``dequantize`` at those of :func:`dequantize_cases`; their rows carry
+   the cases and the launch plan of the timed shape (``design``);
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -296,7 +300,12 @@ def payload_buffer(torch, gen, student_cfg):
 
 
 def check_kernels(torch, timer, student_cfg):
-    """Phase 3: every kernel against its plain version at path shapes."""
+    """Phase 3: every kernel against its plain version at path shapes;
+    ``quantize_rows`` also at the edge cases of :func:`row_codec_cases`,
+    which its row carries (``cases``) with the main path's launch plan
+    (``design``)."""
+    from dataclasses import asdict
+
     import numpy as np
     from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
     from repro_torch.kernels.opt_update.ref import adamw_update_ref
@@ -309,7 +318,7 @@ def check_kernels(torch, timer, student_cfg):
                                                   pack_plane_payload)
     from repro_torch.kernels.quantize.quantize import (
         quantize_rows_cuda, quantize_rows_ef_cuda, quantize_rows_mixed_cuda,
-        rowabs_cuda, rowabs_sum_cuda)
+        rowabs_cuda, rowabs_sum_cuda, rows_plan)
     from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
                                                   quantize_rows_mixed_ref,
                                                   quantize_rows_ref,
@@ -406,13 +415,18 @@ def check_kernels(torch, timer, student_cfg):
     lib_ms = timer(lambda: torch.quantize_per_channel(x2d, scales, zero, 0,
                                                       torch.qint32))
     b_ms, b_by = bound(8 * x2d.numel() + 4 * rd.numel(), 4 * x2d.numel())
+    plan = rows_plan(*x2d.shape, x2d.data_ptr() % 16 == 0)
+    expect(plan.vec == 4, f"the main path's payload took {plan}")
     rows.append(dict(name="quantize_rows", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/quantize.py:313",
                      max_abs_err=float((got - want).abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms))
-    print(f"quantize_rows {tuple(x2d.shape)}: bit-exact codes")
+                     library_ms=lib_ms, design=asdict(plan),
+                     cases=[dict(case="main path", shape=list(x2d.shape),
+                                 bits=16)]
+                     + row_codec_cases(torch, "quantize_rows")))
+    print(f"quantize_rows {tuple(x2d.shape)}: bit-exact codes (plan {plan})")
 
     # -- the 4/16 wire: int16 prototype rows, int4 student rows ----------
     # No single PyTorch call computes these three functions (a per-row
@@ -951,23 +965,190 @@ def fused_cases(torch, teacher):
                ("negative absmax", neg, 16)])
 
 
+def on_card_at(torch, t, off: int):
+    """A contiguous copy of ``t`` on the card whose first element lies
+    ``off`` elements into its storage (4·off bytes past a 16-byte
+    address)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device="cuda")
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    expect(view.storage_offset() == off, f"offset {off} not kept")
+    return view
+
+
+def edge_rows(torch, gen, rows: int, cols: int, bits: int,
+              zero: bool = False):
+    """``([rows, cols] fp32, [rows, 1] Δ)`` on the card for the row
+    codec's edge cases: Δ from each row's absmax; on rows 1, 4, 7, ... Δ
+    rounded down to a power of two and every third column on an exact
+    half-step ``(k + 1/2)·Δ``, k over the whole code range (so the codes
+    round half up, and ``qmax + 1/2`` clips); on rows 2, 5, 8, ... Δ a
+    quarter of that (codes beyond ±qmax clip).  ``zero``: all zeros at
+    the least normal Δ."""
+    tiny = torch.finfo(torch.float32).tiny
+    if zero:
+        return (torch.zeros((rows, cols), device="cuda"),
+                torch.full((rows, 1), tiny, device="cuda"))
+    qm = (1 << (bits - 1)) - 1
+    x = torch.randn((rows, cols), generator=gen) * 3
+    delta = (x.abs().amax(1, keepdim=True) / qm).clamp_min(tiny)
+    delta[1::3] = torch.exp2(torch.floor(torch.log2(delta[1::3])))
+    k = torch.randint(-qm - 1, qm + 1, (rows, cols), generator=gen)
+    half = (k.float() + 0.5) * delta
+    x[1::3, ::3] = half[1::3, ::3]
+    delta[2::3] /= 4
+    return x.cuda(), delta.cuda()
+
+
+def row_codec_cases(torch, name: str):
+    """Phase 3's edge cases of one entry point of the row codec
+    (``quantize_rows``, ``quantize_dequantize_rows`` or
+    ``dequantize_rows``), each held bit for bit to its plain version:
+    the input at storage offsets 1-3 (so input and output at different
+    offsets), 510 and 10 columns, one row, 70,000 rows and 600,000 rows
+    of 8 (beyond 65,535 row tiles: two rows a thread), widths 16, 8 and
+    4 with exact half-steps and codes beyond ±qmax (:func:`edge_rows`),
+    all zeros, and through the C entry point the output at offsets 1-3
+    (input at the same offset and at another) and both at offset 4 (on
+    16 bytes); ``dequantize_rows`` also at codes over the whole int32
+    range.  Returns the cases with the plan each took."""
+    from repro_torch.kernels.quantize import quantize as Q
+    from repro_torch.kernels.quantize import ref as R
+    wrapper, plain = getattr(Q, f"{name}_cuda"), getattr(R, f"{name}_ref")
+    dequant = name == "dequantize_rows"
+    gen = torch.Generator().manual_seed(6)
+    cases = []
+
+    def held(what, rows, cols, bits=16, x_off=0, out_off=None, zero=False,
+             full_range=False):
+        x, rd = edge_rows(torch, gen, rows, cols, bits, zero)
+        kw = {} if dequant else dict(bits=bits)
+        if full_range:
+            x = torch.randint(-2 ** 31, 2 ** 31, (rows, cols), generator=gen,
+                              dtype=torch.int32).cuda()
+        elif dequant:
+            x = R.quantize_rows_ref(x, rd, bits=bits)
+        x = on_card_at(torch, x, x_off)
+        want = plain(x, rd, **kw)
+        if out_off is None:
+            got = wrapper(x, rd, **kw)
+        else:
+            got = on_card_at(torch, torch.full_like(want, -1), out_off)
+            Q._row_codec(name, x, rd, got,
+                         *(() if dequant else (Q._qmaxf(bits),)))
+        torch.cuda.synchronize()
+        expect(bits_equal(torch, got, want),
+               f"{name} is not bit-exact with its plain version at {what}")
+        plan = Q.rows_plan(rows, cols, x.data_ptr() % 16 == 0
+                           and got.data_ptr() % 16 == 0)
+        cases.append(dict(case=what, shape=[rows, cols], bits=bits,
+                          x_offset=x.storage_offset(),
+                          out_offset=got.storage_offset(), vec=plan.vec,
+                          block=list(plan.block), grid=list(plan.grid),
+                          rows_a_thread=plan.rows_a_thread))
+        return plan
+
+    for off in (1, 2, 3):
+        expect(held(f"x at offset {off}", 257, 512, x_off=off).vec == 1,
+               f"{name}: x off 16 bytes took 16-byte vectors")
+    for cols in (510, 10):
+        expect(held(f"{cols} columns", 257, cols).vec == 1,
+               f"{name}: {cols} columns took 16-byte vectors")
+    held("one row", 1, 512)
+    held("one row of 10", 1, 10)
+    held("70,000 rows of 8", 70000, 8)
+    expect(held("600,000 rows of 8", 600000, 8).rows_a_thread == 2,
+           f"{name}: 600,000 rows took no row stride")
+    for bits in (16, 8, 4):
+        expect(held(f"int{bits}", 257, 512, bits=bits).vec == 4,
+               f"{name}: an aligned buffer took one column a thread")
+    held("all zeros", 257, 512, zero=True)
+    for off in (1, 2, 3):
+        held(f"x and out at offset {off}", 257, 512, x_off=off, out_off=off)
+        held(f"out at offset {off}", 257, 512, out_off=off)
+    expect(held("x and out at offset 4", 257, 512, x_off=4,
+                out_off=4).vec == 4,
+           f"{name}: 16-byte aligned views took one column a thread")
+    if dequant:
+        held("int32 range", 257, 512, full_range=True)
+    print(f"{name}: bit-exact at {len(cases)} edge cases")
+    return cases
+
+
+def dequantize_cases(torch):
+    """Phase 3's edge cases of ``dequantize``, each held bit for bit to
+    its plain version: n of 1 to 7, codes at offsets 1-3 (so codes and
+    out at different offsets: one element a vector), through the C
+    entry point codes and out at the same offset 1-3 (a scalar head)
+    at 100,003 elements and at n of 1 to 7, codes and out at offsets 1
+    and 2, all zeros, and codes over the whole int32 range.  Returns the
+    cases with the split each took."""
+    from repro_torch.kernels.quantize import quantize as Q
+    from repro_torch.kernels.quantize.ref import dequantize_ref
+    gen = torch.Generator().manual_seed(7)
+    delta = torch.tensor(3.0517578125e-05 * 1.37, device="cuda")
+    cases = []
+
+    def held(what, n, c_off=0, out_off=None, zero=False, full_range=False):
+        hi = 2 ** 31 if full_range else 32768
+        codes = (torch.zeros(n, dtype=torch.int32) if zero else
+                 torch.randint(-hi, hi, (n,), generator=gen,
+                               dtype=torch.int32))
+        codes = on_card_at(torch, codes, c_off)
+        want = dequantize_ref(codes, delta)
+        if out_off is None:
+            got = Q.dequantize_cuda(codes, delta)
+        else:
+            got = on_card_at(torch, torch.full_like(want, -1), out_off)
+            Q._dequantize(codes, delta, got)
+        torch.cuda.synchronize()
+        expect(bits_equal(torch, got, want),
+               f"dequantize is not bit-exact with its plain version at "
+               f"{what}")
+        plan = Q.dequantize_plan(n, codes.data_ptr() // 4 % 4,
+                                 got.data_ptr() // 4 % 4)
+        cases.append(dict(case=what, n=n, codes_offset=codes.storage_offset(),
+                          out_offset=got.storage_offset(), vec=plan.vec,
+                          head=plan.head, body=plan.body, tail=plan.tail,
+                          grid=plan.grid))
+        return plan
+
+    for n in range(1, 8):
+        held(f"n={n}", n)
+    for off in (1, 2, 3):
+        expect(held(f"codes at offset {off}", 100003, c_off=off).vec == 1,
+               "dequantize: codes off out's offset took 16-byte vectors")
+        expect(held(f"codes and out at offset {off}", 100003, off,
+                    off).head == 4 - off,
+               f"dequantize at offset {off} took no scalar head")
+    for n in range(1, 8):
+        held(f"n={n} at offset 3", n, 3, 3)
+    held("codes at offset 1, out at offset 2", 100003, 1, 2)
+    held("all zeros", 100003, zero=True)
+    held("int32 range", 100003, full_range=True)
+    print(f"dequantize: bit-exact at {len(cases)} edge cases")
+    return cases
+
+
 def check_codec_kernels(torch, timer):
     """Phase 3, the per-leaf and per-tensor codec's five kernels against
     their plain versions, bit for bit, and timed: ``quantize_dequantize_
     rows`` and ``dequantize_rows`` at the mnist-cnn per-leaf payload
-    (``pack_tree(node_axis=True)``: ``[8240, 512]``, 180 segments),
-    ``fused_quantize``, ``fused_quantize_dequantize`` and ``dequantize``
-    timed at the ResNet18 teacher's ``[3, 3, 512, 512]`` leaf; the first
-    two held, codes and Δ, at every case of :func:`fused_cases` too, and
-    their rows carry the cases and the teacher leaf's launch plan
-    (``design``)."""
+    (``pack_tree(node_axis=True)``: ``[8240, 512]``, 180 segments), and
+    at the edge cases of :func:`row_codec_cases`; ``fused_quantize``,
+    ``fused_quantize_dequantize`` and ``dequantize`` timed at the
+    ResNet18 teacher's ``[3, 3, 512, 512]`` leaf; the first two held,
+    codes and Δ, at every case of :func:`fused_cases` too, ``dequantize``
+    at those of :func:`dequantize_cases`.  Each row carries its cases
+    and the launch plan of its timed shape (``design``)."""
     from dataclasses import asdict
 
     from repro_torch.kernels.quantize.ops import (_qmax_t, _segment_deltas,
                                                   pack_tree)
     from repro_torch.kernels.quantize.quantize import (
-        dequantize_cuda, dequantize_rows_cuda, fused_plan, fused_quantize_cuda,
-        fused_quantize_dequantize_cuda, quantize_dequantize_rows_cuda)
+        dequantize_cuda, dequantize_plan, dequantize_rows_cuda, fused_plan,
+        fused_quantize_cuda, fused_quantize_dequantize_cuda,
+        quantize_dequantize_rows_cuda, rows_plan)
     from repro_torch.kernels.quantize.ref import (
         dequantize_ref, dequantize_rows_ref, fused_quantize_dequantize_ref,
         fused_quantize_ref, quantize_dequantize_rows_ref, quantize_rows_ref)
@@ -1011,6 +1192,12 @@ def check_codec_kernels(torch, timer):
         8 * n + 4 * r, 5 * n,
         timer(lambda: torch.fake_quantize_per_channel_affine(
             buf, scales, zero, 0, -32768, 32767)))
+    plan = rows_plan(*buf.shape, buf.data_ptr() % 16 == 0)
+    expect(plan.vec == 4, f"the per-leaf payload took {plan}")
+    path_case = [dict(case="per-leaf payload", shape=list(buf.shape),
+                      bits=16)]
+    rows[-1].update(design=asdict(plan), cases=path_case + row_codec_cases(
+        torch, "quantize_dequantize_rows"))
 
     codes = quantize_rows_ref(buf, rd, bits=16)
     got = dequantize_rows_cuda(codes, rd)
@@ -1023,6 +1210,8 @@ def check_codec_kernels(torch, timer):
         timer(lambda: dequantize_rows_cuda(codes, rd)),
         timer(lambda: dequantize_rows_ref(codes, rd)), 8 * n + 4 * r, n,
         timer(lambda: torch.mul(codes, rd)))
+    rows[-1].update(design=asdict(plan), cases=path_case + row_codec_cases(
+        torch, "dequantize_rows"))
 
     # -- rows 13 and 14 at every case, row 15 at the teacher's leaf ------
     x = teacher_leaf(torch)
@@ -1078,6 +1267,10 @@ def check_codec_kernels(torch, timer):
         timer(lambda: dequantize_cuda(c_got, d_got)),
         timer(lambda: dequantize_ref(c_got, d_got)), 8 * n + 4, n,
         timer(lambda: torch.mul(c_got, d_got)))
+    plan = dequantize_plan(n, c_got.data_ptr() // 4 % 4, 0)
+    expect(plan.vec == 4, f"the teacher leaf's codes took {plan}")
+    rows[-1].update(design=asdict(plan), cases=[dict(
+        case="teacher", n=n)] + dequantize_cases(torch))
     for rw in rows:
         print(f"  {rw['name']:25s} kernel {rw['ms']:.4f} ms  plain "
               f"{rw['plain_ms']:.4f} ms  library {rw['library_ms']}  "

@@ -92,7 +92,8 @@ __global__ void sgd_update_kernel(const float* __restrict__ g,
 // 16-byte boundary there is no common aligned body, and the same kernel
 // runs with one element a vector.  The split (vector width, head, body in
 // vectors, grid) is picked in Python (kernels/opt_update/opt_update.py:
-// adafactor_plan); the launcher checks it.
+// adafactor_plan, through kernels/sweep.py:sweep_plan, which the scalar-delta
+// dequantize in csrc/quantize.cu shares); the launcher checks it.
 constexpr int kAdaThreads = 256;
 constexpr int kAdaUnroll = 4;  // vectors a thread
 

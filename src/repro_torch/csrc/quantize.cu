@@ -55,9 +55,10 @@
 // ever needs a partial from another (the TPU kernels masked out-of-bounds
 // lanes of their edge blocks; here the loop bound does).  rowabs_sum adds
 // the residual in registers, so the effective payload never lands in
-// memory.  The code sweeps are grid-stride elementwise loops with the
-// row's delta (and qmax) indexed by i / cols; quantize_rows_ef writes the
-// codes and the new residual from the same registers.  Every operation is
+// memory.  quantize_rows_mixed and quantize_rows_ef are grid-stride
+// elementwise loops with the row's delta and qmax indexed by i / cols;
+// quantize_rows_ef writes the codes and the new residual from the same
+// registers.  Every operation is
 // a _rn intrinsic in the plain version's order — the division is the IEEE
 // one (__fdiv_rn), not a reciprocal multiply, the + 0.5 rounds on its own,
 // and with -fmad=false no multiply fuses into an add — so codes and
@@ -84,10 +85,31 @@
 // so it is bit-identical to mix_packed_ref.  The launch plan (group, vector
 // width, block, grid) is picked in Python (kernels/quantize/quantize.py:
 // mix_plan); the launcher checks it and returns the CUDA error otherwise.
-// quantize_dequantize_rows is quantize_rows' body with the output type a
-// template parameter (float: write code * delta, rounded on its own, as
-// mix_packed's code type is one).  dequantize_rows and dequantize share
-// one grid-stride body, templated on whether delta is per row.
+// quantize_rows, quantize_dequantize_rows and dequantize_rows share one
+// body, row_codec_kernel<InT, OutT, VEC>: fp32 x in and int32 codes or the
+// fp32 round trip code * delta out (rounded on its own), or int32 codes in
+// and fp32 out.  Their bytes sit in a grid-stride loop's way when each
+// element divides its index by cols for its row's delta and one 4-byte load
+// is in flight a thread; so rows go on blockIdx.y (a row stride beyond
+// 65,535 row tiles) and a thread takes kRowUnroll 16-byte column vectors of
+// its row, a block row's width apart: at each step a warp reads 512
+// contiguous bytes, and at the paths' 512 columns a warp takes one row.
+// The thread reads its row's delta once into a register, issues all its
+// vectors' loads before it converts any, and writes int4 / float4 stores;
+// no index is divided.  A column count that is not a multiple of 4, or an x
+// or out whose base is not 16-byte aligned, takes the same kernel with one
+// column a thread (VEC = 1).  The plan (vector width, block, grid) is
+// picked in Python (kernels/quantize/quantize.py:rows_plan); the launcher
+// checks it and returns the CUDA error otherwise.
+// dequantize sweeps the flat codes as adafactor_apply sweeps its plane
+// (csrc/opt_update.cu): a scalar head up to the first 16-byte address, int4
+// loads and float4 stores, kFlatUnroll vectors a thread with all loads
+// issued first, a scalar tail of at most 3 elements, and a grid sized to
+// the work.  delta is read once a thread from device memory.  Codes and
+// out at different offsets from 16 bytes share no aligned body, and every
+// element is a vector of one.  The split is picked in Python
+// (kernels/sweep.py:sweep_plan, shared with adafactor_apply); the launcher
+// checks it.
 // fused_quantize(_dequantize) needs a grid-wide max before any code can be
 // written.  H100 blocks cannot wait on each other outside a cooperative
 // launch, so it is one cooperative launch (cudaLaunchCooperativeKernel:
@@ -141,35 +163,36 @@ __global__ void rowabs_kernel(const float* __restrict__ x,
   if (lane == 0) out[row] = m;
 }
 
-// OutT int: the codes; OutT float: the round trip code * delta
-template <typename OutT>
-__global__ void quantize_rows_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ row_delta,
-                                     OutT* __restrict__ out, int64_t n,
-                                     int cols, float qmax) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float delta = row_delta[i / cols];
-    float q = floorf(__fadd_rn(__fdiv_rn(x[i], delta), 0.5f));
-    q = fminf(fmaxf(q, -qmax - 1.f), qmax);
-    if constexpr (std::is_same<OutT, float>::value)
-      out[i] = __fmul_rn(q, delta);
-    else
-      out[i] = (int)q;
+// VEC consecutive elements: one 16-byte load or store (float4 / int4) when
+// VEC is 4 (the launchers check the alignment), a scalar one when VEC is 1
+template <typename T>
+using Vec4 = std::conditional_t<std::is_same<T, float>::value, float4, int4>;
+
+template <int VEC, typename T>
+__device__ __forceinline__ void load_vec(const T* __restrict__ src,
+                                         T (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const Vec4<T> t = *reinterpret_cast<const Vec4<T>*>(src);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = *src;
   }
 }
 
-// PerRow: delta[i / cols]; else the scalar delta[0]
-template <bool PerRow>
-__global__ void dequantize_kernel(const int* __restrict__ codes,
-                                  const float* __restrict__ delta,
-                                  float* __restrict__ out, int64_t n,
-                                  int cols) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = __fmul_rn((float)codes[i], delta[PerRow ? i / cols : 0]);
+template <int VEC, typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ dst,
+                                          const T (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<Vec4<T>*>(dst) = Vec4<T>{v[0], v[1], v[2], v[3]};
+  else
+    *dst = v[0];
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* q) {
+  return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
 }
 
 // -- the whole-tensor codec: one cooperative launch --------------------------
@@ -250,6 +273,84 @@ struct Codec {
     }
   }
 };
+
+// -- the row codec: quantize_rows, quantize_dequantize_rows, dequantize_rows
+constexpr int kRowThreads = 256;  // threads a block at most
+constexpr int kRowUnroll = 4;     // vectors of its row a thread
+
+// InT float: x quantized at its row's delta, OutT int the codes, OutT float
+// the round trip; InT int: codes dequantized at their row's delta.  A
+// thread owns kRowUnroll VEC-wide column vectors of one row, a block row's
+// width apart; rows beyond the grid's row tiles are walked by a stride.
+template <typename InT, typename OutT, int VEC>
+__global__ void __launch_bounds__(kRowThreads) row_codec_kernel(
+    const InT* __restrict__ x, const float* __restrict__ row_delta,
+    OutT* __restrict__ out, int64_t rows, int cols, float qmax) {
+  const int c0 = (blockIdx.x * blockDim.x * kRowUnroll + threadIdx.x) * VEC;
+  const int step = blockDim.x * VEC;
+  for (int64_t row = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+       row < rows; row += (int64_t)gridDim.y * blockDim.y) {
+    const Codec<OutT> codec{row_delta[row], qmax};
+    const InT* __restrict__ xr = x + row * cols;
+    OutT* __restrict__ outr = out + row * cols;
+    InT v[kRowUnroll][VEC];
+#pragma unroll
+    for (int k = 0; k < kRowUnroll; ++k)
+      if (c0 + k * step < cols) load_vec<VEC>(xr + c0 + k * step, v[k]);
+#pragma unroll
+    for (int k = 0; k < kRowUnroll; ++k) {
+      if (c0 + k * step < cols) {
+        OutT o[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          if constexpr (std::is_same<InT, int>::value)
+            o[j] = __fmul_rn((float)v[k][j], codec.delta);
+          else
+            o[j] = codec(v[k][j]);
+        }
+        store_vec<VEC>(outr + c0 + k * step, o);
+      }
+    }
+  }
+}
+
+// -- dequantize: the flat sweep at one scalar delta ---------------------------
+constexpr int kFlatThreads = 256;
+constexpr int kFlatUnroll = 4;  // vectors a thread
+
+// head scalar elements, body VEC-wide vectors, tail scalar elements
+template <int VEC>
+__global__ void __launch_bounds__(kFlatThreads) dequantize_kernel(
+    const int* __restrict__ codes, const float* __restrict__ delta,
+    float* __restrict__ out, int64_t head, int64_t body, int tail) {
+  const float d = *delta;
+  const int64_t gid = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x;
+  if (gid < head) out[gid] = __fmul_rn((float)codes[gid], d);
+  if (gid < tail) {
+    const int64_t i = head + VEC * body + gid;
+    out[i] = __fmul_rn((float)codes[i], d);
+  }
+  const int* __restrict__ c = codes + head;
+  float* __restrict__ o = out + head;
+  const int64_t v0 =
+      (int64_t)blockIdx.x * (kFlatThreads * kFlatUnroll) + threadIdx.x;
+  int cv[kFlatUnroll][VEC];
+#pragma unroll
+  for (int k = 0; k < kFlatUnroll; ++k) {
+    const int64_t v = v0 + k * kFlatThreads;
+    if (v < body) load_vec<VEC>(c + VEC * v, cv[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kFlatUnroll; ++k) {
+    const int64_t v = v0 + k * kFlatThreads;
+    if (v < body) {
+      float ov[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) ov[j] = __fmul_rn((float)cv[k][j], d);
+      store_vec<VEC>(o + VEC * v, ov);
+    }
+  }
+}
 
 // Block b owns x[lo, hi): the elements at 16-byte address slots
 // [b * span, (b + 1) * span) counted from x's 16-byte boundary below it.
@@ -396,33 +497,6 @@ __global__ void quantize_rows_ef_kernel(const float* __restrict__ x,
   }
 }
 
-// mix_packed's vectors: VEC consecutive elements, one 16-byte load or
-// store when VEC is 4 (the launcher checks the alignment), a scalar one
-// when VEC is 1
-template <int VEC, typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ src,
-                                         T (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    using V = std::conditional_t<std::is_same<T, float>::value, float4, int4>;
-    const V t = *reinterpret_cast<const V*>(src);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    v[0] = *src;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ dst,
-                                          const float (&v)[VEC]) {
-  if constexpr (VEC == 4)
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *dst = v[0];
-}
-
 constexpr int kMixThreads = 128;   // threads a block at most
 constexpr int kMixBatch = 4;       // senders whose loads a thread issues
                                    // before it folds them
@@ -519,42 +593,82 @@ static int64_t sweep_blocks(int64_t n, int threads) {
   return blocks > 132 * 32 ? 132 * 32 : blocks;
 }
 
+// the row codec's launch, after checking its plan (kernels/quantize/
+// quantize.py:rows_plan): the column vectors and the rows covered, each
+// element by exactly one thread and no block empty; 16-byte vectors only on
+// 16-byte aligned x and out whose rows are whole vectors
+template <typename InT, typename OutT>
+static int row_launch(const InT* x, const float* row_delta, OutT* out,
+                      int64_t rows, int cols, float qmax, int vec,
+                      int block_x, int block_y, int grid_x, int grid_y,
+                      cudaStream_t stream) {
+  const int64_t span = (int64_t)block_x * kRowUnroll * vec;  // a block's
+  if (rows <= 0 || cols <= 0 || (vec != 1 && vec != 4) ||
+      (vec == 4 && (cols % 4 || !aligned16(x) || !aligned16(out))) ||
+      block_x <= 0 || block_y <= 0 || block_x * block_y > kRowThreads ||
+      grid_x <= 0 || (int64_t)grid_x * span < cols ||
+      (int64_t)(grid_x - 1) * span >= cols ||
+      (int64_t)grid_x * span > INT32_MAX || grid_y <= 0 || grid_y > 65535 ||
+      grid_y > (rows + block_y - 1) / block_y)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y), block(block_x, block_y);
+  if (vec == 4)
+    row_codec_kernel<InT, OutT, 4><<<grid, block, 0, stream>>>(
+        x, row_delta, out, rows, cols, qmax);
+  else
+    row_codec_kernel<InT, OutT, 1><<<grid, block, 0, stream>>>(
+        x, row_delta, out, rows, cols, qmax);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int quantize_rows(const float* x, const float* row_delta,
                              int* codes, int64_t rows, int cols, float qmax,
-                             cudaStream_t stream) {
-  const int64_t n = rows * cols;
-  if (n > 0)
-    quantize_rows_kernel<int><<<(unsigned)sweep_blocks(n, 256), 256, 0,
-                                stream>>>(x, row_delta, codes, n, cols, qmax);
-  return (int)cudaGetLastError();
+                             int vec, int block_x, int block_y, int grid_x,
+                             int grid_y, cudaStream_t stream) {
+  return row_launch(x, row_delta, codes, rows, cols, qmax, vec, block_x,
+                    block_y, grid_x, grid_y, stream);
 }
 
 extern "C" int quantize_dequantize_rows(const float* x,
                                         const float* row_delta, float* out,
                                         int64_t rows, int cols, float qmax,
+                                        int vec, int block_x, int block_y,
+                                        int grid_x, int grid_y,
                                         cudaStream_t stream) {
-  const int64_t n = rows * cols;
-  if (n > 0)
-    quantize_rows_kernel<float><<<(unsigned)sweep_blocks(n, 256), 256, 0,
-                                  stream>>>(x, row_delta, out, n, cols, qmax);
-  return (int)cudaGetLastError();
+  return row_launch(x, row_delta, out, rows, cols, qmax, vec, block_x,
+                    block_y, grid_x, grid_y, stream);
 }
 
 extern "C" int dequantize_rows(const int* codes, const float* row_delta,
-                               float* out, int64_t rows, int cols,
-                               cudaStream_t stream) {
-  const int64_t n = rows * cols;
-  if (n > 0)
-    dequantize_kernel<true><<<(unsigned)sweep_blocks(n, 256), 256, 0,
-                              stream>>>(codes, row_delta, out, n, cols);
-  return (int)cudaGetLastError();
+                               float* out, int64_t rows, int cols, int vec,
+                               int block_x, int block_y, int grid_x,
+                               int grid_y, cudaStream_t stream) {
+  return row_launch(codes, row_delta, out, rows, cols, 0.f, vec, block_x,
+                    block_y, grid_x, grid_y, stream);
 }
 
+// dequantize's launch, after checking its split (kernels/sweep.py:
+// sweep_plan): head, body and tail cover [0, n) once, the body starts on a
+// 16-byte address of both codes and out where it is vectors of 4, and the
+// grid holds the body's vectors with no block empty
 extern "C" int dequantize(const int* codes, const float* delta, float* out,
-                          int64_t n, cudaStream_t stream) {
-  if (n > 0)
-    dequantize_kernel<false><<<(unsigned)sweep_blocks(n, 256), 256, 0,
-                               stream>>>(codes, delta, out, n, 1);
+                          int64_t n, int vec, int head, int64_t body,
+                          int grid, cudaStream_t stream) {
+  const int64_t tail = n - head - (int64_t)vec * body;
+  const int64_t tile = (int64_t)kFlatThreads * kFlatUnroll;
+  const int64_t blocks = body > 0 ? (body + tile - 1) / tile : 1;
+  const bool ok =
+      n > 0 && head >= 0 && body >= 0 && grid == blocks &&
+      ((vec == 4 && head <= 3 && tail >= 0 && tail <= 3 &&
+        aligned16(codes + head) && aligned16(out + head)) ||
+       (vec == 1 && head == 0 && tail == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (vec == 4)
+    dequantize_kernel<4><<<grid, kFlatThreads, 0, stream>>>(
+        codes, delta, out, head, body, (int)tail);
+  else
+    dequantize_kernel<1><<<grid, kFlatThreads, 0, stream>>>(codes, delta,
+                                                            out, 0, body, 0);
   return (int)cudaGetLastError();
 }
 
@@ -720,9 +834,6 @@ extern "C" int mix_packed(const float* own, const void* codes,
                           int vec, int block_x, int block_y, int grid_x,
                           int grid_y, int grid_z, cudaStream_t stream) {
   if (m <= 0 || rows <= 0 || cols <= 0) return (int)cudaGetLastError();
-  const auto aligned16 = [](const void* q) {
-    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
-  };
   const int smem = 4 * group * (s + 1);
   const int64_t span = (int64_t)block_x * vec;  // columns a block row
   if (s < 0 || rows > INT32_MAX || (vec != 1 && vec != 4) ||

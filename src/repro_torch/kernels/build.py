@@ -49,14 +49,18 @@ SIGNATURES = {
     "proto_accum": (_P,) * 4 + (_I32,) * 4 + (_P,),
     # x, out, rows, cols, stream
     "rowabs": (_P, _P, _I64, _I32, _P),
-    # x, row_delta, codes, rows, cols, qmax, stream
-    "quantize_rows": (_P, _P, _P, _I64, _I32, _F32, _P),
-    # x, row_delta, out, rows, cols, qmax, stream
-    "quantize_dequantize_rows": (_P, _P, _P, _I64, _I32, _F32, _P),
-    # codes, row_delta, out, rows, cols, stream
-    "dequantize_rows": (_P, _P, _P, _I64, _I32, _P),
-    # codes, delta, out, n, stream
-    "dequantize": (_P, _P, _P, _I64, _P),
+    # x, row_delta, codes, rows, cols, qmax, vec, block_x, block_y,
+    # grid_x, grid_y, stream
+    "quantize_rows": (_P, _P, _P, _I64, _I32, _F32) + (_I32,) * 5 + (_P,),
+    # x, row_delta, out, rows, cols, qmax, vec, block_x, block_y, grid_x,
+    # grid_y, stream
+    "quantize_dequantize_rows": ((_P, _P, _P, _I64, _I32, _F32)
+                                 + (_I32,) * 5 + (_P,)),
+    # codes, row_delta, out, rows, cols, vec, block_x, block_y, grid_x,
+    # grid_y, stream
+    "dequantize_rows": (_P, _P, _P, _I64) + (_I32,) * 6 + (_P,),
+    # codes, delta, out, n, vec, head, body, grid, stream
+    "dequantize": (_P, _P, _P, _I64, _I32, _I32, _I64, _I32, _P),
     # x, out, delta, partials, n, qmax, grid, span, stage, stream
     "fused_quantize": (_P,) * 4 + (_I64, _F32, _I32, _I64, _I32, _P),
     "fused_quantize_dequantize": (_P,) * 4 + (_I64, _F32, _I32, _I64, _I32,

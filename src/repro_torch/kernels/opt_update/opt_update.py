@@ -20,14 +20,13 @@ first, a scalar head and tail, and a grid sized to the work
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from repro_torch.kernels.build import (LaunchCounter, check, library,
                                        require, stream_of)
 from repro_torch.kernels.opt_update.ref import (  # noqa: F401  the plain versions
     adafactor_apply_ref, adamw_update_ref, sgd_update_ref)
+from repro_torch.kernels.sweep import SweepPlan, sweep_plan
 
 ADAMW_LAUNCHES = LaunchCounter("adamw_update")
 SGD_LAUNCHES = LaunchCounter("sgd_update")
@@ -92,39 +91,13 @@ ADA_THREADS = 256      # threads a block (kAdaThreads)
 ADA_UNROLL = 4         # vectors a thread (kAdaUnroll)
 
 
-@dataclass(frozen=True)
-class AdafactorPlan:
-    """One launch of the adafactor apply over ``n`` elements: ``head``
-    scalar elements, then ``body`` vectors of ``vec`` elements (16-byte
-    ``float4`` when ``vec`` is 4), then ``tail`` scalar elements, in
-    ``grid`` blocks of ``ADA_THREADS`` threads, ``ADA_UNROLL`` vectors a
-    thread."""
-    vec: int
-    head: int
-    body: int
-    tail: int
-    grid: int
-
-
-def adafactor_plan(n: int, align_upd: int, align_p: int) -> AdafactorPlan:
+def adafactor_plan(n: int, align_upd: int, align_p: int) -> SweepPlan:
     """The split of ``[0, n)`` for ``upd`` and ``p`` whose first
     elements lie ``align_upd`` and ``align_p`` floats past a 16-byte
-    boundary: where the two agree, a scalar head up to the first 16-byte
-    address, ``float4`` vectors, and a scalar tail of at most 3 elements;
-    where they differ there is no common aligned body, and every element
-    is a vector of one."""
-    if n < 1:
-        raise ValueError(f"adafactor_apply: n must be positive, got {n}")
-    if align_upd not in range(4) or align_p not in range(4):
-        raise ValueError(f"adafactor_plan: offsets {align_upd}, {align_p}")
-    if align_upd == align_p:
-        head = min(n, -align_p % 4)
-        body = (n - head) // 4
-        vec, tail = 4, n - head - 4 * body
-    else:
-        vec, head, body, tail = 1, 0, n, 0
-    grid = max(1, -(-body // (ADA_THREADS * ADA_UNROLL)))
-    return AdafactorPlan(vec, head, body, tail, grid)
+    boundary (:func:`~repro_torch.kernels.sweep.sweep_plan`, in blocks
+    of ``ADA_THREADS`` threads, ``ADA_UNROLL`` vectors a thread)."""
+    return sweep_plan(n, align_upd, align_p, threads=ADA_THREADS,
+                      unroll=ADA_UNROLL, name="adafactor_apply")
 
 
 def adafactor_apply_cuda(upd, p, lr, *, weight_decay: float) -> None:

@@ -22,8 +22,14 @@ mix_packed must read 4 B of its own buffer per output, 4 B of code per
 sender and column, and write 4 B per output; the per-leaf and per-tensor
 sweeps read 4 B and write 4 B per element. Design: one warp per 512-wide
 row with a shuffle max for the row reductions; a grid-stride elementwise
-sweep with an IEEE division for the codes (and the new residual, or the
-round trip); for the mix, a thread owns one 16-byte vector of one row
+sweep with an IEEE division for the mixed-width and error-feedback codes;
+for the row codec (``quantize_rows``, ``quantize_dequantize_rows``,
+``dequantize_rows``), rows on the grid's y axis and several 16-byte
+column vectors of one row a thread, its row's Δ read once
+(:func:`rows_plan`; a column tail or an unaligned buffer takes one
+column a thread); for ``dequantize``, 16-byte vectors between a scalar
+head and tail (:func:`~repro_torch.kernels.sweep.sweep_plan`); for the
+mix, a thread owns one 16-byte vector of one row
 for a group of up to 8 receivers (their accumulators in registers, the
 group's weights in shared memory) and walks the senders in order, so
 each sender's codes are read once per receiver group, as 16-byte loads
@@ -45,6 +51,7 @@ import torch
 
 from repro_torch.kernels.build import (LaunchCounter, check, library,
                                        require, stream_of)
+from repro_torch.kernels.sweep import SweepPlan, sweep_plan
 from repro_torch.kernels.quantize.ref import (_qmaxf,  # noqa: F401  plain versions
                                               mix_packed_ref,
                                               quantize_rows_ef_ref,
@@ -84,16 +91,68 @@ def rowabs_cuda(x2d):
     return out
 
 
+# -- the row codec's launch plan ----------------------------------------------
+ROW_THREADS = 256           # threads a block (kRowThreads)
+ROW_UNROLL = 4              # column vectors of its row a thread (kRowUnroll)
+MAX_GRID_YZ = 65535
+
+
+@dataclass(frozen=True)
+class RowsPlan:
+    """One launch of the row codec over ``[rows, cols]``: ``vec``
+    columns a vector (one 16-byte vector when 4), ``ROW_UNROLL`` vectors
+    of one row a thread, a block row's width apart; ``block`` ``(x:
+    threads along a row, y: rows)``, ``grid`` ``(column tiles, row
+    tiles)``; row tiles beyond the grid's are walked by a stride of
+    ``grid[1]·block[1]`` rows, so a thread takes ``rows_a_thread``
+    rows."""
+    vec: int
+    block: Tuple[int, int]
+    grid: Tuple[int, int]
+    rows_a_thread: int
+
+
+def rows_plan(rows: int, cols: int, aligned: bool) -> RowsPlan:
+    """The launch of ``quantize_rows``, ``quantize_dequantize_rows`` or
+    ``dequantize_rows`` over ``[rows, cols]``: 16-byte vectors where
+    ``cols`` is a multiple of 4 and ``aligned`` (the input and the
+    output start on 16-byte addresses), else one column a thread; the
+    fewest whole warps along a row that hold its vectors at
+    ``ROW_UNROLL`` a thread, up to ``ROW_THREADS``, the rest of a
+    block's threads on rows."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"rows_plan: [{rows}, {cols}] is empty")
+    if cols > 2 ** 30:
+        raise ValueError(f"rows_plan: {cols} columns exceed 2^30")
+    vec = 4 if aligned and cols % 4 == 0 else 1
+    units = -(-cols // vec)
+    bx = min(ROW_THREADS, -(-units // (32 * ROW_UNROLL)) * 32)
+    by = ROW_THREADS // bx
+    grid = (-(-units // (bx * ROW_UNROLL)), min(-(-rows // by), MAX_GRID_YZ))
+    return RowsPlan(vec, (bx, by), grid, -(-rows // (grid[1] * by)))
+
+
+def _row_codec(name: str, x2d, row_delta, out, *qmax) -> None:
+    """Launch the row codec's entry point ``name`` over ``x2d`` into
+    ``out`` (both contiguous ``[R, C]``, neither empty) as
+    :func:`rows_plan` lays it out."""
+    r, c = x2d.shape
+    plan = rows_plan(r, c, x2d.data_ptr() % 16 == 0
+                     and out.data_ptr() % 16 == 0)
+    rc = getattr(library(), name)(
+        x2d.data_ptr(), row_delta.data_ptr(), out.data_ptr(), r, c, *qmax,
+        plan.vec, *plan.block, *plan.grid, stream_of(x2d))
+    check(rc, name)
+
+
 def quantize_rows_cuda(x2d, row_delta, *, bits: int = 16):
     """``[R, C]`` fp32 and ``[R, 1]`` deltas on the card -> int32 codes."""
     r, c = _rows(x2d, "quantize_rows")
     require(row_delta, "quantize_rows row_delta", torch.float32, (r, 1))
     codes = torch.empty((r, c), dtype=torch.int32, device=x2d.device)
-    rc = library().quantize_rows(x2d.data_ptr(), row_delta.data_ptr(),
-                                 codes.data_ptr(), r, c, _qmaxf(bits),
-                                 stream_of(x2d))
-    check(rc, "quantize_rows")
-    QUANTIZE_ROWS_LAUNCHES.count += 1
+    if codes.numel():
+        _row_codec("quantize_rows", x2d, row_delta, codes, _qmaxf(bits))
+        QUANTIZE_ROWS_LAUNCHES.count += 1
     return codes
 
 
@@ -120,11 +179,10 @@ def quantize_dequantize_rows_cuda(x2d, row_delta, *, bits: int = 16):
     require(row_delta, "quantize_dequantize_rows row_delta", torch.float32,
             (r, 1))
     out = torch.empty((r, c), dtype=torch.float32, device=x2d.device)
-    rc = library().quantize_dequantize_rows(
-        x2d.data_ptr(), row_delta.data_ptr(), out.data_ptr(), r, c,
-        _qmaxf(bits), stream_of(x2d))
-    check(rc, "quantize_dequantize_rows")
-    QUANTIZE_DEQUANTIZE_ROWS_LAUNCHES.count += 1
+    if out.numel():
+        _row_codec("quantize_dequantize_rows", x2d, row_delta, out,
+                   _qmaxf(bits))
+        QUANTIZE_DEQUANTIZE_ROWS_LAUNCHES.count += 1
     return out
 
 
@@ -138,10 +196,9 @@ def dequantize_rows_cuda(codes2d, row_delta):
     require(codes2d, "dequantize_rows codes", torch.int32)
     require(row_delta, "dequantize_rows row_delta", torch.float32, (r, 1))
     out = torch.empty((r, c), dtype=torch.float32, device=codes2d.device)
-    rc = library().dequantize_rows(codes2d.data_ptr(), row_delta.data_ptr(),
-                                   out.data_ptr(), r, c, stream_of(codes2d))
-    check(rc, "dequantize_rows")
-    DEQUANTIZE_ROWS_LAUNCHES.count += 1
+    if out.numel():
+        _row_codec("dequantize_rows", codes2d, row_delta, out)
+        DEQUANTIZE_ROWS_LAUNCHES.count += 1
     return out
 
 
@@ -264,17 +321,42 @@ def fused_quantize_dequantize_cuda(x, *, bits: int = 16):
     return out
 
 
+DEQ_THREADS = 256           # threads a block (kFlatThreads)
+DEQ_UNROLL = 4              # vectors a thread (kFlatUnroll)
+
+
+def dequantize_plan(n: int, align_codes: int, align_out: int) -> SweepPlan:
+    """The split of ``dequantize``'s ``n`` elements for codes and out
+    whose first elements lie ``align_codes`` and ``align_out`` elements
+    past a 16-byte boundary (:func:`~repro_torch.kernels.sweep.
+    sweep_plan`, in blocks of ``DEQ_THREADS``, ``DEQ_UNROLL`` vectors a
+    thread)."""
+    return sweep_plan(n, align_codes, align_out, threads=DEQ_THREADS,
+                      unroll=DEQ_UNROLL, name="dequantize")
+
+
+def _dequantize(codes, delta, out) -> None:
+    """Launch ``dequantize`` over ``codes`` into ``out`` (both
+    contiguous, neither empty) as :func:`dequantize_plan` splits it."""
+    plan = dequantize_plan(codes.numel(), codes.data_ptr() // 4 % 4,
+                           out.data_ptr() // 4 % 4)
+    rc = library().dequantize(codes.data_ptr(), delta.data_ptr(),
+                              out.data_ptr(), codes.numel(), plan.vec,
+                              plan.head, plan.body, plan.grid,
+                              stream_of(codes))
+    check(rc, "dequantize")
+
+
 def dequantize_cuda(codes, delta):
     """int32 codes (any shape) and a 0-d fp32 Δ on the card -> fp32
-    ``codes·Δ``; Δ is read on the card (no host sync)."""
+    ``codes·Δ``; Δ is read on the card (no host sync).  One launch, as
+    :func:`dequantize_plan` splits it."""
     require(codes, "dequantize codes", torch.int32)
     require(delta, "dequantize delta", torch.float32, ())
     out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
-    rc = library().dequantize(codes.data_ptr(), delta.data_ptr(),
-                              out.data_ptr(), codes.numel(),
-                              stream_of(codes))
-    check(rc, "dequantize")
-    DEQUANTIZE_LAUNCHES.count += 1
+    if out.numel():
+        _dequantize(codes, delta, out)
+        DEQUANTIZE_LAUNCHES.count += 1
     return out
 
 
@@ -321,7 +403,6 @@ MIX_SMEM = 48 * 1024        # the group's weights: static shared-memory limit
 # of a sender's codes comes from L2), groups of 2 0.0170 ms
 # (benchmarks/torch_mix_adafactor_phases.py --plans, H100 SXM)
 MIX_MIN_THREADS = 132 * 768
-MAX_GRID_YZ = 65535
 
 
 @dataclass(frozen=True)
