@@ -37,7 +37,13 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    :func:`check_mix_packed`); ``adafactor_apply`` at ``[20, 208, 512]``
    and on a buffer one element in, timed beside ``torch.add(p, upd,
    out=p)`` (``stream_ms``).  One launch (a one-element add) is timed
-   once and carried as ``launch_ms`` on those two rows.  The row codec
+   once and carried as ``launch_ms`` on those two rows and on rows 3, 9
+   and 18, which also carry a same-byte ``copy_`` (``copy_ms``).
+   ``rowabs`` and ``rowabs_sum`` (decay 1.0 and 0.9) are held bit for bit
+   at the cases of :func:`absmax_cases` too (the per-leaf payloads, odd
+   cols, one row, 600,000 rows, 8192 columns, views off 16 bytes, zeros),
+   ``proto_dist`` at ``PD_EDGE`` (N = 1, C = 1, P = 3, 130 and 2048, views
+   off 16 bytes; fp32 and bf16).  The row codec
    (``quantize_rows``, ``quantize_dequantize_rows``, ``dequantize_rows``)
    is held bit for bit at the edge cases of :func:`row_codec_cases` too,
    ``dequantize`` at those of :func:`dequantize_cases`; their rows carry
@@ -299,6 +305,97 @@ def payload_buffer(torch, gen, student_cfg):
     return buf, seg_ids, meta, plane, protos
 
 
+def copy_ms(torch, timer, nbytes: int) -> float:
+    """The time of a ``copy_`` that moves ``nbytes`` (half read, half
+    written): a sweep's yardstick beside one launch."""
+    src = torch.empty(max(1, nbytes // 8), dtype=torch.float32,
+                      device="cuda")
+    dst = torch.empty_like(src)
+    return timer(lambda: dst.copy_(src))
+
+
+def absmax_cases(torch, name: str):
+    """Phase 3's cases of the row absmax (``rowabs``, or ``rowabs_sum`` at
+    decay 1.0 and 0.9 with a residual of half a step), each held bit for
+    bit to its plain version: the per-leaf payloads of mnist-cnn
+    (``[8240, 512]``) and of the ResNet8 student (``[4184, 512]``), 510
+    and 10 columns, one row, 600,000 rows of 8 (beyond 65,535 row tiles:
+    two rows a warp), 8192 columns (16 steps a warp), x (and res) at
+    storage offsets 1-3 and res alone at offset 1, all zeros, and rows
+    zero but for one element.  Returns the cases with the plan each
+    took."""
+    from repro_torch.kernels.quantize import quantize as Q
+    from repro_torch.kernels.quantize import ref as R
+    from repro_torch.kernels.quantize.ops import pack_tree
+    gen = torch.Generator().manual_seed(8)
+    cases = []
+
+    def held(what, x, x_off=0, res_off=0):
+        x = on_card_at(torch, x, x_off)
+        rows, cols = x.shape
+        bufs = [x]
+        if name == "rowabs":
+            got, want = [Q.rowabs_cuda(x)], [R.rowabs_ref(x)]
+        else:
+            res = torch.rand(x.shape, generator=gen) - 0.5
+            res = on_card_at(torch, res * x.abs().amax().cpu() / 32767,
+                             res_off)
+            bufs.append(res)
+            got, want = [], []
+            for decay in (1.0, 0.9):
+                dec = torch.tensor(decay, dtype=torch.float32, device="cuda")
+                got.append(Q.rowabs_sum_cuda(x, res, decay))
+                want.append(R.rowabs_sum_ref(x, res, dec))
+        torch.cuda.synchronize()
+        expect(all(map(bits_equal, [torch] * len(got), got, want)),
+               f"{name} is not bit-exact with its plain version at {what}")
+        plan = Q.absmax_plan(rows, cols, all(t.data_ptr() % 16 == 0
+                                             for t in bufs))
+        cases.append(dict(case=what, shape=[rows, cols],
+                          offsets=[t.storage_offset() for t in bufs],
+                          vec=plan.vec, block=list(plan.block),
+                          grid=list(plan.grid),
+                          rows_a_thread=plan.rows_a_thread,
+                          steps=plan.steps))
+        return plan
+
+    for model, shape in (("mnist-cnn", (8240, 512)),
+                         ("cifar10-resnet18", (4184, 512))):
+        buf = pack_tree(codec_payload(torch, model, 3), node_axis=True)[0]
+        expect(tuple(buf.shape) == shape,
+               f"{model} per-leaf payload {tuple(buf.shape)}")
+        expect(held(f"{model} per-leaf payload", buf).vec == 4,
+               f"{name}: the {model} payload took one column a vector")
+    for cols in (510, 10):
+        expect(held(f"{cols} columns", torch.randn((257, cols),
+                                                   generator=gen)).vec == 1,
+               f"{name}: {cols} columns took 16-byte vectors")
+    held("one row", torch.randn((1, 512), generator=gen))
+    expect(held("600,000 rows of 8", torch.randn(
+        (600000, 8), generator=gen)).rows_a_thread == 2,
+           f"{name}: 600,000 rows took no row stride")
+    expect(held("8192 columns", torch.randn((257, 8192),
+                                            generator=gen)).steps == 16,
+           f"{name}: 8192 columns took other than 16 steps")
+    for off in (1, 2, 3):
+        expect(held(f"at offset {off}", torch.randn((257, 512),
+                                                    generator=gen),
+                    off, off).vec == 1,
+               f"{name}: a view off 16 bytes took 16-byte vectors")
+    if name == "rowabs_sum":
+        expect(held("res at offset 1", torch.randn((257, 512),
+                                                   generator=gen),
+                    0, 1).vec == 1,
+               "rowabs_sum: res off 16 bytes took 16-byte vectors")
+    held("all zeros", torch.zeros((257, 512)))
+    lone = torch.zeros((257, 512))
+    lone[torch.arange(257), torch.randint(0, 512, (257,), generator=gen)] = (
+        torch.randn(257, generator=gen))
+    held("zero but one element a row", lone)
+    print(f"{name}: bit-exact at {len(cases)} cases")
+    return cases
+
+
 def check_kernels(torch, timer, student_cfg):
     """Phase 3: every kernel against its plain version at path shapes;
     ``quantize_rows`` also at the edge cases of :func:`row_codec_cases`,
@@ -317,8 +414,8 @@ def check_kernels(torch, timer, student_cfg):
                                                   _seg_qmax,
                                                   pack_plane_payload)
     from repro_torch.kernels.quantize.quantize import (
-        quantize_rows_cuda, quantize_rows_ef_cuda, quantize_rows_mixed_cuda,
-        rowabs_cuda, rowabs_sum_cuda, rows_plan)
+        absmax_plan, quantize_rows_cuda, quantize_rows_ef_cuda,
+        quantize_rows_mixed_cuda, rowabs_cuda, rowabs_sum_cuda, rows_plan)
     from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
                                                   quantize_rows_mixed_ref,
                                                   quantize_rows_ref,
@@ -389,14 +486,21 @@ def check_kernels(torch, timer, student_cfg):
     plain_ms = timer(lambda: rowabs_ref(x2d))
     lib_ms = timer(lambda: torch.linalg.vector_norm(x2d, ord=math.inf,
                                                     dim=1))
-    b_ms, b_by = bound(4 * x2d.numel() + 4 * x2d.shape[0], x2d.numel())
+    nbytes = 4 * x2d.numel() + 4 * x2d.shape[0]
+    b_ms, b_by = bound(nbytes, x2d.numel())
+    plan = absmax_plan(*x2d.shape, x2d.data_ptr() % 16 == 0)
+    expect(plan.vec == 4, f"the main path's payload took {plan}")
     rows.append(dict(name="rowabs", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/quantize.py:186",
                      max_abs_err=float((got - want).abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms))
-    print(f"rowabs {tuple(x2d.shape)}: bit-exact")
+                     library_ms=lib_ms,
+                     copy_ms=copy_ms(torch, timer, nbytes),
+                     design=asdict(plan),
+                     cases=[dict(case="main path", shape=list(x2d.shape))]
+                     + absmax_cases(torch, "rowabs")))
+    print(f"rowabs {tuple(x2d.shape)}: bit-exact (plan {plan})")
 
     _, row_delta = _node_row_deltas(buf, seg_ids, meta[1], 16, meta[3])
     rd = row_delta.reshape(-1, 1).contiguous()
@@ -476,13 +580,21 @@ def check_kernels(torch, timer, student_cfg):
     dec = torch.ones((), device="cuda")
     ms = timer(lambda: rowabs_sum_cuda(x2d, res2d, 1.0))
     plain_ms = timer(lambda: rowabs_sum_ref(x2d, res2d, dec))
-    b_ms, b_by = bound(8 * x2d.numel() + 4 * x2d.shape[0], 4 * x2d.numel())
+    nbytes = 8 * x2d.numel() + 4 * x2d.shape[0]
+    b_ms, b_by = bound(nbytes, 4 * x2d.numel())
     rows.append(dict(name="rowabs_sum", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/quantize.py:224",
                      max_abs_err=float((got - want).abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
+                     library_ms=None,
+                     copy_ms=copy_ms(torch, timer, nbytes),
+                     design=asdict(absmax_plan(
+                         *x2d.shape, x2d.data_ptr() % 16 == 0
+                         and res2d.data_ptr() % 16 == 0)),
+                     cases=[dict(case="main path", shape=list(x2d.shape),
+                                 decay=[1.0, 0.9])]
+                     + absmax_cases(torch, "rowabs_sum")))
     print(f"rowabs_sum {tuple(x2d.shape)}: bit-exact at decay 1.0 and 0.9")
     ms = timer(lambda: quantize_rows_ef_cuda(x2d, res2d, rd, qm, 1.0))
     plain_ms = timer(lambda: quantize_rows_ef_ref(x2d, res2d, rd, qm, dec))
@@ -1466,6 +1578,14 @@ PD_CASES = (("mnist-cnn Eq. 5", 640, 128, 10),
             ("ResNet8 student", 640, 256, 10),
             ("cifar100 classes", 640, 256, 100),
             ("ragged", 1001, 200, 37))
+# proto_dist's edge cases in phase 3, held but not timed: (what, N, P, C,
+# storage offset of x and protos); each in fp32 and bf16.  Offsets 1-3 and
+# P = 3 or 130 take one element a load (VEC = 1), P = 2048 eight chunks.
+PD_EDGE = (("one row", 1, 128, 10, 0), ("one prototype", 640, 128, 1, 0),
+           ("P = 3", 640, 3, 10, 0), ("P = 130", 640, 130, 10, 0),
+           ("P = 2048", 640, 2048, 100, 0),
+           ("offset 1", 640, 128, 10, 1), ("offset 2", 640, 256, 100, 2),
+           ("offset 3", 1001, 200, 37, 3))
 # 256 rows of logits at llama4-scout's vocabulary
 LM_ROWS, LM_VOCAB = 256, 202048
 # kd_loss in phase 3: (what, rows, V, dtype, T); the first is the row
@@ -1509,22 +1629,64 @@ def clear_of_ties(torch, d2, tol: float, mask=None):
     twice the d2 tolerance: there the argmin cannot flip on rounding."""
     if mask is not None:
         d2 = torch.where(mask[None, :] > 0, d2, torch.inf)
+    if d2.shape[1] < 2:         # one prototype: the argmin cannot flip
+        return torch.ones(d2.shape[0], dtype=torch.bool, device=d2.device)
     top2 = torch.topk(d2, 2, dim=-1, largest=False).values
     return (top2[:, 1] - top2[:, 0]) > 2 * tol
 
 
+def pd_held(torch, what: str, x, protos):
+    """``proto_dist`` at x and protos against both plain versions (the
+    expansion and the direct oracle) within :func:`pd_close`, and its
+    argmin against the oracle's on the rows clear of ties.  Returns
+    ``(d2, the expansion's d2, a record of the errors and the plan)``."""
+    from repro_torch.kernels.proto_dist.proto_dist import (proto_dist_cuda,
+                                                           proto_dist_plan)
+    from repro_torch.kernels.proto_dist.ref import (proto_dist_expand,
+                                                    proto_dist_ref)
+    got = proto_dist_cuda(x, protos)
+    want = proto_dist_expand(x, protos)
+    direct = proto_dist_ref(x, protos)
+    torch.cuda.synchronize()
+    dtype = str(x.dtype).replace("torch.", "")
+    for plain, name in ((want, "expansion"), (direct, "oracle")):
+        ok, tol = pd_close(torch, got, plain, x, protos)
+        expect(ok, f"proto_dist {what} {dtype}: beyond tolerance "
+                   f"{tol:.3e} of the {name}")
+    clear = clear_of_ties(torch, direct, tol)
+    expect(torch.equal(got.argmin(-1)[clear], direct.argmin(-1)[clear]),
+           f"proto_dist {what} {dtype}: argmin differs away from ties")
+    (n, p_dim), c = x.shape, protos.shape[0]
+    plan = proto_dist_plan(n, c, p_dim, x.dtype, x.data_ptr() % 16 == 0
+                           and protos.data_ptr() % 16 == 0)
+    rec = dict(case=what, shape=f"[{n}, {p_dim}] x [{c}, {p_dim}]",
+               dtype=dtype, offset=x.storage_offset(),
+               max_abs_err=float((got - want).abs().max()),
+               max_abs_err_oracle=float((got - direct).abs().max()),
+               rows_near_ties=int((~clear).sum()), vec=plan.vec,
+               warps=plan.warps, warp_rows=plan.warp_rows,
+               col_tile=plan.col_tile, chunks=plan.chunks,
+               grid=list(plan.grid))
+    print(f"proto_dist {what} {rec['shape']} {dtype} offset "
+          f"{rec['offset']}: max |kernel - expansion| "
+          f"{rec['max_abs_err']:.3e}, - oracle "
+          f"{rec['max_abs_err_oracle']:.3e} (tol {tol:.3e}); argmin equal "
+          f"on {int(clear.sum())} rows, {rec['rows_near_ties']} near ties; "
+          f"{plan}")
+    return got, want, rec
+
+
 def check_proto_kd_kernels(torch, timer):
     """Phase 3, rows 18 and 17: ``proto_dist`` against its plain versions
-    (the expansion and the direct oracle) within :func:`pd_close`, and
-    its argmin away from near-ties, at Eq. 5's shapes in fp32 and bf16;
-    ``kd_loss`` per row against ``kd_loss_rows_ref`` within
-    :func:`kd_tol`, at one node's epoch of mnist-cnn logits, at
-    llama4-scout's vocabulary and at a ragged shape, T = 1 and 3."""
+    (:func:`pd_held`) at Eq. 5's shapes in fp32 and bf16, timed, and at
+    the edge cases of ``PD_EDGE``; ``kd_loss`` per row against
+    ``kd_loss_rows_ref`` within :func:`kd_tol`, at one node's epoch of
+    mnist-cnn logits, at llama4-scout's vocabulary and at a ragged shape,
+    T = 1 and 3."""
     from repro_torch.kernels.kd_loss.kd_loss import kd_loss_rows_cuda
     from repro_torch.kernels.kd_loss.ref import kd_loss_rows_ref
     from repro_torch.kernels.proto_dist.proto_dist import proto_dist_cuda
-    from repro_torch.kernels.proto_dist.ref import (proto_dist_expand,
-                                                    proto_dist_ref)
+    from repro_torch.kernels.proto_dist.ref import proto_dist_expand
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     cases = []
@@ -1534,46 +1696,41 @@ def check_proto_kd_kernels(torch, timer):
             x = torch.randn((n, p_dim), generator=gen, device="cuda").to(dt)
             protos = torch.randn((c, p_dim), generator=gen,
                                  device="cuda").to(dt)
-            got = proto_dist_cuda(x, protos)
-            want = proto_dist_expand(x, protos)
-            direct = proto_dist_ref(x, protos)
-            torch.cuda.synchronize()
-            for plain, name in ((want, "expansion"), (direct, "oracle")):
-                ok, tol = pd_close(torch, got, plain, x, protos)
-                expect(ok, f"proto_dist {what} {dtype}: beyond tolerance "
-                           f"{tol:.3e} of the {name}")
-            clear = clear_of_ties(torch, direct, tol)
-            expect(torch.equal(got.argmin(-1)[clear],
-                               direct.argmin(-1)[clear]),
-                   f"proto_dist {what} {dtype}: argmin differs away from "
-                   f"ties")
-            err = float((got - want).abs().max())
+            _, _, rec = pd_held(torch, what, x, protos)
             isz = x.element_size()
-            b_ms, b_by = bound(isz * (n + c) * p_dim + 4 * n * c,
-                               2 * n * c * p_dim + 2 * (n + c) * p_dim
+            nbytes = isz * (n + c) * p_dim + 4 * n * c
+            b_ms, b_by = bound(nbytes, 2 * n * c * p_dim + 2 * (n + c) * p_dim
                                + 4 * n * c)
             # library yardstick: torch.cdist returns the root ||x - p||,
             # not its square; it takes no bf16, so bf16 inputs are timed
             # on fp32 copies made outside the timed region
             x32, p32 = x.float(), protos.float()
-            cases.append(dict(
-                shape=f"[{n}, {p_dim}] x [{c}, {p_dim}]", dtype=dtype,
-                max_abs_err=err, max_abs_err_oracle=float(
-                    (got - direct).abs().max()),
-                rows_near_ties=int((~clear).sum()),
-                ms=timer(lambda: proto_dist_cuda(x, protos)),
-                plain_ms=timer(lambda: proto_dist_expand(x, protos)),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=timer(lambda: torch.cdist(x32, p32))))
-            print(f"proto_dist {what} {cases[-1]['shape']} {dtype}: max "
-                  f"|kernel - expansion| {err:.3e}, - oracle "
-                  f"{cases[-1]['max_abs_err_oracle']:.3e} (tol {tol:.3e}); "
-                  f"argmin equal on {int(clear.sum())} rows, "
-                  f"{cases[-1]['rows_near_ties']} near ties")
+            rec.update(ms=timer(lambda: proto_dist_cuda(x, protos)),
+                       plain_ms=timer(lambda: proto_dist_expand(x, protos)),
+                       bound_ms=b_ms, bound_by=b_by,
+                       library_ms=timer(lambda: torch.cdist(x32, p32)),
+                       copy_ms=copy_ms(torch, timer, nbytes))
+            cases.append(rec)
+    edge = []
+    for what, n, p_dim, c, off in PD_EDGE:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x = on_card_at(torch, torch.randn(
+                (n, p_dim), generator=gen, device="cuda").to(dt), off)
+            protos = on_card_at(torch, torch.randn(
+                (c, p_dim), generator=gen, device="cuda").to(dt), off)
+            rec = pd_held(torch, what, x, protos)[2]
+            expect(rec["vec"] == 1 if off or p_dim in (3, 130)
+                   else rec["vec"] > 1,
+                   f"proto_dist {what} {dtype}: took vec {rec['vec']}")
+            expect(rec["chunks"] == -(-p_dim // 256),
+                   f"proto_dist {what}: {rec['chunks']} chunks")
+            edge.append(rec)
+    print(f"proto_dist: within tolerance at {len(edge)} edge cases")
     rows = [dict(name="proto_dist", route="cuda",
                  source="src/repro_torch/csrc/proto_dist.cu",
                  replaces="src/repro/kernels/proto_dist/proto_dist.py:31",
-                 **cases[0], cases=cases)]
+                 **cases[0], cases=cases + edge)]
 
     cases = []
     for what, r, v, dtype, temp in KD_CASES:
@@ -1623,6 +1780,8 @@ def check_proto_kd_kernels(torch, timer):
                         if k not in ("temperature", "tol")}, cases=cases))
     for row in rows:
         for cs in row["cases"]:
+            if "ms" not in cs:
+                continue
             print(f"  {row['name']:10s} {cs['shape']:24s} {cs['dtype']:8s} "
                   f"{'T=%g ' % cs['temperature'] if 'temperature' in cs else ''}"
                   f"kernel {cs['ms']:.4f} ms  plain {cs['plain_ms']:.4f} ms"
@@ -2452,7 +2611,8 @@ def main() -> int:
     rows += check_codec_kernels(torch, timer)
     rows += check_proto_kd_kernels(torch, timer)
     for row in rows:
-        if row["name"] in ("mix_packed", "adafactor_apply"):
+        if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
+                           "rowabs_sum", "proto_dist"):
             row["launch_ms"] = launch_ms
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}

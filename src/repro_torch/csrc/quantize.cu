@@ -50,12 +50,21 @@
 // write 4 B per element; fused_quantize(_dequantize) must read 4 B and
 // write 4 B per element too, and reads x from device memory once where the
 // grid can stage it (see below).
-// Design: the row reductions give each row to one warp — lanes stride the
-// row, so loads coalesce, and a shuffle reduction takes the max; no block
-// ever needs a partial from another (the TPU kernels masked out-of-bounds
-// lanes of their edge blocks; here the loop bound does).  rowabs_sum adds
-// the residual in registers, so the effective payload never lands in
-// memory.  quantize_rows_mixed and quantize_rows_ef are grid-stride
+// Design: rowabs and rowabs_sum share one body, row_absmax_kernel<kRes,
+// VEC>, in the row codec's layout (below) with one warp across a row: rows
+// on blockIdx.y, no index divided, and a lane's kRowUnroll 16-byte vectors
+// of a 512-column step (x, and res when kRes) all loaded before any is
+// folded, so a path's 512-wide row is one round trip; wider rows take more
+// steps.  A shuffle fold takes the row's max, and no block ever needs a
+// partial from another (the TPU kernels masked out-of-bounds lanes of their
+// edge blocks; here the loop bound does).  rowabs_sum adds the residual in
+// registers, so the effective payload never lands in memory.  A max is
+// order-free, so the body is bit-identical to the plain versions.  A column
+// count that is not a multiple of 4, or an x or res whose base is not
+// 16-byte aligned, takes one column a vector (VEC = 1).  The plan is
+// picked in Python (kernels/quantize/quantize.py:absmax_plan, rows_plan cut
+// to one warp a row); the launcher checks it.
+// quantize_rows_mixed and quantize_rows_ef are grid-stride
 // elementwise loops with the row's delta and qmax indexed by i / cols;
 // quantize_rows_ef writes the codes and the new residual from the same
 // registers.  Every operation is
@@ -147,21 +156,6 @@
 #include <utility>
 
 namespace {
-
-__global__ void rowabs_kernel(const float* __restrict__ x,
-                              float* __restrict__ out, int64_t rows,
-                              int cols) {
-  const int64_t row =
-      (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const float* r = x + row * cols;
-  float m = 0.f;
-  for (int c = lane; c < cols; c += 32) m = fmaxf(m, fabsf(r[c]));
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) out[row] = m;
-}
 
 // VEC consecutive elements: one 16-byte load or store (float4 / int4) when
 // VEC is 4 (the launchers check the alignment), a scalar one when VEC is 1
@@ -314,6 +308,68 @@ __global__ void __launch_bounds__(kRowThreads) row_codec_kernel(
   }
 }
 
+// -- the row absmax: rowabs, and rowabs_sum with the residual added -------
+// VEC consecutive floats read once: ld.global.nc.L1::no_allocate (read-only,
+// not kept in L1; timed faster than plain loads on the card, and unlike an
+// evict-first load it leaves L2's policy alone for the row codec's second
+// read of the payload)
+template <int VEC>
+__device__ __forceinline__ void load_once(const float* __restrict__ src,
+                                          float (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, "
+                 "[%4];\n"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "l"(src));
+  else
+    asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];\n"
+                 : "=f"(v[0])
+                 : "l"(src));
+}
+
+// A warp owns a row (rows on the grid's y axis, a stride beyond 65,535 row
+// tiles, as row_codec_kernel lays them out with one warp across a row) and
+// walks it in steps of kRowUnroll VEC-wide vectors a lane, 32 * kRowUnroll *
+// VEC columns a step: every load of a step (x, and res when kRes) is issued
+// before any is folded; then a shuffle fold, and lane 0 writes the max.
+template <bool kRes, int VEC>
+__global__ void __launch_bounds__(kRowThreads) row_absmax_kernel(
+    const float* __restrict__ x, const float* __restrict__ res,
+    float* __restrict__ out, int64_t rows, int cols, float decay) {
+  const int lane = threadIdx.x;  // blockDim.x is one warp
+  constexpr int kStep = 32 * kRowUnroll * VEC;
+  for (int64_t row = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+       row < rows; row += (int64_t)gridDim.y * blockDim.y) {
+    const float* __restrict__ xr = x + row * cols;
+    const float* __restrict__ rr = kRes ? res + row * cols : nullptr;
+    float m = 0.f;
+    for (int c0 = lane * VEC; c0 < cols; c0 += kStep) {
+      float v[kRowUnroll][VEC], r[kRowUnroll][VEC];
+#pragma unroll
+      for (int k = 0; k < kRowUnroll; ++k) {
+        if (c0 + k * 32 * VEC < cols) {
+          load_once<VEC>(xr + c0 + k * 32 * VEC, v[k]);
+          if constexpr (kRes) load_once<VEC>(rr + c0 + k * 32 * VEC, r[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRowUnroll; ++k) {
+        if (c0 + k * 32 * VEC < cols) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            float e = v[k][j];
+            if constexpr (kRes) e = __fadd_rn(e, __fmul_rn(decay, r[k][j]));
+            m = fmaxf(m, fabsf(e));
+          }
+        }
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) out[row] = m;
+  }
+}
+
 // -- dequantize: the flat sweep at one scalar delta ---------------------------
 constexpr int kFlatThreads = 256;
 constexpr int kFlatUnroll = 4;  // vectors a thread
@@ -458,24 +514,6 @@ __global__ void quantize_rows_mixed_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void rowabs_sum_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ res,
-                                  float* __restrict__ out, int64_t rows,
-                                  int cols, float decay) {
-  const int64_t row =
-      (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const float* xr = x + row * cols;
-  const float* rr = res + row * cols;
-  float m = 0.f;
-  for (int c = lane; c < cols; c += 32)
-    m = fmaxf(m, fabsf(__fadd_rn(xr[c], __fmul_rn(decay, rr[c]))));
-  for (int off = 16; off > 0; off >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) out[row] = m;
-}
-
 __global__ void quantize_rows_ef_kernel(const float* __restrict__ x,
                                         const float* __restrict__ res,
                                         const float* __restrict__ row_delta,
@@ -576,17 +614,6 @@ __global__ void __launch_bounds__(kMixThreads) mix_packed_kernel(
 }
 
 }  // namespace
-
-extern "C" int rowabs(const float* x, float* out, int64_t rows, int cols,
-                      cudaStream_t stream) {
-  if (rows > 0) {
-    const int threads = 256;  // 8 rows per block
-    const int64_t blocks = (rows + 7) / 8;
-    rowabs_kernel<<<(unsigned)blocks, threads, 0, stream>>>(x, out, rows,
-                                                             cols);
-  }
-  return (int)cudaGetLastError();
-}
 
 static int64_t sweep_blocks(int64_t n, int threads) {
   const int64_t blocks = (n + threads - 1) / threads;
@@ -766,13 +793,44 @@ extern "C" int quantize_rows_mixed(const float* x, const float* row_delta,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rowabs_sum(const float* x, const float* res, float* out,
-                          int64_t rows, int cols, float decay,
-                          cudaStream_t stream) {
-  if (rows > 0)
-    rowabs_sum_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-        x, res, out, rows, cols, decay);
+// the row absmax's launch, after checking its plan (kernels/quantize/
+// quantize.py:absmax_plan): one warp across a row, every row by exactly one
+// warp, no block empty; 16-byte vectors only on 16-byte aligned x (and res)
+// whose rows are whole vectors
+template <bool kRes>
+static int absmax_launch(const float* x, const float* res, float* out,
+                         int64_t rows, int cols, float decay, int vec,
+                         int block_x, int block_y, int grid_x, int grid_y,
+                         cudaStream_t stream) {
+  if (rows <= 0 || cols <= 0 || (vec != 1 && vec != 4) ||
+      (vec == 4 && (cols % 4 || !aligned16(x) || (kRes && !aligned16(res)))) ||
+      block_x != 32 || block_y <= 0 || block_x * block_y > kRowThreads ||
+      grid_x != 1 || grid_y <= 0 || grid_y > 65535 ||
+      grid_y > (rows + block_y - 1) / block_y)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_x, grid_y), block(block_x, block_y);
+  if (vec == 4)
+    row_absmax_kernel<kRes, 4><<<grid, block, 0, stream>>>(x, res, out, rows,
+                                                           cols, decay);
+  else
+    row_absmax_kernel<kRes, 1><<<grid, block, 0, stream>>>(x, res, out, rows,
+                                                           cols, decay);
   return (int)cudaGetLastError();
+}
+
+extern "C" int rowabs(const float* x, float* out, int64_t rows, int cols,
+                      int vec, int block_x, int block_y, int grid_x,
+                      int grid_y, cudaStream_t stream) {
+  return absmax_launch<false>(x, nullptr, out, rows, cols, 0.f, vec, block_x,
+                              block_y, grid_x, grid_y, stream);
+}
+
+extern "C" int rowabs_sum(const float* x, const float* res, float* out,
+                          int64_t rows, int cols, float decay, int vec,
+                          int block_x, int block_y, int grid_x, int grid_y,
+                          cudaStream_t stream) {
+  return absmax_launch<true>(x, res, out, rows, cols, decay, vec, block_x,
+                             block_y, grid_x, grid_y, stream);
 }
 
 extern "C" int quantize_rows_ef(const float* x, const float* res,

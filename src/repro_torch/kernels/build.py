@@ -47,8 +47,8 @@ SIGNATURES = {
     "adafactor_apply": (_P,) * 3 + (_I64, _F32, _I32, _I32, _I64, _I32, _P),
     # f1, labels, sums, counts, n_nodes, batch, p_dim, n_classes, stream
     "proto_accum": (_P,) * 4 + (_I32,) * 4 + (_P,),
-    # x, out, rows, cols, stream
-    "rowabs": (_P, _P, _I64, _I32, _P),
+    # x, out, rows, cols, vec, block_x, block_y, grid_x, grid_y, stream
+    "rowabs": (_P, _P, _I64) + (_I32,) * 6 + (_P,),
     # x, row_delta, codes, rows, cols, qmax, vec, block_x, block_y,
     # grid_x, grid_y, stream
     "quantize_rows": (_P, _P, _P, _I64, _I32, _F32) + (_I32,) * 5 + (_P,),
@@ -67,8 +67,9 @@ SIGNATURES = {
                                               _P),
     # x, row_delta, row_qmax, codes, rows, cols, stream
     "quantize_rows_mixed": (_P, _P, _P, _P, _I64, _I32, _P),
-    # x, res, out, rows, cols, decay, stream
-    "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32, _P),
+    # x, res, out, rows, cols, decay, vec, block_x, block_y, grid_x,
+    # grid_y, stream
+    "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32) + (_I32,) * 5 + (_P,),
     # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, stream
     "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32, _P),
     # own, codes, row_delta, w_self, w_rows, out, m, s, rows, cols,
@@ -80,8 +81,9 @@ SIGNATURES = {
     # stream
     "lowrank_apply": ((_P,) * 5 + (_I32,) * 6 + (_I64,) * 3 + (_I32,) * 5
                       + (_I64, _P)),
-    # x, protos, out, n, c, p_dim, bf16, stream
-    "proto_dist": (_P,) * 3 + (_I32,) * 4 + (_P,),
+    # x, protos, out, n, c, p_dim, bf16, vec, warps, warp_rows, col_tile,
+    # grid_x, grid_y, stream
+    "proto_dist": (_P,) * 3 + (_I32,) * 10 + (_P,),
     # ys, yt, out, rows, v, inv_t, inv_t_sq, bf16, stream
     "kd_loss_rows": (_P,) * 3 + (_I64, _I64, _F32, _F32, _I32, _P),
 }

@@ -20,8 +20,10 @@ element, quantize_rows reads 4 B and writes a 4 B int32 code per element
 element, quantize_rows_ef reads 8 B and writes 8 B per element,
 mix_packed must read 4 B of its own buffer per output, 4 B of code per
 sender and column, and write 4 B per output; the per-leaf and per-tensor
-sweeps read 4 B and write 4 B per element. Design: one warp per 512-wide
-row with a shuffle max for the row reductions; a grid-stride elementwise
+sweeps read 4 B and write 4 B per element. Design: for the row absmax
+(``rowabs``, ``rowabs_sum``), one body with one warp across a row, its
+16-byte vectors of a 512-column step all loaded before any is folded,
+then a shuffle max (:func:`absmax_plan`); a grid-stride elementwise
 sweep with an IEEE division for the mixed-width and error-feedback codes;
 for the row codec (``quantize_rows``, ``quantize_dequantize_rows``,
 ``dequantize_rows``), rows on the grid's y axis and several 16-byte
@@ -78,17 +80,6 @@ def _rows(x2d, name: str):
         raise ValueError(f"{name}: expected [R, C], got {tuple(x2d.shape)}")
     require(x2d, f"{name} x", torch.float32)
     return x2d.shape
-
-
-def rowabs_cuda(x2d):
-    """``[R, C]`` fp32 on the card -> per-row ``max|x|`` ``[R, 1]``."""
-    r, c = _rows(x2d, "rowabs")
-    out = torch.empty((r, 1), dtype=torch.float32, device=x2d.device)
-    rc = library().rowabs(x2d.data_ptr(), out.data_ptr(), r, c,
-                          stream_of(x2d))
-    check(rc, "rowabs")
-    ROWABS_LAUNCHES.count += 1
-    return out
 
 
 # -- the row codec's launch plan ----------------------------------------------
@@ -199,6 +190,67 @@ def dequantize_rows_cuda(codes2d, row_delta):
     if out.numel():
         _row_codec("dequantize_rows", codes2d, row_delta, out)
         DEQUANTIZE_ROWS_LAUNCHES.count += 1
+    return out
+
+
+# -- the row absmax: rowabs and rowabs_sum ------------------------------------
+@dataclass(frozen=True)
+class AbsmaxPlan(RowsPlan):
+    """One launch of the row absmax over ``[rows, cols]``: a
+    :class:`RowsPlan` with one warp across a row (``block`` ``(32, 8)``,
+    ``grid`` ``(1, row tiles)``), whose lanes walk the row in ``steps``
+    steps of ``32·ROW_UNROLL·vec`` columns."""
+    steps: int
+
+
+def absmax_plan(rows: int, cols: int, aligned: bool) -> AbsmaxPlan:
+    """The launch of ``rowabs`` or ``rowabs_sum`` over ``[rows, cols]``:
+    16-byte vectors where ``cols`` is a multiple of 4 and ``aligned`` (x,
+    and res for ``rowabs_sum``, start on 16-byte addresses), else one
+    column a vector; :func:`rows_plan` laid out for one step of a row
+    (at most ``32·ROW_UNROLL`` vectors, so one warp across it), and the
+    steps that cover ``cols``."""
+    if rows < 1 or cols < 1:
+        raise ValueError(f"absmax_plan: [{rows}, {cols}] is empty")
+    vec = 4 if aligned and cols % 4 == 0 else 1
+    step = 32 * ROW_UNROLL * vec
+    base = rows_plan(rows, min(cols, step), vec == 4)
+    return AbsmaxPlan(base.vec, base.block, base.grid, base.rows_a_thread,
+                      -(-cols // step))
+
+
+def _row_absmax(name: str, x2d, res2d, out, *decay) -> None:
+    """Launch ``rowabs`` (``res2d`` None) or ``rowabs_sum`` over ``x2d``
+    (contiguous ``[R, C]``, R > 0) into ``out`` as :func:`absmax_plan`
+    lays it out."""
+    r, c = x2d.shape
+    bufs = (x2d,) if res2d is None else (x2d, res2d)
+    plan = absmax_plan(r, c, all(t.data_ptr() % 16 == 0 for t in bufs))
+    rc = getattr(library(), name)(
+        *(t.data_ptr() for t in bufs), out.data_ptr(), r, c, *decay,
+        plan.vec, *plan.block, *plan.grid, stream_of(x2d))
+    check(rc, name)
+
+
+def rowabs_cuda(x2d):
+    """``[R, C]`` fp32 on the card -> per-row ``max|x|`` ``[R, 1]``."""
+    r, c = _rows(x2d, "rowabs")
+    out = torch.empty((r, 1), dtype=torch.float32, device=x2d.device)
+    if r:
+        _row_absmax("rowabs", x2d, None, out)
+        ROWABS_LAUNCHES.count += 1
+    return out
+
+
+def rowabs_sum_cuda(x2d, res2d, decay: float):
+    """``[R, C]`` fp32 payload and residual on the card -> per-row
+    ``max|x + decay·res|`` ``[R, 1]`` (``decay`` rounds to fp32)."""
+    r, c = _rows(x2d, "rowabs_sum")
+    require(res2d, "rowabs_sum res", torch.float32, (r, c))
+    out = torch.empty((r, 1), dtype=torch.float32, device=x2d.device)
+    if r:
+        _row_absmax("rowabs_sum", x2d, res2d, out, float(decay))
+        ROWABS_SUM_LAUNCHES.count += 1
     return out
 
 
@@ -357,20 +409,6 @@ def dequantize_cuda(codes, delta):
     if out.numel():
         _dequantize(codes, delta, out)
         DEQUANTIZE_LAUNCHES.count += 1
-    return out
-
-
-def rowabs_sum_cuda(x2d, res2d, decay: float):
-    """``[R, C]`` fp32 payload and residual on the card -> per-row
-    ``max|x + decay·res|`` ``[R, 1]`` (``decay`` rounds to fp32)."""
-    r, c = _rows(x2d, "rowabs_sum")
-    require(res2d, "rowabs_sum res", torch.float32, (r, c))
-    out = torch.empty((r, 1), dtype=torch.float32, device=x2d.device)
-    rc = library().rowabs_sum(x2d.data_ptr(), res2d.data_ptr(),
-                              out.data_ptr(), r, c, float(decay),
-                              stream_of(x2d))
-    check(rc, "rowabs_sum")
-    ROWABS_SUM_LAUNCHES.count += 1
     return out
 
 
