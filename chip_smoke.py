@@ -37,17 +37,25 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    :func:`check_mix_packed`); ``adafactor_apply`` at ``[20, 208, 512]``
    and on a buffer one element in, timed beside ``torch.add(p, upd,
    out=p)`` (``stream_ms``).  One launch (a one-element add) is timed
-   once and carried as ``launch_ms`` on those two rows and on rows 3, 9
-   and 18, which also carry a same-byte ``copy_`` (``copy_ms``).
+   once and carried as ``launch_ms`` on those two rows and on rows 3, 8,
+   9, 17 and 18; rows 3, 8, 9 and 18 also carry a same-byte ``copy_``
+   (``copy_ms``).
    ``rowabs`` and ``rowabs_sum`` (decay 1.0 and 0.9) are held bit for bit
    at the cases of :func:`absmax_cases` too (the per-leaf payloads, odd
    cols, one row, 600,000 rows, 8192 columns, views off 16 bytes, zeros),
    ``proto_dist`` at ``PD_EDGE`` (N = 1, C = 1, P = 3, 130 and 2048, views
    off 16 bytes; fp32 and bf16).  The row codec
-   (``quantize_rows``, ``quantize_dequantize_rows``, ``dequantize_rows``)
-   is held bit for bit at the edge cases of :func:`row_codec_cases` too,
+   (``quantize_rows``, ``quantize_rows_mixed`` with rows of 4, 8 and 16
+   bits, ``quantize_dequantize_rows``, ``dequantize_rows``) is held bit
+   for bit at the edge cases of :func:`row_codec_cases` too,
    ``dequantize`` at those of :func:`dequantize_cases`; their rows carry
-   the cases and the launch plan of the timed shape (``design``);
+   the cases and the launch plan of the timed shape (``design``).
+   ``kd_loss`` is held within :func:`kd_tol` at ``KD_CASES`` (timed: the
+   ProFe KD term, llama4-scout's vocabulary in bf16 and fp32, a ragged
+   shape, 16 rows in the split regime) and ``KD_EDGE`` (V = 1, 7, 13,
+   1001, views off 16 bytes, one and 16 rows of the LM vocabulary,
+   logits of magnitude 1e3), a second call bit-identical to the first;
+   its row carries every case with the ``kd_plan`` it took;
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -305,6 +313,22 @@ def payload_buffer(torch, gen, student_cfg):
     return buf, seg_ids, meta, plane, protos
 
 
+def mixed_rows(torch, buf, seg_ids, plane, protos):
+    """The ``4/16`` wire's per-row Δ and qmax ``[N·R, 1]`` for the packed
+    payload ``buf`` (:func:`payload_buffer`): int16 prototype rows, int4
+    student rows."""
+    import numpy as np
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                  _seg_qmax,
+                                                  pack_plane_payload)
+    from repro_torch.wirespec import WireSpec
+    _, _, meta, _, _ = pack_plane_payload(protos, plane, WireSpec(4, 16))
+    _, row_delta = _node_row_deltas(buf, seg_ids, meta[1], 16, meta[3])
+    qm = np.tile(_seg_qmax(meta[1], 16, meta[3])[seg_ids], buf.shape[0])
+    return (row_delta.reshape(-1, 1).contiguous(),
+            torch.as_tensor(qm[:, None], device="cuda"))
+
+
 def copy_ms(torch, timer, nbytes: int) -> float:
     """The time of a ``copy_`` that moves ``nbytes`` (half read, half
     written): a sweep's yardstick beside one launch."""
@@ -398,21 +422,18 @@ def absmax_cases(torch, name: str):
 
 def check_kernels(torch, timer, student_cfg):
     """Phase 3: every kernel against its plain version at path shapes;
-    ``quantize_rows`` also at the edge cases of :func:`row_codec_cases`,
-    which its row carries (``cases``) with the main path's launch plan
-    (``design``)."""
+    ``quantize_rows`` and ``quantize_rows_mixed`` also at the edge cases
+    of :func:`row_codec_cases`, which their rows carry (``cases``) with
+    the path's launch plan (``design``)."""
     from dataclasses import asdict
 
-    import numpy as np
     from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
     from repro_torch.kernels.opt_update.ref import adamw_update_ref
     from repro_torch.kernels.proto_accum.proto_accum import (
         COLS, ROWS, THREADS, proto_accum_cuda, proto_accum_smem)
     from repro_torch.kernels.proto_accum.ref import (proto_accum_batch_order,
                                                      proto_accum_ref)
-    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
-                                                  _seg_qmax,
-                                                  pack_plane_payload)
+    from repro_torch.kernels.quantize.ops import _node_row_deltas
     from repro_torch.kernels.quantize.quantize import (
         absmax_plan, quantize_rows_cuda, quantize_rows_ef_cuda,
         quantize_rows_mixed_cuda, rowabs_cuda, rowabs_sum_cuda, rows_plan)
@@ -420,7 +441,6 @@ def check_kernels(torch, timer, student_cfg):
                                                   quantize_rows_mixed_ref,
                                                   quantize_rows_ref,
                                                   rowabs_ref, rowabs_sum_ref)
-    from repro_torch.wirespec import WireSpec
 
     gen = torch.Generator().manual_seed(0)
     rows = []
@@ -536,12 +556,7 @@ def check_kernels(torch, timer, student_cfg):
     # No single PyTorch call computes these three functions (a per-row
     # clip width; a residual added inside the reduction or the sweep), so
     # their library_ms is null.
-    _, _, mmeta, _, _ = pack_plane_payload(protos, plane, WireSpec(4, 16))
-    seg_bits = mmeta[3]
-    _, row_delta = _node_row_deltas(buf, seg_ids, mmeta[1], 16, seg_bits)
-    rd = row_delta.reshape(-1, 1).contiguous()
-    qm = torch.as_tensor(np.tile(_seg_qmax(mmeta[1], 16, seg_bits)[seg_ids],
-                                 n_nodes)[:, None], device="cuda")
+    rd, qm = mixed_rows(torch, buf, seg_ids, plane, protos)
     got = quantize_rows_mixed_cuda(x2d, rd, qm)
     want = quantize_rows_mixed_ref(x2d, rd, qm)
     torch.cuda.synchronize()
@@ -554,13 +569,21 @@ def check_kernels(torch, timer, student_cfg):
     ms = timer(lambda: quantize_rows_mixed_cuda(x2d, rd, qm))
     plain_ms = timer(lambda: quantize_rows_mixed_ref(x2d, rd, qm))
     b_ms, b_by = bound(8 * x2d.numel() + 8 * rd.numel(), 5 * x2d.numel())
+    plan = rows_plan(*x2d.shape, x2d.data_ptr() % 16 == 0)
+    expect(plan.vec == 4, f"the 4/16 path's payload took {plan}")
     rows.append(dict(name="quantize_rows_mixed", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/quantize.py:339",
                      max_abs_err=float((got - want).abs().max()), ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
-    print(f"quantize_rows_mixed {tuple(x2d.shape)}: bit-exact codes")
+                     library_ms=None,
+                     copy_ms=copy_ms(torch, timer, 8 * x2d.numel()),
+                     design=asdict(plan),
+                     cases=[dict(case="4/16 path", shape=list(x2d.shape),
+                                 bits="16 (prototypes) / 4 (student)")]
+                     + row_codec_cases(torch, "quantize_rows_mixed")))
+    print(f"quantize_rows_mixed {tuple(x2d.shape)}: bit-exact codes "
+          f"(plan {plan})")
 
     # a residual of the size error feedback carries: within half a Δ
     res2d = ((torch.rand(x2d.shape, generator=gen) - 0.5).cuda() * rd)
@@ -1088,15 +1111,23 @@ def on_card_at(torch, t, off: int):
     return view
 
 
-def edge_rows(torch, gen, rows: int, cols: int, bits: int,
+def mixed_bits(torch, rows: int):
+    """Per-row widths ``[rows, 1]`` of a mixed-width edge case: 4, 8 and
+    16 bits in runs of three rows, so each width meets each of
+    :func:`edge_rows`' row patterns."""
+    return torch.tensor((4, 8, 16))[(torch.arange(rows) // 3) % 3][:, None]
+
+
+def edge_rows(torch, gen, rows: int, cols: int, bits,
               zero: bool = False):
     """``([rows, cols] fp32, [rows, 1] Δ)`` on the card for the row
     codec's edge cases: Δ from each row's absmax; on rows 1, 4, 7, ... Δ
     rounded down to a power of two and every third column on an exact
     half-step ``(k + 1/2)·Δ``, k over the whole code range (so the codes
     round half up, and ``qmax + 1/2`` clips); on rows 2, 5, 8, ... Δ a
-    quarter of that (codes beyond ±qmax clip).  ``zero``: all zeros at
-    the least normal Δ."""
+    quarter of that (codes beyond ±qmax clip).  ``bits`` is one width, or
+    a ``[rows, 1]`` tensor of each row's (:func:`mixed_bits`).  ``zero``:
+    all zeros at the least normal Δ."""
     tiny = torch.finfo(torch.float32).tiny
     if zero:
         return (torch.zeros((rows, cols), device="cuda"),
@@ -1105,7 +1136,11 @@ def edge_rows(torch, gen, rows: int, cols: int, bits: int,
     x = torch.randn((rows, cols), generator=gen) * 3
     delta = (x.abs().amax(1, keepdim=True) / qm).clamp_min(tiny)
     delta[1::3] = torch.exp2(torch.floor(torch.log2(delta[1::3])))
-    k = torch.randint(-qm - 1, qm + 1, (rows, cols), generator=gen)
+    if isinstance(bits, int):
+        k = torch.randint(-qm - 1, qm + 1, (rows, cols), generator=gen)
+    else:       # per-row code ranges
+        k = torch.floor(torch.rand((rows, cols), generator=gen)
+                        * (2 * qm + 2)) - qm - 1
     half = (k.float() + 0.5) * delta
     x[1::3, ::3] = half[1::3, ::3]
     delta[2::3] /= 4
@@ -1114,8 +1149,9 @@ def edge_rows(torch, gen, rows: int, cols: int, bits: int,
 
 def row_codec_cases(torch, name: str):
     """Phase 3's edge cases of one entry point of the row codec
-    (``quantize_rows``, ``quantize_dequantize_rows`` or
-    ``dequantize_rows``), each held bit for bit to its plain version:
+    (``quantize_rows``, ``quantize_rows_mixed``,
+    ``quantize_dequantize_rows`` or ``dequantize_rows``), each held bit
+    for bit to its plain version:
     the input at storage offsets 1-3 (so input and output at different
     offsets), 510 and 10 columns, one row, 70,000 rows and 600,000 rows
     of 8 (beyond 65,535 row tiles: two rows a thread), widths 16, 8 and
@@ -1123,36 +1159,52 @@ def row_codec_cases(torch, name: str):
     all zeros, and through the C entry point the output at offsets 1-3
     (input at the same offset and at another) and both at offset 4 (on
     16 bytes); ``dequantize_rows`` also at codes over the whole int32
-    range.  Returns the cases with the plan each took."""
+    range; ``quantize_rows_mixed`` at each row's own width, 4, 8 and 16
+    bits in runs of three rows (:func:`mixed_bits`; its ``int{bits}``
+    cases are the uniform widths as a qmax column).  Returns the cases
+    with the plan each took."""
     from repro_torch.kernels.quantize import quantize as Q
     from repro_torch.kernels.quantize import ref as R
     wrapper, plain = getattr(Q, f"{name}_cuda"), getattr(R, f"{name}_ref")
     dequant = name == "dequantize_rows"
+    mixed = name == "quantize_rows_mixed"
     gen = torch.Generator().manual_seed(6)
     cases = []
 
     def held(what, rows, cols, bits=16, x_off=0, out_off=None, zero=False,
              full_range=False):
+        if mixed and what[:3] != "int":
+            bits = mixed_bits(torch, rows)
         x, rd = edge_rows(torch, gen, rows, cols, bits, zero)
-        kw = {} if dequant else dict(bits=bits)
+        if mixed:
+            col = torch.full((rows, 1), bits) if isinstance(bits, int) \
+                else bits
+            qm = ((1 << (col - 1)) - 1).float().cuda()
+            args, launch = (qm,), (qm.data_ptr(),)
+        elif dequant:
+            args, launch = (), ()
+        else:
+            args, launch = (), (Q._qmaxf(bits),)
+        kw = {} if dequant or mixed else dict(bits=bits)
         if full_range:
             x = torch.randint(-2 ** 31, 2 ** 31, (rows, cols), generator=gen,
                               dtype=torch.int32).cuda()
         elif dequant:
             x = R.quantize_rows_ref(x, rd, bits=bits)
         x = on_card_at(torch, x, x_off)
-        want = plain(x, rd, **kw)
+        want = plain(x, rd, *args, **kw)
         if out_off is None:
-            got = wrapper(x, rd, **kw)
+            got = wrapper(x, rd, *args, **kw)
         else:
             got = on_card_at(torch, torch.full_like(want, -1), out_off)
-            Q._row_codec(name, x, rd, got,
-                         *(() if dequant else (Q._qmaxf(bits),)))
+            Q._row_codec(name, x, rd, got, *launch)
         torch.cuda.synchronize()
         expect(bits_equal(torch, got, want),
                f"{name} is not bit-exact with its plain version at {what}")
         plan = Q.rows_plan(rows, cols, x.data_ptr() % 16 == 0
                            and got.data_ptr() % 16 == 0)
+        if not isinstance(bits, int):
+            bits = "4/8/16 by row"
         cases.append(dict(case=what, shape=[rows, cols], bits=bits,
                           x_offset=x.storage_offset(),
                           out_offset=got.storage_offset(), vec=plan.vec,
@@ -1596,7 +1648,22 @@ KD_CASES = (("mnist-cnn epoch", 320, 10, "float32", 3.0),
             ("llama4-scout vocab", LM_ROWS, LM_VOCAB, "float32", 1.0),
             ("llama4-scout vocab", LM_ROWS, LM_VOCAB, "float32", 3.0),
             ("ragged", 250, 50280, "bfloat16", 1.0),
-            ("ragged", 250, 50280, "bfloat16", 3.0))
+            ("ragged", 250, 50280, "bfloat16", 3.0),
+            ("split regime", 16, LM_VOCAB, "bfloat16", 1.0))
+# kd_loss's edge cases in phase 3, held to kd_tol but not timed: (what,
+# rows, V, dtype, T, storage offset of both logit tensors, mean of the
+# logits).  V = 1, 7, 13 take the segments design, V = 1001 (not a whole
+# number of vectors) and offsets 1-3 one logit a load, one and 16 rows of
+# the LM vocabulary a cluster a row.
+KD_EDGE = tuple(
+    [(f"V = {v}", 320, v, dt, 3.0, 0, 0.0) for v in (1, 7, 13, 1001)
+     for dt in ("float32", "bfloat16")]
+    + [(f"offset {off}", r, 50280, dt, 1.0, off, 0.0) for off in (1, 2, 3)
+       for dt in ("float32", "bfloat16") for r in (250, 64)]
+    + [("one row", 1, LM_VOCAB, "bfloat16", 1.0, 0, 0.0),
+       ("16 rows", 16, LM_VOCAB, "bfloat16", 3.0, 0, 0.0),
+       ("|y| ~ 1e3", 320, 10, "float32", 3.0, 0, 1000.0),
+       ("|y| ~ 1e3", 250, 50280, "bfloat16", 1.0, 0, 1000.0)])
 # Claim 4 in phase 13: model -> local epochs of make_fedavg_step
 CLAIM4_EPOCHS = {"mnist-cnn": 2, "cifar10-resnet18": 1}
 KD_TEMPERATURES = (3.0, 1.0)       # FederationConfig.kd_temperature, and 1
@@ -1676,14 +1743,64 @@ def pd_held(torch, what: str, x, protos):
     return got, want, rec
 
 
+def kd_logits(torch, gen, r: int, v: int, dtype: str, off: int = 0,
+              mean: float = 0.0):
+    """Student and teacher logits ``[r, v]`` of ``dtype`` on the card,
+    each first element ``off`` elements into its storage: the student
+    ``mean + 3·N(0, 1)``, the teacher the student plus ``N(0, 1)``."""
+    dt = getattr(torch, dtype)
+    ys = torch.randn((r, v), generator=gen, device="cuda") * 3 + mean
+    yt = (ys + torch.randn((r, v), generator=gen, device="cuda")).to(dt)
+    ys = ys.to(dt)
+    if off:
+        ys, yt = on_card_at(torch, ys, off), on_card_at(torch, yt, off)
+    return ys, yt
+
+
+def kd_held(torch, what: str, ys, yt, temp: float) -> dict:
+    """``kd_loss_rows`` at ys, yt against its plain version within
+    :func:`kd_tol`, finite, and a second call bit-identical to the first.
+    Returns a record of the case, its error and the plan it took."""
+    from dataclasses import asdict
+
+    from repro_torch.kernels.kd_loss.kd_loss import (_sm_count, kd_plan,
+                                                     kd_loss_rows_cuda)
+    from repro_torch.kernels.kd_loss.ref import kd_loss_rows_ref
+    got = kd_loss_rows_cuda(ys, yt, temp)
+    again = kd_loss_rows_cuda(ys, yt, temp)
+    want = kd_loss_rows_ref(ys, yt, temp)
+    torch.cuda.synchronize()
+    r, v = ys.shape
+    dtype = str(ys.dtype).replace("torch.", "")
+    ymax = max(float(ys.float().abs().max()), float(yt.float().abs().max()))
+    tol = kd_tol(ymax, temp)
+    err = float((got - want).abs().max())
+    expect(err <= tol and bool(torch.isfinite(got).all()),
+           f"kd_loss {what} [{r}, {v}] {dtype} T={temp}: max error "
+           f"{err:.3e} > {tol:.3e}")
+    expect(bits_equal(torch, got, again),
+           f"kd_loss {what} [{r}, {v}] {dtype}: a second call differs")
+    plan = kd_plan(r, v, ys.element_size(), ys.data_ptr() % 16 == 0
+                   and yt.data_ptr() % 16 == 0, _sm_count(ys.device.index))
+    print(f"kd_loss {what} [{r}, {v}] {dtype} T={temp} offset "
+          f"{ys.storage_offset()}: max |kernel - plain| {err:.3e} (tol "
+          f"{tol:.3e}, {err / tol:.3f} of it, max|y| {ymax:.3g}), mean "
+          f"{float(want.mean()):.4f}; {plan}")
+    return dict(case=what, shape=f"[{r}, {v}]", dtype=dtype,
+                temperature=temp, offset=ys.storage_offset(),
+                max_abs_err=err, tol=tol, **asdict(plan))
+
+
 def check_proto_kd_kernels(torch, timer):
     """Phase 3, rows 18 and 17: ``proto_dist`` against its plain versions
     (:func:`pd_held`) at Eq. 5's shapes in fp32 and bf16, timed, and at
     the edge cases of ``PD_EDGE``; ``kd_loss`` per row against
-    ``kd_loss_rows_ref`` within :func:`kd_tol`, at one node's epoch of
-    mnist-cnn logits, at llama4-scout's vocabulary and at a ragged shape,
-    T = 1 and 3."""
-    from repro_torch.kernels.kd_loss.kd_loss import kd_loss_rows_cuda
+    ``kd_loss_rows_ref`` (:func:`kd_held`) at ``KD_CASES``, timed (one
+    node's epoch of mnist-cnn logits, llama4-scout's vocabulary, a ragged
+    shape, 16 rows in the split regime; T = 1 and 3), at the edge cases
+    of ``KD_EDGE``, and at identical logits."""
+    from repro_torch.kernels.kd_loss.kd_loss import (KdPlan, _sm_count,
+                                                     kd_loss_rows_cuda)
     from repro_torch.kernels.kd_loss.ref import kd_loss_rows_ref
     from repro_torch.kernels.proto_dist.proto_dist import proto_dist_cuda
     from repro_torch.kernels.proto_dist.ref import proto_dist_expand
@@ -1732,35 +1849,34 @@ def check_proto_kd_kernels(torch, timer):
                  replaces="src/repro/kernels/proto_dist/proto_dist.py:31",
                  **cases[0], cases=cases + edge)]
 
+    KD_PLAN_KEYS = tuple(KdPlan.__dataclass_fields__)
     cases = []
     for what, r, v, dtype, temp in KD_CASES:
-        dt = getattr(torch, dtype)
-        ys = (torch.randn((r, v), generator=gen, device="cuda") * 3)
-        yt = (ys + torch.randn((r, v), generator=gen, device="cuda")).to(dt)
-        ys = ys.to(dt)
-        got = kd_loss_rows_cuda(ys, yt, temp)
-        want = kd_loss_rows_ref(ys, yt, temp)
-        torch.cuda.synchronize()
-        ymax = max(float(ys.float().abs().max()), float(yt.float().abs().max()))
-        tol = kd_tol(ymax, temp)
-        err = float((got - want).abs().max())
-        expect(err <= tol and bool(torch.isfinite(got).all()),
-               f"kd_loss {what} [{r}, {v}] {dtype} T={temp}: max error "
-               f"{err:.3e} > {tol:.3e}")
+        ys, yt = kd_logits(torch, gen, r, v, dtype)
+        rec = kd_held(torch, what, ys, yt, temp)
         isz = ys.element_size()
         b_ms, b_by = bound(2 * isz * r * v + 4 * r, 11 * r * v)
         # no library yardstick: no single PyTorch call takes raw logits to
         # the KL (F.kl_div needs both log-softmaxes made first)
-        cases.append(dict(
-            shape=f"[{r}, {v}]", dtype=dtype, temperature=temp,
-            max_abs_err=err, tol=tol,
-            ms=timer(lambda: kd_loss_rows_cuda(ys, yt, temp)),
-            plain_ms=timer(lambda: kd_loss_rows_ref(ys, yt, temp)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        print(f"kd_loss {what} [{r}, {v}] {dtype} T={temp}: max |kernel - "
-              f"plain| {err:.3e} (tol {tol:.3e}, max|y| {ymax:.3g}), mean "
-              f"{float(want.mean()):.4f}")
-        del ys, yt, got, want
+        rec.update(ms=timer(lambda: kd_loss_rows_cuda(ys, yt, temp)),
+                   plain_ms=timer(lambda: kd_loss_rows_ref(ys, yt, temp)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        cases.append(rec)
+        del ys, yt
+    edge = []
+    for what, r, v, dtype, temp, off, mean in KD_EDGE:
+        ys, yt = kd_logits(torch, gen, r, v, dtype, off, mean)
+        rec = kd_held(torch, what, ys, yt, temp)
+        wide = 16 // ys.element_size()
+        expect((rec["vec"] == 1) == (off > 0 or v % wide > 0 or v <= 256),
+               f"kd_loss {what}: took vec {rec['vec']}")
+        expect((rec["design"] == "clusters")
+               == (r < _sm_count(0) and v > 5e4),
+               f"kd_loss {what}: took the {rec['design']} design")
+        edge.append(rec)
+        del ys, yt
+    print(f"kd_loss: within tolerance at {len(edge)} edge cases, each "
+          f"call's bits repeated")
     # identical logits: KL 0 within the tolerance
     y = torch.randn((LM_ROWS, LM_VOCAB), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -1777,7 +1893,11 @@ def check_proto_kd_kernels(torch, timer):
                      source="src/repro_torch/csrc/kd_loss.cu",
                      replaces="src/repro/kernels/kd_loss/kd_loss.py:72",
                      **{k: v for k, v in cases[0].items()
-                        if k not in ("temperature", "tol")}, cases=cases))
+                        if k in ("shape", "dtype", "max_abs_err", "ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+                     design={k: cases[0][k] for k in KD_PLAN_KEYS},
+                     cases=cases + edge))
     for row in rows:
         for cs in row["cases"]:
             if "ms" not in cs:
@@ -2612,7 +2732,8 @@ def main() -> int:
     rows += check_proto_kd_kernels(torch, timer)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
-                           "rowabs_sum", "proto_dist"):
+                           "rowabs_sum", "proto_dist", "quantize_rows_mixed",
+                           "kd_loss"):
             row["launch_ms"] = launch_ms
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}

@@ -64,10 +64,10 @@
 // 16-byte aligned, takes one column a vector (VEC = 1).  The plan is
 // picked in Python (kernels/quantize/quantize.py:absmax_plan, rows_plan cut
 // to one warp a row); the launcher checks it.
-// quantize_rows_mixed and quantize_rows_ef are grid-stride
-// elementwise loops with the row's delta and qmax indexed by i / cols;
-// quantize_rows_ef writes the codes and the new residual from the same
-// registers.  Every operation is
+// quantize_rows_ef is a grid-stride elementwise loop with the row's delta
+// and qmax indexed by i / cols; it writes the codes and the new residual
+// from the same registers (at half its bound, it is left so).  Every
+// operation is
 // a _rn intrinsic in the plain version's order — the division is the IEEE
 // one (__fdiv_rn), not a reciprocal multiply, the + 0.5 rounds on its own,
 // and with -fmad=false no multiply fuses into an add — so codes and
@@ -94,15 +94,18 @@
 // so it is bit-identical to mix_packed_ref.  The launch plan (group, vector
 // width, block, grid) is picked in Python (kernels/quantize/quantize.py:
 // mix_plan); the launcher checks it and returns the CUDA error otherwise.
-// quantize_rows, quantize_dequantize_rows and dequantize_rows share one
-// body, row_codec_kernel<InT, OutT, VEC>: fp32 x in and int32 codes or the
-// fp32 round trip code * delta out (rounded on its own), or int32 codes in
-// and fp32 out.  Their bytes sit in a grid-stride loop's way when each
-// element divides its index by cols for its row's delta and one 4-byte load
-// is in flight a thread; so rows go on blockIdx.y (a row stride beyond
-// 65,535 row tiles) and a thread takes kRowUnroll 16-byte column vectors of
-// its row, a block row's width apart: at each step a warp reads 512
-// contiguous bytes, and at the paths' 512 columns a warp takes one row.
+// quantize_rows, quantize_rows_mixed, quantize_dequantize_rows and
+// dequantize_rows share one body, row_codec_kernel<InT, OutT, VEC,
+// kRowQmax>: fp32 x in and int32 codes or the fp32 round trip code * delta
+// out (rounded on its own), or int32 codes in and fp32 out; with kRowQmax
+// (quantize_rows_mixed) the thread reads its row's qmax beside its delta,
+// once, and the clip is the same fminf(fmaxf(q, -qmax - 1), qmax).  Their
+// bytes sit in a grid-stride loop's way when each element divides its index
+// by cols for its row's delta and one 4-byte load is in flight a thread; so
+// rows go on blockIdx.y (a row stride beyond 65,535 row tiles) and a thread
+// takes kRowUnroll 16-byte column vectors of its row, a block row's width
+// apart: at each step a warp reads 512 contiguous bytes, and at the paths'
+// 512 columns a warp takes one row.
 // The thread reads its row's delta once into a register, issues all its
 // vectors' loads before it converts any, and writes int4 / float4 stores;
 // no index is divided.  A column count that is not a multiple of 4, or an x
@@ -276,15 +279,19 @@ constexpr int kRowUnroll = 4;     // vectors of its row a thread
 // the round trip; InT int: codes dequantized at their row's delta.  A
 // thread owns kRowUnroll VEC-wide column vectors of one row, a block row's
 // width apart; rows beyond the grid's row tiles are walked by a stride.
-template <typename InT, typename OutT, int VEC>
+// kRowQmax (quantize_rows_mixed): each row clips to its own qmax, read from
+// row_qmax beside its delta, once a thread a row; else every row clips to
+// the scalar qmax.
+template <typename InT, typename OutT, int VEC, bool kRowQmax>
 __global__ void __launch_bounds__(kRowThreads) row_codec_kernel(
     const InT* __restrict__ x, const float* __restrict__ row_delta,
-    OutT* __restrict__ out, int64_t rows, int cols, float qmax) {
+    const float* __restrict__ row_qmax, OutT* __restrict__ out,
+    int64_t rows, int cols, float qmax) {
   const int c0 = (blockIdx.x * blockDim.x * kRowUnroll + threadIdx.x) * VEC;
   const int step = blockDim.x * VEC;
   for (int64_t row = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
        row < rows; row += (int64_t)gridDim.y * blockDim.y) {
-    const Codec<OutT> codec{row_delta[row], qmax};
+    const Codec<OutT> codec{row_delta[row], kRowQmax ? row_qmax[row] : qmax};
     const InT* __restrict__ xr = x + row * cols;
     OutT* __restrict__ outr = out + row * cols;
     InT v[kRowUnroll][VEC];
@@ -498,22 +505,6 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   for (int64_t i = r_vec + tid; i < hi; i += nt) out[i] = codec(x[i]);
 }
 
-__global__ void quantize_rows_mixed_kernel(const float* __restrict__ x,
-                                           const float* __restrict__ row_delta,
-                                           const float* __restrict__ row_qmax,
-                                           int* __restrict__ codes, int64_t n,
-                                           int cols) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t r = i / cols;
-    const float qmax = row_qmax[r];
-    float q = floorf(__fadd_rn(__fdiv_rn(x[i], row_delta[r]), 0.5f));
-    q = fminf(fmaxf(q, __fsub_rn(-qmax, 1.f)), qmax);
-    codes[i] = (int)q;
-  }
-}
-
 __global__ void quantize_rows_ef_kernel(const float* __restrict__ x,
                                         const float* __restrict__ res,
                                         const float* __restrict__ row_delta,
@@ -623,11 +614,13 @@ static int64_t sweep_blocks(int64_t n, int threads) {
 // the row codec's launch, after checking its plan (kernels/quantize/
 // quantize.py:rows_plan): the column vectors and the rows covered, each
 // element by exactly one thread and no block empty; 16-byte vectors only on
-// 16-byte aligned x and out whose rows are whole vectors
-template <typename InT, typename OutT>
-static int row_launch(const InT* x, const float* row_delta, OutT* out,
-                      int64_t rows, int cols, float qmax, int vec,
-                      int block_x, int block_y, int grid_x, int grid_y,
+// 16-byte aligned x and out whose rows are whole vectors.  A row_qmax column
+// (quantize_rows_mixed) takes the kernel's per-row clip.
+template <bool kRowQmax = false, typename InT, typename OutT>
+static int row_launch(const InT* x, const float* row_delta,
+                      const float* row_qmax, OutT* out, int64_t rows,
+                      int cols, float qmax, int vec, int block_x,
+                      int block_y, int grid_x, int grid_y,
                       cudaStream_t stream) {
   const int64_t span = (int64_t)block_x * kRowUnroll * vec;  // a block's
   if (rows <= 0 || cols <= 0 || (vec != 1 && vec != 4) ||
@@ -636,15 +629,15 @@ static int row_launch(const InT* x, const float* row_delta, OutT* out,
       grid_x <= 0 || (int64_t)grid_x * span < cols ||
       (int64_t)(grid_x - 1) * span >= cols ||
       (int64_t)grid_x * span > INT32_MAX || grid_y <= 0 || grid_y > 65535 ||
-      grid_y > (rows + block_y - 1) / block_y)
+      grid_y > (rows + block_y - 1) / block_y || (kRowQmax && !row_qmax))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   if (vec == 4)
-    row_codec_kernel<InT, OutT, 4><<<grid, block, 0, stream>>>(
-        x, row_delta, out, rows, cols, qmax);
+    row_codec_kernel<InT, OutT, 4, kRowQmax><<<grid, block, 0, stream>>>(
+        x, row_delta, row_qmax, out, rows, cols, qmax);
   else
-    row_codec_kernel<InT, OutT, 1><<<grid, block, 0, stream>>>(
-        x, row_delta, out, rows, cols, qmax);
+    row_codec_kernel<InT, OutT, 1, kRowQmax><<<grid, block, 0, stream>>>(
+        x, row_delta, row_qmax, out, rows, cols, qmax);
   return (int)cudaGetLastError();
 }
 
@@ -652,8 +645,8 @@ extern "C" int quantize_rows(const float* x, const float* row_delta,
                              int* codes, int64_t rows, int cols, float qmax,
                              int vec, int block_x, int block_y, int grid_x,
                              int grid_y, cudaStream_t stream) {
-  return row_launch(x, row_delta, codes, rows, cols, qmax, vec, block_x,
-                    block_y, grid_x, grid_y, stream);
+  return row_launch(x, row_delta, nullptr, codes, rows, cols, qmax, vec,
+                    block_x, block_y, grid_x, grid_y, stream);
 }
 
 extern "C" int quantize_dequantize_rows(const float* x,
@@ -662,16 +655,16 @@ extern "C" int quantize_dequantize_rows(const float* x,
                                         int vec, int block_x, int block_y,
                                         int grid_x, int grid_y,
                                         cudaStream_t stream) {
-  return row_launch(x, row_delta, out, rows, cols, qmax, vec, block_x,
-                    block_y, grid_x, grid_y, stream);
+  return row_launch(x, row_delta, nullptr, out, rows, cols, qmax, vec,
+                    block_x, block_y, grid_x, grid_y, stream);
 }
 
 extern "C" int dequantize_rows(const int* codes, const float* row_delta,
                                float* out, int64_t rows, int cols, int vec,
                                int block_x, int block_y, int grid_x,
                                int grid_y, cudaStream_t stream) {
-  return row_launch(codes, row_delta, out, rows, cols, 0.f, vec, block_x,
-                    block_y, grid_x, grid_y, stream);
+  return row_launch(codes, row_delta, nullptr, out, rows, cols, 0.f, vec,
+                    block_x, block_y, grid_x, grid_y, stream);
 }
 
 // dequantize's launch, after checking its split (kernels/sweep.py:
@@ -781,16 +774,14 @@ extern "C" int fused_quantize_dequantize(const float* x, float* out,
                              stage, stream);
 }
 
+// the row codec with each row clipped to its own qmax (row_qmax [R])
 extern "C" int quantize_rows_mixed(const float* x, const float* row_delta,
-                                   const float* row_qmax, int* codes,
-                                   int64_t rows, int cols,
-                                   cudaStream_t stream) {
-  const int64_t n = rows * cols;
-  if (n > 0)
-    quantize_rows_mixed_kernel<<<(unsigned)sweep_blocks(n, 256), 256, 0,
-                                 stream>>>(x, row_delta, row_qmax, codes, n,
-                                           cols);
-  return (int)cudaGetLastError();
+                                   int* codes, int64_t rows, int cols,
+                                   const float* row_qmax, int vec,
+                                   int block_x, int block_y, int grid_x,
+                                   int grid_y, cudaStream_t stream) {
+  return row_launch<true>(x, row_delta, row_qmax, codes, rows, cols, 0.f,
+                          vec, block_x, block_y, grid_x, grid_y, stream);
 }
 
 // the row absmax's launch, after checking its plan (kernels/quantize/

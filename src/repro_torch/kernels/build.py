@@ -65,8 +65,9 @@ SIGNATURES = {
     "fused_quantize": (_P,) * 4 + (_I64, _F32, _I32, _I64, _I32, _P),
     "fused_quantize_dequantize": (_P,) * 4 + (_I64, _F32, _I32, _I64, _I32,
                                               _P),
-    # x, row_delta, row_qmax, codes, rows, cols, stream
-    "quantize_rows_mixed": (_P, _P, _P, _P, _I64, _I32, _P),
+    # x, row_delta, codes, rows, cols, row_qmax, vec, block_x, block_y,
+    # grid_x, grid_y, stream
+    "quantize_rows_mixed": (_P, _P, _P, _I64, _I32, _P) + (_I32,) * 5 + (_P,),
     # x, res, out, rows, cols, decay, vec, block_x, block_y, grid_x,
     # grid_y, stream
     "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32) + (_I32,) * 5 + (_P,),
@@ -84,8 +85,10 @@ SIGNATURES = {
     # x, protos, out, n, c, p_dim, bf16, vec, warps, warp_rows, col_tile,
     # grid_x, grid_y, stream
     "proto_dist": (_P,) * 3 + (_I32,) * 10 + (_P,),
-    # ys, yt, out, rows, v, inv_t, inv_t_sq, bf16, stream
-    "kd_loss_rows": (_P,) * 3 + (_I64, _I64, _F32, _F32, _I32, _P),
+    # ys, yt, out, rows, v, scale, inv_t_sq, bf16, design, vec, threads,
+    # lanes, splits, span, grid, stream
+    "kd_loss_rows": ((_P,) * 3 + (_I64, _I64, _F32, _F32) + (_I32,) * 6
+                     + (_I64, _I64, _P)),
 }
 
 

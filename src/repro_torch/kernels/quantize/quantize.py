@@ -24,10 +24,11 @@ sweeps read 4 B and write 4 B per element. Design: for the row absmax
 (``rowabs``, ``rowabs_sum``), one body with one warp across a row, its
 16-byte vectors of a 512-column step all loaded before any is folded,
 then a shuffle max (:func:`absmax_plan`); a grid-stride elementwise
-sweep with an IEEE division for the mixed-width and error-feedback codes;
-for the row codec (``quantize_rows``, ``quantize_dequantize_rows``,
-``dequantize_rows``), rows on the grid's y axis and several 16-byte
-column vectors of one row a thread, its row's Δ read once
+sweep with an IEEE division for the error-feedback codes; for the row
+codec (``quantize_rows``, ``quantize_rows_mixed``,
+``quantize_dequantize_rows``, ``dequantize_rows``), rows on the grid's
+y axis and several 16-byte column vectors of one row a thread, its
+row's Δ (and for the mixed widths its qmax) read once
 (:func:`rows_plan`; a column tail or an unaligned buffer takes one
 column a thread); for ``dequantize``, 16-byte vectors between a scalar
 head and tail (:func:`~repro_torch.kernels.sweep.sweep_plan`); for the
@@ -104,8 +105,9 @@ class RowsPlan:
 
 
 def rows_plan(rows: int, cols: int, aligned: bool) -> RowsPlan:
-    """The launch of ``quantize_rows``, ``quantize_dequantize_rows`` or
-    ``dequantize_rows`` over ``[rows, cols]``: 16-byte vectors where
+    """The launch of ``quantize_rows``, ``quantize_rows_mixed``,
+    ``quantize_dequantize_rows`` or ``dequantize_rows`` over ``[rows,
+    cols]``: 16-byte vectors where
     ``cols`` is a multiple of 4 and ``aligned`` (the input and the
     output start on 16-byte addresses), else one column a thread; the
     fewest whole warps along a row that hold its vectors at
@@ -126,7 +128,8 @@ def rows_plan(rows: int, cols: int, aligned: bool) -> RowsPlan:
 def _row_codec(name: str, x2d, row_delta, out, *qmax) -> None:
     """Launch the row codec's entry point ``name`` over ``x2d`` into
     ``out`` (both contiguous ``[R, C]``, neither empty) as
-    :func:`rows_plan` lays it out."""
+    :func:`rows_plan` lays it out; ``qmax`` is the scalar qmax, or for
+    ``quantize_rows_mixed`` the address of the ``[R]`` qmax column."""
     r, c = x2d.shape
     plan = rows_plan(r, c, x2d.data_ptr() % 16 == 0
                      and out.data_ptr() % 16 == 0)
@@ -155,11 +158,10 @@ def quantize_rows_mixed_cuda(x2d, row_delta, row_qmax):
             (r, 1))
     require(row_qmax, "quantize_rows_mixed row_qmax", torch.float32, (r, 1))
     codes = torch.empty((r, c), dtype=torch.int32, device=x2d.device)
-    rc = library().quantize_rows_mixed(x2d.data_ptr(), row_delta.data_ptr(),
-                                       row_qmax.data_ptr(), codes.data_ptr(),
-                                       r, c, stream_of(x2d))
-    check(rc, "quantize_rows_mixed")
-    QUANTIZE_ROWS_MIXED_LAUNCHES.count += 1
+    if codes.numel():
+        _row_codec("quantize_rows_mixed", x2d, row_delta, codes,
+                   row_qmax.data_ptr())
+        QUANTIZE_ROWS_MIXED_LAUNCHES.count += 1
     return codes
 
 

@@ -22,8 +22,10 @@ Tolerances, each with its reason:
   relative bound would be meaningless near KL = 0; identical logits must
   give 0 within it.  The Pallas kd_loss cannot run here (JAX 0.9 renamed
   ``pltpu.TPUCompilerParams``), so the oracles are the reference's plain
-  functions; a numpy emulation of the CUDA kernel's online per-thread
-  state and its merge is held to the same tolerance.
+  functions; a numpy model of the CUDA kernel's algorithm (its three
+  designs under ``kd_plan``: the segments' max-first sums, the per-thread
+  tiles and their merges, the cluster's merge) is held to the same
+  tolerance.
 * ``compute_local_prototypes`` and ``make_fedavg_step``: from weights
   carried with ``params_from_numpy``, fp32 configs; prototypes and
   losses ``rtol=1e-5``, parameters after adamw ``atol=2e-6`` for one
@@ -71,6 +73,7 @@ from repro_torch.core import profe as TP
 from repro_torch.core import prototypes as TPR
 from repro_torch.data.loader import batch_index_lists
 from repro_torch.kernels import build
+from repro_torch.kernels.kd_loss import kd_loss as tkd
 from repro_torch.kernels.kd_loss import ops as tkd_ops
 from repro_torch.kernels.kd_loss.kd_loss import kd_loss_rows_cuda
 from repro_torch.kernels.kd_loss.ref import kd_loss_rows_ref
@@ -322,74 +325,165 @@ def test_kd_loss_is_zero_for_identical_logits(temperature):
 
 
 NEG = np.float32(-1e30)          # the kernel's initial running max
+F32 = np.float32
 
 
-def _shuffle_merge(st):
-    """One warp's shuffle tree over the last axis (32 lanes) -> lane 0's
-    state: at each offset lane i merges lane i + off's state, all lanes
-    reading the values from before the step."""
+def _fma(a, b, c):
+    """fmaf in numpy: the product and sum in float64, rounded once."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(F32)
+
+
+def _merge(a, b):
+    """The kernel's ``merge``: state ``b`` folded into ``a`` (tuples
+    ``(mt, lt, u, ms, ls)`` of fp32 arrays) with the rescaling."""
+    mt = np.maximum(a[0], b[0])
+    ca, cb = np.exp2(a[0] - mt), np.exp2(b[0] - mt)
+    ms = np.maximum(a[3], b[3])
+    return (mt, a[1] * ca + b[1] * cb, a[2] * ca + b[2] * cb, ms,
+            a[4] * np.exp2(a[3] - ms) + b[4] * np.exp2(b[3] - ms))
+
+
+def _warp_merge(st):
+    """``warp_merge``: the xor-shuffle tree over the last axis (32 lanes),
+    every lane folding its partner's state from before the step; lane 0's
+    state."""
     for off in (16, 8, 4, 2, 1):
-        mt, lt, u, ms, ls = (x.copy() for x in st)
-        a, b = np.arange(32 - off), np.arange(off, 32)
-        m = np.maximum(mt[..., a], mt[..., b])
-        ca, cb = np.exp(mt[..., a] - m), np.exp(mt[..., b] - m)
-        lt[..., a] = st[1][..., a] * ca + st[1][..., b] * cb
-        u[..., a] = st[2][..., a] * ca + st[2][..., b] * cb
-        mt[..., a] = m
-        m = np.maximum(ms[..., a], ms[..., b])
-        ls[..., a] = st[4][..., a] * np.exp(ms[..., a] - m) \
-            + st[4][..., b] * np.exp(ms[..., b] - m)
-        ms[..., a] = m
-        st = (mt, lt, u, ms, ls)
-    return [x[..., 0] for x in st]
+        st = _merge(st, tuple(x[..., np.arange(32) ^ off] for x in st))
+    return tuple(x[..., 0] for x in st)
 
 
-def _emulate_kernel(ys, yt, temperature, threads):
-    """numpy fp32 model of ``csrc/kd_loss.cu``, one block per row: each
-    thread's strided walk with the per-element rescaling, the shuffle
-    tree in each warp, then over the warps' states (padded with empty
-    ones) in warp 0, and the finish."""
-    inv_t = np.float32(1.0 / temperature)
+def _finish(st, scale, inv_t_sq):
+    mt, lt, u, ms, ls = st
+    kl2 = u * scale / lt - (mt - ms) - (np.log2(lt) - np.log2(ls))
+    return kl2 * F32(np.log(2.0)) / inv_t_sq
+
+
+def _emulate_segments(ys, yt, scale, inv_t_sq, lanes):
+    """The segments design: lane q of a row's segment holds logits q +
+    k·lanes; the row's max first (a max is order-free), then each lane's
+    sums in k order, folded by the xor tree within the segment."""
     r, v = ys.shape
-    mt, ms = (np.full((r, threads), NEG, np.float32) for _ in range(2))
-    lt, u, ls = (np.zeros((r, threads), np.float32) for _ in range(3))
-    for j0 in range(0, v, threads):
-        k = np.arange(min(threads, v - j0))
-        a = ys[:, j0 + k] * inv_t
-        b = yt[:, j0 + k] * inv_t
-        up = b > mt[:, k]
-        corr = np.exp(np.where(up, mt[:, k] - b, 0)).astype(np.float32)
-        pt = np.exp(np.where(up, 0, b - mt[:, k])).astype(np.float32)
-        lt[:, k] = lt[:, k] * corr + pt
-        u[:, k] = u[:, k] * corr + pt * (b - a)
-        mt[:, k] = np.maximum(mt[:, k], b)
-        up = a > ms[:, k]
-        ls[:, k] = ls[:, k] * np.exp(np.where(up, ms[:, k] - a, 0)) \
-            + np.exp(np.where(up, 0, a - ms[:, k]))
-        ms[:, k] = np.maximum(ms[:, k], a)
-    warps = _shuffle_merge([x.reshape(r, -1, 32) for x in
-                            (mt, lt, u, ms, ls)])          # [r, warps]
+    per = -(-v // lanes)
+    idx = np.arange(lanes)[:, None] + lanes * np.arange(per)[None]
+    ok = idx < v
+    a = np.where(ok, ys[:, np.minimum(idx, v - 1)], 0)     # [r, lanes, per]
+    b = np.where(ok, yt[:, np.minimum(idx, v - 1)], 0)
+    mt = (yt.max(1) * scale).astype(F32)[:, None]
+    ms = (ys.max(1) * scale).astype(F32)[:, None]
+    lt, u, ls = (np.zeros((r, lanes), F32) for _ in range(3))
+    for k in range(per):
+        pt = np.where(ok[:, k], np.exp2(_fma(b[..., k], scale, -mt)), 0)
+        ps = np.where(ok[:, k], np.exp2(_fma(a[..., k], scale, -ms)), 0)
+        lt, ls = lt + pt, ls + ps
+        u = _fma(pt, b[..., k] - a[..., k], u)
+    off = lanes // 2
+    while off:
+        lt, u, ls = (x + x[:, np.arange(lanes) ^ off] for x in (lt, u, ls))
+        off //= 2
+    return _finish((mt[:, 0], lt[:, 0], u[:, 0], ms[:, 0], ls[:, 0]),
+                   scale, inv_t_sq)
+
+
+def _emulate_block(ys, yt, scale, lo, hi, plan):
+    """One block of the blocks / clusters design over vectors [lo, hi) of
+    each row: thread x's tiles (its vectors x + k·threads of each tile, k
+    < tile_loads(vec)), each a masked max, one rescale of the thread's
+    state and its exp2 sums in element order; then the warps' xor trees
+    and warp 0's over the warps' states.  Returns the block's state."""
+    r = ys.shape[0]
+    nt, vec = plan.threads, plan.vec
+    per = tkd.tile_loads(vec)
+    tiles = -(-(hi - lo) // (nt * per))
+    vidx = (lo + np.arange(nt)[:, None, None]
+            + nt * (per * np.arange(tiles)[None, :, None]
+                    + np.arange(per)[None, None, :]))  # [nt, tiles, per]
+    eidx = (vidx[..., None] * vec + np.arange(vec)).reshape(nt, tiles, -1)
+    ok = np.repeat(vidx < hi, vec, axis=-1)
+    eidx = np.where(ok, eidx, 0)
+    st = (np.full((r, nt), NEG), np.zeros((r, nt), F32),
+          np.zeros((r, nt), F32), np.full((r, nt), NEG),
+          np.zeros((r, nt), F32))
+    for t in range(tiles):
+        m = ok[:, t]                                        # [nt, E]
+        a = np.where(m, ys[:, eidx[:, t]], 0).astype(F32)   # [r, nt, E]
+        b = np.where(m, yt[:, eidx[:, t]], 0).astype(F32)
+        rt = np.where(m, b, NEG).max(-1)
+        rs = np.where(m, a, NEG).max(-1)
+        mt = np.maximum(st[0], (rt * scale).astype(F32))
+        ms = np.maximum(st[3], (rs * scale).astype(F32))
+        lt, u, ls = (np.zeros((r, nt), F32) for _ in range(3))
+        for e in range(m.shape[-1]):
+            pt = np.where(m[:, e], np.exp2(_fma(b[..., e], scale, -mt)), 0)
+            ps = np.where(m[:, e], np.exp2(_fma(a[..., e], scale, -ms)), 0)
+            lt, ls = lt + pt, ls + ps
+            u = _fma(pt, b[..., e] - a[..., e], u)
+        ct, cs = np.exp2(st[0] - mt), np.exp2(st[3] - ms)
+        st = (mt, _fma(st[1], ct, lt), _fma(st[2], ct, u), ms,
+              _fma(st[4], cs, ls))
+    warps = _warp_merge(tuple(x.reshape(r, -1, 32) for x in st))  # [r, w]
     pad = 32 - warps[0].shape[1]
-    mt, lt, u, ms, ls = _shuffle_merge([
+    return _warp_merge(tuple(
         np.pad(x, ((0, 0), (0, pad)),
-               constant_values=NEG if i in (0, 3) else 0)
-        for i, x in enumerate(warps)])
-    kl = u / lt - (mt - ms) - (np.log(lt) - np.log(ls))
-    return kl / np.float32(inv_t * inv_t)
+               constant_values=NEG if i in (0, 3) else 0).astype(F32)
+        for i, x in enumerate(warps)))
 
 
-@pytest.mark.parametrize("v,threads", [(10, 32), (1000, 128),
-                                       (50280 // 8, 1024)])
+def _emulate_kernel(ys, yt, temperature, plan):
+    """numpy fp32 model of ``csrc/kd_loss.cu`` under ``plan``
+    (:func:`kd_plan`): the log2-domain scalars the wrapper passes, then the
+    segments design, or each block of a row's cluster (one block for the
+    blocks design) and block 0's merge of the others in rank order, and
+    the finish.  It models the ``.cu`` file's algorithm; it is not that
+    file (which runs on the card only)."""
+    inv_t = 1.0 / temperature
+    scale, inv_t_sq = F32(inv_t * np.log2(np.e)), F32(inv_t * inv_t)
+    if plan.design == "segments":
+        return _emulate_segments(ys, yt, scale, inv_t_sq, plan.lanes)
+    nvec = ys.shape[1] // plan.vec
+    acc = None
+    for k in range(plan.splits):
+        st = _emulate_block(ys, yt, scale, k * plan.span,
+                            min(nvec, (k + 1) * plan.span), plan)
+        acc = st if acc is None else _merge(acc, st)
+    return _finish(acc, scale, inv_t_sq)
+
+
+# (rows, V, bytes a logit, SMs, the design kd_plan picks); bf16 cases hold
+# bf16 values as fp32
+KD_MODEL_CASES = [
+    (6, 10, 4, 132, "segments"),       # the ProFe KD term's V, 2 lanes a row
+    (6, 1000, 4, 6, "blocks"),         # 16-byte vectors of 4
+    (6, 50280 // 8, 4, 6, "blocks"),   # V % 4 = 1: one logit a load
+    (6, 7, 4, 132, "segments"),        # a lane a row
+    (6, 13, 2, 132, "segments"),       # a lane one short
+    (6, 256, 4, 132, "segments"),      # a warp a row
+    (6, 50280, 2, 132, "clusters"),    # 7 blocks a row, vectors of 8
+    (2, 202048, 2, 132, "clusters"),   # 8 blocks a row
+]
+
+
+@pytest.mark.parametrize("rows,v,elem_bytes,sms,design", KD_MODEL_CASES)
 @pytest.mark.parametrize("temperature", [1.0, 3.0])
-def test_kernel_online_algorithm_matches_rows_ref(v, threads, temperature):
-    """The kernel's arithmetic (per-thread online state, per-element
-    rescaling, the two-level shuffle merge), modelled in numpy fp32 at
-    the kernel's thread counts, against the plain per-row version."""
+def test_kernel_online_algorithm_matches_rows_ref(rows, v, elem_bytes, sms,
+                                                  design, temperature):
+    """The kernel's algorithm (segments: the row's max, then one exp2 a
+    logit and the segment's xor sums; blocks and clusters: per-thread
+    tiles with one rescale each, the two-level shuffle merge, the
+    cluster's merge in rank order; the log2-domain finish), modelled in
+    numpy fp32 under ``kd_plan``'s plan, against the plain per-row
+    version.  A model of the ``.cu`` file, not the file: the kernel is
+    held on the card by ``chip_smoke.py`` phase 3."""
+    plan = tkd.kd_plan(rows, v, elem_bytes, True, sms)
+    assert plan.design == design, plan
     rng = np.random.default_rng(v)
-    ys = (rng.standard_normal((6, v)) * 3).astype(np.float32)
-    yt = (rng.standard_normal((6, v)) * 3).astype(np.float32)
+    ys = (rng.standard_normal((rows, v)) * 3).astype(np.float32)
+    yt = (rng.standard_normal((rows, v)) * 3).astype(np.float32)
+    if elem_bytes == 2:
+        ys, yt = (torch.from_numpy(x).bfloat16().float().numpy()
+                  for x in (ys, yt))
     yt[0] = ys[0]                                    # a zero-KL row
-    got = _emulate_kernel(ys, yt, temperature, threads)
+    got = _emulate_kernel(ys, yt, temperature, plan)
+    assert got[0] == 0
     want = kd_loss_rows_ref(torch.from_numpy(ys), torch.from_numpy(yt),
                             temperature).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
