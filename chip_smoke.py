@@ -75,7 +75,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    (``adapters8+grams``); after each, the last round's factors must be
    finite and non-zero (a reference snapshot that aliased the in-place
    student would make them zero);
-10. the multi-node exchange (``core/mesh_federation.py``): 8 ranks
+10. the paper baselines and ProFe's other student and wire on mnist-cnn
+    as in 4, each through ``run_federation`` with its ``PATH_FED``
+    fields: ``fedavg``, ``fedproto``, ``fml`` and ``fedgpd`` on the fp32
+    wire, 2 rounds each (round 2 trains against round 1's prototypes),
+    then ProFe with a per-leaf student (``16/per-leaf``,
+    ``param_plane="off"``, the 16-bit wire through the tree codec) and
+    ProFe on the fp32 wire (``fp32``, on the plane), 1 round each.  No
+    plane sweep runs where the student is per-leaf, ``proto_accum`` runs
+    where prototypes travel, the codec only on the quantized wire;
+11. the multi-node exchange (``core/mesh_federation.py``): 8 ranks
     spawned in one gloo group, all on ``cuda:0``, one mnist-cnn node each
     at full width (``TrainConfig`` defaults, the 7040-image data iid over
     8 nodes).  Each round a rank trains its node with the stacked
@@ -86,11 +95,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     ``packed``, 16-bit, 1 round).  Every rank holds its bytes handed to
     collectives to the path's copies, its launches to the path's, and its
     prototypes and student to finite values;
-11. one rank holding all 8 nodes (``exchange="packed"``, ring adjacency)
+12. one rank holding all 8 nodes (``exchange="packed"``, ring adjacency)
     against the stacked engine's ``share_phase`` + ``mix_phase`` on the
     same post-train state: students within 4 ulp of their largest
     magnitude, prototypes and mask bit for bit;
-12. ``codec``, the per-leaf and per-tensor wire codec at full width (see
+13. ``codec``, the per-leaf and per-tensor wire codec at full width (see
     :func:`run_codec`): ``quantize_dequantize_per_node(packed=False)`` on
     the 20-node mnist-cnn and cifar10-resnet18 student payloads against
     the packed codec and the plain per-leaf math (16-bit; on mnist-cnn
@@ -100,29 +109,30 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     ResNet18 teacher's ``[3, 3, 512, 512]`` leaf) against
     ``core/quantization``, all bit for bit, each call's launches held
     exactly;
-13. ``proto-infer``, the paper's Claim 4 at full width (see
+14. ``proto-infer``, the paper's Claim 4 at full width (see
     :func:`run_proto_infer`): on mnist-cnn (2 local epochs) and
     cifar10-resnet18 (1), node 0's 320 images through
-    ``make_fedavg_step`` (per-leaf adamw), ``compute_local_prototypes``
+    ``make_fedavg_step`` (per-leaf adamw, a one-node stack),
+    ``compute_local_prototypes``
     (Eq. 3, ``proto_accum``) and ``nearest_prototype_predict`` on the
     640-image test split (Eq. 5, ``proto_dist``), the kernel's distances
     and predictions held to the plain versions and the accuracy printed;
     then the ProFe pair's KD term through ``kd_loss`` against
     ``core/distillation.kd_loss`` at T = 3 and 1;
-14. with ``--profile`` only: where a round's time goes on the main path,
+15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
     under ``torch.profiler`` (see :func:`profile_rounds`);
-15. a line ``{"kernels": [...]}`` with each kernel's launches on its
+16. a line ``{"kernels": [...]}`` with each kernel's launches on its
     path, error and times, then the card's ``nvidia-smi`` name and power
     limit, then the result line ``{"ok": true, "device": {...}}`` last.
 
-Phases 4-9 each set the kernels' launch counts to 0 just before
+Phases 4-10 each set the kernels' launch counts to 0 just before
 ``run_federation`` and read them just after, check finite F1 every
-round, and hold the run's wire bytes to the JAX package's; phase 10
-does the same on every rank around each mesh run, phase 12 around
+round, and hold the run's wire bytes to the JAX package's; phase 11
+does the same on every rank around each mesh run, phase 13 around
 the whole codec phase (its per-call launches are read as differences),
-and phase 13 around each of its driven parts.  Phase 3's ``proto_dist``
+and phase 14 around each of its driven parts.  Phase 3's ``proto_dist``
 and ``kd_loss`` rows carry every shape they were held at in ``cases``.
 """
 from __future__ import annotations
@@ -168,10 +178,32 @@ PATHS = {
     "adapters8": ("mnist-cnn", "adamw", "4", 2, (0.000377188, 12376, 9926)),
     "adapters8+grams": ("mnist-cnn", "adamw", "4", 1,
                         (0.000432972, 26724, 22788)),
+    # the paper baselines on the fp32 wire: FedAvg and FedGPD ship the
+    # teacher-size model (FedGPD with prototypes), FedProto prototypes
+    # only, FML the meme (the student-size model); then ProFe with a
+    # per-leaf student and ProFe on the fp32 wire.  These numbers are also
+    # what the JAX package's run_federation reports for these runs on the
+    # CPU
+    "fedavg": ("mnist-cnn", "adamw", "fp32", 2,
+               (0.064089584, 1703936, 1686568)),
+    "fedproto": ("mnist-cnn", "adamw", "fp32", 2, (0.00019608, 16424, 5160)),
+    "fml": ("mnist-cnn", "adamw", "fp32", 2, (0.031452144, 851968, 827688)),
+    "fedgpd": ("mnist-cnn", "adamw", "fp32", 2,
+               (0.064285664, 1703976, 1691728)),
+    "16/per-leaf": ("mnist-cnn", "adamw", "16", 1,
+                    (0.007912816, 426060, 416464)),
+    "fp32": ("mnist-cnn", "adamw", "fp32", 1, (0.015824112, 852008, 832848)),
 }
 # the FederationConfig fields of a path beyond its wire spec
 PATH_FED = {"adapters8": dict(adapter_rank=8),
-            "adapters8+grams": dict(adapter_rank=8, adapter_grams=True)}
+            "adapters8+grams": dict(adapter_rank=8, adapter_grams=True),
+            "fedavg": dict(algorithm="fedavg"),
+            "fedproto": dict(algorithm="fedproto"),
+            "fml": dict(algorithm="fml"),
+            "fedgpd": dict(algorithm="fedgpd"),
+            "16/per-leaf": dict(param_plane="off")}
+# the baselines that share prototypes (an Eq. 3 pass a round)
+PROTO_BASELINES = ("fedproto", "fedgpd")
 # matrix leaves of the mnist-cnn student at rank 8: conv2, fc1, fc2
 ADAPTER_LEAVES = 3
 # the student-plane sweep each optimizer launches once per training step
@@ -197,7 +229,7 @@ CODEC_KERNELS = ("quantize_dequantize_rows", "dequantize_rows",
                  "fused_quantize", "fused_quantize_dequantize", "dequantize")
 # Eq. 5's and the KD loss's kernels: only the proto-infer phase runs them
 PROTO_INFER_KERNELS = ("proto_dist", "kd_loss")
-# the multi-node exchange (phase 10): name -> (topology, exchange, wire
+# the multi-node exchange (phase 11): name -> (topology, exchange, wire
 # spec, overlap, rounds, collective bytes per rank and round, mix_packed
 # launches per rank and round).  The bytes are the copies a rank hands to
 # its collectives times packed_copy_bytes({model, protos, counts}) —
@@ -218,8 +250,17 @@ PER_RECV_PATH = "adapters8+grams"
 IMAGE_SHAPE = {"mnist-cnn": (28, 28, 1), "cifar10-resnet18": (32, 32, 3)}
 
 
+def parse_wire(wire: str):
+    """A path's wire: its ``WireSpec``, or None for ``"fp32"``."""
+    from repro_torch.wirespec import WireSpec
+    return None if wire == "fp32" else WireSpec.parse(wire)
+
+
 def wire_fields(spec) -> dict:
-    """The FederationConfig fields that select the wire ``spec``."""
+    """The FederationConfig fields that select the wire ``spec`` (None:
+    the fp32 wire)."""
+    if spec is None:
+        return dict(quantize_bits=0)
     return dict(quantize_bits=spec.student_bits,
                 proto_quantize_bits=spec.proto_bits,
                 error_feedback=spec.error_feedback)
@@ -1443,7 +1484,7 @@ def check_codec_kernels(torch, timer):
 
 
 def run_codec(torch) -> dict:
-    """Phase 12, the per-leaf and per-tensor codec at full width, every
+    """Phase 13, the per-leaf and per-tensor codec at full width, every
     comparison bit for bit and every call's launches held exactly:
 
     1. ``quantize_dequantize_per_node(payload, 16, packed=False)`` on the
@@ -1664,7 +1705,7 @@ KD_EDGE = tuple(
        ("16 rows", 16, LM_VOCAB, "bfloat16", 3.0, 0, 0.0),
        ("|y| ~ 1e3", 320, 10, "float32", 3.0, 0, 1000.0),
        ("|y| ~ 1e3", 250, 50280, "bfloat16", 1.0, 0, 1000.0)])
-# Claim 4 in phase 13: model -> local epochs of make_fedavg_step
+# Claim 4 in phase 14: model -> local epochs of make_fedavg_step
 CLAIM4_EPOCHS = {"mnist-cnn": 2, "cifar10-resnet18": 1}
 KD_TEMPERATURES = (3.0, 1.0)       # FederationConfig.kd_temperature, and 1
 
@@ -1911,14 +1952,15 @@ def check_proto_kd_kernels(torch, timer):
 
 
 def run_proto_infer(torch, inputs) -> dict:
-    """Phase 13, ``proto-infer``: the paper's Claim 4 (nearest-prototype
+    """Phase 14, ``proto-infer``: the paper's Claim 4 (nearest-prototype
     inference, ``tests/test_system.py``) at full width on the card, and
     the ProFe pair's KD term through the ``kd_loss`` kernel.
 
     1. For each model of ``CLAIM4_EPOCHS`` (mnist-cnn: teacher widths
        (32, 64), proto_dim 128; cifar10-resnet18: the ResNet18, proto_dim
        256): node 0's 320 images of the paths' data, ``make_fedavg_step``
-       under per-leaf adamw with ``TrainConfig`` defaults for its local
+       on a one-node stack under per-leaf adamw with ``TrainConfig``
+       defaults for its local
        epochs, ``compute_local_prototypes`` (Eq. 3 through
        ``proto_accum``), the forward of the 640-image test split and
        ``nearest_prototype_predict`` (Eq. 5 through ``proto_dist``).  The
@@ -1937,7 +1979,8 @@ def run_proto_infer(torch, inputs) -> dict:
     from repro_torch.core import distillation as D
     from repro_torch.core.baselines import make_fedavg_step
     from repro_torch.core.profe import (NodeState, compute_local_prototypes,
-                                        init_node_state)
+                                        init_node_state, node_params,
+                                        stack_states)
     from repro_torch.core.prototypes import nearest_prototype_predict
     from repro_torch.data import batch_index_lists
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
@@ -1976,11 +2019,12 @@ def run_proto_infer(torch, inputs) -> dict:
                              weight_decay=train.weight_decay,
                              momentum=train.momentum)
         ncls = cfg.num_classes
-        state = NodeState(
+        # the stacked step on a one-node stack
+        state = stack_states([NodeState(
             student=params, teacher={}, opt_s=opt.init(params), opt_t={},
             global_protos=torch.zeros((ncls, cfg.proto_dim), device="cuda"),
             proto_mask=torch.zeros((ncls,), device="cuda"),
-            round_idx=torch.zeros((), dtype=torch.int32, device="cuda"))
+            round_idx=torch.zeros((), dtype=torch.int32, device="cuda"))])
         step = make_fedavg_step(cfg, opt, grad_clip=train.grad_clip)
         train_batches = [on_card(node, i) for i in batch_index_lists(
             n, bsz, fed.seed, epochs=epochs)]
@@ -1992,12 +2036,13 @@ def run_proto_infer(torch, inputs) -> dict:
             nonlocal state
             losses = []
             for b in train_batches:
-                state, m = step(state, b)
-                losses.append(m["loss_s"])
+                state, m = step(state, {k: v[None] for k, v in b.items()})
+                losses.append(m["loss_s"][0])
+            params = node_params(state.student, 0)
             protos, counts = compute_local_prototypes(
-                cfg, state.student, proto_batches, ncls)
+                cfg, params, proto_batches, ncls)
             with torch.no_grad():
-                f1 = forward(cfg, state.student, {"image": test["image"]}).f1
+                f1 = forward(cfg, params, {"image": test["image"]}).f1
             mask = (counts > 0).float()
             return (torch.stack(losses), protos, counts, mask, f1,
                     nearest_prototype_predict(f1, protos, mask))
@@ -2092,49 +2137,62 @@ def path_inputs(model: str):
 
 
 def run_path(torch, inputs, name: str):
-    """Phases 4-9: ProFe at full width through ``run_federation`` on the
-    path ``name`` of ``PATHS`` (its model's ``inputs``, its optimizer,
-    wire and rounds), with the launch counts set to 0 just before and
-    read just after.  Checks finite F1 every round, the launches (every
-    count exactly as the optimizer and the wire spec imply, each kernel
-    of the path at least once) and the wire bytes against the JAX
-    package's.  With ``+ef`` the final ``CodecState`` must have advanced
-    ``seq`` once a round and carry a residual that is finite, non-zero,
-    and zero on the plane's padding lanes.  On the adapter wire the last
-    round's shared factors must be finite and non-zero.  Returns the
-    launch counts."""
+    """Phases 4-10: ProFe or a paper baseline
+    (``PATH_FED``'s ``algorithm``) at full width through
+    ``run_federation`` on the path ``name`` of ``PATHS`` (its model's
+    ``inputs``, its optimizer, wire and rounds, and ``PATH_FED``'s
+    fields), with the launch counts set to 0 just before and read just
+    after.  Checks finite F1 every round, the resolved ``param_plane``,
+    the launches (every count exactly as the algorithm, the plane mode,
+    the optimizer and the wire spec imply, each kernel of the path at
+    least once) and the wire bytes against the JAX package's.  With
+    ``+ef`` the final ``CodecState`` must have advanced ``seq`` once a
+    round and carry a residual that is finite, non-zero, and zero on the
+    plane's padding lanes.  On the adapter wire the last round's shared
+    factors must be finite and non-zero.  Returns the launch counts."""
     import dataclasses
 
     from repro_torch.core.federation import run_federation
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
-    from repro_torch.wirespec import WireSpec
 
     _, optimizer, wire, rounds, expected_bytes = PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
-    spec = WireSpec.parse(wire)
+    spec = parse_wire(wire)
     extra = PATH_FED.get(name, {})
     fed = dataclasses.replace(fed, rounds=rounds, **wire_fields(spec),
                               **extra)
     train = dataclasses.replace(train, optimizer=optimizer)
     per_node = len(node_data[0]["label"])
-    print(f"{cfg.name}: {N_NODES} nodes x {per_node} images, batch "
-          f"{train.batch_size}, {optimizer}, wire {spec.describe()} "
+    algo = fed.algorithm
+    # the student rides the plane only for ProFe with param_plane "auto"
+    plane = algo == "profe" and fed.param_plane != "off"
+    print(f"{cfg.name}: {algo}, {N_NODES} nodes x {per_node} images, batch "
+          f"{train.batch_size}, {optimizer}, wire "
+          f"{spec.describe() if spec else 'fp32'}, plane {plane} "
           f"{extra or ''}")
     steps = rounds * (per_node // train.batch_size)
-    ef, uniform = spec.error_feedback, spec.uniform_bits is not None
-    # one plane sweep per training step, of the path's optimizer only
-    launches = {k: steps if opt == optimizer else 0
+    quantized = spec is not None
+    ef = quantized and spec.error_feedback
+    uniform = quantized and spec.uniform_bits is not None
+    # one plane sweep per training step, of the path's optimizer only (a
+    # per-leaf student updates through the plain per-leaf optimizer)
+    launches = {k: steps if opt == optimizer and plane else 0
                 for opt, k in OPT_KERNEL.items()}
     launches.update({
-        "proto_accum": steps,       # one per Eq. 3 proto batch
-        # one share codec a round: amax rows, then the codes
-        "rowabs": 0 if ef else rounds,
+        # one per Eq. 3 proto batch, where prototypes travel
+        "proto_accum": steps if algo == "profe" or algo in PROTO_BASELINES
+        else 0,
+        # one share codec a round (the plane's, or the per-leaf tree
+        # codec's): amax rows, then the codes; none on the fp32 wire
+        "rowabs": rounds if quantized and not ef else 0,
         "quantize_rows": rounds if uniform and not ef else 0,
-        "quantize_rows_mixed": 0 if uniform or ef else rounds,
+        "quantize_rows_mixed": rounds if quantized and not uniform
+        and not ef else 0,
         "rowabs_sum": rounds if ef else 0,
         "quantize_rows_ef": rounds if ef else 0,
         # one merge launch per matrix leaf a round
-        "lowrank_apply": ADAPTER_LEAVES * rounds if extra else 0,
+        "lowrank_apply": ADAPTER_LEAVES * rounds if fed.adapter_rank
+        else 0,
         # the stacked engine mixes with tensordot; only the mesh exchange
         # launches the fused mix
         "mix_packed": 0})
@@ -2143,6 +2201,8 @@ def run_path(torch, inputs, name: str):
     reset_launch_counts()
     res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
     counts = launch_counts()
+    expect(res.extras["param_plane"] is plane,
+           f"{name}: param_plane resolved to {res.extras['param_plane']}")
 
     print(f"per-round F1: {res.f1_per_round}")
     print(f"per-round seconds: {res.extras['round_times_s']}")
@@ -2188,9 +2248,9 @@ def run_path(torch, inputs, name: str):
               f"{float(res_s.abs().max()):.4g}, max |protos| "
               f"{float(protos.abs().max()):.4g}, padding lanes zero")
     shared = res.extras.get("adapter_factors")
-    expect((shared is not None) == bool(extra),
+    expect((shared is not None) == bool(fed.adapter_rank),
            f"{name}: adapter_factors is {shared!r}")
-    if extra:
+    if fed.adapter_rank:
         expect(len(shared) == ADAPTER_LEAVES,
                f"{name}: factored leaves {sorted(shared)}")
         for leaf, f in sorted(shared.items()):
@@ -2408,7 +2468,7 @@ def train_nodes(fed, train, train_phase, state, node_data, nodes, rnd: int,
 
 def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
               n_images: int) -> None:
-    """Phase 10 on one spawned rank: its node through every mesh path
+    """Phase 11 on one spawned rank: its node through every mesh path
     (train, then the mesh round, each round), with its own checks; the
     report goes to ``out_dir/rank<r>.json``."""
     import torch
@@ -2501,7 +2561,7 @@ def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
 
 def run_mesh(torch, device: str = "cuda", n_images: int = 7040,
              rank_fn=mesh_rank) -> dict:
-    """Phase 10: spawn ``MESH_NODES`` ranks (``spawn`` start method, a
+    """Phase 11: spawn ``MESH_NODES`` ranks (``spawn`` start method, a
     ``file://`` store in a temporary directory), every mesh path in the
     one spawn; a failure on any rank fails the phase, and ranks still
     running at ``MESH_DEADLINE_S`` are killed.  Returns each path's
@@ -2545,7 +2605,7 @@ def run_mesh(torch, device: str = "cuda", n_images: int = 7040,
 
 def check_mesh_parity(torch, device: str = "cuda",
                       n_images: int = 7040) -> None:
-    """Phase 11: one rank of a one-rank gloo group holds all
+    """Phase 12: one rank of a one-rank gloo group holds all
     ``MESH_NODES`` nodes.  After one round of local training of the
     stacked state, the packed mesh round (ring adjacency, 16-bit) and
     the stacked engine's ``share_phase`` + ``mix_phase`` run on copies
@@ -2608,7 +2668,7 @@ def check_mesh_parity(torch, device: str = "cuda",
 
 
 def profile_rounds(torch, inputs, name: str) -> None:
-    """Phase 14 (``--profile``): where a round's time goes on the path
+    """Phase 15 (``--profile``): where a round's time goes on the path
     ``name`` of ``PROFILED``.  After the path's own run (the warm-up:
     kernel build, cuDNN autotuning), it runs once more without the
     profiler and once under ``torch.profiler`` (CPU and CUDA
@@ -2627,12 +2687,10 @@ def profile_rounds(torch, inputs, name: str) -> None:
 
     import dataclasses
 
-    from repro_torch.wirespec import WireSpec
-
     _, optimizer, wire, rounds, _ = PATHS[name]
     cfg, fed, train, node_data, test_d = inputs
     fed = dataclasses.replace(fed, rounds=rounds,
-                              **wire_fields(WireSpec.parse(wire)),
+                              **wire_fields(parse_wire(wire)),
                               **PATH_FED.get(name, {}))
     train = dataclasses.replace(train, optimizer=optimizer)
     t0 = time.time()
@@ -2739,8 +2797,9 @@ def main() -> int:
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
     counts = {}
     for name, (model, optimizer, wire, rounds, _) in PATHS.items():
-        phase(f"{'main' if name == '16' else 'path'} {name}: ProFe {model}, "
-              f"{N_NODES} nodes, {rounds} round(s), {optimizer}, "
+        algo = PATH_FED.get(name, {}).get("algorithm", "profe")
+        phase(f"{'main' if name == '16' else 'path'} {name}: {algo} "
+              f"{model}, {N_NODES} nodes, {rounds} round(s), {optimizer}, "
               f"{wire} wire")
         t0 = time.time()
         counts[name] = run_path(torch, inputs[model], name)

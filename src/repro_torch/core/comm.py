@@ -17,13 +17,14 @@ from repro_torch.core.quantization import tree_wire_bytes
 from repro_torch.tree import is_float, itemsize, numel, tree_leaves
 from repro_torch.wirespec import WireSpec, canonical_group
 
-Bits = Union[int, WireSpec]
+Bits = Union[int, WireSpec, None]
 
 
-def packed_copy_bytes(payload_tree, bits: Bits) -> int:
+def packed_copy_bytes(payload_tree, bits: Bits = None) -> int:
     """Physical bytes of ONE serialized copy under the packed node wire
     codec: quantized float leaves ride the 512-lane code buffer with one
-    fp32 scale per leaf; ``counts`` (and any non-float leaf) rides raw.
+    fp32 scale per leaf (``bits=None``, the fp32 wire: fp32 rows and no
+    scales); ``counts`` (and any non-float leaf) rides raw.
     Leaves are ordered by wire group name, as the payload dict packs
     them, so the alignment rows land on the same (last) segment."""
     from repro_torch.kernels.quantize.ops import packed_wire_bytes_per_node

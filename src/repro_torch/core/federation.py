@@ -1,25 +1,30 @@
 """Decentralized-federated-learning simulator: the stacked round engine,
-for ProFe with the exact Eq. 3 pass on the flat parameter plane.
+for ProFe and the paper baselines (FedAvg, FedProto, FML, FedGPD) with
+the exact Eq. 3 pass.
 
 Runs N nodes over a :class:`~repro_torch.core.topology.TopologySchedule`
 for R rounds of E local epochs.  Node state is *stacked* (every tensor
 carries a leading ``[N]`` node axis) and one round is:
 
 1. local training: a Python loop over the pre-stacked ``[T, N, B, ...]``
-   batches, each step training every node (``core/profe.py``) and
-   updating the whole student plane in ONE fused sgd, adamw or
-   adafactor sweep,
-2. the exact Eq. 3 pass: a post-training student forward over a second
-   batch stream, accumulated per class by ``kernels/proto_accum``,
-3. share: the round's payload ``{protos, student}`` round-trips the
-   packed wire codec (``kernels/quantize``) at the ``WireSpec``'s widths
-   (uniform, or mixed such as ``4/16``), with the error-feedback
-   residual carried in ``NodeState.wire_state`` when the spec has
-   ``+ef``; on the adapter-rank wire (``FederationConfig.adapter_rank``,
+   batches, each step training every node (``core/profe.py``,
+   ``core/baselines.py``) and updating a plane student in ONE fused
+   sgd, adamw or adafactor sweep (a per-leaf student, the baselines' and
+   ``param_plane="off"``'s, through the per-leaf optimizer),
+2. the exact Eq. 3 pass, where the algorithm shares prototypes: a
+   post-training forward over a second batch stream, accumulated per
+   class by ``kernels/proto_accum``,
+3. share: the round's payload (``{protos, student}`` for ProFe) round-
+   trips the packed wire codec (``kernels/quantize``) at the
+   ``WireSpec``'s widths (uniform, or mixed such as ``4/16``), with the
+   error-feedback residual carried in ``NodeState.wire_state`` when the
+   spec has ``+ef``; a per-leaf student rides the tree codec; on the
+   fp32 wire (``quantize_bits=0``, every baseline) the payload passes
+   unquantized; on the adapter-rank wire (``FederationConfig.adapter_rank``,
    ``core/adapters.py``) the matrix leaves travel as rank-r factors of
    their round delta instead, ``{adapters, protos, student: rest[,
    grams]}`` through the per-leaf tree codec,
-4. mix: size-weighted gossip of the student plane (a node's own copy
+4. mix: size-weighted gossip of the shared model (a node's own copy
    unquantized) and Eq. 4 aggregation per neighbourhood; on the adapter
    wire the received low-rank deltas merge onto every receiver's plane
    in place (``kernels/lowrank_apply``, RegMean with grams) and only the
@@ -42,6 +47,7 @@ import torch
 from repro_torch.config.base import FederationConfig, ModelConfig, TrainConfig
 from repro_torch.core import round_ops as R
 from repro_torch.core import topology as T
+from repro_torch.core import baselines as B
 from repro_torch.core.adapters import (adapter_layout,
                                        adapter_payload_template,
                                        init_adapter_state, split_student)
@@ -49,17 +55,18 @@ from repro_torch.core.comm import (ScheduleCommAccountant, packed_copy_bytes)
 from repro_torch.core.distillation import teacher_active
 from repro_torch.core.metrics import accuracy, macro_f1
 from repro_torch.core.profe import (NodeState, init_node_state,
-                                    make_profe_step, normalize_protos,
-                                    proto_labels, resolve_device,
-                                    stack_states)
+                                    make_profe_step, node_params,
+                                    normalize_protos, proto_labels,
+                                    resolve_device, stack_states)
 from repro_torch.core.quantization import tree_wire_bytes
 from repro_torch.core.wire_state import init_codec_state
 from repro_torch.data.loader import batch_index_lists
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
-from repro_torch.models import derive_student, forward
+from repro_torch.models import derive_student, forward, init_params
 from repro_torch.optim import make_optimizer, make_plane_optimizer
 from repro_torch.optim.plane import PLANE_OPTIMIZERS, Plane, as_tree
-from repro_torch.tree import ShapeDtypeStruct, tree_from_paths
+from repro_torch.tree import (ShapeDtypeStruct, tree_from_paths,
+                              tree_leaves, tree_map)
 from repro_torch.wirespec import WireSpec
 
 PROTO_PASSES = ("exact", "fused")
@@ -87,8 +94,8 @@ def _n_proto_classes(cfg: ModelConfig) -> int:
         else cfg.n_proto_classes
 
 
-def _node_plane(plane: Plane, i: int) -> Plane:
-    return Plane(plane.buf[i], plane.meta)
+def _first_leaf(params) -> torch.Tensor:
+    return params.buf if isinstance(params, Plane) else tree_leaves(params)[0]
 
 
 @torch.no_grad()
@@ -109,25 +116,49 @@ def _eval_params(cfg: ModelConfig, params, test_data, batch_size: int = 256):
 def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
                  student_cfg: ModelConfig, fed: FederationConfig,
                  train: TrainConfig, opt_s, opt_t):
-    """Returns ``(step, wire_model, share_protos, wire, model_cfgs)``."""
-    if algo != "profe":
-        raise _unported(f"algorithm {algo!r}", "Queue 1 item 9 (paper "
-                        "baselines)")
-    step = make_profe_step(teacher_cfg, student_cfg, fed, opt_s, opt_t,
-                           grad_clip=train.grad_clip)
-    # adapter-rank wire: the factor (and gram) payload groups get their
-    # own widths when configured; bits_for falls back to the student's
-    overrides = []
-    if fed.adapter_rank and fed.adapter_quantize_bits:
-        overrides.append(("adapters", fed.adapter_quantize_bits))
-    if fed.adapter_rank and fed.adapter_grams and fed.gram_quantize_bits:
-        overrides.append(("grams", fed.gram_quantize_bits))
-    wire = WireSpec(student_bits=fed.quantize_bits,
-                    proto_bits=fed.proto_quantize_bits,
-                    error_feedback=fed.error_feedback,
-                    ef_decay=fed.error_feedback_decay,
-                    overrides=tuple(overrides))
-    return step, "student", True, wire, (teacher_cfg, student_cfg)
+    """Returns ``(step, wire_model, share_protos, wire, model_cfgs)``:
+    ``wire_model`` names the model slot that travels (None: no model),
+    ``share_protos`` whether prototypes travel, ``wire`` the payload's
+    :class:`WireSpec` (None: the fp32 wire) and ``model_cfgs`` the
+    (teacher-slot, student-slot) configs."""
+    clip = train.grad_clip
+    if algo == "profe":
+        step = make_profe_step(teacher_cfg, student_cfg, fed, opt_s, opt_t,
+                               grad_clip=clip)
+        # adapter-rank wire: the factor (and gram) payload groups get
+        # their own widths when configured; bits_for falls back to the
+        # student's
+        overrides = []
+        if fed.adapter_rank and fed.adapter_quantize_bits:
+            overrides.append(("adapters", fed.adapter_quantize_bits))
+        if fed.adapter_rank and fed.adapter_grams and fed.gram_quantize_bits:
+            overrides.append(("grams", fed.gram_quantize_bits))
+        wire = WireSpec(student_bits=fed.quantize_bits,
+                        proto_bits=fed.proto_quantize_bits,
+                        error_feedback=fed.error_feedback,
+                        ef_decay=fed.error_feedback_decay,
+                        overrides=tuple(overrides)) \
+            if fed.quantize_bits else None
+        if fed.adapter_rank and wire is None:
+            raise ValueError("adapter_rank needs the quantized wire codec "
+                             "(set fed.quantize_bits)")
+        return step, "student", True, wire, (teacher_cfg, student_cfg)
+    # the baselines ride the fp32 wire; the "student" slot holds the
+    # model that trains (and, but for FedProto, travels)
+    if algo == "fedavg":
+        step = B.make_fedavg_step(teacher_cfg, opt_s, grad_clip=clip)
+        return step, "student", False, None, (teacher_cfg, teacher_cfg)
+    if algo == "fedproto":
+        step = B.make_fedproto_step(teacher_cfg, fed, opt_s, grad_clip=clip)
+        return step, None, True, None, (teacher_cfg, teacher_cfg)
+    if algo == "fml":
+        step = B.make_fml_step(teacher_cfg, student_cfg, fed, opt_t, opt_s,
+                               grad_clip=clip)
+        return step, "student", False, None, (teacher_cfg, student_cfg)
+    if algo == "fedgpd":
+        step = B.make_fedgpd_step(teacher_cfg, fed, opt_s, grad_clip=clip)
+        return step, "student", True, None, (teacher_cfg, teacher_cfg)
+    raise ValueError(f"unknown algorithm {algo!r}")
 
 
 def _check_slice(fed: FederationConfig, train: TrainConfig, *,
@@ -139,12 +170,7 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
     if fed.proto_pass not in PROTO_PASSES:
         raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
                          f"got {fed.proto_pass!r}")
-    if fed.adapter_rank and not fed.quantize_bits:
-        raise ValueError("adapter_rank needs the quantized wire codec "
-                         "(set fed.quantize_bits)")
     checks = [
-        (fed.algorithm != "profe", f"algorithm {fed.algorithm!r}",
-         "Queue 1 item 9 (paper baselines)"),
         (fed.proto_pass != "exact", "proto_pass='fused'", "Queue 1 item 10"),
         (overlap is not None, f"overlap={overlap!r}", "Queue 1 item 10"),
         (stale_self_floor is not None, "stale_self_floor",
@@ -153,8 +179,6 @@ def _check_slice(fed: FederationConfig, train: TrainConfig, *,
         (eval_all_nodes, "eval_all_nodes", "Queue 1 item 10"),
         (bool(fed.adapter_rank) and fed.error_feedback,
          "error feedback on the adapter-rank wire", "Queue 1 item 11"),
-        (not fed.quantize_bits, "the fp32 wire (quantize_bits=0)",
-         "Queue 1 item 4"),
     ]
     for bad, what, item in checks:
         if bad:
@@ -190,15 +214,30 @@ def _plane_mode(fed: FederationConfig, train: TrainConfig, algo: str,
     return False
 
 
-def _init_states(model_cfgs, fed: FederationConfig, opt_s, opt_t,
-                 ncls: int, device) -> List[NodeState]:
+def _init_states(algo: str, model_cfgs, fed: FederationConfig, opt_s,
+                 opt_t, ncls: int, device, *, plane: bool
+                 ) -> List[NodeState]:
     """Fresh per-node states, node i seeded ``fed.seed * 1000 + i`` (the
-    JAX package's key derivation; torch draws other numbers)."""
+    JAX package's key derivation; torch draws other numbers).  ProFe and
+    FML hold a teacher; the other baselines one per-leaf model in the
+    student slot, with an empty teacher and ``opt_t``."""
     states = []
     for i in range(fed.num_nodes):
         gen = torch.Generator().manual_seed(fed.seed * 1000 + i)
-        states.append(init_node_state(model_cfgs[0], model_cfgs[1], gen,
-                                      opt_s, opt_t, ncls, device=device))
+        if algo in ("profe", "fml"):
+            states.append(init_node_state(model_cfgs[0], model_cfgs[1], gen,
+                                          opt_s, opt_t, ncls, plane=plane,
+                                          device=device))
+            continue
+        params = tree_map(lambda x: x.to(device),
+                          init_params(model_cfgs[0], gen))
+        states.append(NodeState(
+            student=params, teacher={}, opt_s=opt_s.init(params), opt_t={},
+            global_protos=torch.zeros((ncls, model_cfgs[0].proto_dim),
+                                      dtype=torch.float32, device=device),
+            proto_mask=torch.zeros((ncls,), dtype=torch.float32,
+                                   device=device),
+            round_idx=torch.zeros((), dtype=torch.int32, device=device)))
     return states
 
 
@@ -206,14 +245,19 @@ def _payload_template(wire_model, share_protos, stacked: NodeState,
                       ncls: int, proto_dim: int, *, adapter_rank: int = 0,
                       adapter_grams: bool = False) -> Dict[str, Any]:
     """Shape/dtype skeleton of one node's wire payload: the student by
-    its LEAF shapes (never the padded buffer), prototypes and counts.
-    With ``adapter_rank`` > 0 the matrix leaves leave ``"model"`` and
-    meter as their ``"adapters"`` factors (and ``"grams"``)."""
+    its LEAF shapes (a plane's never by its padded buffer; a per-leaf
+    student's without the node axis), prototypes and counts.  With
+    ``adapter_rank`` > 0 the matrix leaves leave ``"model"`` and meter as
+    their ``"adapters"`` factors (and ``"grams"``)."""
     payload: Dict[str, Any] = {}
     if wire_model is not None:
-        model = tree_from_paths(
-            (path, ShapeDtypeStruct(shape, np.dtype(np.float32)))
-            for _, path, shape, _row, _r in stacked.student.meta.recipe)
+        if isinstance(stacked.student, Plane):
+            model = tree_from_paths(
+                (path, ShapeDtypeStruct(shape, np.dtype(np.float32)))
+                for _, path, shape, _row, _r in stacked.student.meta.recipe)
+        else:
+            model = tree_map(lambda x: ShapeDtypeStruct(
+                tuple(x.shape[1:]), x.dtype), stacked.student)
         if adapter_rank:
             layout = adapter_layout(model, adapter_rank)
             payload.update(adapter_payload_template(layout,
@@ -274,13 +318,14 @@ def _to_device(staged, device):
 
 def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
     """The exact (post-training) Eq. 3 pass over a stacked ``[T, N, B,
-    ...]`` proto batch stream: per batch, every node's student forward,
-    then ONE ``proto_accumulate_nodes`` over ``[N, B, P]``."""
+    ...]`` proto batch stream: per batch, every node's student forward
+    (a Plane or a per-leaf tree), then ONE ``proto_accumulate_nodes``
+    over ``[N, B, P]``."""
 
     @torch.no_grad()
-    def proto_pass(students: Plane, pxb, pvalid):
+    def proto_pass(students, pxb, pvalid):
         n_nodes = pvalid.shape[1]
-        dev = students.buf.device
+        dev = _first_leaf(students).device
         sums = torch.zeros((n_nodes, ncls, proto_cfg.proto_dim),
                            dtype=torch.float32, device=dev)
         counts = torch.zeros((n_nodes, ncls), dtype=torch.float32,
@@ -288,7 +333,7 @@ def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
         for t in range(pvalid.shape[0]):
             batch = {k: v[t] for k, v in pxb.items()}
             f1 = torch.stack([
-                forward(proto_cfg, as_tree(_node_plane(students, i)),
+                forward(proto_cfg, node_params(students, i),
                         {k: v[i] for k, v in batch.items()}).f1
                 for i in range(n_nodes)])
             s_add, c_add = proto_accumulate_nodes(
@@ -302,20 +347,26 @@ def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
 
 
 def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
-                      bits, adapter_rank: int = 0,
+                      bits, share_protos: bool = True,
+                      wire_model: Optional[str] = "student",
+                      adapter_rank: int = 0,
                       adapter_grams: bool = False,
                       shared: Optional[Dict[str, Any]] = None):
-    """The three phases of one stacked ProFe round:
+    """The three phases of one stacked round:
 
     * ``train_phase`` — local epochs + the exact Eq. 3 pass ->
-      ``(state, protos, counts)``,
+      ``(state, protos, counts)`` (both None where no prototypes
+      travel),
     * ``share_phase`` — the wire codec round-trip of the payload ->
-      ``(state, recv_student, protos_rx)``; with ``+ef`` it carries
-      ``state.wire_state`` (the residual and ``seq``) forward,
+      ``(state, recv_student, protos_rx)`` (None for what does not
+      travel); with ``+ef`` it carries ``state.wire_state`` (the
+      residual and ``seq``) forward,
     * ``mix_phase`` — gossip on the received views + Eq. 4 -> ``state``.
 
     ``bits`` is the :class:`WireSpec` that ``_algo_wiring`` returns (an
-    int is the uniform spec), so per-group widths and ``+ef`` survive.
+    int is the uniform spec), so per-group widths and ``+ef`` survive;
+    None is the fp32 wire, where the payload travels unquantized.
+    ``share_protos`` and ``wire_model`` are ``_algo_wiring``'s.
     With ``adapter_rank`` the share sends the adapter payload (carrying
     ``state.adapter_state`` forward) and ``recv_student`` is its
     receiver-side view ``{"adapters", "student"[, "grams"]}``; the mix
@@ -323,7 +374,7 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     share's factors under ``"adapters"`` (the sender side, before the
     codec), so the last round's stay there.
     """
-    spec = WireSpec.from_bits(bits)
+    spec = WireSpec.from_bits(bits) if bits else None
     exact_pass = _make_proto_pass(proto_cfg, ncls)
 
     def train_phase(state: NodeState, xb, valid, pxb, pvalid,
@@ -335,11 +386,16 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
             state, _ = step(state, {k: v[t] for k, v in xb.items()},
                             teacher_on)
         state = state._replace(round_idx=state.round_idx + 1)
+        if not share_protos:
+            return state, None, None
         sums, counts = exact_pass(state.student, pxb, pvalid)
         return state, normalize_protos(sums, counts), counts
 
     @torch.no_grad()
     def share_phase(state: NodeState, protos):
+        if spec is None:
+            # the fp32 wire: what travels arrives as it was sent
+            return state, (state.student if wire_model else None), protos
         if adapter_rank:
             # the matrix leaves' round delta leaves as rank-r factors and
             # the reference advances to the just-shared student
@@ -368,10 +424,19 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
             R.adapter_merge_nodes(state.student, recv_student, w_self,
                                   w_neigh, rank=adapter_rank,
                                   grams=adapter_grams)
-        else:
+        elif wire_model is not None:
+            # every mixed leaf is computed before any is written back: on
+            # the fp32 wire recv_student IS the student
             mixed = R.mix_node_trees(w_self, w_neigh, state.student,
                                      recv_student)
-            state.student.buf.copy_(mixed.buf)
+            if isinstance(mixed, Plane):
+                state.student.buf.copy_(mixed.buf)
+            else:
+                for own, new in zip(tree_leaves(state.student),
+                                    tree_leaves(mixed)):
+                    own.copy_(new)
+        if not share_protos:
+            return state
         gp, mask = R.neighborhood_prototype_aggregate(include, protos_rx,
                                                       counts)
         return state._replace(global_protos=gp, proto_mask=mask)
@@ -380,13 +445,16 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
 
 def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
-                   bits, adapter_rank: int = 0, adapter_grams: bool = False,
+                   bits, share_protos: bool = True,
+                   wire_model: Optional[str] = "student",
+                   adapter_rank: int = 0, adapter_grams: bool = False,
                    shared: Optional[Dict[str, Any]] = None):
     """One full round over stacked node state: train -> Eq. 3 -> share
     -> mix.  The gossip/include matrices are this round's slices of the
-    lowered schedule.  ``shared`` is as in :func:`_make_round_parts`."""
+    lowered schedule.  The keywords are as in :func:`_make_round_parts`."""
     train_phase, share_phase, mix_phase = _make_round_parts(
-        step, proto_cfg, ncls, bits=bits, adapter_rank=adapter_rank,
+        step, proto_cfg, ncls, bits=bits, share_protos=share_protos,
+        wire_model=wire_model, adapter_rank=adapter_rank,
         adapter_grams=adapter_grams, shared=shared)
 
     def round_fn(state: NodeState, xb, valid, pxb, pvalid, w_self, w_neigh,
@@ -410,7 +478,8 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                    stale_self_floor: Optional[float] = None,
                    initial_states: Optional[List[NodeState]] = None,
                    device=None) -> FederationResult:
-    """Run ProFe end to end on the stacked engine.
+    """Run one algorithm (``fed.algorithm``: ProFe or a paper baseline)
+    end to end on the stacked engine.
 
     Runs on ``cuda`` unless ``device`` names another device (the tests
     pass ``"cpu"``); with no card and no explicit device it raises.
@@ -442,15 +511,25 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     opt_t = make_optimizer(train.optimizer, train.learning_rate,
                            weight_decay=train.weight_decay,
                            momentum=train.momentum)
-    if not _plane_mode(fed, train, algo, student_cfg):
-        raise _unported(f"the per-leaf student (param_plane="
-                        f"{fed.param_plane!r})", "Queue 1 item 7")
+    use_plane = _plane_mode(fed, train, algo, student_cfg)
+    # on the flat parameter plane the student optimizer is the fused clip
+    # + update sweep over the [N, R, 512] buffer; off it, the per-leaf
+    # optimizer the teacher uses (it holds no state of its own)
     opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
                                  weight_decay=train.weight_decay,
                                  momentum=train.momentum,
-                                 grad_clip=train.grad_clip)
+                                 grad_clip=train.grad_clip) \
+        if use_plane else opt_t
     step, wire_model, share_protos, bits, model_cfgs = _algo_wiring(
         algo, teacher_cfg, student_cfg, fed, train, opt_s, opt_t)
+    # what repro's engine runs: the adapter wire only for a model and
+    # prototypes on the quantized wire, +ef only on a quantized wire
+    adapters_on = bool(fed.adapter_rank) and wire_model is not None \
+        and share_protos and bits is not None
+    ef_on = bits is not None and bits.error_feedback
+    if not use_plane and (adapters_on or ef_on):
+        raise _unported("the adapter-rank wire or error feedback on a "
+                        "per-leaf student", "Queue 1 item 11")
 
     probe = _stack_round_batches(
         node_data, train.batch_size,
@@ -461,20 +540,26 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
 
     meter = ScheduleCommAccountant(sched)
     if initial_states is None:
-        initial_states = _init_states(model_cfgs, fed, opt_s, opt_t, ncls,
-                                      device)
+        initial_states = _init_states(algo, model_cfgs, fed, opt_s, opt_t,
+                                      ncls, device, plane=use_plane)
     elif len(initial_states) != n_nodes:
         raise ValueError(f"{len(initial_states)} initial states for "
                          f"{n_nodes} nodes")
     stacked = stack_states(initial_states)
-    if stacked.student.buf.device.type != device.type:
-        raise ValueError(f"initial states live on "
-                         f"{stacked.student.buf.device}, not {device}")
-    eval_cfg = proto_cfg = model_cfgs[1]
-    if stacked.wire_state is not None and not bits.error_feedback:
-        raise ValueError("initial states carry a wire_state but the wire "
-                         f"{bits.arg()!r} has no error feedback")
-    adapters_on = bool(fed.adapter_rank)
+    if isinstance(stacked.student, Plane) != use_plane:
+        raise ValueError(f"param_plane resolved to {use_plane}, but the "
+                         f"initial states' student is "
+                         f"{'not ' if use_plane else ''}a Plane")
+    on = _first_leaf(stacked.student).device
+    if on.type != device.type:
+        raise ValueError(f"initial states live on {on}, not {device}")
+    # the model evaluated (and the Eq. 3 pass's) is the one that travels
+    eval_cfg = proto_cfg = model_cfgs[1] if algo in ("profe", "fml") \
+        else model_cfgs[0]
+    if stacked.wire_state is not None and not ef_on:
+        wire = "the fp32 wire" if bits is None else f"the wire {bits.arg()!r}"
+        raise ValueError(f"initial states carry a wire_state but {wire} "
+                         f"has no error feedback")
     if stacked.adapter_state is not None and not adapters_on:
         raise ValueError("initial states carry an adapter_state but the "
                          "run has no adapter_rank")
@@ -485,7 +570,7 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
         stacked = stacked._replace(adapter_state=init_adapter_state(
             adapter_layout(tree, fed.adapter_rank, node_axis=True), tree,
             grams=fed.adapter_grams))
-    if bits.error_feedback and stacked.wire_state is None:
+    if ef_on and stacked.wire_state is None:
         # error-feedback codec: a zero residual per node, shaped like the
         # wire payload, carried in the stacked state from here on
         stacked = stacked._replace(wire_state=init_codec_state(
@@ -497,18 +582,19 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
         return torch.as_tensor(x, device=device)
     w_self_st, w_neigh_st, include_st = map(dev, sched.lower(sizes))
     shared: Dict[str, Any] = {}
+    rank = fed.adapter_rank if adapters_on else 0
     round_fn = _make_round_fn(step, proto_cfg, ncls, bits=bits,
-                              adapter_rank=fed.adapter_rank,
+                              share_protos=share_protos,
+                              wire_model=wire_model, adapter_rank=rank,
                               adapter_grams=fed.adapter_grams, shared=shared)
     payload = _payload_template(wire_model, share_protos, stacked, ncls,
-                                proto_cfg.proto_dim,
-                                adapter_rank=fed.adapter_rank,
+                                proto_cfg.proto_dim, adapter_rank=rank,
                                 adapter_grams=fed.adapter_grams)
     test_dev = {k: dev(v) for k, v in test_data.items()}
 
     result = FederationResult(comm=meter, algorithm=algo)
     result.extras["proto_pass"] = fed.proto_pass
-    result.extras["param_plane"] = True
+    result.extras["param_plane"] = use_plane
     if adapters_on:
         result.extras["adapter_rank"] = fed.adapter_rank
         result.extras["adapter_grams"] = fed.adapter_grams
@@ -522,15 +608,20 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     result.extras["round_times_s"] = round_times
     t0 = time.time()
 
+    # no proto stream is staged where no prototypes travel: the empty
+    # placeholder repro stages
+    empty = ({}, np.zeros((0, n_nodes), np.float32))
     for rnd in range(fed.rounds):
         t_r = time.time()
-        t_on = teacher_active(fed.alpha_s, fed.alpha_limit, rnd)
+        t_on = teacher_active(fed.alpha_s, fed.alpha_limit, rnd) \
+            if algo == "profe" else algo == "fml"
         staged = probe if rnd == 0 else _stack_round_batches(
             node_data, train.batch_size,
             [fed.seed + rnd * 997 + i for i in range(n_nodes)],
             fed.local_epochs)
         proto_staged = _stack_round_batches(
-            node_data, train.batch_size, [fed.seed + rnd] * n_nodes, 1)
+            node_data, train.batch_size, [fed.seed + rnd] * n_nodes, 1) \
+            if share_protos else empty
         all_valid = bool(np.all(staged[1] == 1.0))
         xb, valid = _to_device(staged, device)
         pxb, pvalid = _to_device(proto_staged, device)
@@ -543,8 +634,7 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
 
         # node 0 (repro's _eval_nodes; exact on full graphs, where every
         # node ends identical)
-        f1, acc = _eval_params(eval_cfg,
-                               as_tree(_node_plane(stacked.student, 0)),
+        f1, acc = _eval_params(eval_cfg, node_params(stacked.student, 0),
                                test_dev)
         result.f1_per_round.append(f1)
         result.acc_per_round.append(acc)
@@ -557,7 +647,7 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                   f"sent={meter.avg_sent_gb():.4f}GB")
 
     result.elapsed_s = time.time() - t0
-    if bits.error_feedback:
+    if ef_on:
         # the error-feedback state after the last round (residual, seq)
         result.extras["wire_state"] = stacked.wire_state
     if adapters_on and "adapters" in shared:

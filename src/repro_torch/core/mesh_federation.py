@@ -472,6 +472,7 @@ def make_profe_round(group=None, *, bits: int = 16,
 
 def make_fedavg_round(*args, **kwargs):
     """The FedAvg baseline on the mesh (``repro``'s
-    ``make_fedavg_round``) is not ported: it needs the paper baselines."""
-    raise _unported("make_fedavg_round", "Queue 1 items 9 (paper "
-                    "baselines) and 12 (multi-node exchange)")
+    ``make_fedavg_round``) is not ported: it needs the rest of the
+    multi-node exchange."""
+    raise _unported("make_fedavg_round", "Queue 1 item 12 (multi-node "
+                    "exchange)")

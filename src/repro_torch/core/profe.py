@@ -9,11 +9,11 @@ and a *student* (the aggregation model).  Per batch:
 
 The round engine runs the step over **stacked** node state: every tensor
 carries a leading ``[N]`` node axis, the student lives in one
-``[N, R, 512]`` plane buffer and the teacher in ``[N, ...]`` leaves.
-The per-node forwards run in a Python loop; their losses sum into one
-backward (node i's parameters only see node i's loss), so the student
-optimizer (sgd, adamw or adafactor) is ONE fused sweep per step over the
-whole plane.
+``[N, R, 512]`` plane buffer (or, off the plane, in ``[N, ...]`` leaves)
+and the teacher in ``[N, ...]`` leaves.  The per-node forwards run in a
+Python loop; their losses sum into one backward (node i's parameters
+only see node i's loss), so on the plane the student optimizer (sgd,
+adamw or adafactor) is ONE fused sweep per step over the whole plane.
 """
 from __future__ import annotations
 
@@ -35,11 +35,13 @@ from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
 
 
 class NodeState(NamedTuple):
-    # buf [R, 512] ([N, R, 512] stacked); under make_fedavg_step
-    # (core/baselines.py) a per-leaf dict tree of autograd leaves, and
-    # teacher / opt_t are empty dicts there
-    student: Plane
-    teacher: Any                 # dict tree of [...] ([N, ...] stacked)
+    # Plane or per-leaf tree: buf [R, 512] ([N, R, 512] stacked), or off
+    # the plane (param_plane="off", every baseline of core/baselines.py)
+    # a dict tree of [...] ([N, ...] stacked) autograd leaves
+    student: Any
+    # dict tree of [...] ([N, ...] stacked); an empty dict where the
+    # algorithm has no teacher (fedavg, fedproto, fedgpd), and opt_t too
+    teacher: Any
     # the optimizers' own states (``make_plane_optimizer`` and the
     # per-leaf ``make_optimizer``):
     #   opt_s  sgd {"mu", "step", "gnorm"}, adamw {"mu", "nu", "step",
@@ -120,56 +122,85 @@ def teacher_loss(teacher_cfg: ModelConfig, tp, batch, global_protos,
     return loss, out
 
 
+def node_params(params, i: int):
+    """Node ``i``'s parameter tree of stacked ``params``: views of a
+    Plane's buffer, or each ``[N, ...]`` leaf's slice ``i``."""
+    if isinstance(params, Plane):
+        return as_tree(Plane(params.buf[i], params.meta))
+    return tree_map(lambda x: x[i], params)
+
+
+def node_batches(batch, n: int) -> List[Dict[str, torch.Tensor]]:
+    """``[N, B, ...]`` batch leaves -> one ``[B, ...]`` batch a node."""
+    return [{k: v[i] for k, v in batch.items()} for i in range(n)]
+
+
+def stacked_update(params, loss, opt: Optimizer, opt_state,
+                   grad_clip: float) -> torch.Tensor:
+    """One backward of ``loss`` (the sum of the nodes' losses) to the
+    stacked per-leaf ``params``, each node's global-norm clip at
+    ``grad_clip`` and the per-leaf ``opt.update`` over the node axis, in
+    place.  Returns the nodes' pre-clip gradient norms ``[N]``."""
+    paths, leaves = zip(*tree_paths(params))
+    grads = torch.autograd.grad(loss, leaves)
+    clipped, gn = clip_by_global_norm(tree_from_paths(zip(paths, grads)),
+                                      grad_clip, lead=1)
+    opt.update(clipped, opt_state, params, lead=1)
+    return gn
+
+
 def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                     fed: FederationConfig, opt_s: Optimizer,
                     opt_t: Optimizer, *, grad_clip: float = 1.0):
     """Returns ``step(state, batch, teacher_on) -> (state, metrics)``
     over stacked node state; ``batch`` leaves are ``[N, B, ...]``.
-    Parameters and optimizer moments update in place.  ``opt_s`` is a
-    plane optimizer: its fused sweep clips at ``grad_clip`` itself."""
+    Parameters and optimizer moments update in place.  On the plane
+    ``opt_s`` is a plane optimizer, whose fused sweep clips at
+    ``grad_clip`` itself; a per-leaf student is clipped per node and
+    updated by the per-leaf ``opt_s``."""
 
     def step(state: NodeState, batch, teacher_on: bool):
         n = state.round_idx.shape[0]
         alpha = D.alpha_at_round(fed.alpha_s, fed.alpha_limit,
                                  state.round_idx)                  # [N]
         metrics: Dict[str, torch.Tensor] = {}
-        per_node = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+        per_node = node_batches(batch, n)
 
         teacher_out: Optional[List[ModelOutput]] = None
         if teacher_on:
             outs, losses = [], []
             for i, b in enumerate(per_node):
-                tp = tree_map(lambda x: x[i], state.teacher)
-                l, out = teacher_loss(teacher_cfg, tp, b,
+                l, out = teacher_loss(teacher_cfg,
+                                      node_params(state.teacher, i), b,
                                       state.global_protos[i],
                                       state.proto_mask[i], fed.beta_t)
                 outs.append(out)
                 losses.append(l)
             lt = torch.stack(losses)
-            paths, leaves = zip(*tree_paths(state.teacher))
-            grads = torch.autograd.grad(lt.sum(), leaves)
-            gt, _ = clip_by_global_norm(tree_from_paths(zip(paths, grads)),
-                                        grad_clip, lead=1)
-            opt_t.update(gt, state.opt_t, state.teacher, lead=1)
+            stacked_update(state.teacher, lt.sum(), opt_t, state.opt_t,
+                           grad_clip)
             metrics["loss_t"] = lt.detach()
             teacher_out = [ModelOutput(o.logits.detach(), o.f1.detach(),
                                        o.aux) for o in outs]
 
-        meta = state.student.meta
-        buf = state.student.buf
         losses = []
         for i, b in enumerate(per_node):
             l, _ = student_loss(
-                student_cfg, as_tree(Plane(buf[i], meta)), b,
+                student_cfg, node_params(state.student, i), b,
                 state.global_protos[i], state.proto_mask[i], alpha[i],
                 fed.beta_s, fed.kd_temperature,
                 teacher_out[i] if teacher_out is not None else None)
             losses.append(l)
         ls = torch.stack(losses)
-        (gbuf,) = torch.autograd.grad(ls.sum(), [buf])
-        opt_s.update(Plane(gbuf, meta), state.opt_s, state.student)
-        metrics.update(loss_s=ls.detach(), grad_norm_s=state.opt_s["gnorm"],
-                       alpha=alpha)
+        if isinstance(state.student, Plane):
+            (gbuf,) = torch.autograd.grad(ls.sum(), [state.student.buf])
+            opt_s.update(Plane(gbuf, state.student.meta), state.opt_s,
+                         state.student)
+            gnorm = state.opt_s["gnorm"]
+        else:
+            gnorm = stacked_update(state.student, ls.sum(), opt_s,
+                                   state.opt_s, grad_clip)
+        metrics.update(loss_s=ls.detach(), grad_norm_s=gnorm, alpha=alpha)
         return state, metrics
 
     return step
@@ -177,16 +208,19 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
 
 def init_node_state(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                     gen: torch.Generator, opt_s: Optimizer, opt_t: Optimizer,
-                    n_classes: int, *, device=None) -> NodeState:
+                    n_classes: int, *, plane: bool = True,
+                    device=None) -> NodeState:
     """One node's fresh state: teacher and student initialized from
     ``gen`` (on the CPU, then moved), the student packed into a plane
-    (``opt_s`` must be a plane optimizer).  Runs on ``cuda`` unless
-    ``device`` names another device."""
+    (``opt_s`` must then be a plane optimizer), or with ``plane=False``
+    kept a per-leaf tree for the per-leaf ``opt_s``.  Runs on ``cuda``
+    unless ``device`` names another device."""
     from repro_torch.models import init_params
     device = resolve_device(device)
     teacher = tree_map(lambda x: x.to(device), init_params(teacher_cfg, gen))
-    student = plane_from_tree(tree_map(lambda x: x.to(device),
-                                       init_params(student_cfg, gen)))
+    student = tree_map(lambda x: x.to(device), init_params(student_cfg, gen))
+    if plane:
+        student = plane_from_tree(student)
     return NodeState(
         student=student, teacher=teacher,
         opt_s=opt_s.init(student), opt_t=opt_t.init(teacher),
@@ -198,8 +232,8 @@ def init_node_state(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
 
 
 def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
-                          proto_mask, round_idx=0, *, residual=None, seq=0,
-                          device=None) -> NodeState:
+                          proto_mask, round_idx=0, *, plane: bool = True,
+                          residual=None, seq=0, device=None) -> NodeState:
     """One node's state carried over from the JAX package.
 
     ``student`` and ``teacher`` are parameter trees (nested dicts and
@@ -208,38 +242,46 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
     per-leaf optimizer state, of sgd, adamw or adafactor, as numpy trees
     (see :class:`NodeState`; a plane's ``mu``/``nu`` are ``[R, 512]`` in
     the port's layout, adafactor's ``fac`` is aligned with its recipe).
-    Each array keeps its dtype (the step counters int32).
-    ``global_protos`` ``[C, P]``,
+    With ``plane=False`` the student stays a per-leaf tree and ``opt_s``
+    is its per-leaf optimizer state.  ``teacher`` and ``opt_t`` are empty
+    dicts where the algorithm has no teacher.  Each array keeps its
+    dtype (the step counters int32).  ``global_protos`` ``[C, P]``,
     ``proto_mask`` ``[C]`` and ``round_idx`` as the JAX ``NodeState``
     holds them.  ``residual`` (``{"protos": [C, P], "student": [R,
-    512]}``, the student residual in the plane's layout) and ``seq``
-    carry an error-feedback ``CodecState``.  Runs on ``cuda`` unless
-    ``device`` names another device."""
+    512]}``, the student residual in the plane's layout; plane students
+    only) and ``seq`` carry an error-feedback ``CodecState``.  Runs on
+    ``cuda`` unless ``device`` names another device."""
     device = resolve_device(device)
-    plane = plane_from_tree(params_from_numpy(student, device))
-    for key in ("mu", "nu"):
-        if key in opt_s and \
-                tuple(np.shape(opt_s[key])) != tuple(plane.buf.shape):
-            raise ValueError(f"opt_s {key} {np.shape(opt_s[key])} does not "
-                             f"match the plane {tuple(plane.buf.shape)}")
-    if "fac" in opt_s and len(opt_s["fac"]) != len(plane.meta.recipe):
-        raise ValueError(f"opt_s fac has {len(opt_s['fac'])} segments, the "
-                         f"plane {len(plane.meta.recipe)} leaves")
 
     def t(x, dtype=torch.float32):
         return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+    student = params_from_numpy(student, device)
     wire_state = None
-    if residual is not None:
-        if tuple(np.shape(residual["student"])) != tuple(plane.buf.shape):
-            raise ValueError(f"student residual "
-                             f"{np.shape(residual['student'])} does not "
-                             f"match the plane {tuple(plane.buf.shape)}")
-        wire_state = CodecState(
-            {"protos": t(residual["protos"]),
-             "student": Plane(t(residual["student"]), plane.meta)},
-            t(seq, torch.int32))
+    if plane:
+        student = plane_from_tree(student)
+        shape = tuple(student.buf.shape)
+        for key in ("mu", "nu"):
+            if key in opt_s and tuple(np.shape(opt_s[key])) != shape:
+                raise ValueError(f"opt_s {key} {np.shape(opt_s[key])} does "
+                                 f"not match the plane {shape}")
+        if "fac" in opt_s and len(opt_s["fac"]) != len(student.meta.recipe):
+            raise ValueError(f"opt_s fac has {len(opt_s['fac'])} segments, "
+                             f"the plane {len(student.meta.recipe)} leaves")
+        if residual is not None:
+            if tuple(np.shape(residual["student"])) != shape:
+                raise ValueError(f"student residual "
+                                 f"{np.shape(residual['student'])} does not "
+                                 f"match the plane {shape}")
+            wire_state = CodecState(
+                {"protos": t(residual["protos"]),
+                 "student": Plane(t(residual["student"]), student.meta)},
+                t(seq, torch.int32))
+    elif residual is not None:
+        raise NotImplementedError(
+            "error feedback on a per-leaf student is not ported yet: "
+            "ROADMAP.md Queue 1 item 11 (the tree payload's +ef)")
     return NodeState(
-        student=plane,
+        student=student,
         teacher=params_from_numpy(teacher, device),
         opt_s=params_from_numpy(opt_s, device),
         opt_t=params_from_numpy(opt_t, device),
@@ -248,10 +290,12 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
 
 
 def stack_states(states: List[NodeState]) -> NodeState:
-    """Per-node states -> one stacked state.  Parameters become autograd
-    leaves; every other tensor of the optimizer states stacks on a new
-    node axis, whatever the optimizer keeps.  All nodes step together,
-    so their step counters must agree (one scalar ``step`` stays).  An
+    """Per-node states -> one stacked state.  Parameters (a Plane's
+    buffer, or a per-leaf student's leaves) become autograd leaves; every
+    other tensor of the optimizer states stacks on a new node axis,
+    whatever the optimizer keeps.  All nodes step together, so their step
+    counters must agree (one scalar ``step`` stays); an empty teacher and
+    ``opt_t`` (the baselines without one) stay empty.  An
     error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
     ``[N]`` vector), and so does an ``adapter_state``; either every
     state carries one or none does."""
@@ -266,8 +310,9 @@ def stack_states(states: List[NodeState]) -> NodeState:
             raise ValueError(f"some node states carry a {key} and some "
                              f"do not")
     for key in ("opt_s", "opt_t"):
-        steps = {int(getattr(s, key)["step"]) for s in states}
-        if len(steps) != 1:
+        steps = {int(getattr(s, key)["step"]) for s in states
+                 if getattr(s, key)}
+        if len(steps) > 1:
             raise ValueError(f"{key} step counters differ across nodes: "
                              f"{sorted(steps)}")
 
@@ -287,9 +332,13 @@ def stack_states(states: List[NodeState]) -> NodeState:
                                       for w in ws)),
                               ws[0].residual["student"].meta)},
             stack(*(w.seq for w in ws)))
+    if isinstance(s0.student, Plane):
+        student = Plane(leaf(*(s.student.buf for s in states)),
+                        s0.student.meta)
+    else:
+        student = tree_map(leaf, *(s.student for s in states))
     return NodeState(
-        student=Plane(leaf(*(s.student.buf for s in states)),
-                      s0.student.meta),
+        student=student,
         teacher=tree_map(leaf, *(s.teacher for s in states)),
         opt_s=opt("opt_s"), opt_t=opt("opt_t"),
         global_protos=stack(*(s.global_protos for s in states)),

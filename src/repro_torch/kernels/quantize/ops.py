@@ -768,15 +768,18 @@ def packed_wire_rows(tree) -> Tuple[int, int]:
     return rows + ((-rows) % 8), nseg
 
 
-def packed_wire_bytes_per_node(tree, bits: int = 16, *,
+def packed_wire_bytes_per_node(tree, bits: Optional[int] = 16, *,
                                leaf_bits: Optional[Sequence[int]] = None
                                ) -> int:
     """Physical bytes one node's packed copy occupies on the wire: the
     encoded code buffer incl. 512-lane padding, plus one fp32 scale per
-    leaf segment.  ``leaf_bits`` gives each float leaf its own width;
-    alignment rows carry the LAST leaf's width."""
-    if leaf_bits is None:
+    leaf segment; ``bits=None`` is the fp32 wire (fp32 rows, no scales).
+    ``leaf_bits`` gives each float leaf its own width; alignment rows
+    carry the LAST leaf's width."""
+    if bits is None or leaf_bits is None:
         rows, nseg = packed_wire_rows(tree)
+        if bits is None:
+            return rows * _COLS * 4
         return rows * _COLS * bits // 8 + nseg * 4
     rows = 0
     nseg = 0

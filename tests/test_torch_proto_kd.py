@@ -580,16 +580,19 @@ def test_compute_local_prototypes_empty_stream_and_plane():
 # -- make_fedavg_step -----------------------------------------------------------
 
 def _fedavg_pair(jcfg, seed, lr=1e-3):
+    """JAX's node step and state, and the port's stacked step on a
+    one-node stack of the same state."""
     jp, tp = _carried(jcfg, seed)
     jopt, topt = jmake_optimizer("adamw", lr), make_optimizer("adamw", lr)
     jst = JP.NodeState(student=jp, teacher={}, opt_s=jopt.init(jp), opt_t={},
                        global_protos=jnp.zeros((10, jcfg.proto_dim)),
                        proto_mask=jnp.zeros(10),
                        round_idx=jnp.zeros((), jnp.int32))
-    tst = TP.NodeState(student=tp, teacher={}, opt_s=topt.init(tp), opt_t={},
-                       global_protos=torch.zeros((10, jcfg.proto_dim)),
-                       proto_mask=torch.zeros(10),
-                       round_idx=torch.zeros((), dtype=torch.int32))
+    tst = TP.stack_states([TP.NodeState(
+        student=tp, teacher={}, opt_s=topt.init(tp), opt_t={},
+        global_protos=torch.zeros((10, jcfg.proto_dim)),
+        proto_mask=torch.zeros(10),
+        round_idx=torch.zeros((), dtype=torch.int32))])
     return (JB.make_fedavg_step(jcfg, jopt, remat=False), jst,
             TB.make_fedavg_step(_tcfg(jcfg), topt), tst)
 
@@ -601,24 +604,19 @@ def test_fedavg_step_matches_jax(steps, atol):
     for s in range(steps):
         b = _images(50 + s, 16)
         jst, jm = jstep(jst, b)
-        tst, tm = tstep(tst, {k: torch.from_numpy(v) for k, v in b.items()})
-        np.testing.assert_allclose(float(tm["loss_s"]), float(jm["loss_s"]),
-                                   rtol=1e-5)
-        np.testing.assert_allclose(float(tm["grad_norm_s"]),
+        tst, tm = tstep(tst, {k: torch.from_numpy(v)[None]
+                              for k, v in b.items()})
+        assert tuple(tm["loss_s"].shape) == (1,)
+        np.testing.assert_allclose(float(tm["loss_s"][0]),
+                                   float(jm["loss_s"]), rtol=1e-5)
+        np.testing.assert_allclose(float(tm["grad_norm_s"][0]),
                                    float(jm["grad_norm_s"]), rtol=1e-4)
     for a, b in zip(tree_leaves(tst.student),
                     jax.tree_util.tree_leaves(jst.student)):
-        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+        np.testing.assert_allclose(a.detach().numpy()[0], np.asarray(b),
                                    rtol=0, atol=atol)
     assert int(tst.opt_s["step"]) == int(jst.opt_s["step"]) == steps
     assert tst.teacher == {} and tst.opt_t == {}
-
-
-@pytest.mark.parametrize("name", ["make_fedproto_step", "make_fml_step",
-                                  "make_fedgpd_step"])
-def test_other_baselines_raise_naming_their_queue_item(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        getattr(TB, name)(None, None, None)
 
 
 # -- optim/schedule -------------------------------------------------------------
@@ -660,19 +658,20 @@ def test_claim4_prototype_inference_matches_jax():
         for b, idx in zip(jbatches(node, 64, seed=0),
                           batch_index_lists(n, 64, 0)):
             jst, _ = jstep(jst, b)
-            tst, _ = tstep(tst, {k: torch.from_numpy(v[idx])
+            tst, _ = tstep(tst, {k: torch.from_numpy(v[idx])[None]
                                  for k, v in node.items()})
+    params = TP.node_params(tst.student, 0)         # the one-node stack's
     jprotos, jcounts = JP.compute_local_prototypes(
         jcfg, jst.student, jbatches(node, 64, seed=1), 10)
     protos, counts = TP.compute_local_prototypes(
-        tcfg, tst.student, ({k: v[idx] for k, v in node.items()}
+        tcfg, params, ({k: v[idx] for k, v in node.items()}
                             for idx in batch_index_lists(n, 64, 1)), 10)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
     np.testing.assert_allclose(protos.numpy(), np.asarray(jprotos),
                                rtol=1e-3, atol=1e-4)
     mask = (counts > 0).float()
     with torch.no_grad():
-        f1 = tmodel.forward(tcfg, tst.student,
+        f1 = tmodel.forward(tcfg, params,
                             {"image": torch.from_numpy(test_d["image"])}).f1
     jf1 = jmodel.forward(jcfg, jst.student, test_d).f1
     preds = TPR.nearest_prototype_predict(f1, protos, mask).numpy()
