@@ -83,7 +83,26 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     ``param_plane="off"``, the 16-bit wire through the tree codec) and
     ProFe on the fp32 wire (``fp32``, on the plane), 1 round each.  No
     plane sweep runs where the student is per-leaf, ``proto_accum`` runs
-    where prototypes travel, the codec only on the quantized wire;
+    where prototypes travel, the codec only on the quantized wire; then
+    the round variants (``PATH_FED``, ``PATH_RUN``), 2 rounds each:
+    ``16/fused`` (the fused Eq. 3 pass, every node evaluated: 20
+    per-node F1s a round, their mean the F1), ``16/fused+ema`` (with
+    ``proto_ema=0.5``: the carried counts 480 a node after round 2),
+    ``16/none`` (the pipelined driver in order, under deterministic
+    cuDNN, against a sequential leg from the same seeds: the final state
+    bit-identical; the leg's train / Eq. 3 / share / mix seconds
+    printed), ``16/rounds+floor`` (stale-by-one, self-weight floor 0.5),
+    ``4/16+ef/rounds`` (``seq`` 2 on every node) and ``adapters8/rounds``
+    (one mix: ``lowrank_apply`` 3 launches);
+10b. ``checkpoint``: the ``4/16+ef`` state after round 1 saved under
+    ``build/``, restored bit for bit, and resumed for round 2
+    (``run_federation(start_round=1)``) against the uninterrupted run,
+    the final state bit-identical (deterministic cuDNN); see
+    :func:`run_checkpoint`;
+10c. ``stochastic``: the main path's payload through the stochastic
+    16-bit codec with a fixed key, the card's codes and reconstruction
+    against the CPU's bit for bit, the mean error within 5 sigma of 0
+    (:func:`run_stochastic`);
 11. the multi-node exchange (``core/mesh_federation.py``): 8 ranks
     spawned in one gloo group, all on ``cuda:0``, one mnist-cnn node each
     at full width (``TrainConfig`` defaults, the 7040-image data iid over
@@ -193,6 +212,23 @@ PATHS = {
     "16/per-leaf": ("mnist-cnn", "adamw", "16", 1,
                     (0.007912816, 426060, 416464)),
     "fp32": ("mnist-cnn", "adamw", "fp32", 1, (0.015824112, 852008, 832848)),
+    # the round variants: the fused Eq. 3 pass (with all-node evaluation,
+    # then with the prototype EMA), the pipelined driver in order and
+    # stale-by-one (with a self-weight floor), on the wires above; the
+    # round variants leave what travels as it is, so the bytes are those
+    # paths'
+    "16/fused": ("mnist-cnn", "adamw", "16", 2,
+                 (0.015825632, 426060, 416464)),
+    "16/fused+ema": ("mnist-cnn", "adamw", "16", 2,
+                     (0.015825632, 426060, 416464)),
+    "16/none": ("mnist-cnn", "adamw", "16", 2,
+                (0.015825632, 426060, 416464)),
+    "16/rounds+floor": ("mnist-cnn", "adamw", "16", 2,
+                        (0.015825632, 426060, 416464)),
+    "4/16+ef/rounds": ("mnist-cnn", "adamw", "4/16+ef", 2,
+                       (0.004030508, 108876, 106066)),
+    "adapters8/rounds": ("mnist-cnn", "adamw", "4", 2,
+                         (0.000377188, 12376, 9926)),
 }
 # the FederationConfig fields of a path beyond its wire spec
 PATH_FED = {"adapters8": dict(adapter_rank=8),
@@ -201,7 +237,18 @@ PATH_FED = {"adapters8": dict(adapter_rank=8),
             "fedproto": dict(algorithm="fedproto"),
             "fml": dict(algorithm="fml"),
             "fedgpd": dict(algorithm="fedgpd"),
-            "16/per-leaf": dict(param_plane="off")}
+            "16/per-leaf": dict(param_plane="off"),
+            "16/fused": dict(proto_pass="fused"),
+            "16/fused+ema": dict(proto_pass="fused", proto_ema=0.5),
+            "adapters8/rounds": dict(adapter_rank=8)}
+# the run_federation keywords of a path
+PATH_RUN = {"16/fused": dict(eval_all_nodes=True),
+            "16/none": dict(overlap="none"),
+            "16/rounds+floor": dict(overlap="rounds", stale_self_floor=0.5),
+            "4/16+ef/rounds": dict(overlap="rounds"),
+            "adapters8/rounds": dict(overlap="rounds")}
+# the paths held bit for bit to a second run, under deterministic cuDNN
+DETERMINISTIC_PATHS = ("16/none",)
 # the baselines that share prototypes (an Eq. 3 pass a round)
 PROTO_BASELINES = ("fedproto", "fedgpd")
 # matrix leaves of the mnist-cnn student at rank 8: conv2, fc1, fc2
@@ -2149,7 +2196,11 @@ def run_path(torch, inputs, name: str):
     ``+ef`` the final ``CodecState`` must have advanced ``seq`` once a
     round and carry a residual that is finite, non-zero, and zero on the
     plane's padding lanes.  On the adapter wire the last round's shared
-    factors must be finite and non-zero.  Returns the launch counts."""
+    factors must be finite and non-zero.  ``PATH_RUN`` gives the run's
+    keywords (the round variants); a path of ``DETERMINISTIC_PATHS``
+    runs under deterministic cuDNN, and :func:`check_variant` holds what
+    its variant promises.  Returns the launch counts."""
+    import contextlib
     import dataclasses
 
     from repro_torch.core.federation import run_federation
@@ -2162,6 +2213,7 @@ def run_path(torch, inputs, name: str):
     fed = dataclasses.replace(fed, rounds=rounds, **wire_fields(spec),
                               **extra)
     train = dataclasses.replace(train, optimizer=optimizer)
+    run_kw = PATH_RUN.get(name, {})
     per_node = len(node_data[0]["label"])
     algo = fed.algorithm
     # the student rides the plane only for ProFe with param_plane "auto"
@@ -2169,11 +2221,13 @@ def run_path(torch, inputs, name: str):
     print(f"{cfg.name}: {algo}, {N_NODES} nodes x {per_node} images, batch "
           f"{train.batch_size}, {optimizer}, wire "
           f"{spec.describe() if spec else 'fp32'}, plane {plane} "
-          f"{extra or ''}")
+          f"{extra or ''} {run_kw or ''}")
     steps = rounds * (per_node // train.batch_size)
     quantized = spec is not None
     ef = quantized and spec.error_feedback
     uniform = quantized and spec.uniform_bits is not None
+    # the stale-by-one pipeline skips round 0's mix
+    mixes = rounds - 1 if run_kw.get("overlap") == "rounds" else rounds
     # one plane sweep per training step, of the path's optimizer only (a
     # per-leaf student updates through the plain per-leaf optimizer)
     launches = {k: steps if opt == optimizer and plane else 0
@@ -2191,16 +2245,21 @@ def run_path(torch, inputs, name: str):
         "rowabs_sum": rounds if ef else 0,
         "quantize_rows_ef": rounds if ef else 0,
         # one merge launch per matrix leaf a round
-        "lowrank_apply": ADAPTER_LEAVES * rounds if fed.adapter_rank
+        "lowrank_apply": ADAPTER_LEAVES * mixes if fed.adapter_rank
         else 0,
         # the stacked engine mixes with tensordot; only the mesh exchange
         # launches the fused mix
         "mix_packed": 0})
     launches.update({k: 0 for k in CODEC_KERNELS + PROTO_INFER_KERNELS})
 
-    reset_launch_counts()
-    res = run_federation(cfg, fed, train, node_data, test_d, verbose=True)
-    counts = launch_counts()
+    exact = deterministic_cudnn(torch) if name in DETERMINISTIC_PATHS \
+        else contextlib.nullcontext()
+    with exact:
+        reset_launch_counts()
+        res = run_federation(cfg, fed, train, node_data, test_d,
+                             verbose=True, **run_kw)
+        counts = launch_counts()
+        check_variant(torch, name, inputs, fed, train, res)
     expect(res.extras["param_plane"] is plane,
            f"{name}: param_plane resolved to {res.extras['param_plane']}")
 
@@ -2263,6 +2322,258 @@ def run_path(torch, inputs, name: str):
                   f"B {tuple(f['B'].shape)}, max |B@A| "
                   f"{float(ba.abs().max()):.4g}")
     return counts
+
+
+class deterministic_cudnn:
+    """Deterministic cuDNN algorithms inside the block (a convolution's
+    backward may otherwise pick one whose float sums run in another order
+    each call), the flag printed as set and as restored."""
+
+    def __init__(self, torch):
+        self.backends = torch.backends.cudnn
+
+    def __enter__(self):
+        self.was = self.backends.deterministic
+        self.backends.deterministic = True
+        print(f"cudnn.deterministic: {self.was} -> True")
+
+    def __exit__(self, *exc):
+        self.backends.deterministic = self.was
+        print(f"cudnn.deterministic restored to {self.was}")
+        return False
+
+
+def states_equal(torch, a, b) -> bool:
+    """Two states (trees of tensors and NamedTuples) with the same keys
+    and every leaf bit-identical (``repro_torch.checkpoint``'s keys)."""
+    from repro_torch.checkpoint.ckpt import _items
+    ia, ib = _items(a), _items(b)
+    return [k for k, _ in ia] == [k for k, _ in ib] and all(
+        bits_equal(torch, x.detach(), y.detach()) for (_, x), (_, y)
+        in zip(ia, ib))
+
+
+def timed_phases(torch, federation, seconds):
+    """Patch ``federation``'s round parts and Eq. 3 pass so that each
+    phase call is timed on the host clock with the card synchronized
+    before and after it, appending to ``seconds[phase]``; returns the
+    function that restores them."""
+    parts, proto_pass = federation._make_round_parts, \
+        federation._make_proto_pass
+
+    def clock(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def make_parts(*args, **kwargs):
+        train, share, mix = parts(*args, **kwargs)
+        return clock("train+eq3", train), clock("share", share), \
+            clock("mix", mix)
+
+    federation._make_round_parts = make_parts
+    federation._make_proto_pass = lambda *a, **k: clock("eq3", proto_pass(
+        *a, **k))
+
+    def restore():
+        federation._make_round_parts = parts
+        federation._make_proto_pass = proto_pass
+    return restore
+
+
+def check_variant(torch, name: str, inputs, fed, train, res) -> None:
+    """What a round variant's path promises beyond bytes and launches:
+
+    * ``16/fused`` (``eval_all_nodes``): 20 finite per-node F1s a round,
+      their mean the reported F1;
+    * ``16/fused+ema``: the carried counts after 2 rounds exactly 1.5x one
+      round's (480 a node: 10 steps of 32 images, plus half of round 1's),
+      read from the state the round function returned;
+    * ``16/none``: a sequential leg from the same seeds (the same
+      configuration, ``overlap=None``) ends with the final stacked student
+      bit-identical; that leg's phases (train, Eq. 3, share, mix) are timed
+      synchronized and printed.
+    """
+    import numpy as np
+
+    from repro_torch.core import federation
+    per_round = (len(inputs[3][0]["label"]) // train.batch_size) * \
+        train.batch_size
+    if name == "16/fused":
+        nodes = res.extras["f1_per_round_nodes"]
+        expect(len(nodes) == fed.rounds, f"{name}: {len(nodes)} rounds")
+        for rnd, f1s in enumerate(nodes):
+            print(f"round {rnd + 1} per-node F1: {f1s}")
+            expect(len(f1s) == N_NODES and all(math.isfinite(f)
+                                               for f in f1s),
+                   f"{name}: per-node F1 {f1s}")
+            expect(res.f1_per_round[rnd] == float(np.mean(f1s)),
+                   f"{name}: F1 {res.f1_per_round[rnd]} is not the mean "
+                   f"of the nodes'")
+        print(f"F1 spread per round: {res.extras['f1_std_per_round']}")
+    elif name == "16/fused+ema":
+        counts = res.state.proto_acc[1].sum(-1)
+        want = per_round + fed.proto_ema * per_round
+        print(f"carried Eq. 3 counts after {fed.rounds} rounds: "
+              f"{counts.tolist()} (one round: {per_round})")
+        expect(bool((counts == want).all()),
+               f"{name}: carried counts {counts.tolist()} != {want}")
+    elif name == "16/none":
+        cfg, _, _, node_data, test_d = inputs
+        seconds = {}
+        restore = timed_phases(torch, federation, seconds)
+        try:
+            seq = federation.run_federation(cfg, fed, train, node_data,
+                                            test_d)
+        finally:
+            restore()
+        for rnd in range(fed.rounds):
+            eq3 = seconds["eq3"][rnd]
+            split = {"train": seconds["train+eq3"][rnd] - eq3, "eq3": eq3,
+                     "share": seconds["share"][rnd],
+                     "mix": seconds["mix"][rnd]}
+            print(f"sequential leg, round {rnd + 1} phase seconds "
+                  f"(synchronized): {json.dumps(split)}  round "
+                  f"{seq.extras['round_times_s'][rnd]!r}")
+        print(f"per-round seconds: overlap='none' "
+              f"{res.extras['round_times_s']}, sequential "
+              f"{seq.extras['round_times_s']}")
+        expect(states_equal(torch, res.state, seq.state),
+               f"{name}: the final state differs from the sequential leg's")
+        expect(res.f1_per_round == seq.f1_per_round,
+               f"{name}: F1 {res.f1_per_round} != {seq.f1_per_round}")
+        print("overlap='none': the final stacked state bit-identical to "
+              "the sequential leg's")
+
+
+def run_checkpoint(torch, inputs) -> None:
+    """Phase ``checkpoint``: the ``4/16+ef`` run's stacked state after
+    round 1 saved (``repro_torch.checkpoint``, under ``build/``), loaded
+    and held bit-identical to what was saved; then round 2 resumed from
+    the restored state (``run_federation(start_round=1)``) against the
+    2-round run that never stopped, the whole final state bit-identical,
+    all under deterministic cuDNN.  The checkpoint's files are removed
+    after."""
+    import dataclasses
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.federation import run_federation
+
+    cfg, fed, train, node_data, test_d = inputs
+    fed = dataclasses.replace(fed, rounds=2,
+                              **wire_fields(parse_wire("4/16+ef")))
+    path = str(ROOT / "build" / "checkpoint" / "round1")
+    with deterministic_cudnn(torch):
+        one = run_federation(cfg, dataclasses.replace(fed, rounds=1), train,
+                             node_data, test_d)
+        t0 = time.time()
+        save_checkpoint(path, one.state, metadata={"round": 1})
+        back = load_checkpoint(path, one.state)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        size = os.path.getsize(path + ".npz")
+        expect(states_equal(torch, back, one.state),
+               "checkpoint: the restored state differs from the saved one")
+        expect(back.student.buf.is_cuda and back.student.buf.requires_grad
+               and back.student.meta == one.state.student.meta,
+               "checkpoint: the restored plane is not a card-side leaf "
+               "with its recipe")
+        print(f"saved and restored the round-1 state ({size} B) in "
+              f"{seconds:.3f} s: bit-identical, seq "
+              f"{back.wire_state.seq.tolist()[:1]} x {N_NODES}")
+        resumed = run_federation(cfg, fed, train, node_data, test_d,
+                                 initial_states=back, start_round=1)
+        full = run_federation(cfg, fed, train, node_data, test_d)
+    for suffix in (".npz", ".meta.json"):
+        os.remove(path + suffix)
+    expect(states_equal(torch, resumed.state, full.state),
+           "checkpoint: the resumed run's state differs from the "
+           "uninterrupted run's")
+    expect(resumed.f1_per_round == full.f1_per_round[1:],
+           f"checkpoint: F1 {resumed.f1_per_round} != "
+           f"{full.f1_per_round[1:]}")
+    expect(full.state.wire_state.seq.tolist() == [2] * N_NODES,
+           "checkpoint: seq after 2 rounds")
+    print("round 2 resumed from the checkpoint: the final state "
+          "bit-identical to the uninterrupted run's, F1 "
+          f"{resumed.f1_per_round}")
+
+
+def run_stochastic(torch) -> None:
+    """Phase ``stochastic``: the main path's 20-node payload
+    (``{"protos", "student": Plane}``, :func:`codec_payload` on the plane)
+    through ``quantize_dequantize_per_node`` with a stochastic 16-bit spec
+    and a fixed key, and its codes through ``quantize_packed_buffer``: on
+    the card bit for bit the CPU's; the call launches ``rowabs`` once and
+    the codes sweep nowhere (the plain path, ``repro``'s routing with a
+    key); the mean error over the payload within 5 sigma of 0, sigma =
+    sqrt(sum of Δ_row^2 / 4) / n (each element's error lies in (-Δ, Δ)
+    with mean 0 and variance at most Δ^2/4); and its codes differ from
+    nearest rounding's."""
+    from repro_torch.core.round_ops import quantize_dequantize_per_node
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.kernels.quantize import ops as Q
+    from repro_torch.optim.plane import Plane, plane_from_tree
+    from repro_torch.tree import tree_map
+    from repro_torch.wirespec import WireSpec
+
+    tree = codec_payload(torch, "mnist-cnn", 8)
+    planes = [plane_from_tree(tree_map(lambda x: x[i], tree["student"]))
+              for i in range(N_NODES)]
+    card = {"protos": tree["protos"],
+            "student": Plane(torch.stack([p.buf for p in planes]),
+                             planes[0].meta)}
+    host = {"protos": card["protos"].cpu(),
+            "student": Plane(card["student"].buf.cpu(), planes[0].meta)}
+    spec = WireSpec(16, stochastic_rounding=True)
+    key = (0, 2024)                  # jax.random.PRNGKey(2024)'s words
+    reset_launch_counts()
+    t0 = time.time()
+    recv = quantize_dequantize_per_node(card, spec=spec, rng=key)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    got = {k: v for k, v in launch_counts().items() if v}
+    expect(got == {"rowabs": 1},
+           f"stochastic: the call launched {got} != {{'rowabs': 1}}")
+    want = quantize_dequantize_per_node(host, spec=spec, rng=key)
+    for part in ("protos", "student"):
+        a = recv[part].buf if part == "student" else recv[part]
+        b = want[part].buf if part == "student" else want[part]
+        expect(bits_equal(torch, a.cpu(), b),
+               f"stochastic: the card's {part} differs from the CPU's")
+    buf, ids, meta, _, _ = Q.pack_plane_payload(card["protos"],
+                                                card["student"], spec)
+    hbuf = buf.cpu()
+    codes, deltas = Q.quantize_packed_buffer(buf, ids, meta[1], 16, rng=key)
+    hcodes, hdeltas = Q.quantize_packed_buffer(hbuf, ids, meta[1], 16,
+                                               rng=key)
+    expect(bits_equal(torch, codes.cpu(), hcodes)
+           and bits_equal(torch, deltas.cpu(), hdeltas),
+           "stochastic: the card's codes differ from the CPU's")
+    nearest, _ = Q.quantize_packed_buffer(buf, ids, meta[1], 16)
+    flips = int((codes != nearest).sum())
+    expect(flips > 0, "stochastic: the codes are nearest rounding's")
+    row_delta = deltas[:, torch.as_tensor(ids, device=buf.device)]
+    err = (codes.double() * row_delta.double()[:, :, None]
+           - buf.double())
+    n = buf.numel()
+    mean = float(err.sum()) / n
+    sigma = math.sqrt(float((row_delta.double() ** 2).sum())
+                      * buf.shape[2] / 4) / n
+    print(f"stochastic 16-bit on the {N_NODES}-node payload "
+          f"{tuple(buf.shape)}: codes and reconstruction bit-identical to "
+          f"the CPU's; {flips} codes off nearest rounding; mean error "
+          f"{mean:.3e} (5 sigma {5 * sigma:.3e}); max |error|/Δ "
+          f"{float((err.abs() / row_delta.double()[:, :, None]).max()):.4f};"
+          f" the call took {seconds:.4f} s (host clock, the noise drawn "
+          f"on the host)")
+    expect(abs(mean) <= 5 * sigma,
+           f"stochastic: mean error {mean} beyond 5 sigma {5 * sigma}")
 
 
 def check_mix_packed(torch, timer, student_cfg):
@@ -2804,6 +3115,16 @@ def main() -> int:
         t0 = time.time()
         counts[name] = run_path(torch, inputs[model], name)
         print(f"{name} path took {time.time() - t0:.1f} s")
+
+    phase("checkpoint: the 4/16+ef state after round 1 saved, restored and "
+          "resumed")
+    t0 = time.time()
+    run_checkpoint(torch, inputs["mnist-cnn"])
+    print(f"checkpoint phase took {time.time() - t0:.1f} s")
+
+    phase("stochastic: the main path's payload through the stochastic "
+          "codec, card against CPU")
+    run_stochastic(torch)
 
     # gloo binds to the loopback: the ranks share this machine, which has
     # no network

@@ -34,6 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.prng import _fold_in, _random_bits
 from repro_torch.tree import (ShapeDtypeStruct, is_float, keystr,
                               tree_from_paths, tree_map, tree_paths)
 
@@ -107,47 +108,7 @@ def merge_student(layout: AdapterLayout, mats: Dict[str, Any],
         for p, n, m in zip(layout.paths, layout.names, layout.is_mat))
 
 
-# -- Ω: jax.random.normal's bits, in numpy -----------------------------------
-
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """The threefry2x32 block cipher (20 rounds) of JAX's default PRNG on
-    uint32 arrays (additions wrap mod 2^32)."""
-    u32 = np.uint32
-    ks = (u32(k0), u32(k1), u32(k0) ^ u32(k1) ^ u32(0x1BD11BDA))
-    x0 = np.asarray(x0, np.uint32) + ks[0]
-    x1 = np.asarray(x1, np.uint32) + ks[1]
-    for g in range(5):
-        for r in _ROTATIONS[g % 2]:
-            x0 = x0 + x1
-            x1 = (x1 << u32(r)) | (x1 >> u32(32 - r))
-            x1 = x0 ^ x1
-        x0 = x0 + ks[(g + 1) % 3]
-        x1 = x1 + ks[(g + 2) % 3]
-        x1 = x1 + u32(g + 1)
-    return x0, x1
-
-
-def _fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
-    """``jax.random.fold_in``: the key enciphers the count ``(0, data)``."""
-    a, b = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
-                         np.full(1, data, np.uint32))
-    return int(a[0]), int(b[0])
-
-
-def _random_bits(key: Tuple[int, int], n: int) -> np.ndarray:
-    """``n`` 32-bit words as ``jax.random.bits`` draws them with
-    ``jax_threefry_partitionable``: word ``i`` is ``out0 ^ out1`` of the
-    cipher of the counter ``(i >> 32, i & 0xffffffff)``."""
-    i = np.arange(n, dtype=np.uint64)
-    hi = (i >> np.uint64(32)).astype(np.uint32)
-    lo = (i & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    a, b = _threefry2x32(key[0], key[1], hi, lo)
-    return a ^ b
-
+# -- Ω: jax.random.normal's numbers from the threefry bits of repro_torch.prng
 
 # XLA's ErfInv32 polynomial (Giles), for w < 5 and for w >= 5
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,

@@ -1,6 +1,5 @@
 """Decentralized-federated-learning simulator: the stacked round engine,
-for ProFe and the paper baselines (FedAvg, FedProto, FML, FedGPD) with
-the exact Eq. 3 pass.
+for ProFe and the paper baselines (FedAvg, FedProto, FML, FedGPD).
 
 Runs N nodes over a :class:`~repro_torch.core.topology.TopologySchedule`
 for R rounds of E local epochs.  Node state is *stacked* (every tensor
@@ -11,9 +10,12 @@ carries a leading ``[N]`` node axis) and one round is:
    ``core/baselines.py``) and updating a plane student in ONE fused
    sgd, adamw or adafactor sweep (a per-leaf student, the baselines' and
    ``param_plane="off"``'s, through the per-leaf optimizer),
-2. the exact Eq. 3 pass, where the algorithm shares prototypes: a
-   post-training forward over a second batch stream, accumulated per
-   class by ``kernels/proto_accum``,
+2. Eq. 3, where the algorithm shares prototypes, accumulated per class
+   by ``kernels/proto_accum``: the exact pass (``proto_pass="exact"``, a
+   post-training forward over a second batch stream) or the fused one
+   (``"fused"``: each training step's own ``f1``, no second forward);
+   with ``proto_ema`` the raw sums and counts carry across rounds in
+   ``NodeState.proto_acc``,
 3. share: the round's payload (``{protos, student}`` for ProFe) round-
    trips the packed wire codec (``kernels/quantize``) at the
    ``WireSpec``'s widths (uniform, or mixed such as ``4/16``), with the
@@ -30,10 +32,16 @@ carries a leading ``[N]`` node axis) and one round is:
    in place (``kernels/lowrank_apply``, RegMean with grams) and only the
    dense rest is gossiped.
 
-Communication is metered analytically from the same schedule (Table II)
-and node 0's global-test macro-F1 is recorded per round (Fig. 2).  The
-code follows ``repro.core.federation``; options outside this slice
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+The sequential driver runs the four in order each round; the pipelined
+one (``run_federation(overlap=...)``) drives the same three phase
+functions, either in order (``"none"``) or stale-by-one (``"rounds"``:
+round t mixes what round t-1 shared, optionally with a floored
+self-weight, ``stale_self_floor``).  Communication is metered
+analytically from the same schedule (Table II) and the global-test
+macro-F1 of node 0 (or, with ``eval_all_nodes``, the mean over nodes)
+is recorded per round (Fig. 2).  The code follows
+``repro.core.federation``; options outside the port raise
+``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
 """
 from __future__ import annotations
 
@@ -57,7 +65,8 @@ from repro_torch.core.metrics import accuracy, macro_f1
 from repro_torch.core.profe import (NodeState, init_node_state,
                                     make_profe_step, node_params,
                                     normalize_protos, proto_labels,
-                                    resolve_device, stack_states)
+                                    resolve_device, stack_states,
+                                    zero_proto_acc)
 from repro_torch.core.quantization import tree_wire_bytes
 from repro_torch.core.wire_state import init_codec_state
 from repro_torch.data.loader import batch_index_lists
@@ -82,6 +91,9 @@ class FederationResult:
     elapsed_s: float = 0.0
     algorithm: str = ""
     extras: Dict[str, Any] = field(default_factory=dict)
+    # the stacked NodeState after the last round (save it with
+    # repro_torch.checkpoint; run_federation(start_round=) resumes it)
+    state: Any = None
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -111,6 +123,55 @@ def _eval_params(cfg: ModelConfig, params, test_data, batch_size: int = 256):
     y_true = test_data["label"].cpu().numpy()
     return (macro_f1(y_true, y_pred, _n_proto_classes(cfg)),
             accuracy(y_true, y_pred))
+
+
+@torch.no_grad()
+def _eval_params_batched(cfg: ModelConfig, stacked_students, test_data,
+                         batch_size: int = 256):
+    """Every node's global-test ``(macro-F1, accuracy)`` from stacked
+    students: per test batch, each node's forward, the ``[N, B]``
+    predictions copied to the host once a batch (``repro``'s batched
+    evaluation; equal to :func:`_eval_params` node by node)."""
+    n_nodes = _first_leaf(stacked_students).shape[0]
+    preds = []
+    n = len(next(iter(test_data.values())))
+    for i in range(0, n, batch_size):
+        batch = {k: v[i:i + batch_size] for k, v in test_data.items()}
+        preds.append(torch.stack([
+            forward(cfg, node_params(stacked_students, j), batch)
+            .logits.argmax(-1) for j in range(n_nodes)]).cpu().numpy())
+    y_pred = np.concatenate(preds, axis=1)                   # [N, total]
+    y_true = test_data["label"].cpu().numpy()
+    ncls = _n_proto_classes(cfg)
+    return [(macro_f1(y_true, y_pred[i], ncls), accuracy(y_true, y_pred[i]))
+            for i in range(n_nodes)]
+
+
+def _eval_nodes(eval_cfg, students_of, n_nodes: int, test_data,
+                eval_all_nodes: bool, extras: Dict[str, Any],
+                *, stacked_students=None):
+    """Per-round evaluation, as ``repro``'s: node 0 by default (exact on
+    full graphs, where every node ends identical); with
+    ``eval_all_nodes`` every node, returning the mean, with the per-node
+    curves and their spread in ``extras`` (``f1_per_round_nodes``,
+    ``acc_per_round_nodes``, ``f1_std_per_round``).  Given
+    ``stacked_students`` the nodes go through
+    :func:`_eval_params_batched`, else node by node through
+    ``students_of(i)``."""
+    if not eval_all_nodes:
+        return _eval_params(eval_cfg, students_of(0), test_data)
+    if stacked_students is not None:
+        per_node = _eval_params_batched(eval_cfg, stacked_students,
+                                        test_data)
+    else:
+        per_node = [_eval_params(eval_cfg, students_of(i), test_data)
+                    for i in range(n_nodes)]
+    f1s = [p[0] for p in per_node]
+    accs = [p[1] for p in per_node]
+    extras.setdefault("f1_per_round_nodes", []).append(f1s)
+    extras.setdefault("acc_per_round_nodes", []).append(accs)
+    extras.setdefault("f1_std_per_round", []).append(float(np.std(f1s)))
+    return float(np.mean(f1s)), float(np.mean(accs))
 
 
 def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
@@ -161,28 +222,44 @@ def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
     raise ValueError(f"unknown algorithm {algo!r}")
 
 
-def _check_slice(fed: FederationConfig, train: TrainConfig, *,
-                 eval_all_nodes: bool, overlap, stale_self_floor) -> None:
-    """Raise on every option outside the ported slice."""
+def _check_slice(fed: FederationConfig, *, overlap,
+                 stale_self_floor) -> None:
+    """``repro``'s option checks, and a raise for the one option the port
+    lacks."""
     if overlap not in OVERLAPS:
         raise ValueError(f"overlap must be one of {OVERLAPS}, "
                          f"got {overlap!r}")
     if fed.proto_pass not in PROTO_PASSES:
         raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
                          f"got {fed.proto_pass!r}")
-    checks = [
-        (fed.proto_pass != "exact", "proto_pass='fused'", "Queue 1 item 10"),
-        (overlap is not None, f"overlap={overlap!r}", "Queue 1 item 10"),
-        (stale_self_floor is not None, "stale_self_floor",
-         "Queue 1 item 10"),
-        (bool(fed.proto_ema), "proto_ema", "Queue 1 item 10"),
-        (eval_all_nodes, "eval_all_nodes", "Queue 1 item 10"),
-        (bool(fed.adapter_rank) and fed.error_feedback,
-         "error feedback on the adapter-rank wire", "Queue 1 item 11"),
-    ]
-    for bad, what, item in checks:
-        if bad:
-            raise _unported(what, item)
+    if stale_self_floor is not None and overlap != "rounds":
+        raise ValueError("stale_self_floor only applies to the "
+                         "stale-by-one pipeline (overlap='rounds'), "
+                         f"got overlap={overlap!r}")
+    if fed.adapter_rank and fed.error_feedback:
+        raise _unported("error feedback on the adapter-rank wire",
+                        "Queue 1 item 11")
+
+
+def _apply_self_floor(w_self_st, w_neigh_st, floor: float):
+    """Floor every node's self-weight in the lowered gossip stacks
+    ``[R, N]`` / ``[R, N, N]`` (numpy float32, ``repro``'s operations in
+    its order, so the weights are its bit for bit): a node with
+    neighbours keeps ``max(w_self, floor)`` and its neighbour weights
+    are rescaled by ``(1 - new_self) / sum(w_neigh)``, so rows still sum
+    to 1 while the stale mass of ``overlap="rounds"`` stays bounded; an
+    isolated node (self-weight 1) passes unchanged."""
+    if not 0.0 < floor < 1.0:
+        raise ValueError(f"stale_self_floor must be in (0, 1), "
+                         f"got {floor!r}")
+    w_self = np.asarray(w_self_st, np.float32)          # [R, N]
+    w_neigh = np.asarray(w_neigh_st, np.float32)        # [R, N, N]
+    neigh_sum = w_neigh.sum(axis=-1)
+    has_neigh = neigh_sum > 0
+    new_self = np.where(has_neigh, np.maximum(w_self, floor), w_self)
+    scale = np.where(has_neigh, (1.0 - new_self)
+                     / np.maximum(neigh_sum, 1e-12), 0.0)
+    return new_self, w_neigh * scale[..., None]
 
 
 def _plane_mode(fed: FederationConfig, train: TrainConfig, algo: str,
@@ -220,13 +297,16 @@ def _init_states(algo: str, model_cfgs, fed: FederationConfig, opt_s,
     """Fresh per-node states, node i seeded ``fed.seed * 1000 + i`` (the
     JAX package's key derivation; torch draws other numbers).  ProFe and
     FML hold a teacher; the other baselines one per-leaf model in the
-    student slot, with an empty teacher and ``opt_t``."""
+    student slot, with an empty teacher and ``opt_t``.  With
+    ``fed.proto_ema`` > 0 each carries a zero ``proto_acc``."""
     states = []
+    ema = bool(fed.proto_ema and fed.proto_ema > 0)
     for i in range(fed.num_nodes):
         gen = torch.Generator().manual_seed(fed.seed * 1000 + i)
         if algo in ("profe", "fml"):
             states.append(init_node_state(model_cfgs[0], model_cfgs[1], gen,
                                           opt_s, opt_t, ncls, plane=plane,
+                                          proto_ema=fed.proto_ema,
                                           device=device))
             continue
         params = tree_map(lambda x: x.to(device),
@@ -237,7 +317,9 @@ def _init_states(algo: str, model_cfgs, fed: FederationConfig, opt_s,
                                       dtype=torch.float32, device=device),
             proto_mask=torch.zeros((ncls,), dtype=torch.float32,
                                    device=device),
-            round_idx=torch.zeros((), dtype=torch.int32, device=device)))
+            round_idx=torch.zeros((), dtype=torch.int32, device=device),
+            proto_acc=zero_proto_acc(ncls, model_cfgs[0].proto_dim, device)
+            if ema else None))
     return states
 
 
@@ -349,12 +431,13 @@ def _make_proto_pass(proto_cfg: ModelConfig, ncls: int):
 def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
                       bits, share_protos: bool = True,
                       wire_model: Optional[str] = "student",
+                      proto_pass: str = "exact", proto_ema: float = 0.0,
                       adapter_rank: int = 0,
                       adapter_grams: bool = False,
                       shared: Optional[Dict[str, Any]] = None):
     """The three phases of one stacked round:
 
-    * ``train_phase`` — local epochs + the exact Eq. 3 pass ->
+    * ``train_phase`` — local epochs + Eq. 3 ->
       ``(state, protos, counts)`` (both None where no prototypes
       travel),
     * ``share_phase`` — the wire codec round-trip of the payload ->
@@ -362,6 +445,15 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
       travel); with ``+ef`` it carries ``state.wire_state`` (the
       residual and ``seq``) forward,
     * ``mix_phase`` — gossip on the received views + Eq. 4 -> ``state``.
+
+    ``proto_pass="exact"`` streams the proto batches through the trained
+    student after the epochs; ``"fused"`` accumulates each training
+    step's own ``f1`` (the forward the loss used, before the step's
+    update), masked by the step's ``valid``, and ignores ``pxb`` /
+    ``pvalid``.  ``proto_ema`` > 0 carries the raw accumulators in
+    ``state.proto_acc``: the fused pass starts from ``proto_ema ×`` the
+    carry, the exact pass adds it after the pass, and either stores the
+    blend back before normalizing.
 
     ``bits`` is the :class:`WireSpec` that ``_algo_wiring`` returns (an
     int is the uniform spec), so per-group widths and ``+ef`` survive;
@@ -374,21 +466,53 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     share's factors under ``"adapters"`` (the sender side, before the
     codec), so the last round's stay there.
     """
+    if proto_pass not in PROTO_PASSES:
+        raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
+                         f"got {proto_pass!r}")
     spec = WireSpec.from_bits(bits) if bits else None
-    exact_pass = _make_proto_pass(proto_cfg, ncls)
+    fused = share_protos and proto_pass == "fused"
+    ema = bool(proto_ema and proto_ema > 0)
+    exact_pass = _make_proto_pass(proto_cfg, ncls) \
+        if share_protos and not fused else None
+
+    def decayed(acc):
+        return torch.tensor(proto_ema, dtype=torch.float32,
+                            device=acc.device) * acc
 
     def train_phase(state: NodeState, xb, valid, pxb, pvalid,
                     teacher_on: bool, all_valid: bool = False):
         if not all_valid:
             raise _unported("nodes with unequal local batch counts",
                             "Queue 1 item 6 (loop engine)")
+        if fused:
+            n_nodes = valid.shape[1]
+            if ema:
+                sums = decayed(state.proto_acc[0])
+                counts = decayed(state.proto_acc[1])
+            else:
+                sums = torch.zeros((n_nodes, ncls, proto_cfg.proto_dim),
+                                   dtype=torch.float32, device=valid.device)
+                counts = torch.zeros((n_nodes, ncls), dtype=torch.float32,
+                                     device=valid.device)
         for t in range(valid.shape[0]):
-            state, _ = step(state, {k: v[t] for k, v in xb.items()},
-                            teacher_on)
+            batch = {k: v[t] for k, v in xb.items()}
+            state, metrics = step(state, batch, teacher_on)
+            if fused:
+                s_add, c_add = proto_accumulate_nodes(
+                    metrics["f1"], proto_labels(proto_cfg, batch), ncls)
+                v = valid[t]
+                sums = sums + s_add * v[:, None, None]
+                counts = counts + c_add * v[:, None]
         state = state._replace(round_idx=state.round_idx + 1)
         if not share_protos:
             return state, None, None
-        sums, counts = exact_pass(state.student, pxb, pvalid)
+        if not fused:
+            sums, counts = exact_pass(state.student, pxb, pvalid)
+            if ema:
+                sums = sums + decayed(state.proto_acc[0])
+                counts = counts + decayed(state.proto_acc[1])
+        if ema:
+            state = state._replace(proto_acc=(sums, counts))
         return state, normalize_protos(sums, counts), counts
 
     @torch.no_grad()
@@ -447,6 +571,7 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
                    bits, share_protos: bool = True,
                    wire_model: Optional[str] = "student",
+                   proto_pass: str = "exact", proto_ema: float = 0.0,
                    adapter_rank: int = 0, adapter_grams: bool = False,
                    shared: Optional[Dict[str, Any]] = None):
     """One full round over stacked node state: train -> Eq. 3 -> share
@@ -454,8 +579,9 @@ def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     lowered schedule.  The keywords are as in :func:`_make_round_parts`."""
     train_phase, share_phase, mix_phase = _make_round_parts(
         step, proto_cfg, ncls, bits=bits, share_protos=share_protos,
-        wire_model=wire_model, adapter_rank=adapter_rank,
-        adapter_grams=adapter_grams, shared=shared)
+        wire_model=wire_model, proto_pass=proto_pass, proto_ema=proto_ema,
+        adapter_rank=adapter_rank, adapter_grams=adapter_grams,
+        shared=shared)
 
     def round_fn(state: NodeState, xb, valid, pxb, pvalid, w_self, w_neigh,
                  include, teacher_on: bool, all_valid: bool = False
@@ -469,6 +595,25 @@ def _make_round_fn(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     return round_fn
 
 
+def _make_phase_fns(step: Callable, proto_cfg: ModelConfig, ncls: int,
+                    **kwargs):
+    """The pipelined driver's three phases: the very callables
+    :func:`_make_round_fn` composes (``repro`` jits each; the port's
+    phases launch their kernels eagerly), so splitting the round changes
+    the order the driver calls them in, never the math."""
+    return _make_round_parts(step, proto_cfg, ncls, **kwargs)
+
+
+def _held(recv):
+    """A copy of what the fp32 wire delivered (the sender's live
+    tensors), for the stale-by-one pipeline to mix a round later."""
+    if recv is None:
+        return None
+    if isinstance(recv, Plane):
+        return Plane(recv.buf.detach().clone(), recv.meta)
+    return tree_map(lambda x: x.detach().clone(), recv)
+
+
 def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                    train: TrainConfig, node_data: List[Dict[str, np.ndarray]],
                    test_data: Dict[str, np.ndarray],
@@ -476,7 +621,7 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                    eval_all_nodes: bool = False,
                    overlap: Optional[str] = None,
                    stale_self_floor: Optional[float] = None,
-                   initial_states: Optional[List[NodeState]] = None,
+                   initial_states=None, start_round: int = 0,
                    device=None) -> FederationResult:
     """Run one algorithm (``fed.algorithm``: ProFe or a paper baseline)
     end to end on the stacked engine.
@@ -486,6 +631,13 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     ``initial_states`` (per-node states, e.g. carried from the JAX
     package by ``core.profe.node_state_from_numpy``) replaces the seeded
     initialization, so both packages can start from the same weights.
+    It may also be one stacked state (``result.state`` of a run, or a
+    checkpoint of one), which the run then updates in place; with
+    ``start_round`` = k the run resumes at round k, staging, scheduling
+    and metering rounds k.. ``fed.rounds`` - 1 exactly as an
+    uninterrupted run does (not with ``overlap="rounds"``, whose pending
+    payload no state holds).  ``result.state`` is the stacked state after
+    the last round.
     With error feedback (``fed.error_feedback``) every node starts from
     a zero residual unless its initial state carries one, and
     ``extras["wire_state"]`` holds the stacked ``CodecState`` after the
@@ -493,10 +645,37 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     student as the first reference unless its initial state carries an
     ``adapter_state``, and ``extras["adapter_factors"]`` holds the last
     round's shared factors ``{leaf: {"A", "B"}}`` (stacked over nodes).
+
+    ``fed.proto_pass`` selects Eq. 3: ``"exact"`` (the post-training
+    pass over its own batch stream) or ``"fused"`` (each training step's
+    ``f1``; no proto stream is staged).  ``fed.proto_ema`` > 0 carries
+    the raw accumulators across rounds (``NodeState.proto_acc``, zero
+    unless the initial states carry one).  ``eval_all_nodes`` evaluates
+    every node's student each round and reports the mean (the per-node
+    values in ``extras``), as ``repro``'s ``_eval_nodes``.
+
+    ``overlap`` selects the round pipeline, as in ``repro``:
+
+    * ``None`` — the sequential driver: each round stages its batches,
+      then trains, shares and mixes;
+    * ``"none"`` — the three phases in the same order, with round
+      ``t + 1``'s batches staged on the host before round ``t`` is
+      evaluated (while the card runs what was launched); bit-identical to
+      the sequential driver;
+    * ``"rounds"`` — stale-by-one: round ``t`` mixes the payload shared
+      at round ``t - 1`` into its trained state, then shares its own
+      (round 0 skips the mix; R rounds apply R - 1 mixes, and the last
+      payload is metered but never consumed).  ``stale_self_floor``
+      floors every node's self-weight (:func:`_apply_self_floor`).
     """
     device = resolve_device(device)
-    _check_slice(fed, train, eval_all_nodes=eval_all_nodes, overlap=overlap,
-                 stale_self_floor=stale_self_floor)
+    _check_slice(fed, overlap=overlap, stale_self_floor=stale_self_floor)
+    if not 0 <= start_round < fed.rounds:
+        raise ValueError(f"start_round {start_round} is outside the run's "
+                         f"{fed.rounds} rounds")
+    if start_round and overlap == "rounds":
+        raise ValueError("overlap='rounds' cannot resume: the payload "
+                         "shared a round before is in no state")
     algo = fed.algorithm
     student_cfg = derive_student(teacher_cfg)
     n_nodes = fed.num_nodes
@@ -527,6 +706,7 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     adapters_on = bool(fed.adapter_rank) and wire_model is not None \
         and share_protos and bits is not None
     ef_on = bits is not None and bits.error_feedback
+    ema = bool(fed.proto_ema and fed.proto_ema > 0)
     if not use_plane and (adapters_on or ef_on):
         raise _unported("the adapter-rank wire or error feedback on a "
                         "per-leaf student", "Queue 1 item 11")
@@ -542,10 +722,15 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     if initial_states is None:
         initial_states = _init_states(algo, model_cfgs, fed, opt_s, opt_t,
                                       ncls, device, plane=use_plane)
-    elif len(initial_states) != n_nodes:
-        raise ValueError(f"{len(initial_states)} initial states for "
-                         f"{n_nodes} nodes")
-    stacked = stack_states(initial_states)
+    if isinstance(initial_states, NodeState):
+        stacked = initial_states
+        given = stacked.round_idx.shape[0]
+    else:
+        stacked, given = None, len(initial_states)
+    if given != n_nodes:
+        raise ValueError(f"{given} initial states for {n_nodes} nodes")
+    if stacked is None:
+        stacked = stack_states(initial_states)
     if isinstance(stacked.student, Plane) != use_plane:
         raise ValueError(f"param_plane resolved to {use_plane}, but the "
                          f"initial states' student is "
@@ -563,6 +748,14 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     if stacked.adapter_state is not None and not adapters_on:
         raise ValueError("initial states carry an adapter_state but the "
                          "run has no adapter_rank")
+    if stacked.proto_acc is not None and not ema:
+        raise ValueError("initial states carry a proto_acc but the run "
+                         "has no proto_ema")
+    if ema and stacked.proto_acc is None:
+        # the prototype EMA carry, zero before the first round
+        stacked = stacked._replace(proto_acc=tuple(
+            torch.stack([x] * n_nodes)
+            for x in zero_proto_acc(ncls, proto_cfg.proto_dim, device)))
     if adapters_on and stacked.adapter_state is None:
         # the per-node reference snapshot (and gram carry) of the
         # adapter wire, carried in the stacked state from here on
@@ -580,13 +773,18 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
 
     def dev(x):
         return torch.as_tensor(x, device=device)
-    w_self_st, w_neigh_st, include_st = map(dev, sched.lower(sizes))
+    w_self_np, w_neigh_np, include_np = sched.lower(sizes)
+    if stale_self_floor is not None:
+        w_self_np, w_neigh_np = _apply_self_floor(w_self_np, w_neigh_np,
+                                                  stale_self_floor)
+    w_self_st, w_neigh_st, include_st = map(
+        dev, (w_self_np, w_neigh_np, include_np))
     shared: Dict[str, Any] = {}
     rank = fed.adapter_rank if adapters_on else 0
-    round_fn = _make_round_fn(step, proto_cfg, ncls, bits=bits,
-                              share_protos=share_protos,
-                              wire_model=wire_model, adapter_rank=rank,
-                              adapter_grams=fed.adapter_grams, shared=shared)
+    parts_kw = dict(bits=bits, share_protos=share_protos,
+                    wire_model=wire_model, proto_pass=fed.proto_pass,
+                    proto_ema=fed.proto_ema, adapter_rank=rank,
+                    adapter_grams=fed.adapter_grams, shared=shared)
     payload = _payload_template(wire_model, share_protos, stacked, ncls,
                                 proto_cfg.proto_dim, adapter_rank=rank,
                                 adapter_grams=fed.adapter_grams)
@@ -598,6 +796,10 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     if adapters_on:
         result.extras["adapter_rank"] = fed.adapter_rank
         result.extras["adapter_grams"] = fed.adapter_grams
+    if fed.proto_ema:
+        result.extras["proto_ema"] = fed.proto_ema
+    if stale_self_floor is not None:
+        result.extras["stale_self_floor"] = stale_self_floor
     result.extras["wire_bytes_per_copy"] = tree_wire_bytes(payload, bits)
     result.extras["wire_bytes_packed_per_copy"] = \
         packed_copy_bytes(payload, bits)
@@ -608,45 +810,86 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     result.extras["round_times_s"] = round_times
     t0 = time.time()
 
-    # no proto stream is staged where no prototypes travel: the empty
-    # placeholder repro stages
+    # fused mode stages no proto stream, nor does an algorithm whose
+    # prototypes do not travel: the empty placeholder repro stages
+    stream_protos = share_protos and fed.proto_pass != "fused"
     empty = ({}, np.zeros((0, n_nodes), np.float32))
-    for rnd in range(fed.rounds):
-        t_r = time.time()
-        t_on = teacher_active(fed.alpha_s, fed.alpha_limit, rnd) \
-            if algo == "profe" else algo == "fml"
+
+    def stage(rnd: int):
+        """Round ``rnd``'s training batches and proto stream (numpy)."""
         staged = probe if rnd == 0 else _stack_round_batches(
             node_data, train.batch_size,
             [fed.seed + rnd * 997 + i for i in range(n_nodes)],
             fed.local_epochs)
         proto_staged = _stack_round_batches(
             node_data, train.batch_size, [fed.seed + rnd] * n_nodes, 1) \
-            if share_protos else empty
+            if stream_protos else empty
+        return staged, proto_staged
+
+    if overlap is None:
+        round_fn = _make_round_fn(step, proto_cfg, ncls, **parts_kw)
+    else:
+        train_phase, share_phase, mix_phase = _make_phase_fns(
+            step, proto_cfg, ncls, **parts_kw)
+    staged_next = stage(start_round)
+    recv_prev = None
+    for rnd in range(start_round, fed.rounds):
+        t_r = time.time()
+        t_on = teacher_active(fed.alpha_s, fed.alpha_limit, rnd) \
+            if algo == "profe" else algo == "fml"
+        # the sequential driver stages each round as it starts; the
+        # pipelined one staged it while the card ran the round before
+        staged, proto_staged = staged_next if overlap is not None \
+            or rnd == start_round else stage(rnd)
         all_valid = bool(np.all(staged[1] == 1.0))
         xb, valid = _to_device(staged, device)
         pxb, pvalid = _to_device(proto_staged, device)
-
         p = sched.phase_index(rnd)
-        stacked = round_fn(stacked, xb, valid, pxb, pvalid,
-                           w_self_st[p], w_neigh_st[p], include_st[p],
-                           teacher_on=t_on, all_valid=all_valid)
+        weights = (w_self_st[p], w_neigh_st[p], include_st[p])
+        if overlap is None:
+            stacked = round_fn(stacked, xb, valid, pxb, pvalid, *weights,
+                               teacher_on=t_on, all_valid=all_valid)
+        else:
+            stacked, protos, counts = train_phase(
+                stacked, xb, valid, pxb, pvalid, t_on, all_valid)
+            if overlap == "rounds":
+                # stale-by-one: mix what round t-1 shared into this
+                # round's trained state, then share this round's payload
+                if recv_prev is not None:
+                    stacked = mix_phase(stacked, *recv_prev, *weights)
+                stacked, recv_student, protos_rx = share_phase(stacked,
+                                                               protos)
+                if bits is None:
+                    recv_student = _held(recv_student)
+                recv_prev = (recv_student, protos_rx, counts)
+            else:
+                stacked, recv_student, protos_rx = share_phase(stacked,
+                                                               protos)
+                stacked = mix_phase(stacked, recv_student, protos_rx,
+                                    counts, *weights)
+        if overlap is not None and rnd + 1 < fed.rounds:
+            # round t+1's batches, staged on the host while the card runs
+            # what round t launched
+            staged_next = stage(rnd + 1)
         meter.record_round(payload, kind=algo, round_idx=rnd, bits=bits)
 
-        # node 0 (repro's _eval_nodes; exact on full graphs, where every
-        # node ends identical)
-        f1, acc = _eval_params(eval_cfg, node_params(stacked.student, 0),
-                               test_dev)
+        f1, acc = _eval_nodes(
+            eval_cfg, lambda i: node_params(stacked.student, i), n_nodes,
+            test_dev, eval_all_nodes, result.extras,
+            stacked_students=stacked.student)
         result.f1_per_round.append(f1)
         result.acc_per_round.append(acc)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         round_times.append(time.time() - t_r)
         if verbose:
-            print(f"[{algo}] round {rnd + 1}/{fed.rounds} "
+            tag = algo if overlap is None else f"{algo}/overlap={overlap}"
+            print(f"[{tag}] round {rnd + 1}/{fed.rounds} "
                   f"f1={f1:.4f} acc={acc:.4f} "
                   f"sent={meter.avg_sent_gb():.4f}GB")
 
     result.elapsed_s = time.time() - t0
+    result.state = stacked
     if ef_on:
         # the error-feedback state after the last round (residual, seq)
         result.extras["wire_state"] = stacked.wire_state

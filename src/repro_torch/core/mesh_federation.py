@@ -448,8 +448,12 @@ def make_profe_round(group=None, *, bits: int = 16,
                          f"got {proto_pass!r}")
     wire = spec if spec is not None else WireSpec.from_bits(bits)
     if wire.stochastic_rounding:
-        raise _unported("stochastic rounding", "Queue 1 item 10 (stateful "
-                        "codec)")
+        # repro's mesh round takes no noise key: its quantize step rounds
+        # to nearest whatever the spec says
+        raise ValueError("the mesh round takes no PRNG key: repro's mesh "
+                         "round rounds to nearest even with "
+                         "stochastic_rounding set, so the port refuses the "
+                         "spec rather than fake unbiased codes")
     if adapter_rank:
         raise _unported("the adapter-rank mesh round", ITEM)
     if ranks_per_node != 1:

@@ -57,6 +57,11 @@ class NodeState(NamedTuple):
     # core.wire_state.CodecState whose residual mirrors the wire
     # payload {"protos", "student": Plane}
     wire_state: Any = None
+    # the prototype EMA carry (None unless FederationConfig.proto_ema >
+    # 0): last round's raw Eq. 3 accumulators ``(sums [C, P], counts
+    # [C])`` fp32 (``[N, ...]`` stacked), decayed into the next round's
+    # accumulation before the normalization
+    proto_acc: Any = None
     # adapter-rank wire state (None unless FederationConfig.adapter_rank):
     # {"ref": {leaf: W}, ["grams": {leaf: G}]} — the round-start matrix
     # leaves the next delta is taken against (copies, never views of the
@@ -183,14 +188,15 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
             teacher_out = [ModelOutput(o.logits.detach(), o.f1.detach(),
                                        o.aux) for o in outs]
 
-        losses = []
+        losses, f1s = [], []
         for i, b in enumerate(per_node):
-            l, _ = student_loss(
+            l, out = student_loss(
                 student_cfg, node_params(state.student, i), b,
                 state.global_protos[i], state.proto_mask[i], alpha[i],
                 fed.beta_s, fed.kd_temperature,
                 teacher_out[i] if teacher_out is not None else None)
             losses.append(l)
+            f1s.append(out.f1.detach())
         ls = torch.stack(losses)
         if isinstance(state.student, Plane):
             (gbuf,) = torch.autograd.grad(ls.sum(), [state.student.buf])
@@ -200,7 +206,10 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
         else:
             gnorm = stacked_update(state.student, ls.sum(), opt_s,
                                    state.opt_s, grad_clip)
-        metrics.update(loss_s=ls.detach(), grad_norm_s=gnorm, alpha=alpha)
+        # the f1 the loss used (before this step's update) rides out for
+        # the fused Eq. 3 pass (proto_pass="fused")
+        metrics.update(loss_s=ls.detach(), grad_norm_s=gnorm, alpha=alpha,
+                       f1=torch.stack(f1s))
         return state, metrics
 
     return step
@@ -209,12 +218,13 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
 def init_node_state(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                     gen: torch.Generator, opt_s: Optimizer, opt_t: Optimizer,
                     n_classes: int, *, plane: bool = True,
-                    device=None) -> NodeState:
+                    proto_ema: float = 0.0, device=None) -> NodeState:
     """One node's fresh state: teacher and student initialized from
     ``gen`` (on the CPU, then moved), the student packed into a plane
     (``opt_s`` must then be a plane optimizer), or with ``plane=False``
-    kept a per-leaf tree for the per-leaf ``opt_s``.  Runs on ``cuda``
-    unless ``device`` names another device."""
+    kept a per-leaf tree for the per-leaf ``opt_s``.  ``proto_ema`` > 0
+    allocates the zero prototype EMA carry.  Runs on ``cuda`` unless
+    ``device`` names another device."""
     from repro_torch.models import init_params
     device = resolve_device(device)
     teacher = tree_map(lambda x: x.to(device), init_params(teacher_cfg, gen))
@@ -228,12 +238,22 @@ def init_node_state(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                                   dtype=torch.float32, device=device),
         proto_mask=torch.zeros((n_classes,), dtype=torch.float32,
                                device=device),
-        round_idx=torch.zeros((), dtype=torch.int32, device=device))
+        round_idx=torch.zeros((), dtype=torch.int32, device=device),
+        proto_acc=zero_proto_acc(n_classes, student_cfg.proto_dim, device)
+        if proto_ema and proto_ema > 0 else None)
+
+
+def zero_proto_acc(n_classes: int, proto_dim: int, device):
+    """A zero prototype EMA carry ``(sums [C, P], counts [C])`` fp32."""
+    return (torch.zeros((n_classes, proto_dim), dtype=torch.float32,
+                        device=device),
+            torch.zeros((n_classes,), dtype=torch.float32, device=device))
 
 
 def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
                           proto_mask, round_idx=0, *, plane: bool = True,
-                          residual=None, seq=0, device=None) -> NodeState:
+                          residual=None, seq=0, proto_acc=None,
+                          device=None) -> NodeState:
     """One node's state carried over from the JAX package.
 
     ``student`` and ``teacher`` are parameter trees (nested dicts and
@@ -249,8 +269,9 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
     ``proto_mask`` ``[C]`` and ``round_idx`` as the JAX ``NodeState``
     holds them.  ``residual`` (``{"protos": [C, P], "student": [R,
     512]}``, the student residual in the plane's layout; plane students
-    only) and ``seq`` carry an error-feedback ``CodecState``.  Runs on
-    ``cuda`` unless ``device`` names another device."""
+    only) and ``seq`` carry an error-feedback ``CodecState``;
+    ``proto_acc`` (``(sums [C, P], counts [C])``) the prototype EMA
+    carry.  Runs on ``cuda`` unless ``device`` names another device."""
     device = resolve_device(device)
 
     def t(x, dtype=torch.float32):
@@ -286,7 +307,9 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
         opt_s=params_from_numpy(opt_s, device),
         opt_t=params_from_numpy(opt_t, device),
         global_protos=t(global_protos), proto_mask=t(proto_mask),
-        round_idx=t(round_idx, torch.int32), wire_state=wire_state)
+        round_idx=t(round_idx, torch.int32), wire_state=wire_state,
+        proto_acc=None if proto_acc is None
+        else (t(proto_acc[0]), t(proto_acc[1])))
 
 
 def stack_states(states: List[NodeState]) -> NodeState:
@@ -297,15 +320,15 @@ def stack_states(states: List[NodeState]) -> NodeState:
     counters must agree (one scalar ``step`` stays); an empty teacher and
     ``opt_t`` (the baselines without one) stay empty.  An
     error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
-    ``[N]`` vector), and so does an ``adapter_state``; either every
-    state carries one or none does."""
+    ``[N]`` vector), and so do a ``proto_acc`` and an ``adapter_state``;
+    either every state carries one or none does."""
     def stack(*xs):
         return torch.stack(xs)
 
     def leaf(*xs):
         return torch.stack(xs).detach().requires_grad_(True)
 
-    for key in ("wire_state", "adapter_state"):
+    for key in ("wire_state", "proto_acc", "adapter_state"):
         if len({getattr(s, key) is None for s in states}) != 1:
             raise ValueError(f"some node states carry a {key} and some "
                              f"do not")
@@ -345,6 +368,8 @@ def stack_states(states: List[NodeState]) -> NodeState:
         proto_mask=stack(*(s.proto_mask for s in states)),
         round_idx=stack(*(s.round_idx for s in states)),
         wire_state=wire_state,
+        proto_acc=None if s0.proto_acc is None else tree_map(
+            stack, *(s.proto_acc for s in states)),
         adapter_state=None if s0.adapter_state is None else tree_map(
             stack, *(s.adapter_state for s in states)))
 

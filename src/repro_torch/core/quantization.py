@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.prng import uniform_like
 from repro_torch.tree import is_float, itemsize, numel, tree_leaves, tree_map
 from repro_torch.wirespec import WireSpec
 
@@ -33,19 +34,20 @@ def quantize_array(x, bits: int = 16, *, rng=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> ``(codes intN, 0-d Δ fp32)``.  Non-float tensors pass through
     with Δ = 1.  qmax divides as an fp32 tensor on ``x``'s device, so Δ
-    is an IEEE division on the card too."""
-    if rng is not None:
-        raise NotImplementedError(
-            "stochastic rounding is not ported yet: ROADMAP.md Queue 1 "
-            "item 10 (stateful codec)")
+    is an IEEE division on the card too.  ``rng`` (a threefry key, see
+    :mod:`repro_torch.prng`) switches to stochastic rounding,
+    ``floor(x/Δ + U[0,1))``: unbiased codes, the noise drawn on the host
+    as ``jax.random.uniform(rng, x.shape)`` draws it."""
     if not x.dtype.is_floating_point:
         return x, torch.ones((), dtype=torch.float32, device=x.device)
+    noise = None if rng is None else uniform_like(rng, x)
     qm = torch.tensor(float(_qmax(bits)), dtype=torch.float32,
                       device=x.device)
     x32 = x.to(torch.float32)
     delta = torch.clamp_min(torch.amax(torch.abs(x32)) / qm,
                             torch.finfo(torch.float32).tiny)
-    codes = torch.clamp(torch.floor(x32 / delta + 0.5), -qm - 1, qm)
+    codes = torch.floor(x32 / delta + (0.5 if noise is None else noise))
+    codes = torch.clamp(codes, -qm - 1, qm)
     return codes.to(_INT_DTYPES[bits]), delta
 
 

@@ -144,7 +144,7 @@ def _quantize_dequantize_per_leaf(tree, bits: int, spec, state):
 
 def quantize_dequantize_per_node(tree, bits: int = 16, *,
                                  spec: Optional[WireSpec] = None,
-                                 packed: bool = True, state=None):
+                                 packed: bool = True, rng=None, state=None):
     """Receiver-side reconstruction of a stacked wire payload through the
     packed node codec: ``{"protos": [N, C, P], "student": Plane}`` splices
     the student's rows off its plane; any other tree (the adapter wire's
@@ -158,7 +158,14 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
 
     ``packed=False`` runs the per-leaf reference codec instead
     (:func:`_quantize_dequantize_per_leaf`), which the packed codec is
-    bit-identical to for the same segments."""
+    bit-identical to for the same segments.
+
+    ``rng`` (a threefry key, :mod:`repro_torch.prng`) rounds
+    stochastically in the packed codec (``kernels/quantize/ops.py``
+    ``quantize_packed_buffer``): the codes are ``repro``'s for the same
+    key.  A spec with ``stochastic_rounding`` needs it, and
+    ``packed=False`` refuses it (``repro``'s per-leaf path would ignore
+    a key)."""
     from repro_torch.core.wire_state import CodecState, next_seq
     from repro_torch.kernels.quantize.ops import (
         quantize_dequantize_plane_payload,
@@ -168,7 +175,9 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
         raise ValueError("WireSpec.error_feedback is set but no CodecState "
                          "was passed: the error-feedback codec needs the "
                          "carried per-node residual")
-    if spec is not None and spec.stochastic_rounding and not packed:
+    stochastic = rng is not None or (spec is not None
+                                     and spec.stochastic_rounding)
+    if stochastic and not packed:
         raise ValueError("the per-leaf reference path does not implement "
                          "stochastic rounding: use the packed codec "
                          "(silently rounding deterministically would fake "
@@ -183,11 +192,13 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
             raise NotImplementedError(
                 "error feedback on a tree payload is not ported yet: "
                 "ROADMAP.md Queue 1 item 11 (the adapter wire's +ef)")
-        return quantize_dequantize_tree_packed_nodes(tree, bits, spec=spec)
+        return quantize_dequantize_tree_packed_nodes(tree, bits, spec=spec,
+                                                     rng=rng)
     if state is None:
-        return quantize_dequantize_plane_payload(tree, bits, spec=spec)
+        return quantize_dequantize_plane_payload(tree, bits, spec=spec,
+                                                 rng=rng)
     recv, new_res = quantize_dequantize_plane_payload(
-        tree, bits, spec=spec, residual=state.residual)
+        tree, bits, spec=spec, rng=rng, residual=state.residual)
     return recv, CodecState(new_res, seq=next_seq(state.seq))
 
 

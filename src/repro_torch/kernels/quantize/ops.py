@@ -1,6 +1,7 @@
-"""The packed node wire codec on the flat parameter plane — the
-deterministic path of ``repro``'s ``kernels/quantize/ops.py``, at one
-width or mixed widths, stateless or with error feedback.
+"""The packed node wire codec on the flat parameter plane — ``repro``'s
+``kernels/quantize/ops.py``, at one width or mixed widths, stateless or
+with error feedback, rounding to nearest or (given a threefry key)
+stochastically.
 
 One round's wire payload ``{"protos": [N, C, P], "student": Plane}``
 packs into ONE ``[N, R, 512]`` fp32 buffer: the prototype rows first,
@@ -62,6 +63,7 @@ from repro_torch.kernels.quantize.ref import (dequantize_ref,
                                               quantize_rows_mixed_ref,
                                               quantize_rows_ref, rowabs_ref,
                                               rowabs_sum_ref)
+from repro_torch.prng import uniform_like
 from repro_torch.tree import is_float, tree_from_paths, tree_leaves, \
     tree_paths
 from repro_torch.wirespec import WireSpec, canonical_group
@@ -346,7 +348,7 @@ def _node_row_deltas(buf, seg_ids, n_seg: int, bits: int,
 
 def quantize_packed_buffer(buf, seg_ids, n_seg: int, bits: int = 16, *,
                            seg_bits: Optional[np.ndarray] = None,
-                           residual=None, ef_decay: float = 1.0):
+                           rng=None, residual=None, ef_decay: float = 1.0):
     """Quantize an already-packed ``[N, R, C]`` buffer.  Returns
     ``(codes [N, R, C] wire-intN, scales [N, T] fp32)``.
 
@@ -356,7 +358,15 @@ def quantize_packed_buffer(buf, seg_ids, n_seg: int, bits: int = 16, *,
     error-feedback codec: the effective payload
     ``buf + ef_decay·residual`` is quantized in one sweep that also
     writes the fresh quantization error, returned third —
-    ``(codes, scales, new_residual)``; the wire format is unchanged."""
+    ``(codes, scales, new_residual)``; the wire format is unchanged.
+
+    ``rng`` (a threefry key, :mod:`repro_torch.prng`) switches to
+    stochastic rounding, ``floor(eff/Δ + U[0,1))``, the noise drawn on
+    the host over the whole ``[N, R, C]`` buffer (padding lanes
+    included) as ``jax.random.uniform(rng, buf.shape)`` draws it, so the
+    codes are the JAX package's bit for bit.  Δ still comes from the
+    row-absmax kernel; the codes take the plain tensor ops, the route
+    ``repro``'s dispatch gives a call with a key."""
     n, r, c = buf.shape
     deltas, row_delta = _node_row_deltas(buf, seg_ids, n_seg, bits,
                                          seg_bits, residual=residual,
@@ -364,6 +374,9 @@ def quantize_packed_buffer(buf, seg_ids, n_seg: int, bits: int = 16, *,
     row_qmax = _seg_qmax(n_seg, bits, seg_bits)[np.asarray(seg_ids)]  # [R]
     max_bits = int(np.max(seg_bits)) if seg_bits is not None else bits
     wire_dtype = _wire_int_dtype(max_bits)
+    if rng is not None:
+        return _stochastic_codes(buf, row_delta, row_qmax, wire_dtype,
+                                 deltas, rng, residual, ef_decay)
     x2d = buf.reshape(n * r, c)
     rd = row_delta.reshape(n * r, 1)
 
@@ -381,6 +394,32 @@ def quantize_packed_buffer(buf, seg_ids, n_seg: int, bits: int = 16, *,
     else:
         codes = quantize_rows_mixed(x2d, rd, qmax_col())
     return codes.reshape(n, r, c).to(wire_dtype), deltas
+
+
+def _stochastic_codes(buf, row_delta, row_qmax, wire_dtype, deltas, rng,
+                      residual, ef_decay: float):
+    """The codes sweep of :func:`quantize_packed_buffer` with a key, in
+    ``repro``'s order of operations: ``eff = buf + decay·res`` (each
+    rounded), ``floor(eff / Δ_row + U)``, clipped to the row's qmax; with
+    a residual also ``eff - codes·Δ_row``."""
+    eff = buf if residual is None else \
+        buf + _f32(ef_decay, buf.device) * residual
+    rd = row_delta[:, :, None]
+    codes = torch.floor(eff / rd + uniform_like(rng, buf))
+    qm = torch.as_tensor(row_qmax, device=buf.device)[None, :, None]
+    codes = torch.clamp(codes, -qm - 1, qm)
+    if residual is None:
+        return codes.to(wire_dtype), deltas
+    return codes.to(wire_dtype), deltas, eff - codes * rd
+
+
+def _check_rng(spec: Optional[WireSpec], rng) -> None:
+    """``repro``'s refusal: a spec with stochastic rounding and no key
+    (rounding to nearest instead would fake the unbiased codes)."""
+    if spec is not None and spec.stochastic_rounding and rng is None:
+        raise ValueError("WireSpec.stochastic_rounding is set but no rng "
+                         "was passed: stochastic rounding needs an "
+                         "explicit PRNG key")
 
 
 def pack_plane_payload(protos, plane, spec: Optional[WireSpec] = None):
@@ -443,7 +482,7 @@ def split_plane_payload(buf, protos_shape, plane_meta, r_p: int, span: int):
 
 def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
                                       spec: Optional[WireSpec] = None,
-                                      residual=None):
+                                      rng=None, residual=None):
     """Receiver-side reconstruction of ``{"protos": [N, C, P],
     "student": Plane}``: pack (student rows spliced off the plane),
     quantize in one buffer sweep, dequantize ``codes * Δ_row`` in plain
@@ -453,12 +492,11 @@ def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
     With ``residual`` (``{"protos", "student": Plane}`` mirroring the
     payload — the error-feedback codec) returns ``(reconstruction,
     new_residual)``, the new residual split back the same way; a zero
-    padding lane stays a zero residual."""
+    padding lane stays a zero residual.  ``rng`` is
+    :func:`quantize_packed_buffer`'s (stochastic rounding); a spec with
+    ``stochastic_rounding`` needs it."""
     from repro_torch.optim.plane import Plane
-    if spec is not None and spec.stochastic_rounding:
-        raise NotImplementedError(
-            "stochastic rounding is not ported yet: ROADMAP.md Queue 1 "
-            "item 10 (stateful codec)")
+    _check_rng(spec, rng)
     if spec is not None and spec.error_feedback and residual is None:
         raise ValueError("WireSpec.error_feedback is set but no residual "
                          "was passed: the error-feedback codec needs the "
@@ -478,11 +516,12 @@ def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
                              f"{tuple(buf.shape)}: the residual must "
                              f"mirror the payload layout")
         codes, deltas, new_res_buf = quantize_packed_buffer(
-            buf, seg_ids, meta[1], bits, seg_bits=meta[3], residual=res_buf,
+            buf, seg_ids, meta[1], bits, seg_bits=meta[3], rng=rng,
+            residual=res_buf,
             ef_decay=spec.ef_decay if spec is not None else 1.0)
     else:
         codes, deltas = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
-                                               seg_bits=meta[3])
+                                               seg_bits=meta[3], rng=rng)
     ids = torch.as_tensor(seg_ids, dtype=torch.int64, device=buf.device)
     deq = codes.to(torch.float32) * deltas[:, ids][:, :, None]
     pr, sbuf = split(deq)
@@ -715,21 +754,20 @@ def unpack_tree_nodes(buf, meta):
 
 
 def quantize_tree_packed_nodes(tree, bits: int = 16, *,
-                               spec: Optional[WireSpec] = None) -> Dict:
+                               spec: Optional[WireSpec] = None,
+                               rng=None) -> Dict:
     """Quantize a node-stacked tree into ``{"codes": [N, R, C] intN,
     "scales": [N, T] fp32, "seg_ids", "seg_bits", "meta", "bits"}``,
-    each leaf group at its spec width."""
-    if spec is not None and spec.stochastic_rounding:
-        raise NotImplementedError(
-            "stochastic rounding is not ported yet: ROADMAP.md Queue 1 "
-            "item 10 (stateful codec)")
+    each leaf group at its spec width; ``rng`` is
+    :func:`quantize_packed_buffer`'s (stochastic rounding)."""
+    _check_rng(spec, rng)
     if spec is not None and spec.error_feedback:
         raise NotImplementedError(
             "error feedback on a tree payload is not ported yet: "
             "ROADMAP.md Queue 1 item 11 (the adapter wire's +ef)")
     buf, seg_ids, meta = pack_tree_nodes(tree, spec)
     codes, scales = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
-                                           seg_bits=meta[3])
+                                           seg_bits=meta[3], rng=rng)
     return {"codes": codes, "scales": scales, "seg_ids": seg_ids,
             "seg_bits": meta[3], "meta": meta, "bits": bits}
 
@@ -745,12 +783,13 @@ def dequantize_tree_packed_nodes(payload):
 
 
 def quantize_dequantize_tree_packed_nodes(tree, bits: int = 16, *,
-                                          spec: Optional[WireSpec] = None):
+                                          spec: Optional[WireSpec] = None,
+                                          rng=None):
     """Round trip of a node-stacked tree through the packed node codec —
     what every receiver reconstructs.  Always through the buffer (the
-    route ``repro`` takes with its kernels)."""
+    route ``repro`` takes with its kernels, and with a key)."""
     return dequantize_tree_packed_nodes(
-        quantize_tree_packed_nodes(tree, bits, spec=spec))
+        quantize_tree_packed_nodes(tree, bits, spec=spec, rng=rng))
 
 
 # -- byte accounting (shapes only) ------------------------------------------

@@ -742,12 +742,7 @@ def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
 
 
 @pytest.mark.parametrize("fed_kw,train_kw,run_kw", [
-    (dict(proto_pass="fused"), {}, {}),
     (dict(adapter_rank=4, quantize_bits=4, error_feedback=True), {}, {}),
-    (dict(proto_ema=0.5), {}, {}),
-    ({}, {}, dict(overlap="rounds")),
-    ({}, {}, dict(eval_all_nodes=True)),
-    (dict(WIRES["4/16+ef"]), {}, dict(overlap="rounds")),
 ])
 def test_options_outside_the_slice_raise(fed_kw, train_kw, run_kw):
     _, tcfg, node_data, test_d, _, _, _, _ = _setup(per_node=16)

@@ -578,9 +578,14 @@ def test_ef_codec_needs_a_residual():
     with pytest.raises(ValueError, match="residual"):
         tqops.quantize_dequantize_plane_payload(
             payload, spec=twire.WireSpec(4, 16, error_feedback=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tqops.quantize_dequantize_plane_payload(
-            payload, spec=twire.WireSpec(4, stochastic_rounding=True))
+    # a stochastic spec needs a key (repro's ValueError), and with one
+    # the payload round-trips
+    spec = twire.WireSpec(4, stochastic_rounding=True)
+    with pytest.raises(ValueError, match="rng"):
+        tqops.quantize_dequantize_plane_payload(payload, spec=spec)
+    recv = tqops.quantize_dequantize_plane_payload(payload, spec=spec,
+                                                   rng=(0, 7))
+    assert recv["student"].buf.shape == payload["student"].buf.shape
 
 
 # -- the mesh exchange: the wire byte codec and the fused mix ----------------

@@ -453,11 +453,14 @@ def test_options_outside_the_slice_raise(one_rank_group, monkeypatch):
     from repro_torch.wirespec import WireSpec
     for kw, item in ((dict(exchange="gather"), "item 12"),
                      (dict(adapter_rank=8), "item 12"),
-                     (dict(ranks_per_node=2), "item 12"),
-                     (dict(spec=WireSpec(4, stochastic_rounding=True)),
-                      "item 10")):
+                     (dict(ranks_per_node=2), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             M.make_profe_round(one_rank_group, **kw)
+    # repro's mesh round takes no noise key and rounds to nearest: the
+    # port refuses a stochastic spec rather than fake unbiased codes
+    with pytest.raises(ValueError, match="no PRNG key"):
+        M.make_profe_round(one_rank_group,
+                           spec=WireSpec(4, stochastic_rounding=True))
     with pytest.raises(NotImplementedError, match="item 12"):
         M.make_fedavg_round()
     with pytest.raises(ValueError, match="proto_pass"):
