@@ -9,7 +9,8 @@ Phases, in order (any failure exits non-zero; nothing is caught):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``;
 3. each kernel against its plain PyTorch version on the card, at its
-   path's shapes, with its time (CUDA events, median of 50 launches
+   path's shapes (the three plane sweeps also with a per-node mask:
+   :func:`masked_sweep_cases`), with its time (CUDA events, median of 50 launches
    after warm-up, L2 flushed and the card busy before each, so host launch
    latency stays outside the events), its plain version's time, the
    time of one PyTorch library call computing the same function where
@@ -93,7 +94,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     bit-identical; the leg's train / Eq. 3 / share / mix seconds
     printed), ``16/rounds+floor`` (stale-by-one, self-weight floor 0.5),
     ``4/16+ef/rounds`` (``seq`` 2 on every node) and ``adapters8/rounds``
-    (one mix: ``lowrank_apply`` 3 launches);
+    (one mix: ``lowrank_apply`` 3 launches); then the non-iid paths
+    (``PATH_SPLIT``): ``16/noniid40`` (2 rounds) and
+    ``cifar10/sgd/dirichlet`` (1 round) on the stacked engine's masked
+    steps, ``16/ragged``, ``4/16+ef/ragged`` and ``adapters8/ragged`` (1
+    round each, node 0 cut under one batch) on the per-node loop engine,
+    each path's launches predicted from its split and every path's
+    per-node student step counters checked;
+10a. ``loop``: ``run_federation_loop`` against ``run_federation`` on the
+    main path's configuration, one round without and one with the
+    gradient clip (:func:`check_loop_against_stacked`);
 10b. ``checkpoint``: the ``4/16+ef`` state after round 1 saved under
     ``build/``, restored bit for bit, and resumed for round 2
     (``run_federation(start_round=1)``) against the uninterrupted run,
@@ -229,6 +239,20 @@ PATHS = {
                        (0.004030508, 108876, 106066)),
     "adapters8/rounds": ("mnist-cnn", "adamw", "4", 2,
                          (0.000377188, 12376, 9926)),
+    # the non-iid federations (PATH_SPLIT): unequal batch counts on the
+    # stacked engine's masked steps, and ragged node datasets on the
+    # per-node loop engine; what travels does not depend on the split, so
+    # the bytes are their base paths' over their rounds
+    "16/noniid40": ("mnist-cnn", "adamw", "16", 2,
+                    (0.015825632, 426060, 416464)),
+    "cifar10/sgd/dirichlet": ("cifar10-resnet18", "sgd", "16", 1,
+                              (0.003763444, 221336, 198076)),
+    "16/ragged": ("mnist-cnn", "adamw", "16", 1,
+                  (0.007912816, 426060, 416464)),
+    "4/16+ef/ragged": ("mnist-cnn", "adamw", "4/16+ef", 1,
+                       (0.002015254, 108876, 106066)),
+    "adapters8/ragged": ("mnist-cnn", "adamw", "4", 1,
+                         (0.000188594, 12376, 9926)),
 }
 # the FederationConfig fields of a path beyond its wire spec
 PATH_FED = {"adapters8": dict(adapter_rank=8),
@@ -240,7 +264,8 @@ PATH_FED = {"adapters8": dict(adapter_rank=8),
             "16/per-leaf": dict(param_plane="off"),
             "16/fused": dict(proto_pass="fused"),
             "16/fused+ema": dict(proto_pass="fused", proto_ema=0.5),
-            "adapters8/rounds": dict(adapter_rank=8)}
+            "adapters8/rounds": dict(adapter_rank=8),
+            "adapters8/ragged": dict(adapter_rank=8)}
 # the run_federation keywords of a path
 PATH_RUN = {"16/fused": dict(eval_all_nodes=True),
             "16/none": dict(overlap="none"),
@@ -249,6 +274,14 @@ PATH_RUN = {"16/fused": dict(eval_all_nodes=True),
             "adapters8/rounds": dict(overlap="rounds")}
 # the paths held bit for bit to a second run, under deterministic cuDNN
 DETERMINISTIC_PATHS = ("16/none",)
+# the split of a path's training images over the nodes where it is not
+# iid: partition(labels, 20, split, 0); "ragged" is iid with node 0 cut to
+# RAGGED_IMAGES images, under one batch, so run_federation falls back to
+# the per-node loop engine
+PATH_SPLIT = {"16/noniid40": "noniid40", "cifar10/sgd/dirichlet": "dirichlet",
+              "16/ragged": "ragged", "4/16+ef/ragged": "ragged",
+              "adapters8/ragged": "ragged"}
+RAGGED_IMAGES = 20
 # the baselines that share prototypes (an Eq. 3 pass a round)
 PROTO_BASELINES = ("fedproto", "fedgpd")
 # matrix leaves of the mnist-cnn student at rank 8: conv2, fc1, fc2
@@ -508,6 +541,57 @@ def absmax_cases(torch, name: str):
     return cases
 
 
+# the per-node mask of the plane sweeps (rows 1, 5, 6): every third node
+# sits the step out, and each node has its own step counter
+MASK_STEPS = tuple(3 + i % 5 for i in range(N_NODES))
+
+
+def node_mask(torch, how: str, nodes: int = N_NODES):
+    """The ``[nodes]`` bool mask of a masked-sweep case on the card:
+    ``mixed`` (every third node off), ``all`` on or ``none`` on."""
+    on = {"mixed": [i % 3 != 2 for i in range(nodes)],
+          "all": [True] * nodes, "none": [False] * nodes}[how]
+    return torch.tensor(on, device="cuda")
+
+
+def masked_sweep_cases(torch, timer, name: str, launch, plain, bufs,
+                       hows=("mixed", "all", "none")):
+    """Phase 3, a plane sweep with a per-node mask: ``launch(*bufs,
+    active=mask)`` updates copies of ``bufs`` (the buffers it writes, each
+    ``[N, R, C]``) in place, ``plain(active=mask)`` returns the plain
+    version's outputs.  At each mask of ``hows`` (mixed, all on, none
+    on): bit for bit the plain version's, the masked nodes' rows
+    bit-unchanged.  Returns ``(masked_ms, cases)``: the kernel's time at
+    the first mask of ``hows``."""
+    cases = []
+    nodes = bufs[0].shape[0]
+    for how in hows:
+        mask = node_mask(torch, how, nodes)
+        got = [b.clone() for b in bufs]
+        launch(*got, active=mask)
+        want = plain(active=mask)
+        torch.cuda.synchronize()
+        ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
+        off = ~mask
+        kept = all(bits_equal(torch, a[off], b[off])
+                   for a, b in zip(got, bufs))
+        moved = int(sum(int((a[mask] != b[mask]).any(dim=(1, 2)).sum())
+                        for a, b in zip(got[:1], bufs[:1])))
+        print(f"{name} masked ({how}: {int(mask.sum())} of {nodes} nodes "
+              f"on): max ulp difference {ulps}, masked nodes unchanged "
+              f"{kept}, active nodes moved {moved}")
+        expect(ulps == 0, f"{name} with a {how} mask is not bit-exact with "
+               f"its plain version")
+        expect(kept, f"{name}: a masked node's rows changed ({how})")
+        expect(moved == int(mask.sum()),
+               f"{name}: {moved} active nodes moved ({how})")
+        cases.append(dict(mask=how, nodes_on=int(mask.sum())))
+    mask = node_mask(torch, hows[0], nodes)
+    got = [b.clone() for b in bufs]
+    masked_ms = timer(lambda: launch(*got, active=mask))
+    return masked_ms, cases
+
+
 def check_kernels(torch, timer, student_cfg):
     """Phase 3: every kernel against its plain version at path shapes;
     ``quantize_rows`` and ``quantize_rows_mixed`` also at the edge cases
@@ -542,7 +626,7 @@ def check_kernels(torch, timer, student_cfg):
     mu = (torch.randn(shape, generator=gen) * 1e-4).cuda()
     nu = (torch.rand(shape, generator=gen) * 1e-7).cuda()
     hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
-    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    step = torch.full((N_NODES,), 3, dtype=torch.int32, device="cuda")
     lr = torch.full((), 1e-3, device="cuda")
     bc1 = 1.0 - 0.9 ** step.float()
     bc2 = 1.0 - 0.999 ** step.float()
@@ -575,12 +659,29 @@ def check_kernels(torch, timer, student_cfg):
         beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
         maximize=False))
     n = p.numel()
+    # per-node counters and a per-node mask (nodes with unequal batch
+    # counts): every node its own bias corrections
+    mstep = torch.tensor(MASK_STEPS, dtype=torch.float32, device="cuda")
+    mbc1, mbc2 = 1.0 - 0.9 ** mstep, 1.0 - 0.999 ** mstep
+    masked_ms, masked = masked_sweep_cases(
+        torch, timer, "adamw_update",
+        lambda pp, mm, vv, active: adamw_update_cuda(
+            g, pp, mm, vv, lr, scale, mbc1, mbc2, active=active, **hp),
+        lambda active: adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale,
+                                        bc1=mbc1, bc2=mbc2, active=active,
+                                        **hp),
+        [p, mu, nu])
+    print(f"adamw_update: {ms:.4f} ms unmasked, {masked_ms:.4f} ms with "
+          f"{sum(i % 3 != 2 for i in range(N_NODES))} of {N_NODES} nodes on")
     b_ms, b_by = bound(7 * 4 * n, 18 * n)
     rows.append(dict(name="adamw_update", route="cuda",
                      source="src/repro_torch/csrc/opt_update.cu",
                      replaces="src/repro/kernels/opt_update/opt_update.py:80",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     masked_ms=masked_ms,
+                     masked_cases=[dict(c, steps=list(MASK_STEPS))
+                                   for c in masked]))
 
     # -- rowabs and quantize_rows on the packed payload [N*R, 512] -------
     n_nodes, r, c = buf.shape
@@ -788,6 +889,157 @@ def check_kernels(torch, timer, student_cfg):
     return rows
 
 
+def check_loop_shapes(torch, timer, student_cfg, rows) -> None:
+    """Phase 3 at the loop engine's shapes (paths ``16/ragged``,
+    ``4/16+ef/ragged``, ``adapters8/ragged``): a node's state is a
+    one-node stack, so ``adamw_update`` sweeps ``[1, R, 512]`` (one grid
+    row of :func:`sweep_grid`) and the plane-row wire codes one node's
+    ``[R, 512]`` rows at one Δ per leaf segment.  ``adamw_update`` with
+    no mask, all on and none on; ``quantize_dequantize_plane_rows``
+    (``rowabs``, then ``quantize_dequantize_rows``) at 16 and 4 bits;
+    ``ef_quantize_dequantize_plane``'s student (``rowabs_sum``, then
+    ``quantize_rows_ef``) at the ``4/16+ef`` spec, decay 1.0 and 0.9:
+    each bit for bit its plain version (``kernels/*/ref.py`` through the
+    same segment max).  Each kernel's time at that shape goes into its
+    row of ``rows`` under ``loop``."""
+    import dataclasses
+
+    from repro_torch.core.wire_state import (CodecState,
+                                             ef_quantize_dequantize_plane)
+    from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
+    from repro_torch.kernels.opt_update.ref import adamw_update_ref
+    from repro_torch.kernels.quantize.ops import (
+        _qmax_t, plane_row_deltas, quantize_dequantize_plane_rows)
+    from repro_torch.kernels.quantize.quantize import (
+        quantize_dequantize_rows_cuda, quantize_rows_ef_cuda, rowabs_cuda,
+        rowabs_sum_cuda)
+    from repro_torch.kernels.quantize.ref import (
+        quantize_dequantize_rows_ref, quantize_rows_ef_ref, rowabs_ref,
+        rowabs_sum_ref)
+    from repro_torch.optim.plane import Plane
+
+    by_name = {row["name"]: row for row in rows}
+    gen = torch.Generator().manual_seed(26)
+    _, _, _, plane, protos = payload_buffer(torch, gen, student_cfg)
+    one = Plane(plane.buf[0:1].clone(), plane.meta)     # a one-node stack
+    shape = tuple(one.buf.shape)
+    x2d = one.buf.reshape(-1, shape[-1])
+    r, c = x2d.shape
+    n = x2d.numel()
+
+    # -- row 1: adamw over one node's plane [1, R, 512] ------------------
+    g = (torch.randn(shape, generator=gen) * 1e-3).cuda()
+    mu = (torch.randn(shape, generator=gen) * 1e-4).cuda()
+    nu = (torch.rand(shape, generator=gen) * 1e-7).cuda()
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    lr = torch.full((), 1e-3, device="cuda")
+    step = torch.full((1,), float(MASK_STEPS[1]), device="cuda")
+    bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+    scale = torch.full((1,), 0.37, device="cuda")
+    p = one.buf
+
+    def launch(pp, mm, vv, active=None):
+        adamw_update_cuda(g, pp, mm, vv, lr, scale, bc1, bc2, active=active,
+                          **hp)
+
+    def plain(active=None):
+        return adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale, bc1=bc1,
+                                bc2=bc2, active=active, **hp)
+    got = [p.clone(), mu.clone(), nu.clone()]
+    launch(*got)
+    want = plain()
+    torch.cuda.synchronize()
+    ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
+    print(f"adamw_update {shape} (a one-node stack, no mask): max ulp "
+          f"difference {ulps}")
+    expect(ulps == 0, f"adamw_update at {shape} is not bit-exact with its "
+           f"plain version")
+    ms = timer(lambda: launch(*got))
+    plain_ms = timer(plain)
+    masked_ms, masked = masked_sweep_cases(torch, timer, "adamw_update",
+                                           launch, plain, [p, mu, nu],
+                                           hows=("all", "none"))
+    b_ms, _ = bound(7 * 4 * n, 18 * n)
+    by_name["adamw_update"]["loop"] = dict(
+        shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        masked_ms=masked_ms, masked_cases=masked)
+    print(f"adamw_update {shape}: {ms:.4f} ms unmasked, {masked_ms:.4f} ms "
+          f"with its mask on (plain {plain_ms:.4f} ms)")
+
+    # -- rows 3 and 7: the plane-row round trip of one node --------------
+    ra = rowabs_cuda(x2d)
+    expect(torch.equal(ra, rowabs_ref(x2d)),
+           f"rowabs disagrees with its plain version at {(r, c)}")
+    for bits in (16, 4):
+        rd = plane_row_deltas(rowabs_ref(x2d), plane.meta, bits)
+        got = quantize_dequantize_plane_rows(one, bits).buf
+        want = quantize_dequantize_rows_ref(x2d, rd, bits=bits)
+        torch.cuda.synchronize()
+        expect(tuple(got.shape) == shape and bits_equal(
+            torch, got.reshape(r, c), want),
+            f"quantize_dequantize_plane_rows at {bits} bits is not "
+            f"bit-exact with its plain version")
+        print(f"quantize_dequantize_plane_rows {shape} at {bits} bits "
+              f"({len(plane.meta.recipe)} segments): bit-exact")
+    rd = plane_row_deltas(ra, plane.meta, 16)
+    by_name["rowabs"]["loop"] = dict(
+        shape=[r, c], ms=timer(lambda: rowabs_cuda(x2d)),
+        plain_ms=timer(lambda: rowabs_ref(x2d)),
+        bound_ms=bound(4 * n + 4 * r, n)[0])
+    by_name["quantize_dequantize_rows"]["loop"] = dict(
+        shape=[r, c], bits=[16, 4],
+        ms=timer(lambda: quantize_dequantize_rows_cuda(x2d, rd, bits=16)),
+        plain_ms=timer(lambda: quantize_dequantize_rows_ref(x2d, rd,
+                                                            bits=16)),
+        bound_ms=bound(8 * n + 4 * r, 4 * n)[0])
+
+    # -- rows 9 and 10: the +ef plane codec of one node ------------------
+    spec = parse_wire("4/16+ef")
+    sb = spec.bits_for("student")
+    rd0 = plane_row_deltas(ra, plane.meta, sb)
+    res = Plane(((torch.rand(shape, generator=gen) - 0.5).cuda()
+                 * rd0.reshape(1, r, 1)).contiguous(), plane.meta)
+    r2d = res.buf.reshape(r, c)
+    state = CodecState({"protos": torch.zeros_like(protos[0]),
+                        "student": res}, torch.zeros((), dtype=torch.int32,
+                                                     device="cuda"))
+    for decay in (spec.ef_decay, 0.9):
+        sp = dataclasses.replace(spec, ef_decay=decay)
+        dec = torch.tensor(decay, dtype=torch.float32, device="cuda")
+        recv, new = ef_quantize_dequantize_plane(
+            {"protos": protos[0], "student": one}, sp, state)
+        rd = plane_row_deltas(rowabs_sum_ref(x2d, r2d, dec), plane.meta, sb)
+        qm = _qmax_t(sb, x2d.device).expand(rd.shape).contiguous()
+        codes, res_want = quantize_rows_ef_ref(x2d, r2d, rd, qm, dec)
+        torch.cuda.synchronize()
+        expect(bits_equal(torch, recv["student"].buf.reshape(r, c),
+                          codes.to(torch.float32) * rd)
+               and bits_equal(torch, new.residual["student"].buf.reshape(
+                   r, c), res_want),
+               f"ef_quantize_dequantize_plane (decay {decay}) is not "
+               f"bit-exact with its plain version")
+        print(f"ef_quantize_dequantize_plane {shape}, {sb}-bit student, "
+              f"decay {decay}: received plane and residual bit-exact")
+    dec = torch.ones((), device="cuda")
+    rd = plane_row_deltas(rowabs_sum_ref(x2d, r2d, dec), plane.meta, sb)
+    qm = _qmax_t(sb, x2d.device).expand(rd.shape).contiguous()
+    by_name["rowabs_sum"]["loop"] = dict(
+        shape=[r, c], ms=timer(lambda: rowabs_sum_cuda(x2d, r2d, 1.0)),
+        plain_ms=timer(lambda: rowabs_sum_ref(x2d, r2d, dec)),
+        bound_ms=bound(8 * n + 4 * r, 4 * n)[0])
+    by_name["quantize_rows_ef"]["loop"] = dict(
+        shape=[r, c], bits=sb,
+        ms=timer(lambda: quantize_rows_ef_cuda(x2d, r2d, rd, qm, 1.0)),
+        plain_ms=timer(lambda: quantize_rows_ef_ref(x2d, r2d, rd, qm, dec)),
+        bound_ms=bound(16 * n + 8 * r, 9 * n)[0])
+    for name in ("adamw_update", "rowabs", "quantize_dequantize_rows",
+                 "rowabs_sum", "quantize_rows_ef"):
+        loop = by_name[name]["loop"]
+        print(f"{name} at the loop shape {loop['shape']}: {loop['ms']:.4f} "
+              f"ms (plain {loop['plain_ms']:.4f} ms, bound "
+              f"{loop['bound_ms']:.4f} ms)")
+
+
 def check_plane_sweeps(torch, timer, student_cfg):
     """Phase 3, the sgd and adafactor sweeps: each kernel against its
     plain version on 20 nodes' ResNet8 student planes ``[20, 208, 512]``
@@ -842,12 +1094,21 @@ def check_plane_sweeps(torch, timer, student_cfg):
         [lib[0]], [g_scaled], [lib[1]], weight_decay=0.01, momentum=0.9,
         lr=1e-3, dampening=0.0, nesterov=False, maximize=False,
         is_first_step=False))
+    masked_ms, masked = masked_sweep_cases(
+        torch, timer, "sgd_update",
+        lambda pp, mm, active: sgd_update_cuda(g, pp, mm, lr, scale,
+                                               active=active, **hp),
+        lambda active: sgd_update_ref(g, p, mu, lr=lr, scale=scale,
+                                      active=active, **hp),
+        [p, mu])
+    print(f"sgd_update: {ms:.4f} ms unmasked, {masked_ms:.4f} ms masked")
     b_ms, b_by = bound(5 * 4 * n, 7 * n)
     rows.append(dict(name="sgd_update", route="cuda",
                      source="src/repro_torch/csrc/opt_update.cu",
                      replaces="src/repro/kernels/opt_update/opt_update.py:40",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                     masked_ms=masked_ms, masked_cases=masked))
 
     # the packed clipped update of adafactor: about ±1 on the real lanes
     upd = torch.randn(shape, generator=gen).cuda() * real
@@ -890,6 +1151,16 @@ def check_plane_sweeps(torch, timer, student_cfg):
     # streaming yardstick: one launch that moves the same 3 x 4 B an
     # element (reads p and upd, writes p)
     stream_ms = timer(lambda: torch.add(got, upd, out=got))
+    masked_ms, masked = masked_sweep_cases(
+        torch, timer, "adafactor_apply",
+        lambda pp, active: adafactor_apply_cuda(upd, pp, lr,
+                                                weight_decay=0.01,
+                                                active=active),
+        lambda active: [adafactor_apply_ref(upd, p, lr=lr, weight_decay=0.01,
+                                            active=active)],
+        [p])
+    print(f"adafactor_apply: {ms:.4f} ms unmasked, {masked_ms:.4f} ms "
+          f"masked")
     b_ms, b_by = bound(3 * 4 * n, 4 * n)
     rows.append(dict(name="adafactor_apply", route="cuda",
                      source="src/repro_torch/csrc/opt_update.cu",
@@ -897,7 +1168,8 @@ def check_plane_sweeps(torch, timer, student_cfg):
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      stream_ms=stream_ms, plan=asdict(plan),
-                     cases=[list(shape), [off_got.numel()]]))
+                     cases=[list(shape), [off_got.numel()]],
+                     masked_ms=masked_ms, masked_cases=masked))
     print(f"  adafactor_apply streaming yardstick (torch.add, out=p) "
           f"{stream_ms:.4f} ms")
     for row in rows:
@@ -2166,17 +2438,21 @@ def run_proto_infer(torch, inputs) -> dict:
     return total
 
 
-def path_inputs(model: str):
+def path_inputs(model: str, split: str = "iid"):
     """A model's paths' configuration and data: the config at full width,
     20 nodes on a full graph, 2 rounds of 1 local epoch, ``TrainConfig``
-    defaults, 320 images a node (10 steps a round)."""
+    defaults, iid 320 images a node (10 steps a round), or the
+    ``split`` of ``PATH_SPLIT``."""
     from repro_torch.config import FederationConfig, TrainConfig, get_config
     from repro_torch.data import (make_image_dataset, partition,
                                   train_test_split)
 
     data = make_image_dataset(0, 7040, IMAGE_SHAPE[model], 10)
     train_d, test_d = train_test_split(data, 1 / 11, 0)
-    parts = partition(train_d["label"], N_NODES, "iid", 0)
+    parts = partition(train_d["label"], N_NODES,
+                      "iid" if split == "ragged" else split, 0)
+    if split == "ragged":
+        parts[0] = parts[0][:RAGGED_IMAGES]
     node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
     fed = FederationConfig(num_nodes=N_NODES, topology="full", rounds=ROUNDS,
                            local_epochs=1)
@@ -2214,15 +2490,24 @@ def run_path(torch, inputs, name: str):
                               **extra)
     train = dataclasses.replace(train, optimizer=optimizer)
     run_kw = PATH_RUN.get(name, {})
-    per_node = len(node_data[0]["label"])
+    sizes = [len(d["label"]) for d in node_data]
     algo = fed.algorithm
     # the student rides the plane only for ProFe with param_plane "auto"
     plane = algo == "profe" and fed.param_plane != "off"
-    print(f"{cfg.name}: {algo}, {N_NODES} nodes x {per_node} images, batch "
-          f"{train.batch_size}, {optimizer}, wire "
-          f"{spec.describe() if spec else 'fp32'}, plane {plane} "
-          f"{extra or ''} {run_kw or ''}")
-    steps = rounds * (per_node // train.batch_size)
+    # a node smaller than one batch: run_federation falls back to the
+    # per-node loop engine
+    loop = min(sizes) < train.batch_size
+    print(f"{cfg.name}: {algo}, {N_NODES} nodes x {min(sizes)}-{max(sizes)} "
+          f"images, batch {train.batch_size}, {optimizer}, wire "
+          f"{spec.describe() if spec else 'fp32'}, plane {plane}, engine "
+          f"{'loop' if loop else 'stacked'} {extra or ''} {run_kw or ''}")
+    # each node's local batches a round (1 epoch; a node under one batch
+    # takes one short batch), from the split on the host
+    node_batches = [max(n // train.batch_size, 1) for n in sizes]
+    # the stacked engine steps every node together, as many steps as the
+    # largest node has batches (the others masked out of the padded
+    # ones); the loop engine steps each node on its own
+    steps = rounds * (sum(node_batches) if loop else max(node_batches))
     quantized = spec is not None
     ef = quantized and spec.error_feedback
     uniform = quantized and spec.uniform_bits is not None
@@ -2232,25 +2517,35 @@ def run_path(torch, inputs, name: str):
     # per-leaf student updates through the plain per-leaf optimizer)
     launches = {k: steps if opt == optimizer and plane else 0
                 for opt, k in OPT_KERNEL.items()}
+    # one share codec a round: the stacked engine's one packed sweep for
+    # every node (amax rows, then the codes), the loop engine's a node
+    # (the plane rows' amax and round trip; +ef the residual's; the
+    # adapter groups and the prototypes through the plain per-tensor
+    # codec); none on the fp32 wire
+    shares = rounds * (N_NODES if loop else 1)
+    plane_rows = loop and plane and quantized and not fed.adapter_rank
     launches.update({
         # one per Eq. 3 proto batch, where prototypes travel
         "proto_accum": steps if algo == "profe" or algo in PROTO_BASELINES
         else 0,
-        # one share codec a round (the plane's, or the per-leaf tree
-        # codec's): amax rows, then the codes; none on the fp32 wire
-        "rowabs": rounds if quantized and not ef else 0,
-        "quantize_rows": rounds if uniform and not ef else 0,
+        "rowabs": shares if quantized and not ef
+        and (plane_rows or not loop) else 0,
+        "quantize_rows": rounds if uniform and not ef and not loop else 0,
         "quantize_rows_mixed": rounds if quantized and not uniform
-        and not ef else 0,
-        "rowabs_sum": rounds if ef else 0,
-        "quantize_rows_ef": rounds if ef else 0,
-        # one merge launch per matrix leaf a round
-        "lowrank_apply": ADAPTER_LEAVES * mixes if fed.adapter_rank
-        else 0,
+        and not ef and not loop else 0,
+        "rowabs_sum": shares if ef else 0,
+        "quantize_rows_ef": shares if ef else 0,
+        # one merge launch per matrix leaf a round (the loop engine's one
+        # a receiver: on the full graph every node receives)
+        "lowrank_apply": ADAPTER_LEAVES * mixes * (N_NODES if loop else 1)
+        if fed.adapter_rank else 0,
         # the stacked engine mixes with tensordot; only the mesh exchange
         # launches the fused mix
         "mix_packed": 0})
     launches.update({k: 0 for k in CODEC_KERNELS + PROTO_INFER_KERNELS})
+    # the loop engine's plane wire: the row round trip a node
+    launches["quantize_dequantize_rows"] = shares if plane_rows and not ef \
+        else 0
 
     exact = deterministic_cudnn(torch) if name in DETERMINISTIC_PATHS \
         else contextlib.nullcontext()
@@ -2262,6 +2557,16 @@ def run_path(torch, inputs, name: str):
         check_variant(torch, name, inputs, fed, train, res)
     expect(res.extras["param_plane"] is plane,
            f"{name}: param_plane resolved to {res.extras['param_plane']}")
+    from repro_torch.core.comm import ScheduleCommAccountant
+    expect(isinstance(res.comm, ScheduleCommAccountant) is not loop,
+           f"{name}: ran on the {'stacked' if loop else 'loop'} engine")
+    # each node's step counters: its own batch count over the rounds (the
+    # mask's effect where counts differ)
+    want_steps = [rounds * b for b in node_batches]
+    got_steps = res.state.opt_s["step"].tolist()
+    print(f"per-node student step counters: {got_steps}")
+    expect(got_steps == want_steps,
+           f"{name}: student step counters {got_steps} != {want_steps}")
 
     print(f"per-round F1: {res.f1_per_round}")
     print(f"per-round seconds: {res.extras['round_times_s']}")
@@ -2270,6 +2575,7 @@ def run_path(torch, inputs, name: str):
           f"{res.extras['wire_bytes_packed_per_copy']}  "
           f"wire_bytes_per_copy: {res.extras['wire_bytes_per_copy']}")
     print(f"launches on the {name} path: {counts}")
+    print(f"predicted: { {k: v for k, v in launches.items() if v} }")
     expect(len(res.f1_per_round) == rounds
            and all(math.isfinite(f) for f in res.f1_per_round),
            f"expected {rounds} finite F1 values, got {res.f1_per_round}")
@@ -2345,9 +2651,9 @@ class deterministic_cudnn:
 
 def states_equal(torch, a, b) -> bool:
     """Two states (trees of tensors and NamedTuples) with the same keys
-    and every leaf bit-identical (``repro_torch.checkpoint``'s keys)."""
-    from repro_torch.checkpoint.ckpt import _items
-    ia, ib = _items(a), _items(b)
+    and every leaf bit-identical (:func:`repro_torch.tree.keyed_leaves`)."""
+    from repro_torch.tree import keyed_leaves
+    ia, ib = keyed_leaves(a), keyed_leaves(b)
     return [k for k, _ in ia] == [k for k, _ in ib] and all(
         bits_equal(torch, x.detach(), y.detach()) for (_, x), (_, y)
         in zip(ia, ib))
@@ -2449,6 +2755,169 @@ def check_variant(torch, name: str, inputs, fed, train, res) -> None:
                f"{name}: F1 {res.f1_per_round} != {seq.f1_per_round}")
         print("overlap='none': the final stacked state bit-identical to "
               "the sequential leg's")
+
+
+# the loop engine against the stacked engine on the card: the CPU tests'
+# tolerances (tests/test_torch_loop_engine.py): parameters, Adam's mu and
+# nu, the Eq. 4 prototypes
+LOOP_ATOL = {"params": 2e-5, "mu": 1e-6, "nu": 1e-8, "protos": 1e-4}
+LR = 1e-3                        # TrainConfig's learning rate
+# with the path's clip and the stacked engine's own [N, ...] norm
+# reductions: the most parameters beyond LOOP_ATOL["params"] (measured on
+# the H100: 40 of the student, 255 of the teacher; PERF.md, PR 26),
+# about 2.5 times that
+CLIP_BEYOND_MAX = {"student": 100, "teacher": 640}
+
+
+class node_sliced_norms:
+    """Inside the block the stacked engine reduces each node's clip norm
+    as the loop engine does: ``clip_by_global_norm(lead=1)`` (the
+    per-leaf models, through ``core/profe``) and ``plane_global_norm``
+    (the student plane) run on each node's gradient copied out of the
+    ``[N, ...]`` stack as a one-node stack of its own, and the nodes'
+    results are joined.  The clip scales multiply elementwise, so nothing
+    else of the step changes."""
+
+    def __init__(self, torch):
+        from repro_torch.core import profe
+        from repro_torch.optim import plane
+        self.torch, self.profe, self.plane = torch, profe, plane
+
+    def __enter__(self):
+        from repro_torch.tree import tree_leaves, tree_map
+        torch, profe, plane = self.torch, self.profe, self.plane
+        self.saved = clip, gnorm = (profe.clip_by_global_norm,
+                                    plane.plane_global_norm)
+
+        def node(tree, i):
+            return tree_map(lambda g: g[i:i + 1].clone(), tree)
+
+        def sliced_clip(grads, max_norm, *, lead=0):
+            n = tree_leaves(grads)[0].shape[0]
+            if lead != 1 or n == 1:
+                return clip(grads, max_norm, lead=lead)
+            parts = [clip(node(grads, i), max_norm, lead=1)
+                     for i in range(n)]
+            return (tree_map(lambda *gs: torch.cat(gs),
+                             *[c for c, _ in parts]),
+                    torch.cat([gn for _, gn in parts]))
+
+        def sliced_gnorm(grads):
+            buf = grads.buf
+            if buf.dim() != 3 or buf.shape[0] == 1:
+                return gnorm(grads)
+            return torch.cat([gnorm(plane.Plane(buf[i:i + 1].clone(),
+                                                grads.meta))
+                              for i in range(buf.shape[0])])
+        profe.clip_by_global_norm = sliced_clip
+        plane.plane_global_norm = sliced_gnorm
+
+    def __exit__(self, *exc):
+        self.profe.clip_by_global_norm, self.plane.plane_global_norm = \
+            self.saved
+        return False
+
+
+def loop_gaps(torch, a, b):
+    """The loop engine's final state ``a`` against the stacked engine's
+    ``b``: counters, masks and round counters held equal; returns the
+    largest gaps ``{student, teacher, protos, mu, nu}`` and the count of
+    student and teacher parameters beyond ``LOOP_ATOL["params"]``."""
+    from repro_torch.tree import tree_leaves
+    for opt in ("opt_s", "opt_t"):
+        expect(getattr(a, opt)["step"].tolist()
+               == getattr(b, opt)["step"].tolist(), f"loop: {opt} steps")
+    expect(bits_equal(torch, a.proto_mask, b.proto_mask)
+           and a.round_idx.tolist() == b.round_idx.tolist(),
+           "loop: masks or round counters differ")
+
+    def diffs(xs, ys):
+        return torch.cat([(x.detach() - y.detach()).abs().flatten()
+                          for x, y in zip(xs, ys)])
+    parts = {"student": diffs([a.student.buf], [b.student.buf]),
+             "teacher": diffs(tree_leaves(a.teacher), tree_leaves(b.teacher)),
+             "protos": diffs([a.global_protos], [b.global_protos])}
+    for key in ("mu", "nu"):
+        parts[key] = diffs(tree_leaves((a.opt_s[key], a.opt_t[key])),
+                           tree_leaves((b.opt_s[key], b.opt_t[key])))
+    gaps = {k: float(d.max()) for k, d in parts.items()}
+    beyond = {k: int((parts[k] > LOOP_ATOL["params"]).sum())
+              for k in ("student", "teacher")}
+    return gaps, beyond
+
+
+def hold_loop_gaps(gaps, what: str) -> None:
+    for key, g in gaps.items():
+        tol = LOOP_ATOL.get(key, LOOP_ATOL["params"])
+        expect(g <= tol, f"loop ({what}): {key} {g!r} apart from the "
+               f"stacked engine's (tolerance {tol})")
+
+
+def check_loop_against_stacked(torch, inputs) -> None:
+    """Phase ``loop``: one round of the main path's configuration (iid,
+    mnist-cnn, 16-bit wire) through ``run_federation_loop`` against
+    ``run_federation``, both under deterministic cuDNN from the same
+    seeded states, once without the gradient clip and once with the
+    path's (1.0).  Bytes, step and round counters and masks exactly; the
+    largest gaps of the student planes, teachers, moments and prototypes
+    printed, the student's said zero or not.  Without the clip every gap
+    is held to ``LOOP_ATOL``.  With it the stacked engine's per-node clip
+    norm sums an ``[N, ...]`` gradient in another order than the loop's
+    ``[1, ...]`` one; where a clipped gradient element is near Adam's eps
+    that last bit moves the element by up to 2·lr, and later steps carry
+    it on.  So the clipped stacked run is made twice: as the path runs it
+    (every parameter within ``atol + 2·lr``, those beyond ``atol`` at most
+    ``CLIP_BEYOND_MAX``), and under :class:`node_sliced_norms`, which
+    reduces each node's norm as the loop does and is held, parameters,
+    moments and prototypes, to ``LOOP_ATOL``."""
+    import dataclasses
+
+    from repro_torch.core.federation import (run_federation,
+                                             run_federation_loop)
+
+    cfg, fed, train, node_data, test_d = inputs
+    fed = dataclasses.replace(fed, rounds=1, **wire_fields(parse_wire("16")))
+    for clip in (0.0, train.grad_clip):
+        tr = dataclasses.replace(train, grad_clip=clip)
+        with deterministic_cudnn(torch):
+            t0 = time.time()
+            stacked = run_federation(cfg, fed, tr, node_data, test_d)
+            t1 = time.time()
+            loop = run_federation_loop(cfg, fed, tr, node_data, test_d)
+            t2 = time.time()
+            if clip:
+                with node_sliced_norms(torch):
+                    sliced = run_federation(cfg, fed, tr, node_data, test_d)
+        print(f"grad_clip {clip}: round seconds stacked {t1 - t0:.3f}, "
+              f"loop {t2 - t1:.3f}")
+        for key in ("avg_sent_gb", "wire_bytes_per_copy",
+                    "wire_bytes_packed_per_copy"):
+            expect(loop.extras[key] == stacked.extras[key],
+                   f"loop: {key} {loop.extras[key]!r} != the stacked "
+                   f"{stacked.extras[key]!r}")
+        gaps, beyond = loop_gaps(torch, loop.state, stacked.state)
+        print(f"grad_clip {clip}: loop against stacked, largest gaps "
+              f"{json.dumps(gaps)}, parameters beyond "
+              f"{LOOP_ATOL['params']}: {json.dumps(beyond)}; the student "
+              f"gap {'zero' if gaps['student'] == 0 else 'not zero'}; F1 "
+              f"stacked {stacked.f1_per_round}, loop {loop.f1_per_round}")
+        if clip == 0.0:
+            hold_loop_gaps(gaps, "no clip")
+            continue
+        for key in ("student", "teacher"):
+            expect(gaps[key] <= LOOP_ATOL["params"] + 2 * LR,
+                   f"loop: {key} {gaps[key]!r} apart beyond Adam's "
+                   f"eps regime")
+            expect(beyond[key] <= CLIP_BEYOND_MAX[key],
+                   f"loop: {beyond[key]} {key} parameters beyond "
+                   f"{LOOP_ATOL['params']} (at most {CLIP_BEYOND_MAX[key]})")
+        gaps, beyond = loop_gaps(torch, loop.state, sliced.state)
+        print(f"grad_clip {clip}, the stacked engine's norms reduced node "
+              f"by node: loop against stacked, largest gaps "
+              f"{json.dumps(gaps)}, parameters beyond "
+              f"{LOOP_ATOL['params']}: {json.dumps(beyond)}; F1 "
+              f"{sliced.f1_per_round}")
+        hold_loop_gaps(gaps, "clip, norms node by node")
 
 
 def run_checkpoint(torch, inputs) -> None:
@@ -3099,6 +3568,8 @@ def main() -> int:
                              derive_student(get_config("mnist-cnn")))
     rows += check_codec_kernels(torch, timer)
     rows += check_proto_kd_kernels(torch, timer)
+    check_loop_shapes(torch, timer, derive_student(get_config("mnist-cnn")),
+                      rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -3106,15 +3577,35 @@ def main() -> int:
             row["launch_ms"] = launch_ms
 
     inputs = {model: path_inputs(model) for model in IMAGE_SHAPE}
+    split_inputs = {}
     counts = {}
+    t_noniid = 0.0
     for name, (model, optimizer, wire, rounds, _) in PATHS.items():
         algo = PATH_FED.get(name, {}).get("algorithm", "profe")
+        split = PATH_SPLIT.get(name, "iid")
         phase(f"{'main' if name == '16' else 'path'} {name}: {algo} "
-              f"{model}, {N_NODES} nodes, {rounds} round(s), {optimizer}, "
-              f"{wire} wire")
+              f"{model}, {N_NODES} nodes ({split}), {rounds} round(s), "
+              f"{optimizer}, {wire} wire")
         t0 = time.time()
-        counts[name] = run_path(torch, inputs[model], name)
-        print(f"{name} path took {time.time() - t0:.1f} s")
+        if split == "iid":
+            path_in = inputs[model]
+        else:
+            if (model, split) not in split_inputs:
+                split_inputs[model, split] = path_inputs(model, split)
+            path_in = split_inputs[model, split]
+        counts[name] = run_path(torch, path_in, name)
+        took = time.time() - t0
+        if split != "iid":
+            t_noniid += took
+        print(f"{name} path took {took:.1f} s")
+
+    phase("loop: run_federation_loop against run_federation, one round of "
+          "the main path's configuration")
+    t0 = time.time()
+    check_loop_against_stacked(torch, inputs["mnist-cnn"])
+    t_noniid += time.time() - t0
+    print(f"loop phase took {time.time() - t0:.1f} s; the non-iid paths and "
+          f"the loop phase {t_noniid:.1f} s all told")
 
     phase("checkpoint: the 4/16+ef state after round 1 saved, restored and "
           "resumed")
@@ -3163,6 +3654,10 @@ def main() -> int:
         if "per_recv" in row:
             row["per_recv"].update(path=PER_RECV_PATH, launches=counts[
                 PER_RECV_PATH][row["name"]])
+        # the non-iid paths' launches of the kernel, where it ran there
+        row["noniid_launches"] = {p: counts[p][row["name"]]
+                                  for p in PATH_SPLIT
+                                  if counts[p].get(row["name"])}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

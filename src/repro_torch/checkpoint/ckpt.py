@@ -5,51 +5,29 @@ NamedTuples inside: a :class:`~repro_torch.core.profe.NodeState`, a
 :class:`~repro_torch.core.wire_state.CodecState`, and a
 :class:`~repro_torch.optim.plane.Plane` (whose buffer is its one leaf;
 its ``PlaneMeta`` recipe comes back from the tree loaded into).  Keys are
-``repro``'s: each path's parts ``/``-joined, a dict key as itself, a
-sequence item as ``#i``, a NamedTuple field as ``.name`` and a Plane's
-buffer as ``buf``; a ``None`` holds nothing.  Tensors are detached and
+``repro``'s (:func:`repro_torch.tree.keyed_leaves`): each path's parts
+``/``-joined, a dict key as itself, a sequence item as ``#i``, a
+NamedTuple field as ``.name`` and a Plane's buffer as ``buf``; a
+``None`` holds nothing.  Tensors are detached and
 copied to the host; bf16 is stored as fp32 (exact) and cast back.  A
 ``.meta.json`` sidecar holds the keys and the caller's metadata.  The
 stacked engine's whole state (``NodeState`` with ``wire_state``,
 ``proto_acc`` and ``adapter_state``) round-trips bit for bit, so a run
-resumes exactly.
+resumes exactly.  Its step counters are one a node (``[N]``); a
+checkpoint that holds one 0-d counter for all nodes (the stacked state's
+layout before per-node counters) loads with that counter broadcast to
+every node.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.optim.plane import Plane
-
-_SEP = "/"
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(type(x), "_fields")
-
-
-def _items(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
-    """``[(key, leaf)]`` in flatten order (dict keys sorted)."""
-    if tree is None:
-        return []
-    if isinstance(tree, Plane):
-        return [(_SEP.join(prefix + ("buf",)), tree.buf)]
-    if _is_namedtuple(tree):
-        kids = ((f".{name}", getattr(tree, name)) for name in tree._fields)
-    elif isinstance(tree, dict):
-        kids = ((str(k), tree[k]) for k in sorted(tree))
-    elif isinstance(tree, (list, tuple)):
-        kids = ((f"#{i}", x) for i, x in enumerate(tree))
-    else:
-        return [(_SEP.join(prefix), tree)]
-    out: List[Tuple[str, Any]] = []
-    for part, sub in kids:
-        out.extend(_items(sub, prefix + (part,)))
-    return out
+from repro_torch.tree import keyed_leaves, rebuild
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -61,29 +39,16 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _rebuild(like, leaves):
-    """``like`` with every leaf replaced by ``next(leaves)``."""
-    if like is None:
-        return None
-    if isinstance(like, Plane):
-        return Plane(next(leaves), like.meta)
-    if _is_namedtuple(like):
-        return type(like)(*(_rebuild(getattr(like, f), leaves)
-                            for f in like._fields))
-    if isinstance(like, dict):
-        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(x, leaves) for x in like)
-    return next(leaves)
-
-
 def _restore(arr: np.ndarray, like):
     """One saved array as ``like``'s kind: a tensor on its device and of
     its dtype (an autograd leaf again where ``like`` required grad), or a
-    numpy array of its dtype."""
+    numpy array of its dtype.  A 0-d array restores into a ``like`` with
+    axes as that one value broadcast (a shared step counter)."""
     if isinstance(like, torch.Tensor):
-        t = torch.from_numpy(np.array(arr)).to(device=like.device,
-                                               dtype=like.dtype)
+        arr = np.array(arr)
+        if arr.ndim == 0 and like.dim() > 0:
+            arr = np.broadcast_to(arr, tuple(like.shape)).copy()
+        t = torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)
         return t.requires_grad_(True) if like.requires_grad else t
     if hasattr(like, "dtype"):
         return np.asarray(arr).astype(like.dtype)
@@ -104,7 +69,7 @@ def save_checkpoint(path: str, tree, *,
     """Write ``tree`` to ``path`` (``.npz``) and its ``.meta.json``
     sidecar (the keys and ``metadata``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    flat = {key: _to_numpy(leaf) for key, leaf in _items(tree)}
+    flat = {key: _to_numpy(leaf) for key, leaf in keyed_leaves(tree)}
     np.savez(_npz(path), **flat)
     with open(_sidecar(path), "w") as f:
         json.dump({"keys": list(flat), "metadata": metadata or {}}, f)
@@ -117,12 +82,12 @@ def load_checkpoint(path: str, like_tree):
     the missing and extra keys when the two differ."""
     with np.load(_npz(path)) as npz:
         saved = {k: npz[k] for k in npz.files}
-    items = _items(like_tree)
+    items = keyed_leaves(like_tree)
     keys = [k for k, _ in items]
     missing = sorted(set(keys) - set(saved))
     extra = sorted(set(saved) - set(keys))
     if missing or extra:
         raise ValueError(f"checkpoint mismatch: missing={missing[:5]} "
                          f"extra={extra[:5]}")
-    return _rebuild(like_tree, iter(_restore(saved[k], leaf)
+    return rebuild(like_tree, iter(_restore(saved[k], leaf)
                                     for k, leaf in items))

@@ -9,14 +9,15 @@
 * **FedGPD** [10] — CE + global-prototype distillation on one model;
   model + prototypes travel fp32.
 
-Each maker returns ``step(state, batch, teacher_on) -> (state,
-metrics)`` over **stacked** node state with the ProFe ``NodeState``
+Each maker returns ``step(state, batch, teacher_on, active=None) ->
+(state, metrics)`` over **stacked** node state with the ProFe ``NodeState``
 layout (unused slots hold empty dicts), as ``make_profe_step`` does:
 ``batch`` leaves are ``[N, B, ...]``, the per-node forwards run in a
 Python loop, their losses sum into one backward, and each node's
 gradients are clipped on their own (``clip_by_global_norm(lead=1)``)
 before the per-leaf ``opt.update(lead=1)``, which writes parameters and
-moments in place.  What travels, and at what precision, is declared per
+moments in place; ``active`` (``[N]`` bool) masks nodes out of every
+update, as in ``make_profe_step``.  What travels, and at what precision, is declared per
 algorithm in ``federation._algo_wiring``.
 """
 from __future__ import annotations
@@ -41,14 +42,15 @@ def make_fedavg_step(cfg: ModelConfig, opt: Optimizer, *,
     """``task_ce + aux · router_aux_weight`` on the stacked per-leaf
     ``state.student``.  Metrics: ``loss_s`` and ``grad_norm_s`` ``[N]``."""
 
-    def step(state: NodeState, batch, teacher_on: bool = False):
+    def step(state: NodeState, batch, teacher_on: bool = False,
+             active=None):
         losses = []
         for i, b in enumerate(node_batches(batch, len(state.round_idx))):
             out = forward(cfg, node_params(state.student, i), b)
             losses.append(task_ce(cfg, out.logits, b) + _aux(cfg, out))
         loss = torch.stack(losses)
         gn = stacked_update(state.student, loss.sum(), opt, state.opt_s,
-                            grad_clip)
+                            grad_clip, active)
         return state, {"loss_s": loss.detach(), "grad_norm_s": gn}
 
     return step
@@ -79,7 +81,8 @@ def _make_proto_step(cfg: ModelConfig, fed: FederationConfig,
             l = l + 0.5 * pce
         return l + _aux(cfg, out), out.f1
 
-    def step(state: NodeState, batch, teacher_on: bool = False):
+    def step(state: NodeState, batch, teacher_on: bool = False,
+             active=None):
         losses, f1 = [], []
         for i, b in enumerate(node_batches(batch, len(state.round_idx))):
             l, f = loss_fn(node_params(state.student, i), b,
@@ -88,7 +91,7 @@ def _make_proto_step(cfg: ModelConfig, fed: FederationConfig,
             f1.append(f.detach())
         loss = torch.stack(losses)
         gn = stacked_update(state.student, loss.sum(), opt, state.opt_s,
-                            grad_clip)
+                            grad_clip, active)
         return state, {"loss_s": loss.detach(), "grad_norm_s": gn,
                        "f1": torch.stack(f1)}
 
@@ -121,7 +124,8 @@ def make_fml_step(big_cfg: ModelConfig, meme_cfg: ModelConfig,
     big model's logits of that same (pre-update) forward.  Metrics:
     ``loss_s``, ``loss_t`` and ``grad_norm_s``."""
 
-    def step(state: NodeState, batch, teacher_on: bool = True):
+    def step(state: NodeState, batch, teacher_on: bool = True,
+             active=None):
         per_node = node_batches(batch, len(state.round_idx))
         with torch.no_grad():
             meme_logits = [forward(meme_cfg, node_params(state.student, i),
@@ -137,7 +141,7 @@ def make_fml_step(big_cfg: ModelConfig, meme_cfg: ModelConfig,
             big_logits.append(out.logits.detach())
         lb = torch.stack(big_losses)
         stacked_update(state.teacher, lb.sum(), opt_big, state.opt_t,
-                       grad_clip)
+                       grad_clip, active)
 
         meme_losses = []
         for i, b in enumerate(per_node):
@@ -148,7 +152,7 @@ def make_fml_step(big_cfg: ModelConfig, meme_cfg: ModelConfig,
             meme_losses.append(l + _aux(meme_cfg, out))
         lm = torch.stack(meme_losses)
         gn = stacked_update(state.student, lm.sum(), opt_meme, state.opt_s,
-                            grad_clip)
+                            grad_clip, active)
         return state, {"loss_s": lm.detach(), "loss_t": lb.detach(),
                        "grad_norm_s": gn}
 

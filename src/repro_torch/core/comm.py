@@ -1,9 +1,12 @@
 """Communication accounting — Table II, analytically.
 
-:class:`ScheduleCommAccountant` derives per-node sent/received bytes
-from a :class:`~repro_torch.core.topology.TopologySchedule`: per-copy
-bytes from the payload skeleton times the schedule's integer out/in
-degrees, exact integers throughout.  :func:`packed_copy_bytes` is the
+Two accountants share one summary surface: :class:`CommMeter`, the
+per-edge meter (``record_broadcast`` per sender) that the per-node loop
+engine keeps, and :class:`ScheduleCommAccountant`, which derives the
+same per-node sent/received bytes from a
+:class:`~repro_torch.core.topology.TopologySchedule`: per-copy bytes
+from the payload skeleton times the schedule's integer out/in degrees,
+exact integers throughout.  :func:`packed_copy_bytes` is the
 physical size of one copy under the packed node wire codec.
 """
 from __future__ import annotations
@@ -60,6 +63,19 @@ class CommMeter:
         self.received: Dict[int, int] = defaultdict(int)
         self.by_kind: Dict[str, int] = defaultdict(int)
         self.by_round: Dict[int, int] = defaultdict(int)
+
+    def record_broadcast(self, sender: int, receivers, payload_tree,
+                         kind: str, round_idx: int,
+                         bits: Bits = None) -> int:
+        """``sender`` ships ``payload_tree`` to each of ``receivers``.
+        Returns bytes per copy."""
+        nbytes = tree_wire_bytes(payload_tree, bits)
+        for r in receivers:
+            self.sent[sender] += nbytes
+            self.received[r] += nbytes
+            self.by_kind[kind] += nbytes
+            self.by_round[round_idx] += nbytes
+        return nbytes
 
     def avg_sent_gb(self) -> float:
         return sum(self.sent.values()) / max(self.num_nodes, 1) / 1e9

@@ -1,5 +1,6 @@
-"""Decentralized-federated-learning simulator: the stacked round engine,
-for ProFe and the paper baselines (FedAvg, FedProto, FML, FedGPD).
+"""Decentralized-federated-learning simulator: the stacked round engine
+and the per-node loop engine, for ProFe and the paper baselines (FedAvg,
+FedProto, FML, FedGPD).
 
 Runs N nodes over a :class:`~repro_torch.core.topology.TopologySchedule`
 for R rounds of E local epochs.  Node state is *stacked* (every tensor
@@ -9,7 +10,9 @@ carries a leading ``[N]`` node axis) and one round is:
    batches, each step training every node (``core/profe.py``,
    ``core/baselines.py``) and updating a plane student in ONE fused
    sgd, adamw or adafactor sweep (a per-leaf student, the baselines' and
-   ``param_plane="off"``'s, through the per-leaf optimizer),
+   ``param_plane="off"``'s, through the per-leaf optimizer); a node with
+   fewer local batches is padded and masked out of its padded steps
+   (``valid``: the sweeps and optimizers skip it, its step counter stays),
 2. Eq. 3, where the algorithm shares prototypes, accumulated per class
    by ``kernels/proto_accum``: the exact pass (``proto_pass="exact"``, a
    post-training forward over a second batch stream) or the fused one
@@ -39,15 +42,18 @@ round t mixes what round t-1 shared, optionally with a floored
 self-weight, ``stale_self_floor``).  Communication is metered
 analytically from the same schedule (Table II) and the global-test
 macro-F1 of node 0 (or, with ``eval_all_nodes``, the mean over nodes)
-is recorded per round (Fig. 2).  The code follows
-``repro.core.federation``; options outside the port raise
+is recorded per round (Fig. 2).  Where node datasets are too ragged to
+stack (a node smaller than one batch) ``run_federation`` falls back to
+:func:`run_federation_loop`, the per-node reference engine.  The code
+follows ``repro.core.federation``; options outside the port raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -59,23 +65,31 @@ from repro_torch.core import baselines as B
 from repro_torch.core.adapters import (adapter_layout,
                                        adapter_payload_template,
                                        init_adapter_state, split_student)
-from repro_torch.core.comm import (ScheduleCommAccountant, packed_copy_bytes)
+from repro_torch.core.aggregation import (weighted_plane_mean,
+                                          weighted_tree_mean)
+from repro_torch.core.comm import (CommMeter, ScheduleCommAccountant,
+                                   packed_copy_bytes)
 from repro_torch.core.distillation import teacher_active
 from repro_torch.core.metrics import accuracy, macro_f1
-from repro_torch.core.profe import (NodeState, init_node_state,
-                                    make_profe_step, node_params,
-                                    normalize_protos, proto_labels,
-                                    resolve_device, stack_states,
-                                    zero_proto_acc)
-from repro_torch.core.quantization import tree_wire_bytes
-from repro_torch.core.wire_state import init_codec_state
-from repro_torch.data.loader import batch_index_lists
+from repro_torch.core.profe import (NodeState, compute_local_prototypes,
+                                    init_node_state, make_profe_step,
+                                    node_params, normalize_protos,
+                                    proto_labels, resolve_device,
+                                    stack_states, zero_proto_acc)
+from repro_torch.core.prototypes import aggregate_prototypes
+from repro_torch.core.quantization import (quantize_dequantize_tree,
+                                           tree_wire_bytes)
+from repro_torch.core.wire_state import (ef_quantize_dequantize_plane,
+                                         init_codec_state)
+from repro_torch.data.loader import batch_index_lists, batches
+from repro_torch.kernels.lowrank_apply.ops import adapter_apply_plane
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
+from repro_torch.kernels.quantize.ops import quantize_dequantize_plane_rows
 from repro_torch.models import derive_student, forward, init_params
 from repro_torch.optim import make_optimizer, make_plane_optimizer
 from repro_torch.optim.plane import PLANE_OPTIMIZERS, Plane, as_tree
-from repro_torch.tree import (ShapeDtypeStruct, tree_from_paths,
-                              tree_leaves, tree_map)
+from repro_torch.tree import (ShapeDtypeStruct, keyed_leaves, rebuild,
+                              tree_from_paths, tree_leaves, tree_map)
 from repro_torch.wirespec import WireSpec
 
 PROTO_PASSES = ("exact", "fused")
@@ -481,9 +495,6 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
 
     def train_phase(state: NodeState, xb, valid, pxb, pvalid,
                     teacher_on: bool, all_valid: bool = False):
-        if not all_valid:
-            raise _unported("nodes with unequal local batch counts",
-                            "Queue 1 item 6 (loop engine)")
         if fused:
             n_nodes = valid.shape[1]
             if ema:
@@ -496,7 +507,10 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
                                      device=valid.device)
         for t in range(valid.shape[0]):
             batch = {k: v[t] for k, v in xb.items()}
-            state, metrics = step(state, batch, teacher_on)
+            # a node with fewer local batches sits out its padded steps
+            # (repro's _masked_select); all_valid: every node steps
+            active = None if all_valid else valid[t] > 0
+            state, metrics = step(state, batch, teacher_on, active)
             if fused:
                 s_add, c_add = proto_accumulate_nodes(
                     metrics["f1"], proto_labels(proto_cfg, batch), ncls)
@@ -614,6 +628,131 @@ def _held(recv):
     return tree_map(lambda x: x.detach().clone(), recv)
 
 
+class _Wiring(NamedTuple):
+    """What both engines derive from the configs (:func:`_wiring`)."""
+    sched: Any
+    ncls: int
+    sizes: List[int]
+    opt_s: Any
+    opt_t: Any
+    use_plane: bool
+    step: Callable
+    wire_model: Any
+    share_protos: bool
+    bits: Optional[WireSpec]
+    model_cfgs: Tuple
+    adapters_on: bool
+    ef_on: bool
+    ema: bool
+
+
+def _wiring(teacher_cfg: ModelConfig, fed: FederationConfig,
+            train: TrainConfig, node_data) -> _Wiring:
+    """What both engines derive from the configs, read by name.  On the
+    flat parameter plane the student optimizer is the fused clip + update
+    sweep over the ``[N, R, 512]`` buffer; off it, the per-leaf optimizer
+    the teacher uses (it holds no state of its own).  As in ``repro``, the
+    adapter wire runs only for a model and prototypes on the quantized
+    wire, ``+ef`` only on a quantized wire."""
+    n_nodes = fed.num_nodes
+    if len(node_data) != n_nodes:
+        raise ValueError(f"{len(node_data)} node datasets for "
+                         f"{n_nodes} nodes")
+    algo = fed.algorithm
+    student_cfg = derive_student(teacher_cfg)
+    sched = T.make_schedule(n_nodes, fed.topology, rounds=fed.rounds,
+                            seed=fed.seed)
+    ncls = _n_proto_classes(teacher_cfg)
+    sizes = [len(next(iter(d.values()))) for d in node_data]
+    opt_t = make_optimizer(train.optimizer, train.learning_rate,
+                           weight_decay=train.weight_decay,
+                           momentum=train.momentum)
+    use_plane = _plane_mode(fed, train, algo, student_cfg)
+    opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
+                                 weight_decay=train.weight_decay,
+                                 momentum=train.momentum,
+                                 grad_clip=train.grad_clip) \
+        if use_plane else opt_t
+    step, wire_model, share_protos, bits, model_cfgs = _algo_wiring(
+        algo, teacher_cfg, student_cfg, fed, train, opt_s, opt_t)
+    adapters_on = bool(fed.adapter_rank) and wire_model is not None \
+        and share_protos and bits is not None
+    ef_on = bits is not None and bits.error_feedback
+    ema = bool(fed.proto_ema and fed.proto_ema > 0)
+    if not use_plane and (adapters_on or ef_on):
+        raise _unported("the adapter-rank wire or error feedback on a "
+                        "per-leaf student", "Queue 1 item 11")
+    return _Wiring(sched=sched, ncls=ncls, sizes=sizes, opt_s=opt_s,
+                   opt_t=opt_t, use_plane=use_plane, step=step,
+                   wire_model=wire_model, share_protos=share_protos,
+                   bits=bits, model_cfgs=model_cfgs, adapters_on=adapters_on,
+                   ef_on=ef_on, ema=ema)
+
+
+def _new_result(meter, algo: str, fed: FederationConfig, use_plane: bool,
+                adapters_on: bool, payload, bits, sched) -> FederationResult:
+    """A run's result before its first round: the options it resolved
+    and the per-copy wire bytes of its payload (logical and packed) with
+    the packed bytes a node sends over the run."""
+    result = FederationResult(comm=meter, algorithm=algo)
+    extras = result.extras
+    extras["proto_pass"] = fed.proto_pass
+    extras["param_plane"] = use_plane
+    if adapters_on:
+        extras["adapter_rank"] = fed.adapter_rank
+        extras["adapter_grams"] = fed.adapter_grams
+    if fed.proto_ema:
+        extras["proto_ema"] = fed.proto_ema
+    extras["wire_bytes_per_copy"] = tree_wire_bytes(payload, bits)
+    extras["wire_bytes_packed_per_copy"] = packed_copy_bytes(payload, bits)
+    extras["avg_sent_packed_gb"] = _packed_sent_gb(
+        sched, fed.rounds, extras["wire_bytes_packed_per_copy"],
+        fed.num_nodes)
+    return result
+
+
+def _with_carries(stacked: NodeState, fed: FederationConfig, bits, device,
+                  ncls: int, proto_dim: int, *, use_plane: bool,
+                  adapters_on: bool, ef_on: bool, ema: bool) -> NodeState:
+    """Check a stacked state against the run and give it the carries the
+    run needs and it lacks: the zero prototype EMA carry, the adapter
+    wire's reference snapshot (the initial student), the zero
+    error-feedback residual."""
+    n_nodes = stacked.round_idx.shape[0]
+    if isinstance(stacked.student, Plane) != use_plane:
+        raise ValueError(f"param_plane resolved to {use_plane}, but the "
+                         f"initial states' student is "
+                         f"{'not ' if use_plane else ''}a Plane")
+    on = _first_leaf(stacked.student).device
+    if on.type != device.type:
+        raise ValueError(f"initial states live on {on}, not {device}")
+    if stacked.wire_state is not None and not ef_on:
+        wire = "the fp32 wire" if bits is None else f"the wire {bits.arg()!r}"
+        raise ValueError(f"initial states carry a wire_state but {wire} "
+                         f"has no error feedback")
+    if stacked.adapter_state is not None and not adapters_on:
+        raise ValueError("initial states carry an adapter_state but the "
+                         "run has no adapter_rank")
+    if stacked.proto_acc is not None and not ema:
+        raise ValueError("initial states carry a proto_acc but the run "
+                         "has no proto_ema")
+    if ema and stacked.proto_acc is None:
+        stacked = stacked._replace(proto_acc=tuple(
+            torch.stack([x] * n_nodes)
+            for x in zero_proto_acc(ncls, proto_dim, device)))
+    if adapters_on and stacked.adapter_state is None:
+        tree = as_tree(stacked.student)
+        stacked = stacked._replace(adapter_state=init_adapter_state(
+            adapter_layout(tree, fed.adapter_rank, node_axis=True), tree,
+            grams=fed.adapter_grams))
+    if ef_on and stacked.wire_state is None:
+        stacked = stacked._replace(wire_state=init_codec_state(
+            {"protos": torch.zeros((n_nodes, ncls, proto_dim),
+                                   dtype=torch.float32, device=device),
+             "student": stacked.student}, n_nodes=n_nodes))
+    return stacked
+
+
 def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                    train: TrainConfig, node_data: List[Dict[str, np.ndarray]],
                    test_data: Dict[str, np.ndarray],
@@ -624,7 +763,12 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                    initial_states=None, start_round: int = 0,
                    device=None) -> FederationResult:
     """Run one algorithm (``fed.algorithm``: ProFe or a paper baseline)
-    end to end on the stacked engine.
+    end to end on the stacked engine.  Nodes may hold unequal numbers of
+    batches (``partition(..., "noniid40")``, ``"dirichlet"``): each round
+    runs as many steps as the largest node has, the others masked out of
+    their padded steps.  Where a node holds fewer samples than one batch
+    the run falls back to :func:`run_federation_loop`, as ``repro``'s
+    does (``overlap`` and ``stale_self_floor`` are ignored there).
 
     Runs on ``cuda`` unless ``device`` names another device (the tests
     pass ``"cpu"``); with no card and no explicit device it raises.
@@ -677,46 +821,24 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
         raise ValueError("overlap='rounds' cannot resume: the payload "
                          "shared a round before is in no state")
     algo = fed.algorithm
-    student_cfg = derive_student(teacher_cfg)
     n_nodes = fed.num_nodes
-    if len(node_data) != n_nodes:
-        raise ValueError(f"{len(node_data)} node datasets for "
-                         f"{n_nodes} nodes")
-    sched = T.make_schedule(n_nodes, fed.topology, rounds=fed.rounds,
-                            seed=fed.seed)
-    ncls = _n_proto_classes(teacher_cfg)
-    sizes = [len(next(iter(d.values()))) for d in node_data]
-
-    opt_t = make_optimizer(train.optimizer, train.learning_rate,
-                           weight_decay=train.weight_decay,
-                           momentum=train.momentum)
-    use_plane = _plane_mode(fed, train, algo, student_cfg)
-    # on the flat parameter plane the student optimizer is the fused clip
-    # + update sweep over the [N, R, 512] buffer; off it, the per-leaf
-    # optimizer the teacher uses (it holds no state of its own)
-    opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
-                                 weight_decay=train.weight_decay,
-                                 momentum=train.momentum,
-                                 grad_clip=train.grad_clip) \
-        if use_plane else opt_t
-    step, wire_model, share_protos, bits, model_cfgs = _algo_wiring(
-        algo, teacher_cfg, student_cfg, fed, train, opt_s, opt_t)
-    # what repro's engine runs: the adapter wire only for a model and
-    # prototypes on the quantized wire, +ef only on a quantized wire
-    adapters_on = bool(fed.adapter_rank) and wire_model is not None \
-        and share_protos and bits is not None
-    ef_on = bits is not None and bits.error_feedback
-    ema = bool(fed.proto_ema and fed.proto_ema > 0)
-    if not use_plane and (adapters_on or ef_on):
-        raise _unported("the adapter-rank wire or error feedback on a "
-                        "per-leaf student", "Queue 1 item 11")
+    w = _wiring(teacher_cfg, fed, train, node_data)
+    sched, ncls, sizes, step = w.sched, w.ncls, w.sizes, w.step
+    opt_s, opt_t, use_plane = w.opt_s, w.opt_t, w.use_plane
+    wire_model, share_protos, bits = w.wire_model, w.share_protos, w.bits
+    model_cfgs, adapters_on, ef_on, ema = (w.model_cfgs, w.adapters_on,
+                                           w.ef_on, w.ema)
 
     probe = _stack_round_batches(
         node_data, train.batch_size,
         [fed.seed + 0 * 997 + i for i in range(n_nodes)], fed.local_epochs)
     if probe is None:
-        raise _unported("ragged node datasets", "Queue 1 item 6 (loop "
-                        "engine)")
+        # ragged node datasets (some node smaller than one batch): the
+        # per-node reference engine, always sequential, as repro does
+        return run_federation_loop(
+            teacher_cfg, fed, train, node_data, test_data, verbose=verbose,
+            eval_all_nodes=eval_all_nodes, initial_states=initial_states,
+            start_round=start_round, device=device)
 
     meter = ScheduleCommAccountant(sched)
     if initial_states is None:
@@ -731,45 +853,12 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
         raise ValueError(f"{given} initial states for {n_nodes} nodes")
     if stacked is None:
         stacked = stack_states(initial_states)
-    if isinstance(stacked.student, Plane) != use_plane:
-        raise ValueError(f"param_plane resolved to {use_plane}, but the "
-                         f"initial states' student is "
-                         f"{'not ' if use_plane else ''}a Plane")
-    on = _first_leaf(stacked.student).device
-    if on.type != device.type:
-        raise ValueError(f"initial states live on {on}, not {device}")
     # the model evaluated (and the Eq. 3 pass's) is the one that travels
     eval_cfg = proto_cfg = model_cfgs[1] if algo in ("profe", "fml") \
         else model_cfgs[0]
-    if stacked.wire_state is not None and not ef_on:
-        wire = "the fp32 wire" if bits is None else f"the wire {bits.arg()!r}"
-        raise ValueError(f"initial states carry a wire_state but {wire} "
-                         f"has no error feedback")
-    if stacked.adapter_state is not None and not adapters_on:
-        raise ValueError("initial states carry an adapter_state but the "
-                         "run has no adapter_rank")
-    if stacked.proto_acc is not None and not ema:
-        raise ValueError("initial states carry a proto_acc but the run "
-                         "has no proto_ema")
-    if ema and stacked.proto_acc is None:
-        # the prototype EMA carry, zero before the first round
-        stacked = stacked._replace(proto_acc=tuple(
-            torch.stack([x] * n_nodes)
-            for x in zero_proto_acc(ncls, proto_cfg.proto_dim, device)))
-    if adapters_on and stacked.adapter_state is None:
-        # the per-node reference snapshot (and gram carry) of the
-        # adapter wire, carried in the stacked state from here on
-        tree = as_tree(stacked.student)
-        stacked = stacked._replace(adapter_state=init_adapter_state(
-            adapter_layout(tree, fed.adapter_rank, node_axis=True), tree,
-            grams=fed.adapter_grams))
-    if ef_on and stacked.wire_state is None:
-        # error-feedback codec: a zero residual per node, shaped like the
-        # wire payload, carried in the stacked state from here on
-        stacked = stacked._replace(wire_state=init_codec_state(
-            {"protos": torch.zeros((n_nodes, ncls, proto_cfg.proto_dim),
-                                   dtype=torch.float32, device=device),
-             "student": stacked.student}, n_nodes=n_nodes))
+    stacked = _with_carries(stacked, fed, bits, device, ncls,
+                            proto_cfg.proto_dim, use_plane=use_plane,
+                            adapters_on=adapters_on, ef_on=ef_on, ema=ema)
 
     def dev(x):
         return torch.as_tensor(x, device=device)
@@ -790,22 +879,10 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
                                 adapter_grams=fed.adapter_grams)
     test_dev = {k: dev(v) for k, v in test_data.items()}
 
-    result = FederationResult(comm=meter, algorithm=algo)
-    result.extras["proto_pass"] = fed.proto_pass
-    result.extras["param_plane"] = use_plane
-    if adapters_on:
-        result.extras["adapter_rank"] = fed.adapter_rank
-        result.extras["adapter_grams"] = fed.adapter_grams
-    if fed.proto_ema:
-        result.extras["proto_ema"] = fed.proto_ema
+    result = _new_result(meter, algo, fed, use_plane, adapters_on, payload,
+                         bits, sched)
     if stale_self_floor is not None:
         result.extras["stale_self_floor"] = stale_self_floor
-    result.extras["wire_bytes_per_copy"] = tree_wire_bytes(payload, bits)
-    result.extras["wire_bytes_packed_per_copy"] = \
-        packed_copy_bytes(payload, bits)
-    result.extras["avg_sent_packed_gb"] = _packed_sent_gb(
-        sched, fed.rounds, result.extras["wire_bytes_packed_per_copy"],
-        n_nodes)
     round_times: List[float] = []
     result.extras["round_times_s"] = round_times
     t0 = time.time()
@@ -898,3 +975,333 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
     result.extras["avg_sent_gb"] = meter.avg_sent_gb()
     result.extras["avg_received_gb"] = meter.avg_received_gb()
     return result
+
+
+# ---------------------------------------------------------------------------
+# the per-node reference engine
+# ---------------------------------------------------------------------------
+
+def _split_nodes(stacked: NodeState) -> List[NodeState]:
+    """A stacked state as one one-node stack (``[1, ...]`` leaves) a
+    node: copies, parameters autograd leaves again."""
+    leaves = [x for _, x in keyed_leaves(stacked)]
+    return [rebuild(stacked, iter(
+        x[i:i + 1].detach().clone().requires_grad_(x.requires_grad)
+        for x in leaves)) for i in range(stacked.round_idx.shape[0])]
+
+
+def _join_nodes(states: List[NodeState]) -> NodeState:
+    """One-node stacks joined into one stacked state (copies)."""
+    per_node = [[x for _, x in keyed_leaves(st)] for st in states]
+    return rebuild(states[0], iter(
+        torch.cat([x.detach() for x in xs]).requires_grad_(
+            xs[0].requires_grad) for xs in zip(*per_node)))
+
+
+def _copy_into(model, new) -> None:
+    """Write the mixed ``new`` (a Plane or a tree) into ``model``'s own
+    tensors, which stay the autograd leaves the next step trains."""
+    if isinstance(model, Plane):
+        model.buf.copy_(new.buf)
+        return
+    for own, x in zip(tree_leaves(model), tree_leaves(new)):
+        own.copy_(x)
+
+
+def run_federation_loop(teacher_cfg: ModelConfig, fed: FederationConfig,
+                        train: TrainConfig,
+                        node_data: List[Dict[str, np.ndarray]],
+                        test_data: Dict[str, np.ndarray],
+                        *, verbose: bool = False,
+                        eval_all_nodes: bool = False, initial_states=None,
+                        start_round: int = 0,
+                        device=None) -> FederationResult:
+    """The per-node round engine, ``repro``'s ``run_federation_loop``:
+    the reference semantics of a round, node by node, and the engine
+    ``run_federation`` falls back to where node datasets are too ragged
+    to stack (a node smaller than one batch).
+
+    Each node's state is a one-node stack (``[1, ...]`` leaves, ``[1]``
+    step counters), so the stacked step makers and plane sweeps serve it
+    unchanged.  A round: every node trains on its own minibatches
+    (``data.batches``, seed ``fed.seed + rnd·997 + i``), with Eq. 3 fused
+    into the steps (``proto_pass="fused"``) or after them over its own
+    stream (seed ``fed.seed + rnd``, ``compute_local_prototypes``); the
+    adapter wire factorizes each node's round delta; each node's payload
+    is metered per edge (``CommMeter.record_broadcast``) and
+    round-tripped on its own: the plane through
+    ``quantize_dequantize_plane_rows`` (``+ef``:
+    ``wire_state.ef_quantize_dequantize_plane``), a per-leaf student,
+    the prototypes and the adapter groups through the per-tensor codec;
+    prototypes aggregate per neighbourhood (Eq. 4), models mix by
+    dataset size (``weighted_plane_mean`` / ``weighted_tree_mean``, a
+    node's own copy unquantized), and on the adapter wire every receiver
+    merges its neighbours' low-rank deltas in place, one
+    ``lowrank_apply`` a matrix leaf a receiver.
+
+    Runs on ``cuda`` unless ``device`` names another device.
+    ``initial_states`` (per-node states, or one stacked state) replaces
+    the seeded initialization, ``start_round`` resumes at that round,
+    and ``result.state`` is the stacked state after the last round, as
+    in ``run_federation``."""
+    device = resolve_device(device)
+    _check_slice(fed, overlap=None, stale_self_floor=None)
+    if not 0 <= start_round < fed.rounds:
+        raise ValueError(f"start_round {start_round} is outside the run's "
+                         f"{fed.rounds} rounds")
+    algo = fed.algorithm
+    n_nodes = fed.num_nodes
+    fused = fed.proto_pass == "fused"
+    w = _wiring(teacher_cfg, fed, train, node_data)
+    sched, ncls, sizes, step = w.sched, w.ncls, w.sizes, w.step
+    opt_s, opt_t, use_plane = w.opt_s, w.opt_t, w.use_plane
+    wire_model, share_protos, bits = w.wire_model, w.share_protos, w.bits
+    model_cfgs, adapters_on, ef_on, ema = (w.model_cfgs, w.adapters_on,
+                                           w.ef_on, w.ema)
+    ef_on = ef_on and wire_model is not None and share_protos
+    meter = CommMeter(n_nodes)
+    if initial_states is None:
+        initial_states = _init_states(algo, model_cfgs, fed, opt_s, opt_t,
+                                      ncls, device, plane=use_plane)
+    if isinstance(initial_states, NodeState):
+        states = _split_nodes(initial_states)
+    else:
+        states = [stack_states([s]) for s in initial_states]
+    if len(states) != n_nodes:
+        raise ValueError(f"{len(states)} initial states for {n_nodes} nodes")
+    eval_cfg = proto_cfg = model_cfgs[1] if algo in ("profe", "fml") \
+        else model_cfgs[0]
+    states = [_with_carries(st, fed, bits, device, ncls, proto_cfg.proto_dim,
+                            use_plane=use_plane, adapters_on=adapters_on,
+                            ef_on=ef_on, ema=ema) for st in states]
+    rank = fed.adapter_rank if adapters_on else 0
+    payload_t = _payload_template(wire_model, share_protos, states[0], ncls,
+                                  proto_cfg.proto_dim, adapter_rank=rank,
+                                  adapter_grams=fed.adapter_grams)
+    layout = adapter_layout(as_tree(states[0].student), rank,
+                            node_axis=True) if adapters_on else None
+    test_dev = {k: torch.as_tensor(v, device=device)
+                for k, v in test_data.items()}
+
+    result = _new_result(meter, algo, fed, use_plane, adapters_on,
+                         payload_t, bits, sched)
+    round_times: List[float] = []
+    result.extras["round_times_s"] = round_times
+    t0 = time.time()
+
+    def decayed(acc):
+        return torch.tensor(fed.proto_ema, dtype=torch.float32,
+                            device=acc.device) * acc
+
+    def unstack(tree):
+        return tree_map(lambda x: x[0], tree)
+
+    shared = None
+    for rnd in range(start_round, fed.rounds):
+        t_r = time.time()
+        adj = sched.adjacency_at(rnd)
+        t_on = teacher_active(fed.alpha_s, fed.alpha_limit, rnd) \
+            if algo == "profe" else algo == "fml"
+        # 1) local training (the fused pass streams each step's f1 into
+        #    the Eq. 3 accumulators)
+        protos, counts = [], []
+        for i in range(n_nodes):
+            st = states[i]
+            if fused and share_protos:
+                if ema:
+                    sums_i, counts_i = map(decayed, st.proto_acc)
+                else:
+                    sums_i, counts_i = (x[None] for x in zero_proto_acc(
+                        ncls, proto_cfg.proto_dim, device))
+            for batch in batches(node_data[i], train.batch_size,
+                                 seed=fed.seed + rnd * 997 + i,
+                                 epochs=fed.local_epochs, device=device):
+                st, m = step(st, {k: v[None] for k, v in batch.items()},
+                             t_on)
+                if fused and share_protos:
+                    s_add, c_add = proto_accumulate_nodes(
+                        m["f1"], proto_labels(proto_cfg, batch)[None], ncls)
+                    sums_i = sums_i + s_add
+                    counts_i = counts_i + c_add
+            st = st._replace(round_idx=torch.full(
+                (1,), rnd + 1, dtype=torch.int32, device=device))
+            if fused and share_protos:
+                if ema:
+                    st = st._replace(proto_acc=(sums_i, counts_i))
+                protos.append(normalize_protos(sums_i, counts_i))
+                counts.append(counts_i)
+            states[i] = st
+
+        # 2) Eq. 3 after training, over each node's own proto stream
+        if share_protos and not fused:
+            for i in range(n_nodes):
+                sums_i, ct = compute_local_prototypes(
+                    proto_cfg, node_params(states[i].student, 0),
+                    batches(node_data[i], train.batch_size,
+                            seed=fed.seed + rnd, device=device), ncls,
+                    raw=True)
+                sums_i, ct = sums_i[None], ct[None]
+                if ema:
+                    sums_i = sums_i + decayed(states[i].proto_acc[0])
+                    ct = ct + decayed(states[i].proto_acc[1])
+                    states[i] = states[i]._replace(proto_acc=(sums_i, ct))
+                protos.append(normalize_protos(sums_i, ct))
+                counts.append(ct)
+
+        with torch.no_grad():
+            # 3) share: the adapter wire's factors (the reference
+            #    advances to the just-shared student), then every node's
+            #    payload metered per edge and round-tripped on its own
+            adapter_pay = []
+            if adapters_on:
+                for i in range(n_nodes):
+                    groups, new_ad, _ = R.adapter_share_nodes(
+                        states[i].student, states[i].adapter_state,
+                        rank=rank, grams=fed.adapter_grams)
+                    states[i] = states[i]._replace(adapter_state=new_ad)
+                    adapter_pay.append(groups)
+                shared = {n: {k: torch.cat([g["adapters"][n][k]
+                                            for g in adapter_pay])
+                              for k in ("A", "B")}
+                          for n in layout.mat_names}
+            ef_recv = []
+            if ef_on:
+                for i in range(n_nodes):
+                    recv_i, new_ws = ef_quantize_dequantize_plane(
+                        {"protos": protos[i], "student": states[i].student},
+                        bits, states[i].wire_state)
+                    states[i] = states[i]._replace(wire_state=new_ws)
+                    ef_recv.append(recv_i)
+            recv_models = [[] for _ in range(n_nodes)]
+            recv_sizes = [[] for _ in range(n_nodes)]
+            recv_pay = []
+            for i in range(n_nodes):
+                neigh = T.neighbors(adj, i)
+                payload = {}
+                if adapters_on:
+                    payload["adapters"] = unstack(adapter_pay[i]["adapters"])
+                    payload["model"] = unstack(adapter_pay[i]["student"])
+                    if fed.adapter_grams:
+                        payload["grams"] = unstack(adapter_pay[i]["grams"])
+                elif wire_model is not None:
+                    payload["model"] = node_params(states[i].student, 0)
+                if share_protos:
+                    payload["protos"] = protos[i][0]
+                    payload["counts"] = counts[i][0]
+                meter.record_broadcast(i, neigh, payload, kind=algo,
+                                       round_idx=rnd, bits=bits)
+                if adapters_on:
+                    recv_pay.append({
+                        k: quantize_dequantize_tree(v, bits.bits_for(k))
+                        for k, v in adapter_pay[i].items()})
+                elif wire_model is not None:
+                    if ef_on:
+                        model_rx = ef_recv[i]["student"]
+                    elif bits is None:
+                        model_rx = states[i].student
+                    elif use_plane:
+                        model_rx = quantize_dequantize_plane_rows(
+                            states[i].student, bits.bits_for("student"))
+                    else:
+                        model_rx = quantize_dequantize_tree(
+                            states[i].student, bits.bits_for("student"))
+                    for j in neigh:
+                        recv_models[j].append(model_rx)
+                        recv_sizes[j].append(sizes[i])
+
+            # 4) Eq. 4 per neighbourhood, then the mix
+            if share_protos:
+                protos_rx = [r["protos"] for r in ef_recv] if ef_on else [
+                    quantize_dequantize_tree(p, bits.bits_for("protos"))
+                    if bits is not None else p for p in protos]
+                all_p = torch.cat(protos_rx)
+                all_c = torch.cat(counts)
+                for i in range(n_nodes):
+                    idx = torch.as_tensor(T.neighbors(adj, i) + [i],
+                                          device=device)
+                    gp, mask = aggregate_prototypes(all_p[idx], all_c[idx])
+                    states[i] = states[i]._replace(global_protos=gp[None],
+                                                   proto_mask=mask[None])
+            if adapters_on:
+                _adapter_merge_loop(states, recv_pay, layout, adj, sizes,
+                                    grams=fed.adapter_grams, device=device)
+            elif wire_model is not None:
+                # every node's mix is computed before any is written
+                # back: on the fp32 wire the received models ARE the
+                # senders' students
+                mixed = [None if not recv_models[i] else
+                         (weighted_plane_mean if use_plane
+                          else weighted_tree_mean)(
+                             [states[i].student] + recv_models[i],
+                             [sizes[i]] + recv_sizes[i])
+                         for i in range(n_nodes)]
+                for st, new in zip(states, mixed):
+                    if new is not None:
+                        _copy_into(st.student, new)
+
+        # 5) evaluation
+        f1, acc = _eval_nodes(eval_cfg,
+                              lambda i: node_params(states[i].student, 0),
+                              n_nodes, test_dev, eval_all_nodes,
+                              result.extras)
+        result.f1_per_round.append(f1)
+        result.acc_per_round.append(acc)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        round_times.append(time.time() - t_r)
+        if verbose:
+            print(f"[{algo}/loop] round {rnd + 1}/{fed.rounds} "
+                  f"f1={f1:.4f} acc={acc:.4f} "
+                  f"sent={meter.avg_sent_gb():.4f}GB")
+
+    result.elapsed_s = time.time() - t0
+    result.state = _join_nodes(states)
+    if ef_on:
+        result.extras["wire_state"] = result.state.wire_state
+    if shared is not None:
+        result.extras["adapter_factors"] = shared
+    result.extras["avg_sent_gb"] = meter.avg_sent_gb()
+    result.extras["avg_received_gb"] = meter.avg_received_gb()
+    return result
+
+
+def _adapter_merge_loop(states: List[NodeState], recv_pay, layout, adj,
+                        sizes, *, grams: bool, device) -> None:
+    """The loop engine's adapter merge, ``repro``'s: every receiver with
+    neighbours adds its neighbours' dequantized low-rank deltas onto its
+    own current student IN PLACE (no self term: its own training delta
+    is already in W), ``W_i += Σ_j c_ij·B_j @ Ã_j`` with ``c_ij =
+    size_j / (size_i + Σ_neigh size)`` over all senders' factor banks
+    (zero coefficient off the neighbourhood), RegMean-adjusted per
+    receiver with grams: one ``lowrank_apply`` a matrix leaf a receiver.
+    The dense rest takes the size-weighted mean, own copy unquantized."""
+    from repro_torch.core.aggregation import regmean_adjust
+    n_nodes = len(states)
+    bank = {n: {k: torch.cat([p["adapters"][n][k] for p in recv_pay])
+                for k in ("A", "B")} for n in layout.mat_names}
+    g_bank = {n: torch.cat([p["grams"][n] for p in recv_pay])
+              for n in layout.mat_names} if grams else None
+    coeffs_np = np.zeros((n_nodes, n_nodes), np.float32)
+    for i in range(n_nodes):
+        neigh = T.neighbors(adj, i)
+        tot = sizes[i] + sum(sizes[j] for j in neigh)
+        for j in neigh:
+            coeffs_np[i, j] = sizes[j] / tot
+    coeffs = torch.as_tensor(coeffs_np, device=device)
+    for i in range(n_nodes):
+        neigh = T.neighbors(adj, i)
+        if not neigh:
+            continue
+        _, rest_i = split_student(layout, as_tree(states[i].student))
+        rest_mix = weighted_tree_mean(
+            [rest_i] + [recv_pay[j]["student"] for j in neigh],
+            [sizes[i]] + [sizes[j] for j in neigh])
+        factors = {}
+        for n in layout.mat_names:
+            a_use = bank[n]["A"]
+            if grams:
+                a_use = regmean_adjust(a_use, g_bank[n], coeffs[i][None],
+                                       per_recv=False)[0]
+            factors[n] = {"A": a_use, "B": bank[n]["B"]}
+        adapter_apply_plane(states[i].student, layout, coeffs[i:i + 1],
+                            factors, rest_mix)

@@ -141,30 +141,34 @@ def node_batches(batch, n: int) -> List[Dict[str, torch.Tensor]]:
 
 
 def stacked_update(params, loss, opt: Optimizer, opt_state,
-                   grad_clip: float) -> torch.Tensor:
+                   grad_clip: float, active=None) -> torch.Tensor:
     """One backward of ``loss`` (the sum of the nodes' losses) to the
     stacked per-leaf ``params``, each node's global-norm clip at
     ``grad_clip`` and the per-leaf ``opt.update`` over the node axis, in
-    place.  Returns the nodes' pre-clip gradient norms ``[N]``."""
+    place; ``active`` (``[N]`` bool) masks nodes out of the update.
+    Returns the nodes' pre-clip gradient norms ``[N]``."""
     paths, leaves = zip(*tree_paths(params))
     grads = torch.autograd.grad(loss, leaves)
     clipped, gn = clip_by_global_norm(tree_from_paths(zip(paths, grads)),
                                       grad_clip, lead=1)
-    opt.update(clipped, opt_state, params, lead=1)
+    opt.update(clipped, opt_state, params, lead=1, active=active)
     return gn
 
 
 def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                     fed: FederationConfig, opt_s: Optimizer,
                     opt_t: Optimizer, *, grad_clip: float = 1.0):
-    """Returns ``step(state, batch, teacher_on) -> (state, metrics)``
-    over stacked node state; ``batch`` leaves are ``[N, B, ...]``.
-    Parameters and optimizer moments update in place.  On the plane
-    ``opt_s`` is a plane optimizer, whose fused sweep clips at
+    """Returns ``step(state, batch, teacher_on, active=None) -> (state,
+    metrics)`` over stacked node state; ``batch`` leaves are ``[N, B,
+    ...]``.  Parameters and optimizer moments update in place.  On the
+    plane ``opt_s`` is a plane optimizer, whose fused sweep clips at
     ``grad_clip`` itself; a per-leaf student is clipped per node and
-    updated by the per-leaf ``opt_s``."""
+    updated by the per-leaf ``opt_s``.  ``active`` (``[N]`` bool) masks
+    nodes out of both optimizers' updates: a node with fewer local
+    batches leaves a padded step with its parameters, moments and step
+    counters unchanged."""
 
-    def step(state: NodeState, batch, teacher_on: bool):
+    def step(state: NodeState, batch, teacher_on: bool, active=None):
         n = state.round_idx.shape[0]
         alpha = D.alpha_at_round(fed.alpha_s, fed.alpha_limit,
                                  state.round_idx)                  # [N]
@@ -183,7 +187,7 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                 losses.append(l)
             lt = torch.stack(losses)
             stacked_update(state.teacher, lt.sum(), opt_t, state.opt_t,
-                           grad_clip)
+                           grad_clip, active)
             metrics["loss_t"] = lt.detach()
             teacher_out = [ModelOutput(o.logits.detach(), o.f1.detach(),
                                        o.aux) for o in outs]
@@ -201,11 +205,11 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
         if isinstance(state.student, Plane):
             (gbuf,) = torch.autograd.grad(ls.sum(), [state.student.buf])
             opt_s.update(Plane(gbuf, state.student.meta), state.opt_s,
-                         state.student)
+                         state.student, active=active)
             gnorm = state.opt_s["gnorm"]
         else:
             gnorm = stacked_update(state.student, ls.sum(), opt_s,
-                                   state.opt_s, grad_clip)
+                                   state.opt_s, grad_clip, active)
         # the f1 the loss used (before this step's update) rides out for
         # the fused Eq. 3 pass (proto_pass="fused")
         metrics.update(loss_s=ls.detach(), grad_norm_s=gnorm, alpha=alpha,
@@ -265,7 +269,8 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
     With ``plane=False`` the student stays a per-leaf tree and ``opt_s``
     is its per-leaf optimizer state.  ``teacher`` and ``opt_t`` are empty
     dicts where the algorithm has no teacher.  Each array keeps its
-    dtype (the step counters int32).  ``global_protos`` ``[C, P]``,
+    dtype (the step counters 0-d int32: one node's slice of JAX's
+    per-node counters).  ``global_protos`` ``[C, P]``,
     ``proto_mask`` ``[C]`` and ``round_idx`` as the JAX ``NodeState``
     holds them.  ``residual`` (``{"protos": [C, P], "student": [R,
     512]}``, the student residual in the plane's layout; plane students
@@ -316,8 +321,9 @@ def stack_states(states: List[NodeState]) -> NodeState:
     """Per-node states -> one stacked state.  Parameters (a Plane's
     buffer, or a per-leaf student's leaves) become autograd leaves; every
     other tensor of the optimizer states stacks on a new node axis,
-    whatever the optimizer keeps.  All nodes step together, so their step
-    counters must agree (one scalar ``step`` stays); an empty teacher and
+    whatever the optimizer keeps: the 0-d step counters become one
+    ``[N]`` counter a node, each keeping its node's value (nodes with
+    unequal batch counts step unequally); an empty teacher and
     ``opt_t`` (the baselines without one) stay empty.  An
     error-feedback ``wire_state`` stacks too (its ``seq`` becomes an
     ``[N]`` vector), and so do a ``proto_acc`` and an ``adapter_state``;
@@ -332,17 +338,9 @@ def stack_states(states: List[NodeState]) -> NodeState:
         if len({getattr(s, key) is None for s in states}) != 1:
             raise ValueError(f"some node states carry a {key} and some "
                              f"do not")
-    for key in ("opt_s", "opt_t"):
-        steps = {int(getattr(s, key)["step"]) for s in states
-                 if getattr(s, key)}
-        if len(steps) > 1:
-            raise ValueError(f"{key} step counters differ across nodes: "
-                             f"{sorted(steps)}")
-
     def opt(key):
         s0 = getattr(states[0], key)
-        return {k: s0[k].clone() if k == "step" else
-                tree_map(stack, *(getattr(s, key)[k] for s in states))
+        return {k: tree_map(stack, *(getattr(s, key)[k] for s in states))
                 for k in s0}
 
     s0 = states[0]

@@ -11,6 +11,7 @@
   a round's wire payload through the packed node codec (stateless, or
   with the error-feedback ``CodecState``), or with ``packed=False``
   through the per-leaf reference codec it is held to.
+* ``weighted_node_mean`` — the global size-weighted mean over nodes.
 * ``mix_node_trees`` — size-weighted gossip: a node's own copy mixes
   unquantized, its neighbours' from the dequantized view.
 * ``neighborhood_prototype_aggregate`` — Eq. 4 per node neighbourhood.
@@ -217,6 +218,14 @@ def mix_node_trees(w_self, w_neigh, own_tree, recv_tree):
     if isinstance(own_tree, Plane):
         return Plane(mix(own_tree.buf, recv_tree.buf), own_tree.meta)
     return tree_map(mix, own_tree, recv_tree)
+
+
+def weighted_node_mean(w, tree):
+    """Global size-weighted mean over the node axis: leaf ``[N, ...]`` ->
+    ``[...]`` (every node receives the same aggregate, the full graph's
+    special case)."""
+    w32 = w.float()
+    return tree_map(lambda x: torch.tensordot(w32, x.float(), dims=1), tree)
 
 
 def neighborhood_prototype_aggregate(include, protos, counts):

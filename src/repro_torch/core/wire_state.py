@@ -15,8 +15,10 @@ plane in the payload's row layout) and the sender's sequence counter
 ``seq``.  It rides in :class:`repro_torch.core.profe.NodeState`'s
 ``wire_state`` field.  The packed sweep that updates it lives in
 ``kernels/quantize/ops.py`` (``quantize_packed_buffer(residual=)``);
-this module holds the state and the per-leaf reference of the codec,
-``ef_quantize_dequantize_tree``, which the packed sweep is held to.
+this module holds the state, the per-leaf reference of the codec,
+``ef_quantize_dequantize_tree``, which the packed sweep is held to, and
+the per-node loop engine's codec on one node's plane,
+``ef_quantize_dequantize_plane``.
 """
 from __future__ import annotations
 
@@ -116,4 +118,53 @@ def ef_quantize_dequantize_tree(tree, spec: WireSpec, state: CodecState, *,
     recv = tree_map(lambda x: next(it_deq) if _is_float(x) else x, tree)
     residual = tree_map(lambda r: None if r is None else next(it_res),
                         state.residual)
+    return recv, CodecState(residual, next_seq(state.seq))
+
+
+def ef_quantize_dequantize_plane(payload, spec: WireSpec, state: CodecState
+                                 ) -> Tuple[Any, CodecState]:
+    """The error-feedback codec on one node's wire payload
+    ``{"protos": [C, P], "student": Plane}`` (the plane ``[R, 512]`` or a
+    one-node stack ``[1, R, 512]``), its residual a plane of the same
+    layout: ``repro``'s ``ef_quantize_dequantize_plane``, the per-node
+    loop engine's ``+ef`` wire.  Returns ``(recv, new state)``.
+
+    The prototypes take the plain per-tensor codec of the effective
+    payload ``eff = x + decay·res`` (one Δ, the new residual
+    ``eff - deq``).  The student's Δ per leaf segment comes from one
+    ``rowabs_sum`` sweep (``max|x + decay·res|`` a row) and a segment
+    max (``kernels/quantize/ops.plane_row_deltas``: Δ = 1 on the
+    alignment rows); one ``quantize_rows_ef`` sweep writes the codes and
+    the new residual, and the receiver's view is ``codes·Δ_row``.  Each
+    operation is rounded on its own (``repro`` jits its version, and
+    XLA:CPU fuses the residual's multiply-subtract)."""
+    from repro_torch.kernels.quantize.ops import (_qmax_t, plane_row_deltas,
+                                                  quantize_rows_ef,
+                                                  rowabs_sum)
+    plane, res_pl = payload["student"], state.residual["student"]
+    dev = plane.buf.device
+    decay = torch.tensor(spec.ef_decay, dtype=torch.float32, device=dev)
+    tiny = torch.finfo(torch.float32).tiny
+
+    qm_p = _qmax_t(spec.bits_for("protos"), dev)
+    eff_p = payload["protos"].to(torch.float32) + \
+        decay * state.residual["protos"]
+    d_p = torch.clamp_min(torch.amax(torch.abs(eff_p)) / qm_p, tiny)
+    deq_p = torch.clamp(torch.floor(eff_p / d_p + 0.5), -qm_p - 1,
+                        qm_p) * d_p
+
+    sb = spec.bits_for("student")
+    cols = plane.buf.shape[-1]
+    x2d = plane.buf.reshape(-1, cols)
+    r2d = res_pl.buf.reshape(-1, cols)
+    rd = plane_row_deltas(rowabs_sum(x2d, r2d, spec.ef_decay), plane.meta,
+                          sb)
+    qm = _qmax_t(sb, dev).expand(rd.shape).contiguous()
+    codes, new_res = quantize_rows_ef(x2d, r2d, rd, qm, spec.ef_decay)
+    deq = codes.to(torch.float32) * rd
+    shape = plane.buf.shape
+    recv = {"protos": deq_p,
+            "student": Plane(deq.reshape(shape), plane.meta)}
+    residual = {"protos": eff_p - deq_p,
+                "student": Plane(new_res.reshape(shape), res_pl.meta)}
     return recv, CodecState(residual, next_seq(state.seq))

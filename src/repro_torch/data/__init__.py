@@ -1,4 +1,4 @@
-from repro_torch.data.loader import batch_index_lists, num_batches
+from repro_torch.data.loader import batch_index_lists, batches, num_batches
 from repro_torch.data.partition import (
     dirichlet_partition,
     iid_partition,
@@ -12,7 +12,7 @@ from repro_torch.data.synthetic import (
 )
 
 __all__ = [
-    "batch_index_lists", "num_batches", "dirichlet_partition",
+    "batch_index_lists", "batches", "num_batches", "dirichlet_partition",
     "iid_partition",
     "partition", "pathological_partition", "make_image_dataset",
     "make_token_dataset", "train_test_split",

@@ -38,13 +38,14 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
 # C signatures (argument types) of the entry points; all return int
 SIGNATURES = {
-    # g, p, mu, nu, lr, scale, bc1, bc2, n, node_elems,
+    # g, p, mu, nu, lr, scale, bc1, bc2, active, n, node_elems,
     # b1, 1-b1, b2, 1-b2, eps, wd, stream
-    "adamw_update": (_P,) * 8 + (_I64, _I64) + (_F32,) * 6 + (_P,),
-    # g, p, mu, lr, scale, n, node_elems, momentum, wd, stream
-    "sgd_update": (_P,) * 5 + (_I64, _I64, _F32, _F32, _P),
-    # upd, p, lr, n, wd, vec, head, body, grid, stream
-    "adafactor_apply": (_P,) * 3 + (_I64, _F32, _I32, _I32, _I64, _I32, _P),
+    "adamw_update": (_P,) * 9 + (_I64, _I64) + (_F32,) * 6 + (_P,),
+    # g, p, mu, lr, scale, active, n, node_elems, momentum, wd, stream
+    "sgd_update": (_P,) * 6 + (_I64, _I64, _F32, _F32, _P),
+    # upd, p, lr, active, node_elems, n, wd, vec, head, body, grid, stream
+    "adafactor_apply": (_P,) * 4 + (_I64, _I64, _F32, _I32, _I32, _I64, _I32,
+                                    _P),
     # f1, labels, sums, counts, n_nodes, batch, p_dim, n_classes, stream
     "proto_accum": (_P,) * 4 + (_I32,) * 4 + (_P,),
     # x, out, rows, cols, vec, block_x, block_y, grid_x, grid_y, stream

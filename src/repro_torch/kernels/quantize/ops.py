@@ -532,6 +532,50 @@ def quantize_dequantize_plane_payload(payload, bits: int = 16, *,
     return recv, {"protos": rp, "student": Plane(rbuf, res_plane.meta)}
 
 
+def plane_row_deltas(row_amax, plane_meta, bits: int):
+    """One node's per-row Δ ``[R, 1]`` of a plane from its per-row
+    absmax ``[R, 1]``: one Δ = ``max(segment max / qmax, tiny)`` per leaf
+    segment of the recipe (a scatter-max of the row maxima, which starts
+    from 0 as the absmax does), and Δ = 1 on the trailing alignment rows
+    (zeros round-trip to zeros there)."""
+    rows = plane_meta.rows
+    n_leaf = len(plane_meta.recipe)
+    seg = np.full((rows,), n_leaf, np.int64)     # alignment rows last
+    for k, (_, _path, _shape, row, r_leaf) in enumerate(plane_meta.recipe):
+        seg[row:row + r_leaf] = k
+    dev = row_amax.device
+    ids = torch.as_tensor(seg, device=dev)
+    seg_amax = torch.zeros((n_leaf + 1,), dtype=torch.float32,
+                           device=dev).scatter_reduce(
+        0, ids, row_amax.reshape(-1), reduce="amax", include_self=True)
+    deltas = torch.clamp_min(seg_amax / _qmax_t(bits, dev), _TINY)
+    deltas = torch.cat([deltas[:n_leaf],
+                        torch.ones((1,), dtype=torch.float32, device=dev)])
+    return deltas[ids][:, None]
+
+
+def quantize_dequantize_plane_rows(plane, bits: int = 16):
+    """The per-leaf round trip of one node's plane straight on its
+    buffer (``[R, C]``, or a one-node stack ``[1, R, C]``): one Δ per
+    leaf segment (:func:`plane_row_deltas` of one ``rowabs`` sweep;
+    padding lanes are zero and cannot raise it), then one row-scaled
+    round trip over the whole buffer (``quantize_dequantize_rows``).
+    ``repro``'s ``quantize_dequantize_plane_rows`` (the per-node loop
+    engine's wire) bit for bit: the same absmax, qmax, tiny guard,
+    rounding and clip per element as the per-leaf codec on the leaf
+    views.  The trailing alignment rows ride Δ = 1, so the plane's
+    padding invariant survives."""
+    from repro_torch.optim.plane import Plane
+    buf = plane.buf
+    x2d = buf.reshape(-1, buf.shape[-1])
+    if x2d.shape[0] != plane.meta.rows:
+        raise ValueError(f"quantize_dequantize_plane_rows takes one node's "
+                         f"plane, got a buffer {tuple(buf.shape)}")
+    rd = plane_row_deltas(rowabs(x2d), plane.meta, bits)
+    out = quantize_dequantize_rows(x2d, rd, bits=bits)
+    return Plane(out.reshape(buf.shape), plane.meta)
+
+
 # -- the serialized wire byte buffer -----------------------------------------
 # What the mesh exchange hands to its collectives: one node's codes as ONE
 # contiguous int8 buffer of exactly the spec's bytes.  int16 rows are

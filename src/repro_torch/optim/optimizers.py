@@ -3,13 +3,20 @@ tensors — the teacher's optimizer, in plain tensor ops: ``sgd`` (with
 momentum and decoupled weight decay), ``adamw`` and ``adafactor``.
 
 The expressions are ``repro.optim.optimizers``' term for term.
-``update(grads, state, params, lead=0)``: leaves may carry ``lead``
-leading node axes (the stacked engine's ``[N, ...]`` teacher), and every
-reduction is then per node, as ``jax.vmap`` makes it in ``repro`` (only
-adafactor reduces: its factored moments and its RMS clip).  ``init``
-takes unstacked parameters.  ``update`` writes the new parameters and
-moments into the given tensors in place (they are autograd leaves that
-the next step differentiates again) and returns them.
+``update(grads, state, params, lead=0, active=None)``: leaves may carry
+``lead`` leading node axes (the stacked engine's ``[N, ...]`` teacher),
+and every reduction is then per node, as ``jax.vmap`` makes it in
+``repro`` (only adafactor reduces: its factored moments and its RMS
+clip).  ``init`` takes unstacked parameters, with a 0-d ``step``; a
+stacked state (``lead=1``) keeps one counter a node, ``[N]`` int32, so
+each node's bias corrections (adafactor: its decay) follow its own
+steps.  ``active`` (``[N]`` bool, ``lead=1``) masks nodes out of the
+step: a masked node's parameters, moments and counter come back
+bit-unchanged (``torch.where``), as ``repro``'s ``_masked_select``
+keeps a padded step's node; None is every node.  ``update`` writes the
+new parameters and moments into the given tensors in place (they are
+autograd leaves that the next step differentiates again) and returns
+them.
 """
 from __future__ import annotations
 
@@ -17,9 +24,14 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.opt_update.ref import sqrt_rn
+from repro_torch.kernels.opt_update.ref import keep_masked, per_node, sqrt_rn
 from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
                               tree_paths)
+
+
+def advance(step: torch.Tensor, active) -> torch.Tensor:
+    """The step counter after one step: one more on every active node."""
+    return keep_masked(active, step + 1, step)
 
 
 class Optimizer(NamedTuple):
@@ -61,15 +73,16 @@ def sgd(lr: float, momentum: float = 0.9,
         }
 
     @torch.no_grad()
-    def update(grads, state, params, lead: int = 0):
+    def update(grads, state, params, lead: int = 0, active=None):
         lr_t = torch.full((), lr, dtype=torch.float32,
                           device=state["step"].device)
         for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
                            tree_leaves(state["mu"])):
             m_new = momentum * m + g.float()
-            p.copy_((p - lr_t * (m_new + weight_decay * p)).to(p.dtype))
-            m.copy_(m_new)
-        state["step"] = state["step"] + 1
+            newp = (p - lr_t * (m_new + weight_decay * p)).to(p.dtype)
+            p.copy_(keep_masked(active, newp, p))
+            m.copy_(keep_masked(active, m_new, m))
+        state["step"] = advance(state["step"], active)
         return params, state
 
     return Optimizer(init, update)
@@ -88,7 +101,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         }
 
     @torch.no_grad()
-    def update(grads, state, params, lead: int = 0):
+    def update(grads, state, params, lead: int = 0, active=None):
         step = state["step"] + 1
         lr_t = torch.full((), lr, dtype=torch.float32, device=step.device)
         bc1 = 1.0 - b1 ** step.float()
@@ -99,15 +112,15 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             g32 = g.float()
             m_new = b1 * m + (1 - b1) * g32
             v_new = b2 * v + (1 - b2) * torch.square(g32)
-            mh = m_new / bc1
-            vh = v_new / bc2
+            mh = m_new / per_node(bc1, m_new)
+            vh = v_new / per_node(bc2, v_new)
             p32 = p.float()
             newp = p32 - lr_t * (mh / (sqrt_rn(vh) + eps)
                                  + weight_decay * p32)
-            p.copy_(newp.to(p.dtype))
-            m.copy_(m_new)
-            v.copy_(v_new)
-        state["step"] = step
+            p.copy_(keep_masked(active, newp.to(p.dtype), p))
+            m.copy_(keep_masked(active, m_new, m))
+            v.copy_(keep_masked(active, v_new, v))
+        state["step"] = advance(state["step"], active)
         return params, state
 
     return Optimizer(init, update)
@@ -138,19 +151,23 @@ def adafactor_leaf_update(g32, v, beta, *, lead: int, eps: float,
     new_v)`` from its fp32 gradient ``g32`` (``lead`` node axes first):
     ``repro.optim.optimizers.adafactor``'s ``upd`` for every node at
     once.  The RMS and the row factor's mean reduce over the leaf's own
-    dims only, so nodes never mix.  Shared by the per-leaf optimizer and
-    the plane's per-segment sweep, which is then bit-identical to it."""
+    dims only, so nodes never mix.  ``beta`` is 0-d or one decay a node
+    (``[N]``, ``lead=1``).  Shared by the per-leaf optimizer and the
+    plane's per-segment sweep, which is then bit-identical to it."""
     shape = tuple(g32.shape[lead:])
     g2 = torch.square(g32) + eps
     one_m_beta = 1 - beta
+
+    def ema(old, new):
+        return per_node(beta, old) * old + per_node(one_m_beta, new) * new
     if factored(shape):
-        vr = beta * v["vr"] + one_m_beta * g2.mean(dim=-1)
-        vc = beta * v["vc"] + one_m_beta * g2.mean(dim=-2)
+        vr = ema(v["vr"], g2.mean(dim=-1))
+        vc = ema(v["vc"], g2.mean(dim=-2))
         rfac = (vr / vr.mean(dim=-1, keepdim=True))[..., None]
         upd = g32 * torch.rsqrt(rfac * vc[..., None, :] + eps)
         new_v = {"vr": vr, "vc": vc}
     else:
-        nv = beta * v["v"] + one_m_beta * g2
+        nv = ema(v["v"], g2)
         upd = g32 * torch.rsqrt(nv + eps)
         new_v = {"v": nv}
     own = tuple(range(lead, upd.dim()))
@@ -180,7 +197,7 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
         }
 
     @torch.no_grad()
-    def update(grads, state, params, lead: int = 0):
+    def update(grads, state, params, lead: int = 0, active=None):
         step = state["step"] + 1
         lr_t = torch.full((), lr, dtype=torch.float32, device=step.device)
         beta = adafactor_beta(step, decay)
@@ -195,10 +212,12 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
                 g.float(), v, beta, lead=lead, eps=eps,
                 clip_threshold=clip_threshold)
             p32 = p.float()
-            p.copy_((p32 - lr_t * (upd + weight_decay * p32)).to(p.dtype))
-            new_v.append((path, nv))
+            newp = (p32 - lr_t * (upd + weight_decay * p32)).to(p.dtype)
+            p.copy_(keep_masked(active, newp, p))
+            new_v.append((path, {k: keep_masked(active, x, v[k])
+                                 for k, x in nv.items()}))
         state["v"] = tree_from_paths(new_v)
-        state["step"] = step
+        state["step"] = advance(state["step"], active)
         return params, state
 
     return Optimizer(init, update)

@@ -28,13 +28,15 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.opt_update.ref import keep_masked
 from repro_torch.kernels.quantize.ops import _COLS
 from repro_torch.optim.optimizers import (Optimizer, adafactor_beta,
-                                          adafactor_moments)
+                                          adafactor_moments, advance)
 
 # the optimizers with a fused plane sweep (kernels/opt_update)
 PLANE_OPTIMIZERS = ("sgd", "adamw", "adafactor")
-from repro_torch.tree import tree_from_paths, tree_paths
+from repro_torch.tree import (register_buffer_node, tree_from_paths,
+                               tree_paths)
 
 
 class PlaneMeta(NamedTuple):
@@ -51,6 +53,9 @@ class Plane(NamedTuple):
     (``[N, R, 512]`` when node-stacked) plus its static recipe."""
     buf: torch.Tensor
     meta: PlaneMeta
+
+
+register_buffer_node(Plane, "buf")     # a state's leaf: the buffer
 
 
 def plane_from_tree(tree) -> Plane:
@@ -141,7 +146,7 @@ def make_plane_optimizer(name: str, lr: float, *,
     def init(params: Plane):
         buf = params.buf
         lead = tuple(buf.shape[:-2])
-        state = {"step": torch.zeros((), dtype=torch.int32,
+        state = {"step": torch.zeros(lead, dtype=torch.int32,
                                      device=buf.device),
                  "gnorm": torch.zeros(lead, dtype=torch.float32,
                                       device=buf.device)}
@@ -156,7 +161,7 @@ def make_plane_optimizer(name: str, lr: float, *,
         return state
 
     @torch.no_grad()
-    def update(grads: Plane, state, params: Plane):
+    def update(grads: Plane, state, params: Plane, active=None):
         gnorm = plane_global_norm(grads)
         if grad_clip and grad_clip > 0:
             scale = torch.clamp_max(
@@ -165,24 +170,28 @@ def make_plane_optimizer(name: str, lr: float, *,
         else:
             scale = torch.ones_like(gnorm)
         scale = scale.reshape(-1)
-        step = state["step"] + 1
+        # one step count a plane: a 0-d counter (one for every node)
+        # broadcasts to the planes
+        step = (state["step"] + 1).expand(scale.shape).contiguous()
         lr_t = torch.full((), lr, dtype=torch.float32, device=step.device)
         if name == "sgd":
             fused_sgd_update(grads.buf, params.buf, state["mu"], lr_t, scale,
-                             momentum=momentum, weight_decay=weight_decay)
+                             momentum=momentum, weight_decay=weight_decay,
+                             active=active)
         elif name == "adamw":
             bc1 = 1.0 - b1 ** step.float()
             bc2 = 1.0 - b2 ** step.float()
             fused_adamw_update(grads.buf, params.buf, state["mu"],
                                state["nu"], lr_t, scale, bc1, bc2, b1=b1,
-                               b2=b2, eps=eps, weight_decay=weight_decay)
+                               b2=b2, eps=eps, weight_decay=weight_decay,
+                               active=active)
         else:
             state["fac"] = fused_adafactor_update(
                 grads.buf, params.buf, state["fac"], lr_t, scale,
                 adafactor_beta(step), recipe=params.meta.recipe,
-                weight_decay=weight_decay)
-        state["step"] = step
-        state["gnorm"] = gnorm
+                weight_decay=weight_decay, active=active)
+        state["step"] = advance(state["step"], active)
+        state["gnorm"] = keep_masked(active, gnorm, state["gnorm"])
         return params, state
 
     return Optimizer(init, update)

@@ -11,7 +11,8 @@ and types and never touch data.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -92,6 +93,68 @@ def tree_from_paths(items):
             parent, key = node, k
         parent[key] = leaf
     return root[0]
+
+
+# -- states: NamedTuples of trees, walked leaf by leaf with keys ---------------
+# A state (a NodeState, a CodecState) nests NamedTuples around parameter
+# trees.  Its leaves carry ``repro``'s checkpoint keys: each path's parts
+# ``/``-joined, a dict key as itself, a sequence item as ``#i``, a
+# NamedTuple field as ``.name``; a ``None`` holds nothing.  A NamedTuple
+# registered with :func:`register_buffer_node` (the parameter plane) is
+# one leaf, its buffer field, keyed by that field's name; the rest of it
+# is static and comes back from the tree rebuilt into.
+
+KEY_SEP = "/"
+_BUFFER_NODES: Dict[type, str] = {}
+
+
+def register_buffer_node(cls: type, field: str) -> None:
+    """Walk instances of the NamedTuple ``cls`` as one leaf: ``field``."""
+    _BUFFER_NODES[cls] = field
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
+def keyed_leaves(tree, prefix: Tuple[str, ...] = ()
+                 ) -> List[Tuple[str, Any]]:
+    """A state's ``[(key, leaf)]`` in flatten order (dict keys sorted)."""
+    if tree is None:
+        return []
+    field = _BUFFER_NODES.get(type(tree))
+    if field is not None:
+        return [(KEY_SEP.join(prefix + (field,)), getattr(tree, field))]
+    if _is_namedtuple(tree):
+        kids = ((f".{name}", getattr(tree, name)) for name in tree._fields)
+    elif isinstance(tree, dict):
+        kids = ((str(k), tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        kids = ((f"#{i}", x) for i, x in enumerate(tree))
+    else:
+        return [(KEY_SEP.join(prefix), tree)]
+    out: List[Tuple[str, Any]] = []
+    for part, sub in kids:
+        out.extend(keyed_leaves(sub, prefix + (part,)))
+    return out
+
+
+def rebuild(like, leaves: Iterator):
+    """``like`` with every leaf of :func:`keyed_leaves` replaced by
+    ``next(leaves)``, in that order."""
+    if like is None:
+        return None
+    field = _BUFFER_NODES.get(type(like))
+    if field is not None:
+        return like._replace(**{field: next(leaves)})
+    if _is_namedtuple(like):
+        return type(like)(*(rebuild(getattr(like, f), leaves)
+                            for f in like._fields))
+    if isinstance(like, dict):
+        return {k: rebuild(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(rebuild(x, leaves) for x in like)
+    return next(leaves)
 
 
 def is_float(x) -> bool:

@@ -476,7 +476,8 @@ def test_profe_per_leaf_run_equals_the_plane_run(monkeypatch):
 def test_stack_states_and_carry_per_leaf_and_empty_teacher(algo):
     """``node_state_from_numpy(plane=False)`` and ``stack_states`` equal
     ``repro``'s stacked state bit for bit: a per-leaf student and opt_s,
-    an empty teacher and opt_t (fedavg) or a per-leaf teacher (fml)."""
+    an empty teacher and opt_t (fedavg) or a per-leaf teacher (fml),
+    the step counters stacked one a node as ``repro`` stacks them."""
     jcfg = _small_cfg()
     jfed, _ = _fed_pair(num_nodes=N_NODES, algorithm=algo)
     jstates = _jax_states(algo, jcfg, jfed, jbase.TrainConfig(), False)
@@ -487,12 +488,8 @@ def test_stack_states_and_carry_per_leaf_and_empty_teacher(algo):
     for key in ("student", "teacher", "opt_s", "opt_t", "global_protos",
                 "proto_mask", "round_idx"):
         t, j = getattr(got, key), getattr(want, key)
-        if key.startswith("opt"):
-            # one scalar step counter stays in the port (all nodes step
-            # together); repro stacks it
-            t, j = dict(t), dict(j)
-            if j:
-                assert int(t.pop("step")) == int(j.pop("step")[0]) == 0
+        if key.startswith("opt") and j:
+            assert t["step"].tolist() == [0] * N_NODES
         tl, jl = tree_leaves(t), jax.tree_util.tree_leaves(j)
         assert len(tl) == len(jl)
         for a, b in zip(tl, jl):
@@ -503,13 +500,23 @@ def test_stack_states_and_carry_per_leaf_and_empty_teacher(algo):
 
 
 def test_stack_states_refuses_unequal_steps_and_per_leaf_residuals():
+    """Unequal step counters are no longer refused: nodes with unequal
+    batch counts step unequally, so ``stack_states`` stacks the counters
+    one a node, each keeping its node's value, as ``repro``'s
+    ``_stack_states`` does.  Error feedback on a per-leaf student is
+    still refused (``ROADMAP.md`` Queue 1 item 11)."""
     jcfg = _small_cfg()
     jfed, _ = _fed_pair(num_nodes=2, algorithm="fedavg")
     jstates = _jax_states("fedavg", jcfg, jfed, jbase.TrainConfig(), False)
     states = [_carry(s, False) for s in jstates]
     states[1].opt_s["step"] = states[1].opt_s["step"] + 1
-    with pytest.raises(ValueError, match="opt_s step counters differ"):
-        tprofe.stack_states(states)
+    jstates[1] = jstates[1]._replace(opt_s=dict(
+        jstates[1].opt_s, step=jstates[1].opt_s["step"] + 1))
+    got = tprofe.stack_states(states)
+    assert got.opt_s["step"].dtype == torch.int32
+    assert got.opt_s["step"].tolist() == [0, 1]
+    assert _a(got.opt_s["step"]).tobytes() == np.asarray(
+        JF._stack_states(jstates).opt_s["step"]).tobytes()
     st = jstates[0]
     with pytest.raises(NotImplementedError, match="item 11"):
         tprofe.node_state_from_numpy(

@@ -42,7 +42,7 @@ from repro.optim import plane as jplane
 from repro.wirespec import WireSpec as JWireSpec
 from repro_torch import prng
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
-from repro_torch.checkpoint.ckpt import _items
+from repro_torch.tree import keyed_leaves
 from repro_torch.config import base as tbase
 from repro_torch.core import federation as TF
 from repro_torch.core import quantization as TQ
@@ -97,7 +97,7 @@ def _after_one_round(name):
 
 
 def _assert_bit_equal(a, b):
-    ia, ib = _items(a), _items(b)
+    ia, ib = keyed_leaves(a), keyed_leaves(b)
     assert [k for k, _ in ia] == [k for k, _ in ib]
     for (key, x), (_, y) in zip(ia, ib):
         assert type(x) is type(y), key
@@ -132,13 +132,13 @@ def test_checkpoint_round_trips_a_stacked_state(name, tmp_path):
     with open(path + ".meta.json") as f:
         side = json.load(f)
     assert side["metadata"] == {"round": 1, "name": name}
-    assert side["keys"] == [k for k, _ in _items(state)]
+    assert side["keys"] == [k for k, _ in keyed_leaves(state)]
     back = load_checkpoint(path, state)
     _assert_bit_equal(back, state)
     if isinstance(state.student, Plane):
         assert back.student.meta == state.student.meta
         assert back.student.buf.is_leaf and back.student.buf.requires_grad
-    keys = [k for k, _ in _items(state)]
+    keys = [k for k, _ in keyed_leaves(state)]
     assert all(k.startswith(".") for k in keys)
     if state.wire_state is not None:
         assert ".wire_state/.residual/student/buf" in keys
@@ -235,11 +235,11 @@ def test_checkpoint_keys_are_the_jax_packages(model, tmp_path):
     tparams = init_params(tbase.get_config(model),
                           torch.Generator().manual_seed(0))
     assert sorted(jckpt._flatten(jparams)) == \
-        sorted(k for k, _ in _items(tparams))
+        sorted(k for k, _ in keyed_leaves(tparams))
     path = str(tmp_path / "jax.npz")
     jckpt.save_checkpoint(path, jparams)
     back = load_checkpoint(path, tparams)
-    for (key, t), j in zip(_items(back), jax.tree_util.tree_leaves(
+    for (key, t), j in zip(keyed_leaves(back), jax.tree_util.tree_leaves(
             jparams)):
         assert np.asarray(j).tobytes() == t.detach().numpy().tobytes(), key
     save_checkpoint(str(tmp_path / "torch"), back)

@@ -463,7 +463,7 @@ def test_node_states_carry_and_stack_like_jax(name):
     """JAX node states under sgd / adafactor (plane student, per-leaf
     ResNet teacher with lists) carried over and stacked: every optimizer
     tensor equals ``repro``'s ``_stack_states`` bit for bit, the step
-    counters stay one scalar."""
+    counters too (one int32 counter a node, as ``repro`` stacks them)."""
     jcfg = _small_resnet()
     scfg = jmodel.derive_student(jcfg)
     j_opt_s = jplane.make_plane_optimizer(name, 1e-3, grad_clip=1.0)
@@ -485,8 +485,10 @@ def test_node_states_carry_and_stack_like_jax(name):
         for a, b in zip(tl, jl):
             assert a.dtype == torch.float32
             assert a.numpy().tobytes() == np.asarray(b).tobytes()
-        assert getattr(tst, key)["step"].shape == ()
+        assert getattr(tst, key)["step"].shape == (3,)
         assert getattr(tst, key)["step"].dtype == torch.int32
+        assert getattr(tst, key)["step"].numpy().tobytes() == \
+            np.asarray(getattr(jst, key)["step"]).tobytes()
     assert isinstance(tst.teacher["stages"], list)
 
 
@@ -575,8 +577,8 @@ def test_profe_step_matches(teacher_on):
                         jax.tree_util.tree_leaves(jnew.teacher)):
             np.testing.assert_allclose(a[i].detach().numpy(), np.asarray(b),
                                        rtol=0, atol=2e-6)
-    assert int(tstate.opt_s["step"]) == 1
-    assert int(tstate.opt_t["step"]) == (1 if teacher_on else 0)
+    assert tstate.opt_s["step"].tolist() == [1] * n
+    assert tstate.opt_t["step"].tolist() == [1 if teacher_on else 0] * n
 
 
 # ProFe step on a small ResNet pair, fp32: atol of (parameters, moments)
@@ -643,8 +645,8 @@ def test_profe_step_matches_resnet(name, teacher_on):
             for a, b in zip(tl, jl):
                 np.testing.assert_allclose(a[i].numpy(), np.asarray(b),
                                            rtol=1e-4, atol=m_atol)
-    assert int(tstate.opt_s["step"]) == 1
-    assert int(tstate.opt_t["step"]) == (1 if teacher_on else 0)
+    assert tstate.opt_s["step"].tolist() == [1] * n
+    assert tstate.opt_t["step"].tolist() == [1 if teacher_on else 0] * n
 
 
 # -- the wire: codec and byte accounting -------------------------------------
