@@ -148,6 +148,21 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     and predictions held to the plain versions and the accuracy printed;
     then the ProFe pair's KD term through ``kd_loss`` against
     ``core/distillation.kd_loss`` at T = 3 and 1;
+14a. ``serve``, LM serving (see :func:`run_serve`; no kernel of the
+    table runs on it): each of the ten assigned configs at ``.smoke()``
+    in fp32 on the card, prefill of 7 tokens then decode of token 7
+    against forward's last logits within the JAX package's 2e-2, and a
+    20-step rolling decode (8-slot window) of yi-6b's smoke with finite
+    logits; then at full width (``SERVE_FULL``) yi-6b (32 layers, 5.8 B
+    parameters, fp32 weights), mamba2-130m, whisper-small (its
+    1500-frame encoder) and llama4-scout-17b-a16e cut to 2 of its 48
+    layers (``reduced``: 48 do not fit one card), each served through
+    ``repro_torch.launch.serve`` (batch 4, prompt 16, 32 new tokens,
+    bf16 activations and cache), its parameter count held to the JAX
+    package's, then prefill of 15 tokens plus decode of token 15
+    against forward's last logits in bf16 (``SERVE_BF16_TOL``) and in
+    fp32 (``SERVE_FP32_TOL``); a line ``serve {...}`` a run with the
+    card's name and power limit, peak memory, prefill and decode times;
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -3519,6 +3534,160 @@ def profile_rounds(torch, inputs, name: str) -> None:
     print(f"round profile: {json.dumps(report)}")
 
 
+# the serve phase's full-width runs: arch -> (layers kept, None for the
+# config's own depth; the JAX package's param_count at that depth, from
+# shapes — tests/test_torch_lm_serve.py holds these constants to it)
+SERVE_FULL = {"yi-6b": (None, 5_815_672_832),
+              "mamba2-130m": (None, 129_574_080),
+              "whisper-small": (None, 238_791_168),
+              "llama4-scout-17b-a16e": (2, 5_213_255_680)}
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 16, 32
+# decode-after-prefill against forward at the smoke size in fp32: the
+# JAX package's own bound (tests/test_models.py), absolute
+SERVE_SMOKE_TOL = 2e-2
+# at full width, relative to max|forward logits|: bf16 keeps 8 bits, and
+# decode and forward round the attention (bf16 probabilities against the
+# fp32 online softmax), the SSD state (stepped against chunked) and the
+# matmuls (other shapes) at other places, which 12-32 random-weight
+# layers amplify (0.1-5.4 % at reduced width on the CPU); fp32 keeps 24
+# bits (2e-7-2e-6 there)
+SERVE_BF16_TOL = 0.1
+SERVE_FP32_TOL = 1e-3
+
+
+def serve_inputs(torch, cfg, batch: int, seq: int, seed: int,
+                 device: str = "cuda"):
+    """Prompt tokens and (audio, VLM) random frontend embeddings of
+    scale 0.02, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq))).to(device)}
+    for key, n in (("image_embed", cfg.num_image_tokens if cfg.family ==
+                    "vlm" else 0), ("audio_embed", cfg.encoder_seq if
+                                    cfg.family == "audio" else 0)):
+        if n:
+            out[key] = torch.from_numpy((rng.standard_normal(
+                (batch, n, cfg.d_model)) * 0.02).astype(np.float32)).to(device)
+    return out
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def decode_gap(torch, cfg, params, batch) -> tuple:
+    """Prefill all but the last token into a cache one longer, decode
+    the last: ``(max |decode - forward's last logits|, max |forward's
+    last logits|, prefill ms)``, the prefill timed on the host clock
+    (synchronized), the median of 3 after one warm-up."""
+    from repro_torch.models import build_memory, decode_step, forward, \
+        prefill
+    device = batch["tokens"].device.type
+    seq = batch["tokens"].shape[1]
+    pre = dict(batch, tokens=batch["tokens"][:, :seq - 1])
+    with torch.inference_mode():
+        want = forward(cfg, params, batch).logits[:, -1].float()
+        memory = build_memory(cfg, params, batch)
+        times = []
+        for _ in range(4):
+            sync(torch, device)
+            t0 = time.perf_counter()
+            _, cache = prefill(cfg, params, pre, cache_len=seq)
+            sync(torch, device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        got, _ = decode_step(cfg, params, batch["tokens"][:, seq - 1:],
+                             seq - 1, cache, memory)
+    expect(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite logits")
+    return (float((got.float() - want).abs().max()),
+            float(want.abs().max()), statistics.median(times[1:]))
+
+
+def run_serve(torch, smi: str, device: str = "cuda",
+              full: dict = SERVE_FULL) -> list:
+    """Phase 14a (see the module's docstring); nothing is caught.
+    Returns the full-width runs' lines."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import decode_step, init_cache, init_params, \
+        param_count
+    resolve_device(device)             # TF32 off: fp32 stays fp32
+    for arch in ASSIGNED:
+        cfg = get_config(arch).smoke().replace(dtype="float32",
+                                               param_dtype="float32")
+        params = init_params(cfg, torch.Generator(device).manual_seed(0))
+        err, _, _ = decode_gap(torch, cfg, params,
+                               serve_inputs(torch, cfg, 2, 8, 0, device))
+        print(f"smoke {arch}: decode-after-prefill against forward "
+              f"{err:.3e} (limit {SERVE_SMOKE_TOL})")
+        expect(err < SERVE_SMOKE_TOL, f"{arch}: decode/forward gap {err}")
+    cfg = get_config("yi-6b").smoke().replace(
+        dtype="float32", param_dtype="float32", sliding_window_serve=8)
+    params = init_params(cfg, torch.Generator(device).manual_seed(0))
+    cache = init_cache(cfg, 1, 8, torch.float32, device)
+    tok = torch.ones((1, 1), dtype=torch.long, device=device)
+    with torch.inference_mode():
+        for i in range(20):
+            logits, cache = decode_step(cfg, params, tok, i, cache,
+                                        rolling=True)
+    expect(bool(torch.isfinite(logits).all()), "rolling decode: non-finite")
+    print("smoke yi-6b: 20 rolling decode steps through an 8-slot window, "
+          "finite logits")
+    del params, cache
+
+    lines = []
+    for arch, (layers, count) in full.items():
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        argv = ["--arch", arch, "--full-config", "--batch", str(SERVE_BATCH),
+                "--prompt-len", str(SERVE_PROMPT), "--tokens",
+                str(SERVE_TOKENS), "--device", device]
+        if layers is not None:
+            argv += ["--layers", str(layers)]
+        res = launch_serve.main(argv)
+        cfg, params = res["cfg"], res["params"]
+        n = param_count(params)
+        expect(n == count, f"{arch}: {n} parameters, the JAX package's "
+               f"{count}")
+        expect(bool(torch.isfinite(res["last_logits"]).all()),
+               f"{arch}: non-finite serve logits")
+        peak = (torch.cuda.max_memory_allocated if device == "cuda"
+                else lambda: None)
+        peak_serve = peak()
+        batch = serve_inputs(torch, cfg, SERVE_BATCH, SERVE_PROMPT, 1, device)
+        gap, ymax, prefill_ms = decode_gap(torch, cfg, params, batch)
+        gap32, ymax32, _ = decode_gap(torch, cfg.replace(dtype="float32"),
+                                      params, batch)
+        depth = get_config(arch).num_layers
+        line = {"arch": arch, "layers": cfg.num_layers,
+                "reduced": (None if layers is None else
+                            f"{layers} of {depth} layers: the full depth "
+                            f"does not fit one card"),
+                "params": n, "param_dtype": cfg.param_dtype,
+                "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+                "tokens": SERVE_TOKENS, "init_s": res["init_s"],
+                "memory_ms": res["memory_ms"],
+                "first_step_ms": res["first_step_ms"],
+                "step_ms": res["step_ms"],
+                "tokens_per_s": res["tokens_per_s"],
+                "prefill_ms": prefill_ms,
+                "peak_bytes_serve": peak_serve, "peak_bytes": peak(),
+                "bf16_gap": gap / ymax, "fp32_gap": gap32 / ymax32,
+                "device": device, "card": smi}
+        print("serve " + json.dumps(line), flush=True)
+        expect(gap <= SERVE_BF16_TOL * ymax,
+               f"{arch}: bf16 decode/forward gap {gap / ymax:.3e}")
+        expect(gap32 <= SERVE_FP32_TOL * ymax32,
+               f"{arch}: fp32 decode/forward gap {gap32 / ymax32:.3e}")
+        lines.append(line)
+        del res, params, batch
+    return lines
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--profile"]):
@@ -3640,6 +3809,13 @@ def main() -> int:
     t0 = time.time()
     counts["proto-infer"] = run_proto_infer(torch, inputs)
     print(f"proto-infer phase took {time.time() - t0:.1f} s")
+
+    phase("serve: the ten assigned LM configs at smoke size, then yi-6b, "
+          "mamba2-130m, whisper-small and llama4-scout (2 layers) at full "
+          "width through repro_torch.launch.serve")
+    t0 = time.time()
+    run_serve(torch, smi)
+    print(f"serve phase took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         for name in PROFILED:
