@@ -163,6 +163,23 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     against forward's last logits in bf16 (``SERVE_BF16_TOL``) and in
     fp32 (``SERVE_FP32_TOL``); a line ``serve {...}`` a run with the
     card's name and power limit, peak memory, prefill and decode times;
+14b. ``train``, LM training (see :func:`run_train`): each of the ten
+    assigned configs at ``.smoke()`` (fp32 activations) takes one ProFe
+    step through ``repro_torch.launch.train`` with ``remat`` on and off,
+    under deterministic algorithms: finite losses, a changed student,
+    the two states bit-identical; then at full width (``TRAIN_FULL``)
+    mamba2-130m (24 layers), whisper-small (12 + 12, the 1500-frame
+    encoder) and yi-6b cut to 2 of its 32 layers (``reduced``: fp32
+    parameters and adamw moments of 32 layers do not fit one card), 5
+    steps each at batch 4, sequence 256, ``remat`` on, their parameter
+    counts held to the JAX package's; a line ``train {...}`` a run with
+    the card, ms a step and peak memory; then the LM federations
+    (``LM_PATHS``, :func:`run_lm_path`): ``lm/mamba2-130m`` (4 nodes,
+    full graph, 2 rounds, adamw, the student on the plane, 16-bit wire)
+    and ``lm/grok-1/per-leaf`` (grok-1's smoke config: bf16 leaves,
+    adafactor, the per-leaf student, 1 round), each path's launches
+    exactly and its bytes against the JAX package's; phase 3's
+    :func:`check_lm_shapes` holds rows 1-4 at the first one's shapes;
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -176,7 +193,8 @@ Phases 4-10 each set the kernels' launch counts to 0 just before
 round, and hold the run's wire bytes to the JAX package's; phase 11
 does the same on every rank around each mesh run, phase 13 around
 the whole codec phase (its per-call launches are read as differences),
-and phase 14 around each of its driven parts.  Phase 3's ``proto_dist``
+phase 14 around each of its driven parts, and phase 14b around each LM
+federation.  Phase 3's ``proto_dist``
 and ``kd_loss`` rows carry every shape they were held at in ``cases``.
 """
 from __future__ import annotations
@@ -1053,6 +1071,162 @@ def check_loop_shapes(torch, timer, student_cfg, rows) -> None:
         print(f"{name} at the loop shape {loop['shape']}: {loop['ms']:.4f} "
               f"ms (plain {loop['plain_ms']:.4f} ms, bound "
               f"{loop['bound_ms']:.4f} ms)")
+
+
+def check_lm_shapes(torch, timer, rows, nodes: int = 4) -> None:
+    """Phase 3 at the ``lm/mamba2-130m`` path's shapes: ``nodes`` random
+    mamba2-130m students at full width on one ``[nodes, R, 512]`` plane
+    (R = 164,832: 84,390,240 parameters a node), ``adamw_update`` over it;
+    the 16-bit payload spliced from it behind ``[nodes, 64, 768]``
+    prototypes through ``rowabs`` and ``quantize_rows`` (over 659k rows);
+    ``proto_accum`` on the step's ``f1 [nodes, 4, 768]`` at C = 64 domain
+    tags.  Each bit for bit its plain version (``proto_accum`` its
+    batch-order one); each kernel's time at that shape goes into its row
+    of ``rows`` under ``lm``."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
+    from repro_torch.kernels.opt_update.ref import adamw_update_ref
+    from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
+    from repro_torch.kernels.proto_accum.ref import (proto_accum_batch_order,
+                                                     proto_accum_ref)
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                  pack_plane_payload)
+    from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
+                                                       rowabs_cuda)
+    from repro_torch.kernels.quantize.ref import (quantize_rows_ref,
+                                                  rowabs_ref)
+    from repro_torch.models import derive_student, init_params
+    from repro_torch.optim.plane import Plane, plane_from_tree
+    from repro_torch.wirespec import WireSpec
+
+    by_name = {row["name"]: row for row in rows}
+    cfg = get_config("mamba2-130m")
+    student_cfg = derive_student(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    bufs, meta = [], None
+    for _ in range(nodes):
+        one = plane_from_tree(init_params(student_cfg, gen))
+        bufs.append(one.buf)
+        meta = one.meta
+    plane = Plane(torch.stack(bufs), meta)
+    del bufs, one
+    shape = tuple(plane.buf.shape)
+    n = plane.buf.numel()
+    print(f"lm shapes: {nodes} mamba2-130m students on a {shape} plane "
+          f"({n * 4 / 1e9:.2f} GB)")
+
+    # -- row 1: adamw over the plane --------------------------------------
+    p = plane.buf
+    g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+    mu = torch.randn(shape, generator=gen, device="cuda") * 1e-4
+    nu = torch.rand(shape, generator=gen, device="cuda") * 1e-7
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    lr = torch.full((), 1e-3, device="cuda")
+    step = torch.full((nodes,), 3.0, device="cuda")
+    bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+    scale = torch.rand((nodes,), generator=gen,
+                       device="cuda").clamp_min(0.1)
+    want = adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale, bc1=bc1,
+                            bc2=bc2, **hp)
+    got = [p.clone(), mu.clone(), nu.clone()]
+    adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp)
+    torch.cuda.synchronize()
+    ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
+    expect(ulps == 0, f"adamw_update at {shape} is not bit-exact with its "
+           f"plain version ({ulps} ulp)")
+    del want
+    g_scaled = (g.reshape(nodes, -1) * scale[:, None]).reshape(shape)
+    lib_step = [torch.full((), 3.0, device="cuda")]
+    by_name["adamw_update"]["lm"] = dict(
+        path="lm/mamba2-130m", shape=list(shape),
+        ms=timer(lambda: adamw_update_cuda(g, *got, lr, scale, bc1, bc2,
+                                           **hp), reps=10),
+        plain_ms=timer(lambda: adamw_update_ref(
+            g, p, mu, nu, lr=lr, scale=scale, bc1=bc1, bc2=bc2, **hp),
+            reps=10),
+        bound_ms=bound(7 * 4 * n, 18 * n)[0],
+        library_ms=timer(lambda: torch._fused_adamw_(
+            [got[0]], [g_scaled], [got[1]], [got[2]], [], lib_step,
+            lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+            amsgrad=False, maximize=False), reps=10))
+    print(f"adamw_update {shape}: bit-exact")
+    del g, mu, nu, got, g_scaled
+
+    # -- rows 3 and 4: the 16-bit payload over every node's rows ---------
+    protos = torch.rand((nodes, cfg.n_proto_classes, cfg.proto_dim),
+                        generator=gen, device="cuda")
+    buf, seg_ids, pmeta, _, _ = pack_plane_payload(protos, plane,
+                                                   WireSpec(16))
+    x2d = buf.reshape(-1, buf.shape[-1]).contiguous()
+    del buf
+    r, c = x2d.shape
+    m = x2d.numel()
+    ra = rowabs_cuda(x2d)
+    expect(torch.equal(ra, rowabs_ref(x2d)),
+           f"rowabs disagrees with its plain version at {(r, c)}")
+    _, row_delta = _node_row_deltas(x2d.reshape(nodes, -1, c), seg_ids,
+                                    pmeta[1], 16, pmeta[3])
+    rd = row_delta.reshape(-1, 1).contiguous()
+    codes = quantize_rows_cuda(x2d, rd, bits=16)
+    torch.cuda.synchronize()
+    expect(torch.equal(codes, quantize_rows_ref(x2d, rd, bits=16)),
+           f"quantize_rows disagrees with its plain version at {(r, c)}")
+    print(f"rowabs and quantize_rows {(r, c)}: bit-exact")
+    zero = torch.zeros(r, dtype=torch.int64, device="cuda")
+    scales = rd[:, 0].contiguous()
+    by_name["rowabs"]["lm"] = dict(
+        path="lm/mamba2-130m", shape=[r, c],
+        ms=timer(lambda: rowabs_cuda(x2d), reps=10),
+        plain_ms=timer(lambda: rowabs_ref(x2d), reps=10),
+        bound_ms=bound(4 * m + 4 * r, m)[0],
+        library_ms=timer(lambda: torch.linalg.vector_norm(
+            x2d, ord=math.inf, dim=1), reps=10))
+    by_name["quantize_rows"]["lm"] = dict(
+        path="lm/mamba2-130m", shape=[r, c], bits=16,
+        ms=timer(lambda: quantize_rows_cuda(x2d, rd, bits=16), reps=10),
+        plain_ms=timer(lambda: quantize_rows_ref(x2d, rd, bits=16),
+                       reps=10),
+        bound_ms=bound(8 * m + 4 * r, 4 * m)[0],
+        library_ms=timer(lambda: torch.quantize_per_channel(
+            x2d, scales, zero, 0, torch.qint32), reps=10))
+    del x2d, codes, plane, p
+
+    # -- row 2: Eq. 3 over the step's f1 and domain tags ------------------
+    ncls = cfg.n_proto_classes
+    f1 = torch.relu(torch.randn((nodes, LM_BATCH, cfg.proto_dim),
+                                generator=gen, device="cuda"))
+    labels = torch.randint(0, ncls, (nodes, LM_BATCH), generator=gen,
+                           dtype=torch.int32, device="cuda")
+    s_got, c_got = proto_accum_cuda(f1, labels, ncls)
+    s_bat, c_bat = proto_accum_batch_order(f1, labels, ncls)
+    torch.cuda.synchronize()
+    expect(ulp_diff(torch, s_got, s_bat) == 0 and torch.equal(c_got, c_bat),
+           f"proto_accum at {tuple(f1.shape)} C={ncls} is not bit-identical "
+           f"to the batch-order plain version")
+    node_cls = (torch.arange(nodes, device="cuda")[:, None] * ncls
+                + labels).reshape(-1)
+    f1_flat = f1.reshape(-1, cfg.proto_dim)
+
+    def library():
+        sums = torch.zeros((nodes * ncls, cfg.proto_dim), device="cuda")
+        sums.index_add_(0, node_cls, f1_flat)
+        torch.bincount(node_cls, minlength=nodes * ncls)
+    by_name["proto_accum"]["lm"] = dict(
+        path="lm/mamba2-130m", shape=list(f1.shape), classes=ncls,
+        ms=timer(lambda: proto_accum_cuda(f1, labels, ncls)),
+        plain_ms=timer(lambda: proto_accum_ref(f1, labels, ncls)),
+        bound_ms=bound(4 * (f1.numel() + labels.numel() + s_got.numel()
+                            + c_got.numel()),
+                       f1.numel() + labels.numel())[0],
+        library_ms=timer(library))
+    print(f"proto_accum {tuple(f1.shape)} C={ncls}: bit-identical to the "
+          f"batch-order plain version")
+    for name in LM_KERNELS:
+        lm = by_name[name]["lm"]
+        print(f"{name} at the LM shape {lm['shape']}: {lm['ms']:.4f} ms "
+              f"(plain {lm['plain_ms']:.4f} ms, library "
+              f"{lm['library_ms']:.4f} ms, bound {lm['bound_ms']:.4f} ms)")
+    torch.cuda.empty_cache()
 
 
 def check_plane_sweeps(torch, timer, student_cfg):
@@ -3688,6 +3862,243 @@ def run_serve(torch, smi: str, device: str = "cuda",
     return lines
 
 
+# the train phase's full-width runs: arch -> (layers kept, None for the
+# config's own depth; the JAX package's teacher and student parameter
+# counts at that depth, from shapes — tests/test_torch_lm_federation.py
+# holds these constants to it)
+TRAIN_FULL = {"mamba2-130m": (None, 129_574_080, 84_390_240),
+              "whisper-small": (None, 238_791_168, 111_278_592),
+              "yi-6b": (2, 624_975_872, 489_709_568)}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 4, 256
+# the full-width runs' audio and image frontend stubs: normal draws of
+# this scale (the serve phase's); zero stubs keep an encoder's residual
+# stream at exactly 0, where every LayerNorm's backward multiplies the
+# gradient by 1/sqrt(eps): whisper-small's 24 encoder norms overflow it
+# (NaN in the first step; 2 encoder layers give gradients of 6e10)
+TRAIN_FRONTEND_SCALE = 0.02
+# the LM federations: name -> (arch, smoke size?, optimizer, nodes,
+# rounds, sequence length, student on the plane?, the JAX package's
+# (avg_sent_gb, packed B/copy, logical B/copy) on the 16-bit wire, full
+# graph, computed once on the CPU from shapes as PATHS' are)
+LM_PATHS = {
+    "lm/mamba2-130m": ("mamba2-130m", False, "adamw", 4, 2, 256, True,
+                       (1.013273832, 168886584, 168878972)),
+    "lm/grok-1/per-leaf": ("grok-1-314b", True, "adafactor", 4, 1, 64,
+                           False, (0.001682148, 565336, 560716)),
+}
+# each LM node holds LM_BATCHES batches of LM_BATCH sequences; the test
+# split is LM_TEST sequences
+LM_BATCHES, LM_BATCH, LM_TEST = 2, 4, 16
+# the kernels an LM federation launches, with the path that phase 3's
+# check_lm_shapes holds at its shapes
+LM_KERNELS = ("adamw_update", "proto_accum", "rowabs", "quantize_rows")
+
+
+class deterministic_algorithms:
+    """Deterministic cuDNN and ``torch.use_deterministic_algorithms``
+    (warn-only: an op without a deterministic version warns, it does not
+    raise; the embedding's accumulating backward has one) inside the
+    block, both restored after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.cudnn = deterministic_cudnn(torch)
+
+    def __enter__(self):
+        torch = self.torch
+        self.was = (torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+        self.cudnn.__enter__()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        print(f"deterministic algorithms: {self.was[0]} -> True")
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.was[0],
+                                                warn_only=self.was[1])
+        print(f"deterministic algorithms restored to {self.was[0]}")
+        return self.cudnn.__exit__(*exc)
+
+
+def lm_inputs(arch: str, smoke: bool, nodes: int, seq: int):
+    """An LM federation's config and iid data: ``make_token_dataset``,
+    ``LM_BATCHES · LM_BATCH`` sequences a node in order, then ``LM_TEST``
+    for the test split."""
+    from repro_torch.config import get_config
+    from repro_torch.data import make_token_dataset
+    cfg = get_config(arch)
+    if smoke:
+        cfg = cfg.smoke()
+    per = LM_BATCHES * LM_BATCH
+    data = make_token_dataset(0, nodes * per + LM_TEST, seq, cfg.vocab_size,
+                              cfg.n_proto_classes)
+    node_data = [{k: v[i * per:(i + 1) * per] for k, v in data.items()}
+                 for i in range(nodes)]
+    test = {k: v[nodes * per:] for k, v in data.items()}
+    return cfg, node_data, test
+
+
+def run_lm_path(torch, name: str, device: str = "cuda") -> dict:
+    """An LM federation of ``LM_PATHS`` through ``run_federation`` (ProFe,
+    full graph, 1 local epoch, the 16-bit wire), the launch counts set to
+    0 just before and read just after: finite F1 every round, the
+    resolved student (plane or per-leaf), every node's step counters,
+    every launch exactly (one plane sweep a step where the student is on
+    the plane, one ``proto_accum`` a batch of the Eq. 3 pass, one
+    ``rowabs`` and one ``quantize_rows`` a round; nothing else) and the
+    wire bytes against the JAX package's.  Returns the launch counts."""
+    from repro_torch.config import FederationConfig, TrainConfig
+    from repro_torch.core.federation import run_federation
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    arch, smoke, optimizer, nodes, rounds, seq, plane, want_bytes = \
+        LM_PATHS[name]
+    cfg, node_data, test = lm_inputs(arch, smoke, nodes, seq)
+    fed = FederationConfig(num_nodes=nodes, topology="full", rounds=rounds,
+                           local_epochs=1, quantize_bits=16)
+    train = TrainConfig(batch_size=LM_BATCH, optimizer=optimizer)
+    print(f"{cfg.name}: profe, {nodes} nodes x {LM_BATCHES * LM_BATCH} "
+          f"sequences of {seq}, batch {LM_BATCH}, {optimizer}, 16-bit "
+          f"wire, {rounds} round(s), student dtype {cfg.param_dtype}")
+    steps = rounds * LM_BATCHES
+    launches = {k: 0 for k in launch_counts()}
+    if device == "cuda":        # on the CPU the plain versions run
+        launches.update({OPT_KERNEL[optimizer]: steps if plane else 0,
+                         "proto_accum": steps, "rowabs": rounds,
+                         "quantize_rows": rounds})
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    res = run_federation(cfg, fed, train, node_data, test, verbose=True,
+                         device=device)
+    took = time.time() - t0
+    counts = launch_counts()
+    expect(res.extras["param_plane"] is plane,
+           f"{name}: param_plane resolved to {res.extras['param_plane']}")
+    got_steps = res.state.opt_s["step"].tolist()
+    expect(got_steps == [steps] * nodes,
+           f"{name}: student step counters {got_steps}")
+    print(f"per-round F1: {res.f1_per_round}")
+    print(f"per-round seconds: {res.extras['round_times_s']}")
+    print(f"launches on the {name} path: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    expect(len(res.f1_per_round) == rounds
+           and all(math.isfinite(f) for f in res.f1_per_round),
+           f"{name}: expected {rounds} finite F1 values, got "
+           f"{res.f1_per_round}")
+    for kernel in set(launches) | set(counts):
+        got, want = counts.get(kernel, 0), launches.get(kernel, 0)
+        expect(got == want, f"{name} path: {kernel} launched {got} != {want}")
+    for key, want in zip(("avg_sent_gb", "wire_bytes_packed_per_copy",
+                          "wire_bytes_per_copy"), want_bytes):
+        expect(res.extras[key] == want,
+               f"{name} path: {key} {res.extras[key]!r} != the JAX "
+               f"package's {want!r}")
+    line = {"path": name, "arch": arch, "smoke": smoke, "nodes": nodes,
+            "rounds": rounds, "seq": seq, "batch": LM_BATCH,
+            "steps": steps, "plane": plane,
+            "f1": res.f1_per_round, "round_s": res.extras["round_times_s"],
+            "seconds": took,
+            "avg_sent_gb": res.extras["avg_sent_gb"],
+            "peak_bytes": torch.cuda.max_memory_allocated()
+            if device == "cuda" else None}
+    print("lm path " + json.dumps(line), flush=True)
+    del res
+    return counts
+
+
+def run_train(torch, smi: str, device: str = "cuda",
+              full: dict = TRAIN_FULL, lm_paths=tuple(LM_PATHS), *,
+              full_smoke: bool = False) -> dict:
+    """Phase 14b (see the module's docstring); nothing is caught.
+    ``full_smoke`` runs ``full``'s configs at their smoke size (a CPU
+    check of the phase).  Returns the LM paths' launch counts."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import param_count
+    from repro_torch.tree import keyed_leaves, tree_leaves
+    resolve_device(device)             # TF32 off: fp32 stays fp32
+    with deterministic_algorithms(torch):
+        for arch in ASSIGNED:
+            cfg = get_config(arch).smoke().replace(dtype="float32")
+            ends = []
+            for remat in (True, False):
+                state = launch_train.train_state(cfg, seed=0, device=device)
+                before = [x.detach().clone()
+                          for x in tree_leaves(state.student)]
+                out = launch_train.train(cfg, state, steps=1, batch=2,
+                                         seq=16, remat=remat, verbose=False)
+                expect(all(math.isfinite(x) for x in
+                           out["loss_s"] + out["loss_t"]),
+                       f"{arch}: non-finite losses {out['loss_s']} "
+                       f"{out['loss_t']}")
+                moved = sum(not torch.equal(a, b.detach()) for a, b in
+                            zip(before, tree_leaves(out["state"].student)))
+                expect(moved > 0, f"{arch}: the student did not change")
+                ends.append((out, moved))
+            (on, moved), (off, _) = ends
+            same = [torch.equal(a.detach(), b.detach()) for (_, a), (_, b)
+                    in zip(keyed_leaves(on["state"]),
+                           keyed_leaves(off["state"]))]
+            expect(all(same) and on["loss_s"] == off["loss_s"]
+                   and on["loss_t"] == off["loss_t"],
+                   f"{arch}: remat on and off differ in "
+                   f"{same.count(False)} of {len(same)} leaves")
+            print(f"smoke {arch}: one ProFe step, loss_s "
+                  f"{on['loss_s'][0]:.4f} loss_t {on['loss_t'][0]:.4f}, "
+                  f"{moved} student leaves moved, remat on and off "
+                  f"bit-identical ({len(same)} leaves)")
+            del ends, on, off, state
+
+    for arch, (layers, n_teacher, n_student) in full.items():
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if full_smoke:
+            cfg = cfg.smoke()
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        state = launch_train.train_state(cfg, seed=0, device=device)
+        nt, ns = param_count(state.teacher), param_count(state.student)
+        expect((nt, ns) == (n_teacher, n_student),
+               f"{arch}: teacher {nt} and student {ns} parameters, the JAX "
+               f"package's {n_teacher} and {n_student}")
+        out = launch_train.train(cfg, state, steps=TRAIN_STEPS,
+                                 batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                 remat=True,
+                                 frontend_scale=TRAIN_FRONTEND_SCALE)
+        expect(all(math.isfinite(x) for x in out["loss_s"] + out["loss_t"]),
+               f"{arch}: non-finite losses")
+        depth = get_config(arch).num_layers
+        line = {"arch": arch, "layers": cfg.num_layers,
+                "reduced": (None if layers is None else
+                            f"{layers} of {depth} layers: fp32 parameters "
+                            f"with adamw moments of the full depth do not "
+                            f"fit one card"),
+                "teacher_params": nt, "student_params": ns,
+                "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+                "optimizer": cfg.optimizer, "remat": True,
+                "frontend_scale": TRAIN_FRONTEND_SCALE,
+                "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+                "seq": TRAIN_SEQ, "loss_s": out["loss_s"],
+                "loss_t": out["loss_t"],
+                "first_step_ms": out["first_step_ms"],
+                "step_ms": out["step_ms"],
+                "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3
+                / out["step_ms"],
+                "peak_bytes": out["peak_bytes"], "device": device,
+                "card": smi}
+        print("train " + json.dumps(line), flush=True)
+        del out, state
+
+    counts = {}
+    for name in lm_paths:
+        phase(f"lm path {name}")
+        counts[name] = run_lm_path(torch, name, device)
+    return counts
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--profile"]):
@@ -3739,6 +4150,7 @@ def main() -> int:
     rows += check_proto_kd_kernels(torch, timer)
     check_loop_shapes(torch, timer, derive_student(get_config("mnist-cnn")),
                       rows)
+    check_lm_shapes(torch, timer, rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -3817,6 +4229,14 @@ def main() -> int:
     run_serve(torch, smi)
     print(f"serve phase took {time.time() - t0:.1f} s")
 
+    phase("train: one ProFe step of each assigned LM config at smoke size "
+          "(remat on and off), then mamba2-130m, whisper-small and yi-6b "
+          "(2 layers) at full width through repro_torch.launch.train, then "
+          "the LM federations")
+    t0 = time.time()
+    counts.update(run_train(torch, smi))
+    print(f"train phase took {time.time() - t0:.1f} s")
+
     if args == ["--profile"]:
         for name in PROFILED:
             phase(f"round profile {name}: 2 rounds unprofiled, 2 profiled")
@@ -3834,6 +4254,9 @@ def main() -> int:
         row["noniid_launches"] = {p: counts[p][row["name"]]
                                   for p in PATH_SPLIT
                                   if counts[p].get(row["name"])}
+        # the LM federations' launches of the kernel, where it ran there
+        row["lm_launches"] = {p: counts[p][row["name"]] for p in LM_PATHS
+                              if counts[p].get(row["name"])}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.prng import _fold_in, _random_bits
 from repro_torch.tree import (ShapeDtypeStruct, is_float, keystr,
-                              tree_from_paths, tree_map, tree_paths)
+                              tree_empties, tree_from_paths, tree_map,
+                              tree_paths)
 
 # decay on the carried gram statistic: G <- GRAM_EMA * G_prev + A^T A
 GRAM_EMA = 0.5
@@ -55,6 +56,8 @@ class AdapterLayout(NamedTuple):
     is_mat: Tuple[bool, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     rank: int
+    # the tree's empty subtrees (tree_empties), for merge_student
+    empties: Tuple = ()
 
     @property
     def mat_names(self) -> Tuple[str, ...]:
@@ -85,7 +88,7 @@ def adapter_layout(tree, rank: int, *, node_axis: bool = False
         is_mat.append(bool(floaty and is_adapter_shape(shape, rank)))
         shapes.append(shape)
     return AdapterLayout(tuple(paths), tuple(names), tuple(is_mat),
-                         tuple(shapes), int(rank))
+                         tuple(shapes), int(rank), tree_empties(tree))
 
 
 def split_student(layout: AdapterLayout, tree
@@ -104,8 +107,9 @@ def merge_student(layout: AdapterLayout, mats: Dict[str, Any],
                   rest: Dict[str, Any]):
     """Inverse of :func:`split_student`."""
     return tree_from_paths(
-        (p, mats[n] if m else rest[n])
-        for p, n, m in zip(layout.paths, layout.names, layout.is_mat))
+        ((p, mats[n] if m else rest[n])
+         for p, n, m in zip(layout.paths, layout.names, layout.is_mat)),
+        layout.empties)
 
 
 # -- Ω: jax.random.normal's numbers from the threefry bits of repro_torch.prng

@@ -28,17 +28,14 @@ from repro_torch.config.base import FederationConfig, ModelConfig
 from repro_torch.core import distillation as D
 from repro_torch.core import prototypes as P
 from repro_torch.core.profe import (NodeState, node_batches, node_params,
-                                    proto_labels, stacked_update, task_ce)
+                                    proto_labels, router_aux, stacked_update,
+                                    task_ce)
 from repro_torch.models import forward
 from repro_torch.optim import Optimizer
 
 
-def _aux(cfg: ModelConfig, out) -> torch.Tensor:
-    return out.aux * getattr(cfg, "router_aux_weight", 0.0)
-
-
 def make_fedavg_step(cfg: ModelConfig, opt: Optimizer, *,
-                     grad_clip: float = 1.0):
+                     grad_clip: float = 1.0, remat: bool = True):
     """``task_ce + aux · router_aux_weight`` on the stacked per-leaf
     ``state.student``.  Metrics: ``loss_s`` and ``grad_norm_s`` ``[N]``."""
 
@@ -46,8 +43,9 @@ def make_fedavg_step(cfg: ModelConfig, opt: Optimizer, *,
              active=None):
         losses = []
         for i, b in enumerate(node_batches(batch, len(state.round_idx))):
-            out = forward(cfg, node_params(state.student, i), b)
-            losses.append(task_ce(cfg, out.logits, b) + _aux(cfg, out))
+            out = forward(cfg, node_params(state.student, i), b,
+                          remat=remat)
+            losses.append(task_ce(cfg, out.logits, b) + router_aux(cfg, out))
         loss = torch.stack(losses)
         gn = stacked_update(state.student, loss.sum(), opt, state.opt_s,
                             grad_clip, active)
@@ -57,13 +55,14 @@ def make_fedavg_step(cfg: ModelConfig, opt: Optimizer, *,
 
 
 def _make_proto_step(cfg: ModelConfig, fed: FederationConfig,
-                     opt: Optimizer, grad_clip: float, *, gpd: bool):
+                     opt: Optimizer, grad_clip: float, *, gpd: bool,
+                     remat: bool = True):
     """FedProto's step, and with ``gpd`` FedGPD's (its prototype CE on
     top).  Metrics: ``loss_s``, ``grad_norm_s`` and the loss forward's
     ``f1`` ``[N, B, P]``."""
 
     def loss_fn(p, b, gp, mask):
-        out = forward(cfg, p, b)
+        out = forward(cfg, p, b, remat=remat)
         labels_p = proto_labels(cfg, b)
         l = task_ce(cfg, out.logits, b)
         l = l + fed.beta_s * P.proto_mse_loss(out.f1, gp, labels_p, mask)
@@ -79,7 +78,7 @@ def _make_proto_step(cfg: ModelConfig, fed: FederationConfig,
             pce = torch.where(mask.sum() > 0, D.ce_loss(logits, labels_p),
                               torch.zeros((), device=d2.device))
             l = l + 0.5 * pce
-        return l + _aux(cfg, out), out.f1
+        return l + router_aux(cfg, out), out.f1
 
     def step(state: NodeState, batch, teacher_on: bool = False,
              active=None):
@@ -99,23 +98,27 @@ def _make_proto_step(cfg: ModelConfig, fed: FederationConfig,
 
 
 def make_fedproto_step(cfg: ModelConfig, fed: FederationConfig,
-                       opt: Optimizer, *, grad_clip: float = 1.0):
+                       opt: Optimizer, *, grad_clip: float = 1.0,
+                       remat: bool = True):
     """CE + beta_s · prototype MSE (FedProto; beta = 1 per paper Sec.
     III-B)."""
-    return _make_proto_step(cfg, fed, opt, grad_clip, gpd=False)
+    return _make_proto_step(cfg, fed, opt, grad_clip, gpd=False,
+                            remat=remat)
 
 
 def make_fedgpd_step(cfg: ModelConfig, fed: FederationConfig, opt: Optimizer,
-                     *, grad_clip: float = 1.0):
+                     *, grad_clip: float = 1.0, remat: bool = True):
     """Global-prototype distillation: CE + MSE(f1, C̄(j)) + 0.5 ·
     proto-CE, where proto-CE treats the negative squared distances to the
     global prototypes as logits."""
-    return _make_proto_step(cfg, fed, opt, grad_clip, gpd=True)
+    return _make_proto_step(cfg, fed, opt, grad_clip, gpd=True,
+                            remat=remat)
 
 
 def make_fml_step(big_cfg: ModelConfig, meme_cfg: ModelConfig,
                   fed: FederationConfig, opt_big: Optimizer,
-                  opt_meme: Optimizer, *, grad_clip: float = 1.0):
+                  opt_meme: Optimizer, *, grad_clip: float = 1.0,
+                  remat: bool = True):
     """Deep Mutual Learning: L_big = CE + alpha_s·KD(big <- meme), then
     L_meme = CE + alpha_s·KD(meme <- big).  ``student`` is the meme (it
     travels) under ``opt_meme``, ``teacher`` the personalized big model
@@ -133,11 +136,12 @@ def make_fml_step(big_cfg: ModelConfig, meme_cfg: ModelConfig,
                            for i, b in enumerate(per_node)]
         big_losses, big_logits = [], []
         for i, b in enumerate(per_node):
-            out = forward(big_cfg, node_params(state.teacher, i), b)
+            out = forward(big_cfg, node_params(state.teacher, i), b,
+                          remat=remat)
             l = task_ce(big_cfg, out.logits, b)
             l = l + fed.alpha_s * D.kd_loss(out.logits, meme_logits[i],
                                             fed.kd_temperature)
-            big_losses.append(l + _aux(big_cfg, out))
+            big_losses.append(l + router_aux(big_cfg, out))
             big_logits.append(out.logits.detach())
         lb = torch.stack(big_losses)
         stacked_update(state.teacher, lb.sum(), opt_big, state.opt_t,
@@ -145,11 +149,12 @@ def make_fml_step(big_cfg: ModelConfig, meme_cfg: ModelConfig,
 
         meme_losses = []
         for i, b in enumerate(per_node):
-            out = forward(meme_cfg, node_params(state.student, i), b)
+            out = forward(meme_cfg, node_params(state.student, i), b,
+                          remat=remat)
             l = task_ce(meme_cfg, out.logits, b)
             l = l + fed.alpha_s * D.kd_loss(out.logits, big_logits[i],
                                             fed.kd_temperature)
-            meme_losses.append(l + _aux(meme_cfg, out))
+            meme_losses.append(l + router_aux(meme_cfg, out))
         lm = torch.stack(meme_losses)
         gn = stacked_update(state.student, lm.sum(), opt_meme, state.opt_s,
                             grad_clip, active)

@@ -124,18 +124,33 @@ def _first_leaf(params) -> torch.Tensor:
     return params.buf if isinstance(params, Plane) else tree_leaves(params)[0]
 
 
+def _eval_classes(cfg: ModelConfig) -> int:
+    """The macro-F1's classes: a classifier's, or for an LM's next-token
+    predictions ``min(vocab_size, 4096)`` (``repro``'s)."""
+    return _n_proto_classes(cfg) if cfg.family in ("cnn", "resnet") \
+        else int(min(cfg.vocab_size, 4096))
+
+
+def _eval_truth(cfg: ModelConfig, test_data) -> np.ndarray:
+    """The test targets, flattened: labels, or an LM's next tokens."""
+    key = "label" if cfg.family in ("cnn", "resnet") else "labels"
+    return test_data[key].cpu().numpy().reshape(-1)
+
+
 @torch.no_grad()
 def _eval_params(cfg: ModelConfig, params, test_data, batch_size: int = 256):
-    """Global-test macro-F1 with the classifier head; ``test_data``
+    """Global-test ``(macro-F1, accuracy)`` of the classifier head, or
+    for an LM of the next-token argmax (every position); ``test_data``
     holds tensors on the model's device."""
     preds = []
     n = len(next(iter(test_data.values())))
     for i in range(0, n, batch_size):
         batch = {k: v[i:i + batch_size] for k, v in test_data.items()}
-        preds.append(forward(cfg, params, batch).logits.argmax(-1))
+        preds.append(forward(cfg, params, batch).logits.argmax(-1)
+                     .reshape(-1))
     y_pred = torch.cat(preds).cpu().numpy()
-    y_true = test_data["label"].cpu().numpy()
-    return (macro_f1(y_true, y_pred, _n_proto_classes(cfg)),
+    y_true = _eval_truth(cfg, test_data)
+    return (macro_f1(y_true, y_pred, _eval_classes(cfg)),
             accuracy(y_true, y_pred))
 
 
@@ -144,8 +159,9 @@ def _eval_params_batched(cfg: ModelConfig, stacked_students, test_data,
                          batch_size: int = 256):
     """Every node's global-test ``(macro-F1, accuracy)`` from stacked
     students: per test batch, each node's forward, the ``[N, B]``
-    predictions copied to the host once a batch (``repro``'s batched
-    evaluation; equal to :func:`_eval_params` node by node)."""
+    predictions (``[N, B·S]`` for an LM) copied to the host once a batch
+    (``repro``'s batched evaluation; equal to :func:`_eval_params` node
+    by node)."""
     n_nodes = _first_leaf(stacked_students).shape[0]
     preds = []
     n = len(next(iter(test_data.values())))
@@ -153,10 +169,11 @@ def _eval_params_batched(cfg: ModelConfig, stacked_students, test_data,
         batch = {k: v[i:i + batch_size] for k, v in test_data.items()}
         preds.append(torch.stack([
             forward(cfg, node_params(stacked_students, j), batch)
-            .logits.argmax(-1) for j in range(n_nodes)]).cpu().numpy())
+            .logits.argmax(-1).reshape(-1) for j in range(n_nodes)])
+            .cpu().numpy())
     y_pred = np.concatenate(preds, axis=1)                   # [N, total]
-    y_true = test_data["label"].cpu().numpy()
-    ncls = _n_proto_classes(cfg)
+    y_true = _eval_truth(cfg, test_data)
+    ncls = _eval_classes(cfg)
     return [(macro_f1(y_true, y_pred[i], ncls), accuracy(y_true, y_pred[i]))
             for i in range(n_nodes)]
 
@@ -196,10 +213,10 @@ def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
     ``share_protos`` whether prototypes travel, ``wire`` the payload's
     :class:`WireSpec` (None: the fp32 wire) and ``model_cfgs`` the
     (teacher-slot, student-slot) configs."""
-    clip = train.grad_clip
+    kw = dict(grad_clip=train.grad_clip, remat=train.remat)
     if algo == "profe":
         step = make_profe_step(teacher_cfg, student_cfg, fed, opt_s, opt_t,
-                               grad_clip=clip)
+                               **kw)
         # adapter-rank wire: the factor (and gram) payload groups get
         # their own widths when configured; bits_for falls back to the
         # student's
@@ -221,17 +238,17 @@ def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
     # the baselines ride the fp32 wire; the "student" slot holds the
     # model that trains (and, but for FedProto, travels)
     if algo == "fedavg":
-        step = B.make_fedavg_step(teacher_cfg, opt_s, grad_clip=clip)
+        step = B.make_fedavg_step(teacher_cfg, opt_s, **kw)
         return step, "student", False, None, (teacher_cfg, teacher_cfg)
     if algo == "fedproto":
-        step = B.make_fedproto_step(teacher_cfg, fed, opt_s, grad_clip=clip)
+        step = B.make_fedproto_step(teacher_cfg, fed, opt_s, **kw)
         return step, None, True, None, (teacher_cfg, teacher_cfg)
     if algo == "fml":
         step = B.make_fml_step(teacher_cfg, student_cfg, fed, opt_t, opt_s,
-                               grad_clip=clip)
+                               **kw)
         return step, "student", False, None, (teacher_cfg, student_cfg)
     if algo == "fedgpd":
-        step = B.make_fedgpd_step(teacher_cfg, fed, opt_s, grad_clip=clip)
+        step = B.make_fedgpd_step(teacher_cfg, fed, opt_s, **kw)
         return step, "student", True, None, (teacher_cfg, teacher_cfg)
     raise ValueError(f"unknown algorithm {algo!r}")
 
@@ -348,9 +365,10 @@ def _payload_template(wire_model, share_protos, stacked: NodeState,
     payload: Dict[str, Any] = {}
     if wire_model is not None:
         if isinstance(stacked.student, Plane):
+            meta = stacked.student.meta
             model = tree_from_paths(
-                (path, ShapeDtypeStruct(shape, np.dtype(np.float32)))
-                for _, path, shape, _row, _r in stacked.student.meta.recipe)
+                ((path, ShapeDtypeStruct(shape, np.dtype(np.float32)))
+                 for _, path, shape, _row, _r in meta.recipe), meta.empties)
         else:
             model = tree_map(lambda x: ShapeDtypeStruct(
                 tuple(x.shape[1:]), x.dtype), stacked.student)
@@ -853,6 +871,9 @@ def run_federation(teacher_cfg: ModelConfig, fed: FederationConfig,
         raise ValueError(f"{given} initial states for {n_nodes} nodes")
     if stacked is None:
         stacked = stack_states(initial_states)
+    # the per-node states were copied into the stack: drop this frame's
+    # hold on them (at full width they are a second copy of the model)
+    del initial_states
     # the model evaluated (and the Eq. 3 pass's) is the one that travels
     eval_cfg = proto_cfg = model_cfgs[1] if algo in ("profe", "fml") \
         else model_cfgs[0]

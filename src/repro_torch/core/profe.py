@@ -30,8 +30,8 @@ from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.models import ModelOutput, forward, params_from_numpy
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
-from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
-                              tree_paths)
+from repro_torch.tree import (tree_empties, tree_from_paths, tree_leaves,
+                              tree_map, tree_paths)
 
 
 class NodeState(NamedTuple):
@@ -89,24 +89,35 @@ def resolve_device(device=None) -> torch.device:
 
 
 def proto_labels(cfg: ModelConfig, batch) -> torch.Tensor:
-    """The prototype class of each example: the true label."""
+    """The prototype class of each example: the true label for
+    classifiers, the sequence's domain tag (``batch["domains"]``) for
+    the LM families."""
     if cfg.family in ("cnn", "resnet"):
         return batch["label"]
     return batch["domains"]
 
 
 def task_ce(cfg: ModelConfig, logits, batch) -> torch.Tensor:
+    """Task cross-entropy: classification CE, or next-token CE for LMs."""
     if cfg.family in ("cnn", "resnet"):
         return D.ce_loss(logits, batch["label"])
     return D.ce_loss(logits, batch["labels"])
 
 
+def router_aux(cfg: ModelConfig, out: ModelOutput) -> torch.Tensor:
+    """The MoE load-balance term ``aux · router_aux_weight`` (0 for a
+    model without a router)."""
+    return out.aux * getattr(cfg, "router_aux_weight", 0.0)
+
+
 def student_loss(student_cfg: ModelConfig, sp, batch, global_protos,
                  proto_mask, alpha, beta_s: float, temperature: float,
-                 teacher_out: Optional[ModelOutput] = None):
-    """Eq. 8 for one node. ``teacher_out=None``: the professor has
-    decayed away."""
-    out = forward(student_cfg, sp, batch)
+                 teacher_out: Optional[ModelOutput] = None, *,
+                 remat: bool = True):
+    """Eq. 8 for one node, plus the router term. ``teacher_out=None``:
+    the professor has decayed away.  ``remat`` recomputes each period of
+    an LM stack in the backward (``models.forward``)."""
+    out = forward(student_cfg, sp, batch, remat=remat)
     loss = task_ce(student_cfg, out.logits, batch)
     loss = loss + beta_s * P.proto_mse_loss(
         out.f1, global_protos, proto_labels(student_cfg, batch), proto_mask)
@@ -114,17 +125,18 @@ def student_loss(student_cfg: ModelConfig, sp, batch, global_protos,
         kd = D.kd_loss(out.logits, teacher_out.logits, temperature)
         rep = D.repr_mse_loss(out.f1, teacher_out.f1)
         loss = loss + alpha * (kd + rep)
-    return loss, out
+    return loss + router_aux(student_cfg, out), out
 
 
 def teacher_loss(teacher_cfg: ModelConfig, tp, batch, global_protos,
-                 proto_mask, beta_t: float):
-    """Eq. 9 for one node: L_t = L_CE + beta_t * L_MSE(f_t1, C̄(j))."""
-    out = forward(teacher_cfg, tp, batch)
+                 proto_mask, beta_t: float, *, remat: bool = True):
+    """Eq. 9 for one node, plus the router term:
+    L_t = L_CE + beta_t * L_MSE(f_t1, C̄(j)) + aux · router_aux_weight."""
+    out = forward(teacher_cfg, tp, batch, remat=remat)
     loss = task_ce(teacher_cfg, out.logits, batch)
     loss = loss + beta_t * P.proto_mse_loss(
         out.f1, global_protos, proto_labels(teacher_cfg, batch), proto_mask)
-    return loss, out
+    return loss + router_aux(teacher_cfg, out), out
 
 
 def node_params(params, i: int):
@@ -148,19 +160,26 @@ def stacked_update(params, loss, opt: Optimizer, opt_state,
     place; ``active`` (``[N]`` bool) masks nodes out of the update.
     Returns the nodes' pre-clip gradient norms ``[N]``."""
     paths, leaves = zip(*tree_paths(params))
-    grads = torch.autograd.grad(loss, leaves)
-    clipped, gn = clip_by_global_norm(tree_from_paths(zip(paths, grads)),
-                                      grad_clip, lead=1)
+    # a leaf the loss never reads (an LM's proto_proj under FedAvg) has
+    # a zero gradient, as under jax.grad
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    clipped, gn = clip_by_global_norm(
+        tree_from_paths(zip(paths, grads), tree_empties(params)), grad_clip,
+        lead=1)
     opt.update(clipped, opt_state, params, lead=1, active=active)
     return gn
 
 
 def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                     fed: FederationConfig, opt_s: Optimizer,
-                    opt_t: Optimizer, *, grad_clip: float = 1.0):
+                    opt_t: Optimizer, *, grad_clip: float = 1.0,
+                    remat: bool = True):
     """Returns ``step(state, batch, teacher_on, active=None) -> (state,
     metrics)`` over stacked node state; ``batch`` leaves are ``[N, B,
-    ...]``.  Parameters and optimizer moments update in place.  On the
+    ...]``.  ``remat`` recomputes each period of an LM stack in the
+    backward instead of keeping its activations (the result is the
+    same).  Parameters and optimizer moments update in place.  On the
     plane ``opt_s`` is a plane optimizer, whose fused sweep clips at
     ``grad_clip`` itself; a per-leaf student is clipped per node and
     updated by the per-leaf ``opt_s``.  ``active`` (``[N]`` bool) masks
@@ -182,7 +201,8 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                 l, out = teacher_loss(teacher_cfg,
                                       node_params(state.teacher, i), b,
                                       state.global_protos[i],
-                                      state.proto_mask[i], fed.beta_t)
+                                      state.proto_mask[i], fed.beta_t,
+                                      remat=remat)
                 outs.append(out)
                 losses.append(l)
             lt = torch.stack(losses)
@@ -198,7 +218,8 @@ def make_profe_step(teacher_cfg: ModelConfig, student_cfg: ModelConfig,
                 student_cfg, node_params(state.student, i), b,
                 state.global_protos[i], state.proto_mask[i], alpha[i],
                 fed.beta_s, fed.kd_temperature,
-                teacher_out[i] if teacher_out is not None else None)
+                teacher_out[i] if teacher_out is not None else None,
+                remat=remat)
             losses.append(l)
             f1s.append(out.f1.detach())
         ls = torch.stack(losses)

@@ -64,8 +64,8 @@ from repro_torch.kernels.quantize.ref import (dequantize_ref,
                                               quantize_rows_ref, rowabs_ref,
                                               rowabs_sum_ref)
 from repro_torch.prng import uniform_like
-from repro_torch.tree import is_float, tree_from_paths, tree_leaves, \
-    tree_paths
+from repro_torch.tree import is_float, tree_empties, tree_from_paths, \
+    tree_leaves, tree_paths
 from repro_torch.wirespec import WireSpec, canonical_group
 
 _COLS = 512
@@ -216,8 +216,9 @@ def pack_tree(tree, *, node_axis: bool = False):
     """Flatten every float leaf of ``tree`` into one ``[R, 512]`` fp32
     buffer.  Returns ``(buf, seg_ids [R] int32, meta)`` with ``meta =
     (recipe, n_seg)``: ``recipe`` entries ``("packed", path, shape,
-    dtype, row, n_rows, seg, n_seg_leaf)`` or ``("raw", path, leaf)`` for
-    a non-float leaf, which rides in the meta untouched.  Alignment rows
+    dtype, row, n_rows, seg, n_seg_leaf)``, ``("raw", path, leaf)`` for
+    a non-float leaf, which rides in the meta untouched, or ``("empty",
+    path, type)`` for an empty subtree.  Alignment rows
     pad R to a multiple of 8 and carry the last segment id; a tree
     without float leaves gives an ``[8, 512]`` zero buffer."""
     parts: List[torch.Tensor] = []
@@ -237,6 +238,7 @@ def pack_tree(tree, *, node_axis: bool = False):
         parts.append(rows)
         seg += nseg
         row += rows.shape[0]
+    recipe.extend(("empty", path, kind) for path, kind in tree_empties(tree))
     if not parts:
         return (torch.zeros((8, _COLS), dtype=torch.float32),
                 np.zeros((8,), np.int32), (tuple(recipe), 1))
@@ -252,15 +254,15 @@ def pack_tree(tree, *, node_axis: bool = False):
 
 def unpack_tree(buf, meta):
     """Inverse of :func:`pack_tree` (float leaves come back fp32)."""
-    items = []
+    items, empties = [], []
     for item in meta[0]:
-        if item[0] == "raw":
-            items.append((item[1], item[2]))
+        if item[0] in ("raw", "empty"):
+            (items if item[0] == "raw" else empties).append(item[1:])
             continue
         _, path, shape, _dtype, row, n_rows, _seg, nseg = item
         items.append((path, _unpack_leaf(buf[row:row + n_rows], shape,
                                          len(shape) >= 1 and nseg > 1)))
-    return tree_from_paths(items)
+    return tree_from_paths(items, empties)
 
 
 def _segment_deltas(buf, seg_ids, n_seg: int, bits: int):
@@ -737,10 +739,11 @@ def pack_tree_nodes(tree, spec: Optional[WireSpec] = None):
     """Flatten every float leaf ``[N, ...]`` of ``tree`` into one
     ``[N, R, 512]`` fp32 buffer.  Returns ``(buf, seg_ids [R] int32,
     meta)`` with ``meta = (recipe, n_seg, n_nodes, seg_bits)``:
-    ``recipe`` entries ``("packed", path, shape, row, r_leaf, seg)`` or
+    ``recipe`` entries ``("packed", path, shape, row, r_leaf, seg)``,
     ``("raw", path, leaf)`` for a non-float leaf (it rides beside the
-    buffer), ``seg_bits`` each segment's width from ``spec`` by its
-    leaf's top-level key (None without a spec)."""
+    buffer) or ``("empty", path, type)`` for an empty subtree;
+    ``seg_bits`` each segment's width from ``spec`` by its leaf's
+    top-level key (None without a spec)."""
     parts: List[torch.Tensor] = []
     seg_parts: List[np.ndarray] = []
     seg_bits: List[int] = []
@@ -770,6 +773,7 @@ def pack_tree_nodes(tree, spec: Optional[WireSpec] = None):
         parts.append(rows)
         seg += 1
         row += r_leaf
+    recipe.extend(("empty", path, kind) for path, kind in tree_empties(tree))
     if not parts:
         raise ValueError("packed node format needs at least one float leaf")
     buf = torch.cat(parts, dim=1)
@@ -785,16 +789,16 @@ def pack_tree_nodes(tree, spec: Optional[WireSpec] = None):
 
 def unpack_tree_nodes(buf, meta):
     """Inverse of :func:`pack_tree_nodes` (float leaves come back fp32)."""
-    items = []
+    items, empties = [], []
     for item in meta[0]:
-        if item[0] == "raw":
-            items.append((item[1], item[2]))
+        if item[0] in ("raw", "empty"):
+            (items if item[0] == "raw" else empties).append(item[1:])
             continue
         _, path, shape, row, r_leaf, _seg = item
         per = math.prod(shape[1:])
         rows = buf[:, row:row + r_leaf].reshape(shape[0], -1)
         items.append((path, rows[:, :per].reshape(shape)))
-    return tree_from_paths(items)
+    return tree_from_paths(items, empties)
 
 
 def quantize_tree_packed_nodes(tree, bits: int = 16, *,

@@ -5,7 +5,8 @@ Every model — CNN, ResNet, or any transformer family — exposes:
 * ``init_params(cfg, gen[, device])`` — parameters from an explicit
   ``torch.Generator``, in ``cfg.param_dtype``; an LM is drawn on
   ``device`` (default: the generator's), ``"meta"`` for shapes only,
-* ``forward(cfg, params, batch)`` -> :class:`ModelOutput` (logits, f1, aux),
+* ``forward(cfg, params, batch, *, remat=False)`` -> :class:`ModelOutput`
+  (logits, f1, aux),
 * ``prefill(cfg, params, batch)`` -> (last logits, cache)      [LM families]
 * ``init_cache`` / ``decode_step(cfg, params, token, index, cache, ...)``
   [LM families; the cache is updated in place],
@@ -91,7 +92,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 # memory (cross-attention source) from stubbed frontends
 # ---------------------------------------------------------------------------
 
-def build_memory(cfg: ModelConfig, params, batch) -> Optional[torch.Tensor]:
+def build_memory(cfg: ModelConfig, params, batch, *,
+                 remat: bool = False) -> Optional[torch.Tensor]:
     if cfg.family == "vlm":
         img = batch["image_embed"].to(compute_dtype(cfg.dtype))
         return L.dense(params["img_proj"], img)
@@ -99,7 +101,7 @@ def build_memory(cfg: ModelConfig, params, batch) -> Optional[torch.Tensor]:
         x = batch["audio_embed"].to(compute_dtype(cfg.dtype))
         pos = torch.arange(x.shape[1], device=x.device)
         x, _ = T.stack_forward(_encoder_cfg(cfg), params["encoder"]["stack"],
-                               x, pos)
+                               x, pos, remat=remat)
         return T.apply_norm(cfg, params["encoder"]["norm"], x)
     return None
 
@@ -118,7 +120,12 @@ def _head(cfg, params, h):
 _IMAGE_FORWARDS = {"cnn": cnn_forward, "resnet": resnet_forward}
 
 
-def forward(cfg: ModelConfig, params, batch) -> ModelOutput:
+def forward(cfg: ModelConfig, params, batch, *,
+            remat: bool = False) -> ModelOutput:
+    """Logits, ``f1`` and the router's aux loss of one batch.  ``remat``
+    recomputes each period of an LM stack (the encoder's too) in the
+    backward instead of keeping its activations: training passes it
+    (``TrainConfig.remat``), serving and evaluation keep ``False``."""
     if cfg.family in _IMAGE_FORWARDS:
         logits, f1 = _IMAGE_FORWARDS[cfg.family](cfg, params, batch["image"])
         return ModelOutput(logits, f1, torch.zeros((), device=logits.device))
@@ -126,8 +133,9 @@ def forward(cfg: ModelConfig, params, batch) -> ModelOutput:
     x = L.embed(params["embed"], tokens, compute_dtype(cfg.dtype))
     positions = batch.get("positions",
                           torch.arange(tokens.shape[1], device=tokens.device))
-    memory = build_memory(cfg, params, batch)
-    x, aux = T.stack_forward(cfg, params["stack"], x, positions, memory)
+    memory = build_memory(cfg, params, batch, remat=remat)
+    x, aux = T.stack_forward(cfg, params["stack"], x, positions, memory,
+                             remat=remat)
     logits, f1 = _head(cfg, params, x)
     return ModelOutput(logits, f1, aux)
 

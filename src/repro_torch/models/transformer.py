@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as A
@@ -312,14 +313,25 @@ def _period_forward(cfg, period, pparams, x, positions, memory,
 
 
 def stack_forward(cfg: ModelConfig, params, x, positions,
-                  memory: Optional[torch.Tensor] = None):
+                  memory: Optional[torch.Tensor] = None, *,
+                  remat: bool = False):
+    """The stacked periods, then the remainder blocks.  ``remat`` (while
+    autograd records) wraps each period in ``torch.utils.checkpoint``
+    (``jax.checkpoint`` per period, nothing saved): its activations are
+    recomputed in the backward, which gives the same gradients."""
     seq = block_sequence(cfg)
     period, reps, rem = split_periods(seq)
     aux = torch.zeros((), device=x.device)
+    remat = remat and torch.is_grad_enabled()
     if params["scan"] is not None:
         for r in range(reps):
-            x, a, _ = _period_forward(cfg, period, _rep(params["scan"], r), x,
-                                      positions, memory)
+            args = (cfg, period, _rep(params["scan"], r), x, positions,
+                    memory)
+            if remat:
+                x, a, _ = torch.utils.checkpoint.checkpoint(
+                    _period_forward, *args, use_reentrant=False)
+            else:
+                x, a, _ = _period_forward(*args)
             aux = aux + a
     for kind, p in zip(rem, params["rem"]):
         x, a, _ = block_forward(cfg, kind, p, x, positions, memory)

@@ -25,8 +25,8 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.opt_update.ref import keep_masked, per_node, sqrt_rn
-from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
-                              tree_paths)
+from repro_torch.tree import (tree_empties, tree_from_paths, tree_leaves,
+                              tree_map, tree_paths)
 
 
 def advance(step: torch.Tensor, active) -> torch.Tensor:
@@ -216,7 +216,7 @@ def adafactor(lr: float, decay: float = 0.8, eps: float = 1e-30,
             p.copy_(keep_masked(active, newp, p))
             new_v.append((path, {k: keep_masked(active, x, v[k])
                                  for k, x in nv.items()}))
-        state["v"] = tree_from_paths(new_v)
+        state["v"] = tree_from_paths(new_v, tree_empties(params))
         state["step"] = advance(state["step"], active)
         return params, state
 

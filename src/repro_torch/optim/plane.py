@@ -35,17 +35,20 @@ from repro_torch.optim.optimizers import (Optimizer, adafactor_beta,
 
 # the optimizers with a fused plane sweep (kernels/opt_update)
 PLANE_OPTIMIZERS = ("sgd", "adamw", "adafactor")
-from repro_torch.tree import (register_buffer_node, tree_from_paths,
-                               tree_paths)
+from repro_torch.tree import (register_buffer_node, tree_empties,
+                              tree_from_paths, tree_paths)
 
 
 class PlaneMeta(NamedTuple):
     """Static recipe mapping tree leaves to plane rows: ``recipe``
     entries are ``("leaf", path, shape, row, r_leaf)`` — the leaf at
     ``path`` occupies rows ``[row, row + r_leaf)``; ``rows`` is the
-    8-aligned row count of the buffer."""
+    8-aligned row count of the buffer; ``empties`` the tree's empty
+    subtrees (:func:`~repro_torch.tree.tree_empties`), which hold no
+    rows but come back in :func:`as_tree`."""
     recipe: Tuple
     rows: int
+    empties: Tuple = ()
 
 
 class Plane(NamedTuple):
@@ -76,7 +79,8 @@ def plane_from_tree(tree) -> Plane:
         raise ValueError("plane needs at least one float leaf")
     buf = torch.cat(parts, dim=0)
     buf = F.pad(buf, (0, 0, 0, (-buf.shape[0]) % 8))
-    return Plane(buf, PlaneMeta(tuple(recipe), buf.shape[0]))
+    return Plane(buf, PlaneMeta(tuple(recipe), buf.shape[0],
+                                tree_empties(tree)))
 
 
 def _leaf_view(buf: torch.Tensor, shape, row: int, r_leaf: int):
@@ -95,8 +99,9 @@ def as_tree(plane: Plane):
     leading node axis when the buffer is stacked.  Differentiable — the
     gradient of a loss of the views is one buffer-shaped tensor."""
     return tree_from_paths(
-        (path, _leaf_view(plane.buf, shape, row, r_leaf))
-        for _, path, shape, row, r_leaf in plane.meta.recipe)
+        ((path, _leaf_view(plane.buf, shape, row, r_leaf))
+         for _, path, shape, row, r_leaf in plane.meta.recipe),
+        plane.meta.empties)
 
 
 def plane_global_norm(grads: Plane) -> torch.Tensor:

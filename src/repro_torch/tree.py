@@ -75,10 +75,34 @@ def keystr(path) -> str:
                    for k in path)
 
 
-def tree_from_paths(items):
+def tree_empties(tree, prefix: Tuple = ()) -> Tuple[Tuple[Tuple, type], ...]:
+    """``((path, type), ...)`` of the empty dicts, lists and tuples in
+    ``tree``: what :func:`tree_paths` drops (they hold no leaf) and
+    :func:`tree_from_paths` needs back to rebuild the tree whole, as a
+    JAX treedef keeps them (an LM stack's ``"rem": []``)."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif type(tree) in (list, tuple):
+        items = list(enumerate(tree))
+    else:
+        return ()
+    if not items:
+        return ((prefix, type(tree)),)
+    out: Tuple = ()
+    for k, sub in items:
+        out += tree_empties(sub, prefix + (k,))
+    return out
+
+
+def tree_from_paths(items, empties=()):
     """Inverse of :func:`tree_paths`: an int path key is a list index
     (JAX's flatten visits list elements in order), any other key a dict
-    key."""
+    key.  ``empties`` (:func:`tree_empties` of the tree flattened) puts
+    its empty subtrees back, each a fresh container, so dict keys stay
+    in flatten order."""
+    if empties:
+        items = sorted(list(items) + [(p, kind()) for p, kind in empties],
+                       key=lambda item: item[0])
     root = [None]
     for path, leaf in items:
         parent, key = root, 0
