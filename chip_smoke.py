@@ -100,7 +100,14 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     steps, ``16/ragged``, ``4/16+ef/ragged`` and ``adapters8/ragged`` (1
     round each, node 0 cut under one batch) on the per-node loop engine,
     each path's launches predicted from its split and every path's
-    per-node student step counters checked;
+    per-node student step counters checked; then the tree
+    payload's error feedback: ``adapters8+ef`` (rank 8 on the
+    ``4,adapters=8+ef`` wire, its residual the adapter payload's: 2
+    rounds, ``rowabs_sum`` and ``quantize_rows_ef`` once a round),
+    ``adapters8+grams+ef`` (RegMean, 1 round), ``4/16+ef/per-leaf`` and
+    ``adapters8/per-leaf`` (``param_plane="off"``, 1 round each) and
+    ``adapters8+ef/ragged`` (the loop engine, 1 round), a tree residual
+    held finite and non-zero with ``seq`` the rounds;
 10a. ``loop``: ``run_federation_loop`` against ``run_federation`` on the
     main path's configuration, one round without and one with the
     gradient clip (:func:`check_loop_against_stacked`);
@@ -120,14 +127,31 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     engine's ``train_phase`` (local epoch + exact Eq. 3 pass), then runs
     the mesh round: ``mesh/ring16`` (ring, ``ppermute``, 16-bit, 2
     rounds), ``mesh/ring4/16+ef`` (ring, ``ppermute`` with ``overlap``,
-    ``4/16+ef``, 1 round) and ``mesh/full-packed`` (``adjacency=None``,
-    ``packed``, 16-bit, 1 round).  Every rank holds its bytes handed to
-    collectives to the path's copies, its launches to the path's, and its
-    prototypes and student to finite values;
+    ``4/16+ef``, 1 round), ``mesh/full-packed`` (``adjacency=None``,
+    ``packed``, 16-bit, 1 round) and (``MESH_FED``)
+    ``mesh/adapters8`` (the adapter round, ring ``ppermute``,
+    ``4,adapters=8``, 2 rounds), ``mesh/adapters8+grams+ef/packed``
+    (RegMean with ``+ef``, 1 round), ``mesh/fedavg`` (FedAvg's fp32
+    model, ring ``ppermute``: ``mix_packed`` on fp32 codes) and
+    ``mesh/fedavg/full-packed``, ``mesh/ring16/gather`` (the per-leaf
+    reference exchange) and ``mesh/ring16/per-leaf`` (``param_plane=
+    "off"``), 1 round each.  Every rank holds its bytes handed to
+    collectives to the path's, its launches to :func:`mesh_launches`',
+    and its student (and prototypes) to finite values; FedAvg's and
+    ProFe's full-packed bytes are printed side by side (Table II on the
+    mesh);
+11a. ``mesh/lm/mamba2-130m`` (:func:`run_mesh_lm`): 4 ranks on the one
+    card, each holding one mamba2-130m node at full width and depth (the
+    student plane ``[1, 164832, 512]``), one local pass of 2 batches of 4
+    × 256 tokens, then one ring ``ppermute`` round of the 16-bit wire:
+    bytes, launches, finite students and prototypes; a line ``mesh lm
+    {...}`` with each rank's round seconds and peak memory;
 12. one rank holding all 8 nodes (``exchange="packed"``, ring adjacency)
     against the stacked engine's ``share_phase`` + ``mix_phase`` on the
     same post-train state: students within 4 ulp of their largest
-    magnitude, prototypes and mask bit for bit;
+    magnitude, prototypes and mask bit for bit; then the same for the
+    adapter round (``mesh/adapters8``'s wiring), its new adapter
+    references bit for bit too;
 13. ``codec``, the per-leaf and per-tensor wire codec at full width (see
     :func:`run_codec`): ``quantize_dequantize_per_node(packed=False)`` on
     the 20-node mnist-cnn and cifar10-resnet18 student payloads against
@@ -286,6 +310,21 @@ PATHS = {
                        (0.002015254, 108876, 106066)),
     "adapters8/ragged": ("mnist-cnn", "adamw", "4", 1,
                          (0.000188594, 12376, 9926)),
+    # the tree payload's error feedback: the adapter wire with
+    # 8-bit factors and +ef (its residual mirrors the adapter payload),
+    # naive and RegMean; +ef and the adapter wire on a per-leaf student;
+    # the adapter +ef wire on the loop engine.  The residual never travels,
+    # so the bytes are the stateless wire's
+    "adapters8+ef": ("mnist-cnn", "adamw", "4,adapters=8+ef", 2,
+                     (0.00072162, 22104, 18990)),
+    "adapters8+grams+ef": ("mnist-cnn", "adamw", "4,adapters=8+ef", 1,
+                           (0.000605188, 36452, 31852)),
+    "4/16+ef/per-leaf": ("mnist-cnn", "adamw", "4/16+ef", 1,
+                         (0.002015254, 108876, 106066)),
+    "adapters8/per-leaf": ("mnist-cnn", "adamw", "4", 1,
+                           (0.000188594, 12376, 9926)),
+    "adapters8+ef/ragged": ("mnist-cnn", "adamw", "4,adapters=8+ef", 1,
+                            (0.00036081, 22104, 18990)),
 }
 # the FederationConfig fields of a path beyond its wire spec
 PATH_FED = {"adapters8": dict(adapter_rank=8),
@@ -298,7 +337,14 @@ PATH_FED = {"adapters8": dict(adapter_rank=8),
             "16/fused": dict(proto_pass="fused"),
             "16/fused+ema": dict(proto_pass="fused", proto_ema=0.5),
             "adapters8/rounds": dict(adapter_rank=8),
-            "adapters8/ragged": dict(adapter_rank=8)}
+            "adapters8/ragged": dict(adapter_rank=8),
+            "adapters8+ef": dict(adapter_rank=8, adapter_quantize_bits=8),
+            "adapters8+grams+ef": dict(adapter_rank=8, adapter_grams=True,
+                                       adapter_quantize_bits=8),
+            "4/16+ef/per-leaf": dict(param_plane="off"),
+            "adapters8/per-leaf": dict(adapter_rank=8, param_plane="off"),
+            "adapters8+ef/ragged": dict(adapter_rank=8,
+                                        adapter_quantize_bits=8)}
 # the run_federation keywords of a path
 PATH_RUN = {"16/fused": dict(eval_all_nodes=True),
             "16/none": dict(overlap="none"),
@@ -313,7 +359,7 @@ DETERMINISTIC_PATHS = ("16/none",)
 # the per-node loop engine
 PATH_SPLIT = {"16/noniid40": "noniid40", "cifar10/sgd/dirichlet": "dirichlet",
               "16/ragged": "ragged", "4/16+ef/ragged": "ragged",
-              "adapters8/ragged": "ragged"}
+              "adapters8/ragged": "ragged", "adapters8+ef/ragged": "ragged"}
 RAGGED_IMAGES = 20
 # the baselines that share prototypes (an Eq. 3 pass a round)
 PROTO_BASELINES = ("fedproto", "fedgpd")
@@ -354,8 +400,49 @@ MESH_PATHS = {
     "mesh/ring4/16+ef": ("ring", "ppermute", "4/16+ef", True, 1,
                          2 * 108876, 2),
     "mesh/full-packed": ("full", "packed", "16", False, 1, 426060, 1),
+    # the adapter round (its payload {adapters, protos, student:
+    # rest[, grams]}, packed_copy_bytes at N = 8 from the JAX package:
+    # 22104 B a copy, 36452 with grams) on ppermute and, RegMean with
+    # +ef, packed; FedAvg's fp32 model rows (1703936 B a copy, PATHS'
+    # fedavg) on ppermute, mix_packed with fp32 codes, and full-packed;
+    # the per-leaf reference exchange (gather: each leaf's int16 codes,
+    # 206922 elements, its 8 scales, the prototypes' codes and scale and
+    # the counts); ProFe with a per-leaf student on ppermute
+    "mesh/adapters8": ("ring", "ppermute", "4,adapters=8", False, 2,
+                       2 * 22104, 0),
+    "mesh/adapters8+grams+ef/packed": ("ring", "packed", "4,adapters=8+ef",
+                                       False, 1, 36452, 0),
+    "mesh/fedavg": ("ring", "ppermute", "fp32", False, 1, 2 * 1703936, 1),
+    "mesh/fedavg/full-packed": ("full", "packed", "fp32", False, 1, 1703936,
+                                1),
+    "mesh/ring16/gather": ("ring", "gather", "16", False, 1,
+                           2 * 206922 + 4 * 8 + 2 * 1280 + 4 + 4 * 10, 0),
+    "mesh/ring16/per-leaf": ("ring", "ppermute", "16", False, 1, 2 * 426060,
+                             1),
 }
+# the FederationConfig fields of a mesh path beyond its wire spec
+MESH_FED = {"mesh/adapters8": dict(adapter_rank=8, adapter_quantize_bits=8),
+            "mesh/adapters8+grams+ef/packed": dict(
+                adapter_rank=8, adapter_grams=True, adapter_quantize_bits=8),
+            "mesh/fedavg": dict(algorithm="fedavg"),
+            "mesh/fedavg/full-packed": dict(algorithm="fedavg"),
+            "mesh/ring16/per-leaf": dict(param_plane="off")}
 MESH_DEADLINE_S = 600
+# an LM student on the mesh: mamba2-130m at full width and depth, one
+# node a rank on MESH_LM_RANKS ranks (ring, ppermute, 16-bit, 1 round)
+# after a local pass of LM_BATCHES batches; a rank sends 2 copies of
+# packed_copy_bytes({model, protos, counts}) = 168886584 B (LM_PATHS)
+MESH_LM = "mesh/lm/mamba2-130m"
+MESH_LM_RANKS = 4
+MESH_LM_BYTES = 2 * 168886584
+MESH_LM_PLANE = (1, 164832, 512)
+# the paths this PR adds; the kernels line lists each kernel's launches
+# on them
+NEW_PATHS = ("adapters8+ef", "adapters8+grams+ef", "4/16+ef/per-leaf",
+             "adapters8/per-leaf", "adapters8+ef/ragged", "mesh/adapters8",
+             "mesh/adapters8+grams+ef/packed", "mesh/fedavg",
+             "mesh/fedavg/full-packed", "mesh/ring16/gather",
+             "mesh/ring16/per-leaf", MESH_LM)
 # the per-receiver (RegMean) variant of lowrank_apply runs on this path
 PER_RECV_PATH = "adapters8+grams"
 # the data of each model's paths: make_image_dataset(0, 7040, shape, 10)
@@ -1226,6 +1313,208 @@ def check_lm_shapes(torch, timer, rows, nodes: int = 4) -> None:
         print(f"{name} at the LM shape {lm['shape']}: {lm['ms']:.4f} ms "
               f"(plain {lm['plain_ms']:.4f} ms, library "
               f"{lm['library_ms']:.4f} ms, bound {lm['bound_ms']:.4f} ms)")
+    torch.cuda.empty_cache()
+
+
+def check_new_shapes(torch, timer, rows) -> None:
+    """Phase 3 at the shapes the tree payload's error feedback and the
+    adapter, FedAvg and LM mesh paths give four kernels, each bit for bit
+    its plain version and timed into its row of ``rows``:
+
+    * ``rowabs_sum`` and ``quantize_rows_ef`` (rows 9, 10) on the
+      ``adapters8+ef`` tree payload: 20 nodes' rank-8 factors of the
+      mnist-cnn student's conv2, fc1 and fc2 (8-bit), its dense rest and
+      prototypes (4-bit), packed by ``pack_tree_nodes``, with a residual
+      of up to half a code step (``tree_ef``);
+    * ``mix_packed`` (row 11) on ``mesh/fedavg``'s fp32 codes: a rank's
+      own FedAvg model rows ``[1, 832, 512]`` and its 2 ring neighbours'
+      at unit Δ (``fedavg``), and on ``mesh/lm/mamba2-130m``'s 16-bit
+      codes, own ``[1, R, 512]`` and 2 senders, R the student plane's
+      164,832 rows behind the prototypes' 96 (``lm``);
+    * ``lowrank_apply`` (row 16) on one rank's merge of fc1 ``[1, 1568,
+      128]``: its 2 ring steps as the senders with ``A`` shared
+      (``mesh/adapters8``), and 8 senders with ``A`` per receiver
+      (RegMean on ``mesh/adapters8+grams+ef/packed``) (``mesh``)."""
+    from dataclasses import asdict
+
+    import numpy as np
+
+    from repro_torch.config import get_config
+    from repro_torch.core.adapters import adapter_layout, init_adapter_state
+    from repro_torch.core.round_ops import adapter_share_nodes
+    from repro_torch.kernels.lowrank_apply.lowrank_apply import (
+        lowrank_apply_cuda, lowrank_plan)
+    from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas, _seg_qmax,
+                                                  pack_plane_payload,
+                                                  pack_tree_nodes,
+                                                  quantize_packed_buffer)
+    from repro_torch.kernels.quantize.quantize import (mix_packed_cuda,
+                                                       mix_plan,
+                                                       quantize_rows_ef_cuda,
+                                                       rowabs_sum_cuda)
+    from repro_torch.kernels.quantize.ref import (mix_packed_ref,
+                                                  quantize_rows_ef_ref,
+                                                  rowabs_sum_ref)
+    from repro_torch.models import derive_student, init_params
+    from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
+    from repro_torch.tree import tree_map
+    from repro_torch.wirespec import WireSpec
+
+    by_name = {row["name"]: row for row in rows}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def stacked_plane(cfg, nodes):
+        bufs, meta = [], None
+        for _ in range(nodes):
+            one = plane_from_tree(tree_map(lambda x: x.to("cuda"),
+                                           init_params(cfg, gen)))
+            bufs.append(one.buf)
+            meta = one.meta
+        return Plane(torch.stack(bufs), meta)
+
+    # -- rows 9 and 10: the adapter wire's +ef payload ---------------------
+    spec = parse_wire(PATHS["adapters8+ef"][2])
+    mnist = derive_student(get_config("mnist-cnn"))
+    plane = stacked_plane(mnist, N_NODES)
+    tree = as_tree(plane)
+    ast = init_adapter_state(adapter_layout(tree, 8, node_axis=True), tree)
+    ast = {"ref": {k: v + 1e-3 * torch.randn(v.shape, generator=gen,
+                                              device="cuda")
+                   for k, v in ast["ref"].items()}}
+    groups, _, _ = adapter_share_nodes(plane, ast, rank=8)
+    protos = torch.rand((N_NODES, 10, mnist.proto_dim), generator=gen,
+                        device="cuda")
+    buf, seg_ids, meta = pack_tree_nodes(dict(groups, protos=protos), spec)
+    n_nodes, r_rows, c = buf.shape
+    _, rd0 = _node_row_deltas(buf, seg_ids, meta[1], 16, meta[3])
+    res = ((torch.rand(buf.shape, generator=gen, device="cuda") - 0.5)
+           * rd0[:, :, None]).contiguous()
+    x2d, r2d = buf.reshape(-1, c).contiguous(), res.reshape(-1, c)
+    r, n = x2d.shape[0], x2d.numel()
+    dec = torch.ones((), device="cuda")
+    expect(torch.equal(rowabs_sum_cuda(x2d, r2d, 1.0),
+                       rowabs_sum_ref(x2d, r2d, dec)),
+           f"rowabs_sum disagrees with its plain version on the adapter "
+           f"payload {(r, c)}")
+    _, rd = _node_row_deltas(buf, seg_ids, meta[1], 16, meta[3],
+                             residual=res)
+    rd = rd.reshape(-1, 1).contiguous()
+    qm = torch.as_tensor(np.tile(_seg_qmax(meta[1], 16, meta[3])[
+        np.asarray(seg_ids)], n_nodes)[:, None], device="cuda")
+    c_got, r_got = quantize_rows_ef_cuda(x2d, r2d, rd, qm, 1.0)
+    c_want, r_want = quantize_rows_ef_ref(x2d, r2d, rd, qm, dec)
+    torch.cuda.synchronize()
+    expect(torch.equal(c_got, c_want) and bits_equal(torch, r_got, r_want),
+           f"quantize_rows_ef disagrees with its plain version on the "
+           f"adapter payload {(r, c)}")
+    print(f"rowabs_sum and quantize_rows_ef on the adapters8+ef payload "
+          f"{(r, c)} ({sorted(set(meta[3].tolist()))}-bit rows): bit-exact")
+    by_name["rowabs_sum"]["tree_ef"] = dict(
+        path="adapters8+ef", shape=[r, c],
+        ms=timer(lambda: rowabs_sum_cuda(x2d, r2d, 1.0)),
+        plain_ms=timer(lambda: rowabs_sum_ref(x2d, r2d, dec)),
+        bound_ms=bound(8 * n + 4 * r, 4 * n)[0], library_ms=None)
+    by_name["quantize_rows_ef"]["tree_ef"] = dict(
+        path="adapters8+ef", shape=[r, c],
+        ms=timer(lambda: quantize_rows_ef_cuda(x2d, r2d, rd, qm, 1.0)),
+        plain_ms=timer(lambda: quantize_rows_ef_ref(x2d, r2d, rd, qm, dec)),
+        bound_ms=bound(16 * n + 8 * r, 9 * n)[0], library_ms=None)
+    del plane, tree, ast, groups, buf, res, x2d, r2d
+
+    # -- row 11: FedAvg's fp32 codes and the LM plane's 16-bit codes -------
+    def mix_case(key, path, own, cds, rd):
+        m, rr, cc = own.shape
+        s_ = cds.shape[0]
+        w = torch.rand((m, s_ + 1), generator=gen, device="cuda")
+        w = w / w.sum(dim=1, keepdim=True)
+        w_self, w_rows = w[:, 0].contiguous(), w[:, 1:].contiguous()
+        got = mix_packed_cuda(own, cds, rd, w_self, w_rows)
+        want = mix_packed_ref(own, cds, rd, w_self, w_rows)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got, want) == 0,
+               f"mix_packed ({key}) is not bit-exact with its plain version")
+        plan = mix_plan(m, s_, rr, cc, all(t.data_ptr() % 16 == 0
+                                           for t in (own, cds, got)))
+        print(f"mix_packed {key}: own {tuple(own.shape)} codes "
+              f"{tuple(cds.shape)} {cds.dtype}: bit-exact (plan {plan})")
+        by_name["mix_packed"][key] = dict(
+            path=path, own=list(own.shape), codes=list(cds.shape),
+            code_dtype=str(cds.dtype).replace("torch.", ""),
+            ms=timer(lambda: mix_packed_cuda(own, cds, rd, w_self, w_rows),
+                     reps=10),
+            plain_ms=timer(lambda: mix_packed_ref(own, cds, rd, w_self,
+                                                  w_rows), reps=10),
+            bound_ms=bound(4 * (2 * own.numel() + cds.numel() + rd.numel()
+                                + w_self.numel() + w_rows.numel()),
+                           m * rr * cc * (1 + 3 * s_))[0],
+            library_ms=None, plan=asdict(plan))
+
+    fa = stacked_plane(get_config("mnist-cnn"), 3).buf
+    mix_case("fedavg", "mesh/fedavg", fa[:1].contiguous(),
+             fa[1:].contiguous(), torch.ones(fa[1:].shape[:2],
+                                             device="cuda"))
+    del fa
+    lm_cfg = get_config("mamba2-130m")
+    lm = stacked_plane(derive_student(lm_cfg), 3)
+    lbuf, lids, lmeta, _, _ = pack_plane_payload(
+        torch.rand((3, lm_cfg.n_proto_classes, lm_cfg.proto_dim),
+                   generator=gen, device="cuda"), lm, WireSpec(16))
+    del lm
+    lcodes, lscales = quantize_packed_buffer(lbuf, lids, lmeta[1],
+                                             seg_bits=lmeta[3])
+    lrd = lscales[:, torch.as_tensor(lids, dtype=torch.int64,
+                                     device="cuda")].contiguous()
+    mix_case("lm", MESH_LM, lbuf[:1].contiguous(),
+             lcodes[1:].to(torch.int32).contiguous(), lrd[1:].contiguous())
+    del lbuf, lcodes, lscales, lrd
+
+    # -- row 16: a rank's merge: its 2 ring steps (A shared), or 8 senders
+    # -- with A per receiver (RegMean on the packed exchange) --------------
+    d, k, rk = 1568, 128, 8
+    w = (torch.randn((1, d, k), generator=gen, device="cuda") * 0.05)
+    mesh = {}
+    for variant, s_, path in (("shared", 2, "mesh/adapters8"),
+                              ("per_recv", MESH_NODES,
+                               "mesh/adapters8+grams+ef/packed")):
+        b = torch.randn((s_, d, rk), generator=gen,
+                        device="cuda") / math.sqrt(d)
+        coeffs = torch.rand((1, s_), generator=gen, device="cuda") / s_
+        a = torch.randn(((1,) if variant == "per_recv" else ()) +
+                        (s_, rk, k), generator=gen, device="cuda") * 1e-3
+        got = lowrank_apply_cuda(w, coeffs, b, a)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got, lowrank_apply_ref(w, coeffs, b, a)) == 0,
+               f"lowrank_apply ({variant}) is not bit-exact with its plain "
+               f"version at a rank's merge")
+        plan = lowrank_plan(1, s_, 1, d, k, rk, variant == "per_recv")
+        ops = (d * k * (2 * rk * s_ + 2 * s_ + 1) if variant == "shared"
+               else s_ * d * k * (2 * rk + 2))
+        bc = (coeffs[0, :, None, None] * b).permute(1, 0, 2) \
+            .reshape(d, s_ * rk).contiguous()
+        a2 = a.reshape(s_ * rk, k)
+        mesh[variant] = dict(
+            path=path, w=list(w.shape), senders=s_, rank=rk,
+            ms=timer(lambda: lowrank_apply_cuda(w, coeffs, b, a)),
+            plain_ms=timer(lambda: lowrank_apply_ref(w, coeffs, b, a)),
+            bound_ms=bound(4 * (2 * w.numel() + coeffs.numel() + b.numel()
+                                + a.numel()), ops)[0],
+            library_ms=timer(lambda: torch.addmm(w[0], bc, a2)),
+            plan=asdict(plan))
+        print(f"lowrank_apply at a rank's merge ({variant}): w "
+              f"{tuple(w.shape)}, {s_} senders: bit-exact (plan "
+              f"{plan.design})")
+    by_name["lowrank_apply"]["mesh"] = mesh
+    for name, key in (("rowabs_sum", "tree_ef"), ("quantize_rows_ef",
+                                                  "tree_ef"),
+                      ("mix_packed", "fedavg"), ("mix_packed", "lm")):
+        e = by_name[name][key]
+        print(f"{name} ({key}): {e['ms']:.4f} ms (plain {e['plain_ms']:.4f} "
+              f"ms, bound {e['bound_ms']:.4f} ms)")
+    for variant, e in mesh.items():
+        print(f"lowrank_apply (mesh, {variant}): {e['ms']:.4f} ms (plain "
+              f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
+              f"bound {e['bound_ms']:.4f} ms)")
     torch.cuda.empty_cache()
 
 
@@ -2783,7 +3072,23 @@ def run_path(torch, inputs, name: str):
 
     ws = res.extras.get("wire_state")
     expect((ws is not None) == ef, f"{name}: wire_state is {ws!r}")
-    if ef:
+    if ef and not hasattr(ws.residual["student"], "meta"):
+        # a tree residual (the adapter payload's, a per-leaf student's)
+        seq = ws.seq.tolist()
+        expect(seq == [rounds] * N_NODES, f"{name}: seq {seq} != {rounds}")
+        from repro_torch.tree import tree_paths
+        for group in sorted(ws.residual):
+            leaves = [x for _, x in tree_paths(ws.residual[group])]
+            expect(all(bool(torch.isfinite(x).all()) for x in leaves),
+                   f"{name}: residual {group} not finite")
+            top = max(float(x.abs().max()) for x in leaves)
+            print(f"residual {group}: {len(leaves)} leaves, max |res| "
+                  f"{top:.4g}")
+        expect(max(float(x.abs().max()) for _, x in tree_paths(
+            ws.residual)) > 0, f"{name}: residual all zero")
+        print(f"residual after {rounds} rounds: seq {seq[0]} on all "
+              f"{N_NODES} nodes, groups {sorted(ws.residual)}")
+    elif ef:
         seq = ws.seq.tolist()
         expect(seq == [rounds] * N_NODES, f"{name}: seq {seq} != {rounds}")
         protos, plane = ws.residual["protos"], ws.residual["student"]
@@ -3367,51 +3672,83 @@ def mesh_inputs(n_images: int):
 
 def mesh_federation_parts(torch, cfg, train, name: str, device):
     """``(fed, wire, train_phase, node states maker)`` of the mesh path
-    ``name``: the stacked engine's own wiring for ``MESH_NODES`` nodes."""
+    ``name``: the stacked engine's own wiring for ``MESH_NODES`` nodes
+    (ProFe on the plane or per-leaf, the adapter wire, or FedAvg, by
+    ``MESH_FED``)."""
     import dataclasses
 
     from repro_torch.config import FederationConfig
     from repro_torch.core import federation as F
-    from repro_torch.core.profe import init_node_state, stack_states
-    from repro_torch.core.wire_state import init_codec_state
+    from repro_torch.core.profe import stack_states
     from repro_torch.models import derive_student
     from repro_torch.optim import make_optimizer, make_plane_optimizer
-    from repro_torch.wirespec import WireSpec
 
     topo, _, wire, _, rounds, _, _ = MESH_PATHS[name]
-    spec = WireSpec.parse(wire)
+    spec = parse_wire(wire)
     fed = dataclasses.replace(
         FederationConfig(num_nodes=MESH_NODES, topology=topo, rounds=rounds,
-                         local_epochs=1), **wire_fields(spec))
+                         local_epochs=1), **wire_fields(spec),
+        **MESH_FED.get(name, {}))
+    algo = fed.algorithm
     student_cfg = derive_student(cfg)
+    plane = F._plane_mode(fed, train, algo, student_cfg)
     opt_t = make_optimizer(train.optimizer, train.learning_rate,
                            weight_decay=train.weight_decay,
                            momentum=train.momentum)
     opt_s = make_plane_optimizer(train.optimizer, train.learning_rate,
                                  weight_decay=train.weight_decay,
                                  momentum=train.momentum,
-                                 grad_clip=train.grad_clip)
-    step, _, _, wire_spec, _ = F._algo_wiring("profe", cfg, student_cfg, fed,
-                                              train, opt_s, opt_t)
+                                 grad_clip=train.grad_clip) \
+        if plane else opt_t
+    step, wire_model, share, wire_spec, cfgs = F._algo_wiring(
+        algo, cfg, student_cfg, fed, train, opt_s, opt_t)
     ncls = cfg.num_classes
-    parts = F._make_round_parts(step, student_cfg, ncls, bits=wire_spec)
+    proto_cfg = cfgs[1] if algo in ("profe", "fml") else cfgs[0]
+    adapters = bool(fed.adapter_rank)
+    parts = F._make_round_parts(step, proto_cfg, ncls, bits=wire_spec,
+                                share_protos=share, wire_model=wire_model,
+                                adapter_rank=fed.adapter_rank,
+                                adapter_grams=fed.adapter_grams)
 
     def states(nodes):
         """The stacked initial state of ``nodes`` (node i seeded
-        ``seed * 1000 + i``, as ``run_federation`` seeds it)."""
-        st = stack_states([init_node_state(
-            cfg, student_cfg,
-            torch.Generator().manual_seed(fed.seed * 1000 + i), opt_s,
-            opt_t, ncls, device=device) for i in nodes])
-        if spec.error_feedback:
-            st = st._replace(wire_state=init_codec_state(
-                {"protos": torch.zeros((len(nodes), ncls,
-                                        student_cfg.proto_dim),
-                                       device=device),
-                 "student": st.student}, n_nodes=len(nodes)))
-        return st
+        ``seed * 1000 + i``, as ``run_federation`` seeds it), with the
+        carries its wire needs (the adapter reference, the residual)."""
+        init = F._init_states(algo, cfgs, fed, opt_s, opt_t, ncls, device,
+                              plane=plane)
+        return F._with_carries(
+            stack_states([init[i] for i in nodes]), fed, wire_spec,
+            torch.device(device), ncls, proto_cfg.proto_dim,
+            use_plane=plane, adapters_on=adapters,
+            ef_on=wire_spec is not None and wire_spec.error_feedback,
+            ema=False)
 
     return fed, wire_spec, parts, states
+
+
+def mesh_launches(name: str, fed, spec, steps: int, rounds: int,
+                  plane: bool) -> dict:
+    """A mesh path's launches on one rank: its optimizer's plane sweep a
+    step (none for a per-leaf model), ``proto_accum`` a batch of the
+    Eq. 3 pass where prototypes travel, one codec pair a round (the row
+    absmax and the codes; ``+ef`` their residual forms; mixed widths the
+    per-row qmax codes; nothing on FedAvg's fp32 wire), ``MESH_PATHS``'
+    mixes a round and, on the adapter wire, a ``lowrank_apply`` a matrix
+    leaf a round."""
+    mix = MESH_PATHS[name][6]
+    want = {"mix_packed": mix * rounds}
+    if fed.algorithm == "fedavg":
+        return want
+    want.update(proto_accum=steps, adamw_update=steps if plane else 0)
+    if spec.error_feedback:
+        want.update(rowabs_sum=rounds, quantize_rows_ef=rounds)
+    elif spec.uniform_bits is not None:
+        want.update(rowabs=rounds, quantize_rows=rounds)
+    else:
+        want.update(rowabs=rounds, quantize_rows_mixed=rounds)
+    if fed.adapter_rank:
+        want["lowrank_apply"] = ADAPTER_LEAVES * rounds
+    return want
 
 
 def train_nodes(fed, train, train_phase, state, node_data, nodes, rnd: int,
@@ -3443,10 +3780,13 @@ def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
     import torch
     import torch.distributed as dist
 
+    from repro_torch.core import federation as F
     from repro_torch.core import mesh_federation as M
     from repro_torch.core.profe import resolve_device
     from repro_torch.core.topology import make_schedule
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.optim.plane import Plane
+    from repro_torch.tree import keyed_leaves
 
     dev = resolve_device(device)
     dist.init_process_group("gloo", init_method=init, world_size=world,
@@ -3457,16 +3797,24 @@ def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
                              dtype=torch.float32, device=dev)
         report = {}
         for name, (topo, exchange, _, overlap, rounds, want_bytes,
-                   mix_launches) in MESH_PATHS.items():
+                   _) in MESH_PATHS.items():
             fed, spec, parts, states = mesh_federation_parts(
                 torch, cfg, train, name, dev)
             train_phase = parts[0]
             adj = (None if topo == "full"
                    else make_schedule(MESH_NODES, topo).adjacency_at(0))
-            round_fn = M.make_profe_round(adjacency=adj, exchange=exchange,
-                                          spec=spec, overlap=overlap)
+            fedavg = fed.algorithm == "fedavg"
+            if fedavg:
+                round_fn = M.make_fedavg_round(adjacency=adj,
+                                               exchange=exchange)
+            else:
+                round_fn = M.make_profe_round(
+                    adjacency=adj, exchange=exchange, spec=spec,
+                    overlap=overlap, adapter_rank=fed.adapter_rank,
+                    adapter_grams=fed.adapter_grams)
             state = states([rank])
-            ef = spec.error_feedback
+            plane = isinstance(state.student, Plane)
+            ef = spec is not None and spec.error_feedback
             steps = rounds * (len(node_data[rank]["label"])
                               // train.batch_size)
             t0 = time.time()
@@ -3478,36 +3826,39 @@ def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
                     dev)
                 before = M.COLLECTIVE_BYTES.count
                 t_round = time.time()
-                out = round_fn(state.student, protos, counts, sizes,
-                               *([state.wire_state] if ef else []))
+                carry = [state.adapter_state] if fed.adapter_rank else []
+                carry += [state.wire_state] if ef else []
+                out = round_fn(state.student, sizes) if fedavg else \
+                    round_fn(state.student, protos, counts, sizes, *carry)
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 round_s.append(time.time() - t_round)
                 sent.append(M.COLLECTIVE_BYTES.count - before)
                 with torch.no_grad():
-                    state.student.buf.copy_(out[0].buf)
-                gp, mask = ((out[1], out[2]) if adj is not None
-                            else (out[1][None], out[2][None]))
-                state = state._replace(global_protos=gp, proto_mask=mask,
-                                       wire_state=out[3] if ef else None)
-                for what, t in (("prototypes", gp), ("student",
-                                                     state.student.buf)):
+                    F._copy_into(state.student, out if fedavg else out[0])
+                checked = [("student", v)
+                           for _, v in keyed_leaves(state.student)]
+                if not fedavg:
+                    gp, mask = ((out[1], out[2]) if adj is not None
+                                else (out[1][None], out[2][None]))
+                    state = state._replace(
+                        global_protos=gp, proto_mask=mask,
+                        adapter_state=out[3] if fed.adapter_rank else None,
+                        wire_state=out[-1] if ef else None)
+                    checked.append(("prototypes", gp))
+                    expect(float(mask.sum()) > 0,
+                           f"{name} rank {rank} round {rnd}: empty mask")
+                for what, t in checked:
                     expect(bool(torch.isfinite(t).all()),
                            f"{name} rank {rank} round {rnd}: {what} not "
                            f"finite")
-                expect(float(mask.sum()) > 0,
-                       f"{name} rank {rank} round {rnd}: empty mask")
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             counts = launch_counts()
             want = {k: 0 for k in counts}
-            want.update(adamw_update=steps, proto_accum=steps,
-                        mix_packed=mix_launches * rounds)
-            want.update({"rowabs_sum": rounds, "quantize_rows_ef": rounds}
-                        if ef else {"rowabs": rounds,
-                                    "quantize_rows": rounds})
+            want.update(mesh_launches(name, fed, spec, steps, rounds, plane))
             for kernel, n in want.items():
-                expect(counts[kernel] == n,
+                expect(dev.type != "cuda" or counts[kernel] == n,
                        f"{name} rank {rank}: {kernel} launched "
                        f"{counts[kernel]} != {n}")
             expect(sent == [want_bytes] * rounds,
@@ -3517,11 +3868,13 @@ def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
                 expect(state.wire_state.seq.tolist() == [rounds],
                        f"{name} rank {rank}: seq "
                        f"{state.wire_state.seq.tolist()}")
+            student_max = max(float(v.detach().abs().max())
+                              for _, v in keyed_leaves(state.student))
             report[name] = dict(
                 launches=counts, bytes_per_round=sent,
                 seconds=time.time() - t0, mesh_round_s=round_s,
-                student_abs_max=float(state.student.buf.detach().abs().max()),
-                mask=state.proto_mask.tolist())
+                student_abs_max=student_max,
+                mask=None if fedavg else state.proto_mask.tolist())
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
     finally:
@@ -3569,6 +3922,13 @@ def run_mesh(torch, device: str = "cuda", n_images: int = 7040,
               f"max |student| {max(p['student_abs_max'] for p in per):.4g}")
         print(f"{name}: launches on rank 0 {per[0]['launches']}; summed "
               f"over {MESH_NODES} ranks {totals[name]}")
+    # Table II on the mesh: what a rank hands to its collectives a round
+    # for FedAvg's fp32 model against ProFe's 16-bit student + prototypes,
+    # on the same full-packed exchange
+    fedavg, profe = (reports[0][n]["bytes_per_round"][0]
+                     for n in ("mesh/fedavg/full-packed", "mesh/full-packed"))
+    print(f"Table II on the mesh (full-packed, B a rank a round): fedavg "
+          f"{fedavg}  profe {profe}  ratio {profe / fedavg:.4f}")
     return totals
 
 
@@ -3634,6 +3994,209 @@ def check_mesh_parity(torch, device: str = "cuda",
                        "stacked engine's beyond 4 ulp")
     expect(same, "the one-rank mesh round's prototypes or mask differ from "
                  "the stacked engine's")
+
+
+def check_mesh_adapter_parity(torch, device: str = "cuda",
+                              n_images: int = 7040) -> None:
+    """Phase 12, the adapter wire: one rank of a one-rank gloo group
+    holds all ``MESH_NODES`` nodes of ``mesh/adapters8`` (ring, rank 8,
+    ``4,adapters=8``).  After one round of local training, the packed
+    adapter round and the stacked engine's ``share_phase`` +
+    ``mix_phase`` run on copies of the same state: students within 4
+    ulp of their largest magnitude, prototypes, mask and the new adapter
+    references bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import mesh_federation as M
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.core.topology import make_schedule
+    from repro_torch.optim.plane import Plane
+    from repro_torch.tree import tree_leaves
+
+    dev = resolve_device(device)
+    cfg, train, node_data = mesh_inputs(n_images)
+    nodes = list(range(MESH_NODES))
+    fed, spec, parts, states = mesh_federation_parts(
+        torch, cfg, train, "mesh/adapters8", dev)
+    train_phase, share_phase, mix_phase = parts
+    state, protos, counts = train_nodes(fed, train, train_phase,
+                                        states(nodes), node_data, nodes, 0,
+                                        dev)
+    sizes = [len(d["label"]) for d in node_data]
+    sched = make_schedule(MESH_NODES, "ring")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            round_fn = M.make_profe_round(
+                adjacency=sched.adjacency_at(0), exchange="packed",
+                spec=spec, adapter_rank=fed.adapter_rank)
+            got = round_fn(Plane(state.student.buf.detach().clone(),
+                                 state.student.meta), protos, counts,
+                           torch.tensor(sizes, dtype=torch.float32,
+                                        device=dev), state.adapter_state)
+        finally:
+            dist.destroy_process_group()
+    st = state._replace(student=Plane(state.student.buf.detach().clone(),
+                                      state.student.meta))
+    st, recv, protos_rx = share_phase(st, protos)
+    w_self, w_neigh, include = (torch.as_tensor(x[0], device=dev)
+                                for x in sched.lower(sizes))
+    st = mix_phase(st, recv, protos_rx, counts, w_self, w_neigh, include)
+    want = st.student.buf.detach()
+    tol = 4 * float(torch.finfo(torch.float32).eps) * 2.0 ** math.floor(
+        math.log2(float(want.abs().max())))
+    err = float((got[0].buf - want).abs().max())
+    same = (torch.equal(got[1], st.global_protos)
+            and torch.equal(got[2], st.proto_mask)
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got[3]), tree_leaves(st.adapter_state))))
+    print(f"one rank, {MESH_NODES} nodes, packed adapter round against "
+          f"share_phase + mix_phase: max |student difference| {err:.3e} "
+          f"(bound {tol:.3e}); prototypes, mask and adapter state "
+          f"bit-exact: {same}")
+    expect(err <= tol, "the one-rank adapter round's students differ from "
+                       "the stacked engine's beyond 4 ulp")
+    expect(same, "the one-rank adapter round's prototypes, mask or adapter "
+                 "state differ from the stacked engine's")
+
+
+def mesh_lm_rank(rank: int, world: int, init: str, out_dir: str,
+                 device: str) -> None:
+    """The ``mesh/lm/mamba2-130m`` phase on one spawned rank: its
+    mamba2-130m node (full width and depth, the student on the plane)
+    takes one round of local training (``LM_BATCHES`` batches of
+    ``LM_BATCH`` × 256 tokens and the Eq. 3 pass), then one ring
+    ``ppermute`` round of the 16-bit wire.  Checks the plane's shape, the
+    bytes handed to collectives (``MESH_LM_BYTES``), finite students and
+    prototypes and, on the card, every launch; reports the round's
+    seconds and the rank's peak memory to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import FederationConfig, TrainConfig
+    from repro_torch.core import federation as F
+    from repro_torch.core import mesh_federation as M
+    from repro_torch.core.profe import (init_node_state, resolve_device,
+                                        stack_states)
+    from repro_torch.core.topology import make_schedule
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+    from repro_torch.models import derive_student
+    from repro_torch.optim import make_optimizer, make_plane_optimizer
+
+    dev = resolve_device(device)
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank)
+    try:
+        arch, smoke, optimizer, _, _, seq, _, _ = LM_PATHS["lm/mamba2-130m"]
+        cfg, node_data, _ = lm_inputs(arch, smoke, world, seq)
+        fed = FederationConfig(num_nodes=world, topology="ring", rounds=1,
+                               local_epochs=1, quantize_bits=16)
+        train = TrainConfig(batch_size=LM_BATCH, optimizer=optimizer)
+        student_cfg = derive_student(cfg)
+        opt_t = make_optimizer(optimizer, train.learning_rate,
+                               weight_decay=train.weight_decay)
+        opt_s = make_plane_optimizer(optimizer, train.learning_rate,
+                                     weight_decay=train.weight_decay,
+                                     grad_clip=train.grad_clip)
+        step, _, _, spec, _ = F._algo_wiring("profe", cfg, student_cfg, fed,
+                                             train, opt_s, opt_t)
+        ncls = F._n_proto_classes(cfg)
+        train_phase = F._make_round_parts(step, student_cfg, ncls,
+                                          bits=spec)[0]
+        state = stack_states([init_node_state(
+            cfg, student_cfg,
+            torch.Generator().manual_seed(fed.seed * 1000 + rank), opt_s,
+            opt_t, ncls, device=dev)])
+        expect(tuple(state.student.buf.shape) == MESH_LM_PLANE,
+               f"{MESH_LM}: plane {tuple(state.student.buf.shape)}")
+        sizes = torch.tensor([len(next(iter(d.values()))) for d in node_data],
+                             dtype=torch.float32, device=dev)
+        round_fn = M.make_profe_round(
+            adjacency=make_schedule(world, "ring").adjacency_at(0),
+            exchange="ppermute", spec=spec)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.time()
+        state, protos, counts = train_nodes(fed, train, train_phase, state,
+                                            node_data, [rank], 0, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t1 = time.time()
+        before = M.COLLECTIVE_BYTES.count
+        out = round_fn(state.student, protos, counts, sizes)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        round_s = time.time() - t1
+        sent = M.COLLECTIVE_BYTES.count - before
+        got = launch_counts()
+        want = {k: 0 for k in got}
+        want.update(adamw_update=LM_BATCHES, proto_accum=LM_BATCHES,
+                    rowabs=1, quantize_rows=1, mix_packed=1)
+        for kernel, n in want.items():
+            expect(dev.type != "cuda" or got[kernel] == n,
+                   f"{MESH_LM} rank {rank}: {kernel} launched {got[kernel]} "
+                   f"!= {n}")
+        expect(sent == MESH_LM_BYTES,
+               f"{MESH_LM} rank {rank}: bytes handed to collectives {sent} "
+               f"!= {MESH_LM_BYTES}")
+        for what, t in (("student", out[0].buf), ("prototypes", out[1])):
+            expect(bool(torch.isfinite(t).all()),
+                   f"{MESH_LM} rank {rank}: {what} not finite")
+        expect(float(out[2].sum()) > 0, f"{MESH_LM} rank {rank}: empty mask")
+        report = dict(
+            launches=got, bytes=sent, train_s=t1 - t0, round_s=round_s,
+            peak_bytes=torch.cuda.max_memory_allocated(dev)
+            if dev.type == "cuda" else None,
+            plane=list(state.student.buf.shape),
+            student_abs_max=float(out[0].buf.abs().max()))
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_lm(torch, smi: str, device: str = "cuda") -> dict:
+    """Phase 11a, ``mesh/lm/mamba2-130m``: ``MESH_LM_RANKS`` spawned ranks
+    in one gloo group on one card, each holding one mamba2-130m node
+    (:func:`mesh_lm_rank`).  Prints one ``mesh lm {...}`` line with each
+    rank's round seconds and peak memory beside the card; returns the
+    launches summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            mesh_lm_rank, args=(MESH_LM_RANKS, f"file://{tmp}/store", tmp,
+                                device),
+            nprocs=MESH_LM_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_DEADLINE_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+                expect(time.monotonic() < deadline,
+                       f"{MESH_LM} ranks still running after "
+                       f"{MESH_DEADLINE_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                   for r in range(MESH_LM_RANKS)]
+    line = {"path": MESH_LM, "ranks": MESH_LM_RANKS, "card": smi,
+            "plane": reports[0]["plane"],
+            "bytes_per_rank": [r["bytes"] for r in reports],
+            "train_s": [r["train_s"] for r in reports],
+            "round_s": [r["round_s"] for r in reports],
+            "peak_bytes": [r["peak_bytes"] for r in reports],
+            "student_abs_max": max(r["student_abs_max"] for r in reports)}
+    print("mesh lm " + json.dumps(line), flush=True)
+    return {k: sum(r["launches"][k] for r in reports)
+            for k in reports[0]["launches"]}
 
 
 def profile_rounds(torch, inputs, name: str) -> None:
@@ -4151,6 +4714,7 @@ def main() -> int:
     check_loop_shapes(torch, timer, derive_student(get_config("mnist-cnn")),
                       rows)
     check_lm_shapes(torch, timer, rows)
+    check_new_shapes(torch, timer, rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -4210,6 +4774,13 @@ def main() -> int:
     phase(f"mesh parity: one rank holding {MESH_NODES} nodes against the "
           f"stacked engine")
     check_mesh_parity(torch)
+    check_mesh_adapter_parity(torch)
+
+    phase(f"{MESH_LM}: {MESH_LM_RANKS} ranks on one card over gloo, one "
+          f"full-width node each, ring ppermute, 16-bit")
+    t0 = time.time()
+    counts[MESH_LM] = run_mesh_lm(torch, smi)
+    print(f"{MESH_LM} phase took {time.time() - t0:.1f} s")
 
     phase("codec: the per-leaf and per-tensor wire codec at full width")
     t0 = time.time()
@@ -4257,6 +4828,12 @@ def main() -> int:
         # the LM federations' launches of the kernel, where it ran there
         row["lm_launches"] = {p: counts[p][row["name"]] for p in LM_PATHS
                               if counts[p].get(row["name"])}
+        # the launches of the kernel on the tree-payload error-feedback,
+        # adapter, FedAvg and LM mesh paths (the mesh paths' summed over
+        # their ranks), where it ran there
+        row["new_path_launches"] = {p: counts[p][row["name"]]
+                                    for p in NEW_PATHS
+                                    if counts[p].get(row["name"])}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

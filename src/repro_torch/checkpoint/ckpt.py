@@ -11,9 +11,9 @@ NamedTuple field as ``.name`` and a Plane's buffer as ``buf``; a
 ``None`` holds nothing.  Tensors are detached and
 copied to the host; bf16 is stored as fp32 (exact) and cast back.  A
 ``.meta.json`` sidecar holds the keys and the caller's metadata.  The
-stacked engine's whole state (``NodeState`` with ``wire_state``,
-``proto_acc`` and ``adapter_state``) round-trips bit for bit, so a run
-resumes exactly.  Its step counters are one a node (``[N]``); a
+stacked engine's whole state (``NodeState`` with ``wire_state``, whose
+residual is a plane or a tree mirroring the payload, ``proto_acc`` and
+``adapter_state``) round-trips bit for bit, so a run resumes exactly.  Its step counters are one a node (``[N]``); a
 checkpoint that holds one 0-d counter for all nodes (the stacked state's
 layout before per-node counters) loads with that counter broadcast to
 every node.

@@ -23,7 +23,8 @@ carries a leading ``[N]`` node axis) and one round is:
    trips the packed wire codec (``kernels/quantize``) at the
    ``WireSpec``'s widths (uniform, or mixed such as ``4/16``), with the
    error-feedback residual carried in ``NodeState.wire_state`` when the
-   spec has ``+ef``; a per-leaf student rides the tree codec; on the
+   spec has ``+ef`` (mirroring the payload: a plane, or a tree of its
+   float leaves); a per-leaf student rides the tree codec; on the
    fp32 wire (``quantize_bits=0``, every baseline) the payload passes
    unquantized; on the adapter-rank wire (``FederationConfig.adapter_rank``,
    ``core/adapters.py``) the matrix leaves travel as rank-r factors of
@@ -45,8 +46,7 @@ macro-F1 of node 0 (or, with ``eval_all_nodes``, the mean over nodes)
 is recorded per round (Fig. 2).  Where node datasets are too ragged to
 stack (a node smaller than one batch) ``run_federation`` falls back to
 :func:`run_federation_loop`, the per-node reference engine.  The code
-follows ``repro.core.federation``; options outside the port raise
-``NotImplementedError`` naming their ``ROADMAP.md`` queue item.
+follows ``repro.core.federation``.
 """
 from __future__ import annotations
 
@@ -64,7 +64,8 @@ from repro_torch.core import topology as T
 from repro_torch.core import baselines as B
 from repro_torch.core.adapters import (adapter_layout,
                                        adapter_payload_template,
-                                       init_adapter_state, split_student)
+                                       init_adapter_state, split_student,
+                                       zero_wire_payload)
 from repro_torch.core.aggregation import (weighted_plane_mean,
                                           weighted_tree_mean)
 from repro_torch.core.comm import (CommMeter, ScheduleCommAccountant,
@@ -82,7 +83,8 @@ from repro_torch.core.quantization import (quantize_dequantize_tree,
 from repro_torch.core.wire_state import (ef_quantize_dequantize_plane,
                                          init_codec_state)
 from repro_torch.data.loader import batch_index_lists, batches
-from repro_torch.kernels.lowrank_apply.ops import adapter_apply_plane
+from repro_torch.kernels.lowrank_apply.ops import (adapter_apply_plane,
+                                                   adapter_apply_tree)
 from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.kernels.quantize.ops import quantize_dequantize_plane_rows
 from repro_torch.models import derive_student, forward, init_params
@@ -255,8 +257,7 @@ def _algo_wiring(algo: str, teacher_cfg: ModelConfig,
 
 def _check_slice(fed: FederationConfig, *, overlap,
                  stale_self_floor) -> None:
-    """``repro``'s option checks, and a raise for the one option the port
-    lacks."""
+    """``repro``'s option checks."""
     if overlap not in OVERLAPS:
         raise ValueError(f"overlap must be one of {OVERLAPS}, "
                          f"got {overlap!r}")
@@ -267,9 +268,6 @@ def _check_slice(fed: FederationConfig, *, overlap,
         raise ValueError("stale_self_floor only applies to the "
                          "stale-by-one pipeline (overlap='rounds'), "
                          f"got overlap={overlap!r}")
-    if fed.adapter_rank and fed.error_feedback:
-        raise _unported("error feedback on the adapter-rank wire",
-                        "Queue 1 item 11")
 
 
 def _apply_self_floor(w_self_st, w_neigh_st, floor: float):
@@ -560,10 +558,18 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
                 grams=adapter_grams)
             if shared is not None:
                 shared["adapters"] = groups["adapters"]
-            recv = dict(R.quantize_dequantize_per_node(
-                dict(groups, protos=protos), spec=spec))
+            state = state._replace(adapter_state=new_ad)
+            payload = dict(groups, protos=protos)
+            if spec.error_feedback:
+                # the residual mirrors the adapter payload's structure
+                recv, new_ws = R.quantize_dequantize_per_node(
+                    payload, spec=spec, state=state.wire_state)
+                state = state._replace(wire_state=new_ws)
+            else:
+                recv = R.quantize_dequantize_per_node(payload, spec=spec)
+            recv = dict(recv)
             protos_rx = recv.pop("protos")
-            return state._replace(adapter_state=new_ad), recv, protos_rx
+            return state, recv, protos_rx
         payload = {"protos": protos, "student": state.student}
         if spec.error_feedback:
             recv, new_ws = R.quantize_dequantize_per_node(
@@ -577,20 +583,18 @@ def _make_round_parts(step: Callable, proto_cfg: ModelConfig, ncls: int, *,
     def mix_phase(state: NodeState, recv_student, protos_rx, counts,
                   w_self, w_neigh, include) -> NodeState:
         if adapter_rank:
-            R.adapter_merge_nodes(state.student, recv_student, w_self,
-                                  w_neigh, rank=adapter_rank,
-                                  grams=adapter_grams)
+            # a plane merges in place; a per-leaf tree comes back new
+            merged = R.adapter_merge_nodes(state.student, recv_student,
+                                           w_self, w_neigh,
+                                           rank=adapter_rank,
+                                           grams=adapter_grams)
+            if merged is not state.student:
+                _copy_into(state.student, merged)
         elif wire_model is not None:
             # every mixed leaf is computed before any is written back: on
             # the fp32 wire recv_student IS the student
-            mixed = R.mix_node_trees(w_self, w_neigh, state.student,
-                                     recv_student)
-            if isinstance(mixed, Plane):
-                state.student.buf.copy_(mixed.buf)
-            else:
-                for own, new in zip(tree_leaves(state.student),
-                                    tree_leaves(mixed)):
-                    own.copy_(new)
+            _copy_into(state.student, R.mix_node_trees(
+                w_self, w_neigh, state.student, recv_student))
         if not share_protos:
             return state
         gp, mask = R.neighborhood_prototype_aggregate(include, protos_rx,
@@ -697,9 +701,6 @@ def _wiring(teacher_cfg: ModelConfig, fed: FederationConfig,
         and share_protos and bits is not None
     ef_on = bits is not None and bits.error_feedback
     ema = bool(fed.proto_ema and fed.proto_ema > 0)
-    if not use_plane and (adapters_on or ef_on):
-        raise _unported("the adapter-rank wire or error feedback on a "
-                        "per-leaf student", "Queue 1 item 11")
     return _Wiring(sched=sched, ncls=ncls, sizes=sizes, opt_s=opt_s,
                    opt_t=opt_t, use_plane=use_plane, step=step,
                    wire_model=wire_model, share_protos=share_protos,
@@ -764,10 +765,21 @@ def _with_carries(stacked: NodeState, fed: FederationConfig, bits, device,
             adapter_layout(tree, fed.adapter_rank, node_axis=True), tree,
             grams=fed.adapter_grams))
     if ef_on and stacked.wire_state is None:
+        # the residual mirrors the payload: {protos, student} (a plane,
+        # or a per-leaf student's tree), or on the adapter wire factor-
+        # shaped zeros, the dense rest (and gram zeros)
+        ef_payload = {"protos": torch.zeros((n_nodes, ncls, proto_dim),
+                                            dtype=torch.float32,
+                                            device=device)}
+        if adapters_on:
+            tree = as_tree(stacked.student)
+            ef_payload.update(zero_wire_payload(
+                adapter_layout(tree, fed.adapter_rank, node_axis=True),
+                tree, grams=fed.adapter_grams))
+        else:
+            ef_payload["student"] = stacked.student
         stacked = stacked._replace(wire_state=init_codec_state(
-            {"protos": torch.zeros((n_nodes, ncls, proto_dim),
-                                   dtype=torch.float32, device=device),
-             "student": stacked.student}, n_nodes=n_nodes))
+            ef_payload, n_nodes=n_nodes))
     return stacked
 
 
@@ -1187,10 +1199,24 @@ def run_federation_loop(teacher_cfg: ModelConfig, fed: FederationConfig,
                           for n in layout.mat_names}
             ef_recv = []
             if ef_on:
+                # every node's payload through the error-feedback codec
+                # once a round: the plane's row sweeps, or the tree codec
+                # on a tree payload (a per-leaf student, or the adapter
+                # groups; a one-node stack scales each leaf whole, as
+                # repro's per-leaf reference), its residual mirroring the
+                # payload
                 for i in range(n_nodes):
-                    recv_i, new_ws = ef_quantize_dequantize_plane(
-                        {"protos": protos[i], "student": states[i].student},
-                        bits, states[i].wire_state)
+                    if adapters_on:
+                        pay_i = dict(adapter_pay[i], protos=protos[i])
+                    else:
+                        pay_i = {"protos": protos[i],
+                                 "student": states[i].student}
+                    if use_plane and not adapters_on:
+                        recv_i, new_ws = ef_quantize_dequantize_plane(
+                            pay_i, bits, states[i].wire_state)
+                    else:
+                        recv_i, new_ws = R.quantize_dequantize_per_node(
+                            pay_i, spec=bits, state=states[i].wire_state)
                     states[i] = states[i]._replace(wire_state=new_ws)
                     ef_recv.append(recv_i)
             recv_models = [[] for _ in range(n_nodes)]
@@ -1212,9 +1238,11 @@ def run_federation_loop(teacher_cfg: ModelConfig, fed: FederationConfig,
                 meter.record_broadcast(i, neigh, payload, kind=algo,
                                        round_idx=rnd, bits=bits)
                 if adapters_on:
-                    recv_pay.append({
-                        k: quantize_dequantize_tree(v, bits.bits_for(k))
-                        for k, v in adapter_pay[i].items()})
+                    recv_pay.append(
+                        {k: v for k, v in ef_recv[i].items()
+                         if k != "protos"} if ef_on else
+                        {k: quantize_dequantize_tree(v, bits.bits_for(k))
+                         for k, v in adapter_pay[i].items()})
                 elif wire_model is not None:
                     if ef_on:
                         model_rx = ef_recv[i]["student"]
@@ -1324,5 +1352,10 @@ def _adapter_merge_loop(states: List[NodeState], recv_pay, layout, adj,
                 a_use = regmean_adjust(a_use, g_bank[n], coeffs[i][None],
                                        per_recv=False)[0]
             factors[n] = {"A": a_use, "B": bank[n]["B"]}
-        adapter_apply_plane(states[i].student, layout, coeffs[i:i + 1],
-                            factors, rest_mix)
+        student = states[i].student
+        if isinstance(student, Plane):
+            adapter_apply_plane(student, layout, coeffs[i:i + 1], factors,
+                                rest_mix)
+        else:
+            _copy_into(student, adapter_apply_tree(
+                student, layout, coeffs[i:i + 1], factors, rest_mix))

@@ -278,7 +278,7 @@ def zero_proto_acc(n_classes: int, proto_dim: int, device):
 def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
                           proto_mask, round_idx=0, *, plane: bool = True,
                           residual=None, seq=0, proto_acc=None,
-                          device=None) -> NodeState:
+                          adapter_state=None, device=None) -> NodeState:
     """One node's state carried over from the JAX package.
 
     ``student`` and ``teacher`` are parameter trees (nested dicts and
@@ -293,15 +293,24 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
     dtype (the step counters 0-d int32: one node's slice of JAX's
     per-node counters).  ``global_protos`` ``[C, P]``,
     ``proto_mask`` ``[C]`` and ``round_idx`` as the JAX ``NodeState``
-    holds them.  ``residual`` (``{"protos": [C, P], "student": [R,
-    512]}``, the student residual in the plane's layout; plane students
-    only) and ``seq`` carry an error-feedback ``CodecState``;
-    ``proto_acc`` (``(sums [C, P], counts [C])``) the prototype EMA
-    carry.  Runs on ``cuda`` unless ``device`` names another device."""
+    holds them.  ``residual`` and ``seq`` carry an error-feedback
+    ``CodecState``: ``{"protos": [C, P], "student": [R, 512]}`` for a
+    plane student (its residual in the plane's layout), or any tree of
+    numpy arrays mirroring the payload's float leaves (a per-leaf
+    student's ``{"protos", "student": tree}``, the adapter wire's
+    ``{"adapters", "protos", "student": rest[, "grams"]}``), fp32, its
+    empty subtrees kept.  ``adapter_state`` (``{"ref": {leaf: W}[,
+    "grams": {leaf: G}]}``) carries the adapter wire's reference and
+    gram statistics, fp32; ``proto_acc`` (``(sums [C, P], counts
+    [C])``) the prototype EMA carry.  Runs on ``cuda`` unless ``device``
+    names another device."""
     device = resolve_device(device)
 
     def t(x, dtype=torch.float32):
         return torch.from_numpy(np.array(x)).to(device=device, dtype=dtype)
+
+    def f32_tree(tree):
+        return tree_map(lambda x: None if x is None else t(x), tree)
     student = params_from_numpy(student, device)
     wire_state = None
     if plane:
@@ -314,19 +323,18 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
         if "fac" in opt_s and len(opt_s["fac"]) != len(student.meta.recipe):
             raise ValueError(f"opt_s fac has {len(opt_s['fac'])} segments, "
                              f"the plane {len(student.meta.recipe)} leaves")
-        if residual is not None:
-            if tuple(np.shape(residual["student"])) != shape:
-                raise ValueError(f"student residual "
-                                 f"{np.shape(residual['student'])} does not "
-                                 f"match the plane {shape}")
-            wire_state = CodecState(
-                {"protos": t(residual["protos"]),
-                 "student": Plane(t(residual["student"]), student.meta)},
-                t(seq, torch.int32))
-    elif residual is not None:
-        raise NotImplementedError(
-            "error feedback on a per-leaf student is not ported yet: "
-            "ROADMAP.md Queue 1 item 11 (the tree payload's +ef)")
+    if residual is not None:
+        res_s = residual.get("student")
+        if plane and hasattr(res_s, "shape"):
+            if tuple(res_s.shape) != tuple(student.buf.shape):
+                raise ValueError(f"student residual {tuple(res_s.shape)} "
+                                 f"does not match the plane "
+                                 f"{tuple(student.buf.shape)}")
+            res = {"protos": t(residual["protos"]),
+                   "student": Plane(t(res_s), student.meta)}
+        else:
+            res = f32_tree(residual)
+        wire_state = CodecState(res, t(seq, torch.int32))
     return NodeState(
         student=student,
         teacher=params_from_numpy(teacher, device),
@@ -335,7 +343,9 @@ def node_state_from_numpy(student, teacher, opt_s, opt_t, global_protos,
         global_protos=t(global_protos), proto_mask=t(proto_mask),
         round_idx=t(round_idx, torch.int32), wire_state=wire_state,
         proto_acc=None if proto_acc is None
-        else (t(proto_acc[0]), t(proto_acc[1])))
+        else (t(proto_acc[0]), t(proto_acc[1])),
+        adapter_state=None if adapter_state is None
+        else f32_tree(adapter_state))
 
 
 def stack_states(states: List[NodeState]) -> NodeState:
@@ -364,15 +374,20 @@ def stack_states(states: List[NodeState]) -> NodeState:
         return {k: tree_map(stack, *(getattr(s, key)[k] for s in states))
                 for k in s0}
 
+    def stack_res(*xs):
+        # a residual tree: a Plane stacks its buffer, None stays None
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], Plane):
+            return Plane(stack(*(x.buf for x in xs)), xs[0].meta)
+        return stack(*xs)
+
     s0 = states[0]
     wire_state = None
     if s0.wire_state is not None:
         ws = [s.wire_state for s in states]
         wire_state = CodecState(
-            {"protos": stack(*(w.residual["protos"] for w in ws)),
-             "student": Plane(stack(*(w.residual["student"].buf
-                                      for w in ws)),
-                              ws[0].residual["student"].meta)},
+            tree_map(stack_res, *(w.residual for w in ws)),
             stack(*(w.seq for w in ws)))
     if isinstance(s0.student, Plane):
         student = Plane(leaf(*(s.student.buf for s in states)),

@@ -153,9 +153,11 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
     leaf.
 
     ``state`` (a :class:`~repro_torch.core.wire_state.CodecState`,
-    required when ``spec.error_feedback`` is set) switches the plane
+    required when ``spec.error_feedback`` is set) switches either
     payload to the error-feedback codec and returns ``(reconstruction,
-    new_state)``, with ``seq`` advanced by one.
+    new_state)``, with ``seq`` advanced by one; its residual mirrors the
+    payload (a plane-backed ``student`` residual is a Plane, any other a
+    tree of the payload's float leaves).
 
     ``packed=False`` runs the per-leaf reference codec instead
     (:func:`_quantize_dequantize_per_leaf`), which the packed codec is
@@ -189,12 +191,12 @@ def quantize_dequantize_per_node(tree, bits: int = 16, *,
         return _quantize_dequantize_per_leaf(tree, bits, spec, state)
     if not (isinstance(tree, dict) and isinstance(tree.get("student"),
                                                   Plane)):
-        if state is not None:
-            raise NotImplementedError(
-                "error feedback on a tree payload is not ported yet: "
-                "ROADMAP.md Queue 1 item 11 (the adapter wire's +ef)")
-        return quantize_dequantize_tree_packed_nodes(tree, bits, spec=spec,
-                                                     rng=rng)
+        if state is None:
+            return quantize_dequantize_tree_packed_nodes(tree, bits,
+                                                         spec=spec, rng=rng)
+        recv, new_res = quantize_dequantize_tree_packed_nodes(
+            tree, bits, spec=spec, rng=rng, residual=state.residual)
+        return recv, CodecState(new_res, seq=next_seq(state.seq))
     if state is None:
         return quantize_dequantize_plane_payload(tree, bits, spec=spec,
                                                  rng=rng)
@@ -279,15 +281,14 @@ def adapter_merge_nodes(student, recv, w_self, w_neigh, *, rank: int,
     the receiver's own training delta is already in ``W_i``), while the
     dense rest keeps the gossip mean (own copy unquantized).  ``recv`` is
     the receiver-side view ``{"adapters", "student" [, "grams"]}``; with
-    grams the factors are RegMean-adjusted per receiver.  The stacked
+    grams the factors are RegMean-adjusted per receiver.  A stacked
     student ``Plane`` is merged IN PLACE through ``kernels/lowrank_apply``
-    and returned."""
+    and returned; a per-leaf student tree gives a new merged tree
+    (``adapter_apply_tree``, the same kernel a matrix leaf)."""
     from repro_torch.core.adapters import adapter_layout, split_student
-    from repro_torch.kernels.lowrank_apply.ops import adapter_apply_plane
+    from repro_torch.kernels.lowrank_apply.ops import (adapter_apply_plane,
+                                                       adapter_apply_tree)
     from repro_torch.optim.plane import Plane, as_tree
-    if not isinstance(student, Plane):
-        raise TypeError("adapter_merge_nodes merges a stacked student "
-                        f"Plane in place, got {type(student).__name__}")
     tree = as_tree(student)
     layout = adapter_layout(tree, rank, node_axis=True)
     _, rest_now = split_student(layout, tree)
@@ -299,4 +300,7 @@ def adapter_merge_nodes(student, recv, w_self, w_neigh, *, rank: int,
                                            w_neigh, per_recv=False),
                        "B": f["B"]}
                    for n, f in factors.items()}
-    return adapter_apply_plane(student, layout, w_neigh, factors, rest_mixed)
+    if isinstance(student, Plane):
+        return adapter_apply_plane(student, layout, w_neigh, factors,
+                                   rest_mixed)
+    return adapter_apply_tree(tree, layout, w_neigh, factors, rest_mixed)

@@ -10,9 +10,11 @@ payload, at no extra wire bytes:
 
 :class:`CodecState` is the carried state, as in ``repro``'s
 ``core/wire_state.py``: a residual mirroring the wire payload
-``{"protos": [N, C, P], "student": Plane}`` (the student residual is a
-plane in the payload's row layout) and the sender's sequence counter
-``seq``.  It rides in :class:`repro_torch.core.profe.NodeState`'s
+(``{"protos": [N, C, P], "student": Plane}``, the student residual a
+plane in the payload's row layout; or, for a per-leaf student or the
+adapter wire's ``{"adapters", "protos", "student": rest[, "grams"]}``,
+a tree of the payload's float leaves) and the sender's sequence
+counter ``seq``.  It rides in :class:`repro_torch.core.profe.NodeState`'s
 ``wire_state`` field.  The packed sweep that updates it lives in
 ``kernels/quantize/ops.py`` (``quantize_packed_buffer(residual=)``);
 this module holds the state, the per-leaf reference of the codec,
@@ -51,18 +53,25 @@ def next_seq(seq: torch.Tensor) -> torch.Tensor:
 
 
 def init_codec_state(payload, n_nodes: int) -> CodecState:
-    """Zero residual state shaped like the stacked wire payload
-    ``{"protos": [N, C, P], "student": Plane}``: fp32 zeros for the
-    prototypes, a zero plane with the student's recipe and an
-    ``[n_nodes]`` zero ``seq``."""
-    protos, plane = payload["protos"], payload["student"]
-    dev = plane.buf.device
-    residual = {
-        "protos": torch.zeros(protos.shape, dtype=torch.float32, device=dev),
-        "student": Plane(torch.zeros(plane.buf.shape, dtype=torch.float32,
-                                     device=dev), plane.meta)}
-    return CodecState(residual, torch.zeros((n_nodes,), dtype=torch.int32,
-                                            device=dev))
+    """Zero residual state shaped like the stacked wire payload: fp32
+    zeros for every float leaf (a ``Plane`` gives a zero plane with its
+    recipe, ``{"protos", "student": Plane}`` the plane payload's
+    residual), ``None`` for a non-float leaf, empty subtrees kept (the
+    adapter payload's and a per-leaf student's tree residuals mirror
+    their payloads), and an ``[n_nodes]`` zero ``seq``."""
+    def zero(x):
+        if isinstance(x, Plane):
+            return Plane(torch.zeros(x.buf.shape, dtype=torch.float32,
+                                     device=x.buf.device), x.meta)
+        if not _is_float(x):
+            return None
+        return torch.zeros(tuple(x.shape), dtype=torch.float32,
+                           device=x.device)
+    leaves = [x.buf if isinstance(x, Plane) else x
+              for x in tree_leaves(payload)]
+    dev = next(x.device for x in leaves if isinstance(x, torch.Tensor))
+    return CodecState(tree_map(zero, payload),
+                      torch.zeros((n_nodes,), dtype=torch.int32, device=dev))
 
 
 def residual_leaves(tree, state: CodecState):

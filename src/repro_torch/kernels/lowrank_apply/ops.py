@@ -5,6 +5,9 @@ raises.
 
 * :func:`lowrank_apply` — one matrix leaf of every receiver, lead axes
   folded into the launch.
+* :func:`adapter_apply_tree` — the merge on a node-stacked per-leaf
+  student tree: each matrix leaf through :func:`lowrank_apply`, each
+  rest leaf its mixed value, a new tree.
 * :func:`adapter_apply_plane` — the merge on a node-stacked plane, IN
   PLACE: every matrix leaf's row span is read and written through
   :func:`lowrank_apply` on its ``[N, *lead, d, k]`` view, every rest span
@@ -34,6 +37,30 @@ def lowrank_apply(w, coeffs, b, a, *, out=None):
         return res
     out.copy_(res)
     return out
+
+
+@torch.no_grad()
+def adapter_apply_tree(tree, layout, coeffs, factors: Dict[str, Dict],
+                       rest_mixed: Dict[str, torch.Tensor]):
+    """The merge over a node-stacked per-leaf tree (``repro``'s
+    ``adapter_apply_tree``): every matrix leaf ``[N, *lead, d, k]``
+    becomes ``W + Σ_j coeffs[:, j]·(B_j @ A_j)`` through
+    :func:`lowrank_apply` (fp32), every other leaf its ``rest_mixed``
+    value.  ``factors`` is ``{leaf: {"A", "B"}}`` stacked over senders,
+    ``layout`` the tree's ``AdapterLayout``.  Returns a new tree, the
+    layout's empty subtrees kept."""
+    from repro_torch.tree import tree_from_paths, tree_paths
+    items = []
+    for name, is_mat, (path, leaf) in zip(layout.names, layout.is_mat,
+                                          tree_paths(tree)):
+        if is_mat:
+            f = factors[name]
+            leaf = lowrank_apply(leaf.detach().float().contiguous(), coeffs,
+                                 f["B"], f["A"])
+        else:
+            leaf = rest_mixed[name]
+        items.append((path, leaf))
+    return tree_from_paths(items, layout.empties)
 
 
 @torch.no_grad()

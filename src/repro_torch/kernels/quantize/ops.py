@@ -17,8 +17,11 @@ same sweep.  The error-feedback codec (``+ef``) quantizes the effective
 payload ``x + decay·res`` instead: its absmax sweep adds the residual in
 registers, and one sweep writes the codes and the new residual
 ``eff - codes·Δ``.  Any other node-stacked payload (the adapter wire's ``{"adapters",
-"protos", "student": rest[, "grams"]}``) packs leaf by leaf into the
-same buffer layout and runs the same sweeps (the per-leaf tree codec).
+"protos", "student": rest[, "grams"]}``, a per-leaf student's
+``{"protos", "student"}``) packs leaf by leaf into the same buffer
+layout and runs the same sweeps (the per-leaf tree codec), with error
+feedback too (its residual a tree mirroring the payload's float
+leaves).
 The mesh exchange serializes the codes into the physical wire byte
 buffer (``encode_wire``: int16 rows bitcast, int4 rows nibble-packed)
 and its receivers dequantize them straight into the gossip mix
@@ -788,36 +791,75 @@ def pack_tree_nodes(tree, spec: Optional[WireSpec] = None):
 
 
 def unpack_tree_nodes(buf, meta):
-    """Inverse of :func:`pack_tree_nodes` (float leaves come back fp32)."""
+    """Inverse of :func:`pack_tree_nodes` (float leaves come back in the
+    buffer's dtype).  ``buf``'s leading axis may hold other rows than the
+    packed nodes (every sender's, or one node's per-step copies): each
+    leaf comes back ``[buf.shape[0], ...]``."""
     items, empties = [], []
+    m = buf.shape[0]
     for item in meta[0]:
         if item[0] in ("raw", "empty"):
             (items if item[0] == "raw" else empties).append(item[1:])
             continue
         _, path, shape, row, r_leaf, _seg = item
         per = math.prod(shape[1:])
-        rows = buf[:, row:row + r_leaf].reshape(shape[0], -1)
-        items.append((path, rows[:, :per].reshape(shape)))
+        rows = buf[:, row:row + r_leaf].reshape(m, -1)
+        items.append((path, rows[:, :per].reshape((m,) + tuple(shape[1:]))))
     return tree_from_paths(items, empties)
 
 
 def quantize_tree_packed_nodes(tree, bits: int = 16, *,
                                spec: Optional[WireSpec] = None,
-                               rng=None) -> Dict:
+                               rng=None, residual=None) -> Dict:
     """Quantize a node-stacked tree into ``{"codes": [N, R, C] intN,
     "scales": [N, T] fp32, "seg_ids", "seg_bits", "meta", "bits"}``,
     each leaf group at its spec width; ``rng`` is
-    :func:`quantize_packed_buffer`'s (stochastic rounding)."""
+    :func:`quantize_packed_buffer`'s (stochastic rounding).
+
+    ``residual`` (required when ``spec.error_feedback`` is set) is the
+    error-feedback residual: a tree of fp32 leaves mirroring the
+    payload's float leaves, packed into the same buffer layout (a buffer
+    of another shape raises).  The sweeps then quantize ``x +
+    decay·res`` (the absmax adds it inside its reduction, the codes
+    sweep writes the fresh error beside the codes) and the payload gains
+    ``"ef_residual"``, the new residual tree, which never rides the
+    wire: codes and scales keep the stateless format."""
     _check_rng(spec, rng)
-    if spec is not None and spec.error_feedback:
-        raise NotImplementedError(
-            "error feedback on a tree payload is not ported yet: "
-            "ROADMAP.md Queue 1 item 11 (the adapter wire's +ef)")
+    _check_residual(spec, residual)
     buf, seg_ids, meta = pack_tree_nodes(tree, spec)
-    codes, scales = quantize_packed_buffer(buf, seg_ids, meta[1], bits,
-                                           seg_bits=meta[3], rng=rng)
-    return {"codes": codes, "scales": scales, "seg_ids": seg_ids,
-            "seg_bits": meta[3], "meta": meta, "bits": bits}
+    out = {"seg_ids": seg_ids, "seg_bits": meta[3], "meta": meta,
+           "bits": bits}
+    if residual is None:
+        out["codes"], out["scales"] = quantize_packed_buffer(
+            buf, seg_ids, meta[1], bits, seg_bits=meta[3], rng=rng)
+        return out
+    res_buf, _, res_meta = pack_tree_nodes(residual)
+
+    def shapes(m):
+        return [item[2] for item in m[0] if item[0] == "packed"]
+    if res_buf.shape != buf.shape or shapes(res_meta) != shapes(meta):
+        raise ValueError(f"residual buffer {tuple(res_buf.shape)} does not "
+                         f"match the payload buffer {tuple(buf.shape)} leaf "
+                         f"for leaf: the residual tree must mirror the "
+                         f"payload's float leaves")
+    out["codes"], out["scales"], new_res = quantize_packed_buffer(
+        buf, seg_ids, meta[1], bits, seg_bits=meta[3], rng=rng,
+        residual=res_buf, ef_decay=_ef_decay(spec))
+    out["ef_residual"] = unpack_tree_nodes(new_res, res_meta)
+    return out
+
+
+def _check_residual(spec: Optional[WireSpec], residual) -> None:
+    """``repro``'s refusal: an error-feedback spec with no residual (the
+    stateful codec must not drop its state)."""
+    if spec is not None and spec.error_feedback and residual is None:
+        raise ValueError("WireSpec.error_feedback is set but no residual "
+                         "was passed: the error-feedback codec needs the "
+                         "carried per-node residual tree (CodecState)")
+
+
+def _ef_decay(spec: Optional[WireSpec]) -> float:
+    return spec.ef_decay if spec is not None else 1.0
 
 
 def dequantize_tree_packed_nodes(payload):
@@ -832,12 +874,20 @@ def dequantize_tree_packed_nodes(payload):
 
 def quantize_dequantize_tree_packed_nodes(tree, bits: int = 16, *,
                                           spec: Optional[WireSpec] = None,
-                                          rng=None):
+                                          rng=None, residual=None):
     """Round trip of a node-stacked tree through the packed node codec —
-    what every receiver reconstructs.  Always through the buffer (the
-    route ``repro`` takes with its kernels, and with a key)."""
-    return dequantize_tree_packed_nodes(
-        quantize_tree_packed_nodes(tree, bits, spec=spec, rng=rng))
+    what every receiver reconstructs; with ``residual`` (the
+    error-feedback codec, :func:`quantize_tree_packed_nodes`) returns
+    ``(reconstruction, new residual tree)``.  Always through the buffer
+    (the route ``repro`` takes with its kernels, and with a key): one
+    absmax and one codes launch over the whole buffer (``rowabs_sum``
+    and ``quantize_rows_ef`` with a residual)."""
+    payload = quantize_tree_packed_nodes(tree, bits, spec=spec, rng=rng,
+                                         residual=residual)
+    recv = dequantize_tree_packed_nodes(payload)
+    if residual is None:
+        return recv
+    return recv, payload["ef_residual"]
 
 
 # -- byte accounting (shapes only) ------------------------------------------

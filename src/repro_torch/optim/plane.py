@@ -94,10 +94,13 @@ def _leaf_view(buf: torch.Tensor, shape, row: int, r_leaf: int):
     return v[..., :per].reshape(lead + tuple(shape))
 
 
-def as_tree(plane: Plane):
+def as_tree(plane):
     """Tree view of a plane: slice+reshape views of its buffer, with the
     leading node axis when the buffer is stacked.  Differentiable — the
-    gradient of a loss of the views is one buffer-shaped tensor."""
+    gradient of a loss of the views is one buffer-shaped tensor.  Any
+    other tree (a per-leaf student) passes through, as ``repro``'s."""
+    if not isinstance(plane, Plane):
+        return plane
     return tree_from_paths(
         ((path, _leaf_view(plane.buf, shape, row, r_leaf))
          for _, path, shape, row, r_leaf in plane.meta.recipe),

@@ -415,7 +415,8 @@ def test_tree_codec_matches_jax_bit_for_bit(wire, grams):
     adapter payload bit-exact against ``repro``'s packed node codec
     (eager, its plain sweeps) and its leaf-local round trip, uniform and
     with per-group widths; the per-node entry point gives the same view,
-    and refuses error feedback on a tree payload."""
+    and an error-feedback spec without its residual raises (error
+    feedback itself: ``tests/test_torch_tree_ef.py``)."""
     pay = _adapter_payload(9, grams)
     jspec, tspec = JWireSpec.parse(wire), WireSpec.parse(wire)
     bits = tspec.uniform_bits or 16
@@ -442,7 +443,7 @@ def test_tree_codec_matches_jax_bit_for_bit(wire, grams):
     again = tround.quantize_dequantize_per_node(_to(pay, _t), spec=tspec)
     for a, (_, b) in zip(tree_leaves(again), tl):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="no residual"):
         tqops.quantize_tree_packed_nodes(
             _to(pay, _t), bits, spec=WireSpec.parse(wire + "+ef"))
 
@@ -527,19 +528,27 @@ def test_share_and_merge_match_jax(grams):
 
 
 def test_merge_takes_only_a_plane():
-    """The merge writes the stacked student plane in place; a parameter
-    tree (the port has no tree-backed student) is refused, not merged
-    by the plain version whatever its device."""
+    """The merge writes a stacked student plane in place and returns it;
+    a per-leaf student tree (``param_plane="off"``) is merged into a new
+    tree through the same ``lowrank_apply`` a matrix leaf, bit-identical
+    to the plane's leaf views, and left as it was."""
     _, tplane, _ = _stacked_student(13)
-    tree = as_tree(tplane)
+    tree = jax.tree_util.tree_map(lambda x: x.clone(), as_tree(tplane))
     tl = TA.adapter_layout(tree, 8, node_axis=True)
     mats, rest = TA.split_student(tl, tree)
     recv = {"adapters": TA.factorize_deltas(
         tl, mats, {n: m * 0.9 for n, m in mats.items()}), "student": rest}
     w_self, w_neigh = (_t(x) for x in tround.gossip_matrix(
         1.0 - np.eye(N_NODES), [1, 2, 3, 4]))
-    with pytest.raises(TypeError, match="Plane"):
-        tround.adapter_merge_nodes(tree, recv, w_self, w_neigh, rank=8)
+    before = [x.clone() for x in tree_leaves(tree)]
+    merged = tround.adapter_merge_nodes(tree, recv, w_self, w_neigh, rank=8)
+    assert merged is not tree
+    for a, b in zip(tree_leaves(tree), before):
+        assert torch.equal(a, b)
+    out = tround.adapter_merge_nodes(tplane, recv, w_self, w_neigh, rank=8)
+    assert out is tplane
+    for a, b in zip(tree_leaves(merged), tree_leaves(as_tree(tplane))):
+        assert torch.equal(a, b)
 
 
 # -- whole runs ----------------------------------------------------------------

@@ -503,8 +503,9 @@ def test_stack_states_refuses_unequal_steps_and_per_leaf_residuals():
     """Unequal step counters are no longer refused: nodes with unequal
     batch counts step unequally, so ``stack_states`` stacks the counters
     one a node, each keeping its node's value, as ``repro``'s
-    ``_stack_states`` does.  Error feedback on a per-leaf student is
-    still refused (``ROADMAP.md`` Queue 1 item 11)."""
+    ``_stack_states`` does.  Nor is error feedback on a per-leaf student
+    refused any more: its residual tree is carried as fp32 tensors and
+    stacks leaf by leaf."""
     jcfg = _small_cfg()
     jfed, _ = _fed_pair(num_nodes=2, algorithm="fedavg")
     jstates = _jax_states("fedavg", jcfg, jfed, jbase.TrainConfig(), False)
@@ -518,13 +519,20 @@ def test_stack_states_refuses_unequal_steps_and_per_leaf_residuals():
     assert _a(got.opt_s["step"]).tobytes() == np.asarray(
         JF._stack_states(jstates).opt_s["step"]).tobytes()
     st = jstates[0]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tprofe.node_state_from_numpy(
-            _np_tree(st.student), {}, _np_tree(st.opt_s), {},
-            np.asarray(st.global_protos), np.asarray(st.proto_mask),
-            plane=False, device="cpu",
-            residual={"protos": np.zeros((10, 16), np.float32),
-                      "student": np.zeros((1, 512), np.float32)})
+    residual = {"protos": np.ones((10, 16), np.float32),
+                "student": jax.tree_util.tree_map(
+                    lambda x: np.full(x.shape, 0.5, np.float32), st.student)}
+    carried = [tprofe.node_state_from_numpy(
+        _np_tree(st.student), {}, _np_tree(st.opt_s), {},
+        np.asarray(st.global_protos), np.asarray(st.proto_mask),
+        plane=False, device="cpu", residual=residual, seq=1)
+        for _ in range(2)]
+    stacked = tprofe.stack_states(carried).wire_state
+    assert stacked.seq.tolist() == [1, 1]
+    for r, x in zip(tree_leaves(stacked.residual["student"]),
+                    tree_leaves(states[0].student)):
+        assert r.dtype == torch.float32 and r.shape == (2,) + x.shape
+        assert bool((r == 0.5).all())
 
 
 def test_init_states_of_every_algorithm():
@@ -566,14 +574,27 @@ def test_init_states_seed_each_node_apart():
 
 
 def test_per_leaf_student_refuses_error_feedback_and_adapters():
+    """A per-leaf student is no longer refused error feedback or the
+    adapter wire: each runs a round on both engines, keeps its student
+    per-leaf, and carries its residual (a tree mirroring the payload) or
+    its adapter reference (whole runs against JAX:
+    ``tests/test_torch_tree_ef.py``)."""
     jcfg, node_data, test_d, *_ = _setup({}, per_node=16)
     for kw in (dict(quantize_bits=4, error_feedback=True),
                dict(quantize_bits=4, adapter_rank=4)):
         fed = tbase.FederationConfig(num_nodes=N_NODES, rounds=1,
                                      param_plane="off", **kw)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            TF.run_federation(_tcfg(jcfg), fed, tbase.TrainConfig(),
-                              node_data, test_d, device="cpu")
+        for run in (TF.run_federation, TF.run_federation_loop):
+            res = run(_tcfg(jcfg), fed, tbase.TrainConfig(), node_data,
+                      test_d, device="cpu")
+            assert res.extras["param_plane"] is False
+            assert not isinstance(res.state.student, Plane)
+            if fed.error_feedback:
+                ws = res.state.wire_state
+                assert ws.seq.tolist() == [1] * N_NODES
+                assert isinstance(ws.residual["student"], dict)
+            else:
+                assert res.state.adapter_state is not None
 
 
 def test_unknown_algorithm_raises():

@@ -742,12 +742,16 @@ def test_run_federation_full_width_bytes_match_jax_accounting(wire, rounds):
 
 
 @pytest.mark.parametrize("fed_kw,train_kw,run_kw", [
-    (dict(adapter_rank=4, quantize_bits=4, error_feedback=True), {}, {}),
+    (dict(adapter_rank=4, quantize_bits=0), {}, {}),
 ])
 def test_options_outside_the_slice_raise(fed_kw, train_kw, run_kw):
+    """No option of ``run_federation`` is left outside the port (the
+    adapter wire with ``+ef`` runs since it took the tree payload's error
+    feedback); what ``repro`` refuses, the port refuses alike: the
+    adapter wire without a quantized codec."""
     _, tcfg, node_data, test_d, _, _, _, _ = _setup(per_node=16)
     fed = tbase.FederationConfig(num_nodes=N_NODES, rounds=1, **fed_kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="quantized wire"):
         TF.run_federation(tcfg, fed, tbase.TrainConfig(**train_kw),
                           node_data, test_d, device="cpu", **run_kw)
 

@@ -449,28 +449,30 @@ def test_exchange_resolves_like_jax():
 
 
 def test_options_outside_the_slice_raise(one_rank_group, monkeypatch):
+    """What the port still refuses: the row-sharded permute (several
+    ranks per node) and every backend but gloo (``NotImplementedError``
+    naming the queue item); and what ``repro`` refuses alike: a
+    stochastic spec (its mesh round takes no key), an unknown proto
+    pass, and the adapter wire on the full protocol (``adjacency=None``:
+    merge-based aggregation is neighbourhood-wise)."""
     from repro_torch.core import mesh_federation as M
     from repro_torch.wirespec import WireSpec
-    for kw, item in ((dict(exchange="gather"), "item 12"),
-                     (dict(adapter_rank=8), "item 12"),
-                     (dict(ranks_per_node=2), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            M.make_profe_round(one_rank_group, **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        M.make_profe_round(one_rank_group, ranks_per_node=2)
     # repro's mesh round takes no noise key and rounds to nearest: the
     # port refuses a stochastic spec rather than fake unbiased codes
     with pytest.raises(ValueError, match="no PRNG key"):
         M.make_profe_round(one_rank_group,
                            spec=WireSpec(4, stochastic_rounding=True))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        M.make_fedavg_round()
     with pytest.raises(ValueError, match="proto_pass"):
         M.make_profe_round(one_rank_group, proto_pass="ema")
-    # a per-leaf student tree is not exchanged
-    fn = M.make_profe_round(one_rank_group, exchange="packed")
-    with pytest.raises(TypeError, match="Plane"):
-        fn({"w": torch.zeros((1, 3))}, torch.zeros((1, C, P)),
-           torch.zeros((1, C)), torch.ones(1))
+    for exchange in ("auto", "gather", "packed"):
+        with pytest.raises(ValueError, match="explicit adjacency"):
+            M.make_profe_round(one_rank_group, adapter_rank=8,
+                               exchange=exchange)
     # every backend but gloo raises: nothing falls back
     monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
     with pytest.raises(NotImplementedError, match="nccl"):
         M.make_profe_round(one_rank_group)
+    with pytest.raises(NotImplementedError, match="nccl"):
+        M.make_fedavg_round(one_rank_group)
