@@ -57,6 +57,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    1001, views off 16 bytes, one and 16 rows of the LM vocabulary,
    logits of magnitude 1e3), a second call bit-identical to the first;
    its row carries every case with the ``kd_plan`` it took;
+   :func:`check_row_block_shapes` holds ``mix_packed``'s accumulate form
+   on the row-sharded permute's row blocks and ``rowabs`` /
+   ``quantize_rows`` on one mamba2-130m node's payload;
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -139,13 +142,27 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     collectives to the path's, its launches to :func:`mesh_launches`',
     and its student (and prototypes) to finite values; FedAvg's and
     ProFe's full-packed bytes are printed side by side (Table II on the
-    mesh);
+    mesh).  Then the same 8 ranks run as 4 nodes of 2 (``MESH_ROW_PATHS``,
+    each rank a replica of its node, trained under deterministic
+    algorithms): ``mesh/ring16/4x2`` (the row-sharded permute, 2 rounds),
+    ``mesh/ring4/16+ef/4x2`` (with ``overlap``, pad rows, 1 round) and
+    ``mesh/full-packed/4x2`` (replicated, 1 round), each rank's pod and
+    node-group bytes printed and its pod bytes and launches checked, and
+    the two ranks of every node ending bit-identical (a digest of the
+    final student, prototypes, mask and residual);
 11a. ``mesh/lm/mamba2-130m`` (:func:`run_mesh_lm`): 4 ranks on the one
     card, each holding one mamba2-130m node at full width and depth (the
     student plane ``[1, 164832, 512]``), one local pass of 2 batches of 4
     × 256 tokens, then one ring ``ppermute`` round of the 16-bit wire:
     bytes, launches, finite students and prototypes; a line ``mesh lm
-    {...}`` with each rank's round seconds and peak memory;
+    {...}`` with each rank's round seconds and peak memory; then
+    ``mesh/lm/mamba2-130m/4x2``: 8 ranks as 4 such nodes of 2, one batch
+    a node, the row-sharded permute (row 11 on ``[1, 82464, 512]``
+    blocks), a line ``mesh lm 4x2 {...}``, the replicas bit-identical;
+11b. ``audit`` (:func:`run_audit`): ``python -m repro_torch.launch.dryrun
+    --arch mnist-cnn --topology ring --pods 4x2 --bits 4/16 --ef`` as a
+    subprocess on the card, which must exit 0 with its pod permute bytes
+    equal to its prediction; a line ``audit {...}``;
 12. one rank holding all 8 nodes (``exchange="packed"``, ring adjacency)
     against the stacked engine's ``share_phase`` + ``mix_phase`` on the
     same post-train state: students within 4 ulp of their largest
@@ -204,6 +221,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     adafactor, the per-leaf student, 1 round), each path's launches
     exactly and its bytes against the JAX package's; phase 3's
     :func:`check_lm_shapes` holds rows 1-4 at the first one's shapes;
+14c. ``programs``, the microbatched train program (see
+    :func:`run_programs`): yi-6b's smoke config, 4 microbatches against
+    1 on one batch, then yi-6b cut to 2 layers at full width, batch
+    4 × 256 in one microbatch and 16 × 256 in 4; a line ``programs
+    {...}`` with ms a step and peak memory of each;
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -436,13 +458,46 @@ MESH_LM = "mesh/lm/mamba2-130m"
 MESH_LM_RANKS = 4
 MESH_LM_BYTES = 2 * 168886584
 MESH_LM_PLANE = (1, 164832, 512)
+# several ranks a node (the row-sharded permute): phase 11's 8 ranks as
+# MESH_ROW_NODES nodes of MESH_RANKS_PER_NODE ranks, rank r the inner
+# index r % 2 of node r // 2, each holding a replica of its node (trained
+# under deterministic algorithms, so the replicas stay bit-identical);
+# name -> (topology, exchange, wire spec, overlap, rounds, bytes a rank
+# hands to its pod group a round, mix_packed launches a rank a round).  On
+# ppermute a rank sends its row block of the copy in each of its 2 steps:
+# 2 × packed_copy_bytes(inner=2) / 2 = 426,064 B at 16-bit, 110,160 at
+# 4/16 (a pad row in each width group); the mix is one accumulate a step.
+# full-packed runs replicated: a rank's one whole copy.  The data:
+# make_image_dataset(0, MESH_ROW_IMAGES, ...) iid over the 4 nodes (800
+# training images a node, as on the 8-node paths)
+MESH_ROW_NODES, MESH_RANKS_PER_NODE = 4, 2
+MESH_ROW_IMAGES = 3520
+MESH_ROW_PATHS = {
+    "mesh/ring16/4x2": ("ring", "ppermute", "16", False, 2, 426064, 2),
+    "mesh/ring4/16+ef/4x2": ("ring", "ppermute", "4/16+ef", True, 1, 110160,
+                             2),
+    "mesh/full-packed/4x2": ("full", "packed", "16", False, 1, 426060, 1),
+}
+# mamba2-130m on 4 nodes of 2 ranks: a rank moves its row block
+# [1, 82464, 512] of the 16-bit copy in each of 2 steps, 2 × 84,443,292 B
+# (packed_copy_bytes(inner=2) of {model, protos, counts} = 168,886,584);
+# its local pass is one batch of LM_BATCH × 256
+MESH_LM_4X2 = "mesh/lm/mamba2-130m/4x2"
+MESH_LM_4X2_BYTES = 168886584
+MESH_LM_BLOCK = (1, 82464, 512)
+# the audit on the card (run_audit): a subprocess, one round of each
+# exchange on 8 spawned ranks, 3 measurements
+AUDIT_CMD = ("-m", "repro_torch.launch.dryrun", "--arch", "mnist-cnn",
+             "--topology", "ring", "--pods", "4x2", "--bits", "4/16", "--ef")
+AUDIT_TIMEOUT_S = 400
+# the microbatched train program (run_programs): yi-6b cut to 2 of its 32
+# layers at full width, remat on, PROGRAM_STEPS steps of (batch,
+# microbatches) each
+PROGRAM_RUNS = ((4, 1), (16, 4))
+PROGRAM_STEPS, PROGRAM_LAYERS = 3, 2
 # the paths this PR adds; the kernels line lists each kernel's launches
 # on them
-NEW_PATHS = ("adapters8+ef", "adapters8+grams+ef", "4/16+ef/per-leaf",
-             "adapters8/per-leaf", "adapters8+ef/ragged", "mesh/adapters8",
-             "mesh/adapters8+grams+ef/packed", "mesh/fedavg",
-             "mesh/fedavg/full-packed", "mesh/ring16/gather",
-             "mesh/ring16/per-leaf", MESH_LM)
+NEW_PATHS = tuple(MESH_ROW_PATHS) + (MESH_LM_4X2,)
 # the per-receiver (RegMean) variant of lowrank_apply runs on this path
 PER_RECV_PATH = "adapters8+grams"
 # the data of each model's paths: make_image_dataset(0, 7040, shape, 10)
@@ -1515,6 +1570,131 @@ def check_new_shapes(torch, timer, rows) -> None:
         print(f"lowrank_apply (mesh, {variant}): {e['ms']:.4f} ms (plain "
               f"{e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
               f"bound {e['bound_ms']:.4f} ms)")
+    torch.cuda.empty_cache()
+
+
+def check_row_block_shapes(torch, timer, rows) -> None:
+    """Phase 3 at the row-sharded permute's shapes: ``mix_packed``'s
+    accumulate form (row 11: the own block at weight one and one
+    sender's codes) on inner rank 0's row block of a node's 16-bit
+    payload, ``[1, R'/2, 512]`` — mnist-cnn's ``[1, 208, 512]``
+    (``mesh/ring16/4x2``, key ``4x2``) and mamba2-130m's ``[1, 82464,
+    512]`` (``MESH_LM_4X2``, key ``lm_4x2``), the block made by the round's
+    own ``_row_block``; and ``rowabs`` / ``quantize_rows`` (rows 3, 4) on
+    one mamba2-130m node's whole payload ``[164928, 512]``, what a rank
+    of ``MESH_LM_4X2`` quantizes.  Each bit for bit its plain version,
+    timed into its row under ``row_block``."""
+    from dataclasses import asdict
+
+    from repro_torch.config import get_config
+    from repro_torch.core.mesh_federation import _row_block
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                  pack_plane_payload,
+                                                  quantize_packed_buffer)
+    from repro_torch.kernels.quantize.quantize import (mix_packed_cuda,
+                                                       mix_plan,
+                                                       quantize_rows_cuda,
+                                                       rowabs_cuda)
+    from repro_torch.kernels.quantize.ref import (mix_packed_ref,
+                                                  quantize_rows_ref,
+                                                  rowabs_ref)
+    from repro_torch.models import derive_student, init_params
+    from repro_torch.optim.plane import Plane, plane_from_tree
+    from repro_torch.tree import tree_map
+    from repro_torch.wirespec import WireSpec
+
+    by_name = {row["name"]: row for row in rows}
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    for key, arch, path in (("4x2", "mnist-cnn", "mesh/ring16/4x2"),
+                            ("lm_4x2", "mamba2-130m", MESH_LM_4X2)):
+        cfg = get_config(arch)
+        scfg = derive_student(cfg)
+        ncls = cfg.num_classes if cfg.family == "cnn" else \
+            cfg.n_proto_classes
+        bufs = []
+        for _ in range(2):
+            one = plane_from_tree(tree_map(lambda x: x.to("cuda"),
+                                           init_params(scfg, gen)))
+            bufs.append(one.buf)
+        plane = Plane(torch.stack(bufs), one.meta)
+        del bufs, one
+        protos = torch.rand((2, ncls, scfg.proto_dim), generator=gen,
+                            device="cuda")
+        counts = torch.ones((2, ncls), device="cuda")
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane, WireSpec(16))
+        del plane
+        codes, scales = quantize_packed_buffer(buf, ids, meta[1],
+                                               seg_bits=meta[3])
+        own = _row_block(buf[:1], codes[:1], scales[:1], counts[:1], ids,
+                         meta[3], MESH_RANKS_PER_NODE, 0)
+        sender = _row_block(buf[1:], codes[1:], scales[1:], counts[1:], ids,
+                            meta[3], MESH_RANKS_PER_NODE, 0)
+        acc = own.own.contiguous()
+        cds = sender.codes.to(torch.int32).contiguous()
+        rd = scales[1:, sender.seg].contiguous()
+        one_w = torch.ones((1,), device="cuda")
+        w = torch.rand((1, 1), generator=gen, device="cuda")
+        got = mix_packed_cuda(acc, cds, rd, one_w, w)
+        torch.cuda.synchronize()
+        expect(ulp_diff(torch, got, mix_packed_ref(acc, cds, rd, one_w,
+                                                   w)) == 0,
+               f"mix_packed (accumulate) on the row block {tuple(acc.shape)}"
+               f" is not bit-exact with its plain version")
+        _, rr, cc = acc.shape
+        plan = mix_plan(1, 1, rr, cc, all(t.data_ptr() % 16 == 0
+                                          for t in (acc, cds, got)))
+        print(f"mix_packed accumulate on {arch}'s row block "
+              f"{tuple(acc.shape)}: bit-exact (plan {plan})")
+        by_name["mix_packed"].setdefault("row_block", {})[key] = dict(
+            path=path, own=list(acc.shape), codes=list(cds.shape),
+            ms=timer(lambda: mix_packed_cuda(acc, cds, rd, one_w, w),
+                     reps=10),
+            plain_ms=timer(lambda: mix_packed_ref(acc, cds, rd, one_w, w),
+                           reps=10),
+            bound_ms=bound(4 * (2 * acc.numel() + cds.numel() + rd.numel()
+                                + 2), 4 * rr * cc)[0],
+            library_ms=None, plan=asdict(plan))
+        if key == "lm_4x2":
+            x2d = buf[0].contiguous()
+            r, c = x2d.shape
+            n = x2d.numel()
+            expect(torch.equal(rowabs_cuda(x2d), rowabs_ref(x2d)),
+                   f"rowabs disagrees with its plain version at {(r, c)}")
+            _, row_delta = _node_row_deltas(buf[:1], ids, meta[1], 16,
+                                            meta[3])
+            rd1 = row_delta.reshape(-1, 1).contiguous()
+            expect(torch.equal(quantize_rows_cuda(x2d, rd1, bits=16),
+                               quantize_rows_ref(x2d, rd1, bits=16)),
+                   f"quantize_rows disagrees with its plain version at "
+                   f"{(r, c)}")
+            print(f"rowabs and quantize_rows on one mamba2-130m node's "
+                  f"payload {(r, c)}: bit-exact")
+            by_name["rowabs"]["row_block"] = dict(
+                path=path, shape=[r, c],
+                ms=timer(lambda: rowabs_cuda(x2d), reps=10),
+                plain_ms=timer(lambda: rowabs_ref(x2d), reps=10),
+                bound_ms=bound(4 * n + 4 * r, n)[0],
+                library_ms=timer(lambda: torch.linalg.vector_norm(
+                    x2d, ord=math.inf, dim=1), reps=10))
+            by_name["quantize_rows"]["row_block"] = dict(
+                path=path, shape=[r, c], bits=16,
+                ms=timer(lambda: quantize_rows_cuda(x2d, rd1, bits=16),
+                         reps=10),
+                plain_ms=timer(lambda: quantize_rows_ref(x2d, rd1, bits=16),
+                               reps=10),
+                bound_ms=bound(8 * n + 4 * r, 4 * n)[0],
+                library_ms=timer(lambda: torch.quantize_per_channel(
+                    x2d, rd1[:, 0].contiguous(),
+                    torch.zeros(r, dtype=torch.int64, device="cuda"), 0,
+                    torch.qint32), reps=10))
+            del x2d
+        del buf, codes, scales, own, sender, acc, cds, got
+    for name in ("mix_packed", "rowabs", "quantize_rows"):
+        blocks = by_name[name]["row_block"]
+        for k, e in (blocks.items() if name == "mix_packed"
+                     else [("lm_4x2", blocks)]):
+            print(f"{name} (row block, {k}): {e['ms']:.4f} ms (plain "
+                  f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms)")
     torch.cuda.empty_cache()
 
 
@@ -3655,24 +3835,32 @@ def check_mix_packed(torch, timer, student_cfg):
     return [row]
 
 
-def mesh_inputs(n_images: int):
+def mesh_inputs(n_images: int, nodes: int = MESH_NODES):
     """The mesh paths' configuration and data: mnist-cnn at full width,
     ``TrainConfig`` defaults, ``make_image_dataset(0, n_images, (28, 28,
-    1), 10)`` with a 1/11 test split, iid over ``MESH_NODES`` nodes."""
+    1), 10)`` with a 1/11 test split, iid over ``nodes`` nodes."""
     from repro_torch.config import TrainConfig, get_config
     from repro_torch.data import (make_image_dataset, partition,
                                   train_test_split)
 
     data = make_image_dataset(0, n_images, IMAGE_SHAPE["mnist-cnn"], 10)
     train_d, _ = train_test_split(data, 1 / 11, 0)
-    parts = partition(train_d["label"], MESH_NODES, "iid", 0)
+    parts = partition(train_d["label"], nodes, "iid", 0)
     node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
     return get_config("mnist-cnn"), TrainConfig(), node_data
 
 
+def mesh_path(name: str):
+    """A mesh path's entry, of ``MESH_PATHS`` or ``MESH_ROW_PATHS``, and
+    its node count."""
+    if name in MESH_ROW_PATHS:
+        return MESH_ROW_PATHS[name], MESH_ROW_NODES
+    return MESH_PATHS[name], MESH_NODES
+
+
 def mesh_federation_parts(torch, cfg, train, name: str, device):
     """``(fed, wire, train_phase, node states maker)`` of the mesh path
-    ``name``: the stacked engine's own wiring for ``MESH_NODES`` nodes
+    ``name``: the stacked engine's own wiring for the path's nodes
     (ProFe on the plane or per-leaf, the adapter wire, or FedAvg, by
     ``MESH_FED``)."""
     import dataclasses
@@ -3683,10 +3871,10 @@ def mesh_federation_parts(torch, cfg, train, name: str, device):
     from repro_torch.models import derive_student
     from repro_torch.optim import make_optimizer, make_plane_optimizer
 
-    topo, _, wire, _, rounds, _, _ = MESH_PATHS[name]
+    (topo, _, wire, _, rounds, _, _), nodes = mesh_path(name)
     spec = parse_wire(wire)
     fed = dataclasses.replace(
-        FederationConfig(num_nodes=MESH_NODES, topology=topo, rounds=rounds,
+        FederationConfig(num_nodes=nodes, topology=topo, rounds=rounds,
                          local_epochs=1), **wire_fields(spec),
         **MESH_FED.get(name, {}))
     algo = fed.algorithm
@@ -3735,7 +3923,7 @@ def mesh_launches(name: str, fed, spec, steps: int, rounds: int,
     per-row qmax codes; nothing on FedAvg's fp32 wire), ``MESH_PATHS``'
     mixes a round and, on the adapter wire, a ``lowrank_apply`` a matrix
     leaf a round."""
-    mix = MESH_PATHS[name][6]
+    mix = mesh_path(name)[0][6]
     want = {"mix_packed": mix * rounds}
     if fed.algorithm == "fedavg":
         return want
@@ -3772,109 +3960,149 @@ def train_nodes(fed, train, train_phase, state, node_data, nodes, rnd: int,
                        all_valid=True)
 
 
-def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
-              n_images: int) -> None:
-    """Phase 11 on one spawned rank: its node through every mesh path
-    (train, then the mesh round, each round), with its own checks; the
-    report goes to ``out_dir/rank<r>.json``."""
-    import torch
-    import torch.distributed as dist
+def digest(torch, tensors) -> str:
+    """A sha256 of the tensors' bytes, in order: two replicas of a node
+    compare by it across ranks."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
+
+def mesh_path_rank(torch, name: str, inputs, node: int, sizes, dev,
+                   ranks_per_node: int = 1) -> dict:
+    """One mesh path on this rank, holding node ``node`` (a replica of
+    it with ``ranks_per_node`` > 1) of ``inputs`` (:func:`mesh_inputs`):
+    each round its node's local training,
+    then the mesh round; the rank's bytes a round (pod groups, and the
+    node groups apart), launches, seq and finite values checked.  Returns
+    the path's report, with a digest of the final student, prototypes,
+    mask (and residual)."""
     from repro_torch.core import federation as F
     from repro_torch.core import mesh_federation as M
-    from repro_torch.core.profe import resolve_device
     from repro_torch.core.topology import make_schedule
     from repro_torch.kernels.build import launch_counts, reset_launch_counts
     from repro_torch.optim.plane import Plane
     from repro_torch.tree import keyed_leaves
 
+    cfg, train, node_data = inputs
+    (topo, exchange, _, overlap, rounds, want_bytes, _), nodes = \
+        mesh_path(name)
+    fed, spec, parts, states = mesh_federation_parts(torch, cfg, train, name,
+                                                     dev)
+    train_phase = parts[0]
+    adj = (None if topo == "full"
+           else make_schedule(nodes, topo).adjacency_at(0))
+    fedavg = fed.algorithm == "fedavg"
+    if fedavg:
+        round_fn = M.make_fedavg_round(adjacency=adj, exchange=exchange,
+                                       ranks_per_node=ranks_per_node)
+    else:
+        round_fn = M.make_profe_round(
+            adjacency=adj, exchange=exchange, spec=spec, overlap=overlap,
+            adapter_rank=fed.adapter_rank, adapter_grams=fed.adapter_grams,
+            ranks_per_node=ranks_per_node)
+    state = states([node])
+    plane = isinstance(state.student, Plane)
+    ef = spec is not None and spec.error_feedback
+    steps = rounds * (len(node_data[node]["label"]) // train.batch_size)
+    t0 = time.time()
+    sent, inner, round_s = [], [], []
+    reset_launch_counts()
+    for rnd in range(rounds):
+        state, protos, counts = train_nodes(
+            fed, train, train_phase, state, node_data, [node], rnd, dev)
+        before = (M.COLLECTIVE_BYTES.count, M.COLLECTIVE_BYTES.inner)
+        t_round = time.time()
+        carry = [state.adapter_state] if fed.adapter_rank else []
+        carry += [state.wire_state] if ef else []
+        out = round_fn(state.student, sizes) if fedavg else \
+            round_fn(state.student, protos, counts, sizes, *carry)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        round_s.append(time.time() - t_round)
+        sent.append(M.COLLECTIVE_BYTES.count - before[0])
+        inner.append(M.COLLECTIVE_BYTES.inner - before[1])
+        with torch.no_grad():
+            F._copy_into(state.student, out if fedavg else out[0])
+        checked = [("student", v) for _, v in keyed_leaves(state.student)]
+        if not fedavg:
+            gp, mask = ((out[1], out[2]) if adj is not None
+                        else (out[1][None], out[2][None]))
+            state = state._replace(
+                global_protos=gp, proto_mask=mask,
+                adapter_state=out[3] if fed.adapter_rank else None,
+                wire_state=out[-1] if ef else None)
+            checked.append(("prototypes", gp))
+            expect(float(mask.sum()) > 0,
+                   f"{name} node {node} round {rnd}: empty mask")
+        for what, t in checked:
+            expect(bool(torch.isfinite(t).all()),
+                   f"{name} node {node} round {rnd}: {what} not finite")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(mesh_launches(name, fed, spec, steps, rounds, plane))
+    for kernel, n in want.items():
+        expect(dev.type != "cuda" or counts[kernel] == n,
+               f"{name} node {node}: {kernel} launched {counts[kernel]} != "
+               f"{n}")
+    expect(sent == [want_bytes] * rounds,
+           f"{name} node {node}: bytes handed to collectives {sent} != "
+           f"{want_bytes} a round")
+    if ef:
+        expect(state.wire_state.seq.tolist() == [rounds],
+               f"{name} node {node}: seq {state.wire_state.seq.tolist()}")
+    student_max = max(float(v.detach().abs().max())
+                      for _, v in keyed_leaves(state.student))
+    final = [v for _, v in keyed_leaves(state.student)]
+    if not fedavg:
+        final += [state.global_protos, state.proto_mask]
+    if ef:
+        final += [v for _, v in keyed_leaves(state.wire_state.residual)]
+    return dict(launches=counts, bytes_per_round=sent,
+                inner_bytes_per_round=inner, seconds=time.time() - t0,
+                mesh_round_s=round_s, student_abs_max=student_max,
+                mask=None if fedavg else state.proto_mask.tolist(),
+                digest=digest(torch, final))
+
+
+def mesh_rank(rank: int, world: int, init: str, out_dir: str, device: str,
+              n_images: int) -> None:
+    """Phase 11 on one spawned rank: its node through every path of
+    ``MESH_PATHS`` (train, then the mesh round, each round), then, as
+    inner index ``rank % 2`` of node ``rank // 2``, through every path of
+    ``MESH_ROW_PATHS`` (deterministic algorithms: the node's replicas
+    train alike); the report goes to ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.profe import resolve_device
+
     dev = resolve_device(device)
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank)
     try:
-        cfg, train, node_data = mesh_inputs(n_images)
-        sizes = torch.tensor([len(d["label"]) for d in node_data],
-                             dtype=torch.float32, device=dev)
         report = {}
-        for name, (topo, exchange, _, overlap, rounds, want_bytes,
-                   _) in MESH_PATHS.items():
-            fed, spec, parts, states = mesh_federation_parts(
-                torch, cfg, train, name, dev)
-            train_phase = parts[0]
-            adj = (None if topo == "full"
-                   else make_schedule(MESH_NODES, topo).adjacency_at(0))
-            fedavg = fed.algorithm == "fedavg"
-            if fedavg:
-                round_fn = M.make_fedavg_round(adjacency=adj,
-                                               exchange=exchange)
-            else:
-                round_fn = M.make_profe_round(
-                    adjacency=adj, exchange=exchange, spec=spec,
-                    overlap=overlap, adapter_rank=fed.adapter_rank,
-                    adapter_grams=fed.adapter_grams)
-            state = states([rank])
-            plane = isinstance(state.student, Plane)
-            ef = spec is not None and spec.error_feedback
-            steps = rounds * (len(node_data[rank]["label"])
-                              // train.batch_size)
-            t0 = time.time()
-            sent, round_s = [], []
-            reset_launch_counts()
-            for rnd in range(rounds):
-                state, protos, counts = train_nodes(
-                    fed, train, train_phase, state, node_data, [rank], rnd,
-                    dev)
-                before = M.COLLECTIVE_BYTES.count
-                t_round = time.time()
-                carry = [state.adapter_state] if fed.adapter_rank else []
-                carry += [state.wire_state] if ef else []
-                out = round_fn(state.student, sizes) if fedavg else \
-                    round_fn(state.student, protos, counts, sizes, *carry)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                round_s.append(time.time() - t_round)
-                sent.append(M.COLLECTIVE_BYTES.count - before)
-                with torch.no_grad():
-                    F._copy_into(state.student, out if fedavg else out[0])
-                checked = [("student", v)
-                           for _, v in keyed_leaves(state.student)]
-                if not fedavg:
-                    gp, mask = ((out[1], out[2]) if adj is not None
-                                else (out[1][None], out[2][None]))
-                    state = state._replace(
-                        global_protos=gp, proto_mask=mask,
-                        adapter_state=out[3] if fed.adapter_rank else None,
-                        wire_state=out[-1] if ef else None)
-                    checked.append(("prototypes", gp))
-                    expect(float(mask.sum()) > 0,
-                           f"{name} rank {rank} round {rnd}: empty mask")
-                for what, t in checked:
-                    expect(bool(torch.isfinite(t).all()),
-                           f"{name} rank {rank} round {rnd}: {what} not "
-                           f"finite")
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            counts = launch_counts()
-            want = {k: 0 for k in counts}
-            want.update(mesh_launches(name, fed, spec, steps, rounds, plane))
-            for kernel, n in want.items():
-                expect(dev.type != "cuda" or counts[kernel] == n,
-                       f"{name} rank {rank}: {kernel} launched "
-                       f"{counts[kernel]} != {n}")
-            expect(sent == [want_bytes] * rounds,
-                   f"{name} rank {rank}: bytes handed to collectives "
-                   f"{sent} != {want_bytes} a round")
-            if ef:
-                expect(state.wire_state.seq.tolist() == [rounds],
-                       f"{name} rank {rank}: seq "
-                       f"{state.wire_state.seq.tolist()}")
-            student_max = max(float(v.detach().abs().max())
-                              for _, v in keyed_leaves(state.student))
-            report[name] = dict(
-                launches=counts, bytes_per_round=sent,
-                seconds=time.time() - t0, mesh_round_s=round_s,
-                student_abs_max=student_max,
-                mask=None if fedavg else state.proto_mask.tolist())
+        for names, nodes, images, node in (
+                (MESH_PATHS, MESH_NODES, n_images, rank),
+                (MESH_ROW_PATHS, MESH_ROW_NODES,
+                 n_images * MESH_ROW_IMAGES // 7040,
+                 rank // MESH_RANKS_PER_NODE)):
+            inputs = mesh_inputs(images, nodes)
+            sizes = torch.tensor([len(d["label"]) for d in inputs[2]],
+                                 dtype=torch.float32, device=dev)
+            row = names is MESH_ROW_PATHS
+            if row:
+                torch.backends.cudnn.deterministic = True
+                torch.use_deterministic_algorithms(True, warn_only=True)
+            for name in names:
+                report[name] = mesh_path_rank(
+                    torch, name, inputs, node, sizes, dev,
+                    MESH_RANKS_PER_NODE if row else 1)
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
     finally:
@@ -3910,7 +4138,7 @@ def run_mesh(torch, device: str = "cuda", n_images: int = 7040,
         reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                    for r in range(MESH_NODES)]
     totals = {}
-    for name in MESH_PATHS:
+    for name in list(MESH_PATHS) + list(MESH_ROW_PATHS):
         per = [rep[name] for rep in reports]
         totals[name] = {k: sum(p["launches"][k] for p in per)
                         for k in per[0]["launches"]}
@@ -3922,6 +4150,19 @@ def run_mesh(torch, device: str = "cuda", n_images: int = 7040,
               f"max |student| {max(p['student_abs_max'] for p in per):.4g}")
         print(f"{name}: launches on rank 0 {per[0]['launches']}; summed "
               f"over {MESH_NODES} ranks {totals[name]}")
+        if name in MESH_ROW_PATHS:
+            m = MESH_RANKS_PER_NODE
+            digests = [p["digest"] for p in per]
+            print(f"{name}: node-group bytes per rank and round "
+                  f"{sorted({b for p in per for b in p['inner_bytes_per_round']})}"
+                  f" beside the pod groups' above; replicas bit-identical: "
+                  f"{[len(set(digests[i * m:(i + 1) * m])) == 1 for i in range(MESH_ROW_NODES)]}")
+            expect(all(len(set(digests[i * m:(i + 1) * m])) == 1
+                       for i in range(MESH_ROW_NODES)),
+                   f"{name}: the ranks of a node end with different states")
+            expect(MESH_ROW_PATHS[name][0] == "full"
+                   or len(set(digests)) == MESH_ROW_NODES,
+                   f"{name}: sparse gossip left nodes identical")
     # Table II on the mesh: what a rank hands to its collectives a round
     # for FedAvg's fp32 model against ProFe's 16-bit student + prototypes,
     # on the same full-packed exchange
@@ -4064,15 +4305,20 @@ def check_mesh_adapter_parity(torch, device: str = "cuda",
 
 
 def mesh_lm_rank(rank: int, world: int, init: str, out_dir: str,
-                 device: str) -> None:
+                 device: str, ranks_per_node: int = 1) -> None:
     """The ``mesh/lm/mamba2-130m`` phase on one spawned rank: its
     mamba2-130m node (full width and depth, the student on the plane)
     takes one round of local training (``LM_BATCHES`` batches of
     ``LM_BATCH`` × 256 tokens and the Eq. 3 pass), then one ring
-    ``ppermute`` round of the 16-bit wire.  Checks the plane's shape, the
-    bytes handed to collectives (``MESH_LM_BYTES``), finite students and
-    prototypes and, on the card, every launch; reports the round's
-    seconds and the rank's peak memory to ``out_dir/rank<r>.json``."""
+    ``ppermute`` round of the 16-bit wire.  With ``ranks_per_node`` = 2
+    (``mesh/lm/mamba2-130m/4x2``) the rank is inner index ``rank % 2`` of
+    node ``rank // 2``, its replica trains one batch under deterministic
+    algorithms, and the round is the row-sharded permute.  Checks the
+    plane's shape, the bytes handed to the pod groups (``MESH_LM_BYTES``
+    or ``MESH_LM_4X2_BYTES``), finite students and prototypes and, on
+    the card, every launch; reports the round's seconds, the node-group
+    bytes, a digest of the result and the rank's peak memory to
+    ``out_dir/rank<r>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -4090,9 +4336,15 @@ def mesh_lm_rank(rank: int, world: int, init: str, out_dir: str,
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank)
     try:
+        m = ranks_per_node
+        nodes, node = world // m, rank // m
+        name = MESH_LM if m == 1 else MESH_LM_4X2
+        batches = LM_BATCHES if m == 1 else 1
         arch, smoke, optimizer, _, _, seq, _, _ = LM_PATHS["lm/mamba2-130m"]
-        cfg, node_data, _ = lm_inputs(arch, smoke, world, seq)
-        fed = FederationConfig(num_nodes=world, topology="ring", rounds=1,
+        cfg, node_data, _ = lm_inputs(arch, smoke, nodes, seq)
+        node_data = [{k: v[:batches * LM_BATCH] for k, v in d.items()}
+                     for d in node_data]
+        fed = FederationConfig(num_nodes=nodes, topology="ring", rounds=1,
                                local_epochs=1, quantize_bits=16)
         train = TrainConfig(batch_size=LM_BATCH, optimizer=optimizer)
         student_cfg = derive_student(cfg)
@@ -4108,77 +4360,90 @@ def mesh_lm_rank(rank: int, world: int, init: str, out_dir: str,
                                           bits=spec)[0]
         state = stack_states([init_node_state(
             cfg, student_cfg,
-            torch.Generator().manual_seed(fed.seed * 1000 + rank), opt_s,
+            torch.Generator().manual_seed(fed.seed * 1000 + node), opt_s,
             opt_t, ncls, device=dev)])
         expect(tuple(state.student.buf.shape) == MESH_LM_PLANE,
-               f"{MESH_LM}: plane {tuple(state.student.buf.shape)}")
+               f"{name}: plane {tuple(state.student.buf.shape)}")
         sizes = torch.tensor([len(next(iter(d.values()))) for d in node_data],
                              dtype=torch.float32, device=dev)
         round_fn = M.make_profe_round(
-            adjacency=make_schedule(world, "ring").adjacency_at(0),
-            exchange="ppermute", spec=spec)
+            adjacency=make_schedule(nodes, "ring").adjacency_at(0),
+            exchange="ppermute", spec=spec, ranks_per_node=m)
+        if m > 1:
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         reset_launch_counts()
         t0 = time.time()
         state, protos, counts = train_nodes(fed, train, train_phase, state,
-                                            node_data, [rank], 0, dev)
+                                            node_data, [node], 0, dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t1 = time.time()
-        before = M.COLLECTIVE_BYTES.count
+        before = (M.COLLECTIVE_BYTES.count, M.COLLECTIVE_BYTES.inner)
         out = round_fn(state.student, protos, counts, sizes)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         round_s = time.time() - t1
-        sent = M.COLLECTIVE_BYTES.count - before
+        sent = M.COLLECTIVE_BYTES.count - before[0]
+        inner = M.COLLECTIVE_BYTES.inner - before[1]
         got = launch_counts()
         want = {k: 0 for k in got}
-        want.update(adamw_update=LM_BATCHES, proto_accum=LM_BATCHES,
-                    rowabs=1, quantize_rows=1, mix_packed=1)
+        want.update(adamw_update=batches, proto_accum=batches, rowabs=1,
+                    quantize_rows=1, mix_packed=1 if m == 1 else 2)
         for kernel, n in want.items():
             expect(dev.type != "cuda" or got[kernel] == n,
-                   f"{MESH_LM} rank {rank}: {kernel} launched {got[kernel]} "
+                   f"{name} rank {rank}: {kernel} launched {got[kernel]} "
                    f"!= {n}")
-        expect(sent == MESH_LM_BYTES,
-               f"{MESH_LM} rank {rank}: bytes handed to collectives {sent} "
-               f"!= {MESH_LM_BYTES}")
+        want_bytes = MESH_LM_BYTES if m == 1 else MESH_LM_4X2_BYTES
+        expect(sent == want_bytes,
+               f"{name} rank {rank}: bytes handed to collectives {sent} "
+               f"!= {want_bytes}")
         for what, t in (("student", out[0].buf), ("prototypes", out[1])):
             expect(bool(torch.isfinite(t).all()),
-                   f"{MESH_LM} rank {rank}: {what} not finite")
-        expect(float(out[2].sum()) > 0, f"{MESH_LM} rank {rank}: empty mask")
+                   f"{name} rank {rank}: {what} not finite")
+        expect(float(out[2].sum()) > 0, f"{name} rank {rank}: empty mask")
         report = dict(
-            launches=got, bytes=sent, train_s=t1 - t0, round_s=round_s,
+            launches=got, bytes=sent, inner_bytes=inner, train_s=t1 - t0,
+            round_s=round_s,
             peak_bytes=torch.cuda.max_memory_allocated(dev)
             if dev.type == "cuda" else None,
             plane=list(state.student.buf.shape),
-            student_abs_max=float(out[0].buf.abs().max()))
+            student_abs_max=float(out[0].buf.abs().max()),
+            digest=digest(torch, [out[0].buf, out[1], out[2]]))
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(report, f)
     finally:
         dist.destroy_process_group()
 
 
-def run_mesh_lm(torch, smi: str, device: str = "cuda") -> dict:
-    """Phase 11a, ``mesh/lm/mamba2-130m``: ``MESH_LM_RANKS`` spawned ranks
-    in one gloo group on one card, each holding one mamba2-130m node
-    (:func:`mesh_lm_rank`).  Prints one ``mesh lm {...}`` line with each
-    rank's round seconds and peak memory beside the card; returns the
-    launches summed over the ranks."""
+def run_mesh_lm(torch, smi: str, device: str = "cuda",
+                ranks_per_node: int = 1) -> dict:
+    """Phase 11a, ``mesh/lm/mamba2-130m``: ``MESH_LM_RANKS`` nodes of
+    ``ranks_per_node`` spawned ranks each in one gloo group on one card
+    (:func:`mesh_lm_rank`).  Prints one ``mesh lm {...}`` line (``mesh lm
+    4x2 {...}`` with 2 ranks a node) with each rank's round seconds,
+    node-group bytes and peak memory beside the card, and checks that a
+    node's ranks end bit-identical; returns the launches summed over the
+    ranks."""
     import tempfile
 
     import torch.multiprocessing as mp
 
+    m = ranks_per_node
+    world = MESH_LM_RANKS * m
+    name = MESH_LM if m == 1 else MESH_LM_4X2
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
-            mesh_lm_rank, args=(MESH_LM_RANKS, f"file://{tmp}/store", tmp,
-                                device),
-            nprocs=MESH_LM_RANKS, join=False, start_method="spawn")
+            mesh_lm_rank, args=(world, f"file://{tmp}/store", tmp, device,
+                                m),
+            nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + MESH_DEADLINE_S
         try:
             while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
                 expect(time.monotonic() < deadline,
-                       f"{MESH_LM} ranks still running after "
+                       f"{name} ranks still running after "
                        f"{MESH_DEADLINE_S} s")
         finally:
             for p in ctx.processes:
@@ -4186,17 +4451,63 @@ def run_mesh_lm(torch, smi: str, device: str = "cuda") -> dict:
                     p.kill()
                     p.join(10)
         reports = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                   for r in range(MESH_LM_RANKS)]
-    line = {"path": MESH_LM, "ranks": MESH_LM_RANKS, "card": smi,
+                   for r in range(world)]
+    digests = [r["digest"] for r in reports]
+    same = [len(set(digests[i * m:(i + 1) * m])) == 1
+            for i in range(MESH_LM_RANKS)]
+    line = {"path": name, "ranks": world, "ranks_per_node": m, "card": smi,
             "plane": reports[0]["plane"],
             "bytes_per_rank": [r["bytes"] for r in reports],
+            "inner_bytes_per_rank": [r["inner_bytes"] for r in reports],
             "train_s": [r["train_s"] for r in reports],
             "round_s": [r["round_s"] for r in reports],
             "peak_bytes": [r["peak_bytes"] for r in reports],
+            "replicas_identical": same,
             "student_abs_max": max(r["student_abs_max"] for r in reports)}
-    print("mesh lm " + json.dumps(line), flush=True)
+    print(("mesh lm " if m == 1 else "mesh lm 4x2 ") + json.dumps(line),
+          flush=True)
+    expect(all(same), f"{name}: the ranks of a node end with different "
+                      f"states")
     return {k: sum(r["launches"][k] for r in reports)
             for k in reports[0]["launches"]}
+
+
+def run_audit(smi: str) -> None:
+    """The wire audit on the card: ``python -m repro_torch.launch.dryrun
+    --arch mnist-cnn --topology ring --pods 4x2 --bits 4/16 --ef`` as a
+    subprocess (its ranks on this card), which must exit 0; its report's
+    pod permute bytes a node must equal its prediction.  Prints an
+    ``audit {...}`` line."""
+    out = ROOT / "build" / "audit.json"
+    out.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.time()
+    run = subprocess.run([sys.executable, *AUDIT_CMD, "--json", str(out)],
+                         env=env, capture_output=True, text=True,
+                         timeout=AUDIT_TIMEOUT_S, cwd=ROOT)
+    took = time.time() - t0
+    if run.returncode != 0:
+        print(run.stdout[-4000:], run.stderr[-4000:], sep="\n")
+    expect(run.returncode == 0, f"the audit exited {run.returncode}")
+    report = json.loads(out.read_text())
+    checks = {c.get("check", "topology") + "/" + c["exchange"]: c
+              for c in report["checks"]}
+    perm = checks["topology/ppermute"]["permute_bytes_per_node"]
+    pred = report["packed_pred_bytes_per_node"]
+    expect(perm == pred, f"the audit's pod permute bytes {perm} != its "
+                         f"prediction {pred}")
+    ex = report["exchanges"]
+    print("audit " + json.dumps({
+        "cmd": " ".join(AUDIT_CMD), "card": smi, "seconds": took,
+        "device": report["device"], "bits": report["bits"],
+        "packed_pred_bytes_per_node": pred, "permute_bytes_per_node": perm,
+        "collective_bytes_per_node": {
+            k: v.get("collective_bytes_per_node") for k, v in ex.items()},
+        "full_gather_bytes_per_node": report["full_gather_bytes_per_node"],
+        "inner_by_axis": ex["ppermute"].get("by_axis"),
+        "checks": sorted(checks)}), flush=True)
+    out.unlink()
 
 
 def profile_rounds(torch, inputs, name: str) -> None:
@@ -4569,6 +4880,132 @@ def run_lm_path(torch, name: str, device: str = "cuda") -> dict:
     return counts
 
 
+PROGRAM_ATOL = 2e-5                # fp32 parameters after one step
+PROGRAM_EPS_ELEMENTS = 4           # Adam's eps regime, each within + 2·lr
+
+
+def program_state(torch, cfg, seed: int, device):
+    """One node's unstacked per-leaf state of ``cfg`` and its student,
+    drawn on ``device`` from ``seed``, with the program's optimizer."""
+    from repro_torch.core.profe import init_node_state
+    from repro_torch.models import derive_student
+    from repro_torch.optim import make_optimizer
+    opt = make_optimizer(cfg.optimizer, LR)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_node_state(cfg, derive_student(cfg), gen, opt, opt,
+                           cfg.n_proto_classes, plane=False, device=device)
+
+
+def run_programs(torch, smi: str, device: str = "cuda", *,
+                 full_smoke: bool = False) -> None:
+    """Phase 14c, the microbatched train program
+    (``launch/programs.make_profe_train_fn``; per-leaf, no kernel of the
+    table).  At yi-6b's smoke size in fp32 with every prototype class
+    set, ``microbatches=4`` against 1 on one batch of 4 × 16 from the same
+    state: losses and gradient norm within rtol 1e-5, parameters within
+    ``PROGRAM_ATOL`` but for ``PROGRAM_EPS_ELEMENTS`` (reassociation
+    only: the four microbatch means average to the batch's).  Then yi-6b
+    at full width cut to ``PROGRAM_LAYERS`` layers, remat on, for each of
+    ``PROGRAM_RUNS`` (batch, microbatches) ``PROGRAM_STEPS`` steps of 256
+    tokens: finite losses; one ``programs {...}`` line with ms a step
+    and peak memory of each, beside the card.  ``full_smoke`` runs the
+    second part at yi-6b's smoke size (a CPU check of the phase)."""
+    import numpy as np
+
+    from repro_torch.config import FederationConfig, TrainConfig, get_config
+    from repro_torch.core.profe import resolve_device
+    from repro_torch.launch.programs import make_profe_train_fn
+    from repro_torch.launch.train import token_batches
+    from repro_torch.models import derive_student
+    from repro_torch.tree import tree_leaves
+
+    dev = resolve_device(device)
+    fed = FederationConfig()
+
+    def program(cfg, m):
+        return make_profe_train_fn(cfg, derive_student(cfg), fed,
+                                   TrainConfig(learning_rate=LR,
+                                               optimizer=cfg.optimizer,
+                                               microbatches=m))[0]
+
+    cfg = get_config("yi-6b").smoke().replace(dtype="float32")
+    (batch,) = token_batches(cfg, 1, 4, 16, dev)
+    batch = {k: v[0] for k, v in batch.items()}
+    gen = np.random.default_rng(7)
+    protos = torch.as_tensor(gen.standard_normal(
+        (cfg.n_proto_classes, cfg.proto_dim)), dtype=torch.float32,
+        device=dev)
+    ends = []
+    for m in (1, 4):
+        state = program_state(torch, cfg, 0, dev)
+        state = state._replace(global_protos=protos.clone(),
+                               proto_mask=torch.ones_like(
+                                   state.proto_mask))
+        state, metrics = program(cfg, m)(state, batch)
+        ends.append((state, {k: float(v) for k, v in metrics.items()}))
+    (one, m1), (four, m4) = ends
+    for key in ("loss_s", "loss_t", "grad_norm_s"):
+        expect(abs(m4[key] - m1[key]) <= 1e-5 * abs(m1[key]),
+               f"programs smoke: {key} {m4[key]} at 4 microbatches, "
+               f"{m1[key]} at 1")
+    beyond, gap = 0, 0.0
+    for a, b in zip(tree_leaves(one.teacher) + tree_leaves(one.student),
+                    tree_leaves(four.teacher) + tree_leaves(four.student)):
+        err = (a.detach().float() - b.detach().float()).abs()
+        beyond += int((err > PROGRAM_ATOL).sum())
+        gap = max(gap, float(err.max()))
+    print(f"programs smoke yi-6b: 4 microbatches against 1, losses "
+          f"{m4['loss_s']:.6f} / {m1['loss_s']:.6f}, parameters max "
+          f"|difference| {gap:.3e}, {beyond} beyond {PROGRAM_ATOL}")
+    expect(beyond <= PROGRAM_EPS_ELEMENTS and gap <= PROGRAM_ATOL + 2 * LR,
+           f"programs smoke: 4 microbatches and 1 differ in {beyond} "
+           f"parameters (max {gap:.3e})")
+    del ends, one, four
+
+    cfg = get_config("yi-6b")
+    cfg = (cfg.smoke() if full_smoke else cfg).replace(
+        num_layers=PROGRAM_LAYERS)
+    seq = 16 if full_smoke else TRAIN_SEQ
+    cuda = dev.type == "cuda"
+    runs = []
+    for b, m in PROGRAM_RUNS:
+        if cuda:
+            torch.cuda.empty_cache()
+        state = program_state(torch, cfg, 0, dev)
+        batches = [{k: v[0] for k, v in x.items()} for x in
+                   token_batches(cfg, PROGRAM_STEPS, b, seq, dev)]
+        step = program(cfg, m)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize(dev)
+        stamps, losses = [time.perf_counter()], []
+        for x in batches:
+            state, metrics = step(state, x)
+            losses.append((float(metrics["loss_s"]),
+                           float(metrics["loss_t"])))
+            if cuda:
+                torch.cuda.synchronize(dev)
+            stamps.append(time.perf_counter())
+        expect(all(math.isfinite(v) for pair in losses for v in pair),
+               f"programs yi-6b batch {b} x {m}: non-finite losses "
+               f"{losses}")
+        runs.append({"batch": b, "microbatches": m, "seq": seq,
+                     "steps": PROGRAM_STEPS, "losses": losses,
+                     "first_step_ms": (stamps[1] - stamps[0]) * 1e3,
+                     "step_ms": (stamps[-1] - stamps[1]) * 1e3
+                     / (PROGRAM_STEPS - 1),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev)
+                     if cuda else None})
+        del state, batches, step
+    print("programs " + json.dumps({
+        "arch": "yi-6b", "smoke": full_smoke, "layers": PROGRAM_LAYERS,
+        "reduced": f"{PROGRAM_LAYERS} of {get_config('yi-6b').num_layers} "
+                   f"layers: fp32 parameters with adamw moments of the "
+                   f"full depth do not fit one card",
+        "remat": True, "optimizer": cfg.optimizer, "runs": runs,
+        "card": smi}), flush=True)
+
+
 def run_train(torch, smi: str, device: str = "cuda",
               full: dict = TRAIN_FULL, lm_paths=tuple(LM_PATHS), *,
               full_smoke: bool = False) -> dict:
@@ -4715,6 +5152,7 @@ def main() -> int:
                       rows)
     check_lm_shapes(torch, timer, rows)
     check_new_shapes(torch, timer, rows)
+    check_row_block_shapes(torch, timer, rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -4766,7 +5204,8 @@ def main() -> int:
     # no network
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     phase(f"mesh: {MESH_NODES} ranks on one card over gloo, "
-          f"{', '.join(MESH_PATHS)}")
+          f"{', '.join(MESH_PATHS)}; then as {MESH_ROW_NODES} nodes of "
+          f"{MESH_RANKS_PER_NODE} ranks, {', '.join(MESH_ROW_PATHS)}")
     t0 = time.time()
     counts.update(run_mesh(torch))
     print(f"mesh paths took {time.time() - t0:.1f} s")
@@ -4781,6 +5220,20 @@ def main() -> int:
     t0 = time.time()
     counts[MESH_LM] = run_mesh_lm(torch, smi)
     print(f"{MESH_LM} phase took {time.time() - t0:.1f} s")
+
+    phase(f"{MESH_LM_4X2}: {MESH_LM_RANKS} full-width nodes of "
+          f"{MESH_RANKS_PER_NODE} ranks on one card over gloo, the "
+          f"row-sharded permute, 16-bit")
+    t0 = time.time()
+    counts[MESH_LM_4X2] = run_mesh_lm(torch, smi,
+                                      ranks_per_node=MESH_RANKS_PER_NODE)
+    print(f"{MESH_LM_4X2} phase took {time.time() - t0:.1f} s")
+
+    phase("audit: python -m repro_torch.launch.dryrun " + " ".join(
+        AUDIT_CMD[2:]))
+    t0 = time.time()
+    run_audit(smi)
+    print(f"audit phase took {time.time() - t0:.1f} s")
 
     phase("codec: the per-leaf and per-tensor wire codec at full width")
     t0 = time.time()
@@ -4807,6 +5260,12 @@ def main() -> int:
     t0 = time.time()
     counts.update(run_train(torch, smi))
     print(f"train phase took {time.time() - t0:.1f} s")
+
+    phase("programs: the microbatched train program, yi-6b smoke (4 "
+          "microbatches against 1), then yi-6b (2 layers) at full width")
+    t0 = time.time()
+    run_programs(torch, smi)
+    print(f"programs phase took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         for name in PROFILED:

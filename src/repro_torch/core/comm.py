@@ -23,13 +23,20 @@ from repro_torch.wirespec import WireSpec, canonical_group
 Bits = Union[int, WireSpec, None]
 
 
-def packed_copy_bytes(payload_tree, bits: Bits = None) -> int:
+def packed_copy_bytes(payload_tree, bits: Bits = None, *,
+                      inner: int = 1) -> int:
     """Physical bytes of ONE serialized copy under the packed node wire
     codec: quantized float leaves ride the 512-lane code buffer with one
     fp32 scale per leaf (``bits=None``, the fp32 wire: fp32 rows and no
     scales); ``counts`` (and any non-float leaf) rides raw.
     Leaves are ordered by wire group name, as the payload dict packs
-    them, so the alignment rows land on the same (last) segment."""
+    them, so the alignment rows land on the same (last) segment.
+
+    ``inner`` is the number of ranks of a node in the row-sharded
+    permute, which splits every tensor of the copy over them: each wire
+    width group of the code buffer pads up to a multiple of ``inner``
+    rows, the fp32 scales and each raw leaf up to a multiple of
+    ``inner`` elements.  ``inner=1`` is the one-rank-per-node copy."""
     from repro_torch.kernels.quantize.ops import packed_wire_bytes_per_node
 
     spec = bits if isinstance(bits, WireSpec) else None
@@ -42,18 +49,22 @@ def packed_copy_bytes(payload_tree, bits: Bits = None) -> int:
             if not hasattr(leaf, "dtype"):
                 continue
             if key == "counts" or not is_float(leaf):
-                raw += numel(leaf) * itemsize(leaf)
+                per = numel(leaf)
+                raw += (per + (-per) % inner) * itemsize(leaf)
             else:
                 g = canonical_group(key)
                 groups.append((g, leaf,
                                spec.bits_for(g) if spec else bits))
     groups.sort(key=lambda t: t[0])
     packed_leaves = [leaf for _g, leaf, _b in groups]
+    pad_scales = ((-len(groups)) % inner) * 4 if bits is not None else 0
     if spec is None:
-        return packed_wire_bytes_per_node(packed_leaves, bits) + raw
+        return packed_wire_bytes_per_node(packed_leaves, bits,
+                                          inner=inner) + raw + pad_scales
     return packed_wire_bytes_per_node(
         packed_leaves, spec.max_bits,
-        leaf_bits=[b for _g, _leaf, b in groups]) + raw
+        leaf_bits=[b for _g, _leaf, b in groups], inner=inner) + raw + \
+        pad_scales
 
 
 class CommMeter:
@@ -117,3 +128,23 @@ class ScheduleCommAccountant(CommMeter):
         self.by_kind[kind] += nbytes * edges
         self.by_round[round_idx] += nbytes * edges
         return nbytes
+
+    def predicted_node_bytes(self, payload_tree, round_idx: int,
+                             bits: Bits = None, wire: str = "dense", *,
+                             inner: int = 1) -> np.ndarray:
+        """Per-node bytes *sent* in one round, the counters untouched:
+        ``out_degree × bytes-per-copy``.  ``wire="dense"`` is the logical
+        Table II copy (``tree_wire_bytes``), ``wire="packed"`` the
+        physical packed-codec copy (:func:`packed_copy_bytes`, with
+        ``inner`` ranks a node) — what the wire audit
+        (``launch/dryrun.py --topology``) holds the exchange's collective
+        bytes to."""
+        if wire == "packed":
+            nbytes = packed_copy_bytes(payload_tree, bits, inner=inner)
+        elif wire == "dense":
+            nbytes = tree_wire_bytes(payload_tree, bits)
+        else:
+            raise ValueError(f"wire must be 'dense' or 'packed', "
+                             f"got {wire!r}")
+        p = self.schedule.phase_index(round_idx)
+        return self._out[p].astype(np.int64) * nbytes

@@ -25,9 +25,15 @@ one CUDA launch on the card).
   :func:`repro_torch.core.topology.permutation_rounds` to permutation
   steps, and each step is one ``batch_isend_irecv`` of the encoded
   buffer, its scales and its counts.  A rank moves degree × one copy a
-  round, what ``ScheduleCommAccountant`` charges.  Needs one rank per
-  node.  A rank that nobody sends to in a step receives zeros at weight
-  0, as ``jax.lax.ppermute`` gives it.
+  round, what ``ScheduleCommAccountant`` charges.  A rank that nobody
+  sends to in a step receives zeros at weight 0, as ``jax.lax.ppermute``
+  gives it.  With several ranks a node (``ranks_per_node=M``) it is the
+  row-sharded permute: each of a node's M ranks moves only its row block
+  of the encoded buffer (rows in ``sharding.row_shard_order``'s order)
+  and its slices of the scales and counts, so a node moves
+  ``packed_copy_bytes(…, inner=M)`` a copy; the node's ranks widen the
+  received slices, sum the prototype rows and gather the mixed blocks
+  among themselves.
 * ``"packed"`` — one ``all_gather`` of every rank's encoded
   ``[n_local, B]`` buffer (and scales and counts), then the mix of the
   rank's own receivers over all N senders.  The node axis splits evenly
@@ -39,8 +45,8 @@ one CUDA launch on the card).
   width) and scales all-gathered leaf by leaf, and the mix
   ``mix_node_trees`` on the dequantized leaves.  A plane student is
   unwrapped to leaf views at the boundary and rewrapped after.
-* ``"auto"`` — ``ppermute`` for a regular graph with one rank per node,
-  else ``packed`` (never ``gather``).
+* ``"auto"`` — ``ppermute`` for a regular graph over one pod rank a
+  node, else ``packed`` (never ``gather``).
 
 **Overlap** (``overlap=True``, ppermute only): step ``s+1``'s sends and
 receives are posted before step ``s``'s payload is folded into the mix
@@ -63,20 +69,31 @@ dense rest gossips classically, and the round carries the adapter state.
 **FedAvg** (:func:`make_fedavg_round`): the baseline's full model at
 fp32 on the same three exchanges, the plane buffer itself the wire.
 
+**Several ranks a node** (``ranks_per_node=M``, ``repro``'s multi-axis
+pods): the world is N·M ranks, rank ``r`` the inner index ``r % M`` of
+node ``r // M``.  A node's M ranks hold replicas of its state (the same
+student, prototypes, counts and residual; the port shards no model
+within a node).  Every rank creates one *pod group* per inner index
+(``{k, M+k, 2M+k, …}``, the wire) and one *node group* per node.  ProFe's
+``ppermute`` is the row-sharded permute above; every other exchange, the
+adapter wire on ``packed`` and ``gather`` and FedAvg run replicated:
+each pod group runs the one-rank-a-node round on the whole payload.
+
 **Transport.**  gloo moves host tensors only, so every payload is copied
 to the host before each collective and back to the compute device after;
 encode, decode, the mix and Eq. 4 stay on the compute device.  Every
-other backend raises — NCCL (one card per rank) is not ported, nor is
-the row-sharded permute of several ranks per node.
+other backend raises — NCCL (one card per rank) is not ported.
 :data:`COLLECTIVE_BYTES` counts the bytes of the tensors this process
-hands to collectives.
+hands to collectives: on the pod groups (the wire) and, apart, on the
+node groups.
 
 An error-feedback spec (``+ef``) adds a :class:`CodecState` operand and
 result; its residual stays on the rank and never enters a collective.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from collections import defaultdict
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +111,7 @@ from repro_torch.core.round_ops import (dequantize_leaf, gossip_matrix_dyn,
 from repro_torch.core.wire_state import CodecState, next_seq
 from repro_torch.kernels.quantize import ops as Q
 from repro_torch.optim.plane import Plane, _leaf_view, as_tree
+from repro_torch.sharding import row_shard_order
 from repro_torch.tree import tree_empties, tree_from_paths, tree_map, tree_paths
 from repro_torch.wirespec import WireSpec
 
@@ -104,11 +122,22 @@ ITEM = "Queue 1 item 12 (multi-node exchange)"
 
 class ByteCounter:
     """Bytes of the tensors this process handed to collectives (each
-    rank counts its own): a round adds what it sends, so it can be held
-    against ``ScheduleCommAccountant``."""
+    rank counts its own operands): a round adds what it sends, so it can
+    be held against ``ScheduleCommAccountant``.
+
+    * ``count`` — on the pod groups, the wire between nodes (with one
+      rank a node, every collective);
+    * ``by_kind`` — ``count`` split by collective (``"all-gather"``,
+      ``"collective-permute"``);
+    * ``inner`` and ``inner_by_kind`` — on the node groups of the
+      row-sharded permute (widening the received slices, the prototype
+      sum, the mixed blocks): traffic within a node, never wire."""
 
     def __init__(self):
         self.count = 0
+        self.inner = 0
+        self.by_kind: Dict[str, int] = defaultdict(int)
+        self.inner_by_kind: Dict[str, int] = defaultdict(int)
 
 
 COLLECTIVE_BYTES = ByteCounter()
@@ -130,9 +159,10 @@ def _host_bytes(t: torch.Tensor) -> torch.Tensor:
 
 class _GlooTransport:
     """The collectives of one round over a gloo process group, on host
-    copies of the payload."""
+    copies of the payload.  ``inner`` marks a node group: its bytes are
+    counted apart from the wire's."""
 
-    def __init__(self, group):
+    def __init__(self, group, *, inner: bool = False):
         self.group = group if group is not None else dist.group.WORLD
         backend = str(dist.get_backend(self.group))
         if backend != "gloo":
@@ -141,9 +171,18 @@ class _GlooTransport:
                             f"machine with several cards)", ITEM)
         self.rank = dist.get_rank(self.group)
         self.world = dist.get_world_size(self.group)
+        self.inner = inner
 
     def _peer(self, group_rank: int) -> int:
         return dist.get_global_rank(self.group, group_rank)
+
+    def _charge(self, kind: str, nbytes: int) -> None:
+        if self.inner:
+            COLLECTIVE_BYTES.inner += nbytes
+            COLLECTIVE_BYTES.inner_by_kind[kind] += nbytes
+        else:
+            COLLECTIVE_BYTES.count += nbytes
+            COLLECTIVE_BYTES.by_kind[kind] += nbytes
 
     def all_gather(self, tensors: Sequence[torch.Tensor], device
                    ) -> List[torch.Tensor]:
@@ -154,11 +193,18 @@ class _GlooTransport:
         for t in tensors:
             host = _host_bytes(t)
             parts = [torch.empty_like(host) for _ in range(self.world)]
-            COLLECTIVE_BYTES.count += _nbytes(host)
+            self._charge("all-gather", _nbytes(host))
             dist.all_gather(parts, host, group=self.group)
             out.append(torch.cat([p.view(t.dtype).reshape(t.shape)
                                   for p in parts]).to(device))
         return out
+
+    def all_reduce_sum(self, t: torch.Tensor, device) -> torch.Tensor:
+        """The sum of every rank's fp32 ``t``, on ``device``."""
+        host = t.detach().to("cpu", torch.float32, copy=True)
+        self._charge("all-reduce", _nbytes(host))
+        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
+        return host.to(device)
 
     def post(self, step: Sequence[Tuple[int, int]], src: np.ndarray,
              host: Sequence[torch.Tensor], tag: int):
@@ -170,7 +216,7 @@ class _GlooTransport:
         ops = []
         if dst is not None:
             for k, t in enumerate(host):
-                COLLECTIVE_BYTES.count += _nbytes(t)
+                self._charge("collective-permute", _nbytes(t))
                 ops.append(dist.P2POp(dist.isend, t, self._peer(dst),
                                       self.group, tag + k))
         recv = [torch.zeros_like(t) for t in host]
@@ -190,22 +236,50 @@ class _GlooTransport:
 
 
 def _resolve_exchange(exchange: str, adj: Optional[np.ndarray],
-                      world: int) -> str:
+                      nodes: int) -> str:
+    """The exchange a round runs; ``nodes`` is the pod groups' size (the
+    world over the ranks a node)."""
     if exchange not in EXCHANGES:
         raise ValueError(f"exchange must be one of {EXCHANGES}, "
                          f"got {exchange!r}")
     if exchange == "ppermute":
         if adj is None:
             raise ValueError("exchange='ppermute' needs an adjacency")
-        if world != adj.shape[0]:
-            raise ValueError(f"exchange='ppermute' needs one rank per node "
-                             f"(world={world}, N={adj.shape[0]})")
+        if nodes != adj.shape[0]:
+            raise ValueError(f"exchange='ppermute' needs one pod rank per "
+                             f"node (pod={nodes}, N={adj.shape[0]})")
         return exchange
     if exchange != "auto":
         return exchange
-    if adj is not None and world == adj.shape[0] and T.is_regular(adj):
+    if adj is not None and nodes == adj.shape[0] and T.is_regular(adj):
         return "ppermute"
     return "packed"
+
+
+def _transports(group, ranks_per_node: int):
+    """``(pod transport, node transport or None)`` of this rank.  With
+    one rank a node the pod transport is ``group`` itself.  With M > 1
+    every rank creates, in the same order, the M pod groups (inner index
+    k: ranks ``k, M+k, 2M+k, …`` of ``group``) and the N node groups
+    (``iM … iM+M-1``), as ``torch.distributed.new_group`` needs every
+    rank to, and keeps its own two."""
+    base = _GlooTransport(group)
+    m = int(ranks_per_node)
+    if m < 1:
+        raise ValueError(f"ranks_per_node must be >= 1, got {m}")
+    if m == 1:
+        return base, None
+    if base.world % m:
+        raise ValueError(f"a world of {base.world} ranks does not split "
+                         f"into nodes of ranks_per_node={m}")
+    glob = [base._peer(r) for r in range(base.world)]
+    n = base.world // m
+    pods = [dist.new_group([glob[i * m + k] for i in range(n)],
+                           backend="gloo") for k in range(m)]
+    nodes = [dist.new_group(glob[i * m:(i + 1) * m], backend="gloo")
+             for i in range(n)]
+    return (_GlooTransport(pods[base.rank % m]),
+            _GlooTransport(nodes[base.rank // m], inner=True))
 
 
 def _first_node(tp: _GlooTransport, n_local: int, n: int) -> int:
@@ -517,6 +591,146 @@ def _make_ppermute_core(tp: _GlooTransport, wire: WireSpec, adj: np.ndarray,
     return _round
 
 
+class _Block(NamedTuple):
+    """A rank's row block of its node's payload in the row-sharded
+    permute: rank k of M takes block k of the rows in
+    ``row_shard_order``'s order (``R'`` rows, the pad rows zero) and
+    slice k of the scales and counts, each padded to a multiple of M."""
+    own: torch.Tensor         # [1, R'/M, C] fp32 payload rows
+    codes: torch.Tensor       # [1, R'/M, C] their codes
+    wire: torch.Tensor        # [1, B'/M] int8, the block encoded
+    scales: torch.Tensor      # [1, T'/M] fp32 scale slice
+    counts: torch.Tensor      # [1, C'/M] count slice
+    seg: torch.Tensor         # [R'/M] int64 segment of each block row
+    rows: np.ndarray          # [R'/M] payload row of each (pad rows >= R)
+    local_bits: np.ndarray    # [R'/M] wire width of each block row
+    inv_order: torch.Tensor   # [R] int64: shard order -> payload rows
+
+
+def _row_block(buf, codes, scales, counts, seg_ids, seg_bits, m: int,
+               k: int) -> _Block:
+    """Rank ``k``'s :class:`_Block` of the node payload ``buf`` /
+    ``codes [1, R, C]``, ``scales [1, T]`` and ``counts [1, C]``.  Pad
+    rows are appended zero; each borrows a segment id of its width group
+    (the first row's), assigned over the groups in ascending width as
+    ``row_shard_order`` assigns them, so the receiver's scale lookup stays
+    in range (its codes are zero, so the scale never matters)."""
+    ids = np.asarray(seg_ids)
+    row_b = np.asarray(seg_bits)[ids]
+    order, inv_order, local_bits = row_shard_order(row_b, m)
+    rloc = len(order) // m
+    n_pad = len(order) - len(ids)
+    pad_ids = []
+    for b in sorted(set(row_b.tolist())):
+        grp = np.nonzero(row_b == b)[0]
+        pad_ids += [int(ids[grp[0]])] * ((-len(grp)) % m)
+    ids_full = np.concatenate([ids, np.asarray(pad_ids, ids.dtype)])
+    mine = order[k * rloc:(k + 1) * rloc]
+    dev = buf.device
+    take = torch.as_tensor(mine, dtype=torch.int64, device=dev)
+
+    def block(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, n_pad)).index_select(
+            1, take)
+
+    def part(x):
+        w = x.shape[1] + (-x.shape[1]) % m
+        return torch.nn.functional.pad(x, (0, w - x.shape[1]))[
+            :, k * (w // m):(k + 1) * (w // m)].contiguous()
+
+    codes_b = block(codes)
+    return _Block(block(buf), codes_b,
+                  Q.encode_wire(codes_b, np.arange(rloc), seg_bits=local_bits),
+                  part(scales), part(counts),
+                  _seg_index(ids_full[mine], dev), mine, local_bits,
+                  torch.as_tensor(inv_order, dtype=torch.int64, device=dev))
+
+
+def _make_row_sharded_core(tp: _GlooTransport, node: _GlooTransport,
+                           wire: WireSpec, adj: np.ndarray, overlap: bool):
+    """The row-sharded permute (``repro``'s
+    ``_make_profe_round_ppermute_sharded``): ``tp`` is this rank's pod
+    group (rank = node), ``node`` its node group (rank = inner index k).
+    Every rank packs and quantizes its node's whole payload (the replicas
+    make it identical on all M ranks), then moves only its
+    :class:`_Block` a permutation step to inner index k of the
+    destination node.  Within the node the received scale and count
+    slices are widened (one all-gather a step), the received prototype
+    rows, scattered to their slots, summed (one all-reduce a round: each
+    row lives on one rank, the others add zeros, so the sum is exact),
+    and the mixed blocks gathered and put back in payload order.  The
+    mix runs step by step (``mix_packed_init`` + one
+    ``mix_packed_accumulate`` a step) on the rank's block, as
+    ``repro``'s does; ``overlap`` posts step s+1 before step s is
+    folded.  Every rank of a node ends with the same student, bit for
+    bit."""
+    perms, srcs = _perm_lowering(adj)
+    me, m, k = tp.rank, node.world, node.rank
+
+    @torch.no_grad()
+    def _round(students, protos, counts, sizes, ef_state):
+        if counts.shape[0] != 1:
+            raise ValueError(f"exchange='ppermute' holds one node per rank, "
+                             f"got {counts.shape[0]}")
+        buf, seg_ids, meta, ploc, splice = _pack_payload(protos, students,
+                                                         wire)
+        codes, scales, state = _quantize_with_state(wire, buf, seg_ids, meta,
+                                                    ef_state)
+        dev = buf.device
+        blk = _row_block(buf, codes, scales, counts, seg_ids, meta[3], m, k)
+        prow, pnrows, pshape = ploc
+        ncls = pshape[1]
+        w_self_v, w_neigh = gossip_matrix_dyn(
+            adj, sizes.to(device=dev, dtype=torch.float32))
+        w_row = w_neigh[me:me + 1]
+        # the block rows that hold prototypes, and their slots
+        prot = (blk.rows >= prow) & (blk.rows < prow + pnrows)
+        p_take = torch.as_tensor(np.nonzero(prot)[0], device=dev)
+        p_slot = torch.as_tensor(blk.rows[prot] - prow, device=dev)
+        n_sl, n_sc = blk.scales.shape[1], blk.counts.shape[1]
+        acc = Q.mix_packed_init(blk.own, w_self_v[me:me + 1])
+        parts, rcnts, valids = [], [], []
+        for (rw, rs, rcnt), src in zip(_permute_steps(
+                tp, perms, srcs, (blk.wire, blk.scales, blk.counts), dev,
+                overlap), srcs):
+            (side,) = node.all_gather([torch.cat([rs, rcnt], dim=1)], dev)
+            side = side.reshape(m, n_sl + n_sc)
+            rd = side[:, :n_sl].reshape(-1)[blk.seg]
+            rc = Q.decode_wire(rw, np.arange(len(blk.rows)),
+                               seg_bits=blk.local_bits)
+            valid, w_p = _step_weight(src, me, w_row)
+            acc = Q.mix_packed_accumulate(acc, rc, rd[None],
+                                          w_p.reshape(1, 1))
+            part = torch.zeros((pnrows, rc.shape[2]), dtype=torch.float32,
+                               device=dev)
+            part[p_slot] = rc[0, p_take].to(torch.float32) * \
+                rd[p_take, None]
+            parts.append(part)
+            rcnts.append(side[:, n_sl:].reshape(-1)[:ncls])
+            valids.append(valid)
+        # Eq. 4 over the neighbourhood; the own prototypes enter
+        # quantized, like every receiver's view
+        num = counts[0][:, None] * _proto_view(
+            codes, scales[:, _seg_index(seg_ids, dev)], ploc)[0]
+        den = counts[0]
+        if parts:
+            full = node.all_reduce_sum(torch.stack(parts), dev)
+            for pr, rcnt, valid in zip(full, rcnts, valids):
+                pr = pr.reshape(-1)[:ncls * pshape[2]].reshape(ncls,
+                                                               pshape[2])
+                num = num + valid * rcnt[:, None] * pr
+                den = den + valid * rcnt
+        glob = num / torch.clamp_min(den, 1.0)[:, None]
+        mask = (den > 0).to(torch.float32)
+        (blocks,) = node.all_gather([acc], dev)              # [M, R'/M, C]
+        mixed = blocks.reshape(1, -1, blocks.shape[2]).index_select(
+            1, blk.inv_order)
+        return (_splice_students(mixed, splice), glob[None], mask[None],
+                state)
+
+    return _round
+
+
 def _make_gather_core(tp: _GlooTransport, wire: WireSpec,
                       adj: Optional[np.ndarray]):
     """The per-leaf reference exchange (``repro``'s gather): the payload
@@ -620,7 +834,7 @@ def _wrap_ef(core, wire: WireSpec):
 
 def _make_adapter_round(tp: _GlooTransport, wire: WireSpec,
                         adj: Optional[np.ndarray], mode: str, *, rank: int,
-                        grams: bool, overlap: bool):
+                        grams: bool, overlap: bool, inner: int = 1):
     """The adapter-rank wire on the mesh (``repro``'s
     ``_make_profe_round_adapter``).  Each node shares the payload
     ``{"adapters", "protos", "student": rest[, "grams"]}`` of
@@ -648,7 +862,10 @@ def _make_adapter_round(tp: _GlooTransport, wire: WireSpec,
 
     The full protocol (``adjacency=None``) raises: merge-based
     aggregation is neighbourhood-wise, every node applies deltas onto
-    its own weights, so the nodes never end identical."""
+    its own weights, so the nodes never end identical.  So does
+    ``ppermute`` with several ranks a node (``inner`` > 1): the adapter
+    wire has no row-sharded permute; ``packed`` and ``gather`` run
+    replicated on the pod group ``tp``."""
     from repro_torch.core.adapters import split_student
     from repro_torch.core.aggregation import regmean_adjust
     from repro_torch.kernels.lowrank_apply.ops import (adapter_apply_plane,
@@ -658,6 +875,10 @@ def _make_adapter_round(tp: _GlooTransport, wire: WireSpec,
                          "(merge-based aggregation is neighbourhood-wise; "
                          "the full protocol's identical-output semantics "
                          "do not apply)")
+    if mode == "ppermute" and inner > 1:
+        raise ValueError("adapter_rank does not support the row-sharded "
+                         "ppermute exchange (inner mesh axes > 1) — use "
+                         "exchange='packed'")
     include = include_matrix(adj)
     perms, srcs = _perm_lowering(adj) if mode == "ppermute" else (None, None)
     me = tp.rank
@@ -808,8 +1029,14 @@ def make_profe_round(group=None, *, bits: int = 16,
     ``adapter_grams``, RegMean): the round becomes
     ``round_fn(students, protos, counts, sizes, adapter_state[,
     codec_state])`` and also returns the new adapter state; it needs an
-    adjacency (see :func:`_make_adapter_round`).  ``ranks_per_node > 1``
-    (the row-sharded permute) is not ported."""
+    adjacency (see :func:`_make_adapter_round`).
+
+    ``ranks_per_node=M > 1`` gives every node M ranks of ``group`` (rank
+    ``r`` is inner index ``r % M`` of node ``r // M``), each holding a
+    replica of its node's state, ``n_local`` 1: ``ppermute`` is then the
+    row-sharded permute, every other exchange runs replicated over the
+    node's ranks (module docstring).  Every rank of ``group`` must make
+    the call, in the same order: it creates the pod and node groups."""
     if proto_pass not in PROTO_PASSES:
         raise ValueError(f"proto_pass must be one of {PROTO_PASSES}, "
                          f"got {proto_pass!r}")
@@ -821,17 +1048,17 @@ def make_profe_round(group=None, *, bits: int = 16,
                          "round rounds to nearest even with "
                          "stochastic_rounding set, so the port refuses the "
                          "spec rather than fake unbiased codes")
-    if ranks_per_node != 1:
-        raise _unported("the row-sharded permute (several ranks per node, "
-                        "repro's multi-axis pods)", ITEM)
-    tp = _GlooTransport(group)
+    tp, node = _transports(group, ranks_per_node)
     adj = None if adjacency is None else np.asarray(adjacency)
     mode = _resolve_exchange(exchange, adj, tp.world)
     if adapter_rank:
         fn = _make_adapter_round(tp, wire, adj, mode, rank=adapter_rank,
-                                 grams=adapter_grams, overlap=overlap)
+                                 grams=adapter_grams, overlap=overlap,
+                                 inner=ranks_per_node)
     else:
-        if mode == "ppermute":
+        if mode == "ppermute" and node is not None:
+            core = _make_row_sharded_core(tp, node, wire, adj, overlap)
+        elif mode == "ppermute":
             core = _make_ppermute_core(tp, wire, adj, overlap)
         elif mode == "gather":
             core = _plane_views(_make_gather_core(tp, wire, adj))
@@ -849,7 +1076,7 @@ def make_profe_round(group=None, *, bits: int = 16,
 # -- the FedAvg baseline --------------------------------------------------------
 
 def make_fedavg_round(group=None, *, adjacency: Optional[np.ndarray] = None,
-                      exchange: str = "auto"):
+                      exchange: str = "auto", ranks_per_node: int = 1):
     """FedAvg on the mesh (``repro``'s ``make_fedavg_round``): returns
     ``round_fn(models, sizes)`` for this rank of ``group``.  ``models``
     is the rank's full models at fp32, a stacked :class:`Plane`
@@ -867,8 +1094,11 @@ def make_fedavg_round(group=None, *, adjacency: Optional[np.ndarray] = None,
     With an ``adjacency`` the neighbourhood-weighted mix (own copy
     included at its weight); with ``adjacency=None`` the size-weighted
     mean of all N models, every node identical.  A plane comes back a
-    plane, a tree a tree in its leaves' dtypes."""
-    tp = _GlooTransport(group)
+    plane, a tree a tree in its leaves' dtypes.  With
+    ``ranks_per_node=M > 1`` every exchange runs replicated: each of a
+    node's M ranks moves the whole model on its pod group, as
+    ``repro``'s FedAvg does on a multi-axis pod."""
+    tp, _ = _transports(group, ranks_per_node)
     adj = None if adjacency is None else np.asarray(adjacency)
     mode = _resolve_exchange(exchange, adj, tp.world)
     me = tp.rank

@@ -906,15 +906,19 @@ def packed_wire_rows(tree) -> Tuple[int, int]:
 
 
 def packed_wire_bytes_per_node(tree, bits: Optional[int] = 16, *,
-                               leaf_bits: Optional[Sequence[int]] = None
-                               ) -> int:
+                               leaf_bits: Optional[Sequence[int]] = None,
+                               inner: int = 1) -> int:
     """Physical bytes one node's packed copy occupies on the wire: the
     encoded code buffer incl. 512-lane padding, plus one fp32 scale per
     leaf segment; ``bits=None`` is the fp32 wire (fp32 rows, no scales).
     ``leaf_bits`` gives each float leaf its own width; alignment rows
-    carry the LAST leaf's width."""
+    carry the LAST leaf's width.  ``inner`` is the number of ranks a
+    node's row-sharded permute splits the rows over: each wire width
+    group's row count pads up to a multiple of ``inner`` (the zero rows
+    ``sharding.row_shard_order`` appends travel as wire bytes)."""
     if bits is None or leaf_bits is None:
         rows, nseg = packed_wire_rows(tree)
+        rows += (-rows) % inner              # one width group
         if bits is None:
             return rows * _COLS * 4
         return rows * _COLS * bits // 8 + nseg * 4
@@ -934,4 +938,5 @@ def packed_wire_bytes_per_node(tree, bits: Optional[int] = 16, *,
         nseg += 1
         last_b = b
     width_rows[int(last_b)] += (-rows) % 8
-    return sum(r * _COLS * b for b, r in width_rows.items()) // 8 + nseg * 4
+    return sum((r + (-r) % inner) * _COLS * b
+               for b, r in width_rows.items()) // 8 + nseg * 4

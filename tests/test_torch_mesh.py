@@ -449,16 +449,18 @@ def test_exchange_resolves_like_jax():
 
 
 def test_options_outside_the_slice_raise(one_rank_group, monkeypatch):
-    """What the port still refuses: the row-sharded permute (several
-    ranks per node) and every backend but gloo (``NotImplementedError``
-    naming the queue item); and what ``repro`` refuses alike: a
+    """What the port still refuses: every backend but gloo
+    (``NotImplementedError`` naming the queue item); a world that
+    ``ranks_per_node`` does not divide into nodes (``ValueError``, here
+    one rank in nodes of two); and what ``repro`` refuses alike: a
     stochastic spec (its mesh round takes no key), an unknown proto
     pass, and the adapter wire on the full protocol (``adjacency=None``:
     merge-based aggregation is neighbourhood-wise)."""
     from repro_torch.core import mesh_federation as M
     from repro_torch.wirespec import WireSpec
-    with pytest.raises(NotImplementedError, match="item 12"):
-        M.make_profe_round(one_rank_group, ranks_per_node=2)
+    for make in (M.make_profe_round, M.make_fedavg_round):
+        with pytest.raises(ValueError, match="ranks_per_node=2"):
+            make(one_rank_group, ranks_per_node=2)
     # repro's mesh round takes no noise key and rounds to nearest: the
     # port refuses a stochastic spec rather than fake unbiased codes
     with pytest.raises(ValueError, match="no PRNG key"):
