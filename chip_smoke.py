@@ -226,6 +226,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     1 on one batch, then yi-6b cut to 2 layers at full width, batch
     4 × 256 in one microbatch and 16 × 256 in 4; a line ``programs
     {...}`` with ms a step and peak memory of each;
+14d. ``examples``, the ported user scripts (see :func:`run_examples`):
+    ``run()`` of ``examples/torch_quickstart.py``,
+    ``torch_dfl_noniid_cifar.py``, ``torch_topology_sweep.py``,
+    ``torch_mesh_federation_demo.py`` and ``benchmarks/torch_ablations.py``
+    at their own defaults, every run's bytes the JAX package's
+    (``EXAMPLE_BYTES``), quickstart's launches exactly, the sweep's and
+    the demo's permute bytes the audit's prediction; then
+    ``benchmarks/torch_dryrun_topo.py`` as a subprocess (its four rows
+    equal to ``reports/dryrun/topology_*.json``); a line ``examples
+    {...}`` with each script's seconds, bytes and F1;
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -1695,6 +1705,326 @@ def check_row_block_shapes(torch, timer, rows) -> None:
                      else [("lm_4x2", blocks)]):
             print(f"{name} (row block, {k}): {e['ms']:.4f} ms (plain "
                   f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms)")
+    torch.cuda.empty_cache()
+
+
+def _held(torch, timer, rows, name: str, key: str, launch, plain, *,
+          nbytes: float, nops: float, check=None, library=None,
+          **info) -> None:
+    """One phase-3 case: ``launch()`` (a kernel's wrapper) bit for bit
+    ``check()`` (by default ``plain()``, its plain version), then both
+    timed, and ``library`` where a PyTorch call computes the same; the
+    entry goes into the row of ``name`` under ``examples[key]``."""
+    got, want = launch(), (check or plain)()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    expect(len(got) == len(want) and all(bits_equal(torch, a, b)
+                                         for a, b in zip(got, want)),
+           f"{name} ({key}) is not bit-exact with its plain version")
+    entry = dict(info, ms=timer(launch), plain_ms=timer(plain),
+                 bound_ms=bound(nbytes, nops)[0],
+                 library_ms=None if library is None else timer(library))
+    row = next(r for r in rows if r["name"] == name)
+    row.setdefault("example_shapes", {})[key] = entry
+    print(f"{name} ({key}) {info.get('shape', '')}: bit-exact, "
+          f"{entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms)", flush=True)
+
+
+def check_example_shapes(torch, timer, rows) -> None:
+    """Phase 3 at the shapes the examples phase (14d) gives six kernels
+    and no other check holds, each case bit for bit its plain version and
+    timed into its row under ``example_shapes``:
+
+    * rows 1-4 on the 4-node mnist-cnn federation of the quickstart and
+      the ablations: ``adamw_update`` on the ``[4, 416, 512]`` plane,
+      ``proto_accum`` on ``f1 [4, 64, 128]``, ``rowabs`` and
+      ``quantize_rows`` on the ``[1664, 512]`` payload at 16, 8 and 32
+      bits (the ablations' wires), and on one node's ``[416, 512]`` at
+      16 and 4 bits (the suite's mnist-cnn ranks);
+    * rows 1-4 on the ResNet8 students of the CIFAR driver (3 nodes) and
+      the topology sweep (4 nodes), and rows 3, 4 and 11 on one sweep
+      node's payload as the audit's ranks quantize and mix it (``S``
+      senders for each of the sweep's single-phase topologies and
+      exchanges);
+    * on yi-6b's smoke student as the topology suite's (and the mesh
+      demo's) ranks build it (``launch.wire._rank_inputs``): ``rowabs``
+      and ``quantize_rows`` on a node's int4 / 16-bit adapter payload
+      (with and without grams) and its dense int4 / 16-bit plane
+      payload, ``mix_packed`` on that plane with 1 (the demo's star), 2
+      (ring) and 8 (packed) senders' codes and on the demo's FedAvg
+      round (2 fp32 teacher planes), and ``lowrank_apply`` on every
+      matrix leaf of a receiver's
+      merge: 2 senders (ppermute) or 8 (gather / packed), ``A`` shared
+      or RegMean-adjusted per receiver (``--adapter-grams``).  The
+      merge's leaves are summed into one entry a (senders, design)."""
+    from repro_torch.config import get_config
+    from repro_torch.core import topology as T
+    from repro_torch.core.aggregation import regmean_adjust
+    from repro_torch.core.round_ops import adapter_share_nodes
+    from repro_torch.kernels.lowrank_apply.lowrank_apply import \
+        lowrank_apply_cuda
+    from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
+    from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
+    from repro_torch.kernels.opt_update.ref import adamw_update_ref
+    from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
+    from repro_torch.kernels.proto_accum.ref import (proto_accum_batch_order,
+                                                     proto_accum_ref)
+    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                  pack_plane_payload,
+                                                  pack_tree_nodes,
+                                                  quantize_packed_buffer)
+    from repro_torch.kernels.quantize.quantize import (mix_packed_cuda,
+                                                       quantize_rows_cuda,
+                                                       rowabs_cuda)
+    from repro_torch.kernels.quantize.ref import (mix_packed_ref,
+                                                  quantize_rows_ref,
+                                                  rowabs_ref)
+    from repro_torch.launch.wire import _config as _wire_config
+    from repro_torch.launch.wire import _rank_inputs
+    from repro_torch.models import derive_student, init_params
+    from repro_torch.optim.plane import Plane, _leaf_view, plane_from_tree
+    from repro_torch.tree import tree_map
+    from repro_torch.wirespec import WireSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def held(name, key, launch, plain, **kw):
+        _held(torch, timer, rows, name, key, launch, plain, **kw)
+
+    def stacked(cfg, nodes):
+        ones = [plane_from_tree(tree_map(lambda x: x.to("cuda"),
+                                         init_params(cfg, gen)))
+                for _ in range(nodes)]
+        return Plane(torch.stack([o.buf for o in ones]), ones[0].meta)
+
+    def adamw(key, path, p):
+        shape, nodes, n = tuple(p.shape), p.shape[0], p.numel()
+        g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        mu = torch.randn(shape, generator=gen, device="cuda") * 1e-4
+        nu = torch.rand(shape, generator=gen, device="cuda") * 1e-7
+        hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+        lr = torch.full((), 1e-3, device="cuda")
+        step = torch.full((nodes,), 3.0, device="cuda")
+        bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+        scale = torch.rand((nodes,), generator=gen,
+                           device="cuda").clamp_min(0.1)
+        got = [p.clone(), mu.clone(), nu.clone()]
+        g_scaled = (g.reshape(nodes, -1) * scale[:, None]).reshape(shape)
+        lib_step = [torch.full((), 3.0, device="cuda")]
+        held("adamw_update", key,
+             lambda: (adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp),
+                      got)[1],
+             lambda: adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale,
+                                      bc1=bc1, bc2=bc2, **hp),
+             nbytes=7 * 4 * n, nops=18 * n,
+             library=lambda: torch._fused_adamw_(
+                 [got[0]], [g_scaled], [got[1]], [got[2]], [], lib_step,
+                 lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01,
+                 eps=1e-8, amsgrad=False, maximize=False),
+             path=path, shape=list(shape))
+
+    def accum(key, path, nodes, batch, dim, ncls):
+        f1 = torch.relu(torch.randn((nodes, batch, dim), generator=gen,
+                                    device="cuda"))
+        labels = torch.randint(0, ncls, (nodes, batch), generator=gen,
+                               dtype=torch.int32, device="cuda")
+        node_cls = (torch.arange(nodes, device="cuda")[:, None] * ncls
+                    + labels).reshape(-1)
+        flat = f1.reshape(-1, dim)
+
+        def library():
+            sums = torch.zeros((nodes * ncls, dim), device="cuda")
+            sums.index_add_(0, node_cls, flat)
+            torch.bincount(node_cls, minlength=nodes * ncls)
+        held("proto_accum", key, lambda: proto_accum_cuda(f1, labels, ncls),
+             lambda: proto_accum_ref(f1, labels, ncls),
+             check=lambda: proto_accum_batch_order(f1, labels, ncls),
+             nbytes=4 * (f1.numel() + labels.numel() + nodes * ncls * dim
+                         + nodes * ncls),
+             nops=f1.numel() + labels.numel(), library=library, path=path,
+             shape=list(f1.shape), classes=ncls)
+
+    def codec(key, path, buf, ids, meta):
+        """``rowabs`` and ``quantize_rows`` (at each of the payload's
+        widths) on every row of ``buf [N, R, 512]``."""
+        n, r, c = buf.shape
+        x2d = buf.reshape(-1, c).contiguous()
+        m = x2d.numel()
+        held("rowabs", key, lambda: rowabs_cuda(x2d), lambda: rowabs_ref(x2d),
+             nbytes=4 * m + 4 * n * r, nops=m,
+             library=lambda: torch.linalg.vector_norm(x2d, ord=math.inf,
+                                                      dim=1),
+             path=path, shape=[n * r, c])
+        zero = torch.zeros(n * r, dtype=torch.int64, device="cuda")
+        for bits in sorted({int(b) for b in meta[3]}):
+            _, rd = _node_row_deltas(buf, ids, meta[1], bits, meta[3])
+            rd = rd.reshape(-1, 1).contiguous()
+            held("quantize_rows", f"{key}/int{bits}",
+                 lambda: quantize_rows_cuda(x2d, rd, bits=bits),
+                 lambda: quantize_rows_ref(x2d, rd, bits=bits),
+                 nbytes=8 * m + 4 * n * r, nops=4 * m,
+                 library=lambda: torch.quantize_per_channel(
+                     x2d, rd[:, 0].contiguous(), zero, 0, torch.qint32),
+                 path=path, shape=[n * r, c], bits=bits)
+
+    def mix(key, path, own, codes, rd):
+        """``mix_packed`` of one receiver's own rows and its ``S``
+        senders' codes (``own [1, R, 512]``, ``codes [S, R, 512]``)."""
+        m, r, c = own.shape
+        s = codes.shape[0]
+        w = torch.rand((m, s + 1), generator=gen, device="cuda")
+        w = w / w.sum(dim=1, keepdim=True)
+        w_self, w_rows = w[:, 0].contiguous(), w[:, 1:].contiguous()
+        held("mix_packed", key,
+             lambda: mix_packed_cuda(own, codes, rd, w_self, w_rows),
+             lambda: mix_packed_ref(own, codes, rd, w_self, w_rows),
+             nbytes=4 * (2 * own.numel() + codes.numel() + rd.numel()
+                         + w.numel()),
+             nops=m * r * c * (1 + 3 * s), path=path, own=list(own.shape),
+             codes=list(codes.shape))
+
+    def wire_codes(buf, ids, meta):
+        codes, scales = quantize_packed_buffer(buf, ids, meta[1],
+                                               seg_bits=meta[3])
+        rd = scales[:, torch.as_tensor(ids, dtype=torch.int64,
+                                       device="cuda")].contiguous()
+        return codes.to(torch.int32).contiguous(), rd
+
+    # -- the quickstart's and the ablations' 4 mnist-cnn nodes ------------
+    mnist = get_config("mnist-cnn")
+    plane = stacked(derive_student(mnist), 4)
+    adamw("mnist/4", "quickstart, ablations", plane.buf)
+    accum("mnist/4", "quickstart, ablations", 4, QUICKSTART_BATCH,
+          mnist.proto_dim, mnist.num_classes)
+    protos = torch.rand((4, mnist.num_classes, mnist.proto_dim),
+                        generator=gen, device="cuda")
+    for bits in (16, 8, 32):
+        buf, ids, meta, _, _ = pack_plane_payload(
+            protos, plane, WireSpec.from_bits(bits))
+        codec(f"mnist/4/{bits}", "quickstart, ablations", buf, ids, meta)
+    # one node's payload as the suite's mnist-cnn ranks quantize it
+    for spec in ("16", "4"):
+        buf, ids, meta, _, _ = pack_plane_payload(
+            protos[:1], Plane(plane.buf[:1], plane.meta),
+            WireSpec.parse(spec))
+        codec(f"mnist/rank/{spec}", "dryrun-topo", buf, ids, meta)
+    del plane, buf
+
+    # -- ResNet8: the CIFAR driver's 3 nodes and the sweep's 4 -------------
+    cifar = get_config("cifar10-resnet18")
+    res8 = derive_student(cifar)
+    for n_res, path in ((3, "dfl"), (4, "sweep")):
+        plane = stacked(res8, n_res)
+        adamw(f"resnet8/{n_res}", path, plane.buf)
+        accum(f"resnet8/{n_res}", path, n_res, CIFAR_BATCH, res8.proto_dim,
+              cifar.num_classes)
+        protos = torch.rand((n_res, cifar.num_classes, res8.proto_dim),
+                            generator=gen, device="cuda")
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec(16))
+        codec(f"resnet8/{n_res}", path, buf, ids, meta)
+    # one sweep node's payload as the audit's ranks quantize and mix it:
+    # 2 senders (ring, random-k2), 3 (full, ppermute), 4 (packed)
+    codec("resnet8/rank", "sweep", buf[:1], ids, meta)
+    codes, rd = wire_codes(buf, ids, meta)
+    for senders in ([1, 3], [1, 2, 3], [0, 1, 2, 3]):
+        mix(f"resnet8/S{len(senders)}", "sweep", buf[:1].contiguous(),
+            codes[senders].contiguous(), rd[senders].contiguous())
+    del plane, buf, codes
+
+    # -- yi-6b's smoke student as the suite's ranks build it ---------------
+    nodes = 8
+
+    def rank_inputs(**job):
+        job = dict(dict(arch="yi-6b", n_nodes=nodes, topology="ring",
+                        bits="4", seed=0, inner=1, adapter_rank=0,
+                        adapter_grams=False, device="cuda"), **job)
+        return [_rank_inputs(job, i, torch.device("cuda"))
+                for i in range(nodes)]
+
+    ring = T.make_schedule(nodes, "ring", rounds=1, seed=0).adjacency_at(0)
+    ring_senders = sorted(T.neighbors(ring, 0))          # receiver node 0
+    # the dense plane payload at int4 (the suite's dense reference) and
+    # 16 bits (the mesh demo's ring of 8)
+    ins = rank_inputs()
+    plane = Plane(torch.cat([s.buf for s, *_ in ins]), ins[0][0].meta)
+    protos = torch.cat([p for _, p, *_ in ins])
+    for bits in (4, 16):
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec.from_bits(bits))
+        codec(f"yi-6b/plane/{bits}", "dryrun-topo, mesh-demo", buf[:1],
+              ids, meta)
+        codes, rd = wire_codes(buf, ids, meta)
+        # the demo's star (1 sender), the ring (2) and packed (8)
+        for senders in ([1], ring_senders, list(range(nodes))):
+            mix(f"yi-6b/plane/{bits}/S{len(senders)}",
+                "dryrun-topo, mesh-demo", buf[:1].contiguous(),
+                codes[senders].contiguous(), rd[senders].contiguous())
+    del plane, buf, codes
+    # the demo's FedAvg round: 2 nodes' fp32 teacher planes at unit Δ
+    teacher = stacked(_wire_config("yi-6b"), 2).buf
+    mix("yi-6b/fedavg", "mesh-demo", teacher[:1].contiguous(), teacher,
+        torch.ones(teacher.shape[:2], device="cuda"))
+    del teacher
+    # the int4 adapter wire, without and with grams
+    for grams in (False, True):
+        tag = "adapters8+grams" if grams else "adapters8"
+        ins = rank_inputs(bits="4", adapter_rank=8, adapter_grams=grams)
+        groups = []
+        for students, prot, _, _, carry in ins:
+            ast = dict(carry[0], ref={
+                k: v + 1e-3 * torch.randn(v.shape, generator=gen,
+                                          device="cuda")
+                for k, v in carry[0]["ref"].items()})
+            g, _, layout = adapter_share_nodes(students, ast, rank=8,
+                                               grams=grams)
+            groups.append((g, prot))
+        for spec in ("4", "16"):
+            buf, ids, meta = pack_tree_nodes(
+                dict(groups[0][0], protos=groups[0][1]),
+                WireSpec.parse(spec))
+            codec(f"yi-6b/{tag}/{spec}", "dryrun-topo", buf, ids, meta)
+        # a receiver's merge: every matrix leaf of node 0 through one
+        # launch with its senders' factors
+        w_plane = ins[0][0].buf
+        for s, senders in ((2, ring_senders), (nodes, list(range(nodes)))):
+            coeffs = torch.rand((1, s), generator=gen, device="cuda") / s
+            cases = []
+            for name, is_mat, (_, _, shape, row, r_leaf) in zip(
+                    layout.names, layout.is_mat, ins[0][0].meta.recipe):
+                if not is_mat:
+                    continue
+                w = _leaf_view(w_plane, shape, row, r_leaf).contiguous()
+                b = torch.cat([groups[j][0]["adapters"][name]["B"]
+                               for j in senders]).float().contiguous()
+                a = torch.cat([groups[j][0]["adapters"][name]["A"]
+                               for j in senders]).float()
+                if grams:
+                    gr = torch.cat([groups[j][0]["grams"][name]
+                                    for j in senders])
+                    a = regmean_adjust(a[None], gr[None], coeffs,
+                                       per_recv=True)
+                cases.append((w, b, a.contiguous()))
+            design = "per_recv" if grams else "shared"
+            launches = [lambda w=w, b=b, a=a: lowrank_apply_cuda(
+                w, coeffs, b, a) for w, b, a in cases]
+            plains = [lambda w=w, b=b, a=a: lowrank_apply_ref(
+                w, coeffs, b, a) for w, b, a in cases]
+            d_k = [(w.shape[-2], w.shape[-1], w[0].numel() // (
+                w.shape[-2] * w.shape[-1])) for w, _, _ in cases]
+            held("lowrank_apply", f"yi-6b/{design}/S{s}",
+                 lambda: [f() for f in launches],
+                 lambda: [f() for f in plains],
+                 nbytes=sum(4 * (2 * w.numel() + coeffs.numel() + b.numel()
+                                 + a.numel()) for w, b, a in cases),
+                 nops=sum(lead * d * k * (2 * 8 * s + 2 * s + 1)
+                          if not grams else lead * s * d * k * (2 * 8 + 2)
+                          for d, k, lead in d_k),
+                 path="dryrun-topo", receiver_leaves=len(cases), senders=s,
+                 design=design, shape=[list(w.shape) for w, _, _ in cases])
+        del groups, buf
     torch.cuda.empty_cache()
 
 
@@ -5099,6 +5429,252 @@ def run_train(torch, smi: str, device: str = "cuda",
     return counts
 
 
+# the examples phase (run_examples): each ported user script's run() at
+# its own defaults, on the card.  avg_sent_gb of every ProFe, FedAvg and
+# FedProto run in it, computed once with the JAX package's run_federation
+# on the CPU at the scripts' configurations (the JAX scripts' defaults):
+# script/run -> bytes.  They depend only on shapes and the schedule
+EXAMPLE_BYTES = {
+    "quickstart/profe": 0.003748176,
+    "quickstart/fedavg": 0.015179112,
+    "dfl/profe": 0.000792304,
+    "dfl/fedproto": 4.112e-05,
+    "dfl/fedavg": 0.180815008,
+    "sweep/full": 0.001188456,
+    "sweep/ring": 0.000792304,
+    "sweep/dynamic:ring,star": 0.000693266,
+    "sweep/random-k2": 0.000792304,
+    "ablations/paper (16-bit, decay, protos)": 0.003748176,
+    "ablations/32-bit wire": 0.007495992,
+    "ablations/8-bit wire": 0.001874268,
+    "ablations/no decay (alpha fixed)": 0.003748176,
+    "ablations/no distillation (alpha=0)": 0.003748176,
+    "ablations/no prototypes (beta=0)": 0.003748176,
+}
+# the scripts whose run() the phase calls, in order: name -> (folder
+# under the repo root, module); their kernels' launches are read around
+# each run() (the spawned ranks' from their records).  The topology
+# suite runs last, as a subprocess (TOPO_CMD)
+EXAMPLES = {"quickstart": ("examples", "torch_quickstart"),
+            "dfl": ("examples", "torch_dfl_noniid_cifar"),
+            "sweep": ("examples", "torch_topology_sweep"),
+            "mesh-demo": ("examples", "torch_mesh_federation_demo"),
+            "ablations": ("benchmarks", "torch_ablations")}
+# quickstart's batch; its ProFe run launches rows 1-4 as run_path's
+# formula gives them, its FedAvg run (fp32 wire, per-leaf) none
+QUICKSTART_BATCH = 64
+# the CIFAR driver's and the topology sweep's batch
+CIFAR_BATCH = 32
+# rows 1-4: a ProFe run on the plane and the 16-bit wire launches each
+PROFE_KERNELS = ("adamw_update", "proto_accum", "rowabs", "quantize_rows")
+# the topology byte-gate suite (benchmarks/torch_dryrun_topo.py) as a
+# subprocess: its four rows' audits, each one more subprocess of 8 ranks
+TOPO_CMD = ("-m", "benchmarks.torch_dryrun_topo", "--out-dir",
+            "build/dryrun", "--force")
+TOPO_TIMEOUT_S = 600
+
+
+def _example(name: str):
+    """The module of the script ``name`` of ``EXAMPLES``, imported from
+    its directory (kept on ``sys.path``, so spawned ranks can import it
+    too)."""
+    import importlib
+    folder, module = EXAMPLES[name]
+    if folder == "benchmarks":
+        path, module = ROOT, f"benchmarks.{module}"
+    else:
+        path = ROOT / folder
+    if str(path) not in sys.path:
+        sys.path.insert(0, str(path))
+    return importlib.import_module(module)
+
+
+def _sum_launches(into: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        into[k] = into.get(k, 0) + v
+
+
+def _finite_f1(what: str, f1) -> None:
+    expect(len(f1) > 0 and all(math.isfinite(f) for f in f1),
+           f"{what}: F1 {f1} not finite")
+
+
+def _held_bytes(what: str, got) -> None:
+    want = EXAMPLE_BYTES[what]
+    expect(got == want, f"{what}: avg_sent_gb {got!r} != the JAX "
+                        f"package's {want!r}")
+
+
+def run_examples(torch, smi: str) -> dict:
+    """Phase 14d, the ported user scripts on the card at their own
+    defaults (see :data:`EXAMPLES`), each ``run()`` with the launch
+    counts set to 0 just before and read just after: every F1 finite,
+    every ProFe / FedAvg / FedProto run's ``avg_sent_gb`` the JAX
+    package's (``EXAMPLE_BYTES``); quickstart's launches exactly (rows
+    1-4 from its nodes × steps, every other kernel 0); every ProFe
+    script's rows 1-4 launched; the topology sweep's physical ``ppermute``
+    bytes (its single-phase topologies) and the mesh demo's ring the
+    audit's prediction, one ``mix_packed`` a rank; demo part (a)'s
+    aggregate within the 16-bit step and C̄[0,0] 1.5, its bytes a rank
+    the packed copy's; then ``benchmarks/torch_dryrun_topo.py`` as a
+    subprocess, which must exit 0 with its ``summary.json`` on the card
+    and every row passed (equal to the JAX reports).  Prints an
+    ``examples {...}`` line.
+    Returns each script's launches (its spawned ranks' included) under
+    ``examples/<name>``."""
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    counts, seconds, summary = {}, {}, {}
+
+    def timed(name, **kw):
+        mod = _example(name)
+        reset_launch_counts()
+        t0 = time.time()
+        out = mod.run(**kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        counts[name] = launch_counts()
+        print(f"{name} took {seconds[name]:.1f} s; launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }",
+              flush=True)
+        return out
+
+    # quickstart: ProFe then FedAvg, 3 rounds on 4 iid mnist-cnn nodes
+    q = timed("quickstart")
+    rounds = len(q["profe"]["f1"])
+    steps = rounds * max(max(n // QUICKSTART_BATCH, 1)
+                         for n in q["node_sizes"])
+    want = {k: 0 for k in counts["quickstart"]}
+    want.update(adamw_update=steps, proto_accum=steps, rowabs=rounds,
+                quantize_rows=rounds)
+    expect(counts["quickstart"] == want,
+           f"quickstart launches {counts['quickstart']} != {want}")
+    for algo in ("profe", "fedavg"):
+        _finite_f1(f"quickstart/{algo}", q[algo]["f1"])
+        _held_bytes(f"quickstart/{algo}", q[algo]["avg_sent_gb"])
+    summary["quickstart"] = {a: {"f1": q[a]["f1"][-1],
+                                 "avg_sent_gb": q[a]["avg_sent_gb"]}
+                             for a in ("profe", "fedavg")}
+    summary["quickstart"]["predicted_launches"] = {
+        k: v for k, v in want.items() if v}
+
+    # the non-iid CIFAR driver: profe, fedproto, fedavg on 3 nodes
+    d = timed("dfl")
+    for algo in ("profe", "fedproto", "fedavg"):
+        _finite_f1(f"dfl/{algo}", d[algo]["f1"])
+        _held_bytes(f"dfl/{algo}", d[algo]["avg_sent_gb"])
+    summary["dfl"] = {a: {"f1": d[a]["f1"][-1],
+                          "avg_sent_gb": d[a]["avg_sent_gb"]}
+                      for a in ("profe", "fedproto", "fedavg")}
+    summary["dfl"]["node_samples"] = [n["samples"] for n in d["nodes"]]
+
+    # the topology sweep, with the physical bytes of each single-phase
+    # topology from the audit's spawned ranks
+    s = timed("sweep")
+    summary["sweep"] = {}
+    for entry in s["runs"]:
+        topo = entry["topology"]
+        _finite_f1(f"sweep/{topo}", entry["f1"])
+        _held_bytes(f"sweep/{topo}", entry["avg_sent_gb"])
+        row = {"f1": entry["f1"][-1], "avg_sent_gb": entry["avg_sent_gb"]}
+        if entry["phases"] == 1:
+            expect("physical" in entry,
+                   f"sweep/{topo}: physical bytes skipped: "
+                   f"{entry.get('physical_skipped')}")
+            rep = entry["physical"]
+            perm = rep["exchanges"]["ppermute"]
+            expect("error" not in perm, f"sweep/{topo}: ppermute {perm}")
+            expect(perm["collective_bytes_per_node"]
+                   == rep["packed_pred_bytes_per_node"],
+                   f"sweep/{topo}: ppermute moves "
+                   f"{perm['collective_bytes_per_node']} B a node, the "
+                   f"audit predicts {rep['packed_pred_bytes_per_node']}")
+            expect(perm["launches"].get("mix_packed") == s["nodes"],
+                   f"sweep/{topo}: ppermute launches {perm['launches']}")
+            for ex in rep["exchanges"].values():
+                _sum_launches(counts["sweep"], ex.get("launches", {}))
+            row["physical"] = {
+                ex: v.get("collective_bytes_per_node", v.get("error"))
+                for ex, v in rep["exchanges"].items()}
+            row["packed_pred_bytes_per_node"] = \
+                rep["packed_pred_bytes_per_node"]
+        summary["sweep"][topo] = row
+
+    # the mesh demo: 2 ranks a node each for (a)-(c), 8 for (d)
+    m = timed("mesh-demo")
+    step = 2.0 / 32767                 # node 1's prototype step
+    expect(m["aggregate_err_over_step"] <= 1.0,
+           f"mesh demo: aggregate {m['aggregate_err_over_step']:.3f} steps "
+           f"of the 16-bit wire off")
+    expect(abs(m["c_bar_00"] - 1.5) <= step,
+           f"mesh demo: C̄[0,0] {m['c_bar_00']!r} != 1.5")
+    expect(m["profe_bytes_per_rank"] == m["profe_pred_bytes"],
+           f"mesh demo: ProFe {m['profe_bytes_per_rank']} B a rank != the "
+           f"packed copy {m['profe_pred_bytes']}")
+    expect(m["fedavg_bytes_per_rank"] == m["fedavg_pred_bytes"],
+           f"mesh demo: FedAvg {m['fedavg_bytes_per_rank']} B a rank != "
+           f"{m['fedavg_pred_bytes']}")
+    expect(m["launches"].get("mix_packed") == 3 * m["ranks"],
+           f"mesh demo (a)-(c) launches {m['launches']}: one mix_packed a "
+           f"rank a round")
+    ring = m["ring8"]
+    expect(ring["ppermute_bytes_per_node"]
+           == ring["packed_pred_bytes_per_node"]
+           and ring["full_gather_bytes_per_node"]
+           == _example("mesh-demo").RING_NODES * ring["packed_copy_bytes"],
+           f"mesh demo (d): {ring}")
+    expect(ring["launches"].get("mix_packed")
+           == _example("mesh-demo").RING_NODES,
+           f"mesh demo (d) launches {ring['launches']}")
+    _sum_launches(counts["mesh-demo"], m["launches"])
+    _sum_launches(counts["mesh-demo"], ring["launches"])
+    summary["mesh-demo"] = {k: m[k] for k in (
+        "aggregate_max_err", "aggregate_err_over_step", "c_bar_00",
+        "profe_bytes_per_rank", "fedavg_bytes_per_rank", "saved",
+        "star_divergence", "layout")}
+    summary["mesh-demo"]["ring8"] = {k: v for k, v in ring.items()
+                                     if k != "launches"}
+
+    # the ablations
+    a = timed("ablations")
+    for name, row in a.items():
+        _finite_f1(f"ablations/{name}", row["f1_curve"])
+        _held_bytes(f"ablations/{name}", row["avg_sent_gb"])
+    summary["ablations"] = {n: {"f1": r["f1"],
+                                "avg_sent_gb": r["avg_sent_gb"]}
+                            for n, r in a.items()}
+    for name in ("dfl", "sweep", "ablations"):
+        for k in PROFE_KERNELS:
+            expect(counts[name][k] > 0, f"{name}: {k} never launched")
+
+    # the topology byte-gate suite as a subprocess: its summary names
+    # each row's verdict, compared keys and launches
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.time()
+    run = subprocess.run([sys.executable, *TOPO_CMD], env=env, cwd=ROOT,
+                         capture_output=True, text=True,
+                         timeout=TOPO_TIMEOUT_S)
+    seconds["dryrun-topo"] = time.time() - t0
+    print(run.stdout[-6000:])
+    if run.returncode != 0:
+        print(run.stderr[-4000:])
+    expect(run.returncode == 0,
+           f"torch_dryrun_topo exited {run.returncode}")
+    suite = json.loads((ROOT / TOPO_CMD[3] / "summary.json").read_text())
+    expect(suite["ok"] and suite["device"] == "cuda",
+           f"dryrun-topo: ok {suite['ok']} on {suite['device']}")
+    counts["dryrun-topo"] = {}
+    summary["dryrun-topo"] = {}
+    for row in suite["rows"]:
+        _sum_launches(counts["dryrun-topo"], row["launches"])
+        summary["dryrun-topo"][row["tag"]] = {k: g for k, g, _ in
+                                              row["compared"]}
+    print("examples " + json.dumps({"card": smi, "seconds": seconds,
+                                    **summary}), flush=True)
+    return {f"examples/{k}": v for k, v in counts.items()}
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args not in ([], ["--profile"]):
@@ -5153,6 +5729,7 @@ def main() -> int:
     check_lm_shapes(torch, timer, rows)
     check_new_shapes(torch, timer, rows)
     check_row_block_shapes(torch, timer, rows)
+    check_example_shapes(torch, timer, rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -5267,6 +5844,13 @@ def main() -> int:
     run_programs(torch, smi)
     print(f"programs phase took {time.time() - t0:.1f} s")
 
+    phase("examples: the ported user scripts at their own defaults "
+          "(quickstart, the non-iid CIFAR driver, the topology sweep, the "
+          "mesh demo, the ablations), then the topology byte-gate suite")
+    t0 = time.time()
+    counts.update(run_examples(torch, smi))
+    print(f"examples phase took {time.time() - t0:.1f} s")
+
     if args == ["--profile"]:
         for name in PROFILED:
             phase(f"round profile {name}: 2 rounds unprofiled, 2 profiled")
@@ -5293,6 +5877,12 @@ def main() -> int:
         row["new_path_launches"] = {p: counts[p][row["name"]]
                                     for p in NEW_PATHS
                                     if counts[p].get(row["name"])}
+        # the examples phase's launches of the kernel (spawned ranks'
+        # summed in), where it ran there
+        row["examples_launches"] = {p: counts[p][row["name"]]
+                                    for p in counts
+                                    if p.startswith("examples/")
+                                    and counts[p].get(row["name"])}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.quantize.ref import as_codes
 from repro_torch.prng import uniform_like
 from repro_torch.tree import is_float, itemsize, numel, tree_leaves, tree_map
 from repro_torch.wirespec import WireSpec
@@ -48,7 +49,7 @@ def quantize_array(x, bits: int = 16, *, rng=None
                             torch.finfo(torch.float32).tiny)
     codes = torch.floor(x32 / delta + (0.5 if noise is None else noise))
     codes = torch.clamp(codes, -qm - 1, qm)
-    return codes.to(_INT_DTYPES[bits]), delta
+    return as_codes(codes, _INT_DTYPES[bits]), delta
 
 
 def dequantize_array(codes, delta, dtype=torch.float32) -> torch.Tensor:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.quantization import _INT_DTYPES, _qmax
+from repro_torch.kernels.quantize.ref import as_codes
 from repro_torch.tree import (is_float, tree_leaves, tree_map,
                               tree_map_with_path)
 from repro_torch.wirespec import WireSpec
@@ -88,7 +89,8 @@ def quantize_leaf_per_node(x, bits: int):
     delta = torch.clamp_min(amax / qm, torch.finfo(torch.float32).tiny)
     bshape = (x.shape[0],) + (1,) * (x.dim() - 1)
     codes = torch.floor(x.to(torch.float32) / delta.reshape(bshape) + 0.5)
-    return torch.clamp(codes, -qm - 1, qm).to(_INT_DTYPES[bits]), delta
+    return as_codes(torch.clamp(codes, -qm - 1, qm), _INT_DTYPES[bits]), \
+        delta
 
 
 def dequantize_leaf(codes, delta):

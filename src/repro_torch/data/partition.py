@@ -74,3 +74,16 @@ def partition(labels: np.ndarray, n_nodes: int, split: str, seed: int,
     if split == "dirichlet":
         return dirichlet_partition(labels, n_nodes, dirichlet_alpha, seed)
     raise ValueError(f"unknown split {split!r}")
+
+
+def image_federation(cfg, samples: int, n_nodes: int, split: str = "iid",
+                     seed: int = 0, test_frac: float = 0.1):
+    """The user scripts' federation: ``samples`` synthetic images of
+    ``cfg``'s shape and classes, ``test_frac`` of them held out, the rest
+    partitioned over ``n_nodes`` by ``split``.  Returns ``(node_data,
+    test_data)``, each node's a dict of its rows."""
+    from repro_torch.data.synthetic import make_image_dataset, train_test_split
+    data = make_image_dataset(seed, samples, cfg.input_hw, cfg.num_classes)
+    train, test = train_test_split(data, test_frac, seed)
+    parts = partition(train["label"], n_nodes, split, seed)
+    return [{k: v[i] for k, v in train.items()} for i in parts], test

@@ -56,7 +56,7 @@ from repro_torch.kernels.quantize.quantize import (
     fused_quantize_dequantize_cuda, mix_packed_cuda,
     quantize_dequantize_rows_cuda, quantize_rows_cuda, quantize_rows_ef_cuda,
     quantize_rows_mixed_cuda, rowabs_cuda, rowabs_sum_cuda)
-from repro_torch.kernels.quantize.ref import (dequantize_ref,
+from repro_torch.kernels.quantize.ref import (as_codes, dequantize_ref,
                                               dequantize_rows_ref,
                                               fused_quantize_dequantize_ref,
                                               fused_quantize_ref,
@@ -414,8 +414,8 @@ def _stochastic_codes(buf, row_delta, row_qmax, wire_dtype, deltas, rng,
     qm = torch.as_tensor(row_qmax, device=buf.device)[None, :, None]
     codes = torch.clamp(codes, -qm - 1, qm)
     if residual is None:
-        return codes.to(wire_dtype), deltas
-    return codes.to(wire_dtype), deltas, eff - codes * rd
+        return as_codes(codes, wire_dtype), deltas
+    return as_codes(codes, wire_dtype), deltas, eff - codes * rd
 
 
 def _check_rng(spec: Optional[WireSpec], rng) -> None:

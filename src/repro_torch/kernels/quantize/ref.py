@@ -21,6 +21,10 @@ The per-leaf and per-tensor tiers: ``quantize_dequantize_rows_ref``
 ``fused_quantize_ref`` / ``fused_quantize_dequantize_ref`` with
 ``Δ = max(max|x| / qmax, tiny)`` (``qmax`` an fp32 tensor on ``x``'s
 device, so the division is IEEE on the card) and ``dequantize_ref``.
+
+Codes become integers through :func:`as_codes`, which saturates as the
+card's ``cvt.rzi.s32.f32`` and XLA's convert do: at 32 bits ``qmax``
+rounds to 2^31 in fp32, which a plain cast wraps to -2^31.
 """
 from __future__ import annotations
 
@@ -34,6 +38,14 @@ def _qmaxf(bits: int) -> float:
     return float((1 << (bits - 1)) - 1)
 
 
+def as_codes(codes, dtype=torch.int32):
+    """fp32 codes, already clipped to ``[-qmax - 1, qmax]``, as
+    ``dtype``; int32 saturates at 2^31 - 1 (see the module's doc)."""
+    if dtype != torch.int32:
+        return codes.to(dtype)
+    return codes.to(torch.int64).clamp_(max=(1 << 31) - 1).to(torch.int32)
+
+
 def rowabs_ref(x2d):
     """``[R, C]`` -> per-row ``max|x|`` ``[R, 1]``."""
     return torch.amax(torch.abs(x2d.to(torch.float32)), dim=1, keepdim=True)
@@ -43,14 +55,14 @@ def quantize_rows_ref(x2d, row_delta, *, bits: int = 16):
     """``[R, C]`` fp32, ``[R, 1]`` per-row delta -> int32 codes."""
     qmax = _qmaxf(bits)
     codes = torch.floor(x2d.to(torch.float32) / row_delta + 0.5)
-    return torch.clamp(codes, -qmax - 1, qmax).to(torch.int32)
+    return as_codes(torch.clamp(codes, -qmax - 1, qmax))
 
 
 def quantize_rows_mixed_ref(x2d, row_delta, row_qmax):
     """``[R, C]`` fp32, ``[R, 1]`` per-row delta and qmax -> int32
     codes, each row clipped to its own width."""
     codes = torch.floor(x2d.to(torch.float32) / row_delta + 0.5)
-    return torch.clamp(codes, -row_qmax - 1, row_qmax).to(torch.int32)
+    return as_codes(torch.clamp(codes, -row_qmax - 1, row_qmax))
 
 
 def _effective(x2d, res2d, decay):
@@ -69,7 +81,7 @@ def quantize_rows_ef_ref(x2d, res2d, row_delta, row_qmax, decay):
     eff = _effective(x2d, res2d, decay)
     codes = torch.clamp(torch.floor(eff / row_delta + 0.5),
                         -row_qmax - 1, row_qmax)
-    return codes.to(torch.int32), eff - codes * row_delta
+    return as_codes(codes), eff - codes * row_delta
 
 
 def mix_packed_ref(own, codes, row_delta, w_self, w_rows):
@@ -110,7 +122,7 @@ def fused_quantize_ref(x, qmax):
     """Whole-tensor codec: ``x`` (any shape) and a 0-d fp32 ``qmax`` ->
     ``(int32 codes of x's shape, 0-d Δ)``."""
     codes, delta = _fused_codes(x, qmax)
-    return codes.to(torch.int32), delta
+    return as_codes(codes), delta
 
 
 def fused_quantize_dequantize_ref(x, qmax):

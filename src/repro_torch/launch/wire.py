@@ -169,14 +169,16 @@ def _rank_inputs(job, node: int, device):
 
 def _rank_main(rank: int, world: int, init: str, out_dir: str, job) -> None:
     """One spawned rank: one round of each of the job's exchanges, the
-    bytes it handed to collectives by group and kind (or the error the
-    exchange raised) to ``out_dir/rank<r>.json``."""
+    bytes it handed to collectives by group and kind and the kernels it
+    launched (or the error the exchange raised) to
+    ``out_dir/rank<r>.json``."""
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     import torch
     import torch.distributed as dist
 
     from repro_torch.core import mesh_federation as M
     from repro_torch.core.profe import resolve_device
+    from repro_torch.kernels.build import launch_counts
 
     torch.set_num_threads(1)
     dev = resolve_device(job["device"])
@@ -193,6 +195,7 @@ def _rank_main(rank: int, world: int, init: str, out_dir: str, job) -> None:
                 job, rank // inner, dev)
             c = M.COLLECTIVE_BYTES
             pod0, inner0 = dict(c.by_kind), dict(c.inner_by_kind)
+            launches0 = launch_counts()
             try:
                 fn = M.make_profe_round(
                     adjacency=None if full else adj, exchange=mode,
@@ -210,29 +213,35 @@ def _rank_main(rank: int, world: int, init: str, out_dir: str, job) -> None:
                         if v - pod0.get(k, 0)},
                 "inner": {k: v - inner0.get(k, 0)
                           for k, v in c.inner_by_kind.items()
-                          if v - inner0.get(k, 0)}}
+                          if v - inner0.get(k, 0)},
+                "launches": {k: v - launches0[k]
+                             for k, v in launch_counts().items()
+                             if v - launches0[k]}}
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn(job, world: int) -> list:
-    """Run :func:`_rank_main` on ``world`` spawned ranks (a ``file://``
-    store in a temporary directory); returns each rank's record.  A rank
-    that fails fails the call; ranks still running at
+def spawn_ranks(job, world: int, main=None) -> list:
+    """Run ``main(rank, world, init, out_dir, job)`` (by default
+    :func:`_rank_main`) on ``world`` spawned ranks (a ``file://`` store
+    in a temporary directory); each rank writes its JSON record to
+    ``out_dir/rank<r>.json``, and the records are returned in rank
+    order.  A rank that fails fails the call; ranks still running at
     ``RANK_DEADLINE_S`` are killed."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(world, f"file://{tmp}/store", tmp, job),
+            main or _rank_main,
+            args=(world, f"file://{tmp}/store", tmp, job),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + RANK_DEADLINE_S
         try:
             while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
                 if time.monotonic() >= deadline:
-                    raise RuntimeError(f"{world} audit ranks still running "
+                    raise RuntimeError(f"{world} spawned ranks still running "
                                        f"after {RANK_DEADLINE_S} s")
         finally:
             for p in ctx.processes:
@@ -275,8 +284,13 @@ def _exchange_entry(records, n_nodes: int, inner: int) -> Dict[str, Any]:
         _add(pod_sys, pod)
         nodes.append((sum(pod.values()), both))
     per_node, by_kind = max(nodes, key=lambda t: t[0])
+    launches: Dict[str, float] = {}
+    for r in records:
+        _add(launches, r["launches"])
     entry: Dict[str, Any] = {"collective_bytes_per_node": float(per_node),
-                             "by_kind": by_kind}
+                             "by_kind": by_kind,
+                             "launches": {k: int(v)
+                                          for k, v in launches.items()}}
     if inner > 1:
         entry["by_axis"] = {ax: kinds for ax, kinds in
                             (("pod", pod_sys), (INNER_AXIS, inner_sys))
@@ -284,6 +298,43 @@ def _exchange_entry(records, n_nodes: int, inner: int) -> Dict[str, Any]:
         entry["pod_by_kind_per_node"] = {k: v / n_nodes
                                          for k, v in pod_sys.items() if v}
     return entry
+
+
+def exchange_predictions(arch: str, n_nodes: int, topology: str = "ring",
+                         bits=16, seed: int = 0, inner: int = 1,
+                         adapter_rank: int = 0,
+                         adapter_grams: bool = False) -> Dict[str, Any]:
+    """The shape-derived keys of a :func:`measure_exchange_bytes` report,
+    from ``arch``'s student skeleton and the accountant alone (no rank is
+    spawned): ``degree``, ``logical_bytes_per_node``,
+    ``packed_pred_bytes_per_node``, ``packed_copy_bytes`` (at the spec
+    and ``_int16``) and ``packed_sidecar_bytes_per_copy``."""
+    from repro_torch.core.comm import ScheduleCommAccountant, packed_copy_bytes
+    from repro_torch.kernels.quantize.ops import packed_wire_rows
+
+    spec = WireSpec.parse(bits) if isinstance(bits, str) \
+        else resolve_spec(bits)
+    sched = T.make_schedule(n_nodes, topology, rounds=1, seed=seed)
+    _cfg, student_cfg, struct, ncls = student_setup(arch)
+    payload = accountant_payload(struct, ncls, student_cfg.proto_dim,
+                                 adapter_rank=adapter_rank,
+                                 adapter_grams=adapter_grams)
+    rows16, _ = packed_wire_rows({k: v for k, v in payload.items()
+                                  if k != "counts"})
+    copy16 = int(packed_copy_bytes(payload, 16, inner=inner))
+    acct = ScheduleCommAccountant(sched)
+    logical = acct.predicted_node_bytes(payload, 0, spec, wire="dense")
+    packed = acct.predicted_node_bytes(payload, 0, spec, wire="packed",
+                                       inner=inner)
+    return {
+        "degree": [int(d) for d in sched.out_degrees()[0]],
+        "logical_bytes_per_node": int(logical.max()),
+        "packed_pred_bytes_per_node": int(packed.max()),
+        "packed_copy_bytes": int(packed_copy_bytes(payload, spec,
+                                                   inner=inner)),
+        "packed_copy_bytes_int16": copy16,
+        "packed_sidecar_bytes_per_copy": copy16 - rows16 * 512 * 2,
+    }
 
 
 def measure_exchange_bytes(arch: str, n_nodes: int, topology: str = "ring",
@@ -299,47 +350,31 @@ def measure_exchange_bytes(arch: str, n_nodes: int, topology: str = "ring",
     all on ``device``: the card unless ``"cpu"`` is named), at ``arch``'s
     student shapes with seeded inputs; the report has each exchange's
     physical bytes beside the accountant's logical and packed
-    predictions, under the JAX package's keys.
+    predictions (:func:`exchange_predictions`), under the JAX package's
+    keys.
 
     ``bits`` is an int, a :class:`WireSpec` or a spec string;
     ``adapter_rank`` > 0 runs the adapter-rank wire (whose full-gather
     reference records its error: merge-based aggregation needs an
     adjacency).  ``collective_bytes_per_node`` is a node's pod (wire)
-    bytes, summed over its ranks; at ``inner`` > 1 the entry also has
-    ``by_axis`` (system totals on the pod and the node groups) and
-    ``pod_by_kind_per_node``.  An exchange that does not apply records
+    bytes, summed over its ranks; ``launches`` the kernel launches of the
+    round summed over every rank (none off the card); at ``inner`` > 1
+    the entry also has ``by_axis`` (system totals on the pod and the node
+    groups) and ``pod_by_kind_per_node``.  An exchange that does not apply records
     ``{"error": ...}``."""
-    from repro_torch.core.comm import ScheduleCommAccountant, packed_copy_bytes
     from repro_torch.core.profe import resolve_device
-    from repro_torch.kernels.quantize.ops import packed_wire_rows
 
     dev = resolve_device(device)
     spec = WireSpec.parse(bits) if isinstance(bits, str) \
         else resolve_spec(bits)
-    sched = T.make_schedule(n_nodes, topology, rounds=1, seed=seed)
-    _cfg, student_cfg, struct, ncls = student_setup(arch)
-    payload = accountant_payload(struct, ncls, student_cfg.proto_dim,
-                                 adapter_rank=adapter_rank,
-                                 adapter_grams=adapter_grams)
-    rows16, _ = packed_wire_rows({k: v for k, v in payload.items()
-                                  if k != "counts"})
-    copy_spec = int(packed_copy_bytes(payload, spec, inner=inner))
-    copy16 = int(packed_copy_bytes(payload, 16, inner=inner))
-    acct = ScheduleCommAccountant(sched)
-    logical = acct.predicted_node_bytes(payload, 0, spec, wire="dense")
-    packed = acct.predicted_node_bytes(payload, 0, spec, wire="packed",
-                                       inner=inner)
     out: Dict[str, Any] = {
         "arch": arch, "topology": topology, "n_nodes": n_nodes,
         "inner": inner, "bits": spec.describe(),
         "adapter_rank": adapter_rank, "adapter_grams": adapter_grams,
         "device": str(dev),
-        "degree": [int(d) for d in sched.out_degrees()[0]],
-        "logical_bytes_per_node": int(logical.max()),
-        "packed_pred_bytes_per_node": int(packed.max()),
-        "packed_copy_bytes": copy_spec,
-        "packed_copy_bytes_int16": copy16,
-        "packed_sidecar_bytes_per_copy": copy16 - rows16 * 512 * 2,
+        **exchange_predictions(arch, n_nodes, topology, spec, seed=seed,
+                               inner=inner, adapter_rank=adapter_rank,
+                               adapter_grams=adapter_grams),
         "exchanges": {},
     }
     combos = [(ex, False, ex) for ex in exchanges] + \
@@ -348,7 +383,7 @@ def measure_exchange_bytes(arch: str, n_nodes: int, topology: str = "ring",
                bits=spec.arg(), combos=combos, seed=seed, inner=inner,
                adapter_rank=adapter_rank, adapter_grams=adapter_grams,
                device=str(dev))
-    records = _spawn(job, n_nodes * inner)
+    records = spawn_ranks(job, n_nodes * inner)
     for name, _, _ in combos:
         entry = _exchange_entry([r[name] for r in records], n_nodes, inner)
         if name == "full-gather":
