@@ -60,6 +60,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    :func:`check_row_block_shapes` holds ``mix_packed``'s accumulate form
    on the row-sharded permute's row blocks and ``rowabs`` /
    ``quantize_rows`` on one mamba2-130m node's payload;
+   :func:`check_example_shapes` and :func:`check_paper_shapes` hold the
+   kernels at the shapes the examples (14d) and paper (14e) phases give
+   them, cifar100-resnet32's student plane, ``proto_accum`` at C = 100
+   and table2 ``--physical``'s ``quantize_rows_mixed`` and 3- and
+   4-sender ``mix_packed`` among them;
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -236,6 +241,15 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     ``benchmarks/torch_dryrun_topo.py`` as a subprocess (its four rows
     equal to ``reports/dryrun/topology_*.json``); a line ``examples
     {...}`` with each script's seconds, bytes and F1;
+14e. ``paper``, the paper's experiment scripts (see :func:`run_paper`):
+    ``benchmarks/torch_run.py`` at its defaults (fig2, table2, table3 on
+    mnist-cnn), table3 ``--overlap`` on a ring, table2 ``--physical`` at
+    ``16`` and ``4/16``, and table2 and table3 on cifar100-resnet32,
+    each ``main(argv)`` in ``build/paper/``; every run's bytes the JAX
+    package's (``PAPER_BYTES``), its launches exactly, the ``ppermute``
+    bytes the JAX report's, ``overlap="none"`` the sequential driver bit
+    for bit; a line ``paper {...}`` with the tables' percentages and
+    seconds a round;
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -249,8 +263,9 @@ Phases 4-10 each set the kernels' launch counts to 0 just before
 round, and hold the run's wire bytes to the JAX package's; phase 11
 does the same on every rank around each mesh run, phase 13 around
 the whole codec phase (its per-call launches are read as differences),
-phase 14 around each of its driven parts, and phase 14b around each LM
-federation.  Phase 3's ``proto_dist``
+phase 14 around each of its driven parts, phase 14b around each LM
+federation, and phases 14d and 14e around each script's run (14e around
+each ``run_federation``).  Phase 3's ``proto_dist``
 and ``kd_loss`` rows carry every shape they were held at in ``cases``.
 """
 from __future__ import annotations
@@ -1145,9 +1160,15 @@ def check_loop_shapes(torch, timer, student_cfg, rows) -> None:
                                            launch, plain, [p, mu, nu],
                                            hows=("all", "none"))
     b_ms, _ = bound(7 * 4 * n, 18 * n)
+    g_scaled = g * scale
+    lib_step = [torch.full((), float(MASK_STEPS[1]), device="cuda")]
+    lib_ms = timer(lambda: torch._fused_adamw_(
+        [got[0]], [g_scaled], [got[1]], [got[2]], [], lib_step, lr=1e-3,
+        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False))
     by_name["adamw_update"]["loop"] = dict(
         shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        masked_ms=masked_ms, masked_cases=masked)
+        masked_ms=masked_ms, masked_cases=masked, library_ms=lib_ms)
     print(f"adamw_update {shape}: {ms:.4f} ms unmasked, {masked_ms:.4f} ms "
           f"with its mask on (plain {plain_ms:.4f} ms)")
 
@@ -1167,16 +1188,22 @@ def check_loop_shapes(torch, timer, student_cfg, rows) -> None:
         print(f"quantize_dequantize_plane_rows {shape} at {bits} bits "
               f"({len(plane.meta.recipe)} segments): bit-exact")
     rd = plane_row_deltas(ra, plane.meta, 16)
+    zero = torch.zeros(r, dtype=torch.int32, device="cuda")
+    scales = rd.reshape(-1).contiguous()
     by_name["rowabs"]["loop"] = dict(
         shape=[r, c], ms=timer(lambda: rowabs_cuda(x2d)),
         plain_ms=timer(lambda: rowabs_ref(x2d)),
-        bound_ms=bound(4 * n + 4 * r, n)[0])
+        bound_ms=bound(4 * n + 4 * r, n)[0],
+        library_ms=timer(lambda: torch.linalg.vector_norm(
+            x2d, ord=math.inf, dim=1)))
     by_name["quantize_dequantize_rows"]["loop"] = dict(
         shape=[r, c], bits=[16, 4],
         ms=timer(lambda: quantize_dequantize_rows_cuda(x2d, rd, bits=16)),
         plain_ms=timer(lambda: quantize_dequantize_rows_ref(x2d, rd,
                                                             bits=16)),
-        bound_ms=bound(8 * n + 4 * r, 4 * n)[0])
+        bound_ms=bound(8 * n + 4 * r, 4 * n)[0],
+        library_ms=timer(lambda: torch.fake_quantize_per_channel_affine(
+            x2d, scales, zero, 0, -32768, 32767)))
 
     # -- rows 9 and 10: the +ef plane codec of one node ------------------
     spec = parse_wire("4/16+ef")
@@ -1222,7 +1249,8 @@ def check_loop_shapes(torch, timer, student_cfg, rows) -> None:
         loop = by_name[name]["loop"]
         print(f"{name} at the loop shape {loop['shape']}: {loop['ms']:.4f} "
               f"ms (plain {loop['plain_ms']:.4f} ms, bound "
-              f"{loop['bound_ms']:.4f} ms)")
+              f"{loop['bound_ms']:.4f} ms, library "
+              f"{loop.get('library_ms')})")
 
 
 def check_lm_shapes(torch, timer, rows, nodes: int = 4) -> None:
@@ -1710,11 +1738,11 @@ def check_row_block_shapes(torch, timer, rows) -> None:
 
 def _held(torch, timer, rows, name: str, key: str, launch, plain, *,
           nbytes: float, nops: float, check=None, library=None,
-          **info) -> None:
+          group: str = "example_shapes", **info) -> None:
     """One phase-3 case: ``launch()`` (a kernel's wrapper) bit for bit
     ``check()`` (by default ``plain()``, its plain version), then both
     timed, and ``library`` where a PyTorch call computes the same; the
-    entry goes into the row of ``name`` under ``examples[key]``."""
+    entry goes into the row of ``name`` under ``group[key]``."""
     got, want = launch(), (check or plain)()
     torch.cuda.synchronize()
     got = got if isinstance(got, (tuple, list)) else (got,)
@@ -1726,10 +1754,196 @@ def _held(torch, timer, rows, name: str, key: str, launch, plain, *,
                  bound_ms=bound(nbytes, nops)[0],
                  library_ms=None if library is None else timer(library))
     row = next(r for r in rows if r["name"] == name)
-    row.setdefault("example_shapes", {})[key] = entry
+    row.setdefault(group, {})[key] = entry
     print(f"{name} ({key}) {info.get('shape', '')}: bit-exact, "
           f"{entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f} ms, bound "
           f"{entry['bound_ms']:.4f} ms)", flush=True)
+
+
+class ShapeCases:
+    """Phase-3 cases of rows 1-4 and 11 at a later phase's shapes, each
+    held bit for bit against its plain version and timed (:func:`_held`)
+    into its row under ``group``; inputs drawn from ``seed`` on the
+    card."""
+
+    def __init__(self, torch, timer, rows, group: str, seed: int):
+        self.torch, self.timer, self.rows, self.group = (torch, timer, rows,
+                                                         group)
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def held(self, name, key, launch, plain, **kw):
+        _held(self.torch, self.timer, self.rows, name, key, launch, plain,
+              group=self.group, **kw)
+
+    def stacked(self, cfg, nodes):
+        """``nodes`` seeded students of ``cfg`` on one ``[N, R, 512]``
+        plane."""
+        from repro_torch.models import init_params
+        from repro_torch.optim.plane import Plane, plane_from_tree
+        from repro_torch.tree import tree_map
+        ones = [plane_from_tree(tree_map(lambda x: x.to("cuda"),
+                                         init_params(cfg, self.gen)))
+                for _ in range(nodes)]
+        return Plane(self.torch.stack([o.buf for o in ones]), ones[0].meta)
+
+    def adamw(self, key, path, p):
+        from repro_torch.kernels.opt_update.opt_update import \
+            adamw_update_cuda
+        from repro_torch.kernels.opt_update.ref import adamw_update_ref
+        torch, gen = self.torch, self.gen
+        shape, nodes, n = tuple(p.shape), p.shape[0], p.numel()
+        g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        mu = torch.randn(shape, generator=gen, device="cuda") * 1e-4
+        nu = torch.rand(shape, generator=gen, device="cuda") * 1e-7
+        hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+        lr = torch.full((), 1e-3, device="cuda")
+        step = torch.full((nodes,), 3.0, device="cuda")
+        bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+        scale = torch.rand((nodes,), generator=gen,
+                           device="cuda").clamp_min(0.1)
+        got = [p.clone(), mu.clone(), nu.clone()]
+        g_scaled = (g.reshape(nodes, -1) * scale[:, None]).reshape(shape)
+        lib_step = [torch.full((), 3.0, device="cuda")]
+        self.held(
+            "adamw_update", key,
+            lambda: (adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp),
+                     got)[1],
+            lambda: adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale,
+                                     bc1=bc1, bc2=bc2, **hp),
+            nbytes=7 * 4 * n, nops=18 * n,
+            library=lambda: torch._fused_adamw_(
+                [got[0]], [g_scaled], [got[1]], [got[2]], [], lib_step,
+                lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01,
+                eps=1e-8, amsgrad=False, maximize=False),
+            path=path, shape=list(shape))
+
+    def accum(self, key, path, nodes, batch, dim, ncls):
+        from repro_torch.kernels.proto_accum.proto_accum import \
+            proto_accum_cuda
+        from repro_torch.kernels.proto_accum.ref import (
+            proto_accum_batch_order, proto_accum_ref)
+        torch, gen = self.torch, self.gen
+        f1 = torch.relu(torch.randn((nodes, batch, dim), generator=gen,
+                                    device="cuda"))
+        labels = torch.randint(0, ncls, (nodes, batch), generator=gen,
+                               dtype=torch.int32, device="cuda")
+        node_cls = (torch.arange(nodes, device="cuda")[:, None] * ncls
+                    + labels).reshape(-1)
+        flat = f1.reshape(-1, dim)
+
+        def library():
+            sums = torch.zeros((nodes * ncls, dim), device="cuda")
+            sums.index_add_(0, node_cls, flat)
+            torch.bincount(node_cls, minlength=nodes * ncls)
+        self.held("proto_accum", key,
+                  lambda: proto_accum_cuda(f1, labels, ncls),
+                  lambda: proto_accum_ref(f1, labels, ncls),
+                  check=lambda: proto_accum_batch_order(f1, labels, ncls),
+                  nbytes=4 * (f1.numel() + labels.numel()
+                              + nodes * ncls * dim + nodes * ncls),
+                  nops=f1.numel() + labels.numel(), library=library,
+                  path=path, shape=list(f1.shape), classes=ncls)
+
+    def codec(self, key, path, buf, ids, meta):
+        """``rowabs`` and ``quantize_rows`` (at each of the payload's
+        widths) on every row of ``buf [N, R, 512]``."""
+        from repro_torch.kernels.quantize.ops import _node_row_deltas
+        from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
+                                                           rowabs_cuda)
+        from repro_torch.kernels.quantize.ref import (quantize_rows_ref,
+                                                      rowabs_ref)
+        torch = self.torch
+        n, r, c = buf.shape
+        x2d = buf.reshape(-1, c).contiguous()
+        m = x2d.numel()
+        self.held("rowabs", key, lambda: rowabs_cuda(x2d),
+                  lambda: rowabs_ref(x2d), nbytes=4 * m + 4 * n * r, nops=m,
+                  library=lambda: torch.linalg.vector_norm(
+                      x2d, ord=math.inf, dim=1),
+                  path=path, shape=[n * r, c])
+        zero = torch.zeros(n * r, dtype=torch.int64, device="cuda")
+        for bits in sorted({int(b) for b in meta[3]}):
+            _, rd = _node_row_deltas(buf, ids, meta[1], bits, meta[3])
+            rd = rd.reshape(-1, 1).contiguous()
+            self.held("quantize_rows", f"{key}/int{bits}",
+                      lambda: quantize_rows_cuda(x2d, rd, bits=bits),
+                      lambda: quantize_rows_ref(x2d, rd, bits=bits),
+                      nbytes=8 * m + 4 * n * r, nops=4 * m,
+                      library=lambda: torch.quantize_per_channel(
+                          x2d, rd[:, 0].contiguous(), zero, 0,
+                          torch.qint32),
+                      path=path, shape=[n * r, c], bits=bits)
+
+    def mix(self, key, path, own, codes, rd, self_weight: bool = True):
+        """``mix_packed`` of one receiver's own rows and its ``S``
+        senders' codes (``own [1, R, 512]``, ``codes [S, R, 512]``);
+        without ``self_weight``, ``w_self`` is 0 (the full-gather mean)."""
+        from repro_torch.kernels.quantize.quantize import mix_packed_cuda
+        from repro_torch.kernels.quantize.ref import mix_packed_ref
+        torch = self.torch
+        m, r, c = own.shape
+        s = codes.shape[0]
+        w = torch.rand((m, s + 1), generator=self.gen, device="cuda")
+        if not self_weight:
+            w[:, 0] = 0.0
+        w = w / w.sum(dim=1, keepdim=True)
+        w_self, w_rows = w[:, 0].contiguous(), w[:, 1:].contiguous()
+        self.held("mix_packed", key,
+                  lambda: mix_packed_cuda(own, codes, rd, w_self, w_rows),
+                  lambda: mix_packed_ref(own, codes, rd, w_self, w_rows),
+                  nbytes=4 * (2 * own.numel() + codes.numel() + rd.numel()
+                              + w.numel()),
+                  nops=m * r * c * (1 + 3 * s), path=path,
+                  own=list(own.shape), codes=list(codes.shape))
+
+    def mixed(self, key, path, buf, ids, meta):
+        """``quantize_rows_mixed`` on every row of ``buf [N, R, 512]`` at
+        its mixed-width payload's per-row Δ and qmax (``meta``'s segment
+        widths), as ``quantize_packed_buffer`` gives them."""
+        import numpy as np
+        from repro_torch.kernels.quantize.ops import (_node_row_deltas,
+                                                      _seg_qmax)
+        from repro_torch.kernels.quantize.quantize import \
+            quantize_rows_mixed_cuda
+        from repro_torch.kernels.quantize.ref import quantize_rows_mixed_ref
+        torch = self.torch
+        n, r, c = buf.shape
+        x2d = buf.reshape(-1, c).contiguous()
+        _, rd = _node_row_deltas(buf, ids, meta[1], 16, meta[3])
+        rd = rd.reshape(-1, 1).contiguous()
+        qm = torch.as_tensor(np.tile(_seg_qmax(meta[1], 16, meta[3])[
+            np.asarray(ids)], n)[:, None], device="cuda")
+        m = x2d.numel()
+        self.held("quantize_rows_mixed", key,
+                  lambda: quantize_rows_mixed_cuda(x2d, rd, qm),
+                  lambda: quantize_rows_mixed_ref(x2d, rd, qm),
+                  nbytes=8 * m + 8 * n * r, nops=5 * m, path=path,
+                  shape=[n * r, c],
+                  bits=sorted({int(b) for b in meta[3]}))
+
+    def wire_codes(self, buf, ids, meta):
+        from repro_torch.kernels.quantize.ops import quantize_packed_buffer
+        codes, scales = quantize_packed_buffer(buf, ids, meta[1],
+                                               seg_bits=meta[3])
+        rd = scales[:, self.torch.as_tensor(ids, dtype=self.torch.int64,
+                                            device="cuda")].contiguous()
+        return codes.to(self.torch.int32).contiguous(), rd
+
+
+def _lowrank_library(torch, w, coeffs, b, a):
+    """One ``baddbmm`` of a receiver's merge of one leaf (``w [1, *lead,
+    d, k]``): ``w + [c_0·B_0 | c_1·B_1 | ...] @ [A_0; A_1; ...]`` over
+    the flattened lead, TF32 off; its operands, built once."""
+    s, d, k = b.shape[0], w.shape[-2], w.shape[-1]
+    r = b.shape[-1]
+    lead = w[0].numel() // (d * k)
+    a = a[0] if a.dim() == b.dim() + 1 else a          # per receiver: N = 1
+    bc = (coeffs[0].reshape((s,) + (1,) * (b.dim() - 1)) * b.float()) \
+        .reshape(s, lead, d, r).permute(1, 2, 0, 3) \
+        .reshape(lead, d, s * r).contiguous()
+    acat = a.float().reshape(s, lead, r, k).permute(1, 0, 2, 3) \
+        .reshape(lead, s * r, k).contiguous()
+    return w.float().reshape(lead, d, k), bc, acat
 
 
 def check_example_shapes(torch, timer, rows) -> None:
@@ -1758,7 +1972,8 @@ def check_example_shapes(torch, timer, rows) -> None:
       matrix leaf of a receiver's
       merge: 2 senders (ppermute) or 8 (gather / packed), ``A`` shared
       or RegMean-adjusted per receiver (``--adapter-grams``).  The
-      merge's leaves are summed into one entry a (senders, design)."""
+      merge's leaves are summed into one entry a (senders, design),
+      beside one ``baddbmm`` a leaf (:func:`_lowrank_library`)."""
     from repro_torch.config import get_config
     from repro_torch.core import topology as T
     from repro_torch.core.aggregation import regmean_adjust
@@ -1766,172 +1981,58 @@ def check_example_shapes(torch, timer, rows) -> None:
     from repro_torch.kernels.lowrank_apply.lowrank_apply import \
         lowrank_apply_cuda
     from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
-    from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
-    from repro_torch.kernels.opt_update.ref import adamw_update_ref
-    from repro_torch.kernels.proto_accum.proto_accum import proto_accum_cuda
-    from repro_torch.kernels.proto_accum.ref import (proto_accum_batch_order,
-                                                     proto_accum_ref)
-    from repro_torch.kernels.quantize.ops import (_node_row_deltas,
-                                                  pack_plane_payload,
-                                                  pack_tree_nodes,
-                                                  quantize_packed_buffer)
-    from repro_torch.kernels.quantize.quantize import (mix_packed_cuda,
-                                                       quantize_rows_cuda,
-                                                       rowabs_cuda)
-    from repro_torch.kernels.quantize.ref import (mix_packed_ref,
-                                                  quantize_rows_ref,
-                                                  rowabs_ref)
+    from repro_torch.kernels.quantize.ops import (pack_plane_payload,
+                                                  pack_tree_nodes)
     from repro_torch.launch.wire import _config as _wire_config
     from repro_torch.launch.wire import _rank_inputs
-    from repro_torch.models import derive_student, init_params
-    from repro_torch.optim.plane import Plane, _leaf_view, plane_from_tree
-    from repro_torch.tree import tree_map
+    from repro_torch.models import derive_student
+    from repro_torch.optim.plane import Plane, _leaf_view
     from repro_torch.wirespec import WireSpec
 
-    gen = torch.Generator(device="cuda").manual_seed(31)
-
-    def held(name, key, launch, plain, **kw):
-        _held(torch, timer, rows, name, key, launch, plain, **kw)
-
-    def stacked(cfg, nodes):
-        ones = [plane_from_tree(tree_map(lambda x: x.to("cuda"),
-                                         init_params(cfg, gen)))
-                for _ in range(nodes)]
-        return Plane(torch.stack([o.buf for o in ones]), ones[0].meta)
-
-    def adamw(key, path, p):
-        shape, nodes, n = tuple(p.shape), p.shape[0], p.numel()
-        g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
-        mu = torch.randn(shape, generator=gen, device="cuda") * 1e-4
-        nu = torch.rand(shape, generator=gen, device="cuda") * 1e-7
-        hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
-        lr = torch.full((), 1e-3, device="cuda")
-        step = torch.full((nodes,), 3.0, device="cuda")
-        bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
-        scale = torch.rand((nodes,), generator=gen,
-                           device="cuda").clamp_min(0.1)
-        got = [p.clone(), mu.clone(), nu.clone()]
-        g_scaled = (g.reshape(nodes, -1) * scale[:, None]).reshape(shape)
-        lib_step = [torch.full((), 3.0, device="cuda")]
-        held("adamw_update", key,
-             lambda: (adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp),
-                      got)[1],
-             lambda: adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale,
-                                      bc1=bc1, bc2=bc2, **hp),
-             nbytes=7 * 4 * n, nops=18 * n,
-             library=lambda: torch._fused_adamw_(
-                 [got[0]], [g_scaled], [got[1]], [got[2]], [], lib_step,
-                 lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.01,
-                 eps=1e-8, amsgrad=False, maximize=False),
-             path=path, shape=list(shape))
-
-    def accum(key, path, nodes, batch, dim, ncls):
-        f1 = torch.relu(torch.randn((nodes, batch, dim), generator=gen,
-                                    device="cuda"))
-        labels = torch.randint(0, ncls, (nodes, batch), generator=gen,
-                               dtype=torch.int32, device="cuda")
-        node_cls = (torch.arange(nodes, device="cuda")[:, None] * ncls
-                    + labels).reshape(-1)
-        flat = f1.reshape(-1, dim)
-
-        def library():
-            sums = torch.zeros((nodes * ncls, dim), device="cuda")
-            sums.index_add_(0, node_cls, flat)
-            torch.bincount(node_cls, minlength=nodes * ncls)
-        held("proto_accum", key, lambda: proto_accum_cuda(f1, labels, ncls),
-             lambda: proto_accum_ref(f1, labels, ncls),
-             check=lambda: proto_accum_batch_order(f1, labels, ncls),
-             nbytes=4 * (f1.numel() + labels.numel() + nodes * ncls * dim
-                         + nodes * ncls),
-             nops=f1.numel() + labels.numel(), library=library, path=path,
-             shape=list(f1.shape), classes=ncls)
-
-    def codec(key, path, buf, ids, meta):
-        """``rowabs`` and ``quantize_rows`` (at each of the payload's
-        widths) on every row of ``buf [N, R, 512]``."""
-        n, r, c = buf.shape
-        x2d = buf.reshape(-1, c).contiguous()
-        m = x2d.numel()
-        held("rowabs", key, lambda: rowabs_cuda(x2d), lambda: rowabs_ref(x2d),
-             nbytes=4 * m + 4 * n * r, nops=m,
-             library=lambda: torch.linalg.vector_norm(x2d, ord=math.inf,
-                                                      dim=1),
-             path=path, shape=[n * r, c])
-        zero = torch.zeros(n * r, dtype=torch.int64, device="cuda")
-        for bits in sorted({int(b) for b in meta[3]}):
-            _, rd = _node_row_deltas(buf, ids, meta[1], bits, meta[3])
-            rd = rd.reshape(-1, 1).contiguous()
-            held("quantize_rows", f"{key}/int{bits}",
-                 lambda: quantize_rows_cuda(x2d, rd, bits=bits),
-                 lambda: quantize_rows_ref(x2d, rd, bits=bits),
-                 nbytes=8 * m + 4 * n * r, nops=4 * m,
-                 library=lambda: torch.quantize_per_channel(
-                     x2d, rd[:, 0].contiguous(), zero, 0, torch.qint32),
-                 path=path, shape=[n * r, c], bits=bits)
-
-    def mix(key, path, own, codes, rd):
-        """``mix_packed`` of one receiver's own rows and its ``S``
-        senders' codes (``own [1, R, 512]``, ``codes [S, R, 512]``)."""
-        m, r, c = own.shape
-        s = codes.shape[0]
-        w = torch.rand((m, s + 1), generator=gen, device="cuda")
-        w = w / w.sum(dim=1, keepdim=True)
-        w_self, w_rows = w[:, 0].contiguous(), w[:, 1:].contiguous()
-        held("mix_packed", key,
-             lambda: mix_packed_cuda(own, codes, rd, w_self, w_rows),
-             lambda: mix_packed_ref(own, codes, rd, w_self, w_rows),
-             nbytes=4 * (2 * own.numel() + codes.numel() + rd.numel()
-                         + w.numel()),
-             nops=m * r * c * (1 + 3 * s), path=path, own=list(own.shape),
-             codes=list(codes.shape))
-
-    def wire_codes(buf, ids, meta):
-        codes, scales = quantize_packed_buffer(buf, ids, meta[1],
-                                               seg_bits=meta[3])
-        rd = scales[:, torch.as_tensor(ids, dtype=torch.int64,
-                                       device="cuda")].contiguous()
-        return codes.to(torch.int32).contiguous(), rd
+    cases = ShapeCases(torch, timer, rows, "example_shapes", 31)
+    gen = cases.gen
 
     # -- the quickstart's and the ablations' 4 mnist-cnn nodes ------------
     mnist = get_config("mnist-cnn")
-    plane = stacked(derive_student(mnist), 4)
-    adamw("mnist/4", "quickstart, ablations", plane.buf)
-    accum("mnist/4", "quickstart, ablations", 4, QUICKSTART_BATCH,
-          mnist.proto_dim, mnist.num_classes)
+    plane = cases.stacked(derive_student(mnist), 4)
+    cases.adamw("mnist/4", "quickstart, ablations", plane.buf)
+    cases.accum("mnist/4", "quickstart, ablations", 4, QUICKSTART_BATCH,
+                mnist.proto_dim, mnist.num_classes)
     protos = torch.rand((4, mnist.num_classes, mnist.proto_dim),
                         generator=gen, device="cuda")
     for bits in (16, 8, 32):
         buf, ids, meta, _, _ = pack_plane_payload(
             protos, plane, WireSpec.from_bits(bits))
-        codec(f"mnist/4/{bits}", "quickstart, ablations", buf, ids, meta)
+        cases.codec(f"mnist/4/{bits}", "quickstart, ablations", buf, ids,
+                    meta)
     # one node's payload as the suite's mnist-cnn ranks quantize it
     for spec in ("16", "4"):
         buf, ids, meta, _, _ = pack_plane_payload(
             protos[:1], Plane(plane.buf[:1], plane.meta),
             WireSpec.parse(spec))
-        codec(f"mnist/rank/{spec}", "dryrun-topo", buf, ids, meta)
+        cases.codec(f"mnist/rank/{spec}", "dryrun-topo", buf, ids, meta)
     del plane, buf
 
     # -- ResNet8: the CIFAR driver's 3 nodes and the sweep's 4 -------------
     cifar = get_config("cifar10-resnet18")
     res8 = derive_student(cifar)
     for n_res, path in ((3, "dfl"), (4, "sweep")):
-        plane = stacked(res8, n_res)
-        adamw(f"resnet8/{n_res}", path, plane.buf)
-        accum(f"resnet8/{n_res}", path, n_res, CIFAR_BATCH, res8.proto_dim,
-              cifar.num_classes)
+        plane = cases.stacked(res8, n_res)
+        cases.adamw(f"resnet8/{n_res}", path, plane.buf)
+        cases.accum(f"resnet8/{n_res}", path, n_res, CIFAR_BATCH,
+                    res8.proto_dim, cifar.num_classes)
         protos = torch.rand((n_res, cifar.num_classes, res8.proto_dim),
                             generator=gen, device="cuda")
         buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
                                                   WireSpec(16))
-        codec(f"resnet8/{n_res}", path, buf, ids, meta)
+        cases.codec(f"resnet8/{n_res}", path, buf, ids, meta)
     # one sweep node's payload as the audit's ranks quantize and mix it:
     # 2 senders (ring, random-k2), 3 (full, ppermute), 4 (packed)
-    codec("resnet8/rank", "sweep", buf[:1], ids, meta)
-    codes, rd = wire_codes(buf, ids, meta)
+    cases.codec("resnet8/rank", "sweep", buf[:1], ids, meta)
+    codes, rd = cases.wire_codes(buf, ids, meta)
     for senders in ([1, 3], [1, 2, 3], [0, 1, 2, 3]):
-        mix(f"resnet8/S{len(senders)}", "sweep", buf[:1].contiguous(),
-            codes[senders].contiguous(), rd[senders].contiguous())
+        cases.mix(f"resnet8/S{len(senders)}", "sweep", buf[:1].contiguous(),
+                  codes[senders].contiguous(), rd[senders].contiguous())
     del plane, buf, codes
 
     # -- yi-6b's smoke student as the suite's ranks build it ---------------
@@ -1954,19 +2055,19 @@ def check_example_shapes(torch, timer, rows) -> None:
     for bits in (4, 16):
         buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
                                                   WireSpec.from_bits(bits))
-        codec(f"yi-6b/plane/{bits}", "dryrun-topo, mesh-demo", buf[:1],
-              ids, meta)
-        codes, rd = wire_codes(buf, ids, meta)
+        cases.codec(f"yi-6b/plane/{bits}", "dryrun-topo, mesh-demo",
+                    buf[:1], ids, meta)
+        codes, rd = cases.wire_codes(buf, ids, meta)
         # the demo's star (1 sender), the ring (2) and packed (8)
         for senders in ([1], ring_senders, list(range(nodes))):
-            mix(f"yi-6b/plane/{bits}/S{len(senders)}",
-                "dryrun-topo, mesh-demo", buf[:1].contiguous(),
-                codes[senders].contiguous(), rd[senders].contiguous())
+            cases.mix(f"yi-6b/plane/{bits}/S{len(senders)}",
+                      "dryrun-topo, mesh-demo", buf[:1].contiguous(),
+                      codes[senders].contiguous(), rd[senders].contiguous())
     del plane, buf, codes
     # the demo's FedAvg round: 2 nodes' fp32 teacher planes at unit Δ
-    teacher = stacked(_wire_config("yi-6b"), 2).buf
-    mix("yi-6b/fedavg", "mesh-demo", teacher[:1].contiguous(), teacher,
-        torch.ones(teacher.shape[:2], device="cuda"))
+    teacher = cases.stacked(_wire_config("yi-6b"), 2).buf
+    cases.mix("yi-6b/fedavg", "mesh-demo", teacher[:1].contiguous(),
+              teacher, torch.ones(teacher.shape[:2], device="cuda"))
     del teacher
     # the int4 adapter wire, without and with grams
     for grams in (False, True):
@@ -1985,13 +2086,14 @@ def check_example_shapes(torch, timer, rows) -> None:
             buf, ids, meta = pack_tree_nodes(
                 dict(groups[0][0], protos=groups[0][1]),
                 WireSpec.parse(spec))
-            codec(f"yi-6b/{tag}/{spec}", "dryrun-topo", buf, ids, meta)
+            cases.codec(f"yi-6b/{tag}/{spec}", "dryrun-topo", buf, ids,
+                        meta)
         # a receiver's merge: every matrix leaf of node 0 through one
         # launch with its senders' factors
         w_plane = ins[0][0].buf
         for s, senders in ((2, ring_senders), (nodes, list(range(nodes)))):
             coeffs = torch.rand((1, s), generator=gen, device="cuda") / s
-            cases = []
+            leaf_cases = []
             for name, is_mat, (_, _, shape, row, r_leaf) in zip(
                     layout.names, layout.is_mat, ins[0][0].meta.recipe):
                 if not is_mat:
@@ -2006,26 +2108,103 @@ def check_example_shapes(torch, timer, rows) -> None:
                                     for j in senders])
                     a = regmean_adjust(a[None], gr[None], coeffs,
                                        per_recv=True)
-                cases.append((w, b, a.contiguous()))
+                leaf_cases.append((w, b, a.contiguous()))
             design = "per_recv" if grams else "shared"
             launches = [lambda w=w, b=b, a=a: lowrank_apply_cuda(
-                w, coeffs, b, a) for w, b, a in cases]
+                w, coeffs, b, a) for w, b, a in leaf_cases]
             plains = [lambda w=w, b=b, a=a: lowrank_apply_ref(
-                w, coeffs, b, a) for w, b, a in cases]
+                w, coeffs, b, a) for w, b, a in leaf_cases]
+            libs = [_lowrank_library(torch, w, coeffs, b, a)
+                    for w, b, a in leaf_cases]
             d_k = [(w.shape[-2], w.shape[-1], w[0].numel() // (
-                w.shape[-2] * w.shape[-1])) for w, _, _ in cases]
-            held("lowrank_apply", f"yi-6b/{design}/S{s}",
-                 lambda: [f() for f in launches],
-                 lambda: [f() for f in plains],
-                 nbytes=sum(4 * (2 * w.numel() + coeffs.numel() + b.numel()
-                                 + a.numel()) for w, b, a in cases),
-                 nops=sum(lead * d * k * (2 * 8 * s + 2 * s + 1)
-                          if not grams else lead * s * d * k * (2 * 8 + 2)
-                          for d, k, lead in d_k),
-                 path="dryrun-topo", receiver_leaves=len(cases), senders=s,
-                 design=design, shape=[list(w.shape) for w, _, _ in cases])
+                w.shape[-2] * w.shape[-1])) for w, _, _ in leaf_cases]
+            cases.held(
+                "lowrank_apply", f"yi-6b/{design}/S{s}",
+                lambda: [f() for f in launches],
+                lambda: [f() for f in plains],
+                nbytes=sum(4 * (2 * w.numel() + coeffs.numel() + b.numel()
+                                + a.numel()) for w, b, a in leaf_cases),
+                nops=sum(lead * d * k * (2 * 8 * s + 2 * s + 1)
+                         if not grams else lead * s * d * k * (2 * 8 + 2)
+                         for d, k, lead in d_k),
+                library=lambda: [torch.baddbmm(*x) for x in libs],
+                path="dryrun-topo", receiver_leaves=len(leaf_cases),
+                senders=s, design=design,
+                shape=[list(w.shape) for w, _, _ in leaf_cases])
         del groups, buf
     torch.cuda.empty_cache()
+
+
+# the paper phase's new kernel shapes: (key, model, nodes, path) of each
+# stacked plane rows 1, 3 and 4 see (table2's 4 nodes, table3's 3)
+PAPER_PLANES = (("cifar100/4", "cifar100-resnet32", 4, "table2"),
+                ("cifar100/3", "cifar100-resnet32", 3, "table3"),
+                ("mnist/3", "mnist-cnn", 3, "table3"))
+PAPER_BATCH = 64                # the paper scripts' TrainConfig batch
+
+
+def check_paper_shapes(torch, timer, rows) -> None:
+    """Phase 3 at the shapes the paper phase gives rows 1-4 and no
+    earlier check holds, each case bit for bit its plain version and
+    timed into its row under ``paper_shapes`` (``PAPER_PLANES``):
+    ``adamw_update`` on cifar100-resnet32's student plane (ResNet18 at
+    width 64, ``[N, 22144, 512]``) for 3 and 4 nodes and on mnist-cnn's
+    for 3; ``proto_accum`` on ``f1 [N, 64, 256]`` at C = 100 (the
+    ProFe, FedProto and FedGPD Eq. 3 pass) and ``[3, 64, 128]`` at C =
+    10; ``rowabs`` and ``quantize_rows`` on each plane's 16-bit
+    payload.  And rows 8 and 11 as table2's ``--physical`` ranks run
+    them (mnist-cnn, ``PAPER_PHYSICAL_NODES`` nodes on the full graph,
+    each rank's inputs as ``launch.wire._rank_inputs`` draws them):
+    ``quantize_rows_mixed`` on one node's ``4/16`` payload, and
+    ``mix_packed`` of a receiver's rows with its 3 senders' codes
+    (``ppermute``) and all 4 nodes' (``packed``; ``w_self`` 0 in the
+    full-gather reference), at ``16`` and ``4/16``."""
+    from repro_torch.config import get_config
+    from repro_torch.kernels.quantize.ops import pack_plane_payload
+    from repro_torch.launch.wire import _rank_inputs
+    from repro_torch.models import derive_student
+    from repro_torch.optim.plane import Plane
+    from repro_torch.wirespec import WireSpec
+
+    cases = ShapeCases(torch, timer, rows, "paper_shapes", 32)
+    for key, model, nodes, path in PAPER_PLANES:
+        cfg = get_config(model)
+        scfg = derive_student(cfg)
+        plane = cases.stacked(scfg, nodes)
+        cases.adamw(key, path, plane.buf)
+        cases.accum(key, path, nodes, PAPER_BATCH, scfg.proto_dim,
+                    cfg.num_classes)
+        protos = torch.rand((nodes, cfg.num_classes, scfg.proto_dim),
+                            generator=cases.gen, device="cuda")
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec(16))
+        cases.codec(key, path, buf, ids, meta)
+        del plane, buf
+        torch.cuda.empty_cache()
+
+    # -- table2 --physical: the mnist-cnn ranks' codec and mixes ----------
+    nodes = PAPER_PHYSICAL_NODES
+    for bits in PAPER_PPERMUTE:
+        job = dict(arch="mnist-cnn", n_nodes=nodes, bits=bits, seed=0,
+                   adapter_rank=0, adapter_grams=False)
+        ins = [_rank_inputs(job, i, torch.device("cuda"))
+               for i in range(nodes)]
+        plane = Plane(torch.cat([s.buf for s, *_ in ins]), ins[0][0].meta)
+        protos = torch.cat([p for _, p, *_ in ins])
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec.parse(bits))
+        key = f"mnist/rank/{bits}"
+        if len({int(b) for b in meta[3]}) > 1:
+            cases.mixed(key, "table2 --physical", buf[:1].contiguous(), ids,
+                        meta)
+        codes, rd = cases.wire_codes(buf, ids, meta)
+        own = buf[:1].contiguous()
+        cases.mix(f"{key}/S3", "table2 --physical (ppermute)", own,
+                  codes[1:].contiguous(), rd[1:].contiguous())
+        for self_weight, tag in ((True, "S4"), (False, "S4/w_self0")):
+            cases.mix(f"{key}/{tag}", "table2 --physical (packed)", own,
+                      codes, rd, self_weight=self_weight)
+        del plane, buf, codes
 
 
 def check_plane_sweeps(torch, timer, student_cfg):
@@ -5473,6 +5652,33 @@ TOPO_CMD = ("-m", "benchmarks.torch_dryrun_topo", "--out-dir",
             "build/dryrun", "--force")
 TOPO_TIMEOUT_S = 600
 
+# the paper phase (run_paper): each paper script's main(argv), on the card.
+# (avg_sent_gb, avg_received_gb) of every run it makes, computed once
+# with the JAX package's accountant on the CPU at the scripts' defaults
+# (table2: 4 nodes, 2 rounds; fig2: 4 nodes, 3 rounds, any split; a full
+# graph): script/dataset/algorithm -> bytes.  table2's mnist-cnn rows are
+# reports/table2_comm.json's
+PAPER_BYTES = {
+    "table2/mnist-cnn/fedavg": (0.010119408, 0.010119408),
+    "table2/mnist-cnn/fedgpd": (0.010150368, 0.010150368),
+    "table2/mnist-cnn/fml": (0.004966128, 0.004966128),
+    "table2/mnist-cnn/fedproto": (3.096e-05, 3.096e-05),
+    "table2/mnist-cnn/profe": (0.002498784, 0.002498784),
+    "table2/cifar100-resnet32/fedavg": (0.012201696, 0.012201696),
+    "table2/cifar100-resnet32/fedgpd": (0.012818496, 0.012818496),
+    "table2/cifar100-resnet32/fml": (0.271777632, 0.271777632),
+    "table2/cifar100-resnet32/fedproto": (0.0006168, 0.0006168),
+    "table2/cifar100-resnet32/profe": (0.136198656, 0.136198656),
+    "fig2/mnist-cnn/fedavg": (0.015179112, 0.015179112),
+    "fig2/mnist-cnn/fedgpd": (0.015225552, 0.015225552),
+    "fig2/mnist-cnn/fml": (0.007449192, 0.007449192),
+    "fig2/mnist-cnn/fedproto": (4.644e-05, 4.644e-05),
+    "fig2/mnist-cnn/profe": (0.003748176, 0.003748176),
+}
+# the ppermute bytes a node of table2's --physical wire rows (mnist-cnn,
+# 4 nodes, a full graph): reports/table2_comm.json's wire_bits rows
+PAPER_PPERMUTE = {"16": 1278180.0, "4/16": 326628.0}
+
 
 def _example(name: str):
     """The module of the script ``name`` of ``EXAMPLES``, imported from
@@ -5675,7 +5881,211 @@ def run_examples(torch, smi: str) -> dict:
     return {f"examples/{k}": v for k, v in counts.items()}
 
 
+# the paper phase (run_paper): the paper scripts' main(argv), run in
+# PAPER_DIR (their reports land under its reports/): call -> (module
+# under benchmarks/, argv).  "run" drives fig2, table2 and table3 at
+# their defaults on mnist-cnn
+PAPER_DIR = "build/paper"
+PAPER_CALLS = {
+    "run": ("torch_run", []),
+    "table3-overlap": ("torch_table3_time", ["--overlap", "--topologies",
+                                             "ring"]),
+    "table2-physical": ("torch_table2_comm", ["--bits", "16,4/16",
+                                              "--physical"]),
+    "table2-cifar100": ("torch_table2_comm", ["--datasets",
+                                              "cifar100-resnet32"]),
+    "table3-cifar100": ("torch_table3_time", ["--datasets",
+                                              "cifar100-resnet32"]),
+}
+# the scripts whose run_federation the phase records, by module -> the
+# short name its launches are keyed by (paper/<name>/<dataset>)
+PAPER_SCRIPTS = {"torch_fig2_f1": "fig2", "torch_table2_comm": "table2",
+                 "torch_table3_time": "table3"}
+PAPER_PHYSICAL_NODES = 4           # table2's default nodes
+
+
+def _paper_launches_want(algo: str, rounds: int, sizes, zero: dict) -> dict:
+    """A paper script's run's launches on the 16-bit wire at batch
+    ``PAPER_BATCH``: ProFe's rows 1-4 (a plane sweep and an Eq. 3 batch a
+    step, the codec once a round), FedProto's and FedGPD's ``proto_accum``
+    a step, FedAvg and FML none (per-leaf, the fp32 wire)."""
+    steps = rounds * max(max(n // PAPER_BATCH, 1) for n in sizes)
+    want = dict(zero)
+    if algo == "profe":
+        want.update(adamw_update=steps, proto_accum=steps, rowabs=rounds,
+                    quantize_rows=rounds)
+    elif algo in PROTO_BASELINES:
+        want.update(proto_accum=steps)
+    return want
+
+
+def run_paper(torch, smi: str) -> dict:
+    """Phase 14e, the paper's experiment scripts on the card
+    (``PAPER_CALLS``): ``torch_run.py`` at its defaults (fig2's three
+    splits × five algorithms, table2 and table3 on mnist-cnn), table3's
+    ``--overlap`` on a ring (under deterministic cuDNN), table2's
+    ``--physical`` wire at ``16`` and ``4/16``, and both tables on
+    cifar100-resnet32.  Every ``run_federation`` of the scripts is
+    recorded, the launch counts set to 0 just before it and read just
+    after: every F1 finite; every table2 and fig2 run's bytes
+    ``PAPER_BYTES``'; every run's launches as
+    :func:`_paper_launches_want` says; the ``ppermute`` bytes a node
+    ``PAPER_PPERMUTE``'s and the prediction, one ``mix_packed`` a rank;
+    ``overlap="none"``'s F1 and final state the sequential driver's bit
+    for bit.  Prints a ``paper {...}`` line.  Returns the launches under
+    ``paper/<script>/<dataset>`` (the spawned ranks' summed in)."""
+    import importlib
+    import shutil
+
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    mods = {m: importlib.import_module(f"benchmarks.{m}")
+            for m in ("torch_run", *PAPER_SCRIPTS)}
+    algos = mods["torch_table2_comm"].ALGOS
+    zero = {k: 0 for k in launch_counts()}
+    records, reports, seconds = [], {}, {}
+    current = {}
+
+    def recording(module, real):
+        def run_federation(cfg, fed, train, node_data, test_d, **kw):
+            reset_launch_counts()
+            res = real(cfg, fed, train, node_data, test_d, **kw)
+            torch.cuda.synchronize()
+            records.append(dict(
+                call=current["call"], script=PAPER_SCRIPTS[module],
+                dataset=cfg.name, algo=fed.algorithm, rounds=fed.rounds,
+                sizes=[len(n["label"]) for n in node_data],
+                overlap=kw.get("overlap", "off"), f1=list(res.f1_per_round),
+                sent=res.extras["avg_sent_gb"],
+                received=res.extras["avg_received_gb"],
+                launches=launch_counts(),
+                state=res.state if current["call"] == "table3-overlap"
+                else None))
+            res.state = None
+            return res
+        return run_federation
+
+    work = ROOT / PAPER_DIR
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    reals = {m: mods[m].run_federation for m in PAPER_SCRIPTS}
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        for m, real in reals.items():
+            mods[m].run_federation = recording(m, real)
+        for call, (module, argv) in PAPER_CALLS.items():
+            current["call"] = call
+            t0 = time.time()
+            if call == "table3-overlap":
+                with deterministic_cudnn(torch):
+                    got = mods[module].main(argv)
+            else:
+                got = mods[module].main(argv)
+            seconds[call] = time.time() - t0
+            print(f"paper {call} took {seconds[call]:.1f} s", flush=True)
+            # each call's report as its main returns it (torch_run's by
+            # script; table3 merges into its earlier --out)
+            if call == "run":
+                reports.update(got)
+            else:
+                reports[call] = got
+    finally:
+        os.chdir(cwd)
+        for m, real in reals.items():
+            mods[m].run_federation = real
+
+    counts = {}
+    for r in records:
+        what = f"{r['call']}/{r['script']}/{r['dataset']}/{r['algo']}"
+        if r["overlap"] != "off":
+            what += f"/overlap={r['overlap']}"
+        _finite_f1(what, r["f1"])
+        _sum_launches(counts.setdefault(
+            f"paper/{r['script']}/{r['dataset']}", dict(zero)),
+            r["launches"])
+        want = _paper_launches_want(r["algo"], r["rounds"], r["sizes"], zero)
+        expect(r["launches"] == want,
+               f"{what}: launches {r['launches']} != {want}")
+        if r["script"] in ("table2", "fig2"):
+            pinned = PAPER_BYTES[f"{r['script']}/{r['dataset']}/{r['algo']}"]
+            expect((r["sent"], r["received"]) == pinned,
+                   f"{what}: bytes {(r['sent'], r['received'])} != the JAX "
+                   f"package's {pinned}")
+    for ds in ("mnist-cnn", "cifar100-resnet32"):
+        for script in ("table2", "table3"):
+            ran = {r["algo"] for r in records if r["dataset"] == ds
+                   and r["script"] == script and r["overlap"] == "off"}
+            expect(ran == set(algos), f"{script} on {ds} ran {ran}")
+    n_fig2 = sum(r["script"] == "fig2" for r in records)
+    expect(n_fig2 == 15, f"fig2 ran {n_fig2} runs, not 3 splits × 5 "
+                         f"algorithms")
+    summary = {"card": smi, "seconds": seconds, "runs": len(records)}
+
+    summary["table2_pct_vs_fedavg"] = {
+        ds: {a: rows[a]["pct_vs_fedavg"] for a in algos}
+        for ds, rows in (("mnist-cnn", reports["table2"]["mnist-cnn"]),
+                         ("cifar100-resnet32", reports["table2-cifar100"][
+                             "cifar100-resnet32"]))}
+
+    # the physical wire: the ppermute bytes a node and one mix a rank
+    phys = reports["table2-physical"]["mnist-cnn"]["wire_bits"]
+    spawned = counts.setdefault("paper/table2/mnist-cnn", dict(zero))
+    summary["physical"] = {}
+    for bits, want in PAPER_PPERMUTE.items():
+        rep = phys[bits]
+        perm = rep["exchanges"]["ppermute"]
+        expect("error" not in perm, f"physical {bits}: ppermute {perm}")
+        expect(perm["collective_bytes_per_node"] == want
+               == rep["packed_pred_bytes_per_node"],
+               f"physical {bits}: ppermute moves "
+               f"{perm['collective_bytes_per_node']} B a node, the JAX "
+               f"package {want}, the prediction "
+               f"{rep['packed_pred_bytes_per_node']}")
+        expect(perm["launches"].get("mix_packed") == PAPER_PHYSICAL_NODES,
+               f"physical {bits}: ppermute launches {perm['launches']}")
+        for ex in rep["exchanges"].values():
+            _sum_launches(spawned, ex.get("launches", {}))
+        summary["physical"][bits] = {
+            ex: v.get("collective_bytes_per_node", v.get("error"))
+            for ex, v in rep["exchanges"].items()}
+
+    # overlap="none" against the sequential driver, bit for bit
+    ov = {r["overlap"]: r for r in records if r["call"] == "table3-overlap"}
+    expect(set(ov) == {None, "none", "rounds"},
+           f"table3 --overlap ran {list(ov)}")
+    expect(ov["none"]["f1"] == ov[None]["f1"]
+           and states_equal(torch, ov["none"]["state"], ov[None]["state"]),
+           "overlap='none' is not the sequential driver bit for bit")
+    ring = reports["table3-overlap"]["mnist-cnn"]["ring"]["overlap"]
+    for r in records:
+        r["state"] = None
+    summary["overlap_ring"] = {m: {k: ring[m].get(k) for k in (
+        "median_round_s", "round_times_s", "f1_per_round",
+        "round_speedup_vs_sequential", "f1_final_abs_diff")} for m in ring}
+
+    # Table III: percentages and seconds a round
+    summary["table3"] = {
+        ds: {a: {k: rows[a][k] for k in ("pct_vs_fedavg", "elapsed_s",
+                                         "round_times_s")} for a in algos}
+        for ds, rows in (("mnist-cnn", reports["table3"]["mnist-cnn"][
+            "full"]), ("cifar100-resnet32", reports["table3-cifar100"][
+                "cifar100-resnet32"]["full"]))}
+    summary["fig2_final_f1"] = {key: {n: row["f1_per_round"][-1]
+                                      for n, row in rows.items()}
+                                for key, rows in reports["fig2"].items()}
+    for key, launches in counts.items():
+        for k in PROFE_KERNELS:
+            expect(launches[k] > 0, f"{key}: {k} never launched")
+    print("paper " + json.dumps(summary), flush=True)
+    return counts
+
+
 def main() -> int:
+    t_start = time.time()
     args = sys.argv[1:]
     if args not in ([], ["--profile"]):
         print(f"usage: {sys.argv[0]} [--profile]", file=sys.stderr)
@@ -5730,6 +6140,7 @@ def main() -> int:
     check_new_shapes(torch, timer, rows)
     check_row_block_shapes(torch, timer, rows)
     check_example_shapes(torch, timer, rows)
+    check_paper_shapes(torch, timer, rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -5851,6 +6262,13 @@ def main() -> int:
     counts.update(run_examples(torch, smi))
     print(f"examples phase took {time.time() - t0:.1f} s")
 
+    phase("paper: the paper's experiment scripts (torch_run.py at its "
+          "defaults, table3 --overlap on a ring, table2 --physical, both "
+          "tables on cifar100-resnet32)")
+    t0 = time.time()
+    counts.update(run_paper(torch, smi))
+    print(f"paper phase took {time.time() - t0:.1f} s")
+
     if args == ["--profile"]:
         for name in PROFILED:
             phase(f"round profile {name}: 2 rounds unprofiled, 2 profiled")
@@ -5883,6 +6301,12 @@ def main() -> int:
                                     for p in counts
                                     if p.startswith("examples/")
                                     and counts[p].get(row["name"])}
+        # the paper phase's launches of the kernel by script and dataset
+        # (spawned ranks summed in), where it ran there
+        row["paper_launches"] = {p: counts[p][row["name"]] for p in counts
+                                 if p.startswith("paper/")
+                                 and counts[p].get(row["name"])}
+    print(f"chip_smoke took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
