@@ -60,11 +60,15 @@ Phases, in order (any failure exits non-zero; nothing is caught):
    :func:`check_row_block_shapes` holds ``mix_packed``'s accumulate form
    on the row-sharded permute's row blocks and ``rowabs`` /
    ``quantize_rows`` on one mamba2-130m node's payload;
-   :func:`check_example_shapes` and :func:`check_paper_shapes` hold the
-   kernels at the shapes the examples (14d) and paper (14e) phases give
-   them, cifar100-resnet32's student plane, ``proto_accum`` at C = 100
-   and table2 ``--physical``'s ``quantize_rows_mixed`` and 3- and
-   4-sender ``mix_packed`` among them;
+   :func:`check_example_shapes`, :func:`check_paper_shapes` and
+   :func:`check_round_step_shapes` hold the kernels at the shapes the
+   examples (14d), paper (14e) and round-step (14f) phases give them,
+   cifar100-resnet32's student plane, ``proto_accum`` at C = 100,
+   table2 ``--physical``'s ``quantize_rows_mixed`` and 3- and 4-sender
+   ``mix_packed``, the reduced mnist-cnn plane at N = 2, 4 and 8,
+   ``lowrank_apply`` at the apply pair's leaves, the seed loop's
+   one-node Eq. 3 pass and ``--wire``'s codec pair and ranks among them;
+   ``proto_dist`` is also timed at P = 2048;
 4. the main path: ProFe on mnist-cnn at full width (teacher channels
    (32, 64), student (16, 32), proto_dim 128), 20 nodes on a full graph,
    2 rounds of 1 local epoch, ``TrainConfig`` defaults (batch 32, adamw,
@@ -250,6 +254,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     bytes the JAX report's, ``overlap="none"`` the sequential driver bit
     for bit; a line ``paper {...}`` with the tables' percentages and
     seconds a round;
+14f. ``round-step``, the round-step microbenchmark (see
+    :func:`run_round_step`): ``benchmarks/torch_round_step.py`` ``main``
+    with ``--nodes 2 4 8 --phases`` (the seed loop against the stacked
+    round on the reduced mnist-cnn, the phase split, the four A/B pairs)
+    and ``--wire`` (the codec pair and the three exchanges on 8 spawned
+    ranks at 16, 8, 4, ``4/16`` and ``4+adapters8``) in
+    ``build/round_step/``; each row's ``ppermute``, ``packed`` and
+    full-gather bytes the JAX package's (``ROUND_STEP_WIRE``), launches
+    as predicted (the spawned ranks' warm-up and timed rounds), every
+    time finite and above 0; a line ``round_step {...}``;
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -264,9 +278,10 @@ round, and hold the run's wire bytes to the JAX package's; phase 11
 does the same on every rank around each mesh run, phase 13 around
 the whole codec phase (its per-call launches are read as differences),
 phase 14 around each of its driven parts, phase 14b around each LM
-federation, and phases 14d and 14e around each script's run (14e around
-each ``run_federation``).  Phase 3's ``proto_dist``
-and ``kd_loss`` rows carry every shape they were held at in ``cases``.
+federation, phases 14d and 14e around each script's run (14e around
+each ``run_federation``) and phase 14f around each measurement call.
+Phase 3's ``proto_dist`` and ``kd_loss`` rows carry every shape they were
+held at in ``cases``.
 """
 from __future__ import annotations
 
@@ -1845,8 +1860,10 @@ class ShapeCases:
                   path=path, shape=list(f1.shape), classes=ncls)
 
     def codec(self, key, path, buf, ids, meta):
-        """``rowabs`` and ``quantize_rows`` (at each of the payload's
-        widths) on every row of ``buf [N, R, 512]``."""
+        """``rowabs`` and ``quantize_rows`` (at the payload's width) on
+        every row of ``buf [N, R, 512]``; a mixed-width payload's codes
+        through ``quantize_rows_mixed`` (:meth:`mixed`), as
+        ``quantize_packed_buffer`` takes them."""
         from repro_torch.kernels.quantize.ops import _node_row_deltas
         from repro_torch.kernels.quantize.quantize import (quantize_rows_cuda,
                                                            rowabs_cuda)
@@ -1861,8 +1878,12 @@ class ShapeCases:
                   library=lambda: torch.linalg.vector_norm(
                       x2d, ord=math.inf, dim=1),
                   path=path, shape=[n * r, c])
+        widths = sorted({int(b) for b in meta[3]})
+        if len(widths) > 1:
+            self.mixed(key, path, buf, ids, meta)
+            return
         zero = torch.zeros(n * r, dtype=torch.int64, device="cuda")
-        for bits in sorted({int(b) for b in meta[3]}):
+        for bits in widths:
             _, rd = _node_row_deltas(buf, ids, meta[1], bits, meta[3])
             rd = rd.reshape(-1, 1).contiguous()
             self.held("quantize_rows", f"{key}/int{bits}",
@@ -1873,6 +1894,39 @@ class ShapeCases:
                           x2d, rd[:, 0].contiguous(), zero, 0,
                           torch.qint32),
                       path=path, shape=[n * r, c], bits=bits)
+
+    def roundtrip(self, key, path, tree, bits):
+        """The per-leaf reference codec's route on the card
+        (``kernels/quantize/ops.quantize_dequantize_tree_packed``,
+        ``node_axis``): ``rowabs`` and ``quantize_dequantize_rows`` at
+        ``bits`` on the tree's ``[R, 512]`` buffer, one segment a (node,
+        leaf)."""
+        from repro_torch.kernels.quantize.ops import (_segment_deltas,
+                                                      pack_tree)
+        from repro_torch.kernels.quantize.quantize import (
+            quantize_dequantize_rows_cuda, rowabs_cuda)
+        from repro_torch.kernels.quantize.ref import (
+            quantize_dequantize_rows_ref, rowabs_ref)
+        torch = self.torch
+        x2d, ids, meta = pack_tree(tree, node_axis=True)
+        r, c = x2d.shape
+        m = x2d.numel()
+        self.held("rowabs", f"{key}/per-leaf", lambda: rowabs_cuda(x2d),
+                  lambda: rowabs_ref(x2d), nbytes=4 * m + 4 * r, nops=m,
+                  library=lambda: torch.linalg.vector_norm(
+                      x2d, ord=math.inf, dim=1),
+                  path=path, shape=[r, c])
+        _, rd = _segment_deltas(x2d, ids, meta[1], bits)
+        rd = rd.contiguous()
+        qmax = 2 ** (bits - 1) - 1
+        zero = torch.zeros(r, dtype=torch.int32, device="cuda")
+        self.held("quantize_dequantize_rows", f"{key}/int{bits}",
+                  lambda: quantize_dequantize_rows_cuda(x2d, rd, bits=bits),
+                  lambda: quantize_dequantize_rows_ref(x2d, rd, bits=bits),
+                  nbytes=8 * m + 4 * r, nops=4 * m,
+                  library=lambda: torch.fake_quantize_per_channel_affine(
+                      x2d, rd[:, 0].contiguous(), zero, 0, -qmax - 1, qmax),
+                  path=path, shape=[r, c], bits=bits)
 
     def mix(self, key, path, own, codes, rd, self_weight: bool = True):
         """``mix_packed`` of one receiver's own rows and its ``S``
@@ -1946,6 +2000,91 @@ def _lowrank_library(torch, w, coeffs, b, a):
     return w.float().reshape(lead, d, k), bc, acat
 
 
+def _adapter_rank_cases(torch, cases, rank_inputs, ring_senders, *,
+                        grams_opts, specs, arch: str, path: str) -> None:
+    """The adapter wire as the spawned ranks run it (``rank_inputs(**job)``
+    gives every node's ``launch.wire._rank_inputs``), rank 8 at int4,
+    without or with grams (``grams_opts``): ``rowabs`` and
+    ``quantize_rows`` on node 0's group payload at each of ``specs``, and
+    ``lowrank_apply`` on every matrix leaf of node 0's merge with its
+    ring senders' factors (``ppermute``) and all nodes' (``gather`` /
+    ``packed``), ``A`` shared or RegMean-adjusted per receiver; the
+    merge's leaves summed into one entry a (senders, design), beside one
+    ``baddbmm`` a leaf (:func:`_lowrank_library`)."""
+    from repro_torch.core.aggregation import regmean_adjust
+    from repro_torch.core.round_ops import adapter_share_nodes
+    from repro_torch.kernels.lowrank_apply.lowrank_apply import \
+        lowrank_apply_cuda
+    from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
+    from repro_torch.kernels.quantize.ops import pack_tree_nodes
+    from repro_torch.optim.plane import _leaf_view
+    from repro_torch.wirespec import WireSpec
+
+    gen = cases.gen
+    for grams in grams_opts:
+        tag = "adapters8+grams" if grams else "adapters8"
+        ins = rank_inputs(bits="4", adapter_rank=8, adapter_grams=grams)
+        nodes = len(ins)
+        groups = []
+        for students, prot, _, _, carry in ins:
+            ast = dict(carry[0], ref={
+                k: v + 1e-3 * torch.randn(v.shape, generator=gen,
+                                          device="cuda")
+                for k, v in carry[0]["ref"].items()})
+            g, _, layout = adapter_share_nodes(students, ast, rank=8,
+                                               grams=grams)
+            groups.append((g, prot))
+        for spec in specs:
+            buf, ids, meta = pack_tree_nodes(
+                dict(groups[0][0], protos=groups[0][1]),
+                WireSpec.parse(spec))
+            cases.codec(f"{arch}/{tag}/{spec}", path, buf, ids, meta)
+        # a receiver's merge: every matrix leaf of node 0 through one
+        # launch with its senders' factors
+        w_plane = ins[0][0].buf
+        for s, senders in ((2, ring_senders), (nodes, list(range(nodes)))):
+            coeffs = torch.rand((1, s), generator=gen, device="cuda") / s
+            leaf_cases = []
+            for name, is_mat, (_, _, shape, row, r_leaf) in zip(
+                    layout.names, layout.is_mat, ins[0][0].meta.recipe):
+                if not is_mat:
+                    continue
+                w = _leaf_view(w_plane, shape, row, r_leaf).contiguous()
+                b = torch.cat([groups[j][0]["adapters"][name]["B"]
+                               for j in senders]).float().contiguous()
+                a = torch.cat([groups[j][0]["adapters"][name]["A"]
+                               for j in senders]).float()
+                if grams:
+                    gr = torch.cat([groups[j][0]["grams"][name]
+                                    for j in senders])
+                    a = regmean_adjust(a[None], gr[None], coeffs,
+                                       per_recv=True)
+                leaf_cases.append((w, b, a.contiguous()))
+            design = "per_recv" if grams else "shared"
+            launches = [lambda w=w, b=b, a=a: lowrank_apply_cuda(
+                w, coeffs, b, a) for w, b, a in leaf_cases]
+            plains = [lambda w=w, b=b, a=a: lowrank_apply_ref(
+                w, coeffs, b, a) for w, b, a in leaf_cases]
+            libs = [_lowrank_library(torch, w, coeffs, b, a)
+                    for w, b, a in leaf_cases]
+            d_k = [(w.shape[-2], w.shape[-1], w[0].numel() // (
+                w.shape[-2] * w.shape[-1])) for w, _, _ in leaf_cases]
+            cases.held(
+                "lowrank_apply", f"{arch}/{design}/S{s}",
+                lambda: [f() for f in launches],
+                lambda: [f() for f in plains],
+                nbytes=sum(4 * (2 * w.numel() + coeffs.numel() + b.numel()
+                                + a.numel()) for w, b, a in leaf_cases),
+                nops=sum(lead * d * k * (2 * 8 * s + 2 * s + 1)
+                         if not grams else lead * s * d * k * (2 * 8 + 2)
+                         for d, k, lead in d_k),
+                library=lambda: [torch.baddbmm(*x) for x in libs],
+                path=path, receiver_leaves=len(leaf_cases),
+                senders=s, design=design,
+                shape=[list(w.shape) for w, _, _ in leaf_cases])
+        del groups, buf
+
+
 def check_example_shapes(torch, timer, rows) -> None:
     """Phase 3 at the shapes the examples phase (14d) gives six kernels
     and no other check holds, each case bit for bit its plain version and
@@ -1976,17 +2115,11 @@ def check_example_shapes(torch, timer, rows) -> None:
       beside one ``baddbmm`` a leaf (:func:`_lowrank_library`)."""
     from repro_torch.config import get_config
     from repro_torch.core import topology as T
-    from repro_torch.core.aggregation import regmean_adjust
-    from repro_torch.core.round_ops import adapter_share_nodes
-    from repro_torch.kernels.lowrank_apply.lowrank_apply import \
-        lowrank_apply_cuda
-    from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
-    from repro_torch.kernels.quantize.ops import (pack_plane_payload,
-                                                  pack_tree_nodes)
+    from repro_torch.kernels.quantize.ops import pack_plane_payload
     from repro_torch.launch.wire import _config as _wire_config
     from repro_torch.launch.wire import _rank_inputs
     from repro_torch.models import derive_student
-    from repro_torch.optim.plane import Plane, _leaf_view
+    from repro_torch.optim.plane import Plane
     from repro_torch.wirespec import WireSpec
 
     cases = ShapeCases(torch, timer, rows, "example_shapes", 31)
@@ -2070,68 +2203,9 @@ def check_example_shapes(torch, timer, rows) -> None:
               teacher, torch.ones(teacher.shape[:2], device="cuda"))
     del teacher
     # the int4 adapter wire, without and with grams
-    for grams in (False, True):
-        tag = "adapters8+grams" if grams else "adapters8"
-        ins = rank_inputs(bits="4", adapter_rank=8, adapter_grams=grams)
-        groups = []
-        for students, prot, _, _, carry in ins:
-            ast = dict(carry[0], ref={
-                k: v + 1e-3 * torch.randn(v.shape, generator=gen,
-                                          device="cuda")
-                for k, v in carry[0]["ref"].items()})
-            g, _, layout = adapter_share_nodes(students, ast, rank=8,
-                                               grams=grams)
-            groups.append((g, prot))
-        for spec in ("4", "16"):
-            buf, ids, meta = pack_tree_nodes(
-                dict(groups[0][0], protos=groups[0][1]),
-                WireSpec.parse(spec))
-            cases.codec(f"yi-6b/{tag}/{spec}", "dryrun-topo", buf, ids,
-                        meta)
-        # a receiver's merge: every matrix leaf of node 0 through one
-        # launch with its senders' factors
-        w_plane = ins[0][0].buf
-        for s, senders in ((2, ring_senders), (nodes, list(range(nodes)))):
-            coeffs = torch.rand((1, s), generator=gen, device="cuda") / s
-            leaf_cases = []
-            for name, is_mat, (_, _, shape, row, r_leaf) in zip(
-                    layout.names, layout.is_mat, ins[0][0].meta.recipe):
-                if not is_mat:
-                    continue
-                w = _leaf_view(w_plane, shape, row, r_leaf).contiguous()
-                b = torch.cat([groups[j][0]["adapters"][name]["B"]
-                               for j in senders]).float().contiguous()
-                a = torch.cat([groups[j][0]["adapters"][name]["A"]
-                               for j in senders]).float()
-                if grams:
-                    gr = torch.cat([groups[j][0]["grams"][name]
-                                    for j in senders])
-                    a = regmean_adjust(a[None], gr[None], coeffs,
-                                       per_recv=True)
-                leaf_cases.append((w, b, a.contiguous()))
-            design = "per_recv" if grams else "shared"
-            launches = [lambda w=w, b=b, a=a: lowrank_apply_cuda(
-                w, coeffs, b, a) for w, b, a in leaf_cases]
-            plains = [lambda w=w, b=b, a=a: lowrank_apply_ref(
-                w, coeffs, b, a) for w, b, a in leaf_cases]
-            libs = [_lowrank_library(torch, w, coeffs, b, a)
-                    for w, b, a in leaf_cases]
-            d_k = [(w.shape[-2], w.shape[-1], w[0].numel() // (
-                w.shape[-2] * w.shape[-1])) for w, _, _ in leaf_cases]
-            cases.held(
-                "lowrank_apply", f"yi-6b/{design}/S{s}",
-                lambda: [f() for f in launches],
-                lambda: [f() for f in plains],
-                nbytes=sum(4 * (2 * w.numel() + coeffs.numel() + b.numel()
-                                + a.numel()) for w, b, a in leaf_cases),
-                nops=sum(lead * d * k * (2 * 8 * s + 2 * s + 1)
-                         if not grams else lead * s * d * k * (2 * 8 + 2)
-                         for d, k, lead in d_k),
-                library=lambda: [torch.baddbmm(*x) for x in libs],
-                path="dryrun-topo", receiver_leaves=len(leaf_cases),
-                senders=s, design=design,
-                shape=[list(w.shape) for w, _, _ in leaf_cases])
-        del groups, buf
+    _adapter_rank_cases(torch, cases, rank_inputs, ring_senders,
+                        grams_opts=(False, True), specs=("4", "16"),
+                        arch="yi-6b", path="dryrun-topo")
     torch.cuda.empty_cache()
 
 
@@ -2205,6 +2279,174 @@ def check_paper_shapes(torch, timer, rows) -> None:
             cases.mix(f"{key}/{tag}", "table2 --physical (packed)", own,
                       codes, rd, self_weight=self_weight)
         del plane, buf, codes
+
+
+# the round-step phase's reduced mnist-cnn (benchmarks/torch_round_step.py
+# _setup): teacher channels, node counts, batch and samples a node
+ROUND_STEP_CHANNELS = (8, 16)
+ROUND_STEP_NODES = (2, 4, 8)
+ROUND_STEP_BATCH = 8
+ROUND_STEP_SAMPLES = 32
+ADAPTER_RANK = 8                  # the apply pair's and the wire rows' rank
+
+
+def _lowrank_library_nodes(torch, w, coeffs, b, a):
+    """One ``baddbmm`` of every receiver's merge of one leaf (``w [N, d,
+    k]``, ``A`` shared over receivers): ``w_i + [c_i0·B_0 | c_i1·B_1 |
+    ...] @ [A_0; A_1; ...]``, batched over receivers, TF32 off; its
+    operands, built once."""
+    n, s = coeffs.shape
+    d, r = b.shape[-2], b.shape[-1]
+    bc = (coeffs[:, :, None, None] * b[None]).permute(0, 2, 1, 3) \
+        .reshape(n, d, s * r).contiguous()
+    acat = a.reshape(s * r, -1)[None].expand(n, -1, -1)
+    return w, bc, acat
+
+
+def check_round_step_shapes(torch, timer, rows) -> None:
+    """Phase 3 at the shapes the round-step phase (14f) gives rows 1-4 and
+    16, each case bit for bit its plain version and timed into its row
+    under ``round_step_shapes``, at N = 2, 4 and 8 of the script's reduced
+    mnist-cnn (``ROUND_STEP_CHANNELS``: a ``[N, 112, 512]`` student
+    plane): ``adamw_update`` on the plane, ``proto_accum`` on ``f1 [N, 8,
+    128]`` at C = 10, ``rowabs`` and ``quantize_rows`` on the plane's
+    16-bit payload, and ``lowrank_apply`` on the apply pair's fused side
+    (``adapter_apply_plane``): every matrix leaf of the plane (fc1 ``[N,
+    392, 128]``, fc2 ``[N, 128, 10]``) with rank-8 factors of its delta
+    against 0.9× the weights and the full graph's ``w_neigh`` as
+    coefficients, ``A`` shared; the leaves summed into one entry a node
+    count beside one ``baddbmm`` a leaf (:func:`_lowrank_library_nodes`).
+    Then ``proto_accum`` on the seed loop's one-node ``f1 [1, 8, 128]`` at
+    C = 10, and ``--wire`` on 8 full-width mnist-cnn nodes: the codec
+    pair on ``benchmarks/torch_round_step.codec_payload`` at each
+    ``ROUND_STEP_WIRE`` row (the per-leaf side's ``rowabs`` and
+    ``quantize_dequantize_rows`` on its ``[R, 512]`` tree buffer at a
+    uniform width, the packed side's ``rowabs`` and ``quantize_rows`` or
+    ``quantize_rows_mixed`` on its ``[8, R, 512]`` buffer), and the
+    spawned ranks' shapes (``launch.wire._rank_inputs``): ``rowabs`` and
+    ``quantize_rows`` / ``quantize_rows_mixed`` on one node's plane
+    payload, ``mix_packed`` of a receiver's rows with its 2 ring
+    senders' codes (``ppermute``) and all 8 nodes' (``packed``; ``w_self``
+    0 in the full-gather reference), and the adapter row's group codec
+    and merges (:func:`_adapter_rank_cases`)."""
+    from repro_torch.config import get_config
+    from repro_torch.core import topology as T
+    from repro_torch.core.adapters import (adapter_layout, factorize_deltas,
+                                           split_student)
+    from repro_torch.core.round_ops import gossip_matrix
+    from repro_torch.kernels.lowrank_apply.lowrank_apply import \
+        lowrank_apply_cuda
+    from repro_torch.kernels.lowrank_apply.ref import lowrank_apply_ref
+    from repro_torch.kernels.quantize.ops import (pack_plane_payload,
+                                                  pack_tree_nodes)
+    from repro_torch.launch.wire import _rank_inputs
+    from repro_torch.models import derive_student
+    from repro_torch.optim.plane import Plane, as_tree
+    from repro_torch.wirespec import WireSpec
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmarks.torch_round_step import codec_payload
+
+    cfg = get_config("mnist-cnn").replace(cnn_channels=ROUND_STEP_CHANNELS)
+    scfg = derive_student(cfg)
+    cases = ShapeCases(torch, timer, rows, "round_step_shapes", 33)
+    for n in ROUND_STEP_NODES:
+        key = f"reduced/{n}"
+        plane = cases.stacked(scfg, n)
+        cases.adamw(key, "round-step", plane.buf)
+        cases.accum(key, "round-step", n, ROUND_STEP_BATCH, scfg.proto_dim,
+                    cfg.num_classes)
+        protos = torch.rand((n, cfg.num_classes, scfg.proto_dim),
+                            generator=cases.gen, device="cuda")
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec(16))
+        cases.codec(key, "round-step", buf, ids, meta)
+
+        views = as_tree(plane)
+        layout = adapter_layout(views, ADAPTER_RANK, node_axis=True)
+        mats, _ = split_student(layout, views)
+        factors = factorize_deltas(layout, mats,
+                                   {k: 0.9 * v for k, v in mats.items()})
+        w_neigh = torch.as_tensor(gossip_matrix(
+            T.adjacency(n, "full"), [ROUND_STEP_SAMPLES] * n)[1],
+            device="cuda")
+        leaf_cases = [(mats[name].contiguous(),
+                       factors[name]["B"].contiguous(),
+                       factors[name]["A"].contiguous())
+                      for name in layout.mat_names]
+        launches = [lambda w=w, b=b, a=a: lowrank_apply_cuda(
+            w, w_neigh, b, a) for w, b, a in leaf_cases]
+        plains = [lambda w=w, b=b, a=a: lowrank_apply_ref(w, w_neigh, b, a)
+                  for w, b, a in leaf_cases]
+        libs = [_lowrank_library_nodes(torch, w, w_neigh, b, a)
+                for w, b, a in leaf_cases]
+        cases.held(
+            "lowrank_apply", key,
+            lambda: [f() for f in launches], lambda: [f() for f in plains],
+            nbytes=sum(4 * (2 * w.numel() + w_neigh.numel() + b.numel()
+                            + a.numel()) for w, b, a in leaf_cases),
+            # each B_j @ A_j once, then every receiver's weighted sum
+            nops=sum(w.shape[-2] * w.shape[-1] * (2 * ADAPTER_RANK * n
+                                                  + 2 * n * n + n)
+                     for w, _, _ in leaf_cases),
+            library=lambda: [torch.baddbmm(*x) for x in libs],
+            path="round-step (apply_fused)", receivers=n, senders=n,
+            design="shared", receiver_leaves=len(leaf_cases),
+            shape=[list(w.shape) for w, _, _ in leaf_cases])
+        del plane, buf
+
+    # -- the seed loop's Eq. 3 pass: one node's batch ---------------------
+    cases.accum("reduced/seed", "round-step (seed loop)", 1,
+                ROUND_STEP_BATCH, scfg.proto_dim, cfg.num_classes)
+
+    # -- --wire: the codec pair on 8 full-width mnist-cnn nodes ------------
+    nodes = ROUND_STEP_WIRE_NODES
+    for label in ROUND_STEP_WIRE:
+        bits, _, rank = label.partition("+adapters")
+        spec = WireSpec.parse(bits)
+        payload = codec_payload(nodes, adapter_rank=int(rank or 0),
+                                device="cuda")
+        key = f"wire/{label}"
+        if spec.uniform_bits is not None:
+            cases.roundtrip(key, "round-step --wire codec (per-leaf)",
+                            payload, spec.uniform_bits)
+        buf, ids, meta = pack_tree_nodes(payload, spec)
+        cases.codec(key, "round-step --wire codec (packed)", buf, ids, meta)
+        del payload, buf
+
+    # -- --wire's spawned ranks: a node's payload and a receiver's mixes ---
+    def rank_inputs(**job):
+        job = dict(dict(arch="mnist-cnn", n_nodes=nodes, topology="ring",
+                        bits="16", seed=0, inner=1, adapter_rank=0,
+                        adapter_grams=False, device="cuda"), **job)
+        return [_rank_inputs(job, i, torch.device("cuda"))
+                for i in range(nodes)]
+
+    ring = T.make_schedule(nodes, "ring", rounds=1, seed=0).adjacency_at(0)
+    ring_senders = sorted(T.neighbors(ring, 0))          # receiver node 0
+    path = "round-step --wire ranks"
+    for bits in (b for b in ROUND_STEP_WIRE if "+" not in b):
+        ins = rank_inputs(bits=bits)
+        plane = Plane(torch.cat([s.buf for s, *_ in ins]), ins[0][0].meta)
+        protos = torch.cat([p for _, p, *_ in ins])
+        buf, ids, meta, _, _ = pack_plane_payload(protos, plane,
+                                                  WireSpec.parse(bits))
+        key = f"wire/rank/{bits}"
+        own = buf[:1].contiguous()
+        cases.codec(key, path, own, ids, meta)
+        codes, rd = cases.wire_codes(buf, ids, meta)
+        cases.mix(f"{key}/S2", f"{path} (ppermute)", own,
+                  codes[ring_senders].contiguous(),
+                  rd[ring_senders].contiguous())
+        for self_weight, tag in ((True, "S8"), (False, "S8/w_self0")):
+            cases.mix(f"{key}/{tag}", f"{path} (packed, full-gather)", own,
+                      codes, rd, self_weight=self_weight)
+        del ins, plane, buf, codes
+    _adapter_rank_cases(torch, cases, rank_inputs, ring_senders,
+                        grams_opts=(False,), specs=("4",), arch="mnist-cnn",
+                        path=path)
+    torch.cuda.empty_cache()
 
 
 def check_plane_sweeps(torch, timer, student_cfg):
@@ -3156,10 +3398,12 @@ PD_RTOL = 1e-4
 PD_CASES = (("mnist-cnn Eq. 5", 640, 128, 10),
             ("ResNet8 student", 640, 256, 10),
             ("cifar100 classes", 640, 256, 100),
-            ("ragged", 1001, 200, 37))
-# proto_dist's edge cases in phase 3, held but not timed: (what, N, P, C,
-# storage offset of x and protos); each in fp32 and bf16.  Offsets 1-3 and
-# P = 3 or 130 take one element a load (VEC = 1), P = 2048 eight chunks.
+            ("ragged", 1001, 200, 37),
+            ("P = 2048", 640, 2048, 100))
+# proto_dist's edge cases in phase 3, held (P = 2048 is also timed above):
+# (what, N, P, C, storage offset of x and protos); each in fp32 and bf16.
+# Offsets 1-3 and P = 3 or 130 take one element a load (VEC = 1), P =
+# 2048 eight chunks.
 PD_EDGE = (("one row", 1, 128, 10, 0), ("one prototype", 640, 128, 1, 0),
            ("P = 3", 640, 3, 10, 0), ("P = 130", 640, 130, 10, 0),
            ("P = 2048", 640, 2048, 100, 0),
@@ -6084,6 +6328,256 @@ def run_paper(torch, smi: str) -> dict:
     return counts
 
 
+# the round-step phase (run_round_step): the round-step microbenchmark's
+# two commands at their defaults, each main(argv) run in ROUND_STEP_DIR
+ROUND_STEP_DIR = "build/round_step"
+ROUND_STEP_CALLS = {"nodes": ["--nodes", "2", "4", "8", "--phases"],
+                    "wire": ["--wire"]}
+ROUND_STEP_ROUNDS = 5             # the script's --rounds
+ROUND_STEP_STEPS = ROUND_STEP_SAMPLES // ROUND_STEP_BATCH
+ROUND_STEP_APPLY_LEAVES = 2       # the reduced student's rank-8 matrix leaves
+ROUND_STEP_WIRE_NODES = 8         # --wire-nodes
+ROUND_STEP_WIRE_ROUNDS = 10       # --wire's timed rounds: max(--rounds, 10)
+# the JAX package's wire bytes a node (BENCH_wire_exchange.json, pods 8):
+# row -> (ppermute, packed, full-gather); the adapter row's full-gather
+# records its error (merge-based aggregation needs an adjacency)
+ROUND_STEP_WIRE = {"16": (852120.0, 3408480.0, 3408480.0),
+                   "8": (426136.0, 1704544.0, 1704544.0),
+                   "4": (213144.0, 852576.0, 852576.0),
+                   "4/16": (217752.0, 871008.0, 871008.0),
+                   "4+adapters8": (24752.0, 99008.0, None)}
+
+
+def _round_step_nodes_want(n: int, zero: dict) -> dict:
+    """Launches of ``measure(n)`` and ``measure_phases(n)`` at the
+    script's defaults (``ROUND_STEP_ROUNDS`` timed rounds after a warm-up,
+    ``ROUND_STEP_STEPS`` batches a node a round).  ``measure``: the seed
+    loop's per-leaf steps and ``core/quantization`` codec launch nothing,
+    its Eq. 3 pass ``proto_accum`` a node a batch; the stacked round a
+    plane sweep and an Eq. 3 batch a step, ``rowabs`` and
+    ``quantize_rows`` once.  ``measure_phases``: the train pair (``max(
+    rounds, 5)`` pairs and a warm-up) sweeps a step on each side, the
+    fused side accumulates a step; the exact Eq. 3 pass (a warm-up, the
+    timed calls and one more for the codec's input) a batch a call; the
+    codec (the same count) once a call; the round pair as the stacked
+    round on each side; the update pair (``max(rounds, 10)`` and a
+    warm-up) one sweep on its fused side; the grad and mix pairs
+    nothing; the apply pair (``max(rounds, 100)`` and a warm-up) one
+    ``lowrank_apply`` a matrix leaf on each side (``adapter_apply_tree``
+    launches it too)."""
+    r, steps = ROUND_STEP_ROUNDS, ROUND_STEP_STEPS
+    rounds = r + 1
+    pairs = max(r, 5) + 1
+    calls = r + 2
+    want = dict(zero)
+    want.update(
+        adamw_update=rounds * steps + 2 * pairs * steps + 2 * pairs * steps
+        + max(r, 10) + 1,
+        proto_accum=rounds * steps + rounds * n * steps + pairs * steps
+        + calls * steps + 2 * pairs * steps,
+        rowabs=rounds + calls + 2 * pairs,
+        quantize_rows=rounds + calls + 2 * pairs,
+        lowrank_apply=2 * (max(r, 100) + 1) * ROUND_STEP_APPLY_LEAVES)
+    return want
+
+
+def _round_step_wire_want(label: str, zero: dict):
+    """Launches of a ``--wire`` row: ``(codec, rank)``.  ``codec``, the
+    codec pair (a warm-up and ``ROUND_STEP_WIRE_ROUNDS`` calls a side; on
+    the card the per-leaf reference at a uniform width is ``rowabs`` and
+    ``quantize_dequantize_rows`` on its packed tree, at ``4/16`` plain
+    math; the packed codec ``rowabs`` and ``quantize_rows`` or, mixed,
+    ``quantize_rows_mixed``).  ``rank``, one spawned rank's round of each
+    exchange: every exchange quantizes the rank's node once; ``packed``,
+    ``ppermute`` and the full-gather reference mix with one
+    ``mix_packed`` (``gather`` mixes leaf by leaf in plain math); the
+    adapter wire merges with one ``lowrank_apply`` a matrix leaf instead
+    of mixing, and its full-gather reference is refused before any
+    launch."""
+    calls = ROUND_STEP_WIRE_ROUNDS + 1
+    bits, _, rank = label.partition("+adapters")
+    codes = "quantize_rows_mixed" if "/" in bits else "quantize_rows"
+    codec = dict(zero, rowabs=calls, **{codes: calls})
+    if "/" not in bits:
+        codec.update(rowabs=2 * calls, quantize_dequantize_rows=calls)
+    once = dict(zero, rowabs=1, **{codes: 1})
+    mixed = dict(once, mix_packed=1)
+    if rank:
+        merged = dict(once, lowrank_apply=ADAPTER_LEAVES)
+        per_rank = {"gather": merged, "packed": merged, "ppermute": merged,
+                    "full-gather": dict(zero)}
+    else:
+        per_rank = {"gather": once, "packed": mixed, "ppermute": mixed,
+                    "full-gather": mixed}
+    return codec, per_rank
+
+
+def _positive_ms(what: str, ms) -> None:
+    expect(isinstance(ms, (int, float)) and math.isfinite(ms) and ms > 0,
+           f"{what}: {ms} ms is not a finite time above 0")
+
+
+def run_round_step(torch, smi: str) -> dict:
+    """Phase 14f, the round-step microbenchmark on the card
+    (``ROUND_STEP_CALLS``, ``benchmarks/torch_round_step.py`` ``main(argv)``
+    in ``ROUND_STEP_DIR``): ``--nodes 2 4 8 --phases`` (the seed loop
+    against the stacked round on the reduced mnist-cnn, the phase split
+    and the four A/B pairs) and ``--wire`` (the codec pair and the three
+    exchanges on 8 spawned ranks, a ring, at 16, 8, 4, ``4/16`` and
+    ``4+adapters8``).  ``measure``, ``measure_phases`` and
+    ``measure_codec`` are recorded, the launch counts set to 0 just before
+    each call and read just after, and held to
+    :func:`_round_step_nodes_want` / :func:`_round_step_wire_want` with
+    every exchange's warm-up and timed rounds on every rank summed in
+    (the timed rounds ``ROUND_STEP_WIRE_ROUNDS`` times the warm-up's
+    launches); every row's ``ppermute``,
+    ``packed`` and full-gather bytes a node ``ROUND_STEP_WIRE``'s (the JAX
+    package's; ``gather`` is the port's own count, printed); every time
+    finite and above 0 (``proto_fused_ms``, a clamped difference, at
+    least 0).  Prints a ``round_step {...}`` line.  Returns the launches
+    under ``round-step/nodes/<N>`` and ``round-step/wire``."""
+    import importlib
+    import shutil
+
+    from repro_torch.kernels.build import launch_counts, reset_launch_counts
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    mod = importlib.import_module("benchmarks.torch_round_step")
+    zero = {k: 0 for k in launch_counts()}
+    launches = {}
+
+    def recording(name, real):
+        def call(*args, **kw):
+            reset_launch_counts()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            key = (name, kw.get("bits", args[0]), kw.get("adapter_rank", 0))
+            into = launches.setdefault(key, dict(zero))
+            _sum_launches(into, launch_counts())
+            return out
+        return call
+
+    work = ROOT / ROUND_STEP_DIR
+    if work.exists():
+        shutil.rmtree(work)
+    work.mkdir(parents=True)
+    reals = {f: getattr(mod, f) for f in ("measure", "measure_phases",
+                                          "measure_codec")}
+    reports, seconds = {}, {}
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        for f, real in reals.items():
+            setattr(mod, f, recording(f, real))
+        for call, argv in ROUND_STEP_CALLS.items():
+            t0 = time.time()
+            reports[call] = mod.main(argv)
+            seconds[call] = time.time() - t0
+            print(f"round-step {call} took {seconds[call]:.1f} s", flush=True)
+    finally:
+        os.chdir(cwd)
+        for f, real in reals.items():
+            setattr(mod, f, real)
+
+    counts = {}
+    summary = {"card": smi, "seconds": seconds, "nodes": {}, "wire": {}}
+    nodes = reports["nodes"]
+    expect(nodes["card"] == smi and nodes["backend"] == "cuda",
+           f"round-step: the report's card {nodes['card']} / backend "
+           f"{nodes['backend']}")
+    for n in ROUND_STEP_NODES:
+        got = dict(zero)
+        for f in ("measure", "measure_phases"):
+            _sum_launches(got, launches[(f, n, 0)])
+        want = _round_step_nodes_want(n, zero)
+        expect(got == want, f"round-step N={n}: launches {got} != {want}")
+        counts[f"round-step/nodes/{n}"] = got
+        row = nodes["nodes"][str(n)]
+        phases = row["phases"]
+        for k, v in list(row.items()) + list(phases.items()):
+            if k in ("local_steps_per_round", "phases"):
+                continue
+            if k == "proto_fused_ms":
+                expect(math.isfinite(v) and v >= 0,
+                       f"round-step N={n}: {k} {v}")
+            else:
+                _positive_ms(f"round-step N={n} {k}", v)
+        expect(row["local_steps_per_round"] == n * ROUND_STEP_STEPS,
+               f"round-step N={n}: {row['local_steps_per_round']} steps")
+        summary["nodes"][n] = row
+
+    wire = reports["wire"]
+    expect(wire["card"] == smi and wire["backend"] == "cuda"
+           and list(wire["per_bits"]) == list(ROUND_STEP_WIRE),
+           f"round-step --wire: rows {list(wire['per_bits'])}, card "
+           f"{wire['card']}")
+    spawned = dict(zero)
+    for label, (perm, packed, full) in ROUND_STEP_WIRE.items():
+        res = wire["per_bits"][label]
+        rep, codec = res["exchange"], res["codec"]
+        ex = rep["exchanges"]
+        for what in ("ppermute", "packed", "gather"):
+            expect("error" not in ex[what], f"--wire {label}: {what} "
+                                            f"{ex[what]}")
+            _positive_ms(f"--wire {label} {what} round", ex[what]["round_ms"])
+        got = (ex["ppermute"]["collective_bytes_per_node"],
+               ex["packed"]["collective_bytes_per_node"],
+               rep["full_gather_bytes_per_node"])
+        expect(got == (perm, packed, full),
+               f"--wire {label}: ppermute / packed / full-gather bytes a "
+               f"node {got} != the JAX package's {(perm, packed, full)}")
+        expect(ex["ppermute"]["collective_bytes_per_node"]
+               == rep["packed_pred_bytes_per_node"],
+               f"--wire {label}: ppermute is not the prediction "
+               f"{rep['packed_pred_bytes_per_node']}")
+        for what in ("per_leaf_ms", "packed_ms"):
+            _positive_ms(f"--wire {label} codec {what}", codec[what])
+        bits, _, rank = label.partition("+adapters")
+        codec_want, per_rank = _round_step_wire_want(label, zero)
+        got = launches[("measure_codec", bits, int(rank or 0))]
+        expect(got == codec_want, f"--wire {label}: the codec pair "
+                                  f"launched {got} != {codec_want}")
+        ranks = ROUND_STEP_WIRE_NODES
+        for name, one in per_rank.items():
+            warm = dict(zero, **(rep["full_gather_launches"]
+                                 if name == "full-gather"
+                                 else ex[name]["launches"]))
+            want = {k: ranks * v for k, v in one.items()}
+            expect(warm == want, f"--wire {label} {name}: the warm-up "
+                                 f"round launched {warm} != {want}")
+            _sum_launches(spawned, warm)
+            if name == "full-gather":
+                continue
+            timed = dict(zero, **ex[name]["timed_launches"])
+            want = {k: ROUND_STEP_WIRE_ROUNDS * v for k, v in warm.items()}
+            expect(timed == want, f"--wire {label} {name}: the timed "
+                                  f"rounds launched {timed} != {want}")
+            _sum_launches(spawned, timed)
+        summary["wire"][label] = {
+            "codec": codec,
+            "exchanges": {k: {"bytes": v["collective_bytes_per_node"],
+                              "round_ms": v["round_ms"]}
+                          for k, v in ex.items()},
+            "full_gather_bytes": rep["full_gather_bytes_per_node"],
+            "ppermute_vs_full_gather": res.get("ppermute_vs_full_gather"),
+            "ppermute_vs_int16": res.get("ppermute_vs_int16")}
+    got = dict(zero)
+    for key, launched in launches.items():
+        if key[0] == "measure_codec":
+            _sum_launches(got, launched)
+    _sum_launches(got, spawned)
+    counts["round-step/wire"] = got
+    for key, launched in counts.items():
+        need = PROFE_KERNELS + ("lowrank_apply",) if "nodes" in key else (
+            "rowabs", "quantize_rows", "quantize_rows_mixed",
+            "quantize_dequantize_rows", "mix_packed", "lowrank_apply")
+        for k in need:
+            expect(launched[k] > 0, f"{key}: {k} never launched")
+    print("round_step " + json.dumps(summary), flush=True)
+    return counts
+
+
 def main() -> int:
     t_start = time.time()
     args = sys.argv[1:]
@@ -6141,6 +6635,7 @@ def main() -> int:
     check_row_block_shapes(torch, timer, rows)
     check_example_shapes(torch, timer, rows)
     check_paper_shapes(torch, timer, rows)
+    check_round_step_shapes(torch, timer, rows)
     for row in rows:
         if row["name"] in ("mix_packed", "adafactor_apply", "rowabs",
                            "rowabs_sum", "proto_dist", "quantize_rows_mixed",
@@ -6269,6 +6764,12 @@ def main() -> int:
     counts.update(run_paper(torch, smi))
     print(f"paper phase took {time.time() - t0:.1f} s")
 
+    phase("round-step: the round-step microbenchmark at its defaults "
+          "(--nodes 2 4 8 --phases, then --wire)")
+    t0 = time.time()
+    counts.update(run_round_step(torch, smi))
+    print(f"round-step phase took {time.time() - t0:.1f} s")
+
     if args == ["--profile"]:
         for name in PROFILED:
             phase(f"round profile {name}: 2 rounds unprofiled, 2 profiled")
@@ -6306,6 +6807,12 @@ def main() -> int:
         row["paper_launches"] = {p: counts[p][row["name"]] for p in counts
                                  if p.startswith("paper/")
                                  and counts[p].get(row["name"])}
+        # the round-step phase's launches of the kernel by node count and
+        # in --wire (the spawned ranks' warm-up and timed rounds summed in)
+        row["round_step_launches"] = {p: counts[p][row["name"]]
+                                      for p in counts
+                                      if p.startswith("round-step/")
+                                      and counts[p].get(row["name"])}
     print(f"chip_smoke took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)

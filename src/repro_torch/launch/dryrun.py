@@ -38,15 +38,19 @@ def topology_report(arch: str, topology: str, pods, bits="16",
                     adapter_grams: bool = False,
                     adapter_frac: Optional[float] = None,
                     device=None) -> Dict[str, Any]:
-    """The ``--topology`` audit: :func:`launch.wire.measure_exchange_bytes`
-    on ``pods`` (``"R"`` or ``"RxC"``) with the gates of the module
-    docstring; raises ``AssertionError`` at the first that fails."""
+    """The ``--topology`` audit: the exchanges' bytes on ``pods`` (``"R"``
+    or ``"RxC"``) with the gates of the module docstring; raises
+    ``AssertionError`` at the first that fails.  The spec's report and
+    the references its gates need (the stateless twin of an ``+ef`` spec,
+    the dense wire of an adapter rank, the int16 wire of a narrower spec)
+    are measured on one spawn of ranks
+    (:func:`launch.wire.measure_exchange_rows`)."""
     from repro_torch.core import topology as T
     from repro_torch.launch.wire import (check_adapter_reduction,
                                          check_bits_reduction,
                                          check_ef_zero_overhead,
                                          check_topology_bytes,
-                                         measure_exchange_bytes, parse_pods)
+                                         measure_exchange_rows, parse_pods)
     from repro_torch.wirespec import WireSpec, resolve_spec
     pods, inner = parse_pods(pods)
     if adapters and inner > 1:
@@ -57,26 +61,32 @@ def topology_report(arch: str, topology: str, pods, bits="16",
         else resolve_spec(bits)
     if ef and not spec.error_feedback:
         spec = dataclasses.replace(spec, error_feedback=True)
-    kw = dict(inner=inner, device=device)
-    report = measure_exchange_bytes(arch, pods, topology, bits=spec,
-                                    adapter_rank=adapters,
-                                    adapter_grams=adapter_grams, **kw)
     adj = T.make_schedule(pods, topology, rounds=1, seed=0).adjacency_at(0)
     deg = int(adj.sum(axis=1).max())
+    regular = T.is_regular(adj)
+    wire = dict(adapter_rank=adapters, adapter_grams=adapter_grams)
+    rows = {"spec": dict(bits=spec, **wire)}
+    # error feedback must be wire-free on every graph; ppermute is
+    # checked too where the graph is regular
+    ef_exs = ("packed", "ppermute") if regular else ("packed",)
     if spec.error_feedback:
-        # error feedback must be wire-free on every graph; ppermute is
-        # checked too where the graph is regular
-        exs = ("packed", "ppermute") if T.is_regular(adj) else ("packed",)
-        report_sl = measure_exchange_bytes(arch, pods, topology,
-                                           bits=spec.stateless(),
-                                           exchanges=exs,
-                                           adapter_rank=adapters,
-                                           adapter_grams=adapter_grams, **kw)
+        rows["stateless"] = dict(bits=spec.stateless(), exchanges=ef_exs,
+                                 **wire)
+    if regular and adapters:
+        rows["dense"] = dict(bits=spec.stateless(), exchanges=("ppermute",))
+    if regular and spec.stateless() != WireSpec.from_bits(16):
+        rows["int16"] = dict(bits=16, exchanges=("ppermute",), **wire)
+    reports = dict(zip(rows, measure_exchange_rows(
+        arch, pods, topology, rows=list(rows.values()), inner=inner,
+        device=device)))
+    report = reports["spec"]
+    if spec.error_feedback:
+        report_sl = reports["stateless"]
         report["stateless_reference"] = {
             "bits": report_sl["bits"], "exchanges": report_sl["exchanges"]}
-        for ex in exs:
+        for ex in ef_exs:
             check_ef_zero_overhead(report, report_sl, exchange=ex)
-    if T.is_regular(adj):
+    if regular:
         # a regular graph takes ppermute and must pass the byte gate
         # (a recorded error fails it); a sparse one must also beat the
         # full gather by the margin its degree implies.  On the adapter
@@ -86,9 +96,7 @@ def topology_report(arch: str, topology: str, pods, bits="16",
                              gather_frac=frac,
                              exact=bool(adapters) or inner > 1)
         if adapters:
-            report_dense = measure_exchange_bytes(
-                arch, pods, topology, bits=spec.stateless(),
-                exchanges=("ppermute",), **kw)
+            report_dense = reports["dense"]
             report["dense_reference"] = {
                 "bits": report_dense["bits"],
                 "packed_pred_bytes_per_node":
@@ -100,10 +108,8 @@ def topology_report(arch: str, topology: str, pods, bits="16",
                 report, report_dense, exchange="ppermute",
                 frac=(adapter_frac if adapter_frac is not None
                       else (None if adapter_grams else 0.15)))
-        if spec.stateless() != WireSpec.from_bits(16):
-            report16 = measure_exchange_bytes(
-                arch, pods, topology, bits=16, exchanges=("ppermute",),
-                adapter_rank=adapters, adapter_grams=adapter_grams, **kw)
+        if "int16" in reports:
+            report16 = reports["int16"]
             report["int16_reference"] = {
                 "packed_pred_bytes_per_node":
                     report16["packed_pred_bytes_per_node"],

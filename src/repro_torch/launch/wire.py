@@ -16,15 +16,18 @@ counts its operand once a step, an all-gather its gathered output (the
 group's size times the operand), an all-reduce its operand; with
 ``inner`` ranks a node, a node's pod (wire) bytes are the sum over its
 ranks, and the node-group traffic is reported apart (``by_axis``).
+:func:`measure_exchange_rows` measures several wire specs on one spawn
+of ranks and can also time each exchange's round (``round_ms``).
 """
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -168,9 +171,15 @@ def _rank_inputs(job, node: int, device):
 
 
 def _rank_main(rank: int, world: int, init: str, out_dir: str, job) -> None:
-    """One spawned rank: one round of each of the job's exchanges, the
-    bytes it handed to collectives by group and kind and the kernels it
-    launched (or the error the exchange raised) to
+    """One spawned rank: for each of the job's ``rows`` (a wire spec, an
+    adapter rank, its exchanges), one round of each exchange, the bytes
+    it handed to collectives by group and kind and the kernels it
+    launched (or the error the exchange raised); then, where the job
+    asks for ``timed_rounds``, that many more rounds of each exchange but
+    the full-gather reference, each started after a ``dist.barrier()``
+    and read on the host clock after ``torch.cuda.synchronize()``
+    (``round_ms``, a list), and the kernels those rounds launched
+    (``timed_launches``).  Writes the rows' records to
     ``out_dir/rank<r>.json``."""
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     import torch
@@ -186,39 +195,62 @@ def _rank_main(rank: int, world: int, init: str, out_dir: str, job) -> None:
                             rank=rank)
     try:
         inner = job["inner"]
-        spec = WireSpec.parse(job["bits"])
         adj = T.make_schedule(job["n_nodes"], job["topology"], rounds=1,
                               seed=job["seed"]).adjacency_at(0)
-        out = {}
-        for name, full, mode in job["combos"]:
-            students, protos, counts, sizes, carry = _rank_inputs(
-                job, rank // inner, dev)
-            c = M.COLLECTIVE_BYTES
-            pod0, inner0 = dict(c.by_kind), dict(c.inner_by_kind)
-            launches0 = launch_counts()
-            try:
-                fn = M.make_profe_round(
-                    adjacency=None if full else adj, exchange=mode,
-                    spec=spec, adapter_rank=job["adapter_rank"],
-                    adapter_grams=job["adapter_grams"],
-                    ranks_per_node=inner)
-                fn(students, protos, counts, sizes, *carry)
-            except (ValueError, RuntimeError) as e:
-                out[name] = {"error": f"{type(e).__name__}: {e}"}
-                continue
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            out[name] = {
-                "pod": {k: v - pod0.get(k, 0) for k, v in c.by_kind.items()
-                        if v - pod0.get(k, 0)},
-                "inner": {k: v - inner0.get(k, 0)
-                          for k, v in c.inner_by_kind.items()
-                          if v - inner0.get(k, 0)},
-                "launches": {k: v - launches0[k]
-                             for k, v in launch_counts().items()
-                             if v - launches0[k]}}
+        rows = []
+        for row in job["rows"]:
+            rjob = dict(job, **row)
+            spec = WireSpec.parse(rjob["bits"])
+            out = {}
+            for name, full, mode in row["combos"]:
+                students, protos, counts, sizes, carry = _rank_inputs(
+                    rjob, rank // inner, dev)
+                c = M.COLLECTIVE_BYTES
+                pod0, inner0 = dict(c.by_kind), dict(c.inner_by_kind)
+                launches0 = launch_counts()
+                try:
+                    fn = M.make_profe_round(
+                        adjacency=None if full else adj, exchange=mode,
+                        spec=spec, adapter_rank=rjob["adapter_rank"],
+                        adapter_grams=rjob["adapter_grams"],
+                        ranks_per_node=inner)
+                    fn(students, protos, counts, sizes, *carry)
+                except (ValueError, RuntimeError) as e:
+                    out[name] = {"error": f"{type(e).__name__}: {e}"}
+                    continue
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                out[name] = {
+                    "pod": {k: v - pod0.get(k, 0)
+                            for k, v in c.by_kind.items()
+                            if v - pod0.get(k, 0)},
+                    "inner": {k: v - inner0.get(k, 0)
+                              for k, v in c.inner_by_kind.items()
+                              if v - inner0.get(k, 0)},
+                    "launches": {k: v - launches0[k]
+                                 for k, v in launch_counts().items()
+                                 if v - launches0[k]}}
+                if full or not job["timed_rounds"]:
+                    continue
+                times = []
+                launches0 = launch_counts()
+                for _ in range(job["timed_rounds"]):
+                    # the round replays the warm-up's inputs (the mix may
+                    # have written the plane in place: same shapes, same
+                    # work)
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    fn(students, protos, counts, sizes, *carry)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out[name]["round_ms"] = times
+                out[name]["timed_launches"] = {
+                    k: v - launches0[k] for k, v in launch_counts().items()
+                    if v - launches0[k]}
+            rows.append(out)
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
-            json.dump(out, f)
+            json.dump(rows, f)
     finally:
         dist.destroy_process_group()
 
@@ -284,13 +316,19 @@ def _exchange_entry(records, n_nodes: int, inner: int) -> Dict[str, Any]:
         _add(pod_sys, pod)
         nodes.append((sum(pod.values()), both))
     per_node, by_kind = max(nodes, key=lambda t: t[0])
-    launches: Dict[str, float] = {}
-    for r in records:
-        _add(launches, r["launches"])
+    def launches(key):
+        total: Dict[str, float] = {}
+        for r in records:
+            _add(total, r[key])
+        return {k: int(v) for k, v in total.items()}
     entry: Dict[str, Any] = {"collective_bytes_per_node": float(per_node),
                              "by_kind": by_kind,
-                             "launches": {k: int(v)
-                                          for k, v in launches.items()}}
+                             "launches": launches("launches")}
+    if "round_ms" in records[0]:
+        # a round lasts as long as its slowest rank
+        entry["round_ms"] = round(statistics.median(
+            max(ts) for ts in zip(*(r["round_ms"] for r in records))), 3)
+        entry["timed_launches"] = launches("timed_launches")
     if inner > 1:
         entry["by_axis"] = {ax: kinds for ax, kinds in
                             (("pod", pod_sys), (INNER_AXIS, inner_sys))
@@ -337,6 +375,65 @@ def exchange_predictions(arch: str, n_nodes: int, topology: str = "ring",
     }
 
 
+def measure_exchange_rows(arch: str, n_nodes: int, topology: str = "ring",
+                          rows=({"bits": 16},), seed: int = 0,
+                          inner: int = 1,
+                          timed_rounds: int = 0,
+                          device=None) -> List[Dict[str, Any]]:
+    """:func:`measure_exchange_bytes` for each of ``rows`` on ONE spawn of
+    ``n_nodes · inner`` gloo ranks: each row a dict with ``bits`` (an
+    int, a :class:`WireSpec` or a spec string) and optionally
+    ``adapter_rank``, ``adapter_grams`` and ``exchanges`` (by default
+    ``gather``, ``packed`` and ``ppermute``).  Returns one report a row,
+    in order, each as :func:`measure_exchange_bytes` gives it.  With
+    ``timed_rounds`` > 0 each exchange's entry (not the full-gather
+    reference's) also has ``round_ms``, the median of ``timed_rounds``
+    rounds after the warm-up, each as long as its slowest rank, and
+    ``timed_launches``, the kernels those rounds launched on every rank;
+    the report then also has ``full_gather_launches``, the reference
+    round's."""
+    from repro_torch.core.profe import resolve_device
+
+    dev = resolve_device(device)
+    rows = [dict(dict(adapter_rank=0, adapter_grams=False,
+                      exchanges=("gather", "packed", "ppermute")), **row,
+                 spec=WireSpec.parse(row["bits"])
+                 if isinstance(row["bits"], str)
+                 else resolve_spec(row["bits"])) for row in rows]
+    outs = [{
+        "arch": arch, "topology": topology, "n_nodes": n_nodes,
+        "inner": inner, "bits": row["spec"].describe(),
+        "adapter_rank": row["adapter_rank"],
+        "adapter_grams": row["adapter_grams"], "device": str(dev),
+        **exchange_predictions(arch, n_nodes, topology, row["spec"],
+                               seed=seed, inner=inner,
+                               adapter_rank=row["adapter_rank"],
+                               adapter_grams=row["adapter_grams"]),
+        "exchanges": {},
+    } for row in rows]
+    job = dict(arch=arch, n_nodes=n_nodes, topology=topology, seed=seed,
+               inner=inner, timed_rounds=timed_rounds, device=str(dev),
+               rows=[dict(bits=row["spec"].arg(),
+                          adapter_rank=row["adapter_rank"],
+                          adapter_grams=row["adapter_grams"],
+                          combos=[(ex, False, ex) for ex in row["exchanges"]]
+                          + [("full-gather", True, "packed")])
+                     for row in rows])
+    records = spawn_ranks(job, n_nodes * inner)
+    for i, (out, row) in enumerate(zip(outs, job["rows"])):
+        for name, _, _ in row["combos"]:
+            entry = _exchange_entry([r[i][name] for r in records], n_nodes,
+                                    inner)
+            if name == "full-gather":
+                out["full_gather_bytes_per_node"] = \
+                    entry.get("collective_bytes_per_node")
+                if timed_rounds:
+                    out["full_gather_launches"] = entry.get("launches", {})
+            else:
+                out["exchanges"][name] = entry
+    return outs
+
+
 def measure_exchange_bytes(arch: str, n_nodes: int, topology: str = "ring",
                            bits=16,
                            exchanges=("gather", "packed", "ppermute"),
@@ -361,37 +458,12 @@ def measure_exchange_bytes(arch: str, n_nodes: int, topology: str = "ring",
     round summed over every rank (none off the card); at ``inner`` > 1
     the entry also has ``by_axis`` (system totals on the pod and the node
     groups) and ``pod_by_kind_per_node``.  An exchange that does not apply records
-    ``{"error": ...}``."""
-    from repro_torch.core.profe import resolve_device
-
-    dev = resolve_device(device)
-    spec = WireSpec.parse(bits) if isinstance(bits, str) \
-        else resolve_spec(bits)
-    out: Dict[str, Any] = {
-        "arch": arch, "topology": topology, "n_nodes": n_nodes,
-        "inner": inner, "bits": spec.describe(),
-        "adapter_rank": adapter_rank, "adapter_grams": adapter_grams,
-        "device": str(dev),
-        **exchange_predictions(arch, n_nodes, topology, spec, seed=seed,
-                               inner=inner, adapter_rank=adapter_rank,
-                               adapter_grams=adapter_grams),
-        "exchanges": {},
-    }
-    combos = [(ex, False, ex) for ex in exchanges] + \
-        [("full-gather", True, "packed")]
-    job = dict(arch=arch, n_nodes=n_nodes, topology=topology,
-               bits=spec.arg(), combos=combos, seed=seed, inner=inner,
-               adapter_rank=adapter_rank, adapter_grams=adapter_grams,
-               device=str(dev))
-    records = spawn_ranks(job, n_nodes * inner)
-    for name, _, _ in combos:
-        entry = _exchange_entry([r[name] for r in records], n_nodes, inner)
-        if name == "full-gather":
-            out["full_gather_bytes_per_node"] = \
-                entry.get("collective_bytes_per_node")
-        else:
-            out["exchanges"][name] = entry
-    return out
+    ``{"error": ...}``.  One row of :func:`measure_exchange_rows`."""
+    return measure_exchange_rows(
+        arch, n_nodes, topology,
+        rows=[dict(bits=bits, adapter_rank=adapter_rank,
+                   adapter_grams=adapter_grams, exchanges=exchanges)],
+        seed=seed, inner=inner, device=device)[0]
 
 
 # -- the gates --------------------------------------------------------------------

@@ -237,13 +237,13 @@ def test_check_bits_ef_adapter_like_jax():
 def test_topology_report_fails_where_jax_fails(monkeypatch):
     """At one rank a node a 4-node ring's permute moves half the full
     gather, not less: both packages' 0.5x gate fails, alike.  The port's
-    report is the cached measurement (``measure_exchange_bytes``
+    report is the cached measurement (``measure_exchange_rows``
     patched)."""
     from repro.launch.dryrun import topology_report as jax_topology
     from repro_torch.launch import dryrun as TD
     from repro_torch.launch import wire as TW
-    monkeypatch.setattr(TW, "measure_exchange_bytes",
-                        lambda *a, **k: copy.deepcopy(port_report("16")))
+    monkeypatch.setattr(TW, "measure_exchange_rows",
+                        lambda *a, **k: [copy.deepcopy(port_report("16"))])
     with pytest.raises(AssertionError) as got:
         TD.topology_report(ARCH, TOPO, "4", bits="16", device="cpu")
     with pytest.raises(AssertionError) as want:

@@ -794,6 +794,9 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py"]
+    # the port's user scripts
+    files += sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):
