@@ -21,9 +21,10 @@ and kernel launches); a row whose report there passed on the same
 device and the same sources (``source_digest``: ``src/repro_torch`` and
 this script) is reused unless ``--force``.
 
-The arch × shape compile sweep of ``dryrun_all.py`` (XLA's memory and
-cost analyses of TPU meshes) is decided, not ported.  Runs on the card
-unless ``--device cpu`` is given (and raises with no card).
+The arch × shape compile sweep of ``dryrun_all.py`` is
+``benchmarks/torch_dryrun_all.py`` (whose ``--topo`` runs this suite).
+Runs on the card unless ``--device cpu`` is given (and raises with no
+card).
 """
 from __future__ import annotations
 
@@ -77,13 +78,13 @@ def compared(report: dict, want: dict) -> list:
     return rows
 
 
-def source_digest() -> str:
-    """sha256 of the port's sources and this script: a report measured
-    with other code is not reused."""
+def source_digest(script=None) -> str:
+    """sha256 of the port's sources and ``script`` (this one by default):
+    a report measured with other code is not reused."""
     h = hashlib.sha256()
     files = sorted(p for p in (ROOT / "src" / "repro_torch").rglob("*")
                    if p.suffix in (".py", ".cu", ".h", ".cuh"))
-    for p in files + [Path(__file__).resolve()]:
+    for p in files + [Path(script or __file__).resolve()]:
         h.update(str(p.relative_to(ROOT)).encode())
         h.update(p.read_bytes())
     return h.hexdigest()

@@ -264,6 +264,20 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     full-gather bytes the JAX package's (``ROUND_STEP_WIRE``), launches
     as predicted (the spawned ranks' warm-up and timed rounds), every
     time finite and above 0; a line ``round_step {...}``;
+14g. ``roofline``, the compile-report mode (see :func:`run_roofline`):
+    ``launch/dryrun.lower_combo`` for the 10 assigned archs × 4 shapes ×
+    ``pod1`` / ``pod2``, every combo ``ok`` (its trip-count fit checked
+    against a held-out trace), a line each (the dominant term, ``6ND``
+    over the counted FLOPs, whether it fits the card); then the same
+    op counter (``launch/op_analysis``) over programs the earlier phases
+    timed, at their own shapes: yi-6b's batch-4 decode step (14a), the
+    three full-width train steps (14b) and yi-6b's microbatched program
+    at both of its runs (14c), each count's compute and memory terms at
+    the card's published peaks beside the measured ms: a term more than
+    5 % above the measured time fails (the count would be wrong), and
+    the count's ``peak_bytes_estimate`` is printed beside
+    ``torch.cuda.max_memory_allocated()``; a line ``roofline {...}``
+    (each combo's report is written to ``build/roofline/``);
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -5373,6 +5387,11 @@ def serve_inputs(torch, cfg, batch: int, seq: int, seed: int,
     return out
 
 
+# the lines of the runs the roofline phase (14g) counts, filled by the
+# serve (14a), train (14b) and programs (14c) phases: name -> line
+TIMED: dict = {}
+
+
 def sync(torch, device: str) -> None:
     if device == "cuda":
         torch.cuda.synchronize()
@@ -5480,6 +5499,7 @@ def run_serve(torch, smi: str, device: str = "cuda",
                 "bf16_gap": gap / ymax, "fp32_gap": gap32 / ymax32,
                 "device": device, "card": smi}
         print("serve " + json.dumps(line), flush=True)
+        TIMED[f"serve/{arch}"] = line
         expect(gap <= SERVE_BF16_TOL * ymax,
                f"{arch}: bf16 decode/forward gap {gap / ymax:.3e}")
         expect(gap32 <= SERVE_FP32_TOL * ymax32,
@@ -5749,6 +5769,8 @@ def run_programs(torch, smi: str, device: str = "cuda", *,
                      / (PROGRAM_STEPS - 1),
                      "peak_bytes": torch.cuda.max_memory_allocated(dev)
                      if cuda else None})
+        TIMED[f"programs/yi-6b/{b}x{m}"] = dict(
+            runs[-1], layers=cfg.num_layers, smoke=full_smoke)
         del state, batches, step
     print("programs " + json.dumps({
         "arch": "yi-6b", "smoke": full_smoke, "layers": PROGRAM_LAYERS,
@@ -5843,6 +5865,7 @@ def run_train(torch, smi: str, device: str = "cuda",
                 "peak_bytes": out["peak_bytes"], "device": device,
                 "card": smi}
         print("train " + json.dumps(line), flush=True)
+        TIMED[f"train/{arch}"] = dict(line, smoke=full_smoke)
         del out, state
 
     counts = {}
@@ -6578,6 +6601,138 @@ def run_round_step(torch, smi: str) -> dict:
     return counts
 
 
+# the roofline phase (run_roofline): the compile-report sweep, then the
+# op count of each timed run
+ROOFLINE_SLACK = 1.05     # a term may exceed the measured time by 5 %
+ROOFLINE_DIR = "build/roofline"   # each combo's whole report
+ROOFLINE_COUNTED = ("serve/yi-6b", "train/mamba2-130m", "train/whisper-small",
+                    "train/yi-6b", "programs/yi-6b/4x1", "programs/yi-6b/16x4")
+
+
+def timed_program(torch, name: str, line: dict):
+    """The program of one timed run (``TIMED[name]``) at its own shapes on
+    ``meta``: ``(fn, args)``.  ``serve/<arch>``: one decode step of
+    ``launch/serve`` (a cache of prompt + tokens slots); ``train/<arch>``:
+    ``core/profe.make_profe_step`` on a one-node stack, the teacher on;
+    ``programs/yi-6b/<b>x<m>``: ``make_profe_train_fn`` with m
+    microbatches."""
+    from repro_torch.config import FederationConfig, TrainConfig, get_config
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.core.profe import (NodeState, make_profe_step,
+                                        stack_states)
+    from repro_torch.launch import programs as PR
+    from repro_torch.models import derive_student, init_cache, init_params
+    from repro_torch.optim import make_optimizer
+    kind, arch = name.split("/")[:2]
+    cfg = get_config(arch)
+    if line.get("smoke"):
+        cfg = cfg.smoke()
+    if line.get("layers") and line["layers"] != cfg.num_layers:
+        cfg = cfg.replace(num_layers=line["layers"])
+    gen = torch.Generator().manual_seed(0)
+    if kind == "serve":
+        b, total = line["batch"], line["prompt"] + line["tokens"]
+        params = init_params(cfg, gen, device="meta")
+        cache = init_cache(cfg, b, total, torch.bfloat16, "meta")
+        token = torch.empty((b, 1), dtype=torch.int64, device="meta")
+        fn = PR.make_serve_fn(cfg, ShapeConfig("serve", total, b, "decode"))
+        return torch.no_grad()(fn), (params, token, total - 2, cache)
+    student_cfg = derive_student(cfg)
+    if kind == "train":
+        b, seq = line["batch"], line["seq"]
+        opt = make_optimizer(cfg.optimizer, LR)
+        teacher = init_params(cfg, gen, device="meta")
+        student = init_params(student_cfg, gen, device="meta")
+        zeros = lambda *shape, dt=torch.float32: torch.zeros(
+            shape, dtype=dt, device="meta")
+        state = stack_states([NodeState(
+            student=student, teacher=teacher, opt_s=opt.init(student),
+            opt_t=opt.init(teacher),
+            global_protos=zeros(cfg.n_proto_classes, student_cfg.proto_dim),
+            proto_mask=zeros(cfg.n_proto_classes),
+            round_idx=zeros(dt=torch.int32))])
+        batch = {k: v[None] for k, v in PR.batch_struct(
+            cfg, ShapeConfig("train", seq, b, "train")).items()}
+        step = make_profe_step(cfg, student_cfg, FederationConfig(), opt,
+                               opt, remat=True)
+        return (lambda st, bt: step(st, bt, True)), (state, batch)
+    b, m = line["batch"], line["microbatches"]
+    train = TrainConfig(learning_rate=LR, optimizer=cfg.optimizer,
+                        microbatches=m)
+    step, _ = PR.make_profe_train_fn(cfg, student_cfg, FederationConfig(),
+                                     train)
+    state = PR.node_state_struct(cfg, student_cfg, train,
+                                 cfg.n_proto_classes)
+    return step, (state, PR.batch_struct(
+        cfg, ShapeConfig("train", line["seq"], b, "train")))
+
+
+def count_against_card(torch, name: str, line: dict) -> dict:
+    """One timed run's op count (``launch/op_analysis.count_ops`` of
+    :func:`timed_program`) beside its measured ms: the compute and memory
+    terms at the card's published peaks, the share (the larger term over
+    the measured time) and ``peak_bytes_estimate`` beside the run's
+    ``torch.cuda.max_memory_allocated()``."""
+    from repro_torch.launch.op_analysis import count_ops
+    from repro_torch.launch.roofline import (HBM_BW, compute_seconds,
+                                             memory_analysis)
+    fn, args = timed_program(torch, name, line)
+    t0 = time.time()
+    c = count_ops(fn, *args)
+    ms = line["step_ms"]
+    terms = {"compute_ms": compute_seconds(c.flops) * 1e3,
+             "memory_ms": c.bytes / HBM_BW * 1e3}
+    mem = memory_analysis(c)
+    return {"run": name, "flops_by_dtype": dict(c.flops),
+            "bytes": c.bytes, **terms, "measured_ms": ms,
+            "share": max(terms.values()) / ms,
+            "peak_bytes_estimate": mem["peak_bytes_estimate"],
+            "max_memory_allocated": line.get("peak_bytes",
+                                             line.get("peak_bytes_serve")),
+            "count_s": time.time() - t0}
+
+
+def run_roofline(torch, smi: str, counted=ROOFLINE_COUNTED, timed=None,
+                 out_dir: str = ROOFLINE_DIR, **sweep) -> dict:
+    """Phase 14g (see the module's docstring): the sweep is
+    ``benchmarks/torch_dryrun_all.run`` over its archs, shapes and
+    meshes (``sweep`` may narrow them), a line a combo, each report in
+    ``out_dir``; it fails after every combo has run if any is not
+    ``ok``.  Returns the ``roofline {...}`` line."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_dryrun_all
+    timed = TIMED if timed is None else timed
+    t0 = time.time()
+    res = torch_dryrun_all.run(out_dir=out_dir, force=True, **sweep)
+    failed = [f"{r['arch']} {r['shape']} {r['mesh']}: {r.get('error')}"
+              for r in res["reports"] if r.get("status") != "ok"]
+    combos = [r for r in res["reports"] if r.get("status") == "ok"]
+    sweep_s = time.time() - t0
+    expect(not failed, f"roofline: {len(failed)} combos failed: {failed}")
+    checks = []
+    for name in counted:
+        expect(name in timed, f"roofline: no timed run {name}")
+        row = count_against_card(torch, name, timed[name])
+        checks.append(row)
+        print(f"roofline count {name}: FLOPs {row['flops_by_dtype']}, "
+              f"bytes {row['bytes']:.6g}, compute {row['compute_ms']:.4f} "
+              f"ms, memory {row['memory_ms']:.4f} ms, measured "
+              f"{row['measured_ms']:.4f} ms, share {row['share']:.4f}; peak "
+              f"estimate {row['peak_bytes_estimate']} B, max allocated "
+              f"{row['max_memory_allocated']} B", flush=True)
+        for term in ("compute_ms", "memory_ms"):
+            expect(row[term] <= ROOFLINE_SLACK * row["measured_ms"],
+                   f"roofline {name}: {term} {row[term]} above the measured "
+                   f"{row['measured_ms']} ms: the count is wrong")
+    line = {"combos": len(combos), "sweep_s": sweep_s, "counted": checks,
+            "reports": out_dir, "seconds": time.time() - t0,
+            "card": smi}
+    print("roofline " + json.dumps(line, default=str), flush=True)
+    return dict(line, combos=[{k: r[k] for k in ("arch", "shape", "mesh")}
+                              for r in combos])
+
+
 def main() -> int:
     t_start = time.time()
     args = sys.argv[1:]
@@ -6769,6 +6924,13 @@ def main() -> int:
     t0 = time.time()
     counts.update(run_round_step(torch, smi))
     print(f"round-step phase took {time.time() - t0:.1f} s")
+
+    phase("roofline: the compile report of 10 archs x 4 shapes x pod1 / "
+          "pod2 (launch/dryrun.py --shape), then the op count of the runs "
+          "phases 14a-14c timed against their measured ms")
+    t0 = time.time()
+    run_roofline(torch, smi)
+    print(f"roofline phase took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         for name in PROFILED:

@@ -1,4 +1,31 @@
-"""The wire audit: physical against logical gossip bytes per topology.
+"""The compile report and the wire audit.
+
+**The compile report** (``--shape``): one node's program for an
+(arch, input shape), traced on the ``meta`` device (nothing runs, as the
+JAX package's mode lowers without running) and priced at the H100's
+published peaks (:mod:`repro_torch.launch.roofline`)::
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \\
+        --shape train_4k [--mesh pod1|pod2] [--microbatches M] \\
+        [--no-federate] [--json PATH]
+
+prints the program's FLOPs (by dtype) and bytes per device, the peak
+memory it needs, the compute and memory terms and which one dominates,
+``6ND`` against the counted FLOPs and whether it fits the card.  The
+counts come from :mod:`repro_torch.launch.op_analysis` (an op-level
+trace of the torch program in place of XLA's HLO): each combo is traced
+at small trip counts (periods of the stacks, causal self-attention
+blocks, microbatches), fitted exactly and checked against one more
+trace.  ``pod1`` is one node on one card; ``pod2`` is two nodes, one
+card each: its per-device numbers are one node's, and on ``train_4k``
+it adds ``federate``, ProFe's 16-bit gossip bytes (packed, and the
+per-leaf ``gather``) against FedAvg's fp32 teacher round, at full
+width, from ``launch/wire``'s predictions.  ``--layout tp|fsdp`` and
+``--no-fsdp`` are refused (exit 2): the port shards no model within a
+node, and the report records ``layout: "one card"``.  Runs on the CPU;
+no card is needed.
+
+**The wire audit** (``--topology``)::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mnist-cnn \\
         --topology ring --pods 4x2 [--bits 4/16] [--ef] [--adapters 8] \\
@@ -15,22 +42,312 @@ C > 1 (the row-sharded permute) or ``--adapters`` the pod permute bytes
 equal to the prediction exactly.  Sub-int16 specs are also held to the
 int16 round's code-buffer bytes by the spec's ratio, ``+ef`` to its
 stateless twin's bytes (zero overhead), ``--adapters`` to below
-``--adapter-frac`` of the dense round.  Prints the report as JSON and
-exits 0 only when every gate passes.
+``--adapter-frac`` of the dense round.  It runs on the card unless
+``--device cpu`` is given (and raises with no card).
 
-Runs on the card unless ``--device cpu`` is given (and raises with no
-card).  The JAX package's compile reports of this launcher's other mode
-(``--shape``: XLA's memory and cost analyses of TPU meshes) are not
-ported; without ``--topology`` it exits 2.
+Both print the report as JSON and exit 0 only when it is ``ok``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import sys
 import traceback
 from typing import Any, Dict, Optional
+
+MESHES = {"pod1": 1, "pod2": 2}     # nodes, one card each
+# causal self-attention is traced at its own blocks up to this many
+# blocks a side; beyond, its blocks are a fitted trip count
+J_DIRECT = 4
+J_CANDIDATES = (1, 2, 4)      # query blocks a side in the fit's traces
+REP_CANDIDATES = (2, 3, 4, 5)  # train samples 2-4
+
+
+def resolve_microbatches(cfg, shape, microbatches: int = 0) -> int:
+    """The train program's microbatches as the JAX package's
+    ``lower_combo`` resolves them with ``layout="auto"``: the whole batch
+    in one microbatch (its ``fsdp``) for a training step of an arch under
+    1e10 parameters with a vocabulary of at most 100k, else 16 (its
+    ``tp``), unless ``microbatches`` is given."""
+    from repro_torch.launch.roofline import approx_params
+    if shape.kind != "train":
+        return 1
+    if microbatches:
+        return microbatches
+    fsdp = approx_params(cfg) < 1e10 and cfg.vocab_size <= 100_000
+    return 1 if fsdp else 16
+
+
+def _cut(cfg, reps: int, encoder: Optional[int] = None):
+    """``cfg`` with ``reps`` periods of its stack (its remainder kept) and,
+    for the audio family, ``encoder`` encoder layers."""
+    from repro_torch.models.transformer import block_sequence, split_periods
+    period, _, rem = split_periods(block_sequence(cfg))
+    kw = {"num_layers": len(period) * reps + len(rem)}
+    if encoder is not None:
+        kw["encoder_layers"] = encoder
+    out = cfg.replace(**kw)
+    if split_periods(block_sequence(out)) != (period, reps, rem):
+        raise ValueError(f"{cfg.name}: {reps} periods do not keep the "
+                         f"block pattern")
+    return out
+
+
+def _reps(cfg) -> int:
+    from repro_torch.models.transformer import block_sequence, split_periods
+    return split_periods(block_sequence(cfg))[1]
+
+
+def _causal_blocks(cfg, shape) -> Optional[int]:
+    """Causal self-attention's blocks a side at ``shape`` (None where the
+    program has none: decode, an attention-free stack)."""
+    from repro_torch.models.transformer import block_sequence
+    if shape.kind == "decode" or not (
+            {"attn", "lattn", "cross"} & set(block_sequence(cfg))):
+        return None
+    if cfg.q_block != cfg.kv_block:
+        raise ValueError(f"{cfg.name}: q_block {cfg.q_block} != kv_block "
+                         f"{cfg.kv_block}")
+    return -(-shape.seq_len // cfg.q_block)
+
+
+def _stack(point: Dict[str, int], var: str, real: int) -> int:
+    """A stack's periods in a trace: the point's, where the program has
+    two or more (one period is its own regime and stays as it is)."""
+    return point[var] if real >= REP_CANDIDATES[0] else real
+
+
+def traced_microbatches(m: int) -> int:
+    """The microbatches a trace runs: two of the program's where it has
+    more than one (every microbatch runs the same ops, and a count scales
+    one microbatch's work by the real number: ``op_analysis.microbatch``),
+    else its one."""
+    return min(m, 2)
+
+
+def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
+    """``(fn, args, arg_parts)`` of the combo's program at the trip counts
+    ``point`` (``X`` the stacks' periods, ``E`` whisper's encoder
+    layers, ``j`` the decoder's attention blocks: ``q_block`` and
+    ``kv_block`` of S / j, so causal self-attention runs j blocks a side
+    and cross-attention j query blocks against the memory's own) on
+    ``meta``; a training step runs :func:`traced_microbatches`.  The
+    costs are exact polynomials in ``j``, the results those of any
+    blocking."""
+    import torch
+
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.launch import programs as PR
+    from repro_torch.launch.op_analysis import MICRO
+    from repro_torch.models import init_params
+    audio = cfg.family == "audio"
+
+    def cut(c):
+        c = _cut(c, _stack(point, "X", _reps(c)),
+                 _stack(point, "E", c.encoder_layers)
+                 if audio and "E" in point else None)
+        if "j" in point:
+            block = shape.seq_len // point["j"]
+            c = c.replace(q_block=block, kv_block=block)
+        return c
+    if shape.kind == "train":
+        t, s = cut(cfg), cut(student_cfg)
+        m = traced_microbatches(train.microbatches)
+        tr = dataclasses.replace(train, microbatches=m)
+        step, _ = PR.make_profe_train_fn(t, s, fed, tr)
+        state = PR.node_state_struct(t, s, tr, cfg.n_proto_classes)
+        per = shape.global_batch // train.microbatches
+        batch = PR.batch_struct(cfg, ShapeConfig(
+            shape.name, shape.seq_len, per * m, "train"))
+        return step, (state, batch), {
+            "teacher": (state.teacher, state.opt_t),
+            "student": (state.student, state.opt_s),
+            MICRO: batch}
+    c = cut(cfg)
+    params = init_params(c, torch.Generator().manual_seed(0),
+                         device="meta")
+    if shape.kind == "prefill":
+        fn = PR.make_prefill_fn(c)
+        return torch.no_grad()(fn), (params, PR.batch_struct(c, shape)), {}
+    d = PR.decode_struct(c, shape)
+    fn = PR.make_serve_fn(c, shape)
+    # the last position of a full cache
+    index = PR.decode_cache_len(c, shape) - 1
+    args = (params, d["token"], index, d["cache"])
+    if "memory" in d:
+        args += (d["memory"],)
+    return torch.no_grad()(fn), args, {}
+
+
+def count_plan(cfg, student_cfg, shape):
+    """The trip-count fit of a combo: ``(candidates, monomials,
+    peak_monomials, real, part_vars)``.  Variables: ``X`` (the periods
+    of every stack: the model's, or in training the teacher's and the
+    student's together, told apart by part), ``E`` (whisper's encoder
+    layers, likewise) and ``j`` (attention's query blocks, where the
+    program's causal self-attention has more than :data:`J_DIRECT` a
+    side).  Counts are linear in ``X`` and ``E`` (quadratic in training,
+    where every period's slice of a stacked parameter gets a dense
+    gradient of the whole stack) and quadratic in ``j``; every stack is
+    traced at two periods or more (one period is its own regime).  Peaks
+    are fitted linear in each count, and in ``1/j`` and ``1/j²`` (the
+    attention's temporaries scale with its blocks)."""
+    audio = cfg.family == "audio"
+    j_real = _causal_blocks(cfg, shape)
+    fit_j = j_real is not None and j_real > J_DIRECT
+    if fit_j and shape.seq_len % max(J_CANDIDATES):
+        raise ValueError(f"sequence {shape.seq_len} is not a multiple of "
+                         f"{max(J_CANDIDATES)}")
+    train = shape.kind == "train"
+    models = {"teacher": cfg, "student": student_cfg} if train \
+        else {"": cfg}
+    enc = audio and shape.kind != "decode"
+    real = {p: dict(X=_reps(c), **({"E": c.encoder_layers} if enc else {}))
+            for p, c in models.items()}
+    fixed = any(v < REP_CANDIDATES[0] for r in real.values()
+                for v in r.values())
+    variables = ["X"] + (["E"] if enc else [])
+    cand: Dict[str, tuple] = {v: REP_CANDIDATES for v in variables}
+    monos = [{}]
+    for v in variables:
+        monos += [{v: 1}] + ([{v: 2}] if train else [])
+    peak = [{}] + [{v: 1} for v in variables]
+    if fit_j:
+        cand["j"] = J_CANDIDATES
+        monos += [{"X": 1, "j": d} for d in (1, 2)]
+        if fixed:
+            monos += [{"j": d} for d in (1, 2)]
+        peak += [{"j": -1}, {"j": -2}]
+        for r in real.values():
+            r["j"] = j_real
+    if train:
+        real[""] = dict(real["teacher"])
+    part_vars = {"": ("j",)} if train else None
+    return cand, monos, peak, real, part_vars
+
+
+def count_combo(cfg, student_cfg, shape, fed, train):
+    """One node's counts of the combo at its real trip counts, by the
+    exact fit of :func:`count_plan` (:func:`op_analysis.fit_counts`)."""
+    from fractions import Fraction
+
+    from repro_torch.launch.op_analysis import (MICRO, PARTS, count_ops,
+                                                design, fit_counts)
+    cand, monos, peak, real, part_vars = count_plan(cfg, student_cfg, shape)
+
+    def cost(p):
+        return (p["X"] + p.get("E", 0)) * (1 + 0.05 * p.get("j", 1) ** 2)
+
+    # the held-out trace takes the periods beyond the samples where the
+    # counts are linear in them (cheap) or nothing else varies; in
+    # training with attention blocks fitted, the samples span three
+    # period counts and the held-out point checks the cross terms
+    samples, held = design(cand, monos, cost, beyond=(
+        () if shape.kind == "train" and "j" in cand else ("X", "E")))
+
+    def trace(point):
+        fn, args, parts = _program(cfg, student_cfg, shape, fed, train,
+                                   point)
+        c = count_ops(fn, *args, arg_parts=parts)
+        if shape.kind == "train" and not set(PARTS) <= {
+                p.replace(MICRO, "") for p in c.parts}:
+            raise ValueError(f"the train program's spans {PARTS} were not "
+                             f"seen by the count (parts {sorted(c.parts)})")
+        return c
+    m = train.microbatches if shape.kind == "train" else 1
+    return fit_counts(trace, monos, samples, held, real,
+                      peak_monomials=peak, part_vars=part_vars,
+                      microbatches=Fraction(m, traced_microbatches(m)))
+
+
+@functools.lru_cache(maxsize=None)
+def _counted(arch: str, shape_name: str, microbatches: int):
+    """:func:`count_combo` of one node's program, once a process: the
+    meshes share it (``pod2``'s per-device numbers are one node's)."""
+    from repro_torch.config import (FederationConfig, TrainConfig,
+                                    get_config, get_shape)
+    from repro_torch.models import derive_student
+    cfg = get_config(arch)
+    train = TrainConfig(optimizer=cfg.optimizer, remat=True,
+                        microbatches=microbatches)
+    return count_combo(cfg, derive_student(cfg), get_shape(shape_name),
+                       FederationConfig(), train)
+
+
+def fedavg_round_bytes(teacher_struct, n_nodes: int) -> int:
+    """The bytes a node hands gloo in FedAvg's round on a full graph of
+    ``n_nodes`` as ``make_fedavg_round`` runs it (``exchange="auto"``
+    without an adjacency: one all-gather of the packed fp32 teacher):
+    its packed fp32 copy to each neighbour."""
+    from repro_torch.core.comm import packed_copy_bytes
+    return (n_nodes - 1) * int(packed_copy_bytes({"model": teacher_struct},
+                                                 None))
+
+
+def federate_report(arch: str, n_nodes: int = 2) -> Dict[str, Any]:
+    """``pod2``'s gossip round at full width, per node on a full graph of
+    ``n_nodes``: ProFe's packed 16-bit exchange and its per-leaf
+    ``gather`` (``launch/wire.exchange_predictions``), FedAvg's fp32
+    teacher round (:func:`fedavg_round_bytes`), and
+    ``wire_reduction_vs_fedavg``."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.launch.wire import exchange_predictions
+    from repro_torch.models import init_params
+    from repro_torch.tree import ShapeDtypeStruct, tree_map
+    pred = exchange_predictions(arch, n_nodes, "full", bits=16, full=True)
+    teacher = init_params(get_config(arch), torch.Generator().manual_seed(0),
+                          device="meta")
+    fedavg = fedavg_round_bytes(tree_map(
+        lambda x: ShapeDtypeStruct(tuple(x.shape), x.dtype), teacher),
+        n_nodes)
+
+    def entry(total):
+        return {"total": total, "by_kind": {"all-gather": total}}
+    out = {"nodes": n_nodes, "topology": "full",
+           "profe_collective_bytes": entry(pred["packed_pred_bytes_per_node"]),
+           "profe_collective_bytes_gather": entry(
+               pred["logical_bytes_per_node"]),
+           "fedavg_collective_bytes": entry(fedavg)}
+    pb = out["profe_collective_bytes"]["total"]
+    out["wire_reduction_vs_fedavg"] = 1.0 - pb / fedavg if fedavg else None
+    return out
+
+
+def lower_combo(arch: str, shape_name: str, mesh_kind: str = "pod1", *,
+                include_federate: bool = True, microbatches: int = 0,
+                smi: Optional[str] = None) -> Dict[str, Any]:
+    """The compile report of one (arch, shape, mesh) (module docstring);
+    the microbatches by :func:`resolve_microbatches`.  ``smi`` is the
+    card's ``nvidia-smi`` name and power limit to carry (read here where
+    a card is present)."""
+    import time
+
+    from repro_torch.config import get_config, get_shape
+    from repro_torch.launch.roofline import card, roofline_report
+    if mesh_kind not in MESHES:
+        raise ValueError(f"mesh must be one of {sorted(MESHES)}")
+    t0 = time.time()
+    cfg, shape = get_config(arch), get_shape(shape_name)
+    m = resolve_microbatches(cfg, shape, microbatches)
+    fit = _counted(arch, shape_name, m)
+    report: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind,
+        "n_devices": MESHES[mesh_kind], "layout": "one card",
+        "microbatches": m}
+    report.update(roofline_report(cfg, shape, fit.count,
+                                  chips=MESHES[mesh_kind],
+                                  smi=smi if smi is not None else card()))
+    report["trip_count_fit"] = fit.as_dict()
+    report["by_op"] = {k: v for k, v in sorted(
+        fit.count.by_op.items(), key=lambda kv: -kv[1].get("bytes", 0))}
+    if mesh_kind == "pod2" and include_federate and shape.kind == "train":
+        report["federate"] = federate_report(arch, MESHES[mesh_kind])
+    report["count_wall_s"] = time.time() - t0
+    return report
 
 
 def topology_report(arch: str, topology: str, pods, bits="16",
@@ -121,8 +438,20 @@ def topology_report(arch: str, topology: str, pods, bits="16",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.dryrun",
-        description="wire audit: physical vs logical gossip bytes")
+        description="compile report (--shape) or wire audit (--topology)")
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default=None,
+                    help="train_4k | prefill_32k | decode_32k | long_500k: "
+                         "the compile report")
+    ap.add_argument("--mesh", default="pod1", choices=sorted(MESHES),
+                    help="pod1: one node on one card; pod2: two nodes, "
+                         "one card each (adds federate on train_4k)")
+    ap.add_argument("--microbatches", type=int, default=0)
+    ap.add_argument("--no-federate", action="store_true")
+    ap.add_argument("--layout", default=None,
+                    help="refused: the port shards no model within a node")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="refused: the port shards no model within a node")
     ap.add_argument("--json", default=None, help="write report JSON here")
     ap.add_argument("--topology", default=None,
                     help="gossip graph spec: one round of each exchange, "
@@ -147,27 +476,44 @@ def main(argv=None) -> int:
                          "(default 0.15; recorded only with "
                          "--adapter-grams unless set)")
     ap.add_argument("--device", default=None,
-                    help="'cpu' to run off the card (default: cuda)")
+                    help="--topology: 'cpu' to run off the card "
+                         "(default: cuda)")
     args = ap.parse_args(argv)
-    if args.topology is None:
-        print("repro_torch.launch.dryrun: only the --topology audit is "
-              "ported; the JAX package's XLA compile reports (--shape) "
-              "are not (ROADMAP.md)", file=sys.stderr)
+    if args.layout is not None or args.no_fsdp:
+        print("repro_torch.launch.dryrun: --layout and --no-fsdp are "
+              "refused: the port shards no model within a node (one card "
+              "a node)", file=sys.stderr)
         return 2
-    from repro_torch.core.profe import resolve_device
-    device = resolve_device(args.device)        # no card: raises
-    try:
-        report = topology_report(args.arch, args.topology, args.pods,
-                                 bits=args.bits, ef=args.ef,
-                                 adapters=args.adapters,
-                                 adapter_grams=args.adapter_grams,
-                                 adapter_frac=args.adapter_frac,
-                                 device=str(device))
-        report["status"] = "ok"
-    except Exception as e:          # the report carries the failed gate
-        report = {"arch": args.arch, "topology": args.topology,
-                  "status": "error", "error": f"{type(e).__name__}: {e}",
-                  "traceback": traceback.format_exc()}
+    if args.topology is None:
+        if args.shape is None:
+            print("repro_torch.launch.dryrun: --shape or --topology is "
+                  "required", file=sys.stderr)
+            return 2
+        try:
+            report = lower_combo(args.arch, args.shape, args.mesh,
+                                 include_federate=not args.no_federate,
+                                 microbatches=args.microbatches)
+            report["status"] = "ok"
+        except Exception as e:      # the report carries the failure
+            report = {"arch": args.arch, "shape": args.shape,
+                      "mesh": args.mesh, "status": "error",
+                      "error": f"{type(e).__name__}: {e}",
+                      "traceback": traceback.format_exc()}
+    else:
+        from repro_torch.core.profe import resolve_device
+        device = resolve_device(args.device)        # no card: raises
+        try:
+            report = topology_report(args.arch, args.topology, args.pods,
+                                     bits=args.bits, ef=args.ef,
+                                     adapters=args.adapters,
+                                     adapter_grams=args.adapter_grams,
+                                     adapter_frac=args.adapter_frac,
+                                     device=str(device))
+            report["status"] = "ok"
+        except Exception as e:          # the report carries the failed gate
+            report = {"arch": args.arch, "topology": args.topology,
+                      "status": "error", "error": f"{type(e).__name__}: {e}",
+                      "traceback": traceback.format_exc()}
     print(json.dumps(report, indent=2, default=str))
     if args.json:
         with open(args.json, "w") as f:

@@ -70,17 +70,19 @@ def _student_params(cfg, seed: int):
                        torch.Generator().manual_seed(seed))
 
 
-def student_setup(arch: str):
+def student_setup(arch: str, full: bool = False):
     """``(cfg, student_cfg, struct, ncls)``: the smoke config for the LM
-    families, the paper config for ``cnn`` / ``resnet``; the student's
-    parameter skeleton (shapes and dtypes); the prototype classes (label
-    classes for ``cnn`` / ``resnet``, domain tags for an LM), as the
-    simulator counts them."""
+    families (``full=True``: the full-width config), the paper config
+    for ``cnn`` / ``resnet``; the student's parameter skeleton (shapes
+    and dtypes, drawn on ``meta`` for an LM); the prototype classes
+    (label classes for ``cnn`` / ``resnet``, domain tags for an LM), as
+    the simulator counts them."""
     import torch
 
+    from repro_torch.config import get_config
     from repro_torch.models import derive_student, init_params
     from repro_torch.tree import ShapeDtypeStruct, tree_map
-    cfg = _config(arch)
+    cfg = get_config(arch) if full else _config(arch)
     student_cfg = derive_student(cfg)
     if cfg.family in ("cnn", "resnet"):     # drawn on the generator's CPU
         params = _student_params(cfg, 0)
@@ -341,19 +343,21 @@ def _exchange_entry(records, n_nodes: int, inner: int) -> Dict[str, Any]:
 def exchange_predictions(arch: str, n_nodes: int, topology: str = "ring",
                          bits=16, seed: int = 0, inner: int = 1,
                          adapter_rank: int = 0,
-                         adapter_grams: bool = False) -> Dict[str, Any]:
+                         adapter_grams: bool = False,
+                         full: bool = False) -> Dict[str, Any]:
     """The shape-derived keys of a :func:`measure_exchange_bytes` report,
     from ``arch``'s student skeleton and the accountant alone (no rank is
     spawned): ``degree``, ``logical_bytes_per_node``,
     ``packed_pred_bytes_per_node``, ``packed_copy_bytes`` (at the spec
-    and ``_int16``) and ``packed_sidecar_bytes_per_copy``."""
+    and ``_int16``) and ``packed_sidecar_bytes_per_copy``.  ``full=True``
+    takes an LM's full-width student (:func:`student_setup`)."""
     from repro_torch.core.comm import ScheduleCommAccountant, packed_copy_bytes
     from repro_torch.kernels.quantize.ops import packed_wire_rows
 
     spec = WireSpec.parse(bits) if isinstance(bits, str) \
         else resolve_spec(bits)
     sched = T.make_schedule(n_nodes, topology, rounds=1, seed=seed)
-    _cfg, student_cfg, struct, ncls = student_setup(arch)
+    _cfg, student_cfg, struct, ncls = student_setup(arch, full=full)
     payload = accountant_payload(struct, ncls, student_cfg.proto_dim,
                                  adapter_rank=adapter_rank,
                                  adapter_grams=adapter_grams)

@@ -86,12 +86,13 @@ def gqa_attend(q, k, v, mask: Optional[torch.Tensor]):
 
 
 def cross_attention(params, x, memory, *, num_heads, num_kv_heads, head_dim,
-                    norm_eps=1e-6):
+                    norm_eps=1e-6, q_block: int = 512):
     """Cross-attention: queries from ``x``, keys/values from ``memory``.
 
     No RoPE and no causal mask (encoder memory is fully visible).
     Runs blockwise above 1024 queries so the [S, T_mem] score tensor
-    never materialises.
+    never materialises: the queries in blocks of ``q_block``, the memory
+    in blockwise's own.
     """
     b, s, _ = x.shape
     q = project_q(params, x, None, num_heads=num_heads, head_dim=head_dim,
@@ -100,8 +101,8 @@ def cross_attention(params, x, memory, *, num_heads, num_kv_heads, head_dim,
                       head_dim=head_dim, rope_theta=1.0, use_rope=False,
                       norm_eps=norm_eps)
     if s > 1024:
-        ctx = blockwise_attention(q, k, v, causal=False, q_block=512,
-                                  kv_block=512).reshape(b, s, -1)
+        ctx = blockwise_attention(q, k, v, causal=False,
+                                  q_block=q_block).reshape(b, s, -1)
     else:
         ctx = gqa_attend(q, k, v, None)
     return L.dense(params["wo"], ctx)

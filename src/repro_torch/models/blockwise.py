@@ -25,6 +25,24 @@ def _block_mask(q_pos, k_pos, *, causal: bool, window: int):
     return m
 
 
+def _attend_pair(qblk, kblk, vblk, m_run, l_run, acc, q_pos, k_pos, T,
+                 scale, *, causal: bool, window: int):
+    """One (q-block, kv-block) pair's step of the online softmax: the
+    running max, normaliser and accumulator after ``kblk`` / ``vblk``
+    (keys at ``k_pos``; those at ``T`` or beyond are padding)."""
+    s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kblk) * scale
+    mask = _block_mask(q_pos, k_pos, causal=causal, window=window)
+    # mask out kv padding
+    mask = mask & (k_pos[None, :] < T)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m_run, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_run - m_new)
+    l_run = l_run * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vblk)
+    return m_new, l_run, acc
+
+
 def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, q_block: int = 512,
                         kv_block: int = 512):
@@ -56,19 +74,10 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
         l_run = torch.zeros((B, NKV, G, qb), device=dev)
         acc = torch.zeros((B, NKV, G, qb, HD), device=dev)
         for ki in range(nk):
-            k_pos = ki * kb + torch.arange(kb, device=dev)
-            s = torch.einsum("bqkgd,bskd->bkgqs", qblk, kr[:, ki]) * scale
-            mask = _block_mask(q_pos, k_pos, causal=causal, window=window)
-            # mask out kv padding
-            mask = mask & (k_pos[None, :] < T)
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m_run, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m_run - m_new)
-            l_run = l_run * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqs,bskd->bkgqd", p, vr[:, ki])
-            m_run = m_new
+            m_run, l_run, acc = _attend_pair(
+                qblk, kr[:, ki], vr[:, ki], m_run, l_run, acc, q_pos,
+                ki * kb + torch.arange(kb, device=dev), T, scale,
+                causal=causal, window=window)
         out = acc / torch.clamp_min(l_run, 1e-30)[..., None]  # [B,NKV,G,qb,HD]
         outs.append(out.permute(0, 3, 1, 2, 4))               # [B,qb,NKV,G,HD]
     out = torch.cat(outs, dim=1).reshape(B, nq * qb, NQ, HD)

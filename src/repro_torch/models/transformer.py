@@ -152,8 +152,12 @@ def _self_attention(cfg: ModelConfig, p, x, positions, *, window: int,
     k, v = A.project_kv(p, x, positions, num_kv_heads=cfg.num_kv_heads,
                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                         norm_eps=cfg.norm_eps)
-    ctx = blockwise_attention(q, k, v, causal=causal, window=window,
-                              q_block=cfg.q_block, kv_block=cfg.kv_block)
+    # the decoder's sequence takes the config's blocks; the encoder's
+    # frames (a fixed encoder_seq) blockwise's own, as cross-attention's
+    # keys over them do
+    blocks = dict(q_block=cfg.q_block, kv_block=cfg.kv_block) if causal \
+        else {}
+    ctx = blockwise_attention(q, k, v, causal=causal, window=window, **blocks)
     b, s = ctx.shape[:2]
     return L.dense(p["wo"], ctx.reshape(b, s, -1)), (k, v)
 
@@ -179,7 +183,8 @@ def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
             h = A.cross_attention(p["xattn"], apply_norm(cfg, p["lnx"], x),
                                   memory, num_heads=cfg.num_heads,
                                   num_kv_heads=cfg.num_kv_heads,
-                                  head_dim=cfg.head_dim, norm_eps=cfg.norm_eps)
+                                  head_dim=cfg.head_dim, norm_eps=cfg.norm_eps,
+                                  q_block=cfg.q_block)
             x = x + h
         h, a = _apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x))
         aux = aux + a
@@ -247,7 +252,8 @@ def block_decode(cfg: ModelConfig, kind: str, p, x, cache, index: int,
             h = A.cross_attention(p["xattn"], apply_norm(cfg, p["lnx"], x),
                                   memory, num_heads=cfg.num_heads,
                                   num_kv_heads=cfg.num_kv_heads,
-                                  head_dim=cfg.head_dim, norm_eps=cfg.norm_eps)
+                                  head_dim=cfg.head_dim, norm_eps=cfg.norm_eps,
+                                  q_block=cfg.q_block)
             x = x + h
         h, _ = _apply_ffn(cfg, p["ffn"], apply_norm(cfg, p["ln2"], x),
                           no_drop=True)

@@ -20,7 +20,8 @@ fig2_f1,run}.py``) held against the JAX package's on the CPU.
   reading no other file;
 * ``chip_smoke.py``'s ``PAPER_BYTES`` and ``PAPER_PPERMUTE`` equal the
   JAX package's accountant and committed report; ``torch_run.py``
-  refuses ``roofline`` and drives the three scripts' ``main(argv)``.
+  renders ``roofline`` from the sweep's reports (skipped without them)
+  and drives the three scripts' ``main(argv)``.
 """
 import builtins
 import dataclasses
@@ -433,11 +434,25 @@ def test_chip_smoke_paper_ppermute_equals_the_jax_report():
 
 # -- torch_run.py --------------------------------------------------------------------
 
-def test_run_refuses_roofline(capsys):
+def test_run_refuses_roofline(tmp_path, monkeypatch, capsys):
+    # the compile-report sweep is ported: roofline renders its reports
+    # where they exist and is skipped where they do not; an unknown name
+    # is still refused
+    monkeypatch.chdir(tmp_path)
+    assert torch_run.main(["--only", "roofline"]) == {}
+    assert "roofline_table,skipped" in capsys.readouterr().out
+    out = tmp_path / torch_run.ROOFLINE_REPORTS
+    out.mkdir(parents=True)
+    (out / "a.json").write_text(json.dumps({
+        "arch": "yi-6b", "shape": "decode_32k", "mesh": "pod1",
+        "status": "ok", "dominant": "memory", "useful_flops_ratio": 0.5,
+        "terms_s": {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.0},
+        "memory_analysis": {"fits_80gb_hbm": True}}))
+    reports = torch_run.main(["--only", "roofline"])
+    assert "| yi-6b | decode_32k |" in reports["roofline"]["pod1"]
     with pytest.raises(SystemExit) as err:
-        torch_run.main(["--only", "roofline"])
+        torch_run.main(["--only", "bogus"])
     assert err.value.code == 2
-    assert "roofline is not ported" in capsys.readouterr().err
 
 
 def test_run_drives_each_scripts_main(monkeypatch, capsys):
