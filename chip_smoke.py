@@ -266,7 +266,7 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     time finite and above 0; a line ``round_step {...}``;
 14g. ``roofline``, the compile-report mode (see :func:`run_roofline`):
     ``launch/dryrun.lower_combo`` for the 10 assigned archs × 4 shapes ×
-    ``pod1`` / ``pod2``, every combo ``ok`` (its trip-count fit checked
+    ``pod1`` / ``pod2`` on ``LAYOUT_JOBS`` processes, every combo ``ok`` (its trip-count fit checked
     against a held-out trace), a line each (the dominant term, ``6ND``
     over the counted FLOPs, whether it fits the card); then the same
     op counter (``launch/op_analysis``) over programs the earlier phases
@@ -278,6 +278,20 @@ Phases, in order (any failure exits non-zero; nothing is caught):
     the count's ``peak_bytes_estimate`` is printed beside
     ``torch.cuda.max_memory_allocated()``; a line ``roofline {...}``
     (each combo's report is written to ``build/roofline/``);
+14h. ``layouts``, the in-node layouts (see :func:`run_layouts`): the
+    compile report of a node of 8 cards at layout ``auto``
+    (``launch/dryrun.lower_combo(cards_per_node=8)``: one rank of the
+    node traced on ``meta`` under DTensor over a fake process group) for
+    the 10 assigned archs at ``train_4k`` and ``decode_32k`` but the pairs
+    in ``LAYOUT_CUT``, on ``LAYOUT_JOBS`` processes, every combo ``ok`` and
+    its held-out trace exact, a line each (its layout, the dominant term,
+    whether the rank fits the card); then one rank of yi-6b (2 layers,
+    ``train_4k`` at 4 × 256) under ``fsdp`` on 8 × 1 and ``tp`` on 2 × 4
+    run on the card over the fake group (its compute runs, its collectives
+    move nothing): the count's larger compute / memory term beside the
+    measured ms a step (a term 5 % above it fails) and the count's
+    ``peak_bytes_estimate`` beside ``max_memory_allocated()``; a line
+    ``layouts {...}`` (each combo's report in ``build/layouts/``);
 15. with ``--profile`` only: where a round's time goes on the main path,
     the ``cifar10/sgd`` path and the ``adapters8`` path — each path's
     own run above is the warm-up, then 2 rounds without and 2 rounds
@@ -6733,6 +6747,188 @@ def run_roofline(torch, smi: str, counted=ROOFLINE_COUNTED, timed=None,
                               for r in combos])
 
 
+# the layouts phase (run_layouts): the compile report of a node of
+# LAYOUT_CARDS cards at layout "auto", then one rank of yi-6b on the card
+LAYOUT_CARDS = 8
+LAYOUT_SHAPES = ("train_4k", "decode_32k")
+# training combos left out of the phase's sweep to keep it near 120 s on
+# the card's host (each is in `torch_dryrun_all.py --cards-per-node 8`,
+# 43–386 s a combo there on 6 processes; yi-6b's, kept, 41–73 s)
+LAYOUT_CUT = tuple((a, "train_4k") for a in (
+    "mamba2-130m", "whisper-small", "recurrentgemma-9b", "qwen3-14b",
+    "starcoder2-15b", "llama4-scout-17b-a16e", "llama-3.2-vision-90b",
+    "qwen1.5-110b", "grok-1-314b"))
+LAYOUT_JOBS = 6     # the card's host has 8 cores; phase 14g's sweep too
+LAYOUT_DIR = "build/layouts"
+LAYOUT_RUNS = (("fsdp", (8, 1)), ("tp", (2, 4)))
+LAYOUT_BATCH, LAYOUT_STEPS = 4, 3
+
+
+def _materialize(torch, tree, device, vocab: int, gen):
+    """Each DTensor of ``tree`` (shards on ``meta``) with its rank's shard
+    drawn on ``device``: floats from N(0, 0.02²), the token and label ids
+    below ``vocab``, every other integer 0."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.tree import tree_map
+
+    def one(path, t):
+        local = t._local_tensor
+        if local.is_floating_point():
+            x = torch.empty(local.shape, dtype=local.dtype, device=device)
+            x.normal_(0.0, 0.02, generator=gen)
+        elif path in ("tokens", "labels"):
+            x = torch.randint(0, vocab, local.shape, dtype=local.dtype,
+                              device=device, generator=gen)
+        else:
+            x = torch.zeros(local.shape, dtype=local.dtype, device=device)
+        return DTensor.from_local(x, t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=t.stride())
+    if isinstance(tree, dict):
+        return {k: (one(k, v) if isinstance(v, torch.Tensor) else
+                    _materialize(torch, v, device, vocab, gen))
+                for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_materialize(torch, v, device, vocab, gen)
+                            for v in tree))
+    return tree_map(lambda t: one("", t) if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def layout_rank_on_card(torch, name: str, node, device: str = "cuda",
+                        cfg=None, seq: int = TRAIN_SEQ) -> dict:
+    """One rank of yi-6b (full width, ``PROGRAM_LAYERS`` layers; ``cfg``
+    in its place on the CPU) under layout ``name`` on a ``node`` (data,
+    model) mesh of ``LAYOUT_CARDS`` cards over the fake process group:
+    ``make_profe_train_fn`` at ``LAYOUT_BATCH`` × ``seq``, one
+    microbatch.  The same step is counted on ``meta``
+    (``launch/op_analysis``), then run on ``device`` from drawn shards:
+    the rank's compute runs and its collectives hallucinate (no bytes
+    move).  Returns the count's terms at the card's peaks beside the
+    measured ms a step (``LAYOUT_STEPS`` after one warm-up) and the
+    count's ``peak_bytes_estimate`` beside ``max_memory_allocated``."""
+    from repro_torch.config import FederationConfig, TrainConfig, get_config
+    from repro_torch.config.base import ShapeConfig
+    from repro_torch.launch import programs as PR
+    from repro_torch.launch.dryrun import NodeLayout
+    from repro_torch.launch.mesh import fake_group, make_node_mesh
+    from repro_torch.launch.op_analysis import count_ops
+    from repro_torch.launch.roofline import (HBM_BW, NVLINK_BW,
+                                             compute_seconds,
+                                             memory_analysis)
+    from repro_torch.models import derive_student
+    if cfg is None:
+        cfg = get_config("yi-6b").replace(num_layers=PROGRAM_LAYERS)
+    st = derive_student(cfg)
+    lay = NodeLayout(name, LAYOUT_CARDS, *node)
+    train = TrainConfig(learning_rate=LR, optimizer=cfg.optimizer,
+                        remat=True, microbatches=1)
+    step, _ = PR.make_profe_train_fn(cfg, st, FederationConfig(), train)
+    cuda = torch.device(device).type == "cuda"
+    with fake_group(LAYOUT_CARDS):
+        mesh = make_node_mesh(LAYOUT_CARDS, *node, device=device)
+        state = lay.place_state(PR.node_state_struct(
+            cfg, st, train, cfg.n_proto_classes), cfg, st, train.optimizer,
+            mesh)
+        batch = lay.place_batch(PR.batch_struct(cfg, ShapeConfig(
+            "train", seq, LAYOUT_BATCH, "train")), "train", mesh)
+        t0 = time.time()
+        with lay.active(mesh):
+            c = count_ops(step, state, batch, arg_parts={
+                "teacher": (state.teacher, state.opt_t),
+                "student": (state.student, state.opt_s)})
+        count_s = time.time() - t0
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = _materialize(torch, state, device, cfg.vocab_size, gen)
+        batch = _materialize(torch, batch, device, cfg.vocab_size, gen)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        with lay.active(mesh):
+            for _ in range(LAYOUT_STEPS + 1):
+                state, _metrics = step(state, batch)
+                if cuda:
+                    torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        del state, batch
+    ms = (stamps[-1] - stamps[1]) * 1e3 / LAYOUT_STEPS
+    terms = {"compute_ms": compute_seconds(c.flops) * 1e3,
+             "memory_ms": c.bytes / HBM_BW * 1e3,
+             "collective_ms": c.coll_total / NVLINK_BW * 1e3}
+    return {"layout": name, "node_mesh": list(node), "layers":
+            cfg.num_layers, "batch": LAYOUT_BATCH, "seq": seq,
+            "flops_by_dtype": dict(c.flops), "bytes": c.bytes,
+            "collective_by_kind": dict(c.coll), **terms,
+            "first_step_ms": (stamps[1] - stamps[0]) * 1e3,
+            "measured_ms": ms,
+            "share": max(terms["compute_ms"], terms["memory_ms"]) / ms,
+            "peak_bytes_estimate":
+                memory_analysis(c)["peak_bytes_estimate"],
+            "max_memory_allocated": peak, "count_s": count_s}
+
+
+def run_layouts(torch, smi: str, device: str = "cuda", archs=None,
+                shapes=LAYOUT_SHAPES, cut=LAYOUT_CUT, jobs: int = LAYOUT_JOBS,
+                out_dir: str = LAYOUT_DIR, runs=LAYOUT_RUNS,
+                run_cfg=None, run_seq: int = TRAIN_SEQ) -> dict:
+    """Phase 14h (see the module's docstring): the sweep is
+    ``benchmarks/torch_dryrun_all.run`` over ``archs`` × ``shapes`` on a
+    node of ``LAYOUT_CARDS`` cards at layout ``auto`` but the ``cut``
+    pairs, on ``jobs`` processes, a line a combo, each report in
+    ``out_dir``; it fails after every combo has run if any is not ``ok``.
+    Then :func:`layout_rank_on_card` for each of ``runs``.  Returns the
+    ``layouts {...}`` line."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from benchmarks import torch_dryrun_all
+    t0 = time.time()
+    res = torch_dryrun_all.run(
+        archs if archs is not None else torch_dryrun_all.ARCHS, shapes,
+        ["pod1"], out_dir, force=True, cards=LAYOUT_CARDS, jobs=jobs,
+        skip=cut)
+    failed = [f"{r['arch']} {r['shape']}: {r.get('error')}"
+              for r in res["reports"] if r.get("status") != "ok"]
+    expect(not failed, f"layouts: {len(failed)} combos failed: {failed}")
+    sweep_s = time.time() - t0
+    combos = [{"arch": r["arch"], "shape": r["shape"],
+               "layout": r["layout"], "dominant": r["dominant"],
+               "terms_s": r["terms_s"],
+               "collective_by_kind": r["collective_by_kind"],
+               "peak_bytes_estimate":
+                   r["memory_analysis"]["peak_bytes_estimate"],
+               "fits_80gb_hbm": r["memory_analysis"]["fits_80gb_hbm"],
+               "held_out_check": r["trip_count_fit"]["held_out_check"],
+               "wall_s": r["wall_s"]} for r in res["reports"]]
+    for c in combos:
+        expect(c["held_out_check"] == "exact",
+               f"layouts {c['arch']} {c['shape']}: the fit is not exact")
+    ran = []
+    for name, node in runs:
+        row = layout_rank_on_card(torch, name, node, device, cfg=run_cfg,
+                                  seq=run_seq)
+        ran.append(row)
+        print(f"layouts rank {name} {node[0]}x{node[1]}: measured "
+              f"{row['measured_ms']:.4f} ms a step (first "
+              f"{row['first_step_ms']:.1f} ms), count compute "
+              f"{row['compute_ms']:.4f} ms, memory {row['memory_ms']:.4f} "
+              f"ms, collective {row['collective_ms']:.4f} ms "
+              f"(hallucinated), share {row['share']:.4f}; peak estimate "
+              f"{row['peak_bytes_estimate']} B, max allocated "
+              f"{row['max_memory_allocated']} B", flush=True)
+        expect(row["share"] <= ROOFLINE_SLACK,
+               f"layouts rank {name}: the count's larger term is above "
+               f"the measured {row['measured_ms']} ms: the count is wrong")
+    line = {"cards": LAYOUT_CARDS, "combos": combos,
+            "cut": [list(c) for c in cut], "sweep_s": sweep_s,
+            "jobs": jobs, "runs": ran, "reports": out_dir,
+            "seconds": time.time() - t0, "card": smi}
+    print("layouts " + json.dumps(line, default=str), flush=True)
+    return line
+
+
 def main() -> int:
     t_start = time.time()
     args = sys.argv[1:]
@@ -6929,8 +7125,17 @@ def main() -> int:
           "pod2 (launch/dryrun.py --shape), then the op count of the runs "
           "phases 14a-14c timed against their measured ms")
     t0 = time.time()
-    run_roofline(torch, smi)
+    run_roofline(torch, smi, jobs=LAYOUT_JOBS)
     print(f"roofline phase took {time.time() - t0:.1f} s")
+
+    phase(f"layouts: the compile report of a node of {LAYOUT_CARDS} cards "
+          f"(10 archs x {', '.join(LAYOUT_SHAPES)}, layout auto, "
+          f"launch/dryrun.py --cards-per-node {LAYOUT_CARDS}), then one "
+          f"rank of yi-6b ({PROGRAM_LAYERS} layers) under fsdp and tp run "
+          f"on the card over the fake process group")
+    t0 = time.time()
+    run_layouts(torch, smi)
+    print(f"layouts phase took {time.time() - t0:.1f} s")
 
     if args == ["--profile"]:
         for name in PROFILED:

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding import shard_act
+
 
 def kd_loss(student_logits, teacher_logits, temperature: float = 1.0,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -37,6 +39,8 @@ def ce_loss(logits, labels, mask: Optional[torch.Tensor] = None
     lse = torch.logsumexp(logits32, dim=-1)
     classes = torch.arange(logits.shape[-1], device=logits.device)
     onehot = (labels[..., None] == classes).float()
+    if onehot.ndim == 3:
+        onehot = shard_act(onehot, "btv")   # vocab-sharded like the logits
     nll = lse - torch.sum(logits32 * onehot, dim=-1)
     if mask is not None:
         nll = nll * mask

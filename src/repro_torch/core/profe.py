@@ -30,6 +30,7 @@ from repro_torch.kernels.proto_accum.ops import proto_accumulate_nodes
 from repro_torch.models import ModelOutput, forward, params_from_numpy
 from repro_torch.optim import Optimizer, clip_by_global_norm
 from repro_torch.optim.plane import Plane, as_tree, plane_from_tree
+from repro_torch.sharding import replicate
 from repro_torch.tree import (tree_empties, tree_from_paths, tree_leaves,
                               tree_map, tree_paths)
 
@@ -97,17 +98,23 @@ def proto_labels(cfg: ModelConfig, batch) -> torch.Tensor:
     return batch["domains"]
 
 
+# Under an in-node layout each loss term is a DTensor scalar, reduced
+# whole (``sharding.replicate``) before the terms are summed: a partial
+# sum and a partial mean do not add (torch 2.11's DTensor refuses to
+# turn one into the other)
+
+
 def task_ce(cfg: ModelConfig, logits, batch) -> torch.Tensor:
     """Task cross-entropy: classification CE, or next-token CE for LMs."""
     if cfg.family in ("cnn", "resnet"):
         return D.ce_loss(logits, batch["label"])
-    return D.ce_loss(logits, batch["labels"])
+    return replicate(D.ce_loss(logits, batch["labels"]))
 
 
 def router_aux(cfg: ModelConfig, out: ModelOutput) -> torch.Tensor:
     """The MoE load-balance term ``aux · router_aux_weight`` (0 for a
     model without a router)."""
-    return out.aux * getattr(cfg, "router_aux_weight", 0.0)
+    return replicate(out.aux) * getattr(cfg, "router_aux_weight", 0.0)
 
 
 def student_loss(student_cfg: ModelConfig, sp, batch, global_protos,
@@ -119,11 +126,12 @@ def student_loss(student_cfg: ModelConfig, sp, batch, global_protos,
     an LM stack in the backward (``models.forward``)."""
     out = forward(student_cfg, sp, batch, remat=remat)
     loss = task_ce(student_cfg, out.logits, batch)
-    loss = loss + beta_s * P.proto_mse_loss(
-        out.f1, global_protos, proto_labels(student_cfg, batch), proto_mask)
+    loss = loss + beta_s * replicate(P.proto_mse_loss(
+        out.f1, global_protos, proto_labels(student_cfg, batch), proto_mask))
     if teacher_out is not None:
-        kd = D.kd_loss(out.logits, teacher_out.logits, temperature)
-        rep = D.repr_mse_loss(out.f1, teacher_out.f1)
+        kd = replicate(D.kd_loss(out.logits, teacher_out.logits,
+                                 temperature))
+        rep = replicate(D.repr_mse_loss(out.f1, teacher_out.f1))
         loss = loss + alpha * (kd + rep)
     return loss + router_aux(student_cfg, out), out
 
@@ -134,8 +142,8 @@ def teacher_loss(teacher_cfg: ModelConfig, tp, batch, global_protos,
     L_t = L_CE + beta_t * L_MSE(f_t1, C̄(j)) + aux · router_aux_weight."""
     out = forward(teacher_cfg, tp, batch, remat=remat)
     loss = task_ce(teacher_cfg, out.logits, batch)
-    loss = loss + beta_t * P.proto_mse_loss(
-        out.f1, global_protos, proto_labels(teacher_cfg, batch), proto_mask)
+    loss = loss + beta_t * replicate(P.proto_mse_loss(
+        out.f1, global_protos, proto_labels(teacher_cfg, batch), proto_mask))
     return loss + router_aux(teacher_cfg, out), out
 
 

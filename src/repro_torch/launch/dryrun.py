@@ -7,23 +7,38 @@ published peaks (:mod:`repro_torch.launch.roofline`)::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b \\
         --shape train_4k [--mesh pod1|pod2] [--microbatches M] \\
-        [--no-federate] [--json PATH]
+        [--cards-per-node D [--layout auto|tp|fsdp] [--no-fsdp] \\
+        [--node-mesh DxM]] [--no-federate] [--json PATH]
 
-prints the program's FLOPs (by dtype) and bytes per device, the peak
-memory it needs, the compute and memory terms and which one dominates,
-``6ND`` against the counted FLOPs and whether it fits the card.  The
-counts come from :mod:`repro_torch.launch.op_analysis` (an op-level
-trace of the torch program in place of XLA's HLO): each combo is traced
-at small trip counts (periods of the stacks, causal self-attention
-blocks, microbatches), fitted exactly and checked against one more
-trace.  ``pod1`` is one node on one card; ``pod2`` is two nodes, one
-card each: its per-device numbers are one node's, and on ``train_4k``
-it adds ``federate``, ProFe's 16-bit gossip bytes (packed, and the
-per-leaf ``gather``) against FedAvg's fp32 teacher round, at full
-width, from ``launch/wire``'s predictions.  ``--layout tp|fsdp`` and
-``--no-fsdp`` are refused (exit 2): the port shards no model within a
-node, and the report records ``layout: "one card"``.  Runs on the CPU;
-no card is needed.
+prints the program's FLOPs (by dtype), bytes and collective bytes per
+card, the peak memory it needs, the compute, memory and collective terms
+and which one dominates, ``6ND`` against the counted FLOPs and whether
+it fits the card.  The counts come from
+:mod:`repro_torch.launch.op_analysis` (an op-level trace of the torch
+program in place of XLA's HLO): each combo is traced at small trip
+counts (periods of the stacks, causal self-attention blocks,
+microbatches), fitted exactly and checked against one more trace.
+
+A node is one card by default (``layout: "one card"``, no collective).
+With ``--cards-per-node D`` (2, 4 or 8: one HGX board over NVLink) the
+node's program is one rank's of D under an in-node layout, the JAX
+package's ``lower_combo`` placements (:class:`NodeLayout`): the state,
+batch and caches are DTensors placed by ``repro_torch.sharding``'s specs
+on a ``data × model`` mesh (:mod:`repro_torch.launch.mesh`, default
+``2 × D/2`` under ``tp``, ``D × 1`` under ``fsdp``) over a fake process
+group of D ranks, this process rank 0;
+DTensor's sharding propagation partitions the program as XLA's SPMD
+partitioner does JAX's, and the count reads rank 0's shards and the
+collectives of its redistributions, priced at NVLink.  ``--layout auto``
+(the default) picks ``fsdp`` for a small arch's training step and ``tp``
+otherwise (:func:`resolve_layout`).  ``--layout``, ``--no-fsdp`` and
+``--node-mesh`` without ``--cards-per-node`` > 1 are refused (exit 2).
+
+``pod1`` is one node; ``pod2`` is two nodes: its per-card numbers are
+one node's (one rank's under a layout), and on ``train_4k`` it adds
+``federate``, ProFe's 16-bit gossip bytes (packed, and the per-leaf
+``gather``) against FedAvg's fp32 teacher round, at full width, from
+``launch/wire``'s predictions.  Runs on the CPU; no card is needed.
 
 **The wire audit** (``--topology``)::
 
@@ -50,6 +65,7 @@ Both print the report as JSON and exit 0 only when it is ``ok``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -65,19 +81,151 @@ J_CANDIDATES = (1, 2, 4)      # query blocks a side in the fit's traces
 REP_CANDIDATES = (2, 3, 4, 5)  # train samples 2-4
 
 
-def resolve_microbatches(cfg, shape, microbatches: int = 0) -> int:
-    """The train program's microbatches as the JAX package's
-    ``lower_combo`` resolves them with ``layout="auto"``: the whole batch
-    in one microbatch (its ``fsdp``) for a training step of an arch under
-    1e10 parameters with a vocabulary of at most 100k, else 16 (its
-    ``tp``), unless ``microbatches`` is given."""
+def resolve_layout(cfg, shape, layout: str = "auto") -> str:
+    """``layout="auto"`` as the JAX package's ``lower_combo`` resolves it:
+    ``fsdp`` (pure FSDP, the batch over every card) for a training step of
+    an arch under 1e10 parameters with a vocabulary of at most 100k (at
+    one row a card the ``[1, S, V]`` loss temporaries replicate), else
+    ``tp`` (FSDP over data × TP over model; a decode step stays TP:
+    per-token weight gathers would cost its latency)."""
     from repro_torch.launch.roofline import approx_params
+    if layout != "auto":
+        return layout
+    return "fsdp" if (shape.kind == "train" and approx_params(cfg) < 1e10
+                      and cfg.vocab_size <= 100_000) else "tp"
+
+
+def resolve_microbatches(cfg, shape, microbatches: int = 0,
+                         layout: str = "auto") -> int:
+    """The train program's microbatches as the JAX package's
+    ``lower_combo`` resolves them: the whole batch in one microbatch under
+    ``fsdp``, else 16, unless ``microbatches`` is given."""
     if shape.kind != "train":
         return 1
     if microbatches:
         return microbatches
-    fsdp = approx_params(cfg) < 1e10 and cfg.vocab_size <= 100_000
-    return 1 if fsdp else 16
+    return 1 if resolve_layout(cfg, shape, layout) == "fsdp" else 16
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeLayout:
+    """One node of ``cards`` cards on a ``data × model`` mesh under a
+    layout, the JAX package's ``lower_combo`` placements:
+
+    * ``fsdp`` — a training step's weights and moments over ``("data",
+      "model")`` (no tensor parallelism), the batch over every card;
+    * ``tp`` — weights over data (FSDP; ``fsdp=False`` leaves their data
+      dim replicated) and model (TP), the batch over data, the activation
+      constraints of :func:`repro_torch.sharding.shard_act` on the model
+      axis.
+
+    A prefill or decode step takes the default parameter specs (data and
+    model) under either, its batch and caches over data; its activations
+    take the layout's constraints, as in the JAX package."""
+    name: str
+    cards: int
+    data: int
+    model: int
+    fsdp: bool = True
+
+    @property
+    def mesh_shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def act_dp(self) -> tuple:
+        """The activations' batch axes."""
+        return ("data", "model") if self.name == "fsdp" else ("data",)
+
+    def batch_dp(self, kind: str) -> tuple:
+        return self.act_dp if kind == "train" else ("data",)
+
+    def weight_axes(self, kind: str) -> Dict[str, Any]:
+        if kind != "train":
+            return {}
+        if self.name == "fsdp":
+            return {"data_axis": ("data", "model"), "model_axis": None}
+        return {"data_axis": "data" if self.fsdp else None,
+                "model_axis": "model"}
+
+    @contextlib.contextmanager
+    def active(self, mesh):
+        """The activation constraints on ``mesh`` and DTensor's implicit
+        replication of plain tensors (masks, positions) for the block."""
+        import logging
+
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        from repro_torch.sharding import (clear_activation_sharding,
+                                          set_activation_sharding)
+        # DTensor warns at every two-step redistribution of a dim over
+        # both axes; the count records them
+        log = logging.getLogger("torch.distributed.tensor._redistribute")
+        level = log.level
+        log.setLevel(logging.ERROR)
+        set_activation_sharding(
+            mesh, dp_axes=self.act_dp,
+            model_axis=None if self.name == "fsdp" else "model")
+        try:
+            with implicit_replication():
+                yield
+        finally:
+            clear_activation_sharding()
+            log.setLevel(level)
+
+    def place_state(self, state, teacher_cfg, student_cfg, optimizer, mesh):
+        """A :class:`NodeState` of tensors as DTensors under the layout
+        (prototypes, mask and round replicated)."""
+        from repro_torch.sharding import (distribute, opt_state_specs,
+                                          param_specs)
+        ax = self.weight_axes("train")
+        ms = self.mesh_shape
+        sps = param_specs(student_cfg, state.student, ms, **ax)
+        tps = param_specs(teacher_cfg, state.teacher, ms, **ax)
+        rep = lambda t: distribute(t, (None,) * t.dim(), mesh)  # noqa: E731
+        return state._replace(
+            student=distribute(state.student, sps, mesh),
+            teacher=distribute(state.teacher, tps, mesh),
+            opt_s=distribute(state.opt_s, opt_state_specs(
+                optimizer, sps, state.student), mesh),
+            opt_t=distribute(state.opt_t, opt_state_specs(
+                optimizer, tps, state.teacher), mesh),
+            global_protos=rep(state.global_protos),
+            proto_mask=rep(state.proto_mask),
+            round_idx=rep(state.round_idx))
+
+    def place_batch(self, batch, kind: str, mesh):
+        from repro_torch.sharding import batch_specs, distribute
+        return distribute(batch, batch_specs(batch, self.mesh_shape,
+                                             dp_axes=self.batch_dp(kind)),
+                          mesh)
+
+    def place_params(self, cfg, params, mesh):
+        from repro_torch.sharding import distribute, param_specs
+        return distribute(params, param_specs(cfg, params, self.mesh_shape),
+                          mesh)
+
+    def place_cache(self, cache, mesh):
+        from repro_torch.sharding import cache_specs, distribute
+        return distribute(cache, cache_specs(cache, self.mesh_shape), mesh)
+
+
+def node_layout(cfg, shape, cards: int, layout: str = "auto",
+                fsdp: bool = True, node_mesh=None) -> NodeLayout:
+    """The :class:`NodeLayout` of a combo on a node of ``cards`` cards:
+    ``node_mesh`` (``(data, model)`` or ``"DxM"``) or the layout's
+    default (``launch.mesh.default_node_shape``)."""
+    from repro_torch.launch.mesh import default_node_shape, parse_node_mesh
+    layout = resolve_layout(cfg, shape, layout)
+    if node_mesh is None:
+        data, model = default_node_shape(cards, layout)
+    elif isinstance(node_mesh, str):
+        data, model = parse_node_mesh(node_mesh, cards)
+    else:
+        data, model = node_mesh
+        parse_node_mesh(f"{data}x{model}", cards)
+    return NodeLayout(layout, cards, data, model, fsdp)
 
 
 def _cut(cfg, reps: int, encoder: Optional[int] = None):
@@ -113,10 +261,12 @@ def _causal_blocks(cfg, shape) -> Optional[int]:
     return -(-shape.seq_len // cfg.q_block)
 
 
-def _stack(point: Dict[str, int], var: str, real: int) -> int:
-    """A stack's periods in a trace: the point's, where the program has
-    two or more (one period is its own regime and stays as it is)."""
-    return point[var] if real >= REP_CANDIDATES[0] else real
+def _stack(point: Dict[str, int], var: str, real: int,
+           offset: int = 0) -> int:
+    """A stack's periods in a trace: the point's (plus the stack's
+    ``offset``), where the program has two or more (one period is its own
+    regime and stays as it is)."""
+    return point[var] + offset if real >= REP_CANDIDATES[0] else real
 
 
 def traced_microbatches(m: int) -> int:
@@ -127,7 +277,9 @@ def traced_microbatches(m: int) -> int:
     return min(m, 2)
 
 
-def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
+def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int],
+             layout: Optional[NodeLayout] = None, mesh=None,
+             offsets: Optional[Dict[str, int]] = None):
     """``(fn, args, arg_parts)`` of the combo's program at the trip counts
     ``point`` (``X`` the stacks' periods, ``E`` whisper's encoder
     layers, ``j`` the decoder's attention blocks: ``q_block`` and
@@ -135,7 +287,9 @@ def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
     and cross-attention j query blocks against the memory's own) on
     ``meta``; a training step runs :func:`traced_microbatches`.  The
     costs are exact polynomials in ``j``, the results those of any
-    blocking."""
+    blocking.  Under ``layout`` the arguments are DTensors on ``mesh``,
+    one rank's shards.  ``offsets`` adds to the student's stacks (a
+    layout's fit, :func:`count_plan`)."""
     import torch
 
     from repro_torch.config.base import ShapeConfig
@@ -144,16 +298,17 @@ def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
     from repro_torch.models import init_params
     audio = cfg.family == "audio"
 
-    def cut(c):
-        c = _cut(c, _stack(point, "X", _reps(c)),
-                 _stack(point, "E", c.encoder_layers)
+    def cut(c, off=None):
+        off = off or {}
+        c = _cut(c, _stack(point, "X", _reps(c), off.get("X", 0)),
+                 _stack(point, "E", c.encoder_layers, off.get("E", 0))
                  if audio and "E" in point else None)
         if "j" in point:
             block = shape.seq_len // point["j"]
             c = c.replace(q_block=block, kv_block=block)
         return c
     if shape.kind == "train":
-        t, s = cut(cfg), cut(student_cfg)
+        t, s = cut(cfg), cut(student_cfg, offsets)
         m = traced_microbatches(train.microbatches)
         tr = dataclasses.replace(train, microbatches=m)
         step, _ = PR.make_profe_train_fn(t, s, fed, tr)
@@ -161,6 +316,9 @@ def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
         per = shape.global_batch // train.microbatches
         batch = PR.batch_struct(cfg, ShapeConfig(
             shape.name, shape.seq_len, per * m, "train"))
+        if layout is not None:
+            state = layout.place_state(state, t, s, tr.optimizer, mesh)
+            batch = layout.place_batch(batch, "train", mesh)
         return step, (state, batch), {
             "teacher": (state.teacher, state.opt_t),
             "student": (state.student, state.opt_s),
@@ -168,10 +326,19 @@ def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
     c = cut(cfg)
     params = init_params(c, torch.Generator().manual_seed(0),
                          device="meta")
+    if layout is not None:
+        params = layout.place_params(c, params, mesh)
     if shape.kind == "prefill":
         fn = PR.make_prefill_fn(c)
-        return torch.no_grad()(fn), (params, PR.batch_struct(c, shape)), {}
+        batch = PR.batch_struct(c, shape)
+        if layout is not None:
+            batch = layout.place_batch(batch, shape.kind, mesh)
+        return torch.no_grad()(fn), (params, batch), {}
     d = PR.decode_struct(c, shape)
+    if layout is not None:
+        d = dict(d, cache=layout.place_cache(d["cache"], mesh),
+                 **layout.place_batch({k: d[k] for k in ("token", "memory")
+                                       if k in d}, shape.kind, mesh))
     fn = PR.make_serve_fn(c, shape)
     # the last position of a full cache
     index = PR.decode_cache_len(c, shape) - 1
@@ -181,9 +348,9 @@ def _program(cfg, student_cfg, shape, fed, train, point: Dict[str, int]):
     return torch.no_grad()(fn), args, {}
 
 
-def count_plan(cfg, student_cfg, shape):
+def count_plan(cfg, student_cfg, shape, modulus: int = 1):
     """The trip-count fit of a combo: ``(candidates, monomials,
-    peak_monomials, real, part_vars)``.  Variables: ``X`` (the periods
+    peak_monomials, real, part_vars, offsets)``.  Variables: ``X`` (the periods
     of every stack: the model's, or in training the teacher's and the
     student's together, told apart by part), ``E`` (whisper's encoder
     layers, likewise) and ``j`` (attention's query blocks, where the
@@ -193,7 +360,17 @@ def count_plan(cfg, student_cfg, shape):
     gradient of the whole stack) and quadratic in ``j``; every stack is
     traced at two periods or more (one period is its own regime).  Peaks
     are fitted linear in each count, and in ``1/j`` and ``1/j²`` (the
-    attention's temporaries scale with its blocks)."""
+    attention's temporaries scale with its blocks).
+
+    Under an in-node layout (``modulus`` its cards) a training step's
+    whole-stack ops (the gradients' accumulation, the clip, the
+    optimizer) see the stacked period dim, which DTensor may shard where
+    a mesh axis divides it: their collectives are polynomial only among
+    period counts alike modulo the cards.  The teacher's stacks are then
+    traced at ``r, r + M, r + 2M, …`` (r its real count modulo M, at
+    least 2), the student's at the same plus ``offsets`` (its real count
+    less the teacher's, modulo M), and the student is evaluated at its
+    real count less its offset."""
     audio = cfg.family == "audio"
     j_real = _causal_blocks(cfg, shape)
     fit_j = j_real is not None and j_real > J_DIRECT
@@ -210,6 +387,17 @@ def count_plan(cfg, student_cfg, shape):
                 for v in r.values())
     variables = ["X"] + (["E"] if enc else [])
     cand: Dict[str, tuple] = {v: REP_CANDIDATES for v in variables}
+    offsets: Dict[str, int] = {}
+    if train and modulus > 1:
+        for v in variables:
+            r = real["teacher"][v] % modulus
+            while r < REP_CANDIDATES[0]:
+                r += modulus
+            cand[v] = tuple(r + k * modulus for k in range(4))
+            if real["student"][v] >= REP_CANDIDATES[0]:
+                offsets[v] = (real["student"][v] - real["teacher"][v]) \
+                    % modulus
+                real["student"][v] -= offsets[v]
     monos = [{}]
     for v in variables:
         monos += [{v: 1}] + ([{v: 2}] if train else [])
@@ -217,7 +405,9 @@ def count_plan(cfg, student_cfg, shape):
     if fit_j:
         cand["j"] = J_CANDIDATES
         monos += [{"X": 1, "j": d} for d in (1, 2)]
-        if fixed:
+        if fixed or offsets:
+            # a stack that no variable moves, or one offset from X,
+            # runs attention blocks off X's multiples
             monos += [{"j": d} for d in (1, 2)]
         peak += [{"j": -1}, {"j": -2}]
         for r in real.values():
@@ -225,17 +415,21 @@ def count_plan(cfg, student_cfg, shape):
     if train:
         real[""] = dict(real["teacher"])
     part_vars = {"": ("j",)} if train else None
-    return cand, monos, peak, real, part_vars
+    return cand, monos, peak, real, part_vars, offsets
 
 
-def count_combo(cfg, student_cfg, shape, fed, train):
+def count_combo(cfg, student_cfg, shape, fed, train,
+                layout: Optional[NodeLayout] = None, mesh=None):
     """One node's counts of the combo at its real trip counts, by the
-    exact fit of :func:`count_plan` (:func:`op_analysis.fit_counts`)."""
+    exact fit of :func:`count_plan` (:func:`op_analysis.fit_counts`);
+    under ``layout`` (on ``mesh``, a node mesh of
+    :func:`launch.mesh.make_node_mesh`) one rank's."""
     from fractions import Fraction
 
     from repro_torch.launch.op_analysis import (MICRO, PARTS, count_ops,
                                                 design, fit_counts)
-    cand, monos, peak, real, part_vars = count_plan(cfg, student_cfg, shape)
+    cand, monos, peak, real, part_vars, offsets = count_plan(
+        cfg, student_cfg, shape, layout.cards if layout is not None else 1)
 
     def cost(p):
         return (p["X"] + p.get("E", 0)) * (1 + 0.05 * p.get("j", 1) ** 2)
@@ -243,14 +437,19 @@ def count_combo(cfg, student_cfg, shape, fed, train):
     # the held-out trace takes the periods beyond the samples where the
     # counts are linear in them (cheap) or nothing else varies; in
     # training with attention blocks fitted, the samples span three
-    # period counts and the held-out point checks the cross terms
+    # period counts and the held-out point checks the cross terms (under
+    # a layout beyond the samples' periods too: DTensor's plan is checked
+    # where the fit extrapolates)
     samples, held = design(cand, monos, cost, beyond=(
-        () if shape.kind == "train" and "j" in cand else ("X", "E")))
+        () if shape.kind == "train" and "j" in cand and layout is None
+        else ("X", "E")))
 
     def trace(point):
         fn, args, parts = _program(cfg, student_cfg, shape, fed, train,
-                                   point)
-        c = count_ops(fn, *args, arg_parts=parts)
+                                   point, layout, mesh, offsets)
+        with (layout.active(mesh) if layout is not None
+              else contextlib.nullcontext()):
+            c = count_ops(fn, *args, arg_parts=parts)
         if shape.kind == "train" and not set(PARTS) <= {
                 p.replace(MICRO, "") for p in c.parts}:
             raise ValueError(f"the train program's spans {PARTS} were not "
@@ -263,17 +462,26 @@ def count_combo(cfg, student_cfg, shape, fed, train):
 
 
 @functools.lru_cache(maxsize=None)
-def _counted(arch: str, shape_name: str, microbatches: int):
-    """:func:`count_combo` of one node's program, once a process: the
-    meshes share it (``pod2``'s per-device numbers are one node's)."""
+def _counted(arch: str, shape_name: str, microbatches: int,
+             layout: Optional[NodeLayout] = None):
+    """:func:`count_combo` of one node's program (under ``layout``, one
+    rank's, traced on a fake process group of its cards), once a
+    process: the meshes share it (``pod2``'s per-device numbers are one
+    node's)."""
     from repro_torch.config import (FederationConfig, TrainConfig,
                                     get_config, get_shape)
+    from repro_torch.launch.mesh import fake_group, make_node_mesh
     from repro_torch.models import derive_student
     cfg = get_config(arch)
     train = TrainConfig(optimizer=cfg.optimizer, remat=True,
                         microbatches=microbatches)
-    return count_combo(cfg, derive_student(cfg), get_shape(shape_name),
-                       FederationConfig(), train)
+    args = (cfg, derive_student(cfg), get_shape(shape_name),
+            FederationConfig(), train)
+    if layout is None:
+        return count_combo(*args)
+    with fake_group(layout.cards):
+        mesh = make_node_mesh(layout.cards, layout.data, layout.model)
+        return count_combo(*args, layout=layout, mesh=mesh)
 
 
 def fedavg_round_bytes(teacher_struct, n_nodes: int) -> int:
@@ -319,27 +527,44 @@ def federate_report(arch: str, n_nodes: int = 2) -> Dict[str, Any]:
 
 def lower_combo(arch: str, shape_name: str, mesh_kind: str = "pod1", *,
                 include_federate: bool = True, microbatches: int = 0,
-                smi: Optional[str] = None) -> Dict[str, Any]:
-    """The compile report of one (arch, shape, mesh) (module docstring);
-    the microbatches by :func:`resolve_microbatches`.  ``smi`` is the
-    card's ``nvidia-smi`` name and power limit to carry (read here where
-    a card is present)."""
+                smi: Optional[str] = None, cards_per_node: int = 1,
+                layout: Optional[str] = None, fsdp: bool = True,
+                node_mesh=None) -> Dict[str, Any]:
+    """The compile report of one (arch, shape, mesh) (module docstring).
+    With ``cards_per_node`` 1 a node is one card (``layout: "one
+    card"``); with D of 2, 4 or 8 the node's program is one rank's of a
+    D-card node under ``layout`` (``auto``, ``tp`` or ``fsdp``: default
+    ``auto``, :func:`resolve_layout`) on ``node_mesh`` (``"DxM"``;
+    default ``launch.mesh.default_node_shape``), ``fsdp=False`` leaving a ``tp``
+    training step's weights replicated over data.  The microbatches by
+    :func:`resolve_microbatches`.  ``smi`` is the card's ``nvidia-smi``
+    name and power limit to carry (read here where a card is present)."""
     import time
 
     from repro_torch.config import get_config, get_shape
     from repro_torch.launch.roofline import card, roofline_report
     if mesh_kind not in MESHES:
         raise ValueError(f"mesh must be one of {sorted(MESHES)}")
+    if cards_per_node == 1 and (layout is not None or not fsdp
+                                or node_mesh is not None):
+        raise ValueError("a layout needs cards_per_node of 2, 4 or 8")
     t0 = time.time()
     cfg, shape = get_config(arch), get_shape(shape_name)
-    m = resolve_microbatches(cfg, shape, microbatches)
-    fit = _counted(arch, shape_name, m)
+    lay = None if cards_per_node == 1 else node_layout(
+        cfg, shape, cards_per_node, layout or "auto", fsdp, node_mesh)
+    m = resolve_microbatches(cfg, shape, microbatches,
+                             lay.name if lay else "auto")
+    fit = _counted(arch, shape_name, m, lay)
+    chips = MESHES[mesh_kind] * cards_per_node
     report: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
-        "n_devices": MESHES[mesh_kind], "layout": "one card",
+        "n_devices": chips, "cards_per_node": cards_per_node,
+        "layout": lay.name if lay else "one card",
         "microbatches": m}
-    report.update(roofline_report(cfg, shape, fit.count,
-                                  chips=MESHES[mesh_kind],
+    if lay is not None:
+        report["node_mesh"] = {"data": lay.data, "model": lay.model}
+        report["fsdp"] = lay.fsdp
+    report.update(roofline_report(cfg, shape, fit.count, chips=chips,
                                   smi=smi if smi is not None else card()))
     report["trip_count_fit"] = fit.as_dict()
     report["by_op"] = {k: v for k, v in sorted(
@@ -435,6 +660,28 @@ def topology_report(arch: str, topology: str, pods, bits="16",
     return report
 
 
+def _refused(args) -> Optional[str]:
+    """Why the compile report's layout flags are refused, or None."""
+    from repro_torch.launch.mesh import NODE_CARDS, parse_node_mesh
+    cards = args.cards_per_node
+    if cards == 1:
+        if args.layout is not None or args.no_fsdp or args.node_mesh:
+            return ("--layout, --no-fsdp and --node-mesh shard a node over "
+                    "several cards: give --cards-per-node 2, 4 or 8")
+        return None
+    if cards not in NODE_CARDS:
+        return (f"--cards-per-node {cards}: a node is 1 card or one NVLink "
+                f"board of {', '.join(map(str, NODE_CARDS))}")
+    if args.layout not in (None, "auto", "tp", "fsdp"):
+        return f"--layout {args.layout}: auto, tp or fsdp"
+    if args.node_mesh is not None:
+        try:
+            parse_node_mesh(args.node_mesh, cards)
+        except ValueError as e:
+            return str(e)
+    return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.dryrun",
@@ -448,10 +695,19 @@ def main(argv=None) -> int:
                          "one card each (adds federate on train_4k)")
     ap.add_argument("--microbatches", type=int, default=0)
     ap.add_argument("--no-federate", action="store_true")
+    ap.add_argument("--cards-per-node", type=int, default=1,
+                    help="cards of one node: 1 (the node on one card) or "
+                         "2, 4, 8 (one rank's program under --layout)")
     ap.add_argument("--layout", default=None,
-                    help="refused: the port shards no model within a node")
+                    help="auto | tp | fsdp (with --cards-per-node > 1; "
+                         "default auto)")
     ap.add_argument("--no-fsdp", action="store_true",
-                    help="refused: the port shards no model within a node")
+                    help="tp: leave the weights' data dim replicated (with "
+                         "--cards-per-node > 1)")
+    ap.add_argument("--node-mesh", default=None, metavar="DxM",
+                    help="the node's data x model mesh (with "
+                         "--cards-per-node > 1; default under tp 2 x D/2, "
+                         "1 x 2 at D = 2; under fsdp D x 1)")
     ap.add_argument("--json", default=None, help="write report JSON here")
     ap.add_argument("--topology", default=None,
                     help="gossip graph spec: one round of each exchange, "
@@ -479,10 +735,9 @@ def main(argv=None) -> int:
                     help="--topology: 'cpu' to run off the card "
                          "(default: cuda)")
     args = ap.parse_args(argv)
-    if args.layout is not None or args.no_fsdp:
-        print("repro_torch.launch.dryrun: --layout and --no-fsdp are "
-              "refused: the port shards no model within a node (one card "
-              "a node)", file=sys.stderr)
+    refused = _refused(args)
+    if refused:
+        print(f"repro_torch.launch.dryrun: {refused}", file=sys.stderr)
         return 2
     if args.topology is None:
         if args.shape is None:
@@ -492,7 +747,10 @@ def main(argv=None) -> int:
         try:
             report = lower_combo(args.arch, args.shape, args.mesh,
                                  include_federate=not args.no_federate,
-                                 microbatches=args.microbatches)
+                                 microbatches=args.microbatches,
+                                 cards_per_node=args.cards_per_node,
+                                 layout=args.layout, fsdp=not args.no_fsdp,
+                                 node_mesh=args.node_mesh)
             report["status"] = "ok"
         except Exception as e:      # the report carries the failure
             report = {"arch": args.arch, "shape": args.shape,

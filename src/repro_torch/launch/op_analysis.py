@@ -22,7 +22,17 @@ device:
   allocates is live from the op that makes it until its last tensor
   dies (autograd's saved tensors included), and the peak is the largest
   sum at any op;
-* a breakdown by op name (calls, FLOPs, bytes).
+* a breakdown by op name (calls, FLOPs, bytes);
+* **collectives** — each ``_c10d_functional`` op, by kind, in the JAX
+  package's convention (its ``launch/roofline.py``): an all-gather counts
+  its output, an all-reduce twice its operand, a reduce-scatter, an
+  all-to-all and a permute their operand.
+
+Under an in-node layout the program's tensors are DTensors
+(``repro_torch.sharding``): the counter leaves each op on DTensors to
+DTensor's own dispatch and counts what that runs on this rank — the
+local shards' ops and the collectives of its redistributions — so every
+count above is one rank's.
 
 Counts split by part: the program's ``torch.profiler.record_function``
 spans named in :data:`PARTS` (the train program's ``teacher`` and
@@ -64,6 +74,19 @@ _EMPTY = {"empty", "empty_like", "empty_strided", "new_empty",
 # in-place ops whose destination is written without being read
 _PURE_WRITE = {"copy_", "fill_", "zero_", "normal_", "uniform_",
                "bernoulli_", "exponential_", "random_"}
+# collective kinds (the JAX package's names) of the functional
+# collectives; an op of their namespaces not named here moves nothing
+# (``wait_tensor``, ``_wrap_tensor_autograd``)
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+                "all_reduce": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all",
+                "permute_tensor": "collective-permute",
+                # DTensor's shard-to-shard move (an all-to-all of the
+                # operand on the card's mesh)
+                "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "_dtensor")
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -72,6 +95,59 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def collective_kind(func) -> Optional[str]:
+    """The collective kind of a functional collective op, else None."""
+    if func.namespace not in _COLLECTIVE_NAMESPACES:
+        return None
+    name = func.overloadpacket.__name__
+    for suffix in ("_out", "_"):
+        if name not in _COLLECTIVES and name.endswith(suffix):
+            name = name[:-len(suffix)]
+    return _COLLECTIVES.get(name)
+
+
+_DTENSOR: List[Any] = []
+
+
+def _is_dtensor_type(t) -> bool:
+    if not _DTENSOR:
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        _DTENSOR.extend((DTensor, FakeTensor))
+    return issubclass(t, _DTENSOR[0])
+
+
+def _is_fake(ts) -> bool:
+    """Any of ``ts`` a FakeTensor: DTensor's sharding propagation runs an
+    op on fake tensors at the global shapes to learn its output's shape;
+    the program never makes one, so such an op is not the rank's work."""
+    return bool(_DTENSOR) and any(isinstance(t, _DTENSOR[1]) for t in ts)
+
+
+def _propagation_codes() -> tuple:
+    """The code of DTensor's uncached sharding propagation: it runs ops
+    of its own (a strategy's decomposition on meta tensors, an op on fake
+    tensors for its output's shape), once a process for each op schema,
+    which are no rank's work.  Empty where DTensor is not loaded yet (no
+    program of DTensors has run)."""
+    mod = sys.modules.get("torch.distributed.tensor._sharding_prop")
+    if mod is None:
+        return ()
+    cls = mod.ShardingPropagator
+    codes = tuple(getattr(cls, n).__code__ for n in (
+        "propagate_op_sharding_non_cached",
+        "_propagate_tensor_meta_non_cached") if hasattr(cls, n))
+    if not codes:
+        raise RuntimeError("this torch's DTensor has no uncached sharding "
+                           "propagation the counter knows")
+    return codes
+
+
+def _local(t):
+    """A DTensor's local shard; any other tensor itself."""
+    return getattr(t, "_local_tensor", t)
 
 
 def _tensors(x) -> List[torch.Tensor]:
@@ -112,7 +188,8 @@ class OpCount:
     ``"<part>|other"`` (where the program was at the moment: in that
     part; inside blockwise attention, in one of its block pairs or not;
     or outside) to the live bytes at that moment's peak, by the part that
-    allocated them."""
+    allocated them.  ``coll`` holds the collective bytes by kind and
+    ``coll_counts`` their calls."""
     flops: Dict[str, float] = dataclasses.field(default_factory=dict)
     bytes: float = 0.0
     calls: float = 0.0
@@ -127,6 +204,8 @@ class OpCount:
         default_factory=dict)
     peaks: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
+    coll: Dict[str, float] = dataclasses.field(default_factory=dict)
+    coll_counts: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def total_flops(self) -> float:
@@ -145,6 +224,14 @@ class OpCount:
                 self.flops[fdtype] = self.flops.get(fdtype, 0) + flops
             e["flops"] += flops
 
+    def add_collective(self, kind: str, nbytes: float, calls: float) -> None:
+        self.coll[kind] = self.coll.get(kind, 0) + nbytes
+        self.coll_counts[kind] = self.coll_counts.get(kind, 0) + calls
+
+    @property
+    def coll_total(self) -> float:
+        return float(sum(self.coll.values()))
+
     def quantities(self) -> Dict[Tuple[str, ...], float]:
         """Every count by part as one flat dict (the fit's vector)."""
         q: Dict[Tuple[str, ...], float] = {}
@@ -156,6 +243,10 @@ class OpCount:
             for name, d in c.by_op.items():
                 for k, v in d.items():
                     q[(p, "op", name, k)] = v
+            for k, v in c.coll.items():
+                q[(p, "coll", k)] = v
+            for k, v in c.coll_counts.items():
+                q[(p, "coll_calls", k)] = v
         for p, d in self.memory.items():
             for k, v in d.items():
                 q[(p, "memory", k)] = v
@@ -179,6 +270,10 @@ class OpCount:
                     t.calls += v
                 elif kind == "flops":
                     t.flops[key[2]] = t.flops.get(key[2], 0) + v
+                elif kind == "coll":
+                    t.coll[key[2]] = t.coll.get(key[2], 0) + v
+                elif kind == "coll_calls":
+                    t.coll_counts[key[2]] = t.coll_counts.get(key[2], 0) + v
                 else:
                     e = t.by_op.setdefault(key[2], {"calls": 0, "flops": 0,
                                                     "bytes": 0})
@@ -199,12 +294,16 @@ class OpCounter(TorchDispatchMode):
 
     _memo: Dict[Any, Any] = {}
 
-    def __init__(self):
+    def __init__(self, device: Optional[str] = None):
         super().__init__()
+        # with ``device``, an op none of whose tensors is there is not the
+        # program's (DTensor's own bookkeeping on the mesh's CPU tensors)
+        self.device = device
         self.count = OpCount()
         self.tag = ""
         self._spans: List[str] = []
         self.attention = 0
+        self.propagating = 0
         self.in_pair = False
         self._marked = False
         self._rows: Dict[Tuple[str, str], List[Any]] = {}
@@ -224,6 +323,7 @@ class OpCounter(TorchDispatchMode):
         mon.use_tool_id(self._tool, "repro_torch.op_analysis")
         self._attention_code = blockwise.blockwise_attention.__code__
         self._pair_code = blockwise._attend_pair.__code__
+        self._prop_codes = _propagation_codes()
         ev = mon.events
         mon.register_callback(self._tool, ev.PY_START, self._started)
         mon.register_callback(self._tool, ev.PY_RETURN, self._returned)
@@ -231,15 +331,18 @@ class OpCounter(TorchDispatchMode):
         # attention it ran: an unwind ends a call as a return does
         mon.register_callback(self._tool, ev.PY_UNWIND, self._returned)
         mon.set_events(self._tool, ev.PY_UNWIND)
-        for code in (self._attention_code, self._pair_code):
+        for code in self._codes():
             mon.set_local_events(self._tool, code,
                                  ev.PY_START | ev.PY_RETURN)
         return super().__enter__()
 
+    def _codes(self):
+        return (self._attention_code, self._pair_code) + self._prop_codes
+
     def __exit__(self, *exc):
         mon = sys.monitoring
         ev = mon.events
-        for code in (self._attention_code, self._pair_code):
+        for code in self._codes():
             mon.set_local_events(self._tool, code, 0)
         mon.set_events(self._tool, 0)
         for e in (ev.PY_START, ev.PY_RETURN, ev.PY_UNWIND):
@@ -250,14 +353,18 @@ class OpCounter(TorchDispatchMode):
     def _started(self, code, offset) -> None:
         if code is self._pair_code:
             self.in_pair = True
-        else:
+        elif code is self._attention_code:
             self.attention += 1
+        else:
+            self.propagating += 1
 
     def _returned(self, code, offset, value) -> None:
         if code is self._pair_code:
             self.in_pair = False
         elif code is self._attention_code:
             self.attention -= 1
+        elif code in self._prop_codes:
+            self.propagating -= 1
 
     def _span(self, func, args, kwargs):
         """A ``record_function`` span opens or closes: the part an op
@@ -318,21 +425,25 @@ class OpCounter(TorchDispatchMode):
                 fn.metadata[_MOMENT] = where
                 self._marked = True
 
-    def _record(self, name: str, flops: float, fdtype, nbytes: int) -> None:
+    def _record(self, name: str, flops: float, fdtype, nbytes: int,
+                coll=None) -> None:
         row = self._rows.get((self.tag, name))
         if row is None:
-            row = self._rows[self.tag, name] = [0, 0, 0, {}]
+            row = self._rows[self.tag, name] = [0, 0, 0, {}, None]
         row[0] += 1
         row[2] += nbytes
         if flops:
             row[1] += flops
             row[3][fdtype] = row[3].get(fdtype, 0) + flops
+        if coll is not None:
+            kind, cb = coll
+            row[4] = (kind, (row[4] or (kind, 0))[1] + cb)
 
     def finish(self) -> OpCount:
         """The counts by part, and their totals."""
         c = self.count
         c.temp_peak_bytes = float(max(self._peak_total.values(), default=0))
-        for (tag, name), (calls, flops, nbytes, by_dtype) in \
+        for (tag, name), (calls, flops, nbytes, by_dtype, coll) in \
                 self._rows.items():
             pc = c.parts.get(tag)
             if pc is None:
@@ -342,15 +453,28 @@ class OpCounter(TorchDispatchMode):
             for d, f in by_dtype.items():
                 pc.flops[d] = pc.flops.get(d, 0) + f
                 c.flops[d] = c.flops.get(d, 0) + f
+            if coll is not None:
+                pc.add_collective(coll[0], coll[1], calls)
+                c.add_collective(coll[0], coll[1], calls)
         return c
 
     def _measure(self, func, args, kwargs, out, ins, outs, in_storages):
-        """(flops, flop dtype, bytes) of one op's run."""
+        """(flops, flop dtype, bytes, collective) of one op's run; the
+        collective ``(kind, bytes)`` or None."""
         name = func.overloadpacket.__name__
+        kind = collective_kind(func)
+        coll = None
+        if kind is None and func.namespace in _COLLECTIVE_NAMESPACES:
+            return 0, None, 0, None          # a wait or a wrapper
+        if kind is not None:
+            operand = sum(_nbytes(t) for t in ins)
+            coll = (kind, sum(_nbytes(o) for o in outs)
+                    if kind == "all-gather" else
+                    2 * operand if kind == "all-reduce" else operand)
         fresh = any(o.untyped_storage()._cdata not in in_storages
                     for o in outs)
         if (not fresh and not func._schema.is_mutable) or name in _EMPTY:
-            return 0, None, 0
+            return 0, None, 0, coll
         skip = set()
         if name in _PURE_WRITE and args and isinstance(args[0],
                                                        torch.Tensor):
@@ -369,7 +493,7 @@ class OpCounter(TorchDispatchMode):
         if f is not None:
             flops = int(f(*args, **kwargs, out_val=out))
             fdtype = dtype_name(ins[0].dtype)
-        return flops, fdtype, nbytes
+        return flops, fdtype, nbytes, coll
 
     @staticmethod
     def _specs(out, outs, ins, before):
@@ -405,6 +529,15 @@ class OpCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         if func.namespace == "profiler":
             return self._span(func, args, kwargs)
+        if self.propagating:
+            return func(*args, **kwargs)
+        if types and any(_is_dtensor_type(t) for t in types):
+            # DTensor's dispatch runs this rank's ops, which come back
+            # here; autograd records the op itself, whose backward is
+            # of the moment the op ran in
+            if self.attention:
+                self._mark([t for a in args for t in _tensors(a)])
+            return NotImplemented
         ins: List[torch.Tensor] = []
         key: List[Any] = [func]
         meta = True
@@ -428,6 +561,9 @@ class OpCounter(TorchDispatchMode):
                     ins.append(t)
                     meta = meta and t.is_meta
             key.append(_key(tuple(kwargs.items())))
+        if _is_fake(ins) or (self.device is not None and ins and all(
+                t.device.type != self.device for t in ins)):
+            return func(*args, **kwargs)
         hit = None
         if meta and ins:
             try:
@@ -463,6 +599,9 @@ class OpCounter(TorchDispatchMode):
                   for t in ins] if key is not None else None
         out = func(*args, **kwargs)
         outs = _tensors(out)
+        if not ins and (_is_fake(outs) or self.device is not None and all(
+                o.device.type != self.device for o in outs)):
+            return out
         measured = self._measure(func, args, kwargs, out, ins, outs,
                                  in_storages)
         if key is not None and outs:
@@ -485,9 +624,20 @@ MICRO = "@microbatch"
 _MOMENT = "op_analysis.moment"       # an autograd node's metadata key
 
 
-def _flat_tensors(x) -> List[torch.Tensor]:
+def _has_dtensor(x) -> bool:
     if isinstance(x, torch.Tensor):
-        return [x]
+        return hasattr(x, "_local_tensor")
+    if hasattr(x, "_asdict") or isinstance(x, (list, tuple)):
+        return any(_has_dtensor(e) for e in x)
+    if isinstance(x, dict):
+        return any(_has_dtensor(e) for e in x.values())
+    return False
+
+
+def _flat_tensors(x) -> List[torch.Tensor]:
+    """The tensors of a tree (a DTensor's local shard in its place)."""
+    if isinstance(x, torch.Tensor):
+        return [_local(x)]
     if hasattr(x, "_asdict"):       # a NamedTuple state
         x = list(x)
     if isinstance(x, (list, tuple)):
@@ -537,7 +687,10 @@ def count_ops(fn: Callable, *args, arg_parts: Optional[Dict[str, Any]]
 
 
 def _count(fn, args, kwargs, arg_st, owner) -> OpCount:
-    with OpCounter() as counter:
+    # one rank's program of DTensors on meta: only meta tensors are its
+    device = "meta" if _has_dtensor((args, kwargs)) and all(
+        t.is_meta for t in _flat_tensors((args, kwargs))) else None
+    with OpCounter(device) as counter:
         out = fn(*args, **kwargs)
         c = counter.count
         mem: Dict[str, Dict[str, float]] = {}

@@ -35,6 +35,7 @@ from repro_torch.core.profe import NodeState, student_loss, teacher_loss
 from repro_torch.models import (ModelOutput, decode_step, init_cache,
                                 init_params, prefill)
 from repro_torch.optim import clip_by_global_norm, make_optimizer
+from repro_torch.sharding import place_like
 from repro_torch.tree import (tree_empties, tree_from_paths, tree_map,
                               tree_paths)
 
@@ -117,11 +118,14 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig,
 
 def _grads(loss, params) -> Any:
     """``d loss / d params`` as a tree like ``params``; a leaf the loss
-    never reads gets zeros, as under ``jax.grad``."""
+    never reads gets zeros, as under ``jax.grad``.  Under an in-node
+    layout each gradient is placed as its parameter (a partial sum over
+    the batch's ranks reduce-scattered to the parameter's shards, as the
+    state's shardings make XLA do)."""
     paths, leaves = zip(*tree_paths(params))
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     return tree_from_paths(
-        ((p, torch.zeros_like(x) if g is None else g)
+        ((p, torch.zeros_like(x) if g is None else place_like(g, x))
          for p, x, g in zip(paths, leaves, got)), tree_empties(params))
 
 

@@ -1,32 +1,34 @@
 """Roofline terms of the compile report, at the H100's published peaks.
 
-Per (arch, shape, mesh), in seconds, from one node's op counts
-(:mod:`repro_torch.launch.op_analysis`) on one card:
+Per (arch, shape, mesh), in seconds, from one card's op counts
+(:mod:`repro_torch.launch.op_analysis`: one node's program on one card,
+or one rank's of a node of several cards under an in-node layout):
 
     compute    = Σ_dtype FLOPs[dtype] / PEAK_FLOPS[dtype]
     memory     = bytes / HBM_BW
-    collective = 0 (one node runs on one card: its program has no
-                 collective; the gossip round's bytes are the ``federate``
-                 entry's, counted by ``launch/wire``)
+    collective = collective bytes / NVLINK_BW (the rank's redistributions
+                 within its node, JAX's byte convention; 0 on one card.
+                 The gossip round's bytes between nodes are the
+                 ``federate`` entry's, counted by ``launch/wire``)
 
 The peaks are the H100 SXM data sheet's dense rates at 700 W: 989
 TFLOP/s in bf16 and fp16, 67 TFLOP/s in fp32 (TF32 is off in the port,
 so an fp32 product runs at the fp32 rate; any other dtype is priced at
-it too), 3.35 TB/s of HBM and 80 GB.  A card capped below 700 W runs
-slower, so the report carries the card's ``nvidia-smi`` name and power
-limit where a card is present.
+it too), 3.35 TB/s of HBM and 80 GB; NVLink's 900 GB/s a card is both
+directions together, so a card sends at 450 GB/s.  A card capped below
+700 W runs slower, so the report carries the card's ``nvidia-smi`` name
+and power limit where a card is present.
 
 :func:`roofline_report` keeps the JAX package's report keys, with these
-exceptions: ``fits_80gb_hbm`` in place of ``fits_16gb_hbm``;
-``collective_bytes_per_device`` is 0 (one node, one card);
-``xla_cost_analysis_flops`` is dropped (there is no XLA); ``flops_by_dtype``
-is added; ``memory_analysis`` gives the arguments, the outputs, the peak
-of temporaries (every storage the program allocates, its fresh outputs
-included), the aliases (outputs that are argument storages: donated
-state, caches written in place) and ``peak_bytes_estimate`` = arguments
-+ the peak of temporaries.  JAX's ``collective_bytes_from_hlo`` has no
-counterpart: the port's collective bytes are what ``launch/wire``
-counts.
+exceptions: ``fits_80gb_hbm`` (the rank's peak against one card's 80 GB)
+in place of ``fits_16gb_hbm``; ``xla_cost_analysis_flops`` is dropped
+(there is no XLA); ``flops_by_dtype`` is added; ``memory_analysis`` gives
+the arguments, the outputs, the peak of temporaries (every storage the
+program allocates, its fresh outputs included), the aliases (outputs
+that are argument storages: donated state, caches written in place) and
+``peak_bytes_estimate`` = arguments + the peak of temporaries.  JAX's
+``collective_bytes_from_hlo`` has no counterpart: the counter sees the
+collectives themselves (``OpCount.coll``).
 """
 from __future__ import annotations
 
@@ -37,6 +39,9 @@ from typing import Any, Dict, Optional
 PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12}
 HBM_BW = 3.35e12          # B/s
 HBM_BYTES = 80e9          # the card's 80 GB
+# NVLink: 900 GB/s a card on the H100 SXM data sheet, both directions
+# together; a collective's bytes leave a card at half of it
+NVLINK_BW = 450e9         # B/s a card, one direction
 
 
 # ---------------------------------------------------------------------------
@@ -115,14 +120,15 @@ def compute_seconds(flops_by_dtype: Dict[str, float]) -> float:
 
 def roofline_report(cfg, shape, count, *, chips: int = 1,
                     smi: Optional[str] = None) -> Dict[str, Any]:
-    """The report of one node's program: ``count`` is its
-    :class:`~repro_torch.launch.op_analysis.OpCount` (per device), ``chips``
-    the cards of the mesh (one node each)."""
+    """The report of one card's program: ``count`` is its
+    :class:`~repro_torch.launch.op_analysis.OpCount` (one node's on one
+    card, or one rank's of a node), ``chips`` the cards of the mesh."""
     flops_dev = float(count.total_flops)
     bytes_dev = float(count.bytes)
+    coll_dev = count.coll_total
     terms = {"compute_s": compute_seconds(count.flops),
              "memory_s": bytes_dev / HBM_BW,
-             "collective_s": 0.0}
+             "collective_s": coll_dev / NVLINK_BW}
     dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, shape)
     flops_total = flops_dev * chips
@@ -133,16 +139,18 @@ def roofline_report(cfg, shape, count, *, chips: int = 1,
                            for k, v in sorted(count.flops.items())},
         "flops_total": flops_total,
         "bytes_per_device": bytes_dev,
-        "collective_bytes_per_device": 0.0,
-        "collective_by_kind": {},
-        "collective_counts": {},
+        "collective_bytes_per_device": coll_dev,
+        "collective_by_kind": {k: float(v)
+                               for k, v in sorted(count.coll.items())},
+        "collective_counts": {k: float(v) for k, v in
+                              sorted(count.coll_counts.items())},
         "terms_s": terms,
         "dominant": dominant.replace("_s", ""),
         "model_flops_6nd": mf,
         "useful_flops_ratio": (mf / flops_total) if flops_total else None,
         "memory_analysis": memory_analysis(count),
         "peaks": {"flops": dict(PEAK_FLOPS), "hbm_bytes_per_s": HBM_BW,
-                  "hbm_bytes": HBM_BYTES,
+                  "hbm_bytes": HBM_BYTES, "nvlink_bytes_per_s": NVLINK_BW,
                   "source": "H100 SXM data sheet, dense, 700 W"},
         "card": smi,
     }

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.blockwise import blockwise_attention
+from repro_torch.sharding import gqa_on_shards, on_shards, reshape, shard_act
 
 
 def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
@@ -41,12 +42,13 @@ def init_attention(gen, d_model: int, num_heads: int, num_kv_heads: int,
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
-    return x.reshape(x.shape[:-1] + (n_heads, head_dim))
+    return reshape(x, x.shape[:-1] + (n_heads, head_dim))
 
 
 def project_q(params, x, positions, *, num_heads, head_dim, rope_theta,
               use_rope=True, norm_eps=1e-6):
-    q = _split_heads(L.dense(params["wq"], x), num_heads, head_dim)
+    q = shard_act(_split_heads(L.dense(params["wq"], x), num_heads,
+                               head_dim), "bthd")
     if "q_norm" in params:
         q = L.rmsnorm(params["q_norm"], q, norm_eps)
     if use_rope:
@@ -56,8 +58,10 @@ def project_q(params, x, positions, *, num_heads, head_dim, rope_theta,
 
 def project_kv(params, x, positions, *, num_kv_heads, head_dim, rope_theta,
                use_rope=True, norm_eps=1e-6):
-    k = _split_heads(L.dense(params["wk"], x), num_kv_heads, head_dim)
-    v = _split_heads(L.dense(params["wv"], x), num_kv_heads, head_dim)
+    k = shard_act(_split_heads(L.dense(params["wk"], x), num_kv_heads,
+                               head_dim), "bthd")
+    v = shard_act(_split_heads(L.dense(params["wv"], x), num_kv_heads,
+                               head_dim), "bthd")
     if "k_norm" in params:
         k = L.rmsnorm(params["k_norm"], k, norm_eps)
     if use_rope:
@@ -65,23 +69,38 @@ def project_kv(params, x, positions, *, num_kv_heads, head_dim, rope_theta,
     return k, v
 
 
+def gqa_scores(q, k, scale: float):
+    """q: [B,S,NQ,HD], k: [B,T,NKV,HD] -> fp32 scores [B,NKV,G,S,T]
+    (exact upcasts of the operands)."""
+    b, s, nq, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, s, nkv, nq // nkv, hd)
+    return torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
+
+
+def gqa_context(scores, v, mask: Optional[torch.Tensor], dtype):
+    """The masked softmax of ``scores`` [B,NKV,G,S,T] (to ``dtype``) against
+    v [B,T,NKV,HD] -> [B,S,NKV,G,HD]."""
+    if mask is not None:
+        m = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+        scores = torch.where(m, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    dt = torch.promote_types(dtype, v.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(dt), v.to(dt))
+
+
 def gqa_attend(q, k, v, mask: Optional[torch.Tensor]):
     """q: [B,S,NQ,HD], k/v: [B,T,NKV,HD], mask [S,T] or [B|1,S|1,T].
 
     Scores and softmax in fp32 (exact upcasts of the operands); the
-    probabilities go back to ``q``'s dtype before the product with v."""
+    probabilities go back to ``q``'s dtype before the product with v.
+    Under an in-node layout each rank runs it on its shards
+    (:func:`repro_torch.sharding.gqa_on_shards`)."""
     b, s, nq, hd = q.shape
-    nkv = k.shape[2]
-    groups = nq // nkv
-    qg = q.reshape(b, s, nkv, groups, hd)
-    scale = hd ** -0.5
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * scale
-    if mask is not None:
-        m = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
-        scores = torch.where(m, scores, torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    dt = torch.promote_types(q.dtype, v.dtype)
-    ctx = torch.einsum("bkgst,btkd->bskgd", probs.to(dt), v.to(dt))
+    if on_shards(q):
+        ctx = gqa_on_shards(gqa_scores, gqa_context, q, k, v, mask)
+        return reshape(ctx, (b, s, nq * hd))
+    ctx = gqa_context(gqa_scores(q, k, hd ** -0.5), v, mask, q.dtype)
     return ctx.reshape(b, s, nq * hd)
 
 

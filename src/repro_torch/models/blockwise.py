@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import attention_on_shards, on_shards
+
 NEG_INF = -1e30
 
 
@@ -46,7 +48,13 @@ def _attend_pair(qblk, kblk, vblk, m_run, l_run, acc, q_pos, k_pos, T,
 def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, q_block: int = 512,
                         kv_block: int = 512):
-    """q: [B,S,NQ,HD], k/v: [B,T,NKV,HD] -> [B,S,NQ,HD] in q's dtype."""
+    """q: [B,S,NQ,HD], k/v: [B,T,NKV,HD] -> [B,S,NQ,HD] in q's dtype.
+    Under an in-node layout (DTensors) each rank runs it on its batch and
+    head shards (:func:`repro_torch.sharding.attention_on_shards`)."""
+    if on_shards(q):
+        return attention_on_shards(
+            blockwise_attention, q, k, v, causal=causal, window=window,
+            q_offset=q_offset, q_block=q_block, kv_block=kv_block)
     B, S, NQ, HD = q.shape
     T, NKV = k.shape[1], k.shape[2]
     G = NQ // NKV

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard_act
 
 
 def init_gated_ffn(gen, d_model: int, d_ff: int, dtype=torch.float32,
@@ -17,8 +18,8 @@ def init_gated_ffn(gen, d_model: int, d_ff: int, dtype=torch.float32,
 
 def gated_ffn(params, x: torch.Tensor, act_name: str = "silu"):
     act = L.activation(act_name)
-    gate = act(L.dense(params["wi_gate"], x))
-    up = L.dense(params["wi_up"], x)
+    gate = act(shard_act(L.dense(params["wi_gate"], x), "btf"))
+    up = shard_act(L.dense(params["wi_up"], x), "btf")
     return L.dense(params["wo"], gate * up)
 
 
@@ -34,4 +35,5 @@ def init_mlp(gen, d_model: int, d_ff: int, *, bias: bool = True,
 
 def mlp(params, x: torch.Tensor, act_name: str = "gelu"):
     act = L.activation(act_name)
-    return L.dense(params["wo"], act(L.dense(params["wi"], x)))
+    return L.dense(params["wo"], act(shard_act(L.dense(params["wi"], x),
+                                               "btf")))

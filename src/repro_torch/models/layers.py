@@ -18,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import embed_on_shards, matmul, on_shards
+
 
 # ---------------------------------------------------------------------------
 # init helpers
@@ -74,7 +76,7 @@ def init_dense(gen, in_dim: int, out_dim: int, *, bias: bool = False,
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ params["kernel"].to(x.dtype)
+    y = matmul(x, params["kernel"].to(x.dtype))
     if "bias" in params:
         y = y + params["bias"].to(x.dtype)
     return y
@@ -87,7 +89,10 @@ def init_embedding(gen, vocab: int, dim: int, dtype=torch.float32,
 
 
 def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return params["table"][tokens].to(dtype)
+    table = params["table"]
+    if on_shards(table) and table.requires_grad:
+        return embed_on_shards(table, tokens).to(dtype)
+    return table[tokens].to(dtype)
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
@@ -95,7 +100,7 @@ def unembed(params, x: torch.Tensor) -> torch.Tensor:
     operands in ``x``'s dtype (exact upcasts: JAX's
     ``preferred_element_type=float32``)."""
     table = params["table"].to(x.dtype)
-    return x.float() @ table.float().T
+    return matmul(x.float(), table.float().T)
 
 
 # ---------------------------------------------------------------------------

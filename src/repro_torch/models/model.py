@@ -33,6 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.cnn import cnn_forward, compute_dtype, init_cnn
 from repro_torch.models.resnet import init_resnet, resnet_forward
+from repro_torch.sharding import shard_act
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -114,7 +115,7 @@ def _head(cfg, params, h):
     h = T.apply_norm(cfg, params["final_norm"], h)
     pooled = torch.mean(h.float(), dim=1)
     f1 = F.relu(L.dense(params["proto_proj"], pooled.to(h.dtype))).float()
-    return L.unembed(params["embed"], h), f1
+    return shard_act(L.unembed(params["embed"], h), "btv"), f1
 
 
 _IMAGE_FORWARDS = {"cnn": cnn_forward, "resnet": resnet_forward}
@@ -130,7 +131,8 @@ def forward(cfg: ModelConfig, params, batch, *,
         logits, f1 = _IMAGE_FORWARDS[cfg.family](cfg, params, batch["image"])
         return ModelOutput(logits, f1, torch.zeros((), device=logits.device))
     tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, compute_dtype(cfg.dtype))
+    x = shard_act(L.embed(params["embed"], tokens, compute_dtype(cfg.dtype)),
+                  "btd")
     positions = batch.get("positions",
                           torch.arange(tokens.shape[1], device=tokens.device))
     memory = build_memory(cfg, params, batch, remat=remat)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import cumsum, einsum, reshape, shard_act
 
 DEFAULT_GROUP = 2048
 
@@ -51,7 +52,7 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     """
     B, S, D = x.shape
     E, K = num_experts, top_k
-    tokens = x.reshape(-1, D)
+    tokens = reshape(x, (-1, D))
     N = tokens.shape[0]
     g = min(group_size, N)
     # pad N to a multiple of g
@@ -59,17 +60,17 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
     if pad:
         tokens = F.pad(tokens, (0, 0, 0, pad))
     G = tokens.shape[0] // g
-    xt = tokens.reshape(G, g, D)
+    xt = shard_act(reshape(tokens, (G, g, D)), "gtd")
 
     router = params["router"].to(x.dtype)
-    logits = torch.einsum("gtd,de->gte", xt.float(), router.float())
+    logits = einsum("gtd,de->gte", xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)                        # [G,g,E] f32
     w, idx = route_top_k(probs, K)                               # [G,g,K]
     w = w / torch.sum(w, dim=-1, keepdim=True)
 
     onehot = F.one_hot(idx, E).float()                           # [G,g,K,E]
-    flat = onehot.reshape(G, g * K, E)
-    pos = torch.cumsum(flat, dim=1) - 1.0                        # [G,gK,E]
+    flat = reshape(onehot, (G, g * K, E))
+    pos = cumsum(flat, dim=1) - 1.0                              # [G,gK,E]
     if no_drop:
         C = g * K                      # serving: cover every routing slot
     else:
@@ -81,27 +82,29 @@ def moe_ffn(params, x: torch.Tensor, *, num_experts: int, top_k: int,
         if g <= 64:
             C = g * K
     keep = (pos < C) & (flat > 0)                                # [G,gK,E]
-    pos = pos.reshape(G, g, K, E)
-    keep = keep.reshape(G, g, K, E)
+    pos = reshape(pos, (G, g, K, E))
+    keep = reshape(keep, (G, g, K, E))
 
     c_iota = torch.arange(C, dtype=torch.float32, device=x.device)
     # token-granular dispatch/combine: sum over the K routing slots
     disp_k = keep[..., None] & (pos[..., None] == c_iota)        # [G,g,K,E,C]
     disp = disp_k.to(x.dtype)
-    dispatch = torch.sum(disp, dim=2)                            # [G,g,E,C]
-    combine = torch.sum(disp * w[..., None, None].to(x.dtype), dim=2)
+    dispatch = shard_act(torch.sum(disp, dim=2), "gtec")         # [G,g,E,C]
+    combine = shard_act(
+        torch.sum(disp * w[..., None, None].to(x.dtype), dim=2), "gtec")
 
-    expert_in = torch.einsum("gtec,gtd->egcd", dispatch, xt)     # [E,G,C,D]
+    expert_in = shard_act(einsum("gtec,gtd->egcd", dispatch, xt),
+                          "egcd")                                # [E,G,C,D]
     act = L.activation(act_name)
     wi_g = params["wi_gate"].to(x.dtype)
     wi_u = params["wi_up"].to(x.dtype)
     wo = params["wo"].to(x.dtype)
-    h = act(torch.einsum("egcd,edf->egcf", expert_in, wi_g)) * \
-        torch.einsum("egcd,edf->egcf", expert_in, wi_u)
-    expert_out = torch.einsum("egcf,efd->egcd", h, wo)
-    out = torch.einsum("gtec,egcd->gtd", combine, expert_out)
+    h = act(einsum("egcd,edf->egcf", expert_in, wi_g)) * \
+        einsum("egcd,edf->egcf", expert_in, wi_u)
+    expert_out = shard_act(einsum("egcf,efd->egcd", h, wo), "egcd")
+    out = einsum("gtec,egcd->gtd", combine, expert_out)
 
-    out = out.reshape(-1, D)[:N].reshape(B, S, D)
+    out = reshape(reshape(out, (-1, D))[:N], (B, S, D))
 
     # Switch load-balance auxiliary loss: E * sum_e f_e * p_e
     frac = torch.mean(onehot[..., 0, :] if K == 1 else onehot.amax(dim=2),

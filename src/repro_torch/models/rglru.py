@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import causal_conv
+from repro_torch.sharding import einsum
 
 _C = 8.0
 
@@ -135,7 +136,7 @@ def recurrent_block_decode(params, x, state):
     pre = L.dense(params["in_rec"], x)                       # [B,1,W]
     window = torch.cat([state["conv"], pre], dim=1)          # [B,W_c,W]
     w = params["conv"]["kernel"].to(x.dtype)
-    rec = torch.einsum("bwc,wc->bc", window, w) + \
+    rec = einsum("bwc,wc->bc", window, w) + \
         params["conv"]["bias"].to(x.dtype)
     rec = rec[:, None, :]
     gate = gelu(L.dense(params["in_gate"], x))

@@ -13,6 +13,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import (conv_on_shards, cumsum, einsum,
+                                  factory_like, on_shards, reshape,
+                                  whole_dims)
 
 HEADDIM = 64
 
@@ -51,7 +54,11 @@ def _split_proj(zxbcdt, d_inner: int, d_state: int, nheads: int):
 
 
 def causal_conv(params, u: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. u: [B, S, C]; the taps summed in order."""
+    """Depthwise causal conv1d. u: [B, S, C]; the taps summed in order.
+    Under an in-node layout each rank convolves its shards, the sequence
+    whole (:func:`repro_torch.sharding.conv_on_shards`)."""
+    if on_shards(u):
+        return conv_on_shards(causal_conv, params, u)
     w = params["kernel"].to(u.dtype)      # [W, C]
     width, s = w.shape[0], u.shape[1]
     pad = F.pad(u, (0, 0, width - 1, 0))
@@ -64,7 +71,7 @@ def causal_conv(params, u: torch.Tensor) -> torch.Tensor:
 def _segsum(a: torch.Tensor) -> torch.Tensor:
     """a: [..., Q] -> [..., Q, Q] lower-tri cumulative sums (exclusive)."""
     q = a.shape[-1]
-    cs = torch.cumsum(a, dim=-1)
+    cs = cumsum(a, dim=-1)
     # segsum[l, s] = sum_{s < r <= l} a_r  = cs[l] - cs[s]
     seg = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
@@ -95,28 +102,32 @@ def ssd_chunked(x, dt, a_log, b, c, *, chunk: int):
     xd = x * dt[..., None].to(x.dtype)
 
     # chunk views
-    xc = xd.reshape(B_, nc, Q, H, P)
-    dac = da.reshape(B_, nc, Q, H).permute(0, 1, 3, 2)       # [B,nc,H,Q]
-    bc = b.reshape(B_, nc, Q, N)
-    cc = c.reshape(B_, nc, Q, N)
+    xc = reshape(xd, (B_, nc, Q, H, P))
+    dac = reshape(da, (B_, nc, Q, H)).permute(0, 1, 3, 2)   # [B,nc,H,Q]
+    bc = reshape(b, (B_, nc, Q, N))
+    cc = reshape(c, (B_, nc, Q, N))
 
     # 1. intra-chunk (attention-dual) term
     Lmat = torch.exp(_segsum(dac))                           # [B,nc,H,Q,Q]
-    scores = torch.einsum("bzln,bzsn->bzls", cc.float(), bc.float())
+    scores = einsum("bzln,bzsn->bzls", cc.float(), bc.float())
     att = scores[:, :, None] * Lmat                          # [B,nc,H,Q,Q]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     att = torch.where(tri, att, 0.0)
-    y_diag = torch.einsum("bzhls,bzshp->bzlhp", att.to(x.dtype), xc)
+    y_diag = einsum("bzhls,bzshp->bzlhp", att.to(x.dtype), xc)
 
     # 2. per-chunk final states
-    cum = torch.cumsum(dac, dim=-1)                          # [B,nc,H,Q]
+    cum = cumsum(dac, dim=-1)                                # [B,nc,H,Q]
     decay_states = torch.exp(cum[..., -1:] - cum)            # [B,nc,H,Q]
-    states = torch.einsum("bzsn,bzhs,bzshp->bzhnp",
+    states = einsum("bzsn,bzhs,bzshp->bzhnp",
                           bc, decay_states.to(x.dtype), xc)  # [B,nc,H,N,P]
 
-    # 3. inter-chunk recurrence (a loop over chunks)
-    chunk_decay = torch.exp(cum[..., -1])                    # [B,nc,H]
-    s = torch.zeros((B_, H, N, P), dtype=x.dtype, device=x.device)
+    # 3. inter-chunk recurrence (a loop over chunks; under a layout the
+    # chunks whole on each rank, gathered once, not once a step)
+    states = whole_dims(states, (1,))
+    chunk_decay = whole_dims(torch.exp(cum[..., -1]), (1,))  # [B,nc,H]
+    s = factory_like(lambda sh: torch.zeros(sh, dtype=x.dtype,
+                                            device=x.device),
+                     (B_, H, N, P), states, (0, 2, 3, 4))
     prev = []
     for z in range(nc):
         prev.append(s)
@@ -125,9 +136,9 @@ def ssd_chunked(x, dt, a_log, b, c, *, chunk: int):
 
     # 4. inter-chunk contribution: C_t @ state_in * exp(cum_t)
     state_decay = torch.exp(cum)                             # [B,nc,H,Q]
-    y_off = torch.einsum("bzln,bzhnp,bzhl->bzlhp",
+    y_off = einsum("bzln,bzhnp,bzhl->bzlhp",
                          cc, prev_states, state_decay.to(x.dtype))
-    y = (y_diag + y_off).reshape(B_, S_p, H, P)
+    y = reshape(y_diag + y_off, (B_, S_p, H, P))
     return y[:, :S], s
 
 
@@ -150,10 +161,10 @@ def mamba2_forward(params, x, *, d_state: int, chunk: int = 128,
     b = conv_out[..., d_inner:d_inner + d_state]
     c = conv_out[..., d_inner + d_state:]
     dt = F.softplus(dt.float() + params["dt_bias"].float())
-    xh = xi.reshape(B_, S, nheads, HEADDIM)
+    xh = reshape(xi, (B_, S, nheads, HEADDIM))
     y, state = ssd_chunked(xh, dt, params["a_log"], b, c, chunk=chunk)
     y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(B_, S, d_inner)
+    y = reshape(y, (B_, S, d_inner))
     y = L.rmsnorm(params["norm"], y * F.silu(z))
     out = L.dense(params["out_proj"], y)
     if not want_state:
@@ -190,7 +201,7 @@ def mamba2_decode_step(params, x, state, *, d_state: int):
     conv_in = torch.cat([xi, b, c], dim=-1)                  # [B,1,C]
     window = torch.cat([state["conv"], conv_in], dim=1)      # [B,W,C]
     w = params["conv"]["kernel"].to(x.dtype)
-    conv_out = torch.einsum("bwc,wc->bc", window, w) + \
+    conv_out = einsum("bwc,wc->bc", window, w) + \
         params["conv"]["bias"].to(x.dtype)
     conv_out = F.silu(conv_out)[:, None, :]
     new_conv = window[:, 1:, :]
@@ -200,13 +211,13 @@ def mamba2_decode_step(params, x, state, *, d_state: int):
     dt = F.softplus(dt.float() + params["dt_bias"].float())  # [B,1,H]
     A = -torch.exp(params["a_log"].float())
     da = torch.exp(dt[:, 0] * A)                             # [B,H]
-    xh = xi.reshape(B_, nheads, HEADDIM)
+    xh = reshape(xi, (B_, nheads, HEADDIM))
     s = state["ssm"]
     s = s * da[..., None, None].to(s.dtype) + \
-        torch.einsum("bn,bhp,bh->bhnp", b[:, 0], xh, dt[:, 0].to(x.dtype))
-    y = torch.einsum("bn,bhnp->bhp", c[:, 0], s)
+        einsum("bn,bhp,bh->bhnp", b[:, 0], xh, dt[:, 0].to(x.dtype))
+    y = einsum("bn,bhnp->bhp", c[:, 0], s)
     y = y + params["d_skip"].to(x.dtype)[None, :, None] * xh
-    y = y.reshape(B_, 1, d_inner)
+    y = reshape(y, (B_, 1, d_inner))
     y = L.rmsnorm(params["norm"], y * F.silu(z))
     out = L.dense(params["out_proj"], y)
     return out, {"ssm": s, "conv": new_conv}

@@ -32,6 +32,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.blockwise import blockwise_attention
 from repro_torch.models.cnn import compute_dtype
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.sharding import reshape, shard_act
 from repro_torch.tree import tree_map
 
 ATTN_KINDS = ("attn", "lattn", "cross", "battn")
@@ -159,7 +160,7 @@ def _self_attention(cfg: ModelConfig, p, x, positions, *, window: int,
         else {}
     ctx = blockwise_attention(q, k, v, causal=causal, window=window, **blocks)
     b, s = ctx.shape[:2]
-    return L.dense(p["wo"], ctx.reshape(b, s, -1)), (k, v)
+    return L.dense(p["wo"], reshape(ctx, (b, s, -1))), (k, v)
 
 
 def block_forward(cfg: ModelConfig, kind: str, p, x, positions,
@@ -310,6 +311,7 @@ def _period_forward(cfg, period, pparams, x, positions, memory,
     aux = torch.zeros((), device=x.device)
     caches = {}
     for i, kind in enumerate(period):
+        x = shard_act(x, "btd")
         x, a, c = block_forward(cfg, kind, pparams[f"b{i}"], x, positions,
                                 memory, want_cache=want_cache)
         aux = aux + a

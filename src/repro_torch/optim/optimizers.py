@@ -25,6 +25,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.opt_update.ref import keep_masked, per_node, sqrt_rn
+from repro_torch.sharding import broadcast_like, place_like
 from repro_torch.tree import (tree_empties, tree_from_paths, tree_leaves,
                               tree_map, tree_paths)
 
@@ -160,14 +161,18 @@ def adafactor_leaf_update(g32, v, beta, *, lead: int, eps: float,
 
     def ema(old, new):
         return per_node(beta, old) * old + per_node(one_m_beta, new) * new
+    # under an in-node layout each moment is reduced straight into its
+    # state's shards and the update into the gradient's (the placements
+    # JAX's jit pins the new state to)
     if factored(shape):
-        vr = ema(v["vr"], g2.mean(dim=-1))
-        vc = ema(v["vc"], g2.mean(dim=-2))
-        rfac = (vr / vr.mean(dim=-1, keepdim=True))[..., None]
+        vr = ema(v["vr"], place_like(g2.mean(dim=-1), v["vr"]))
+        vc = ema(v["vc"], place_like(g2.mean(dim=-2), v["vc"]))
+        rfac = broadcast_like((vr / vr.mean(dim=-1, keepdim=True))[..., None],
+                              g32)
         upd = g32 * torch.rsqrt(rfac * vc[..., None, :] + eps)
         new_v = {"vr": vr, "vc": vc}
     else:
-        nv = ema(v["v"], g2)
+        nv = ema(v["v"], place_like(g2, v["v"]))
         upd = g32 * torch.rsqrt(nv + eps)
         new_v = {"v": nv}
     own = tuple(range(lead, upd.dim()))
