@@ -789,6 +789,137 @@ def absmax_cases(torch, name: str):
     return cases
 
 
+def adamw_cases(torch):
+    """Phase 3's cases of the vectorized per-node ``adamw_update``, each
+    bit for bit its plain version with no mask and with a mixed, an
+    all-on and a none-on mask (a masked node's planes bit-unchanged): the
+    main path's ``[20, 416, 512]``, a rank's node ``[1, 416, 512]``, the
+    round-step's ``[2, 112, 512]``, ``[2, 112, 512]`` with p one element
+    into its storage (one element a vector), and ``[3, 5, 7]`` (planes
+    that are not whole vectors).  Each node its own clip scale and step
+    counter.  Returns the cases with the plan each took."""
+    from dataclasses import asdict
+
+    from repro_torch.kernels.opt_update.opt_update import (ADAMW_LAUNCHES,
+                                                           adamw_update_cuda)
+    from repro_torch.kernels.opt_update.ref import adamw_update_ref
+    gen = torch.Generator().manual_seed(37)
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
+    lr = torch.full((), 1e-3, device="cuda")
+    cases = []
+
+    def held(what, shape, p_off=0):
+        nodes = shape[0]
+        g = (torch.randn(shape, generator=gen) * 1e-3).cuda()
+        p = on_card_at(torch, torch.randn(shape, generator=gen) * 0.1, p_off)
+        mu = (torch.randn(shape, generator=gen) * 1e-4).cuda()
+        nu = (torch.rand(shape, generator=gen) * 1e-7).cuda()
+        scale = (torch.rand((nodes,), generator=gen) + 0.1).cuda()
+        step = torch.tensor([3.0 + i % 5 for i in range(nodes)],
+                            device="cuda")
+        bc1, bc2 = 1.0 - 0.9 ** step, 1.0 - 0.999 ** step
+        for how in (None, "mixed", "all", "none"):
+            mask = None if how is None else node_mask(torch, how, nodes)
+            got = [on_card_at(torch, p, p_off), mu.clone(), nu.clone()]
+            adamw_update_cuda(g, *got, lr, scale, bc1, bc2, active=mask,
+                              **hp)
+            plan = ADAMW_LAUNCHES.last_plan
+            want = adamw_update_ref(g, p, mu, nu, lr=lr, scale=scale,
+                                    bc1=bc1, bc2=bc2, active=mask, **hp)
+            torch.cuda.synchronize()
+            ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
+            expect(ulps == 0, f"adamw_update is not bit-exact with its "
+                   f"plain version at {what}, mask {how}")
+            if mask is not None:
+                off = ~mask
+                expect(all(bits_equal(torch, a[off], b[off])
+                           for a, b in zip(got, (p, mu, nu))),
+                       f"adamw_update: a masked node changed at {what}")
+        cases.append(dict(case=what, shape=list(shape), p_offset=p_off,
+                          masks=["none given", "mixed", "all", "none"],
+                          **asdict(plan)))
+        return plan
+
+    expect(held("main path", (N_NODES, 416, 512)).vec == 4,
+           "adamw_update: the main path took one element a vector")
+    held("a rank's node", (1, 416, 512))
+    held("round-step N = 2", (2, 112, 512))
+    expect(held("p at offset 1", (2, 112, 512), 1).vec == 1,
+           "adamw_update: p off 16 bytes took 16-byte vectors")
+    expect(held("[3, 5, 7]", (3, 5, 7)).vec == 1,
+           "adamw_update: 35-element planes took 16-byte vectors")
+    print(f"adamw_update: bit-exact at {len(cases)} cases, 4 masks each")
+    return cases
+
+
+def ef_cases(torch):
+    """Phase 3's cases of ``quantize_rows_ef`` in the row codec's body,
+    codes and residual each bit for bit their plain version at decay 1.0
+    and 0.9, int4 and int16 rows alternating, Δ each row's absmax of
+    ``x + res`` over its qmax (a quarter of that on every fifth row, so
+    its codes clip), a residual of half a step: the ``4/16+ef`` payload's
+    ``[8320, 512]``, the tree payload's ``[960, 512]``, a rank's node
+    ``[416, 512]``, 510 columns, x one element into its storage, 8 empty
+    rows at the least normal Δ (x and res +0 or -0, or x 0 under a
+    subnormal residual), and 12 zero lanes a row.
+    Returns the cases with the plan each took."""
+    from dataclasses import asdict
+
+    from repro_torch.kernels.quantize.quantize import (
+        QUANTIZE_ROWS_EF_LAUNCHES, quantize_rows_ef_cuda)
+    from repro_torch.kernels.quantize.ref import quantize_rows_ef_ref
+    gen = torch.Generator().manual_seed(38)
+    cases = []
+
+    def held(what, rows, cols, x_off=0, empty=0, pad=0):
+        x = torch.randn((rows, cols), generator=gen)
+        qm = torch.where(torch.arange(rows) % 2 == 0, 7.0, 32767.0)[:, None]
+        res = (torch.rand((rows, cols), generator=gen) - 0.5) * (
+            x.abs().amax(dim=1, keepdim=True) / qm)
+        if pad:                     # a plane's zero padding lanes
+            x[:, cols - pad:], res[:, cols - pad:] = 0.0, 0.0
+        rd = (x + res).abs().amax(dim=1, keepdim=True) / qm
+        rd[::5] /= 4.0
+        # empty rows at the least normal Δ: x and res +0 or -0 (eff -0),
+        # and x 0 under a subnormal residual, as an empty row of the path
+        # carries after a step
+        tiny = torch.finfo(torch.float32).tiny
+        x[:empty], res[:empty] = 0.0, 0.0
+        x[:empty // 2:2], res[:empty // 2:2] = -0.0, -0.0
+        res[empty // 2:empty] = (torch.rand((empty - empty // 2, cols),
+                                            generator=gen) - 0.5) * tiny
+        rd[:empty] = tiny
+        x = on_card_at(torch, x, x_off)
+        res, rd, qm = res.cuda(), rd.cuda(), qm.cuda()
+        for decay in (1.0, 0.9):
+            dec = torch.tensor(decay, dtype=torch.float32, device="cuda")
+            c_got, r_got = quantize_rows_ef_cuda(x, res, rd, qm, decay)
+            plan = QUANTIZE_ROWS_EF_LAUNCHES.last_plan
+            c_want, r_want = quantize_rows_ef_ref(x, res, rd, qm, dec)
+            torch.cuda.synchronize()
+            expect(torch.equal(c_got, c_want) and bits_equal(torch, r_got,
+                                                             r_want),
+                   f"quantize_rows_ef is not bit-exact with its plain "
+                   f"version at {what}, decay {decay}")
+        cases.append(dict(case=what, shape=[rows, cols], x_offset=x_off,
+                          empty_rows=empty, zero_lanes=pad,
+                          decay=[1.0, 0.9], **asdict(plan)))
+        return plan
+
+    for what, rows in (("4/16+ef payload", 8320), ("tree payload", 960),
+                       ("a rank's node", 416)):
+        expect(held(what, rows, 512).vec == 4,
+               f"quantize_rows_ef: the {what} took one column a vector")
+    expect(held("510 columns", 416, 510).vec == 1,
+           "quantize_rows_ef: 510 columns took 16-byte vectors")
+    expect(held("x at offset 1", 416, 512, 1).vec == 1,
+           "quantize_rows_ef: x off 16 bytes took 16-byte vectors")
+    held("8 empty rows at the least normal Δ", 416, 512, empty=8)
+    held("12 zero lanes a row", 416, 512, pad=12)
+    print(f"quantize_rows_ef: bit-exact at {len(cases)} cases")
+    return cases
+
+
 # the per-node mask of the plane sweeps (rows 1, 5, 6): every third node
 # sits the step out, and each node has its own step counter
 MASK_STEPS = tuple(3 + i % 5 for i in range(N_NODES))
@@ -847,7 +978,8 @@ def check_kernels(torch, timer, student_cfg):
     the path's launch plan (``design``)."""
     from dataclasses import asdict
 
-    from repro_torch.kernels.opt_update.opt_update import adamw_update_cuda
+    from repro_torch.kernels.opt_update.opt_update import (ADAMW_LAUNCHES,
+                                                           adamw_update_cuda)
     from repro_torch.kernels.opt_update.ref import adamw_update_ref
     from repro_torch.kernels.proto_accum.proto_accum import (
         COLS, ROWS, THREADS, proto_accum_cuda, proto_accum_smem)
@@ -855,8 +987,9 @@ def check_kernels(torch, timer, student_cfg):
                                                      proto_accum_ref)
     from repro_torch.kernels.quantize.ops import _node_row_deltas
     from repro_torch.kernels.quantize.quantize import (
-        absmax_plan, quantize_rows_cuda, quantize_rows_ef_cuda,
-        quantize_rows_mixed_cuda, rowabs_cuda, rowabs_sum_cuda, rows_plan)
+        QUANTIZE_ROWS_EF_LAUNCHES, absmax_plan, quantize_rows_cuda,
+        quantize_rows_ef_cuda, quantize_rows_mixed_cuda, rowabs_cuda,
+        rowabs_sum_cuda, rows_plan)
     from repro_torch.kernels.quantize.ref import (quantize_rows_ef_ref,
                                                   quantize_rows_mixed_ref,
                                                   quantize_rows_ref,
@@ -883,6 +1016,7 @@ def check_kernels(torch, timer, student_cfg):
                             bc2=bc2, **hp)
     got = [p.clone(), mu.clone(), nu.clone()]
     adamw_update_cuda(g, *got, lr, scale, bc1, bc2, **hp)
+    adamw_design = ADAMW_LAUNCHES.last_plan
     torch.cuda.synchronize()
     ulps = max(ulp_diff(torch, a, b) for a, b in zip(got, want))
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -922,6 +1056,8 @@ def check_kernels(torch, timer, student_cfg):
     print(f"adamw_update: {ms:.4f} ms unmasked, {masked_ms:.4f} ms with "
           f"{sum(i % 3 != 2 for i in range(N_NODES))} of {N_NODES} nodes on")
     b_ms, b_by = bound(7 * 4 * n, 18 * n)
+    expect(adamw_design.vec == 4,
+           f"the main path's adamw took {adamw_design}")
     rows.append(dict(name="adamw_update", route="cuda",
                      source="src/repro_torch/csrc/opt_update.cu",
                      replaces="src/repro/kernels/opt_update/opt_update.py:80",
@@ -929,7 +1065,9 @@ def check_kernels(torch, timer, student_cfg):
                      bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                      masked_ms=masked_ms,
                      masked_cases=[dict(c, steps=list(MASK_STEPS))
-                                   for c in masked]))
+                                   for c in masked],
+                     design=asdict(adamw_design),
+                     cases=adamw_cases(torch)))
 
     # -- rowabs and quantize_rows on the packed payload [N*R, 512] -------
     n_nodes, r, c = buf.shape
@@ -1029,6 +1167,7 @@ def check_kernels(torch, timer, student_cfg):
         got = rowabs_sum_cuda(x2d, res2d, decay)
         want = rowabs_sum_ref(x2d, res2d, dec)
         c_got, r_got = quantize_rows_ef_cuda(x2d, res2d, rd, qm, decay)
+        ef_design = QUANTIZE_ROWS_EF_LAUNCHES.last_plan
         c_want, r_want = quantize_rows_ef_ref(x2d, res2d, rd, qm, dec)
         torch.cuda.synchronize()
         expect(torch.equal(got, want),
@@ -1059,13 +1198,16 @@ def check_kernels(torch, timer, student_cfg):
     ms = timer(lambda: quantize_rows_ef_cuda(x2d, res2d, rd, qm, 1.0))
     plain_ms = timer(lambda: quantize_rows_ef_ref(x2d, res2d, rd, qm, dec))
     b_ms, b_by = bound(16 * x2d.numel() + 8 * rd.numel(), 9 * x2d.numel())
+    expect(ef_design.vec == 4, f"the 4/16+ef payload took {ef_design}")
     rows.append(dict(name="quantize_rows_ef", route="cuda",
                      source="src/repro_torch/csrc/quantize.cu",
                      replaces="src/repro/kernels/quantize/quantize.py:258",
                      max_abs_err=max(float((c_got - c_want).abs().max()),
                                      float((r_got - r_want).abs().max())),
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
+                     library_ms=None,
+                     copy_ms=copy_ms(torch, timer, 16 * x2d.numel()),
+                     design=asdict(ef_design), cases=ef_cases(torch)))
     print(f"quantize_rows_ef {tuple(x2d.shape)}: codes and residual "
           f"bit-exact at decay 1.0 and 0.9")
 
@@ -1141,7 +1283,7 @@ def check_loop_shapes(torch, timer, student_cfg, rows) -> None:
     """Phase 3 at the loop engine's shapes (paths ``16/ragged``,
     ``4/16+ef/ragged``, ``adapters8/ragged``): a node's state is a
     one-node stack, so ``adamw_update`` sweeps ``[1, R, 512]`` (one grid
-    row of :func:`sweep_grid`) and the plane-row wire codes one node's
+    row of its plan) and the plane-row wire codes one node's
     ``[R, 512]`` rows at one Δ per leaf segment.  ``adamw_update`` with
     no mask, all on and none on; ``quantize_dequantize_plane_rows``
     (``rowabs``, then ``quantize_dequantize_rows``) at 16 and 4 bits;

@@ -6,18 +6,28 @@
 // What bounds it on the H100: bytes.  Per element it reads g, p, mu, nu
 // and writes p, mu, nu (7 x 4 B) for ~20 flops, far below the card's
 // ~20 flop/B balance point.  Design: one launch sweeps all N nodes' planes
-// (the TPU ran one vmapped call): blockIdx.y is the node, and the blocks of
-// a node run a grid-stride loop over its plane, neighbouring threads on
-// neighbouring addresses so every load and store coalesces.  A thread reads
-// the runtime scalar lr and its node's clip scale and bias corrections bc1,
+// (the TPU ran one vmapped call) as a vectorized per-node sweep:
+// blockIdx.y is the node, so no index is divided, and a thread reads the
+// runtime scalar lr and its node's clip scale and bias corrections bc1,
 // bc2 (each node keeps its own step counter) once from device memory, so
-// the step never waits on the host.  Updates p, mu and nu IN PLACE.
+// the step never waits on the host.  Along the node's plane a thread owns
+// one 16-byte float4 vector and loads its g, p, mu and nu before any
+// arithmetic, in blocks of 256 threads; the grid is sized to the work (no
+// grid-stride loop), with 32-bit in-node indices where they fit.  On the
+// H100 one vector a thread timed faster than 2 or 4 at every path's plane,
+// at the speed of a same-byte copy_, and cache hints on g or on the stores
+// timed no faster.  Where a buffer is not 16-byte aligned, or a node's
+// plane is not a whole number of vectors (so a vector would span two
+// nodes), the same kernel runs with one element a vector.  The plan
+// (vector width, grid) is picked in Python
+// (kernels/opt_update/opt_update.py:adamw_plan); the launcher checks it.
+// Updates p, mu and nu IN PLACE.
 //
 // The per-node mask: where `active` is given (one byte a node), the blocks
-// of a node whose byte is 0 return at once, nothing of its planes read or
-// written, so its parameters and moments leave the step bit-unchanged (a
-// padded step of a node with fewer local batches).  With `active` null
-// (every iid step) no mask is read.
+// of a node whose byte is 0 return before any load, nothing of its planes
+// read or written, so its parameters and moments leave the step
+// bit-unchanged (a padded step of a node with fewer local batches).  With
+// `active` null (every iid step) no mask is read.
 //
 // Rounding: every operation is an explicit round-to-nearest intrinsic in the
 // order of the plain PyTorch version (kernels/opt_update/ref.py); with
@@ -29,45 +39,73 @@
 
 namespace {
 
-__global__ void adamw_update_kernel(
+// One element's step, every operation rounded on its own in the plain
+// version's order
+struct AdamW {
+  float lr, s, c1, c2, b1, one_m_b1, b2, one_m_b2, eps, wd;
+  __device__ __forceinline__ void operator()(float g, float& p, float& mu,
+                                             float& nu) const {
+    const float g32 = __fmul_rn(g, s);
+    const float m = __fadd_rn(__fmul_rn(b1, mu), __fmul_rn(one_m_b1, g32));
+    const float v = __fadd_rn(__fmul_rn(b2, nu),
+                              __fmul_rn(one_m_b2, __fmul_rn(g32, g32)));
+    const float mh = __fdiv_rn(m, c1);
+    const float vh = __fdiv_rn(v, c2);
+    const float upd = __fadd_rn(__fdiv_rn(mh, __fadd_rn(__fsqrt_rn(vh), eps)),
+                                __fmul_rn(wd, p));
+    mu = m;
+    nu = v;
+    p = __fsub_rn(p, __fmul_rn(lr, upd));
+  }
+  __device__ __forceinline__ void operator()(float4 g, float4& p, float4& mu,
+                                             float4& nu) const {
+    (*this)(g.x, p.x, mu.x, nu.x);
+    (*this)(g.y, p.y, mu.y, nu.y);
+    (*this)(g.z, p.z, mu.z, nu.z);
+    (*this)(g.w, p.w, mu.w, nu.w);
+  }
+};
+
+constexpr int kAdamThreads = 256;  // threads a block
+
+// Node blockIdx.y's plane, from its element 0, in VEC-wide vectors: a
+// thread owns one vector of it and loads its g, p, mu and nu before any
+// arithmetic.  IndexT indexes within the node.
+template <int VEC, typename IndexT>
+__global__ void __launch_bounds__(kAdamThreads) adamw_update_kernel(
     const float* __restrict__ g, float* __restrict__ p, float* __restrict__ mu,
     float* __restrict__ nu, const float* __restrict__ lr,
     const float* __restrict__ scale, const float* __restrict__ bc1,
     const float* __restrict__ bc2, const uint8_t* __restrict__ active,
     int64_t node_elems, float b1, float one_m_b1, float b2, float one_m_b2,
     float eps, float wd) {
+  using V = std::conditional_t<VEC == 4, float4, float>;
   const int node = blockIdx.y;
   if (active != nullptr && !active[node]) return;
-  const float lr_v = *lr;
-  const float s = scale[node];
-  const float c1 = bc1[node];
-  const float c2 = bc2[node];
+  const IndexT v = (IndexT)blockIdx.x * kAdamThreads + threadIdx.x;
+  if (v >= (IndexT)(node_elems / VEC)) return;
+  const AdamW step{*lr,     scale[node], bc1[node], bc2[node], b1,
+                   one_m_b1, b2,         one_m_b2,  eps,       wd};
   const int64_t base = (int64_t)node * node_elems;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       j < node_elems; j += stride) {
-    const int64_t i = base + j;
-    const float g32 = __fmul_rn(g[i], s);
-    const float m = __fadd_rn(__fmul_rn(b1, mu[i]), __fmul_rn(one_m_b1, g32));
-    const float v = __fadd_rn(__fmul_rn(b2, nu[i]),
-                              __fmul_rn(one_m_b2, __fmul_rn(g32, g32)));
-    const float pi = p[i];
-    const float mh = __fdiv_rn(m, c1);
-    const float vh = __fdiv_rn(v, c2);
-    const float upd = __fadd_rn(__fdiv_rn(mh, __fadd_rn(__fsqrt_rn(vh), eps)),
-                                __fmul_rn(wd, pi));
-    mu[i] = m;
-    nu[i] = v;
-    p[i] = __fsub_rn(pi, __fmul_rn(lr_v, upd));
-  }
+  const V* __restrict__ gv = reinterpret_cast<const V*>(g + base);
+  V* __restrict__ pv = reinterpret_cast<V*>(p + base);
+  V* __restrict__ mv = reinterpret_cast<V*>(mu + base);
+  V* __restrict__ nv = reinterpret_cast<V*>(nu + base);
+  V gk = gv[v], pk = pv[v], mk = mv[v], nk = nv[v];
+  step(gk, pk, mk, nk);
+  mv[v] = mk;
+  nv[v] = nk;
+  pv[v] = pk;
 }
 
 // sgd_update replaces repro/kernels/opt_update/opt_update.py:
 // sgd_update_pallas.  Bytes bound it: per element it reads g, p, mu and
-// writes p, mu (5 x 4 B) for 6 flops.  The same design as adamw_update: one
-// launch over all N nodes' planes, a node per blockIdx.y, its clip scale
-// and lr read once a thread, the same per-node mask, p and mu updated IN
-// PLACE, every operation a _rn intrinsic in the plain version's order:
+// writes p, mu (5 x 4 B) for 6 flops.  One launch over all N nodes' planes,
+// a node per blockIdx.y, its clip scale and lr read once a thread, the
+// blocks of a node running a grid-stride loop over its plane one element a
+// thread (sweep_grid, below), the same per-node mask as adamw_update, p and
+// mu updated IN PLACE, every operation a _rn intrinsic in the plain
+// version's order:
 //   mu' = momentum * mu + g * scale;  p' = p - lr * (mu' + wd * p).
 __global__ void sgd_update_kernel(const float* __restrict__ g,
                                   float* __restrict__ p,
@@ -179,7 +217,7 @@ __global__ void __launch_bounds__(kAdaThreads) adafactor_apply_kernel(
   }
 }
 
-// The grid of adamw_update and sgd_update: a node per grid row (at most
+// The grid of sgd_update: a node per grid row (at most
 // 65,535), each node's blocks covering its plane one element a thread, at
 // most 132 * 32 blocks in all (a grid-stride loop beyond that).  Returns
 // false where the planes do not fit.
@@ -267,21 +305,57 @@ extern "C" int adafactor_apply(const float* upd, float* p, const float* lr,
   return (int)cudaGetLastError();
 }
 
+template <int VEC>
+static void adamw_launch(dim3 grid, bool narrow, const float* g, float* p,
+                         float* mu, float* nu, const float* lr,
+                         const float* scale, const float* bc1,
+                         const float* bc2, const uint8_t* active,
+                         int64_t node_elems, float b1, float one_m_b1,
+                         float b2, float one_m_b2, float eps, float wd,
+                         cudaStream_t stream) {
+  if (narrow)
+    adamw_update_kernel<VEC, int><<<grid, kAdamThreads, 0, stream>>>(
+        g, p, mu, nu, lr, scale, bc1, bc2, active, node_elems, b1, one_m_b1,
+        b2, one_m_b2, eps, wd);
+  else
+    adamw_update_kernel<VEC, int64_t><<<grid, kAdamThreads, 0, stream>>>(
+        g, p, mu, nu, lr, scale, bc1, bc2, active, node_elems, b1, one_m_b1,
+        b2, one_m_b2, eps, wd);
+}
+
+// adamw_update's launch, after checking its plan (kernels/opt_update/
+// opt_update.py:adamw_plan): a node a grid row, each node's vectors held by
+// its grid_x blocks with none empty, 16-byte vectors only where all four
+// buffers start on 16-byte addresses and no vector spans two nodes
 extern "C" int adamw_update(const float* g, float* p, float* mu, float* nu,
                             const float* lr, const float* scale,
                             const float* bc1, const float* bc2,
                             const uint8_t* active, int64_t n,
                             int64_t node_elems, float b1, float one_m_b1,
                             float b2, float one_m_b2, float eps, float wd,
+                            int vec, int grid_x, int grid_y,
                             cudaStream_t stream) {
-  if (n > 0) {
-    const int threads = 256;
-    dim3 grid;
-    if (!sweep_grid(n, node_elems, threads, &grid))
-      return (int)cudaErrorInvalidValue;
-    adamw_update_kernel<<<grid, threads, 0, stream>>>(
-        g, p, mu, nu, lr, scale, bc1, bc2, active, node_elems, b1, one_m_b1,
-        b2, one_m_b2, eps, wd);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  const auto aligned16 = [](const void* q) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  };
+  const bool ok =
+      node_elems > 0 && n % node_elems == 0 && grid_y == n / node_elems &&
+      grid_y <= 65535 && (vec == 1 || vec == 4) &&
+      (vec == 1 || (node_elems % 4 == 0 && aligned16(g) && aligned16(p) &&
+                    aligned16(mu) && aligned16(nu)));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int64_t vecs = node_elems / vec;
+  if (grid_x != (vecs + kAdamThreads - 1) / kAdamThreads)
+    return (int)cudaErrorInvalidValue;
+  // 32-bit in-node indices while the last thread's vector fits
+  const bool narrow = (int64_t)grid_x * kAdamThreads < (int64_t(1) << 31);
+  const dim3 grid(grid_x, grid_y);
+  if (vec == 4)
+    adamw_launch<4>(grid, narrow, g, p, mu, nu, lr, scale, bc1, bc2, active,
+                    node_elems, b1, one_m_b1, b2, one_m_b2, eps, wd, stream);
+  else
+    adamw_launch<1>(grid, narrow, g, p, mu, nu, lr, scale, bc1, bc2, active,
+                    node_elems, b1, one_m_b1, b2, one_m_b2, eps, wd, stream);
   return (int)cudaGetLastError();
 }

@@ -64,14 +64,11 @@
 // 16-byte aligned, takes one column a vector (VEC = 1).  The plan is
 // picked in Python (kernels/quantize/quantize.py:absmax_plan, rows_plan cut
 // to one warp a row); the launcher checks it.
-// quantize_rows_ef is a grid-stride elementwise loop with the row's delta
-// and qmax indexed by i / cols; it writes the codes and the new residual
-// from the same registers (at half its bound, it is left so).  Every
-// operation is
-// a _rn intrinsic in the plain version's order — the division is the IEEE
-// one (__fdiv_rn), not a reciprocal multiply, the + 0.5 rounds on its own,
-// and with -fmad=false no multiply fuses into an add — so codes and
-// residuals are bit-identical to the plain versions.  fmaxf ignores a NaN
+// quantize_rows_ef is the row codec's residual case (below).  Every
+// operation is a _rn intrinsic in the plain version's order — the division
+// is the IEEE one (__fdiv_rn), not a reciprocal multiply, the + 0.5 rounds
+// on its own, and with -fmad=false no multiply fuses into an add — so codes
+// and residuals are bit-identical to the plain versions.  fmaxf ignores a NaN
 // where torch.amax would propagate it; wire payloads are finite.
 // mix_packed gives each thread one 16-byte vector (4 columns) of one row and
 // a group of up to 8 receivers (G, a template parameter: 1, 2, 4 or 8): row
@@ -94,14 +91,26 @@
 // so it is bit-identical to mix_packed_ref.  The launch plan (group, vector
 // width, block, grid) is picked in Python (kernels/quantize/quantize.py:
 // mix_plan); the launcher checks it and returns the CUDA error otherwise.
-// quantize_rows, quantize_rows_mixed, quantize_dequantize_rows and
-// dequantize_rows share one body, row_codec_kernel<InT, OutT, VEC,
-// kRowQmax>: fp32 x in and int32 codes or the fp32 round trip code * delta
-// out (rounded on its own), or int32 codes in and fp32 out; with kRowQmax
-// (quantize_rows_mixed) the thread reads its row's qmax beside its delta,
-// once, and the clip is the same fminf(fmaxf(q, -qmax - 1), qmax).  Their
-// bytes sit in a grid-stride loop's way when each element divides its index
-// by cols for its row's delta and one 4-byte load is in flight a thread; so
+// quantize_rows, quantize_rows_mixed, quantize_rows_ef,
+// quantize_dequantize_rows and dequantize_rows share one body,
+// row_codec_kernel<InT, OutT, VEC, kRowQmax, kRes>: fp32 x in and int32
+// codes or the fp32 round trip code * delta out (rounded on its own), or
+// int32 codes in and fp32 out; with kRowQmax (quantize_rows_mixed and
+// quantize_rows_ef) the thread reads its row's qmax beside its delta, once,
+// and the clip is the same fminf(fmaxf(q, -qmax - 1), qmax); with kRes
+// (quantize_rows_ef) it loads its vectors of res beside those of x, forms
+// eff = x + decay * res in registers, and writes the new residual
+// eff - q * delta beside the codes (float4 beside int4); its loads read
+// once (ld.global.nc.L1::no_allocate) and its stores write once
+// (st.global.cs), which timed 1-4 % faster on the card than plain ones.
+// The IEEE division takes its slow path for a zero or subnormal eff and
+// for an empty row's delta (the least normal float), sixteen times a lane
+// in this layout: a zero eff is divided as delta and its level set to 0 by
+// selects, and an empty row (a warp-uniform branch) divides after scaling
+// both by 2^64, exactly; the bits are the plain version's.
+// Their bytes sit in a grid-stride loop's way when each element divides
+// its index by cols for its row's delta and one 4-byte load is in flight a
+// thread; so
 // rows go on blockIdx.y (a row stride beyond 65,535 row tiles) and a thread
 // takes kRowUnroll 16-byte column vectors of its row, a block row's width
 // apart: at each step a warp reads 512 contiguous bytes, and at the paths'
@@ -109,10 +118,10 @@
 // The thread reads its row's delta once into a register, issues all its
 // vectors' loads before it converts any, and writes int4 / float4 stores;
 // no index is divided.  A column count that is not a multiple of 4, or an x
-// or out whose base is not 16-byte aligned, takes the same kernel with one
-// column a thread (VEC = 1).  The plan (vector width, block, grid) is
-// picked in Python (kernels/quantize/quantize.py:rows_plan); the launcher
-// checks it and returns the CUDA error otherwise.
+// or out (or res or new_res) whose base is not 16-byte aligned, takes the
+// same kernel with one column a thread (VEC = 1).  The plan (vector width,
+// block, grid) is picked in Python (kernels/quantize/quantize.py:
+// rows_plan); the launcher checks it and returns the CUDA error otherwise.
 // dequantize sweeps the flat codes as adafactor_apply sweeps its plane
 // (csrc/opt_update.cu): a scalar head up to the first 16-byte address, int4
 // loads and float4 stores, kFlatUnroll vectors a thread with all loads
@@ -244,9 +253,13 @@ __device__ __forceinline__ float absmax4(float m, float4 v) {
 template <typename OutT>
 struct Codec {
   float delta, qmax;
+  // v's clipped level, an integer-valued float
+  __device__ __forceinline__ float level(float v) const {
+    const float q = floorf(__fadd_rn(__fdiv_rn(v, delta), 0.5f));
+    return fminf(fmaxf(q, -qmax - 1.f), qmax);
+  }
   __device__ __forceinline__ OutT operator()(float v) const {
-    float q = floorf(__fadd_rn(__fdiv_rn(v, delta), 0.5f));
-    q = fminf(fmaxf(q, -qmax - 1.f), qmax);
+    const float q = level(v);
     if constexpr (std::is_same<OutT, float>::value)
       return __fmul_rn(q, delta);
     else
@@ -271,51 +284,6 @@ struct Codec {
   }
 };
 
-// -- the row codec: quantize_rows, quantize_dequantize_rows, dequantize_rows
-constexpr int kRowThreads = 256;  // threads a block at most
-constexpr int kRowUnroll = 4;     // vectors of its row a thread
-
-// InT float: x quantized at its row's delta, OutT int the codes, OutT float
-// the round trip; InT int: codes dequantized at their row's delta.  A
-// thread owns kRowUnroll VEC-wide column vectors of one row, a block row's
-// width apart; rows beyond the grid's row tiles are walked by a stride.
-// kRowQmax (quantize_rows_mixed): each row clips to its own qmax, read from
-// row_qmax beside its delta, once a thread a row; else every row clips to
-// the scalar qmax.
-template <typename InT, typename OutT, int VEC, bool kRowQmax>
-__global__ void __launch_bounds__(kRowThreads) row_codec_kernel(
-    const InT* __restrict__ x, const float* __restrict__ row_delta,
-    const float* __restrict__ row_qmax, OutT* __restrict__ out,
-    int64_t rows, int cols, float qmax) {
-  const int c0 = (blockIdx.x * blockDim.x * kRowUnroll + threadIdx.x) * VEC;
-  const int step = blockDim.x * VEC;
-  for (int64_t row = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
-       row < rows; row += (int64_t)gridDim.y * blockDim.y) {
-    const Codec<OutT> codec{row_delta[row], kRowQmax ? row_qmax[row] : qmax};
-    const InT* __restrict__ xr = x + row * cols;
-    OutT* __restrict__ outr = out + row * cols;
-    InT v[kRowUnroll][VEC];
-#pragma unroll
-    for (int k = 0; k < kRowUnroll; ++k)
-      if (c0 + k * step < cols) load_vec<VEC>(xr + c0 + k * step, v[k]);
-#pragma unroll
-    for (int k = 0; k < kRowUnroll; ++k) {
-      if (c0 + k * step < cols) {
-        OutT o[VEC];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          if constexpr (std::is_same<InT, int>::value)
-            o[j] = __fmul_rn((float)v[k][j], codec.delta);
-          else
-            o[j] = codec(v[k][j]);
-        }
-        store_vec<VEC>(outr + c0 + k * step, o);
-      }
-    }
-  }
-}
-
-// -- the row absmax: rowabs, and rowabs_sum with the residual added -------
 // VEC consecutive floats read once: ld.global.nc.L1::no_allocate (read-only,
 // not kept in L1; timed faster than plain loads on the card, and unlike an
 // evict-first load it leaves L2's policy alone for the row codec's second
@@ -334,6 +302,124 @@ __device__ __forceinline__ void load_once(const float* __restrict__ src,
                  : "l"(src));
 }
 
+// VEC consecutive elements written once: st.global.cs (evict-first; the
+// error feedback's codes and new residual are not read again by this
+// launch).  Timed faster than plain stores on the card beside load_once.
+template <int VEC, typename T>
+__device__ __forceinline__ void store_once(T* __restrict__ dst,
+                                           const T (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    __stcs(reinterpret_cast<Vec4<T>*>(dst), Vec4<T>{v[0], v[1], v[2], v[3]});
+  else
+    __stcs(dst, v[0]);
+}
+
+// The error feedback's codes and new residual of VEC elements: eff = x +
+// decay * res, its clipped level q, and eff - q * delta.  The IEEE division
+// takes its slow path (timed on the card) for a zero numerator (a padding
+// lane, an empty row) and for a subnormal one or a divisor at the least
+// normal float (an empty row's delta), sixteen times a lane in this
+// layout.  So a zero eff is
+// divided as delta (a level of 1, never used) and its level set to 0,
+// floor(+-0 / delta + 0.5), by selects around a division that always
+// runs; and in an empty row (kEmpty) numerator and delta are scaled by
+// 2^64 first, which is exact.  The quotients and levels are the same bits.
+template <bool kEmpty, int VEC>
+__device__ __forceinline__ void ef_levels(const Codec<int>& codec,
+                                          const float (&x)[VEC],
+                                          const float (&res)[VEC],
+                                          float decay, int (&codes)[VEC],
+                                          float (&new_res)[VEC]) {
+  constexpr float kScale = 18446744073709551616.f;  // 2^64
+  const Codec<int> divide{kEmpty ? __fmul_rn(codec.delta, kScale)
+                                 : codec.delta, codec.qmax};
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float eff = __fadd_rn(x[j], __fmul_rn(decay, res[j]));
+    const bool zero = eff == 0.f;
+    const float num = zero ? codec.delta : eff;
+    const float level = divide.level(kEmpty ? __fmul_rn(num, kScale) : num);
+    const float q = zero ? 0.f : level;
+    codes[j] = (int)q;
+    new_res[j] = __fsub_rn(eff, __fmul_rn(q, codec.delta));
+  }
+}
+
+// -- the row codec: quantize_rows, quantize_dequantize_rows, dequantize_rows,
+// quantize_rows_mixed and quantize_rows_ef
+constexpr int kRowThreads = 256;  // threads a block at most
+constexpr int kRowUnroll = 4;     // vectors of its row a thread
+
+// InT float: x quantized at its row's delta, OutT int the codes, OutT float
+// the round trip; InT int: codes dequantized at their row's delta.  A
+// thread owns kRowUnroll VEC-wide column vectors of one row, a block row's
+// width apart; rows beyond the grid's row tiles are walked by a stride.
+// kRowQmax (quantize_rows_mixed, quantize_rows_ef): each row clips to its
+// own qmax, read from row_qmax beside its delta, once a thread a row; else
+// every row clips to the scalar qmax.  kRes (quantize_rows_ef, with InT
+// float and OutT int): the thread loads its vectors of res beside those of
+// x, quantizes the effective payload eff = x + decay * res, and writes the
+// new residual eff - q * delta beside the codes, from the same registers.
+template <typename InT, typename OutT, int VEC, bool kRowQmax,
+          bool kRes = false>
+__global__ void __launch_bounds__(kRowThreads) row_codec_kernel(
+    const InT* __restrict__ x, const float* __restrict__ row_delta,
+    const float* __restrict__ row_qmax, OutT* __restrict__ out,
+    int64_t rows, int cols, float qmax, const float* __restrict__ res,
+    float* __restrict__ new_res, float decay) {
+  static_assert(!kRes || (std::is_same<InT, float>::value &&
+                          std::is_same<OutT, int>::value),
+                "the residual case takes fp32 x to int32 codes");
+  const int c0 = (blockIdx.x * blockDim.x * kRowUnroll + threadIdx.x) * VEC;
+  const int step = blockDim.x * VEC;
+  for (int64_t row = (int64_t)blockIdx.y * blockDim.y + threadIdx.y;
+       row < rows; row += (int64_t)gridDim.y * blockDim.y) {
+    const Codec<OutT> codec{row_delta[row], kRowQmax ? row_qmax[row] : qmax};
+    const InT* __restrict__ xr = x + row * cols;
+    OutT* __restrict__ outr = out + row * cols;
+    InT v[kRowUnroll][VEC];
+    float r[kRes ? kRowUnroll : 1][VEC];
+#pragma unroll
+    for (int k = 0; k < kRowUnroll; ++k) {
+      if (c0 + k * step < cols) {
+        if constexpr (kRes) {
+          load_once<VEC>(xr + c0 + k * step, v[k]);
+          load_once<VEC>(res + row * cols + c0 + k * step, r[k]);
+        } else {
+          load_vec<VEC>(xr + c0 + k * step, v[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRowUnroll; ++k) {
+      if (c0 + k * step < cols) {
+        OutT o[VEC];
+        if constexpr (kRes) {
+          float nr[VEC];
+          // an empty row's delta is the least normal float (a warp never
+          // spans two rows, so the branch is uniform)
+          if (codec.delta == FLT_MIN)
+            ef_levels<true>(codec, v[k], r[k], decay, o, nr);
+          else
+            ef_levels<false>(codec, v[k], r[k], decay, o, nr);
+          store_once<VEC>(outr + c0 + k * step, o);
+          store_once<VEC>(new_res + row * cols + c0 + k * step, nr);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            if constexpr (std::is_same<InT, int>::value)
+              o[j] = __fmul_rn((float)v[k][j], codec.delta);
+            else
+              o[j] = codec(v[k][j]);
+          }
+          store_vec<VEC>(outr + c0 + k * step, o);
+        }
+      }
+    }
+  }
+}
+
+// -- the row absmax: rowabs, and rowabs_sum with the residual added -------
 // A warp owns a row (rows on the grid's y axis, a stride beyond 65,535 row
 // tiles, as row_codec_kernel lays them out with one warp across a row) and
 // walks it in steps of kRowUnroll VEC-wide vectors a lane, 32 * kRowUnroll *
@@ -505,27 +591,6 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   for (int64_t i = r_vec + tid; i < hi; i += nt) out[i] = codec(x[i]);
 }
 
-__global__ void quantize_rows_ef_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ res,
-                                        const float* __restrict__ row_delta,
-                                        const float* __restrict__ row_qmax,
-                                        int* __restrict__ codes,
-                                        float* __restrict__ new_res,
-                                        int64_t n, int cols, float decay) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int64_t r = i / cols;
-    const float delta = row_delta[r];
-    const float qmax = row_qmax[r];
-    const float eff = __fadd_rn(x[i], __fmul_rn(decay, res[i]));
-    float q = floorf(__fadd_rn(__fdiv_rn(eff, delta), 0.5f));
-    q = fminf(fmaxf(q, __fsub_rn(-qmax, 1.f)), qmax);
-    codes[i] = (int)q;
-    new_res[i] = __fsub_rn(eff, __fmul_rn(q, delta));
-  }
-}
-
 constexpr int kMixThreads = 128;   // threads a block at most
 constexpr int kMixBatch = 4;       // senders whose loads a thread issues
                                    // before it folds them
@@ -606,38 +671,49 @@ __global__ void __launch_bounds__(kMixThreads) mix_packed_kernel(
 
 }  // namespace
 
-static int64_t sweep_blocks(int64_t n, int threads) {
-  const int64_t blocks = (n + threads - 1) / threads;
-  return blocks > 132 * 32 ? 132 * 32 : blocks;
-}
+// The error-feedback operands of the row codec (quantize_rows_ef): the
+// residual in, the new residual out, and the residual's decay
+struct RowRes {
+  const float* res = nullptr;
+  float* new_res = nullptr;
+  float decay = 0.f;
+};
 
 // the row codec's launch, after checking its plan (kernels/quantize/
 // quantize.py:rows_plan): the column vectors and the rows covered, each
 // element by exactly one thread and no block empty; 16-byte vectors only on
-// 16-byte aligned x and out whose rows are whole vectors.  A row_qmax column
-// (quantize_rows_mixed) takes the kernel's per-row clip.
-template <bool kRowQmax = false, typename InT, typename OutT>
+// 16-byte aligned x and out (and res and new_res) whose rows are whole
+// vectors.  A row_qmax column (quantize_rows_mixed, quantize_rows_ef) takes
+// the kernel's per-row clip, a residual (quantize_rows_ef) its residual
+// case.
+template <bool kRowQmax = false, bool kRes = false, typename InT,
+          typename OutT>
 static int row_launch(const InT* x, const float* row_delta,
                       const float* row_qmax, OutT* out, int64_t rows,
                       int cols, float qmax, int vec, int block_x,
                       int block_y, int grid_x, int grid_y,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, RowRes ef = {}) {
   const int64_t span = (int64_t)block_x * kRowUnroll * vec;  // a block's
   if (rows <= 0 || cols <= 0 || (vec != 1 && vec != 4) ||
-      (vec == 4 && (cols % 4 || !aligned16(x) || !aligned16(out))) ||
+      (vec == 4 && (cols % 4 || !aligned16(x) || !aligned16(out) ||
+                    (kRes && (!aligned16(ef.res) ||
+                              !aligned16(ef.new_res))))) ||
       block_x <= 0 || block_y <= 0 || block_x * block_y > kRowThreads ||
       grid_x <= 0 || (int64_t)grid_x * span < cols ||
       (int64_t)(grid_x - 1) * span >= cols ||
       (int64_t)grid_x * span > INT32_MAX || grid_y <= 0 || grid_y > 65535 ||
-      grid_y > (rows + block_y - 1) / block_y || (kRowQmax && !row_qmax))
+      grid_y > (rows + block_y - 1) / block_y || (kRowQmax && !row_qmax) ||
+      (kRes && (!ef.res || !ef.new_res)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x, grid_y), block(block_x, block_y);
   if (vec == 4)
-    row_codec_kernel<InT, OutT, 4, kRowQmax><<<grid, block, 0, stream>>>(
-        x, row_delta, row_qmax, out, rows, cols, qmax);
+    row_codec_kernel<InT, OutT, 4, kRowQmax, kRes>
+        <<<grid, block, 0, stream>>>(x, row_delta, row_qmax, out, rows, cols,
+                                     qmax, ef.res, ef.new_res, ef.decay);
   else
-    row_codec_kernel<InT, OutT, 1, kRowQmax><<<grid, block, 0, stream>>>(
-        x, row_delta, row_qmax, out, rows, cols, qmax);
+    row_codec_kernel<InT, OutT, 1, kRowQmax, kRes>
+        <<<grid, block, 0, stream>>>(x, row_delta, row_qmax, out, rows, cols,
+                                     qmax, ef.res, ef.new_res, ef.decay);
   return (int)cudaGetLastError();
 }
 
@@ -824,16 +900,17 @@ extern "C" int rowabs_sum(const float* x, const float* res, float* out,
                              block_y, grid_x, grid_y, stream);
 }
 
+// the row codec's residual case: the codes and the new residual of the
+// effective payload x + decay * res, each row clipped to its own qmax
 extern "C" int quantize_rows_ef(const float* x, const float* res,
                                 const float* row_delta, const float* row_qmax,
                                 int* codes, float* new_res, int64_t rows,
-                                int cols, float decay, cudaStream_t stream) {
-  const int64_t n = rows * cols;
-  if (n > 0)
-    quantize_rows_ef_kernel<<<(unsigned)sweep_blocks(n, 256), 256, 0,
-                              stream>>>(x, res, row_delta, row_qmax, codes,
-                                        new_res, n, cols, decay);
-  return (int)cudaGetLastError();
+                                int cols, float decay, int vec, int block_x,
+                                int block_y, int grid_x, int grid_y,
+                                cudaStream_t stream) {
+  return row_launch<true, true>(x, row_delta, row_qmax, codes, rows, cols,
+                                0.f, vec, block_x, block_y, grid_x, grid_y,
+                                stream, RowRes{res, new_res, decay});
 }
 
 // mix_packed's launch, after checking its plan (kernels/quantize/

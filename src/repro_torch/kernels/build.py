@@ -39,8 +39,9 @@ _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 # C signatures (argument types) of the entry points; all return int
 SIGNATURES = {
     # g, p, mu, nu, lr, scale, bc1, bc2, active, n, node_elems,
-    # b1, 1-b1, b2, 1-b2, eps, wd, stream
-    "adamw_update": (_P,) * 9 + (_I64, _I64) + (_F32,) * 6 + (_P,),
+    # b1, 1-b1, b2, 1-b2, eps, wd, vec, grid_x, grid_y, stream
+    "adamw_update": ((_P,) * 9 + (_I64, _I64) + (_F32,) * 6 + (_I32,) * 3
+                     + (_P,)),
     # g, p, mu, lr, scale, active, n, node_elems, momentum, wd, stream
     "sgd_update": (_P,) * 6 + (_I64, _I64, _F32, _F32, _P),
     # upd, p, lr, active, node_elems, n, wd, vec, head, body, grid, stream
@@ -72,8 +73,9 @@ SIGNATURES = {
     # x, res, out, rows, cols, decay, vec, block_x, block_y, grid_x,
     # grid_y, stream
     "rowabs_sum": (_P, _P, _P, _I64, _I32, _F32) + (_I32,) * 5 + (_P,),
-    # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, stream
-    "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32, _P),
+    # x, res, row_delta, row_qmax, codes, new_res, rows, cols, decay, vec,
+    # block_x, block_y, grid_x, grid_y, stream
+    "quantize_rows_ef": (_P,) * 6 + (_I64, _I32, _F32) + (_I32,) * 5 + (_P,),
     # own, codes, row_delta, w_self, w_rows, out, m, s, rows, cols,
     # float_codes, group, vec, block_x, block_y, grid_x, grid_y, grid_z,
     # stream
@@ -202,11 +204,14 @@ def require(t, name: str, dtype, shape=None) -> None:
 class LaunchCounter:
     """Launches of one kernel.  Its wrapper adds one where it launches
     the kernel and nowhere else, so a run can show that its path went
-    through the kernel."""
+    through the kernel.  A wrapper that picks a launch plan keeps the plan
+    of its last launch in ``last_plan``, so a check can read the plan
+    that ran."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.last_plan = None
         COUNTERS[name] = self
 
 

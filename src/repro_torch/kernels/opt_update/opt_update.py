@@ -13,17 +13,24 @@ Design: one elementwise sweep over every node's plane at once, runtime
 scalars, the per-node clip scale and (adamw) the per-node bias
 corrections in device memory; an optional per-node mask (``active``, one
 byte a node) skips a node whole, so a padded step of a node with fewer
-local batches leaves its rows bit-unchanged: for adamw and sgd a node a
-grid row (its scalars read once a thread, a masked node's blocks return
-at once) and a grid-stride loop over its plane; for the adafactor
-apply, 16-byte vectors from the
-first 16-byte address on, several a thread with all their loads issued
-first, a scalar head and tail, and a grid sized to the work
-(:func:`adafactor_plan`).  Explicit round-to-nearest operations and
+local batches leaves its rows bit-unchanged.  For adamw a vectorized
+per-node sweep: a node a grid row (its scalars read once a thread, a
+masked node's blocks return before any load), 16-byte vectors of its
+plane (one a thread, as timed fastest) with every load of g, p, mu and
+nu issued before any arithmetic, and a grid sized to the work
+(:func:`adamw_plan`; a node plane that is not whole vectors, or an
+unaligned buffer, takes one element a vector); for sgd a node a grid
+row and a grid-stride loop over its plane; for the adafactor apply,
+16-byte vectors from the first 16-byte address on, several a thread with
+all their loads issued first, a scalar head and tail, and a grid sized
+to the work (:func:`adafactor_plan`).  Explicit round-to-nearest operations and
 ``-fmad=false`` make each bit-identical to its plain version in
 :mod:`~repro_torch.kernels.opt_update.ref`.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -64,16 +71,53 @@ def _active_ptr(active, planes: int, name: str):
     return active.data_ptr()
 
 
+# -- adamw's launch plan ------------------------------------------------------
+ADAMW_MAX_GRID_Y = 65535    # nodes a launch (the grid's y axis)
+# One vector a thread, 256 threads a block (the kernel's own): on the H100
+# that timed faster than 2 or 4 vectors a thread at every path's plane, at
+# the speed of a same-byte copy_, and 128 threads no faster on the
+# smallest planes
+ADAMW_THREADS = 256
+
+
+@dataclass(frozen=True)
+class AdamwPlan:
+    """One launch of ``adamw_update`` over ``planes`` nodes' planes of
+    ``node_elems`` elements: ``vec`` elements a vector (one 16-byte
+    ``float4`` when 4), one vector a thread, :data:`ADAMW_THREADS` a
+    block, ``grid`` ``(blocks a node, planes)``."""
+    vec: int
+    grid: Tuple[int, int]
+
+
+def adamw_plan(planes: int, node_elems: int, aligned: bool) -> AdamwPlan:
+    """The launch of ``adamw_update`` over ``[planes, node_elems]``:
+    16-byte vectors where ``aligned`` (g, p, mu and nu all start on
+    16-byte addresses) and ``node_elems`` is a multiple of 4 (so no
+    vector spans two nodes), else one element a vector; each node's
+    vectors held by its blocks, one a thread, with none empty."""
+    if planes < 1 or node_elems < 1:
+        raise ValueError(f"adamw_plan: [{planes}, {node_elems}] is empty")
+    if planes > ADAMW_MAX_GRID_Y:
+        raise ValueError(f"adamw_plan: {planes} planes exceed "
+                         f"{ADAMW_MAX_GRID_Y}")
+    vec = 4 if aligned and node_elems % 4 == 0 else 1
+    blocks = -(-(node_elems // vec) // ADAMW_THREADS)
+    return AdamwPlan(vec, (blocks, planes))
+
+
 def adamw_update_cuda(g, p, mu, nu, lr, scale, bc1, bc2, *, b1: float,
                       b2: float, eps: float, weight_decay: float,
                       active=None) -> None:
     """Launch the kernel: updates ``p``, ``mu``, ``nu`` (``[..., R, C]``
-    fp32, contiguous, on the card) in place.  ``lr`` is a one-element
-    fp32 device tensor; ``scale``, ``bc1`` and ``bc2`` have one entry per
-    ``R x C`` plane (each node its own step counter); ``active`` (bool or
-    uint8, one a plane) masks whole planes out of the step."""
+    fp32, contiguous, on the card) in place, as :func:`adamw_plan` lays
+    it out.  ``lr`` is a one-element fp32 device tensor; ``scale``,
+    ``bc1`` and ``bc2`` have one entry per ``R x C`` plane (each node its
+    own step counter); ``active`` (bool or uint8, one a plane) masks
+    whole planes out of the step."""
     shape = tuple(p.shape)
-    for name, t in (("g", g), ("p", p), ("mu", mu), ("nu", nu)):
+    bufs = (("g", g), ("p", p), ("mu", mu), ("nu", nu))
+    for name, t in bufs:
         require(t, f"adamw_update {name}", torch.float32, shape)
     node_elems = _node_scale(p, scale, "adamw_update")
     planes = p.numel() // node_elems
@@ -81,13 +125,19 @@ def adamw_update_cuda(g, p, mu, nu, lr, scale, bc1, bc2, *, b1: float,
     for name, t in (("bc1", bc1), ("bc2", bc2)):
         require(t, f"adamw_update {name}", torch.float32, (planes,))
     mask = _active_ptr(active, planes, "adamw_update")
+    if p.numel() == 0:
+        return
+    plan = adamw_plan(planes, node_elems,
+                      all(t.data_ptr() % 16 == 0 for _, t in bufs))
     rc = library().adamw_update(
         g.data_ptr(), p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
         lr.data_ptr(), scale.data_ptr(), bc1.data_ptr(), bc2.data_ptr(),
         mask, p.numel(), node_elems, b1, 1 - b1, b2, 1 - b2, eps,
-        weight_decay, stream_of(p))
+        weight_decay, plan.vec, *plan.grid,
+        stream_of(p))
     check(rc, "adamw_update")
     ADAMW_LAUNCHES.count += 1
+    ADAMW_LAUNCHES.last_plan = plan
 
 
 def sgd_update_cuda(g, p, mu, lr, scale, *, momentum: float,

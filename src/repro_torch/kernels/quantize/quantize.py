@@ -23,26 +23,29 @@ sender and column, and write 4 B per output; the per-leaf and per-tensor
 sweeps read 4 B and write 4 B per element. Design: for the row absmax
 (``rowabs``, ``rowabs_sum``), one body with one warp across a row, its
 16-byte vectors of a 512-column step all loaded before any is folded,
-then a shuffle max (:func:`absmax_plan`); a grid-stride elementwise
-sweep with an IEEE division for the error-feedback codes; for the row
-codec (``quantize_rows``, ``quantize_rows_mixed``,
-``quantize_dequantize_rows``, ``dequantize_rows``), rows on the grid's
-y axis and several 16-byte column vectors of one row a thread, its
-row's Δ (and for the mixed widths its qmax) read once
-(:func:`rows_plan`; a column tail or an unaligned buffer takes one
-column a thread); for ``dequantize``, 16-byte vectors between a scalar
-head and tail (:func:`~repro_torch.kernels.sweep.sweep_plan`); for the
-mix, a thread owns one 16-byte vector of one row
-for a group of up to 8 receivers (their accumulators in registers, the
-group's weights in shared memory) and walks the senders in order, so
-each sender's codes are read once per receiver group, as 16-byte loads
-(:func:`mix_plan` picks the group, the vector width and the grid; a
-column tail or an unaligned buffer takes one column a thread); for the
-whole-tensor codec, one cooperative launch whose blocks stage their
-spans of x in shared memory, write their maxima to a partials buffer,
-meet at a grid sync and write the codes from shared memory
-(:func:`fused_plan` picks the grid, the spans and what each block
-stages). All are bit-identical to the plain versions in ``ref.py``.
+then a shuffle max (:func:`absmax_plan`); for the row codec
+(``quantize_rows``, ``quantize_rows_mixed``, ``quantize_rows_ef``,
+``quantize_dequantize_rows``, ``dequantize_rows``), rows on the grid's y
+axis and several 16-byte column vectors of one row a thread, its row's Δ
+(and for the mixed widths and the error feedback its qmax) read once,
+every load issued before any is converted (:func:`rows_plan`; a column
+tail or an unaligned buffer takes one column a thread); the
+error-feedback codes are the row codec's residual case, which loads the
+residual's vectors beside x's and writes the new residual beside the
+codes, with an IEEE division as the plain version has it; for
+``dequantize``, 16-byte vectors between a scalar head and tail
+(:func:`~repro_torch.kernels.sweep.sweep_plan`); for the mix, a thread
+owns one 16-byte vector of one row for a group of up to 8 receivers
+(their accumulators in registers, the group's weights in shared memory)
+and walks the senders in order, so each sender's codes are read once per
+receiver group, as 16-byte loads (:func:`mix_plan` picks the group, the
+vector width and the grid; a column tail or an unaligned buffer takes
+one column a thread); for the whole-tensor codec, one cooperative launch
+whose blocks stage their spans of x in shared memory, write their maxima
+to a partials buffer, meet at a grid sync and write the codes from
+shared memory (:func:`fused_plan` picks the grid, the spans and what
+each block stages). All are bit-identical to the plain versions in
+``ref.py``.
 """
 from __future__ import annotations
 
@@ -106,10 +109,10 @@ class RowsPlan:
 
 def rows_plan(rows: int, cols: int, aligned: bool) -> RowsPlan:
     """The launch of ``quantize_rows``, ``quantize_rows_mixed``,
-    ``quantize_dequantize_rows`` or ``dequantize_rows`` over ``[rows,
-    cols]``: 16-byte vectors where
-    ``cols`` is a multiple of 4 and ``aligned`` (the input and the
-    output start on 16-byte addresses), else one column a thread; the
+    ``quantize_rows_ef``, ``quantize_dequantize_rows`` or
+    ``dequantize_rows`` over ``[rows, cols]``: 16-byte vectors where
+    ``cols`` is a multiple of 4 and ``aligned`` (the inputs and the
+    outputs start on 16-byte addresses), else one column a thread; the
     fewest whole warps along a row that hold its vectors at
     ``ROW_UNROLL`` a thread, up to ``ROW_THREADS``, the rest of a
     block's threads on rows."""
@@ -416,20 +419,26 @@ def dequantize_cuda(codes, delta):
 
 def quantize_rows_ef_cuda(x2d, res2d, row_delta, row_qmax, decay: float):
     """``[R, C]`` fp32 payload and residual, ``[R, 1]`` deltas and qmax
-    on the card -> ``(int32 codes, new residual fp32)`` in one launch
-    (``decay`` rounds to fp32)."""
+    on the card -> ``(int32 codes, new residual fp32)`` in one launch of
+    the row codec's residual case, as :func:`rows_plan` lays it out
+    (``decay`` rounds to fp32; 16-byte vectors where x, res, the codes
+    and the new residual all start on 16-byte addresses)."""
     r, c = _rows(x2d, "quantize_rows_ef")
     require(res2d, "quantize_rows_ef res", torch.float32, (r, c))
     require(row_delta, "quantize_rows_ef row_delta", torch.float32, (r, 1))
     require(row_qmax, "quantize_rows_ef row_qmax", torch.float32, (r, 1))
     codes = torch.empty((r, c), dtype=torch.int32, device=x2d.device)
     new_res = torch.empty((r, c), dtype=torch.float32, device=x2d.device)
-    rc = library().quantize_rows_ef(x2d.data_ptr(), res2d.data_ptr(),
-                                    row_delta.data_ptr(), row_qmax.data_ptr(),
-                                    codes.data_ptr(), new_res.data_ptr(), r,
-                                    c, float(decay), stream_of(x2d))
-    check(rc, "quantize_rows_ef")
-    QUANTIZE_ROWS_EF_LAUNCHES.count += 1
+    if codes.numel():
+        bufs = (x2d, res2d, codes, new_res)
+        plan = rows_plan(r, c, all(t.data_ptr() % 16 == 0 for t in bufs))
+        rc = library().quantize_rows_ef(
+            x2d.data_ptr(), res2d.data_ptr(), row_delta.data_ptr(),
+            row_qmax.data_ptr(), codes.data_ptr(), new_res.data_ptr(), r, c,
+            float(decay), plan.vec, *plan.block, *plan.grid, stream_of(x2d))
+        check(rc, "quantize_rows_ef")
+        QUANTIZE_ROWS_EF_LAUNCHES.count += 1
+        QUANTIZE_ROWS_EF_LAUNCHES.last_plan = plan
     return codes, new_res
 
 

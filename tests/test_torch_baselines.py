@@ -262,6 +262,22 @@ STEP_CASES = [(a, m, s, o) for a in ALGOS
                         else ("adamw", "sgd"))]
 
 
+# JAX's vmapped, jitted step per (algo, optimizer): everything it closes
+# over is made from those two, so the masks and step counts that share
+# them share one compile
+_JAX_VSTEPS = {}
+
+
+def _jax_vstep(algo, optimizer, jcfg, scfg, jfed, jtrain, j_opt_s, j_opt_t):
+    key = (algo, optimizer)
+    if key not in _JAX_VSTEPS:
+        jstep, *_ = JF._algo_wiring(algo, jcfg, scfg, jfed, jtrain, j_opt_s,
+                                    j_opt_t, jit=False)
+        t_on = algo == "fml"
+        _JAX_VSTEPS[key] = jax.jit(jax.vmap(lambda s, b: jstep(s, b, t_on)))
+    return _JAX_VSTEPS[key]
+
+
 @pytest.mark.parametrize("algo,mask,steps,optimizer", STEP_CASES,
                          ids=[f"{a}-{m or 'nomask'}-{s}-{o}"
                               for a, m, s, o in STEP_CASES])
@@ -275,8 +291,6 @@ def test_stacked_step_matches_jax(algo, mask, steps, optimizer):
     jtrain, ttrain = _train_pair(batch_size=16, remat=False,
                                  optimizer=optimizer)
     (j_opt_s, j_opt_t), (t_opt_s, t_opt_t) = _opt_pair(jtrain, False)
-    jstep, *_ = JF._algo_wiring(algo, jcfg, scfg, jfed, jtrain, j_opt_s,
-                                j_opt_t, jit=False)
     tstep, *_ = TF._algo_wiring(algo, _tcfg(jcfg), _tcfg(scfg), tfed,
                                 ttrain, t_opt_s, t_opt_t)
     jstates = _with_protos(_jax_states(algo, jcfg, jfed, jtrain, False),
@@ -286,7 +300,8 @@ def test_stacked_step_matches_jax(algo, mask, steps, optimizer):
     t_on = algo == "fml"
     atol = 2e-6 if steps == 1 else 2e-5
     eps_elements = MAX_EPS_ELEMENTS if optimizer == "adamw" else 0
-    jvstep = jax.jit(jax.vmap(lambda s, b: jstep(s, b, t_on)))
+    jvstep = _jax_vstep(algo, optimizer, jcfg, scfg, jfed, jtrain, j_opt_s,
+                        j_opt_t)
     apart = 0               # parameter elements beyond atol before a step
     for k in range(steps):
         b = _node_batch(k)

@@ -1,31 +1,10 @@
-"""The per-leaf and per-tensor wire codec, held against the JAX package
-on the CPU.
+"""The per-leaf wire codec against the JAX package on the CPU, bit for bit:
+the packed-tree tier, ``core/quantization``, ``round_ops``' per-node
+codec, ``packed=False`` and the error feedback on a tree, the slice's
+mnist-cnn payloads, and the new CUDA wrappers' refusals and counters.
 
-Every comparison is bit-exact (0 ulp), because the reference claims
-bit-identity for all of them:
-
-* the five new plain versions (``quantize_dequantize_rows_ref``,
-  ``dequantize_rows_ref``, ``fused_quantize_ref``,
-  ``fused_quantize_dequantize_ref``, ``dequantize_ref``) against the
-  Pallas kernels they replace, in interpret mode, at odd shapes and
-  widths 4 / 8 / 16 (the fused kernels get qmax as a runtime ``(1, 1)``
-  array, as ``repro``'s ``ops._qmax_arr`` passes it);
-* the per-tensor tier (``quantize`` / ``dequantize`` /
-  ``quantize_dequantize``) and the packed-tree tier (``pack_tree`` …
-  ``quantize_dequantize_tree_packed``, both ``node_axis`` settings)
-  against ``repro``'s ops;
-* ``core/quantization``'s per-tensor codec, ``round_ops``'
-  ``quantize_leaf_per_node`` / ``dequantize_leaf``, ``wire_state``'s
-  ``ef_quantize_dequantize_tree`` and
-  ``quantize_dequantize_per_node(packed=False)`` against the eager JAX
-  functions, and ``packed=False`` against the port's own packed codec;
-* the slice as a whole: a test-size mnist-cnn stacked payload, its
-  weights carried from JAX, through both packages' ``packed=False``
-  codecs.
-
-The CUDA wrappers launch their kernels or raise; here they raise on CPU
-tensors, and ``chip_smoke.py`` holds them against the plain versions on
-the card.
+The helpers and the tolerances, with their reasons, are in
+``tests/torch_codec_helpers.py``.
 """
 import numpy as np
 import pytest
@@ -40,11 +19,6 @@ from repro.core import quantization as JQ
 from repro.core import round_ops as JR
 from repro.core import wire_state as JW
 from repro.kernels.quantize import ops as jqops
-from repro.kernels.quantize.quantize import (dequantize_pallas,
-                                             dequantize_rows_pallas,
-                                             fused_quantize_dequantize_pallas,
-                                             fused_quantize_pallas,
-                                             quantize_dequantize_rows_pallas)
 from repro.models import model as jmodel
 from repro.optim import plane as jplane
 from repro_torch import wirespec as twire
@@ -53,7 +27,6 @@ from repro_torch.core import round_ops as TR
 from repro_torch.core import wire_state as TW
 from repro_torch.kernels import build
 from repro_torch.kernels.quantize import ops as tqops
-from repro_torch.kernels.quantize import ref as tref
 from repro_torch.kernels.quantize.quantize import (
     dequantize_cuda, dequantize_rows_cuda, fused_quantize_cuda,
     fused_quantize_dequantize_cuda, quantize_dequantize_rows_cuda)
@@ -61,85 +34,10 @@ from repro_torch.models import model as tmodel
 from repro_torch.optim import plane as tplane
 from repro_torch.tree import tree_leaves
 
+from torch_codec_helpers import (NEW_KERNELS, _mixed_tree, _pairs, _payload,
+                                 _same, _stacked, _state_pair, _to)
+
 torch.set_num_threads(2)
-
-NEW_KERNELS = ("quantize_dequantize_rows", "dequantize_rows",
-               "fused_quantize", "fused_quantize_dequantize", "dequantize")
-
-
-def _qmax(bits):
-    return float((1 << (bits - 1)) - 1)
-
-
-def _same(t, j):
-    """Bit-identical values (and shape); ``t`` a tensor, ``j`` an array."""
-    a = t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-    b = np.asarray(j)
-    assert a.shape == b.shape, (a.shape, b.shape)
-    if a.dtype.kind == "f" or b.dtype.kind == "f":
-        a, b = a.astype(np.float32), b.astype(np.float32)
-        assert a.tobytes() == b.tobytes()
-    else:
-        np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64))
-
-
-def _pairs(tleaves, jtree):
-    jleaves = jax.tree_util.tree_leaves(jtree)
-    assert len(tleaves) == len(jleaves)
-    return zip(tleaves, jleaves)
-
-
-def _rows_input(shape, bits, seed):
-    """``[R, C]`` fp32 rows (one all zero), per-row Δ from their absmax
-    (some rows' Δ too small, so codes clip at both ends), and exact
-    half-way points in row 0."""
-    rng = np.random.default_rng(seed)
-    x = (rng.standard_normal(shape) * 3).astype(np.float32)
-    x2d = x.reshape(shape[0], -1) if len(shape) > 1 else x.reshape(1, -1)
-    qm = np.float32(_qmax(bits))
-    delta = np.maximum(np.abs(x2d).max(1, keepdims=True) / qm,
-                       np.finfo(np.float32).tiny).astype(np.float32)
-    if x2d.shape[0] > 3:
-        x2d[2] = 0.0
-        delta[3] /= np.float32(4.0)
-    if x2d.shape[1] >= 4:
-        x2d[0, :4] = np.array([0.5, 1.5, -0.5, -2.5], np.float32) * delta[0]
-    return np.ascontiguousarray(x2d), delta
-
-
-# -- the five plain versions against their Pallas kernels --------------------
-
-@pytest.mark.parametrize("shape", [(257, 33), (300, 777), (129, 513), (1,)])
-@pytest.mark.parametrize("bits", [4, 8, 16])
-def test_plain_versions_match_pallas_kernels(shape, bits):
-    x2d, delta = _rows_input(shape, bits, seed=bits + len(shape))
-    t = torch.from_numpy
-    # row 7: the row-scaled round trip; row 12: codes · Δ_row
-    got = tref.quantize_dequantize_rows_ref(t(x2d), t(delta), bits=bits)
-    _same(got, quantize_dequantize_rows_pallas(x2d, delta, bits=bits,
-                                               interpret=True))
-    codes = tref.quantize_rows_ref(t(x2d), t(delta), bits=bits)
-    _same(tref.dequantize_rows_ref(codes, t(delta)),
-          dequantize_rows_pallas(codes.numpy(), delta, interpret=True))
-    # rows 13 and 14: the whole-tensor codec, qmax a runtime (1, 1) input
-    qm2d = jnp.full((1, 1), _qmax(bits), jnp.float32)
-    qm = torch.tensor(_qmax(bits))
-    tc, td = tref.fused_quantize_ref(t(x2d), qm)
-    jc, jd = fused_quantize_pallas(x2d, qm2d, bits=bits, interpret=True)
-    _same(tc, jc)
-    _same(td, jd)
-    assert tc.dtype == torch.int32 and td.dim() == 0
-    to, td2 = tref.fused_quantize_dequantize_ref(t(x2d), qm)
-    jo, jd2 = fused_quantize_dequantize_pallas(x2d, qm2d, bits=bits,
-                                               interpret=True)
-    _same(to, jo)
-    _same(td2, jd2)
-    # row 15: codes · Δ with a scalar Δ
-    _same(tref.dequantize_ref(tc, td),
-          dequantize_pallas(np.asarray(jc), jd, interpret=True))
-    _same(tref.dequantize_ref(tc, td), to)
-    if x2d.shape[1] >= 4:          # floor(v + 0.5), not half to even
-        assert codes[0, :4].tolist() == [1, 2, 0, -2]
 
 
 def test_new_cuda_wrappers_reject_cpu_tensors():
@@ -176,54 +74,6 @@ def test_new_kernels_are_bound_and_counted():
     tqops.quantize_dequantize_tree_packed({"a": x}, 8)
     tqops.dequantize_tree_packed(tqops.quantize_tree_packed({"a": x}))
     assert all(v == 0 for v in build.launch_counts().values())
-
-
-# -- the per-tensor tier ------------------------------------------------------
-
-@pytest.mark.parametrize("shape", [(16,), (1000,), (3, 7, 11), (257, 33),
-                                   (1,), (129, 513)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_per_tensor_ops_match_jax(shape, dtype):
-    rng = np.random.default_rng(len(shape) * 7 + shape[0])
-    x32 = (rng.standard_normal(shape) * 3).astype(np.float32)
-    jx = jnp.asarray(x32, getattr(jnp, dtype))
-    tx = torch.from_numpy(x32).to(getattr(torch, dtype))
-    _same(tx.float(), jnp.asarray(jx, jnp.float32))   # the same bf16 input
-    for bits in (8, 16):
-        tc, td = tqops.quantize(tx, bits)
-        jc, jd = jqops.quantize(jx, bits)
-        _same(tc, jc)
-        _same(td, jd)
-        assert tc.shape == tx.shape and tc.dtype == torch.int32
-        tqd = tqops.quantize_dequantize(tx, bits)
-        assert tqd.dtype == tx.dtype and tqd.shape == tx.shape
-        _same(tqd.float(), jnp.asarray(jqops.quantize_dequantize(jx, bits),
-                                       jnp.float32))
-        # int16 codes are cast to int32 before the sweep
-        _same(tqops.dequantize(tc.to(torch.int16), td),
-              jqops.dequantize(jc.astype(jnp.int16), jd))
-        _same(tqops.dequantize(tc, td), tref.dequantize_ref(tc, td))
-
-
-# -- the packed tree ----------------------------------------------------------
-
-def _mixed_tree(seed=42):
-    """``repro``'s test tree: an int leaf, a 0-d scalar, a bf16 leaf."""
-    rng = np.random.default_rng(seed)
-    w = rng.standard_normal((33, 17)).astype(np.float32)
-    v = (rng.standard_normal((1000,)) * 10).astype(np.float32)
-    aligned = rng.standard_normal((8, 128)).astype(np.float32)
-    jt = {"w": jnp.asarray(w),
-          "nested": {"v": jnp.asarray(v, jnp.bfloat16),
-                     "idx": jnp.arange(7, dtype=jnp.int32),
-                     "scalar": jnp.float32(3.5)},
-          "aligned": jnp.asarray(aligned)}
-    tt = {"w": torch.from_numpy(w),
-          "nested": {"v": torch.from_numpy(v).to(torch.bfloat16),
-                     "idx": torch.arange(7, dtype=torch.int32),
-                     "scalar": torch.tensor(3.5)},
-          "aligned": torch.from_numpy(aligned)}
-    return jt, tt
 
 
 @pytest.mark.parametrize("node_axis", [False, True])
@@ -274,8 +124,6 @@ def test_pack_tree_without_float_leaves():
         assert tuple(buf.shape) == (8, 512) and meta[1] == jmeta[2] == 1
 
 
-# -- core/quantization --------------------------------------------------------
-
 @pytest.mark.parametrize("bits", [4, 8, 16])
 def test_core_quantization_matches_jax(bits):
     jt, tt = _mixed_tree(seed=bits)
@@ -309,20 +157,6 @@ def test_core_quantization_matches_jax(bits):
         TQ.quantize_array(tt["w"], bits, rng=torch.Generator())
 
 
-# -- round_ops: per node ------------------------------------------------------
-
-def _stacked(seed=0, n=4):
-    rng = np.random.default_rng(seed)
-    arrs = {"w": rng.standard_normal((n, 33, 9)) * 2,
-            "b": rng.standard_normal((n, 5)),
-            "s": rng.standard_normal((n,)),
-            "h": rng.standard_normal((n, 3, 700)) * 5}
-    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
-    arrs["w"][1] *= 40.0                        # one node far louder
-    arrs["b"][2] = 0.0                          # an all-zero node slice
-    return arrs
-
-
 @pytest.mark.parametrize("bits", [4, 8, 16])
 def test_quantize_leaf_per_node_matches_jax(bits):
     for name, x in _stacked(bits).items():
@@ -336,20 +170,6 @@ def test_quantize_leaf_per_node_matches_jax(bits):
             assert str(tc.dtype).split(".")[-1] == str(jc.dtype)
             assert tuple(td.shape) == (x.shape[0],)
             _same(TR.dequantize_leaf(tc, td), JR.dequantize_leaf(jc, jd))
-
-
-def _payload(seed=3, n=4):
-    """A stacked wire payload ``{"protos", "student"}`` as numpy: the
-    student a tree of ``[N, ...]`` leaves."""
-    rng = np.random.default_rng(seed)
-    protos = rng.standard_normal((n, 10, 16)).astype(np.float32)
-    return protos, _stacked(seed, n)
-
-
-def _to(tree, lib):
-    if lib == "jax":
-        return jax.tree_util.tree_map(jnp.asarray, tree)
-    return jax.tree_util.tree_map(torch.from_numpy, tree)
 
 
 @pytest.mark.parametrize("wire", ["16", "8", "4/16"])
@@ -369,18 +189,6 @@ def test_per_node_packed_false_matches_jax(wire):
         _same(t, j)
         _same(t, p.numpy())
     assert sorted(got) == ["protos", "student"]
-
-
-def _state_pair(protos, student, seed, decay_scale=0.1):
-    rng = np.random.default_rng(seed)
-    res = {"protos": (rng.standard_normal(protos.shape) * decay_scale
-                      ).astype(np.float32),
-           "student": {k: (rng.standard_normal(v.shape) * decay_scale
-                           * np.abs(v).max()).astype(np.float32)
-                       for k, v in student.items()}}
-    seq = np.array([2, 2, 2, 2], np.int32)
-    return (TW.CodecState(_to(res, "torch"), torch.from_numpy(seq)),
-            JW.CodecState(_to(res, "jax"), jnp.asarray(seq)), res)
 
 
 @pytest.mark.parametrize("decay", [1.0, 0.9])
@@ -502,8 +310,6 @@ def test_per_node_packed_false_refusals():
             packed=False)
 
 
-# -- wire_state: the per-leaf error-feedback reference -------------------------
-
 @pytest.mark.parametrize("node_axis", [True, False])
 def test_ef_quantize_dequantize_tree_matches_jax(node_axis):
     protos, student = _payload(seed=9)
@@ -537,8 +343,6 @@ def test_ef_quantize_dequantize_tree_matches_jax(node_axis):
         TW.ef_quantize_dequantize_tree(tpay, twire.WireSpec(**spec),
                                        TW.CodecState(wrong, tstate.seq))
 
-
-# -- the slice as a whole -----------------------------------------------------
 
 @pytest.mark.parametrize("wire", ["16", "4/16", "4/16+ef"])
 def test_slice_mnist_payload_matches_jax(wire):

@@ -1,43 +1,11 @@
-"""The port's per-node loop engine (``run_federation_loop``) and its
-helpers, held against the JAX package on the CPU.
+"""The port's per-node loop engine (``run_federation_loop``) and its helpers
+against the JAX package on the CPU: the helpers bit for bit, whole runs
+on the 16-bit plane and on the adapter wire, the fallback to the loop
+engine, and ``chip_smoke.py``'s non-iid paths.
 
-* The helpers, bit for bit: ``data.batches``,
-  ``CommMeter.record_broadcast``, ``aggregation.weighted_tree_mean`` /
-  ``neighborhood_aggregate`` / ``weighted_plane_mean``,
-  ``kernels/quantize/ops.quantize_dequantize_plane_rows`` (4, 8 and 16
-  bits, an unstacked plane and a one-node stack), and
-  ``wire_state.ef_quantize_dequantize_plane`` against ``repro``'s eager
-  call (its jitted call, the JAX loop engine's, divides by qmax as a
-  multiply by the reciprocal and contracts the residual's
-  multiply-subtract into an FMA on XLA:CPU, so against that the views
-  are held to ``rtol=1e-6`` and the residual to ``RES_ATOL``);
-  ``round_ops.weighted_node_mean`` to ``rtol=1e-6`` (two
-  tensordots that may sum in other orders).
-* Whole ``run_federation_loop`` runs of both packages from the same
-  carried states (``repro``'s own ``_init_states``) on a ragged split (4
-  nodes of a tiny mnist-cnn, fp32, node 0 cut to 10 images, under one
-  batch of 16, so its one batch is short): the plane and a per-leaf
-  student, the ``16``, ``4/16+ef`` and adapter wires (naive and
-  RegMean), the fused pass with the prototype EMA, and FedProto with
-  every node evaluated.
-  ``avg_sent_gb``, ``comm.sent``, ``comm.received``, ``comm.by_round``
-  and the byte extras exactly; after every round every node's student
-  (read where both engines evaluate it) to ``atol=2e-5`` (as
-  ``tests/test_torch_federation.py``), but for at most
-  ``MAX_EPS_ELEMENTS`` parameters in Adam's eps regime, each within
-  ``atol + 2·lr`` (``tests/test_torch_baselines.py``); per-round F1 and
-  accuracy exactly.
-* ``run_federation`` falls back to the loop engine for a ragged split
-  (its result the loop's, bit for bit), and the loop engine against the
-  port's own stacked engine on an equal split: bytes exactly, the final
-  stacked state to the same tolerances (the stacked mix sums its
-  senders in one tensordot, the loop one sender after another), step
-  counters, masks and round counters exactly.
+The helpers and the tolerances, with their reasons, are in
+``tests/torch_loop_engine_helpers.py``.
 """
-import dataclasses
-import importlib.util
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,14 +21,11 @@ from repro.core import wire_state as jws
 from repro.data import loader as jloader
 from repro.kernels.quantize import ops as jqops
 from repro.models import model as jmodel
-from repro.optim import make_optimizer as jmake_optimizer
 from repro.optim import plane as jplane
 from repro.wirespec import WireSpec as JWireSpec
-from repro_torch.config import base as tbase
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import comm as tcomm
 from repro_torch.core import federation as TF
-from repro_torch.core import profe as tprofe
 from repro_torch.core import round_ops as tround
 from repro_torch.core import wire_state as tws
 from repro_torch.data import (batches, make_image_dataset, partition,
@@ -70,28 +35,16 @@ from repro_torch.optim import plane as tplane
 from repro_torch.tree import keyed_leaves, tree_leaves
 from repro_torch.wirespec import WireSpec
 
+from torch_loop_engine_helpers import (LOOP_RUNS, MAX_EPS_ELEMENTS, N_NODES,
+                                       RES_ATOL, _a, _assert_students_close,
+                                       _bits, _carry, _chip_smoke_module,
+                                       _jax_states, _recording_eval, _setup,
+                                       _student_tree)
+
 torch.set_num_threads(2)
 
-ROOT = Path(__file__).resolve().parents[1]
-N_NODES = 4
-RES_ATOL = 2e-6             # EF student residual against the jitted codec
-MAX_EPS_ELEMENTS = 2        # parameters in Adam's eps regime, a round
-LR = 1e-3                   # TrainConfig's learning rate
+CASES = ("plane/16", "plane/adapters8")
 
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(np.array, tree)
-
-
-def _a(x):
-    return np.array(x.detach() if isinstance(x, torch.Tensor) else x)
-
-
-def _bits(x) -> bytes:
-    return _a(x).tobytes()
-
-
-# -- the helpers -----------------------------------------------------------------
 
 def test_batches_match_jax():
     rng = np.random.default_rng(0)
@@ -160,13 +113,6 @@ def test_weighted_means_match_jax():
     want = jround.weighted_node_mean(jnp.asarray(w), stacked)
     np.testing.assert_allclose(_a(got["a"]), np.asarray(want["a"]),
                                rtol=1e-6, atol=0)
-
-
-def _student_tree(seed: int):
-    cfg = jbase.get_config("mnist-cnn").replace(cnn_channels=(4, 8),
-                                                proto_dim=16)
-    return _np_tree(jmodel.init_params(jmodel.derive_student(cfg),
-                                       jax.random.PRNGKey(seed)))
 
 
 @pytest.mark.parametrize("stacked", [False, True],
@@ -240,102 +186,7 @@ def test_ef_quantize_dequantize_plane_matches_jax(decay):
         assert not _a(tst.residual["student"].buf)[rows:].any()
 
 
-# -- whole runs against the JAX loop engine ------------------------------------
-
-WIRES = {"16": {}, "fp32": dict(quantize_bits=0),
-         "4/16+ef": dict(quantize_bits=4, proto_quantize_bits=16,
-                         error_feedback=True),
-         "adapters8": dict(quantize_bits=4, adapter_rank=8),
-         "adapters8+grams": dict(quantize_bits=4, adapter_rank=8,
-                                 adapter_grams=True)}
-
-
-def _setup(wire, *, ragged=True, rounds=2, per_node=56, batch=16,
-           channels=(4, 8), **fed):
-    jcfg = jbase.get_config("mnist-cnn").replace(
-        cnn_channels=channels, proto_dim=16, dtype="float32")
-    data = make_image_dataset(0, N_NODES * per_node + 64, (28, 28, 1), 10)
-    train_d, test_d = train_test_split(data, 64 / len(data["label"]), 0)
-    parts = partition(train_d["label"], N_NODES, "iid", 0)
-    if ragged:
-        parts[0] = parts[0][:10]            # under one batch of 16
-    node_data = [{k: v[i] for k, v in train_d.items()} for i in parts]
-    kw = dict(num_nodes=N_NODES, rounds=rounds, topology="full",
-              **WIRES[wire], **fed)
-    train_kw = dict(batch_size=batch, remat=False)
-    return (jcfg, tbase.ModelConfig(**dataclasses.asdict(jcfg)), node_data,
-            test_d, jbase.FederationConfig(**kw),
-            tbase.FederationConfig(**kw), jbase.TrainConfig(**train_kw),
-            tbase.TrainConfig(**train_kw))
-
-
-def _jax_states(jcfg, jfed, jtrain):
-    algo = jfed.algorithm
-    scfg = jmodel.derive_student(jcfg)
-    plane = JF._plane_mode(jfed, jtrain, algo, scfg)
-    opt_t = jmake_optimizer("adamw", jtrain.learning_rate,
-                            weight_decay=jtrain.weight_decay)
-    opt_s = jplane.make_plane_optimizer(
-        "adamw", jtrain.learning_rate, weight_decay=jtrain.weight_decay,
-        grad_clip=jtrain.grad_clip) if plane else opt_t
-    _, _, _, _, cfgs = JF._algo_wiring(algo, jcfg, scfg, jfed, jtrain,
-                                       opt_s, opt_t, jit=False)
-    return JF._init_states(algo, cfgs, jfed, opt_s, opt_t, 10,
-                           plane=plane), plane
-
-
-def _carry(st, plane: bool):
-    acc = None if st.proto_acc is None else tuple(np.asarray(x)
-                                                  for x in st.proto_acc)
-    return tprofe.node_state_from_numpy(
-        _np_tree(jplane.as_tree(st.student)), _np_tree(st.teacher),
-        _np_tree(st.opt_s), _np_tree(st.opt_t),
-        np.asarray(st.global_protos), np.asarray(st.proto_mask),
-        int(st.round_idx), plane=plane, proto_acc=acc, device="cpu")
-
-
-def _recording_eval(pkg, rounds, leaves):
-    """Wrap ``pkg._eval_nodes`` so that every round's students of every
-    node (the models both engines evaluate) are recorded as numpy."""
-    inner = pkg._eval_nodes
-
-    def eval_nodes(eval_cfg, students_of, n_nodes, *args, **kwargs):
-        rounds.append([[_a(x) for x in leaves(students_of(i))]
-                       for i in range(n_nodes)])
-        return inner(eval_cfg, students_of, n_nodes, *args, **kwargs)
-    return eval_nodes
-
-
-def _assert_students_close(t_rounds, j_rounds, eps_elements, atol=2e-5):
-    assert len(t_rounds) == len(j_rounds)
-    for t_nodes, j_nodes in zip(t_rounds, j_rounds):
-        beyond, gap = 0, 0.0
-        for t, j in zip(t_nodes, j_nodes):
-            assert len(t) == len(j) > 0
-            for a, b in zip(t, j):
-                a = a.reshape(b.shape)
-                d = np.abs(a - b)
-                beyond += int(np.count_nonzero(d > atol))
-                gap = max(gap, float(d.max(initial=0.0)))
-        assert beyond <= eps_elements and gap <= atol + 2 * LR, (beyond,
-                                                                 gap)
-
-
-LOOP_RUNS = {
-    "plane/16": ("16", {}),
-    "plane/4/16+ef": ("4/16+ef", {}),
-    "plane/adapters8": ("adapters8", dict(channels=(24, 32))),
-    "plane/adapters8+grams": ("adapters8+grams",
-                              dict(channels=(24, 32), rounds=1)),
-    "per-leaf/16/fused+ema": ("16", dict(param_plane="off",
-                                         proto_pass="fused",
-                                         proto_ema=0.5)),
-    "fedproto/fp32/all-nodes": ("fp32", dict(algorithm="fedproto",
-                                             eval_all_nodes=True)),
-}
-
-
-@pytest.mark.parametrize("case", list(LOOP_RUNS))
+@pytest.mark.parametrize("case", list(CASES))
 def test_run_federation_loop_matches_jax(case, monkeypatch):
     wire, kw = LOOP_RUNS[case]
     kw = dict(kw)
@@ -397,79 +248,6 @@ def test_run_federation_falls_back_to_the_loop_engine():
         assert ka == kb and _bits(a) == _bits(b)
     assert isinstance(via.comm, tcomm.CommMeter) and \
         not isinstance(via.comm, tcomm.ScheduleCommAccountant)
-
-
-def test_loop_engine_resumes_from_a_stacked_state_bit_for_bit():
-    """The loop engine's ``result.state`` (its one-node stacks joined) fed
-    back as ``initial_states`` with ``start_round=1`` (split into one-node
-    stacks again) ends bit-identical to the uninterrupted run, on the
-    ragged ``4/16+ef`` split (the residual and ``seq`` carried)."""
-    _, tcfg, node_data, test_d, _, tfed, _, ttrain = _setup("4/16+ef")
-    full = TF.run_federation_loop(tcfg, tfed, ttrain, node_data, test_d,
-                                  device="cpu")
-    one = TF.run_federation_loop(tcfg, dataclasses.replace(tfed, rounds=1),
-                                 ttrain, node_data, test_d, device="cpu")
-    assert one.state.opt_s["step"].tolist() == [1, 3, 3, 3]
-    resumed = TF.run_federation(tcfg, tfed, ttrain, node_data, test_d,
-                                initial_states=one.state, start_round=1,
-                                device="cpu")
-    for (ka, a), (kb, b) in zip(keyed_leaves(resumed.state),
-                                keyed_leaves(full.state)):
-        assert ka == kb and _bits(a) == _bits(b), ka
-    assert resumed.f1_per_round == full.f1_per_round[1:]
-    assert resumed.state.wire_state.seq.tolist() == [2] * N_NODES
-
-
-@pytest.mark.parametrize("wire", ["16", "4/16+ef"])
-def test_loop_engine_matches_the_stacked_engine(wire):
-    """On an equal split: the port's loop engine against its stacked
-    engine, 2 rounds from the same seeded states.  Bytes exactly; the
-    final state to the tolerances above (the Adam moments 1e-6 and
-    1e-8, the Eq. 4 prototypes 1e-4, the ``+ef`` residual ``RES_ATOL``),
-    counters and masks exactly."""
-    _, tcfg, node_data, test_d, _, tfed, _, ttrain = _setup(wire,
-                                                            ragged=False)
-    stacked = TF.run_federation(tcfg, tfed, ttrain, node_data, test_d,
-                                device="cpu")
-    loop = TF.run_federation_loop(tcfg, tfed, ttrain, node_data, test_d,
-                                  device="cpu")
-    for key in ("avg_sent_gb", "avg_received_gb", "wire_bytes_per_copy",
-                "wire_bytes_packed_per_copy", "avg_sent_packed_gb"):
-        assert loop.extras[key] == stacked.extras[key], key
-    for key in ("sent", "received", "by_round"):
-        assert dict(getattr(loop.comm, key)) == \
-            dict(getattr(stacked.comm, key))
-    a, b = loop.state, stacked.state
-    for x, y in ((a.student.buf, b.student.buf),
-                 *zip(tree_leaves(a.teacher), tree_leaves(b.teacher))):
-        np.testing.assert_allclose(_a(x), _a(y), rtol=0, atol=2e-5)
-    for key, atol in (("mu", 1e-6), ("nu", 1e-8)):
-        for opt in ("opt_s", "opt_t"):
-            for x, y in zip(tree_leaves(getattr(a, opt)[key]),
-                            tree_leaves(getattr(b, opt)[key])):
-                np.testing.assert_allclose(_a(x), _a(y), rtol=0, atol=atol)
-    for opt in ("opt_s", "opt_t"):
-        assert getattr(a, opt)["step"].tolist() == \
-            getattr(b, opt)["step"].tolist()
-    np.testing.assert_allclose(_a(a.global_protos), _a(b.global_protos),
-                               rtol=0, atol=1e-4)
-    assert _bits(a.proto_mask) == _bits(b.proto_mask)
-    assert a.round_idx.tolist() == b.round_idx.tolist()
-    if wire.endswith("+ef"):
-        assert a.wire_state.seq.tolist() == b.wire_state.seq.tolist()
-        np.testing.assert_allclose(_a(a.wire_state.residual["student"].buf),
-                                   _a(b.wire_state.residual["student"].buf),
-                                   rtol=0, atol=RES_ATOL)
-
-
-# -- chip_smoke.py's non-iid paths ----------------------------------------------
-
-def _chip_smoke_module():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.mark.parametrize("name", ["16/noniid40", "cifar10/sgd/dirichlet",

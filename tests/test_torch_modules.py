@@ -1,17 +1,10 @@
-"""The port's modules held against the JAX package on the CPU: the same
-numpy inputs (and carried weights) through ``repro`` and ``repro_torch``.
+"""The port's modules held against the JAX package on the CPU: configs and
+wire specs, data, topology, metrics, the small mnist-cnn forward from
+carried weights, the plane's layout, gradient and norm, and the wire
+codec and its byte accounting.
 
-Tolerances: data, topology, configs, metrics, plane layout, wire codes,
-scales, reconstructions and byte counts are exact.  Forward outputs
-agree to ``rtol=1e-5`` under an fp32 ``dtype`` override; in bf16 the two
-frameworks round convolutions and matmuls at different places, so
-logits agree to ``atol=0.1`` there (bf16 keeps 8 bits).  One ProFe step
-(fp32): losses and gradients to ``rtol=1e-4`` (summation order), and the
-post-Adam parameters to ``atol=2e-6``.  Adam's first step is about
-``lr * g / (|g| + eps)``: where ``|g|`` is near ``eps=1e-8`` a tiny
-gradient difference moves it by a large fraction of ``lr=1e-3``, so
-``2e-6`` holds only because the gradients agree far better than
-``eps`` (it is not a bound on the sign flips themselves).
+The helpers and the tolerances, with their reasons, are in
+``tests/torch_modules_helpers.py``.
 """
 import dataclasses
 
@@ -25,18 +18,14 @@ from repro import wirespec as jwire
 from repro.config import base as jbase
 from repro.core import comm as jcomm
 from repro.core import metrics as jmetrics
-from repro.core import profe as jprofe
-from repro.core import federation as jfed_mod
 from repro.core import quantization as jquant
 from repro.core import round_ops as jround_ops
-from repro.core import wire_state as jwire_state
 from repro.core import topology as jtopo
 from repro.data import loader as jloader
 from repro.data.partition import partition as jpartition
 from repro.data import synthetic as jsyn
 from repro.kernels.quantize import ops as jqops
 from repro.models import model as jmodel
-from repro.optim import make_optimizer as jmake_optimizer
 from repro.optim import plane as jplane
 from repro_torch import wirespec as twire
 from repro_torch.config import base as tbase
@@ -52,37 +41,15 @@ from repro_torch.data.partition import partition as tpartition
 from repro_torch.data import synthetic as tsyn
 from repro_torch.kernels.quantize import ops as tqops
 from repro_torch.models import model as tmodel
-from repro_torch.optim import make_optimizer, make_plane_optimizer
 from repro_torch.optim import plane as tplane
-from repro_torch.optim.optimizers import \
-    clip_by_global_norm as tclip_by_global_norm
-from repro_torch.tree import ShapeDtypeStruct, tree_leaves, tree_map
+from repro_torch.tree import ShapeDtypeStruct, tree_leaves
+
+from torch_modules_helpers import (_carried_params, _carried_resnet,
+                                   _ef_states, _images, _np_tree, _small_cfg,
+                                   _tcfg, carry_state)
 
 torch.set_num_threads(2)
 
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _small_cfg(dtype="float32"):
-    return jbase.get_config("mnist-cnn").replace(
-        cnn_channels=(4, 8), proto_dim=16, dtype=dtype)
-
-
-def _tcfg(jcfg):
-    return tbase.ModelConfig(**dataclasses.asdict(jcfg))
-
-
-def _small_resnet(dtype="float32", hw=(8, 8, 3)):
-    """A two-stage ResNet (blocks (2, 2), width 4; its student (1, 1)):
-    every block kind — stride-2 projection, identity — at test size."""
-    return jbase.get_config("cifar10-resnet18").replace(
-        name="small-resnet", resnet_blocks=(2, 2), resnet_width=4,
-        proto_dim=16, input_hw=hw, dtype=dtype)
-
-
-# -- pure modules: byte-identical -------------------------------------------
 
 def test_configs_and_wirespec_match():
     for name in ("mnist-cnn", "cifar10-resnet18", "cifar100-resnet32"):
@@ -153,19 +120,6 @@ def test_metrics_match():
         assert tmetrics.accuracy(yt, yp) == jmetrics.accuracy(yt, yp)
 
 
-# -- models ------------------------------------------------------------------
-
-def _carried_params(jcfg, seed):
-    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(seed))
-    return jp, tmodel.params_from_numpy(_np_tree(jp))
-
-
-def _images(seed, n, hw=(28, 28, 1)):
-    rng = np.random.default_rng(seed)
-    return rng.standard_normal((n,) + hw).astype(np.float32), \
-        rng.integers(0, 10, n).astype(np.int32)
-
-
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-5, 1e-5),
                                              ("bfloat16", 0.0, 0.1)])
 def test_forward_matches_with_carried_weights(dtype, rtol, atol):
@@ -179,84 +133,6 @@ def test_forward_matches_with_carried_weights(dtype, rtol, atol):
                                rtol=rtol, atol=atol)
     np.testing.assert_allclose(to.f1.numpy(), np.asarray(jo.f1), rtol=rtol,
                                atol=atol)
-
-
-_JAX_PARAMS = {}
-
-
-def _carried_resnet(name, student):
-    """JAX parameters of a CIFAR config (or its student) at full width,
-    initialized once per module, and the port's carried copy."""
-    key = (name, student)
-    if key not in _JAX_PARAMS:
-        jcfg = jbase.get_config(name)
-        if student:
-            jcfg = jmodel.derive_student(jcfg)
-        _JAX_PARAMS[key] = _carried_params(jcfg, 0)
-    return _JAX_PARAMS[key]
-
-
-@pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-5, 1e-5),
-                                             ("bfloat16", 0.0, 0.1)])
-@pytest.mark.parametrize("name,student", [
-    ("cifar10-resnet18", False), ("cifar10-resnet18", True),
-    ("cifar100-resnet32", False), ("cifar100-resnet32", True)],
-    ids=["resnet18", "resnet8", "resnet32", "resnet18-student"])
-def test_resnet_forward_matches_with_carried_weights(name, student, dtype,
-                                                     rtol, atol):
-    """The paper's CIFAR teachers and students at full width, batch 2."""
-    jp, tp = _carried_resnet(name, student)
-    jcfg = jbase.get_config(name).replace(dtype=dtype)
-    if student:
-        jcfg = jmodel.derive_student(jcfg)
-    img = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(
-        np.float32)
-    jo = jmodel.forward(jcfg, jp, {"image": img}, remat=False)
-    to = tmodel.forward(_tcfg(jcfg), tp, {"image": torch.from_numpy(img)})
-    assert to.logits.dtype == to.f1.dtype == torch.float32
-    assert tuple(to.f1.shape) == (2, 256)
-    np.testing.assert_allclose(to.logits.numpy(), np.asarray(jo.logits),
-                               rtol=rtol, atol=atol)
-    np.testing.assert_allclose(to.f1.numpy(), np.asarray(jo.f1), rtol=rtol,
-                               atol=atol)
-
-
-@pytest.mark.parametrize("side", [7, 9])
-def test_resnet_forward_matches_on_odd_sides(side):
-    """Odd input sides: SAME pads of the stride-2 convs become (1, 1),
-    stride-1 convs (1, 1), and a 1x1 stride-2 projection (0, 0)."""
-    from repro_torch.models.resnet import same_pads
-    assert same_pads(8, 3, 2) == (0, 1) and same_pads(7, 3, 2) == (1, 1)
-    assert same_pads(8, 1, 2) == (0, 0) == same_pads(7, 1, 2)
-    jcfg = _small_resnet(hw=(side, side, 3))
-    jp, tp = _carried_params(jcfg, 2)
-    img = np.random.default_rng(side).standard_normal(
-        (3, side, side, 3)).astype(np.float32)
-    jo = jmodel.forward(jcfg, jp, {"image": img}, remat=False)
-    to = tmodel.forward(_tcfg(jcfg), tp, {"image": torch.from_numpy(img)})
-    np.testing.assert_allclose(to.logits.numpy(), np.asarray(jo.logits),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(to.f1.numpy(), np.asarray(jo.f1), rtol=1e-5,
-                               atol=1e-5)
-
-
-def test_resnet_identity_stride_shortcut_matches():
-    """The stride-2 identity shortcut ``x[:, ::2, ::2]`` (a block without
-    ``proj``), which the paper's configs never reach."""
-    from repro.models import resnet as jres
-    from repro_torch.models import resnet as tres
-    rng = np.random.default_rng(1)
-    p = {k: {"kernel": (rng.standard_normal((3, 3, 4, 4)) * 0.3).astype(
-        np.float32)} for k in ("conv1", "conv2")}
-    p.update({k: {"scale": np.ones(4, np.float32),
-                  "bias": np.full(4, 0.1, np.float32)} for k in ("gn1",
-                                                               "gn2")})
-    x = rng.standard_normal((2, 6, 6, 4)).astype(np.float32)
-    want = jres._basic_block(p, jnp.asarray(x), 2)
-    got = tres._basic_block(tmodel.params_from_numpy(p),
-                            torch.from_numpy(x).permute(0, 3, 1, 2), 2)
-    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
-                               np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_full_width_resnet_student_plane_layout_matches():
@@ -343,314 +219,6 @@ def test_plane_global_norm_matches():
     np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
 
 
-# -- sgd and adafactor, per leaf and on the plane ----------------------------
-
-def _random_like(tree, rng, sc, n=None):
-    """numpy arrays shaped like ``tree``'s leaves (with a leading ``n``)."""
-    lead = () if n is None else (n,)
-    return jax.tree_util.tree_map(
-        lambda x: (rng.standard_normal(lead + tuple(np.shape(x))) * sc
-                   ).astype(np.float32), tree)
-
-
-def _stack_opt(states):
-    """Per-node optimizer states stacked as the engine stacks them."""
-    return {k: states[0][k] if k == "step" else
-            tree_map(lambda *xs: torch.stack(xs), *(s[k] for s in states))
-            for k in states[0]}
-
-
-@pytest.mark.parametrize("name", ["sgd", "adafactor"])
-def test_per_leaf_optimizer_matches_jax_vmapped(name):
-    """The port's per-leaf sgd / adafactor over a node-stacked ResNet tree
-    (``lead=1``) against ``repro``'s vmapped per-leaf optimizer, 3 steps
-    from random gradients.  sgd is bit-exact.  adafactor's moments agree
-    to ``rtol=1e-5`` and its parameters to ``rtol=1e-5, atol=1e-8``: the
-    frameworks' ``rsqrt``, means and ``pow`` (the decay ``beta``) round
-    differently, which moves a parameter by a few of its ulps (at most 4
-    seen) and a near-zero parameter by a few ulps of ``lr·|upd|``."""
-    n = 3
-    rng = np.random.default_rng(11)
-    tree = _np_tree(jmodel.init_params(_small_resnet(),
-                                       jax.random.PRNGKey(0)))
-    params = _random_like(tree, rng, 0.1, n)
-    jopt = jmake_optimizer(name, 1e-2, weight_decay=0.01, momentum=0.9)
-    topt = make_optimizer(name, 1e-2, weight_decay=0.01, momentum=0.9)
-    jst, jp = jax.vmap(jopt.init)(params), params
-    tp = tmodel.params_from_numpy(params)
-    tst = _stack_opt([topt.init(tree_map(lambda x: x[i], tp))
-                      for i in range(n)])
-    tol = {} if name == "sgd" else dict(rtol=1e-5, atol=1e-8)
-    for _ in range(3):
-        grads = _random_like(tree, rng, 1e-2, n)
-        jp, jst = jax.vmap(jopt.update)(grads, jst, jp)
-        topt.update(tmodel.params_from_numpy(grads), tst, tp, lead=1)
-        for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
-            if name == "sgd":
-                assert a.numpy().tobytes() == np.asarray(b).tobytes()
-            else:
-                np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
-        tm = tree_leaves({k: v for k, v in tst.items() if k != "step"})
-        jm = jax.tree_util.tree_leaves(
-            {k: v for k, v in jst.items() if k != "step"})
-        assert len(tm) == len(jm) >= len(tree_leaves(tree))
-        for a, b in zip(tm, jm):
-            assert tuple(a.shape) == np.shape(b)
-            if name == "sgd":
-                assert a.numpy().tobytes() == np.asarray(b).tobytes()
-            else:
-                np.testing.assert_allclose(a.numpy(), np.asarray(b),
-                                           rtol=1e-5, atol=0)
-        assert int(tst["step"]) == int(jst["step"][0])
-
-
-@pytest.mark.parametrize("name", ["sgd", "adamw", "adafactor"])
-def test_plane_optimizer_bit_identical_to_per_leaf(name):
-    """The fused plane optimizer (per-node clip + one sweep) against the
-    port's per-leaf optimizer after ``clip_by_global_norm``, over 5
-    carried steps on node-stacked ResNet parameters (lists in the tree),
-    bit for bit — ``repro``'s ``tests/test_plane.py`` claim, for all N
-    nodes at once.  The clip binds on some steps, not on others."""
-    n, clip = 3, 0.5
-    rng = np.random.default_rng(3)
-    tree = _np_tree(jmodel.init_params(_small_resnet(),
-                                       jax.random.PRNGKey(1)))
-    tp = tmodel.params_from_numpy(_random_like(tree, rng, 0.1, n))
-    leaf_opt = make_optimizer(name, 1e-2, weight_decay=0.01, momentum=0.9)
-    plane_opt = make_plane_optimizer(name, 1e-2, weight_decay=0.01,
-                                     momentum=0.9, grad_clip=clip)
-    planes = [tplane.plane_from_tree(tree_map(lambda x: x[i], tp))
-              for i in range(n)]
-    meta = planes[0].meta
-    pl = tplane.Plane(torch.stack([p.buf for p in planes]), meta)
-    pst = _stack_opt([plane_opt.init(p) for p in planes])
-    lst = _stack_opt([leaf_opt.init(tree_map(lambda x: x[i], tp))
-                      for i in range(n)])
-    clipped = []
-    size = sum(np.size(x) for x in jax.tree_util.tree_leaves(tree))
-    for i in range(5):           # norms about 0.3, 0.6, ... 1.5
-        g = tmodel.params_from_numpy(_random_like(
-            tree, rng, 0.3 * (i + 1) / np.sqrt(size), n))
-        gc, gn = tclip_by_global_norm(g, clip, lead=1)
-        clipped.append(bool((gn > clip).any()))
-        leaf_opt.update(gc, lst, tp, lead=1)
-        gp = torch.stack([tplane.plane_from_tree(tree_map(
-            lambda x: x[k], g)).buf for k in range(n)])
-        plane_opt.update(tplane.Plane(gp, meta), pst, pl)
-        assert torch.equal(pst["gnorm"], gn)
-        for a, b in zip(tree_leaves(tplane.as_tree(pl)), tree_leaves(tp)):
-            assert torch.equal(a, b), f"step {i}"
-        if name == "adafactor":
-            for a, b in zip(tree_leaves(pst["fac"]), tree_leaves(lst["v"])):
-                assert torch.equal(a, b)
-        else:
-            for path, shape, row, r_leaf in (r[1:] for r in meta.recipe):
-                assert torch.equal(tplane._leaf_view(pst["mu"], shape, row,
-                                                     r_leaf),
-                                   _at(lst["mu"], path))
-    assert any(clipped) and not all(clipped)
-    assert int(pst["step"]) == int(lst["step"]) == 5
-
-
-def _at(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
-@pytest.mark.parametrize("name", ["sgd", "adafactor"])
-def test_node_states_carry_and_stack_like_jax(name):
-    """JAX node states under sgd / adafactor (plane student, per-leaf
-    ResNet teacher with lists) carried over and stacked: every optimizer
-    tensor equals ``repro``'s ``_stack_states`` bit for bit, the step
-    counters too (one int32 counter a node, as ``repro`` stacks them)."""
-    jcfg = _small_resnet()
-    scfg = jmodel.derive_student(jcfg)
-    j_opt_s = jplane.make_plane_optimizer(name, 1e-3, grad_clip=1.0)
-    j_opt_t = jmake_optimizer(name, 1e-3)
-    rng = np.random.default_rng(2)
-    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, i, rng)
-               for i in range(3)]
-    jstates[1] = jstates[1]._replace(opt_s=jax.tree_util.tree_map(
-        lambda x: x + 1 if x.dtype == jnp.float32 else x, jstates[1].opt_s))
-    jst = jfed_mod._stack_states(jstates)
-    tst = tprofe.stack_states([carry_state(s) for s in jstates])
-    assert set(tst.opt_s) == set(jst.opt_s) and \
-        set(tst.opt_t) == set(jst.opt_t)
-    for key in ("opt_s", "opt_t"):
-        t_tree = {k: v for k, v in getattr(tst, key).items() if k != "step"}
-        j_tree = {k: v for k, v in getattr(jst, key).items() if k != "step"}
-        tl, jl = tree_leaves(t_tree), jax.tree_util.tree_leaves(j_tree)
-        assert len(tl) == len(jl) > 0
-        for a, b in zip(tl, jl):
-            assert a.dtype == torch.float32
-            assert a.numpy().tobytes() == np.asarray(b).tobytes()
-        assert getattr(tst, key)["step"].shape == (3,)
-        assert getattr(tst, key)["step"].dtype == torch.int32
-        assert getattr(tst, key)["step"].numpy().tobytes() == \
-            np.asarray(getattr(jst, key)["step"]).tobytes()
-    assert isinstance(tst.teacher["stages"], list)
-
-
-# -- one ProFe step ----------------------------------------------------------
-
-def _jax_state(jcfg, scfg, opt_s, opt_t, seed, rng):
-    st = jprofe.init_node_state(jcfg, scfg, jax.random.PRNGKey(seed), opt_s,
-                                opt_t, 10, plane=True)
-    protos = rng.standard_normal((10, scfg.proto_dim)).astype(np.float32)
-    mask = (rng.random(10) < 0.7).astype(np.float32)
-    return st._replace(global_protos=jnp.asarray(protos),
-                       proto_mask=jnp.asarray(mask))
-
-
-def carry_state(st):
-    """A JAX plane-backed NodeState -> the port's, through numpy."""
-    return tprofe.node_state_from_numpy(
-        _np_tree(jplane.as_tree(st.student)), _np_tree(st.teacher),
-        _np_tree(st.opt_s), _np_tree(st.opt_t),
-        np.asarray(st.global_protos), np.asarray(st.proto_mask),
-        int(st.round_idx), device="cpu")
-
-
-@pytest.mark.parametrize("teacher_on", [True, False])
-def test_profe_step_matches(teacher_on):
-    jcfg = _small_cfg()
-    scfg = jmodel.derive_student(jcfg)
-    fed = jbase.FederationConfig(num_nodes=2)
-    lr, n = 1e-3, 2
-    j_opt_s = jplane.make_plane_optimizer("adamw", lr, grad_clip=1.0)
-    j_opt_t = jmake_optimizer("adamw", lr)
-    jstep = jprofe.make_profe_step(jcfg, scfg, fed, j_opt_s, j_opt_t,
-                                   grad_clip=1.0, remat=False, jit=True)
-    rng = np.random.default_rng(7)
-    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, 10 + i, rng)
-               for i in range(n)]
-    tstate = tprofe.stack_states([carry_state(s) for s in jstates])
-    batches = [dict(zip(("image", "label"), _images(20 + i, 8)))
-               for i in range(n)]
-
-    t_opt_s = make_plane_optimizer("adamw", lr, grad_clip=1.0)
-    t_opt_t = make_optimizer("adamw", lr)
-    tfed = tbase.FederationConfig(num_nodes=2)
-    tcfg, tscfg = _tcfg(jcfg), _tcfg(scfg)
-
-    # gradients of Eq. 8 / Eq. 9 for node 0 at the carried state
-    b0 = batches[0]
-    tb0 = {k: torch.from_numpy(v) for k, v in b0.items()}
-    s_tree = tmodel.params_from_numpy(_np_tree(jplane.as_tree(
-        jstates[0].student)))
-    for leaf in tree_leaves(s_tree):
-        leaf.requires_grad_(True)
-    tl, _ = tprofe.student_loss(tscfg, s_tree, tb0, tstate.global_protos[0],
-                                tstate.proto_mask[0], torch.tensor(0.7),
-                                1.0, 3.0)
-    tg = torch.autograd.grad(tl, tree_leaves(s_tree))
-    jl, jg = jax.value_and_grad(lambda sp: jprofe.student_loss(
-        scfg, sp, b0, jstates[0].global_protos, jstates[0].proto_mask, 0.7,
-        1.0, 3.0, remat=False)[0])(jplane.as_tree(jstates[0].student))
-    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
-    for a, b in zip(tg, jax.tree_util.tree_leaves(jg)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
-                                   atol=1e-7)
-
-    tstep = tprofe.make_profe_step(tcfg, tscfg, tfed, t_opt_s, t_opt_t,
-                                   grad_clip=1.0)
-    stacked_batch = {k: torch.from_numpy(np.stack([b[k] for b in batches]))
-                     for k in batches[0]}
-    tstate, tm = tstep(tstate, stacked_batch, teacher_on)
-    for i in range(n):
-        jnew, jm = jstep(jstates[i], batches[i], teacher_on)
-        np.testing.assert_allclose(float(tm["loss_s"][i]),
-                                   float(jm["loss_s"]), rtol=1e-5)
-        np.testing.assert_allclose(float(tm["grad_norm_s"][i]),
-                                   float(jm["grad_norm_s"]), rtol=1e-5)
-        if teacher_on:
-            np.testing.assert_allclose(float(tm["loss_t"][i]),
-                                       float(jm["loss_t"]), rtol=1e-5)
-        np.testing.assert_allclose(tstate.student.buf[i].detach().numpy(),
-                                   np.asarray(jnew.student.buf), rtol=0,
-                                   atol=2e-6)
-        np.testing.assert_allclose(tstate.opt_s["mu"][i].numpy(),
-                                   np.asarray(jnew.opt_s["mu"]), rtol=1e-4,
-                                   atol=1e-9)
-        for a, b in zip(tree_leaves(tstate.teacher),
-                        jax.tree_util.tree_leaves(jnew.teacher)):
-            np.testing.assert_allclose(a[i].detach().numpy(), np.asarray(b),
-                                       rtol=0, atol=2e-6)
-    assert tstate.opt_s["step"].tolist() == [1] * n
-    assert tstate.opt_t["step"].tolist() == [1 if teacher_on else 0] * n
-
-
-# ProFe step on a small ResNet pair, fp32: atol of (parameters, moments)
-# beside rtol=1e-4 on the moments, per optimizer.  The gradients agree to
-# rtol 1e-4 / atol 1e-7 (summation order).  sgd: the momentum is the
-# gradient, and the step of lr=1e-3 moves a parameter by at most one ulp
-# of |p| < 0.5 (largest gaps seen 3.0e-8 and 6.2e-8).  adafactor
-# normalizes each update to about ±1, so a gradient's relative gap of
-# 1e-4 moves the parameter by about lr·1e-4 (largest seen 1.2e-7); its
-# moments are squares of the gradient (largest gap beyond rtol 4.7e-11).
-RESNET_STEP_ATOL = {"sgd": (6e-8, 1e-7), "adafactor": (2e-7, 1e-9)}
-
-
-@pytest.mark.parametrize("teacher_on", [True, False])
-@pytest.mark.parametrize("name", ["sgd", "adafactor"])
-def test_profe_step_matches_resnet(name, teacher_on):
-    """One ProFe step on a small ResNet pair (teacher blocks (2, 2),
-    student (1, 1)) under the sgd / adafactor plane and per-leaf
-    optimizers, against ``repro``'s jitted step from carried states:
-    losses and grad norms to ``rtol=1e-5``, parameters and moments to
-    ``RESNET_STEP_ATOL``, counters exactly."""
-    jcfg = _small_resnet()
-    scfg = jmodel.derive_student(jcfg)
-    fed = jbase.FederationConfig(num_nodes=2)
-    lr, n = 1e-3, 2
-    j_opt_s = jplane.make_plane_optimizer(name, lr, grad_clip=1.0)
-    j_opt_t = jmake_optimizer(name, lr)
-    jstep = jprofe.make_profe_step(jcfg, scfg, fed, j_opt_s, j_opt_t,
-                                   grad_clip=1.0, remat=False, jit=True)
-    rng = np.random.default_rng(17)
-    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, 30 + i, rng)
-               for i in range(n)]
-    tstate = tprofe.stack_states([carry_state(s) for s in jstates])
-    batches = [dict(zip(("image", "label"), _images(40 + i, 8, (8, 8, 3))))
-               for i in range(n)]
-    tstep = tprofe.make_profe_step(
-        _tcfg(jcfg), _tcfg(scfg), tbase.FederationConfig(num_nodes=2),
-        make_plane_optimizer(name, lr, grad_clip=1.0),
-        make_optimizer(name, lr), grad_clip=1.0)
-    stacked_batch = {k: torch.from_numpy(np.stack([b[k] for b in batches]))
-                     for k in batches[0]}
-    tstate, tm = tstep(tstate, stacked_batch, teacher_on)
-    p_atol, m_atol = RESNET_STEP_ATOL[name]
-    for i in range(n):
-        jnew, jm = jstep(jstates[i], batches[i], teacher_on)
-        for key in ("loss_s", "grad_norm_s") + (("loss_t",) if teacher_on
-                                                 else ()):
-            np.testing.assert_allclose(float(tm[key][i]), float(jm[key]),
-                                       rtol=1e-5)
-        np.testing.assert_allclose(tstate.student.buf[i].detach().numpy(),
-                                   np.asarray(jnew.student.buf), rtol=0,
-                                   atol=p_atol)
-        for a, b in zip(tree_leaves(tstate.teacher),
-                        jax.tree_util.tree_leaves(jnew.teacher)):
-            np.testing.assert_allclose(a[i].detach().numpy(), np.asarray(b),
-                                       rtol=0, atol=p_atol)
-        for key in ("opt_s", "opt_t"):
-            tl = tree_leaves({k: v for k, v in getattr(tstate, key).items()
-                              if k not in ("step", "gnorm")})
-            jl = jax.tree_util.tree_leaves(
-                {k: v for k, v in getattr(jnew, key).items()
-                 if k not in ("step", "gnorm")})
-            assert len(tl) == len(jl) > 0
-            for a, b in zip(tl, jl):
-                np.testing.assert_allclose(a[i].numpy(), np.asarray(b),
-                                           rtol=1e-4, atol=m_atol)
-    assert tstate.opt_s["step"].tolist() == [1] * n
-    assert tstate.opt_t["step"].tolist() == [1 if teacher_on else 0] * n
-
-
-# -- the wire: codec and byte accounting -------------------------------------
-
 @pytest.mark.parametrize("bits", [16, 8])
 def test_plane_payload_codec_is_bit_exact(bits):
     jcfg = _small_cfg()
@@ -730,38 +298,6 @@ def test_wire_byte_accounting_matches():
         assert ta.record_round(tpay, "profe", r, twire.WireSpec(16)) == \
             ja.record_round(jpay, "profe", r, jwire.WireSpec(16))
     assert ta.summary() == ja.summary()
-
-
-# -- the error-feedback codec state ------------------------------------------
-
-def _ef_states(n=3, seq=4):
-    """``n`` JAX node states stacked, and a JAX ``CodecState`` as after
-    ``seq`` rounds: a random residual, zero on the plane's padding
-    lanes (the codec keeps them zero)."""
-    jcfg = _small_cfg()
-    scfg = jmodel.derive_student(jcfg)
-    j_opt_s = jplane.make_plane_optimizer("adamw", 1e-3, grad_clip=1.0)
-    j_opt_t = jmake_optimizer("adamw", 1e-3)
-    rng = np.random.default_rng(seq)
-    jstates = [_jax_state(jcfg, scfg, j_opt_s, j_opt_t, i, rng)
-               for i in range(n)]
-    jst = jfed_mod._stack_states(jstates)
-    zero = jwire_state.init_codec_state(
-        {"protos": jnp.zeros((n, 10, scfg.proto_dim), jnp.float32),
-         "student": jst.student}, n_nodes=n)
-    meta = jst.student.meta
-    real = np.zeros(jst.student.buf.shape[1:], dtype=bool)
-    for _, shape, _dtype, row, r_leaf in meta.recipe:    # repro's recipe
-        real[row:row + r_leaf].reshape(-1)[:int(np.prod(shape))] = True
-    res_s = (rng.standard_normal(jst.student.buf.shape) * 1e-3 * real
-             ).astype(np.float32)
-    res_p = (rng.standard_normal((n, 10, scfg.proto_dim)) * 1e-5
-             ).astype(np.float32)
-    jws = jwire_state.CodecState(
-        {"protos": jnp.asarray(res_p),
-         "student": jplane.Plane(jnp.asarray(res_s), (), meta)},
-        seq=jnp.full((n,), seq, jnp.int32))
-    return scfg, jstates, jst, zero, jws, real
 
 
 def test_codec_state_carries_and_stacks_like_jax():
